@@ -1,0 +1,25 @@
+"""nmfx_torch — consensus NMF in PyTorch with hand-written CUDA kernels
+for NVIDIA Hopper (H100), ported from the JAX package ``nmfx``.
+
+This package imports ``torch`` and numpy, never ``jax`` nor anything of
+``nmfx``. Its entry points run on CUDA unless the caller passes
+``device="cpu"``; on the CPU the kernels' plain PyTorch versions run.
+"""
+
+from nmfx_torch.api import (ConsensusResult, InsufficientRestarts, KResult,
+                            nmfconsensus, save_results)
+from nmfx_torch.config import (ConsensusConfig, InitConfig, OutputConfig,
+                               SolverConfig)
+from nmfx_torch.solvers.base import StopReason
+
+__all__ = ["ConsensusResult", "InsufficientRestarts", "KResult",
+           "nmfconsensus", "save_results", "ConsensusConfig", "InitConfig",
+           "OutputConfig", "SolverConfig", "StopReason", "kernels_available"]
+
+
+def kernels_available() -> bool:
+    """Whether the hand-written kernels can run here: a CUDA device is
+    present (they are built with nvcc on first use)."""
+    import torch
+
+    return torch.cuda.is_available()

@@ -1,0 +1,317 @@
+"""Top-level API: the consensus pipeline (counterpart of ``nmfx/api.py``'s
+``nmfconsensus``; reference ``runNMFinJobs`` +
+``computeConsensusAndSaveFiles``, ``nmf.r:106-119, 146-253``).
+
+Results use the reference package's ``ConsensusResult`` ``.npz`` layout,
+so each package loads the other's saved files.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Mapping, Sequence
+
+import numpy as np
+
+from nmfx_torch import cophenetic as coph
+from nmfx_torch.config import (ConsensusConfig, InitConfig, OutputConfig,
+                               SolverConfig)
+from nmfx_torch.io import Dataset, read_dataset, write_gct
+from nmfx_torch.solvers.base import StopReason
+from nmfx_torch.sweep import sweep
+
+
+class InsufficientRestarts(RuntimeError):
+    """A rank's surviving (non-quarantined) restarts fell below
+    ``min_restarts``: too many lanes stopped with NUMERIC_FAULT for the
+    consensus to be trustworthy."""
+
+
+@dataclasses.dataclass(frozen=True)
+class KResult:
+    """Everything the pipeline derives at one rank k."""
+
+    k: int
+    consensus: np.ndarray  # (n, n) mean connectivity
+    rho: float  # cophenetic correlation
+    dispersion: float  # Kim & Park (2007): mean (2C-1)^2, 1.0 = crisp
+    membership: np.ndarray  # (n,) labels 1..k from cutree
+    order: np.ndarray  # (n,) dendrogram leaf order
+    iterations: np.ndarray  # (restarts,)
+    dnorms: np.ndarray  # (restarts,) final RMS residuals
+    stop_reasons: np.ndarray  # (restarts,)
+    best_w: np.ndarray  # (m, k) factors of the lowest-residual restart
+    best_h: np.ndarray  # (k, n)
+    all_w: np.ndarray | None = None  # (restarts, m, k) under keep_factors
+    all_h: np.ndarray | None = None  # (restarts, k, n)
+
+    @property
+    def ordered_consensus(self) -> np.ndarray:
+        """Consensus matrix reordered by the dendrogram (nmf.r:174)."""
+        return self.consensus[np.ix_(self.order, self.order)]
+
+
+#: KResult fields that may be absent from a saved result
+_OPTIONAL_KRESULT = frozenset(("all_w", "all_h"))
+
+
+@dataclasses.dataclass(frozen=True)
+class ConsensusResult:
+    ks: tuple[int, ...]
+    per_k: Mapping[int, KResult]
+    col_names: tuple[str, ...]
+    #: solver-quality tag; the port's engines are all exact
+    quality: str = "exact"
+
+    @property
+    def rhos(self) -> np.ndarray:
+        return np.array([self.per_k[k].rho for k in self.ks])
+
+    @property
+    def dispersions(self) -> np.ndarray:
+        return np.array([self.per_k[k].dispersion for k in self.ks])
+
+    @property
+    def best_k(self) -> int:
+        """Rank with the highest cophenetic correlation; exact rho ties
+        break toward the higher dispersion (the crisper consensus)."""
+        return max(self.ks,
+                   key=lambda k: (self.per_k[k].rho,
+                                  self.per_k[k].dispersion))
+
+    def summary(self) -> str:
+        lines = ["k\trho\tdispersion\tmean_iters"]
+        for k in self.ks:
+            r = self.per_k[k]
+            lines.append(f"{k}\t{r.rho:.4f}\t{r.dispersion:.4f}"
+                         f"\t{r.iterations.mean():.1f}")
+        lines.append(f"best k = {self.best_k}")
+        return "\n".join(lines)
+
+    def save(self, path: str) -> None:
+        """Persist the whole result as one compressed ``.npz`` (the
+        reference package's layout), written to a temporary file and
+        renamed into place."""
+        arrays: dict[str, np.ndarray] = {
+            "ks": np.asarray(self.ks, np.int64),
+            "col_names": np.asarray(self.col_names, np.str_),
+            "quality": np.asarray(self.quality, np.str_),
+        }
+        for k in self.ks:
+            r = self.per_k[k]
+            for f in dataclasses.fields(KResult):
+                v = getattr(r, f.name)
+                if v is not None:
+                    arrays[f"k{k}_{f.name}"] = np.asarray(v)
+        tmp = f"{path}.tmp"
+        with open(tmp, "wb") as fh:
+            np.savez_compressed(fh, **arrays)
+        os.replace(tmp, path)
+
+    @staticmethod
+    def load(path: str) -> "ConsensusResult":
+        """Inverse of :meth:`save`."""
+        with np.load(path, allow_pickle=False) as z:
+            ks = tuple(int(k) for k in z["ks"])
+            per_k = {}
+            for k in ks:
+                kwargs = {}
+                for f in dataclasses.fields(KResult):
+                    name = f"k{k}_{f.name}"
+                    if name not in z.files and f.name in _OPTIONAL_KRESULT:
+                        kwargs[f.name] = None
+                        continue
+                    v = z[name]  # missing REQUIRED field: fail fast
+                    if f.type == "int":
+                        v = int(v)
+                    elif f.type == "float":
+                        v = float(v)
+                    kwargs[f.name] = v
+                per_k[k] = KResult(**kwargs)
+            return ConsensusResult(
+                ks=ks, per_k=per_k,
+                col_names=tuple(str(c) for c in z["col_names"]),
+                quality=(str(z["quality"]) if "quality" in z.files
+                         else "exact"))
+
+
+def _build_k_result(k: int, out, linkage: str,
+                    min_restarts: int = 1) -> KResult:
+    """One rank's host-side assembly from a host (numpy) KSweepOutput:
+    the survivor floor, then hclust/cophenetic/cutree."""
+    stops = np.asarray(out.stop_reasons)
+    masked = ((stops == int(StopReason.NUMERIC_FAULT))
+              | (stops == int(StopReason.SCREENED)))
+    survivors = int((~masked).sum())
+    if survivors < min_restarts:
+        n_fault = int((stops == int(StopReason.NUMERIC_FAULT)).sum())
+        raise InsufficientRestarts(
+            f"rank k={k}: only {survivors} of {stops.size} restarts "
+            f"survived the numeric quarantine (NUMERIC_FAULT on "
+            f"{n_fault}), below the configured floor "
+            f"min_restarts={min_restarts}")
+    cons = np.asarray(out.consensus, dtype=np.float64)
+    rho, membership, order = coph.rank_selection(cons, k, linkage)
+    rho = float(np.format_float_positional(
+        rho, precision=4, fractional=False))  # signif(rho,4) nmf.r:172
+    return KResult(
+        k=k, consensus=cons, rho=rho,
+        dispersion=float(np.mean((2.0 * cons - 1.0) ** 2)),
+        membership=membership, order=order,
+        iterations=out.iterations, dnorms=out.dnorms,
+        stop_reasons=out.stop_reasons, best_w=out.best_w,
+        best_h=out.best_h, all_w=out.all_w, all_h=out.all_h)
+
+
+def _as_matrix(data) -> tuple[np.ndarray, list[str]]:
+    if isinstance(data, str):
+        data = read_dataset(data)
+    if isinstance(data, Dataset):
+        return np.asarray(data.values), list(data.col_names)
+    arr = np.asarray(data)
+    return arr, [str(i + 1) for i in range(arr.shape[1])]
+
+
+def _resolve_cfgs(algorithm, max_iter, init, solver_cfg, init_cfg):
+    """Merge convenience args with config objects; reject conflicts."""
+    if solver_cfg is not None:
+        if algorithm is not None or max_iter is not None:
+            raise ValueError(
+                "pass either solver_cfg or algorithm/max_iter, not both — "
+                "set them on the SolverConfig instead")
+        scfg = solver_cfg
+    else:
+        scfg = SolverConfig(algorithm=algorithm or "mu",
+                            max_iter=max_iter or 10000)
+    if init_cfg is not None:
+        if init is not None:
+            raise ValueError("pass either init_cfg or init, not both")
+        icfg = init_cfg
+    else:
+        icfg = InitConfig(method=init or "random")
+    return scfg, icfg
+
+
+def _to_host(out):
+    """A KSweepOutput of device tensors → numpy (labels stay behind)."""
+    def host(x):
+        return None if x is None else x.detach().cpu().numpy()
+
+    return out._replace(**{f: host(getattr(out, f)) for f in (
+        "consensus", "iterations", "dnorms", "stop_reasons", "best_w",
+        "best_h", "all_w", "all_h")}, labels=None)
+
+
+def nmfconsensus(
+    data,
+    ks: Sequence[int] = (2, 3, 4, 5),
+    restarts: int = 10,
+    *,
+    seed: int = 123,
+    algorithm: str | None = None,
+    max_iter: int | None = None,
+    init: str | None = None,
+    label_rule: str = "argmax",
+    linkage: str = "average",
+    solver_cfg: SolverConfig | None = None,
+    init_cfg: InitConfig | None = None,
+    keep_factors: bool = False,
+    grid_exec: str = "auto",
+    min_restarts: int = 1,
+    output: OutputConfig | None = None,
+    device=None,
+    on_rank=None,
+) -> ConsensusResult:
+    """Full consensus-NMF rank sweep: ``restarts`` factorizations per rank
+    in ``ks``, a consensus matrix per rank on the device, cophenetic rank
+    selection on the host, and optional GCT outputs.
+
+    The port runs the reference's per-rank route only:
+    ``solver_cfg=SolverConfig(backend="pallas")`` (the hand-written
+    kernels) or ``backend="packed"``, with ``grid_exec="per_k"``; other
+    settings raise ``NotImplementedError`` naming the ROADMAP item.
+
+    ``device``: None means CUDA and raises if no CUDA device is present
+    (pass ``device="cpu"`` for the plain PyTorch versions on the CPU). On
+    CUDA the entry point switches TF32 off for float32 matmuls.
+    ``on_rank(k, out)`` is called after each rank's solve with its
+    device-side ``KSweepOutput``. Ranks are harvested sequentially.
+    """
+    arr, col_names = _as_matrix(data)
+    if not np.isfinite(arr).all():
+        raise ValueError("input matrix contains non-finite values")
+    if (arr < 0).any():
+        raise ValueError("input matrix must be non-negative")
+    ks = tuple(ks)
+    if not ks:
+        raise ValueError("ks must be non-empty")
+    if max(ks) > arr.shape[1]:
+        raise ValueError(
+            f"k={max(ks)} exceeds the number of samples ({arr.shape[1]})")
+    ccfg = ConsensusConfig(ks=ks, restarts=restarts, seed=seed,
+                           label_rule=label_rule, linkage=linkage,
+                           keep_factors=keep_factors, grid_exec=grid_exec,
+                           min_restarts=min_restarts)
+    scfg, icfg = _resolve_cfgs(algorithm, max_iter, init, solver_cfg,
+                               init_cfg)
+    raw = sweep(arr, ccfg, scfg, icfg, device=device, on_rank=on_rank)
+    per_k = {k: _build_k_result(k, _to_host(raw[k]), ccfg.linkage,
+                                ccfg.min_restarts) for k in ccfg.ks}
+    result = ConsensusResult(ks=ccfg.ks, per_k=per_k,
+                             col_names=tuple(col_names))
+    if output is not None:
+        save_results(result, output)
+    return result
+
+
+def save_results(result: ConsensusResult, out: OutputConfig) -> list[str]:
+    """Write the reference's output set (nmf.r:195-252): per-k ordered
+    membership GCTs, the all-k membership matrix, ``cophenetic.txt``,
+    per-k consensus-matrix GCTs, per-k metagene GCTs and
+    ``rank_metrics.txt``. Plots are not ported yet."""
+    os.makedirs(out.directory, exist_ok=True)
+    doc = out.doc_string
+    prefix = os.path.join(out.directory, f"{doc}." if doc else "")
+    written: list[str] = []
+    names = np.asarray(result.col_names)
+
+    if out.write_gcts:
+        for k in result.ks:
+            r = result.per_k[k]
+            ordered_names = names[r.order]
+            path = f"{prefix}consensus.k.{k}.gct"
+            write_gct(r.membership[r.order].reshape(-1, 1), path,
+                      row_names=list(ordered_names), col_names=["membership"])
+            written.append(path)
+            path = f"{prefix}consensus.matrix.k.{k}.gct"
+            write_gct(r.consensus, path, row_names=list(names),
+                      col_names=list(names))
+            written.append(path)
+            path = f"{prefix}metagenes.k.{k}.gct"
+            write_gct(r.best_h, path,
+                      row_names=[f"metagene.{i + 1}" for i in range(k)],
+                      col_names=list(names))
+            written.append(path)
+        all_membership = np.stack(
+            [result.per_k[k].membership for k in result.ks], axis=1)
+        path = f"{prefix}membership.gct"
+        write_gct(all_membership, path, row_names=list(names),
+                  col_names=[f"k={k}" for k in result.ks])
+        written.append(path)
+
+    path = f"{prefix}cophenetic.txt"
+    with open(path, "wt") as f:
+        for k in result.ks:
+            f.write(f"{k}\t{result.per_k[k].rho}\n")
+    written.append(path)
+
+    path = f"{prefix}rank_metrics.txt"
+    with open(path, "wt") as f:
+        f.write("k\trho\tdispersion\tmean_iters\tmean_dnorm\n")
+        for k in result.ks:
+            r = result.per_k[k]
+            f.write(f"{k}\t{r.rho}\t{r.dispersion:.6f}"
+                    f"\t{r.iterations.mean():.1f}\t{r.dnorms.mean():.6g}\n")
+    written.append(path)
+    return written

@@ -1,0 +1,60 @@
+"""Carry state across from the reference package.
+
+NMF has no weights: what crosses is the configuration and the initial
+factors. Both come in as plain Python/numpy values, so the port imports
+nothing of the reference package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from nmfx_torch.config import SolverConfig
+
+#: reference SolverConfig fields the port has no counterpart for, with
+#: the value under which each is inert on the per-rank mu route (None =
+#: inert at any value: it configures an engine this route never runs)
+_INERT = {
+    "tol_pg": None, "ls_max_steps": None, "ls_beta": None, "ls_sigma": None,
+    "sub_max_iter": None, "sparsity_beta": None, "ridge_eta": None,
+    "sketch": None, "restart_chunk": None, "screen": False,
+    "screen_keep": None, "tile_rows": None, "experimental": None,
+}
+
+
+def solver_config_from_dict(d: dict) -> SolverConfig:
+    """The port's SolverConfig from ``dataclasses.asdict`` of a reference
+    ``SolverConfig``. Raises ``NotImplementedError`` when the dict turns
+    on something the port has not got (screening, out-of-core tiles, the
+    block-shape autotuner) and ``ValueError`` on an unknown field."""
+    own = {f.name for f in dataclasses.fields(SolverConfig)}
+    unknown = set(d) - own - set(_INERT)
+    if unknown:
+        raise ValueError(f"unknown SolverConfig fields: {sorted(unknown)}")
+    for name, inert in _INERT.items():
+        if inert is not None and d.get(name, inert) != inert:
+            raise NotImplementedError(
+                f"SolverConfig.{name}={d[name]!r} has no counterpart in "
+                "the port yet (ROADMAP 'Modules to port')")
+    if (d.get("experimental") or {}).get("autotune", "off") != "off":
+        raise NotImplementedError(
+            "experimental.autotune has no counterpart in the port yet "
+            "(ROADMAP 'Modules to port' item 13)")
+    return SolverConfig(**{k: v for k, v in d.items() if k in own})
+
+
+def factors_from_numpy(w0s: np.ndarray, h0s: np.ndarray, device
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(R, m, k) / (R, k, n) initial factors as float32 tensors on
+    ``device``, ready for ``nmfx_torch.ops.packed_mu.mu_packed``."""
+    w0s, h0s = np.asarray(w0s), np.asarray(h0s)
+    if w0s.ndim != 3 or h0s.ndim != 3 or w0s.shape[0] != h0s.shape[0] \
+            or w0s.shape[2] != h0s.shape[1]:
+        raise ValueError(
+            f"expected (R, m, k) / (R, k, n) factors, got {w0s.shape} / "
+            f"{h0s.shape}")
+    return (torch.as_tensor(w0s, dtype=torch.float32, device=device),
+            torch.as_tensor(h0s, dtype=torch.float32, device=device))

@@ -1,0 +1,107 @@
+"""Build the port's CUDA sources with ``nvcc`` at first use and load them
+through ctypes.
+
+Each ``nmfx_torch/csrc/<name>.cu`` compiles on its own into a shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds, not minutes). The library lands in ``nmfx_torch/_build/``
+(git-ignored) under a name keyed by a hash of the source and the flags,
+so an edited source rebuilds and an unchanged one loads at once.
+Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: C signatures per library: {symbol: argtypes}; every entry point
+#: returns the launch's cudaError_t as an int
+SIGNATURES = {
+    "fused_mu": {
+        "nmfx_fused_h_update": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _F, _F, _P),
+        "nmfx_fused_w_update": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
+                                _P),
+    },
+}
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found on PATH or under CUDA_HOME; the port's CUDA "
+            "kernels are built from source at first use")
+    return path
+
+
+def library_path(name: str) -> Path:
+    """Where the built library for ``csrc/<name>.cu`` lives."""
+    src = (SRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+
+
+def build(names=tuple(SIGNATURES)) -> dict[str, bool]:
+    """Compile every named source that has no built library yet, one
+    ``nvcc`` per source, all started together. Returns ``{name: built}``
+    (False = an up-to-date library was already there)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{name}.cu:\n{log}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent process never
+            # loads a half-written library
+    if failed:
+        raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+    return {name: name in procs for name in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build((name,))
+            lib = ctypes.CDLL(str(library_path(name)))
+            for sym, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, sym)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _loaded[name] = lib
+        return lib

@@ -1,0 +1,151 @@
+"""The restart-packed MU half-updates: hand-written CUDA kernels and their
+plain PyTorch versions (counterpart of ``nmfx/ops/pallas_mu.py``'s
+``fused_h_update`` / ``fused_w_update``).
+
+* ``fused_h_update``: Hp ← ep(Hp, WpᵀA, (WpᵀWp ∘ B)·Hp)
+* ``fused_w_update``: Wp ← ep(Wp, A·Hpᵀ, Wp·gh), with gh = bd_select(Hp·Hpᵀ)
+  computed by the caller
+
+where B is the block-diagonal restart mask and ep the mu epilogue
+(``nmfx_torch.solvers.mu._mu_update``). The kernels live in
+``nmfx_torch/csrc/fused_mu.cu``, built at first use
+(``nmfx_torch.ops._build``); their design notes sit at the top of that
+file.
+
+A wrapper given CPU tensors runs the plain version (``*_ref``), which
+computes the full masked Grams as the reference's packed path does. Given
+CUDA tensors it launches its kernel or raises; it never falls back.
+``LAUNCHES`` counts kernel launches per wrapper (never the plain runs).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nmfx_torch.solvers.mu import _mu_update
+
+#: kernel launches per wrapper, incremented only where a kernel launches
+LAUNCHES = {"fused_h_update": 0, "fused_w_update": 0}
+
+_TILE = 64  # output tile edge of the CUDA kernels
+_BK = 16  # their contraction depth per stage
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _lane_mask(rk: int, k: int, device) -> torch.Tensor:
+    lane = torch.arange(rk, device=device) // k
+    return lane[:, None] == lane[None, :]
+
+
+def fused_h_update_ref(a, wp, hp, *, k: int, eps: float = 1e-9,
+                       zero_threshold: float = 0.0) -> torch.Tensor:
+    """Plain version of :func:`fused_h_update` (full masked W-Gram)."""
+    gram = torch.where(_lane_mask(wp.shape[1], k, wp.device), wp.T @ wp,
+                       torch.zeros((), dtype=wp.dtype, device=wp.device))
+    return _mu_update(hp, wp.T @ a, gram @ hp, eps, zero_threshold)
+
+
+def fused_w_update_ref(a, wp, hp, gh, *, k: int, eps: float = 1e-9,
+                       zero_threshold: float = 0.0) -> torch.Tensor:
+    """Plain version of :func:`fused_w_update` (``gh`` already masked)."""
+    return _mu_update(wp, a @ hp.T, wp @ gh, eps, zero_threshold)
+
+
+def _check_operands(name: str, k: int, **shapes) -> None:
+    """Device, dtype, shape and contiguity checks before any pointer goes
+    to the kernel; ``shapes`` maps operand name → (tensor, shape)."""
+    ref_device = None
+    for arg, (t, shape) in shapes.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: {arg} is on {t.device}, not CUDA")
+        if ref_device is None:
+            ref_device = t.device
+        elif t.device != ref_device:
+            raise ValueError(f"{name}: operands on {ref_device} and "
+                             f"{t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    rk = shapes["wp"][1][1]
+    if k < 1 or rk % k:
+        raise ValueError(f"{name}: rk={rk} is not a multiple of k={k}")
+
+
+def h_splits(m: int, n: int, rk: int, sm_count: int) -> tuple[int, int]:
+    """(splits, chunk) of the H kernel's m-reduction: enough m-chunks
+    that the numerator tiles times the chunks cover two waves of the
+    SMs, each chunk a multiple of the stage depth. Depends on shapes and
+    the SM count only, so a run's sums are always taken in one order."""
+    tiles = -(-n // _TILE) * -(-rk // _TILE)
+    want = max(1, min(-(-2 * sm_count // tiles), -(-m // _TILE)))
+    chunk = -(-(-(-m // want)) // _BK) * _BK
+    return -(-m // chunk), chunk
+
+
+def _raise_on(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{rc}")
+
+
+def fused_h_update(a, wp, hp, *, k: int, eps: float = 1e-9,
+                   zero_threshold: float = 0.0) -> torch.Tensor:
+    """Hp ← mu_epilogue(Hp, WpᵀA, (WpᵀWp ∘ B)·Hp). A (m, n), Wp (m, rk),
+    Hp (rk, n), float32, contiguous, on one CUDA device."""
+    if a.device.type == "cpu":
+        return fused_h_update_ref(a, wp, hp, k=k, eps=eps,
+                                  zero_threshold=zero_threshold)
+    m, n = a.shape
+    rk = wp.shape[1]
+    _check_operands("fused_h_update", k, a=(a, (m, n)), wp=(wp, (m, rk)),
+                    hp=(hp, (rk, n)))
+    from nmfx_torch.ops import _build
+
+    lib = _build.load("fused_mu")
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    splits, chunk = h_splits(m, n, rk, sms)
+    out = torch.empty((rk, n), dtype=torch.float32, device=a.device)
+    part = torch.empty((splits, rk, n), dtype=torch.float32, device=a.device)
+    gpart = torch.empty((splits, rk // k, k, k), dtype=torch.float32,
+                        device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    rc = lib.nmfx_fused_h_update(
+        a.data_ptr(), wp.data_ptr(), hp.data_ptr(), out.data_ptr(),
+        part.data_ptr(), gpart.data_ptr(), m, n, rk, k, splits, chunk,
+        eps, zero_threshold, stream)
+    _raise_on("fused_h_update", rc)
+    LAUNCHES["fused_h_update"] += 1
+    return out
+
+
+def fused_w_update(a, wp, hp, gh, *, k: int, eps: float = 1e-9,
+                   zero_threshold: float = 0.0) -> torch.Tensor:
+    """Wp ← mu_epilogue(Wp, A·Hpᵀ, Wp·gh); gh (rk, rk) is the caller's
+    block-diagonal-masked H-Gram, of which the kernel reads only each
+    lane's k×k diagonal block."""
+    if a.device.type == "cpu":
+        return fused_w_update_ref(a, wp, hp, gh, k=k, eps=eps,
+                                  zero_threshold=zero_threshold)
+    m, n = a.shape
+    rk = wp.shape[1]
+    _check_operands("fused_w_update", k, a=(a, (m, n)), wp=(wp, (m, rk)),
+                    hp=(hp, (rk, n)), gh=(gh, (rk, rk)))
+    from nmfx_torch.ops import _build
+
+    lib = _build.load("fused_mu")
+    out = torch.empty((m, rk), dtype=torch.float32, device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    rc = lib.nmfx_fused_w_update(
+        a.data_ptr(), wp.data_ptr(), hp.data_ptr(), gh.data_ptr(),
+        out.data_ptr(), m, n, rk, k, eps, zero_threshold, stream)
+    _raise_on("fused_w_update", rc)
+    LAUNCHES["fused_w_update"] += 1
+    return out

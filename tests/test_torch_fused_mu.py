@@ -1,0 +1,103 @@
+"""The fused MU half-updates: the port's plain versions against the
+reference's Pallas kernels in interpret mode, and the CPU dispatch of the
+wrappers (the kernels themselves: tests/test_torch_cuda.py).
+
+Tolerance: float32 with rtol=1e-5, atol=1e-6 — the same products summed
+in another order (interpret-mode tile accumulation vs one CPU GEMM).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nmfx.ops import pallas_mu
+from nmfx.ops.packed_mu import bd_select as j_bd_select
+from nmfx.ops.packed_mu import block_diag_mask as j_block_diag_mask
+from nmfx_torch.ops import fused_mu
+from nmfx_torch.ops.packed_mu import (bd_select, block_diag_mask,
+                                      padded_rows)
+
+RTOL, ATOL = 1e-5, 1e-6
+
+# (m, n, restarts, k, block_m, planted zeros, zero_threshold)
+CASES = {
+    # ragged m, padded the way mu_packed pads it (two 104-row tiles)
+    "ragged_m": (203, 24, 4, 3, 104, False, 0.0),
+    # rk = 15, not a multiple of 8
+    "rk_not_8": (64, 40, 5, 3, 64, False, 0.0),
+    "zeros": (96, 32, 3, 4, 48, True, 0.0),
+    "zero_threshold": (80, 16, 2, 4, 40, False, 0.05),
+}
+
+
+def _operands(m, n, r, k, zeros, seed=0):
+    rng = np.random.default_rng(seed)
+    m_pad = padded_rows(m)
+    a = np.zeros((m_pad, n), np.float32)
+    wp = np.zeros((m_pad, r * k), np.float32)
+    a[:m] = rng.uniform(0.0, 1.0, (m, n))
+    wp[:m] = rng.uniform(0.0, 1.0, (m, r * k))
+    hp = rng.uniform(0.0, 1.0, (r * k, n)).astype(np.float32)
+    if zeros:
+        a[::7] = 0.0
+        a[:, 3] = 0.0
+        wp[::5, ::3] = 0.0
+        hp[::4, ::5] = 0.0
+    return a, wp, hp
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_h_update_ref_matches_pallas_interpret(case):
+    m, n, r, k, block_m, zeros, zt = CASES[case]
+    a, wp, hp = _operands(m, n, r, k, zeros)
+    assert a.shape[0] % block_m == 0
+    want = pallas_mu.fused_h_update(
+        jnp.asarray(a), jnp.asarray(wp), jnp.asarray(hp), k=k,
+        block_m=block_m, zero_threshold=zt, interpret=True)
+    got = fused_mu.fused_h_update_ref(
+        torch.as_tensor(a), torch.as_tensor(wp), torch.as_tensor(hp), k=k,
+        zero_threshold=zt)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+    assert np.array_equal(got.numpy() == 0, np.asarray(want) == 0)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_w_update_ref_matches_pallas_interpret(case):
+    m, n, r, k, block_m, zeros, zt = CASES[case]
+    a, wp, hp = _operands(m, n, r, k, zeros, seed=1)
+    jgh = j_bd_select(jnp.asarray(hp) @ jnp.asarray(hp).T,
+                      j_block_diag_mask(r, k, jnp.float32))
+    want = pallas_mu.fused_w_update(
+        jnp.asarray(a), jnp.asarray(wp), jnp.asarray(hp), jgh,
+        block_m=block_m, zero_threshold=zt, interpret=True)
+    th = torch.as_tensor(hp)
+    gh = bd_select(th @ th.T, block_diag_mask(r, k, "cpu"))
+    got = fused_mu.fused_w_update_ref(
+        torch.as_tensor(a), torch.as_tensor(wp), th, gh, k=k,
+        zero_threshold=zt)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+    assert np.array_equal(got.numpy() == 0, np.asarray(want) == 0)
+
+
+def test_cpu_wrappers_run_plain_versions_without_launching():
+    a, wp, hp = (torch.as_tensor(x) for x in _operands(40, 9, 3, 2, False))
+    gh = bd_select(hp @ hp.T, block_diag_mask(3, 2, "cpu"))
+    fused_mu.reset_launch_counts()
+    h = fused_mu.fused_h_update(a, wp, hp, k=2)
+    w = fused_mu.fused_w_update(a, wp, h, gh, k=2)
+    assert torch.equal(h, fused_mu.fused_h_update_ref(a, wp, hp, k=2))
+    assert torch.equal(w, fused_mu.fused_w_update_ref(a, wp, h, gh, k=2))
+    assert fused_mu.LAUNCHES == {"fused_h_update": 0, "fused_w_update": 0}
+
+
+@pytest.mark.parametrize("m,n,rk", [(5000, 500, 500), (5000, 500, 100),
+                                    (17, 3, 2), (1237, 77, 39)])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_h_splits_cover_m_in_whole_stages(m, n, rk, sms):
+    splits, chunk = fused_mu.h_splits(m, n, rk, sms)
+    assert chunk % 16 == 0
+    assert (splits - 1) * chunk < m <= splits * chunk
+
