@@ -6,18 +6,29 @@ versions.
     python3 chip_smoke.py --quick    # build + kernel parity only
 
 Phases (any failure exits non-zero; nothing is caught):
-  1. card and build: nvidia-smi's name and power limit, the nvcc build;
+  1. card and build: nvidia-smi's name and power limit, the nvcc build
+     (one nvcc per source, all started together);
   2. kernel parity: each kernel against its plain PyTorch version at the
-     north-star shape, a ragged shape and with planted exact zeros;
+     north-star shape, a ragged shape and with planted exact zeros (the
+     block kernel also with frozen lanes and budgets that run out
+     mid-launch);
   3. kernel timing (CUDA events, median of 25 after warm-up) beside the
      plain version, a torch.matmul composite and the card's bound;
-  4. the main path: nmfconsensus on the 5000x500 two-group matrix,
-     ks 2..10, 50 restarts, backend "pallas", grid_exec "per_k", with
-     every kernel's launch count read around it;
-  5. the bundled 1000x40 design (best k must be 2) and a small input run
-     on the card and on the CPU (plain versions), which must agree;
-  6. a profile of 200 packed iterations at k=2 and k=10: time per
-     iteration, the device's busy share and the kernels by device time.
+  4. the main paths, each with every kernel's launch count set to 0 just
+     before it and read just after, on the 5000x500 two-group matrix,
+     ks 2..10, 50 restarts:
+     a. the whole grid (backend "pallas", grid_exec "auto": the slot
+        scheduler on the block kernel), beside the same sweep with every
+        default (backend "auto": the dense scheduler, plain products);
+     b. the per-rank route (backend "pallas", grid_exec "per_k") on the
+        per-iteration kernel pair;
+  5. agreement: the bundled 1000x40 design (best k must be 2) on both
+     routes, a small input on the card and on the CPU (plain versions),
+     which must agree on both routes, and the whole grid at other slot
+     counts and tail settings, which must give the same results;
+  6. profiles: 200 packed iterations at k=2 and k=10, and 20 trips of
+     the 48-slot scheduler at k=10 (160 iterations, no lane stops): time
+     per iteration, the device's busy share, the kernels by device time.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -41,6 +52,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 #: north-star shape (m, n, restarts, k) and the sweep's ranks
 NORTH_STAR = (5000, 500, 50, 10)
 KS = tuple(range(2, 11))
+#: the whole grid's pool at the north star: 48 slots of k_max = 10; one
+#: block launch runs CHECK_BLOCK check blocks of CHECK_EVERY iterations
+SLOTS, CHECK_EVERY, CHECK_BLOCK = 48, 2, 4
 #: f32 tolerance of a kernel against its plain version: both sum the same
 #: products in different orders (m up to 5000 terms), all terms >= 0
 RTOL, ATOL_REL = 1e-4, 1e-6
@@ -146,6 +160,79 @@ def phase_parity(torch, fm):
     return ns_err
 
 
+BLOCK_OUTPUTS = ("wp", "hp", "wdiff", "wmax", "hdiff", "hmax", "h_checks")
+
+
+def block_operands(torch, m, n, slots, k, seed, *, zeros=False, frozen=(),
+                   budgets=None, pad=True, short_k=None):
+    """The block kernel's operands as the scheduler builds them: A and Wp
+    padded with zero rows to the scheduler's m_pad (``pad``), lane
+    freezes and per-lane budgets ({slot: iterations left}; every other
+    lane has 10,000). ``short_k`` makes slot 0 a rank-``short_k`` job
+    zero-padded to k."""
+    from nmfx_torch.ops.sched_mu import _pallas_block_geometry
+
+    a, wp, hp = operands(torch, m, n, slots, k, seed, zeros=zeros)
+    if short_k is not None:
+        wp[:, short_k:k] = 0.0
+        hp[short_k:k] = 0.0
+    if pad:
+        m_pad = _pallas_block_geometry(m)[2]
+        a = torch.nn.functional.pad(a, (0, 0, 0, m_pad - m))
+        wp = torch.nn.functional.pad(wp, (0, 0, 0, m_pad - m))
+    lane = torch.arange(slots * k, device="cuda") // k
+    frz = torch.zeros((1, slots * k), device="cuda")
+    budget = torch.full((1, slots * k), 10_000.0, device="cuda")
+    for s in frozen:
+        frz[0, lane == s] = 1.0
+    for s, left in (budgets or {}).items():
+        budget[0, lane == s] = float(left)
+    return a, wp, hp, frz, budget
+
+
+def phase_block_parity(torch, fm):
+    """fused_block_iterations against its plain version: every output,
+    exact zeros identical, frozen lanes and padded rows bit-equal to the
+    input. Returns the north-star max abs error over all outputs."""
+    kw = dict(iters=CHECK_EVERY, check_block=CHECK_BLOCK)
+    cases = [
+        ("north-star", 5000, 500, SLOTS, 10,
+         dict(frozen=(3, 11, 20, 33, 47), budgets={5: 3, 17: 5, 40: 7})),
+        ("ragged", 1237, 77, 13, 3,
+         dict(frozen=(2,), budgets={7: 4}, pad=False)),
+        ("zeros", 1000, 96, 9, 5,
+         dict(zeros=True, frozen=(1,), budgets={4: 6}, short_k=3)),
+    ]
+    ns_err = 0.0
+    for label, m, n, slots, k, opts in cases:
+        a, wp, hp, frz, budget = block_operands(torch, m, n, slots, k,
+                                                seed=3, **opts)
+        want = fm.fused_block_iterations_ref(a, wp, hp, frz, k=k,
+                                             budget_cols=budget, **kw)
+        got = fm.fused_block_iterations(a, wp, hp, frz, k=k,
+                                        budget_cols=budget, **kw)
+        errs = [check_close(torch, f"fused_block_iterations[{label}].{o}",
+                            g, w, zeros=True)[0]
+                for o, g, w in zip(BLOCK_OUTPUTS, got, want)]
+        cols = frz[0] > 0
+        if not (torch.equal(got[0][:, cols], wp[:, cols])
+                and torch.equal(got[1][cols], hp[cols])):
+            raise AssertionError(f"fused_block_iterations[{label}]: a "
+                                 "frozen lane changed")
+        if not (got[0][m:] == 0).all():
+            raise AssertionError(f"fused_block_iterations[{label}]: a "
+                                 "zero-padded row of Wp changed")
+        print(f"parity fused_block_iterations {label} m={a.shape[0]} n={n} "
+              f"slots={slots} k={k} iters={CHECK_EVERY} "
+              f"check_block={CHECK_BLOCK}: max abs "
+              + ", ".join(f"{o} {e:.3e}" for o, e in zip(BLOCK_OUTPUTS, errs))
+              + f" (rtol={RTOL}, atol={ATOL_REL}*max|ref|); frozen lanes "
+              "and padded rows bit-equal; exact zeros identical", flush=True)
+        if label == "north-star":
+            ns_err = max(errs)
+    return ns_err
+
+
 def library_h(torch, a, wp, hp, k):
     """torch.matmul composite of fused_h_update: numerator GEMM plus
     per-lane Grams and denominators by batched products."""
@@ -171,6 +258,38 @@ def library_w(torch, a, wp, hp, gh, k):
                       1e-9, 0.0)
 
 
+def library_block(torch, a, wp, hp, k, iters, nck):
+    """torch.matmul/bmm composite of fused_block_iterations with no lane
+    frozen and no budget running out: the same iterations, per-lane
+    Grams by batched products, the boundary stats and snapshots."""
+    from nmfx_torch.solvers.mu import _mu_update
+
+    m, rk = wp.shape
+    n = hp.shape[1]
+    r = rk // k
+    wd, wm, hd, hm, hck = [], [], [], [], []
+    w, h = wp, hp
+    for it in range(iters * nck):
+        w3 = w.reshape(m, r, k).permute(1, 0, 2)
+        gw = torch.bmm(w3.transpose(1, 2), w3)
+        hn = _mu_update(h, w.T @ a,
+                        torch.bmm(gw, h.reshape(r, k, n)).reshape(rk, n),
+                        1e-9, 0.0)
+        h3 = hn.reshape(r, k, n)
+        gh = torch.bmm(h3, h3.transpose(1, 2))
+        denom = torch.bmm(w3, gh).permute(1, 0, 2).reshape(m, rk)
+        wn = _mu_update(w, a @ hn.T, denom, 1e-9, 0.0)
+        if (it + 1) % iters == 0:
+            wd.append((wn - w).abs().amax(dim=0))
+            wm.append(w.abs().amax(dim=0))
+            hd.append((hn - h).abs().amax(dim=1))
+            hm.append(h.abs().amax(dim=1))
+            hck.append(hn)
+        w, h = wn, hn
+    return (w, h, torch.stack(wd), torch.stack(wm), torch.cat(hd)[:, None],
+            torch.cat(hm)[:, None], torch.stack(hck))
+
+
 def bounds(m, n, rk, k, rates):
     """Least time (ms) the card could take: bytes each input read once
     and each output written once, and the FLOPs these inputs need."""
@@ -185,6 +304,45 @@ def bounds(m, n, rk, k, rates):
         tb, to = nb / bw * 1e3, no / flops * 1e3
         out[name] = (max(tb, to), "bytes" if tb >= to else "operations")
     return out
+
+
+def block_bound(m, n, rk, k, iters, nck, rates):
+    """The same for fused_block_iterations with no lane frozen (every
+    lane does all iters * nck iterations): inputs A, Wp, Hp, frozen and
+    budget read once; outputs Wp, Hp, the 4 stat arrays and h_checks
+    written once; per iteration the two numerators, the diagonal-block
+    Grams, the denominators and the epilogues."""
+    flops, bw = rates
+    nbytes = 4 * (m * n + 2 * m * rk + 2 * rk * n + 2 * rk + 4 * nck * rk
+                  + nck * rk * n)
+    per_it = (2 * m * n * rk + 2 * m * rk * k + 2 * rk * n * k + 5 * rk * n
+              + 2 * rk * n * k
+              + 2 * m * n * rk + 2 * m * rk * k + 5 * m * rk)
+    tb, to = nbytes / bw * 1e3, iters * nck * per_it / flops * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def phase_block_timing(torch, fm, rates):
+    """The block kernel at the north-star pool (m padded to 5120, 48
+    slots of k=10, 2 x 4 iterations, no lane frozen) beside its plain
+    version, the matmul/bmm composite and the bound."""
+    m, n, _, k = NORTH_STAR
+    a, wp, hp, frz, budget = block_operands(torch, m, n, SLOTS, k, seed=4)
+    kw = dict(k=k, iters=CHECK_EVERY, check_block=CHECK_BLOCK,
+              budget_cols=budget)
+    ms = time_ms(torch, lambda: fm.fused_block_iterations(a, wp, hp, frz,
+                                                          **kw))
+    plain = time_ms(torch, lambda: fm.fused_block_iterations_ref(
+        a, wp, hp, frz, **kw))
+    lib = time_ms(torch, lambda: library_block(torch, a, wp, hp, k,
+                                               CHECK_EVERY, CHECK_BLOCK))
+    bound, by = block_bound(a.shape[0], n, SLOTS * k, k, CHECK_EVERY,
+                            CHECK_BLOCK, rates)
+    print(f"timing fused_block_iterations m={a.shape[0]} n={n} "
+          f"slots={SLOTS} k={k} ({CHECK_EVERY * CHECK_BLOCK} iterations): "
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms, "
+          f"bound {bound:.4f} ms ({by})", flush=True)
+    return ms, plain, lib, bound, by
 
 
 def phase_timing(torch, fm, rates):
@@ -216,13 +374,94 @@ def phase_timing(torch, fm, rates):
     return table
 
 
-def phase_main_path(torch, fm):
-    """nmfconsensus at the north-star width through both kernels."""
-    import nmfx_torch
+def north_star_matrix():
     from nmfx_torch.datasets import two_group_matrix
 
+    m, n, _, _ = NORTH_STAR
+    return two_group_matrix(n_genes=m, n_per_group=n // 2, seed=123)
+
+
+def check_sweep(res, label, n):
+    """Finite consensus and residuals of the right shape at every rank,
+    and best k = 2 (the matrix has two groups)."""
+    for k in res.ks:
+        kr = res.per_k[k]
+        if not (np.isfinite(kr.consensus).all()
+                and np.isfinite(kr.dnorms).all()):
+            raise AssertionError(f"{label} k={k}: non-finite output")
+        if kr.consensus.shape != (n, n):
+            raise AssertionError(f"{label} k={k}: consensus shape "
+                                 f"{kr.consensus.shape}")
+    if res.best_k != 2:
+        raise AssertionError(f"{label}: best k {res.best_k} != 2")
+
+
+def stop_counts(kr) -> dict:
+    return {int(s): int((kr.stop_reasons == s).sum())
+            for s in sorted(set(kr.stop_reasons.tolist()))}
+
+
+def phase_grid_path(torch, fm):
+    """nmfconsensus at the north star through the whole grid: backend
+    "pallas" with grid_exec "auto" (the slot scheduler on the block
+    kernel), then every default (backend "auto": the dense scheduler)."""
+    import nmfx_torch
+
     m, n, r, _ = NORTH_STAR
-    a = two_group_matrix(n_genes=m, n_per_group=n // 2, seed=123)
+    a = north_star_matrix()
+    seen = {}
+
+    def on_rank(k, out):
+        seen.setdefault("out", out)
+
+    fm.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = nmfx_torch.nmfconsensus(
+        a, ks=KS, restarts=r, solver_cfg=nmfx_torch.SolverConfig(
+            backend="pallas"), on_rank=on_rank)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fm.LAUNCHES)
+    out = seen["out"]
+    check_sweep(res, "whole grid", n)
+    print(f"main grid (pallas, {SLOTS} slots, check_block "
+          f"{CHECK_BLOCK}): wall {wall:.3f} s, pool_widths "
+          f"{out.pool_widths}, pool_trips {out.pool_trips}, pool_lanes "
+          f"{out.pool_lanes}, host syncs {out.host_syncs}, launches "
+          f"{launches}, best k {res.best_k}", flush=True)
+    for k in KS:
+        kr = res.per_k[k]
+        print(f"main grid k={k}: mean iters {kr.iterations.mean():.1f}, max "
+              f"iters {int(kr.iterations.max())}, stop reasons "
+              f"{stop_counts(kr)}, rho {kr.rho:.4f}", flush=True)
+    need = sum(out.pool_trips)
+    if launches["fused_block_iterations"] < max(need, 1):
+        raise AssertionError(
+            f"fused_block_iterations launched "
+            f"{launches['fused_block_iterations']} times on the whole "
+            f"grid; its {need} trips need one launch each")
+    if out.host_syncs != need:
+        raise AssertionError(f"whole grid: {out.host_syncs} host syncs "
+                             f"for {need} trips")
+
+    t0 = time.perf_counter()
+    dense = nmfx_torch.nmfconsensus(a, ks=KS, restarts=r)
+    torch.cuda.synchronize()
+    dense_wall = time.perf_counter() - t0
+    check_sweep(dense, "dense grid", n)
+    print(f"main dense grid (every default, backend auto): wall "
+          f"{dense_wall:.3f} s beside the pallas grid's {wall:.3f} s, best "
+          f"k {dense.best_k}", flush=True)
+    return launches
+
+
+def phase_per_rank_path(torch, fm):
+    """nmfconsensus at the north-star width, one rank at a time, through
+    the per-iteration kernel pair."""
+    import nmfx_torch
+
+    m, n, r, _ = NORTH_STAR
+    a = north_star_matrix()
     ranks = {}
     clock = [time.perf_counter()]
 
@@ -241,86 +480,151 @@ def phase_main_path(torch, fm):
     need = 0
     for k in KS:
         kr = res.per_k[k]
-        stops = {int(s): int((kr.stop_reasons == s).sum())
-                 for s in sorted(set(kr.stop_reasons.tolist()))}
         wall, syncs = ranks[k]
-        print(f"main k={k}: wall {wall:.3f} s, mean iters "
+        print(f"main per-rank k={k}: wall {wall:.3f} s, mean iters "
               f"{kr.iterations.mean():.1f}, max iters "
-              f"{int(kr.iterations.max())}, stop reasons {stops}, host "
-              f"syncs {syncs}", flush=True)
+              f"{int(kr.iterations.max())}, stop reasons {stop_counts(kr)}, "
+              f"host syncs {syncs}", flush=True)
         need += int(kr.iterations.max())
-        if not (np.isfinite(kr.consensus).all()
-                and np.isfinite(kr.dnorms).all()):
-            raise AssertionError(f"main path k={k}: non-finite output")
-        if kr.consensus.shape != (n, n):
-            raise AssertionError(f"main path k={k}: consensus shape "
-                                 f"{kr.consensus.shape}")
-    for name, count in launches.items():
-        if count < need:
+    check_sweep(res, "per-rank route", n)
+    for name in ("fused_h_update", "fused_w_update"):
+        if launches[name] < need:
             raise AssertionError(
-                f"{name} launched {count} times on the main path; the "
-                f"ranks' longest lanes need {need}")
-    print(f"main launches {launches} (sum over ranks of the longest "
-          f"lane: {need})", flush=True)
+                f"{name} launched {launches[name]} times on the per-rank "
+                f"route; the ranks' longest lanes need {need}")
+    print(f"main per-rank launches {launches} (sum over ranks of the "
+          f"longest lane: {need}); sweep wall "
+          f"{sum(w for w, _ in ranks.values()):.3f} s", flush=True)
     print(res.summary(), flush=True)
     return launches
 
 
 def phase_checks(torch):
-    """Bundled design must select k=2; a small input must agree between
-    the card (kernels) and the CPU (plain versions)."""
+    """On both routes the bundled design must select k=2, and a small
+    input must agree between the card (kernels) and the CPU (plain
+    versions); the whole grid must give the same results at any slot
+    count and tail setting."""
     import nmfx_torch
     from nmfx_torch.datasets import two_group_matrix
 
     cfg = nmfx_torch.SolverConfig(backend="pallas")
     a = two_group_matrix(n_genes=1000, n_per_group=20, seed=123)
-    t0 = time.perf_counter()
-    res = nmfx_torch.nmfconsensus(a, ks=(2, 3, 4, 5), restarts=10, seed=123,
-                                  solver_cfg=cfg, grid_exec="per_k")
-    print(f"bundled 1000x40: {time.perf_counter() - t0:.3f} s, best k = "
-          f"{res.best_k}, rho {res.rhos.tolist()}", flush=True)
-    if res.best_k != 2:
-        raise AssertionError(f"bundled design: best k {res.best_k} != 2")
+    for route in ("per_k", "auto"):
+        t0 = time.perf_counter()
+        res = nmfx_torch.nmfconsensus(a, ks=(2, 3, 4, 5), restarts=10,
+                                      seed=123, solver_cfg=cfg,
+                                      grid_exec=route)
+        print(f"bundled 1000x40 grid_exec={route}: "
+              f"{time.perf_counter() - t0:.3f} s, best k = {res.best_k}, "
+              f"rho {res.rhos.tolist()}", flush=True)
+        if res.best_k != 2:
+            raise AssertionError(f"bundled design, grid_exec={route}: best "
+                                 f"k {res.best_k} != 2")
 
     small = two_group_matrix(n_genes=200, n_per_group=12, seed=3)
     scfg = nmfx_torch.SolverConfig(backend="pallas", max_iter=200)
-    kw = dict(ks=(2, 3), restarts=4, seed=5, solver_cfg=scfg,
-              grid_exec="per_k")
-    gpu = nmfx_torch.nmfconsensus(small, **kw)
-    cpu = nmfx_torch.nmfconsensus(small, device="cpu", **kw)
-    for k in (2, 3):
-        g, c = gpu.per_k[k], cpu.per_k[k]
-        diff = float(np.abs(g.consensus - c.consensus).max())
-        print(f"small 200x24 k={k}: card vs CPU iterations equal "
-              f"{np.array_equal(g.iterations, c.iterations)}, max "
-              f"|dC| {diff:.3g}, rho {g.rho} vs {c.rho}", flush=True)
-        if not (np.array_equal(g.membership, c.membership)
-                and np.array_equal(g.iterations, c.iterations)
-                and np.array_equal(g.stop_reasons, c.stop_reasons)
-                and diff <= 0.25):
-            raise AssertionError(f"small input k={k}: card and CPU "
-                                 "disagree")
+    for route in ("per_k", "auto"):
+        kw = dict(ks=(2, 3), restarts=4, seed=5, solver_cfg=scfg,
+                  grid_exec=route)
+        gpu = nmfx_torch.nmfconsensus(small, **kw)
+        cpu = nmfx_torch.nmfconsensus(small, device="cpu", **kw)
+        for k in (2, 3):
+            g, c = gpu.per_k[k], cpu.per_k[k]
+            diff = float(np.abs(g.consensus - c.consensus).max())
+            print(f"small 200x24 grid_exec={route} k={k}: card vs CPU "
+                  f"iterations equal "
+                  f"{np.array_equal(g.iterations, c.iterations)}, stop "
+                  f"reasons equal "
+                  f"{np.array_equal(g.stop_reasons, c.stop_reasons)}, max "
+                  f"|dC| {diff:.3g}, rho {g.rho} vs {c.rho}", flush=True)
+            if not (np.array_equal(g.membership, c.membership)
+                    and np.array_equal(g.iterations, c.iterations)
+                    and np.array_equal(g.stop_reasons, c.stop_reasons)
+                    and diff <= 0.25):
+                raise AssertionError(f"small input grid_exec={route} "
+                                     f"k={k}: card and CPU disagree")
+
+    # schedule-free: the block kernel's sums do not depend on the pool
+    # width or a lane's slot, so only the schedule may change
+    kw = dict(ks=(2, 3, 4, 5), restarts=10, seed=5, keep_factors=True,
+              solver_cfg=cfg)
+    runs = {(slots, tail): nmfx_torch.nmfconsensus(
+        small, grid_slots=slots, grid_tail_slots=tail, **kw)
+        for slots, tail in ((SLOTS, "auto"), (5, "auto"), (SLOTS, None))}
+    base = runs[(SLOTS, "auto")]
+    for (slots, tail), res in runs.items():
+        same = all(
+            np.array_equal(res.per_k[k].iterations, base.per_k[k].iterations)
+            and np.array_equal(res.per_k[k].stop_reasons,
+                               base.per_k[k].stop_reasons)
+            for k in kw["ks"])
+        bits = all(np.array_equal(res.per_k[k].all_h, base.per_k[k].all_h)
+                   for k in kw["ks"])
+        print(f"schedule-free 200x24 ks 2..5 x10: grid_slots={slots} "
+              f"grid_tail_slots={tail} vs {SLOTS}/auto: iterations and "
+              f"stop reasons equal {same}, factors bit-equal {bits}",
+              flush=True)
+        if not (same and bits):
+            raise AssertionError(f"whole grid at grid_slots={slots}, "
+                                 f"grid_tail_slots={tail}: results depend "
+                                 "on the schedule")
+
+
+def profiled(torch, fn):
+    """(wall s, device busy ms, rows) of one call of ``fn`` under
+    torch.profiler; rows = (device us, count, kernel) by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")
+                   and e.self_device_time_total > 0), reverse=True)
+    return wall, sum(row[0] for row in rows) / 1e3, rows
+
+
+def profile_line(label, iters, plain_wall, wall, busy_ms, rows):
+    top = "; ".join(f"{key[:40]} {us / 1e3 / iters:.4f} ms/it x{cnt}"
+                    for us, cnt, key in rows[:6])
+    share = (f"{busy_ms / (wall * 1e3):.3f}" if busy_ms
+             else "not measured (no device time in the trace)")
+    return (f"{label}: {iters} iterations {plain_wall * 1e3 / iters:.4f} "
+            f"ms/it ({wall * 1e3 / iters:.4f} under the profiler), kernels "
+            f"{busy_ms / iters:.4f} ms/it, device busy share {share}; top: "
+            f"{top}")
+
+
+def timed(torch, fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
 
 
 def phase_profile(torch):
-    """Where one solve iteration's time goes: a fixed 200-iteration packed
-    solve per rank (every check runs, no lane stops) timed alone and
-    under torch.profiler; device busy share = summed device time of the
-    CUDA kernels over the profiled wall."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Where one solve iteration's time goes, on both routes, with every
+    check run and no lane stopping (so the iteration count is fixed):
+    a 200-iteration packed solve per rank (k=2, k=10), and 20 trips of
+    the 48-slot scheduler on 48 k=10 jobs (160 iterations), each timed
+    alone after a warm-up and then under torch.profiler. Device busy
+    share = summed device time of the CUDA kernels over the profiled
+    wall."""
     from nmfx_torch import random as rnd
     from nmfx_torch.config import InitConfig, SolverConfig
-    from nmfx_torch.datasets import two_group_matrix
     from nmfx_torch.init import restart_inits
     from nmfx_torch.ops.packed_mu import mu_packed
+    from nmfx_torch.ops.sched_mu import mu_sched
 
     m, n, r, _ = NORTH_STAR
-    a = torch.as_tensor(two_group_matrix(n_genes=m, n_per_group=n // 2,
-                                         seed=123), dtype=torch.float32,
+    a = torch.as_tensor(north_star_matrix(), dtype=torch.float32,
                         device="cuda")
     iters = 200
-    # every check runs but no lane ever stops: the iteration count is fixed
     cfg = SolverConfig(backend="pallas", max_iter=iters,
                        stable_checks=10**6, tol_x=0.0)
     for k in (2, 10):
@@ -329,32 +633,33 @@ def phase_profile(torch):
                                               r), k, InitConfig())
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        mu_packed(a, w0s, h0s, cfg)  # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        mu_packed(a, w0s, h0s, cfg)
-        torch.cuda.synchronize()
-        plain_wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            mu_packed(a, w0s, h0s, cfg)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = sorted(((e.self_device_time_total, e.count, e.key)
-                       for e in prof.key_averages()
-                       if str(e.device_type).endswith("CUDA")
-                       and e.self_device_time_total > 0), reverse=True)
-        busy_ms = sum(row[0] for row in rows) / 1e3
-        top = "; ".join(f"{key[:40]} {us / 1e3 / iters:.4f} ms/it x{cnt}"
-                        for us, cnt, key in rows[:6])
-        share = (f"{busy_ms / (wall * 1e3):.3f}" if busy_ms
-                 else "not measured (no device time in the trace)")
-        print(f"profile k={k}: init draws {init_s:.3f} s; {iters} "
-              f"iterations {plain_wall * 1e3 / iters:.4f} ms/it "
-              f"({wall * 1e3 / iters:.4f} under the profiler), kernels "
-              f"{busy_ms / iters:.4f} ms/it, device busy share {share}; "
-              f"top: {top}", flush=True)
+        run = lambda: mu_packed(a, w0s, h0s, cfg)  # noqa: E731
+        run()  # warm-up
+        plain_wall = timed(torch, run)
+        line = profile_line(f"profile per-rank k={k}", iters, plain_wall,
+                            *profiled(torch, run))
+        print(f"{line}; init draws {init_s:.3f} s", flush=True)
+
+    k = NORTH_STAR[3]
+    iters = 20 * CHECK_EVERY * CHECK_BLOCK
+    cfg = SolverConfig(backend="pallas", max_iter=iters,
+                       stable_checks=10**6, tol_x=0.0)
+    w0s, h0s = restart_inits(a, rnd.split(rnd.fold_in(rnd.key(123), k),
+                                          SLOTS), k, InitConfig())
+    out = {}
+
+    def run():
+        out["res"] = mu_sched(a, w0s, h0s, cfg, slots=SLOTS, device="cuda")
+
+    run()  # warm-up
+    plain_wall = timed(torch, run)
+    prof = profiled(torch, run)
+    res = out["res"]
+    if not (res.iterations == iters).all():
+        raise AssertionError("scheduler profile: a lane stopped early")
+    print(profile_line(f"profile grid {SLOTS} slots k={k} "
+                       f"({sum(res.pool_trips)} trips, {res.host_syncs} host "
+                       "syncs)", iters, plain_wall, *prof), flush=True)
 
 
 def main(argv=None) -> int:
@@ -389,17 +694,27 @@ def main(argv=None) -> int:
           flush=True)
 
     ns_err = phase_parity(torch, fm)
+    ns_err["fused_block_iterations"] = phase_block_parity(torch, fm)
     if not args.quick:
-        timing = phase_timing(torch, fm, peaks(kind))
-        launches = phase_main_path(torch, fm)
+        rates = peaks(kind)
+        timing = phase_timing(torch, fm, rates)[NORTH_STAR[3]]
+        timing["fused_block_iterations"] = phase_block_timing(torch, fm,
+                                                              rates)
+        launches = phase_grid_path(torch, fm)
+        launches.update({name: count for name, count in
+                         phase_per_rank_path(torch, fm).items()
+                         if name != "fused_block_iterations"})
         phase_checks(torch)
         phase_profile(torch)
         kernels = []
-        for name, line in (("fused_h_update", 147), ("fused_w_update", 731)):
-            ms, plain, lib, bound, by = timing[NORTH_STAR[3]][name]
+        for name, source, line in (
+                ("fused_h_update", "fused_mu.cu", 147),
+                ("fused_w_update", "fused_mu.cu", 731),
+                ("fused_block_iterations", "block_mu.cu", 539)):
+            ms, plain, lib, bound, by = timing[name]
             kernels.append({
                 "name": name, "route": "cuda",
-                "source": "nmfx_torch/csrc/fused_mu.cu",
+                "source": f"nmfx_torch/csrc/{source}",
                 "replaces": f"nmfx/ops/pallas_mu.py:{line}",
                 "launches": launches[name], "max_abs_err": ns_err[name],
                 "ms": ms, "plain_ms": plain, "bound_ms": bound,

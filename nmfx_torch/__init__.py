@@ -7,14 +7,16 @@ This package imports ``torch`` and numpy, never ``jax`` nor anything of
 """
 
 from nmfx_torch.api import (ConsensusResult, InsufficientRestarts, KResult,
-                            nmfconsensus, save_results)
-from nmfx_torch.config import (ConsensusConfig, InitConfig, OutputConfig,
-                               SolverConfig)
-from nmfx_torch.solvers.base import StopReason
+                            nmf, nmfconsensus, save_results)
+from nmfx_torch.config import (ConsensusConfig, ExperimentalConfig,
+                               InitConfig, OutputConfig, SolverConfig)
+from nmfx_torch.solvers.base import SolverResult, StopReason
 
-__all__ = ["ConsensusResult", "InsufficientRestarts", "KResult",
-           "nmfconsensus", "save_results", "ConsensusConfig", "InitConfig",
-           "OutputConfig", "SolverConfig", "StopReason", "kernels_available"]
+__all__ = ["ConsensusResult", "InsufficientRestarts", "KResult", "nmf",
+           "nmfconsensus", "save_results", "ConsensusConfig",
+           "ExperimentalConfig", "InitConfig", "OutputConfig",
+           "SolverConfig", "SolverResult", "StopReason",
+           "kernels_available"]
 
 
 def kernels_available() -> bool:

@@ -1,6 +1,7 @@
-"""Top-level API: the consensus pipeline (counterpart of ``nmfx/api.py``'s
-``nmfconsensus``; reference ``runNMFinJobs`` +
-``computeConsensusAndSaveFiles``, ``nmf.r:106-119, 146-253``).
+"""Top-level API (counterpart of ``nmfx/api.py``): ``nmf``, one
+factorization, and ``nmfconsensus``, the consensus pipeline (reference
+``runNMFinJobs`` + ``computeConsensusAndSaveFiles``,
+``nmf.r:106-119, 146-253``).
 
 Results use the reference package's ``ConsensusResult`` ``.npz`` layout,
 so each package loads the other's saved files.
@@ -13,12 +14,16 @@ import os
 from typing import Mapping, Sequence
 
 import numpy as np
+import torch
 
 from nmfx_torch import cophenetic as coph
+from nmfx_torch import random as _random
 from nmfx_torch.config import (ConsensusConfig, InitConfig, OutputConfig,
                                SolverConfig)
+from nmfx_torch.device import resolve_device
+from nmfx_torch.init import nndsvd_init, random_init
 from nmfx_torch.io import Dataset, read_dataset, write_gct
-from nmfx_torch.solvers.base import StopReason
+from nmfx_torch.solvers.base import SolverResult, StopReason, solve
 from nmfx_torch.sweep import sweep
 
 
@@ -193,6 +198,58 @@ def _resolve_cfgs(algorithm, max_iter, init, solver_cfg, init_cfg):
     return scfg, icfg
 
 
+def nmf(a, k: int, *, seed: int = 0, algorithm: str | None = None,
+        max_iter: int | None = None, init: str | None = None,
+        solver_cfg: SolverConfig | None = None,
+        init_cfg: InitConfig | None = None, w0=None, h0=None,
+        device=None) -> SolverResult:
+    """One non-negative factorization A ≈ W·H at rank k (reference
+    ``nmf``, without its sketched engine).
+
+    ``w0``/``h0``: explicit initial factors (both or neither); otherwise
+    they come from ``init``/``init_cfg`` with the key ``key(seed)``, the
+    reference's draws bit for bit. Random draws from the key are float32,
+    so a float64 solve from a seed needs ``init="nndsvd"`` or explicit
+    factors. ``device``: None = CUDA (raising without one), or "cpu".
+    """
+    arr, _ = _as_matrix(a)
+    if not np.isfinite(arr).all():
+        raise ValueError("input matrix contains non-finite values")
+    if (arr < 0).any():
+        raise ValueError("input matrix must be non-negative")
+    scfg, icfg = _resolve_cfgs(algorithm, max_iter, init, solver_cfg,
+                               init_cfg)
+    if (w0 is None) != (h0 is None):
+        raise ValueError("pass both w0 and h0, or neither")
+    m, n = arr.shape
+    if w0 is None:
+        if icfg.method == "nndsvd":
+            dtype = torch.float64 if scfg.dtype == "float64" else torch.float32
+            w0, h0 = nndsvd_init(torch.as_tensor(
+                arr, dtype=dtype, device=resolve_device(device)), k)
+        elif scfg.dtype != "float32":
+            raise NotImplementedError(
+                "float64 random draws from the key chain are not ported "
+                "(ROADMAP 'Modules to port' item 1); pass w0/h0 or "
+                "init='nndsvd'")
+        else:
+            w0, h0 = random_init(_random.key(seed), m, n, k, icfg)
+    else:
+        if init is not None or init_cfg is not None:
+            raise ValueError(
+                "pass either explicit w0/h0 or an init scheme, not both")
+        w0, h0 = np.asarray(w0), np.asarray(h0)
+        if w0.shape != (m, k) or h0.shape != (k, n):
+            raise ValueError(
+                f"w0/h0 shapes {w0.shape}/{h0.shape} don't match "
+                f"({m}, {k})/({k}, {n})")
+        if not (np.isfinite(w0).all() and np.isfinite(h0).all()):
+            raise ValueError("initial factors contain non-finite values")
+        if (w0 < 0).any() or (h0 < 0).any():
+            raise ValueError("initial factors must be non-negative")
+    return solve(arr, w0, h0, scfg, device=device)
+
+
 def _to_host(out):
     """A KSweepOutput of device tensors → numpy (labels stay behind)."""
     def host(x):
@@ -218,6 +275,8 @@ def nmfconsensus(
     init_cfg: InitConfig | None = None,
     keep_factors: bool = False,
     grid_exec: str = "auto",
+    grid_slots: int = 48,
+    grid_tail_slots="auto",
     min_restarts: int = 1,
     output: OutputConfig | None = None,
     device=None,
@@ -227,16 +286,25 @@ def nmfconsensus(
     in ``ks``, a consensus matrix per rank on the device, cophenetic rank
     selection on the host, and optional GCT outputs.
 
-    The port runs the reference's per-rank route only:
-    ``solver_cfg=SolverConfig(backend="pallas")`` (the hand-written
-    kernels) or ``backend="packed"``, with ``grid_exec="per_k"``; other
-    settings raise ``NotImplementedError`` naming the ROADMAP item.
+    Routes, as the reference takes them, for algorithm "mu":
+
+    * whole grid (``grid_exec="auto"`` with more than one rank, or
+      ``"grid"``): every (k, restart) job through one slot-scheduled
+      solve of ``grid_slots`` slots with the ``grid_tail_slots`` cascade;
+      ``backend="pallas"`` runs it on the hand-written block kernel,
+      ``"auto"`` (the default) and ``"packed"`` on plain batched products;
+    * per rank (``grid_exec="per_k"``, or one rank): each rank's restarts
+      as one packed batch, on the hand-written per-iteration kernels
+      under ``backend="pallas"``, plain products otherwise.
+
+    Other settings raise ``NotImplementedError`` naming the ROADMAP item.
 
     ``device``: None means CUDA and raises if no CUDA device is present
     (pass ``device="cpu"`` for the plain PyTorch versions on the CPU). On
     CUDA the entry point switches TF32 off for float32 matmuls.
     ``on_rank(k, out)`` is called after each rank's solve with its
-    device-side ``KSweepOutput``. Ranks are harvested sequentially.
+    device-side ``KSweepOutput`` (on the grid route, after the whole
+    solve). Ranks are harvested sequentially.
     """
     arr, col_names = _as_matrix(data)
     if not np.isfinite(arr).all():
@@ -252,6 +320,8 @@ def nmfconsensus(
     ccfg = ConsensusConfig(ks=ks, restarts=restarts, seed=seed,
                            label_rule=label_rule, linkage=linkage,
                            keep_factors=keep_factors, grid_exec=grid_exec,
+                           grid_slots=grid_slots,
+                           grid_tail_slots=grid_tail_slots,
                            min_restarts=min_restarts)
     scfg, icfg = _resolve_cfgs(algorithm, max_iter, init, solver_cfg,
                                init_cfg)

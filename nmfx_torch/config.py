@@ -1,14 +1,15 @@
 """Typed configuration for the port: the fields of the reference's
-``SolverConfig`` / ``InitConfig`` / ``ConsensusConfig`` that the per-rank
-packed mu route reads, with the reference's defaults and validation
-(``nmfx/config.py``). Fields of engines the port does not have yet are
-left out; ``nmfx_torch.convert.solver_config_from_dict`` refuses a
+``SolverConfig`` / ``ExperimentalConfig`` / ``InitConfig`` /
+``ConsensusConfig`` that the port's mu routes read, with the reference's
+defaults and validation (``nmfx/config.py``). Fields of engines the port
+does not have yet are left out; ``nmfx_torch.convert`` refuses a
 reference configuration that sets one of them to a non-inert value.
 
 What the port runs is narrower than what validates: ``check_ported``
 raises ``NotImplementedError`` for a solver setting the port has no
-route for yet, and ``nmfx_torch.sweep`` does the same for ``grid_exec``
-other than "per_k"; each message names the ROADMAP item that brings it.
+route for yet, and so does ``ExperimentalConfig`` for an experimental
+knob the port has not got; each message names the ROADMAP item that
+brings it.
 """
 
 from __future__ import annotations
@@ -19,9 +20,80 @@ from typing import Sequence
 ALGORITHMS = ("mu", "als", "neals", "pg", "alspg", "kl", "snmf", "hals")
 INIT_METHODS = ("random", "nndsvd")
 LINKAGE_METHODS = ("average", "complete", "single")
-#: backends with a route in the port (both run nmfx_torch.ops.packed_mu:
-#: "pallas" through the hand-written kernels, "packed" through plain GEMMs)
-PORTED_BACKENDS = ("pallas", "packed")
+#: backends with a route in the port: "pallas" runs the hand-written
+#: kernels; "auto" and "packed" the plain PyTorch products (the packed
+#: per-rank solve, or the dense slot-scheduler layout)
+PORTED_BACKENDS = ("auto", "packed", "pallas")
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentalConfig:
+    """Measured-but-not-default opt-ins of the reference
+    (``nmfx.ExperimentalConfig``), with its fields, defaults and
+    validation. The port runs ``evict_batch`` (harvest hysteresis of the
+    slot scheduler) and ``fused_updates`` in {"auto", "phased"}; any other
+    knob at a non-default value raises ``NotImplementedError`` naming the
+    ROADMAP item that brings it. ``kl_bf16_quotient`` configures kl only
+    and is inert here."""
+
+    ragged: bool = False
+    ragged_iters_est: "tuple[tuple[int, float], ...] | None" = None
+    evict_batch: int = 1
+    factor_dtype: "str | None" = None
+    alias_io: bool = False
+    kl_bf16_quotient: bool = False
+    autotune: str = "off"
+    block_m: "int | None" = None
+    fused_updates: str = "auto"
+
+    def __post_init__(self):
+        if self.factor_dtype not in (None, "bfloat16", "bfloat16_w"):
+            raise ValueError(
+                "experimental.factor_dtype must be None, 'bfloat16' or "
+                f"'bfloat16_w', got {self.factor_dtype!r}")
+        if self.evict_batch < 1:
+            raise ValueError("experimental.evict_batch must be >= 1")
+        if self.autotune not in ("off", "on"):
+            raise ValueError(
+                "experimental.autotune must be 'off' or 'on', got "
+                f"{self.autotune!r}")
+        if self.block_m is not None and (
+                self.block_m <= 0 or self.block_m % 16):
+            raise ValueError(
+                "experimental.block_m must be a positive multiple of 16, "
+                f"got {self.block_m!r}")
+        if self.fused_updates not in ("auto", "phased", "fused"):
+            raise ValueError(
+                "experimental.fused_updates must be 'auto', 'phased' or "
+                f"'fused', got {self.fused_updates!r}")
+        if self.ragged_iters_est is not None:
+            est = tuple((int(k), float(v))
+                        for k, v in self.ragged_iters_est)
+            if any(v <= 0 for _, v in est):
+                raise ValueError(
+                    "experimental.ragged_iters_est iteration estimates "
+                    "must be positive")
+            object.__setattr__(self, "ragged_iters_est", est)
+        unported = (
+            (self.ragged, "ragged=True (the class-blocked slot pool)",
+             "'Modules to port' item 7"),
+            (self.factor_dtype is not None,
+             f"factor_dtype={self.factor_dtype!r} (bf16 pool factors)",
+             "'Modules to port' item 7"),
+            (self.alias_io, "alias_io=True", "'Modules to port' item 7"),
+            (self.block_m is not None, f"block_m={self.block_m}",
+             "'Modules to port' item 7"),
+            (self.autotune != "off", "autotune='on'",
+             "'Modules to port' item 13"),
+            (self.fused_updates == "fused",
+             "fused_updates='fused' (the join-the-updates block kernel)",
+             "'TPU kernels to port' item 3"),
+        )
+        for on, what, item in unported:
+            if on:
+                raise NotImplementedError(
+                    f"experimental.{what} is not ported yet (ROADMAP "
+                    f"{item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,8 +110,11 @@ class SolverConfig:
     tol_x: float = 1e-4
     tol_fun: float = 1e-4
     check_every: int = 2
-    #: check blocks per host-loop trip; "auto" resolves to 1 (the host
-    #: reads the done flags once per trip)
+    #: check blocks per host-loop trip (the host reads the loop's state
+    #: once per trip). "auto" resolves to 4 on the slot scheduler's
+    #: block-kernel route (backend "pallas", max_iter a multiple of
+    #: check_every: one kernel launch runs all 4 blocks) and to 1
+    #: everywhere else, as in the reference
     check_block: "int | str" = "auto"
     stable_checks: int = 200
     use_class_stop: bool = True
@@ -50,6 +125,7 @@ class SolverConfig:
     dtype: str = "float32"
     matmul_precision: str = "default"
     backend: str = "auto"
+    experimental: ExperimentalConfig = ExperimentalConfig()
     nonfinite_guard: bool = True
 
     def __post_init__(self):
@@ -94,18 +170,19 @@ def check_ported(cfg: SolverConfig) -> None:
             "'Modules to port' item 8); the port runs 'mu'")
     if cfg.backend not in PORTED_BACKENDS:
         raise NotImplementedError(
-            f"backend={cfg.backend!r} is not ported yet: the default "
-            "whole-grid route is ROADMAP 'Modules to port' item 7 and the "
-            "vmapped/sketched engines items 4, 8 and 12; pass "
-            "backend='pallas' (the hand-written kernels) or 'packed'")
+            f"backend={cfg.backend!r} is not ported yet: the vmapped "
+            "restart sweep is ROADMAP 'Modules to port' item 5 and the "
+            "sketched engine item 12; pass backend='auto', 'packed' or "
+            "'pallas' (the hand-written kernels)")
     if cfg.matmul_precision == "bfloat16":
         raise NotImplementedError(
             "matmul_precision='bfloat16' (bf16 operands, f32 accumulation) "
             "is not ported yet (ROADMAP 'TPU kernels to port' item 1)")
     if cfg.dtype != "float32":
         raise NotImplementedError(
-            f"dtype={cfg.dtype!r} is not ported yet; the kernels are "
-            "float32 (ROADMAP 'Modules to port' item 4)")
+            f"dtype={cfg.dtype!r} is not ported on the batched routes, "
+            "whose kernels are float32 (ROADMAP 'Modules to port' item 1); "
+            "the single-restart nmfx_torch.solve / nmf run float64")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,7 +217,12 @@ class ConsensusConfig:
     linkage: str = "average"
     keep_factors: bool = False
     grid_exec: str = "auto"
+    #: slot-pool width of the whole-grid scheduler (nmfx_torch.ops.sched_mu)
+    grid_slots: int = 48
     min_restarts: int = 1
+    #: the scheduler's straggler-tail cascade: "auto", None/0 (off), an int
+    #: or a decreasing tuple of pool widths
+    grid_tail_slots: "int | None | str | tuple" = "auto"
 
     def __post_init__(self):
         ks = tuple(dict.fromkeys(int(k) for k in self.ks))
@@ -159,6 +241,22 @@ class ConsensusConfig:
             raise ValueError(
                 f"grid_exec must be 'auto', 'grid' or 'per_k', got "
                 f"{self.grid_exec!r}")
+        if self.grid_slots < 1:
+            raise ValueError("grid_slots must be >= 1")
+        ts = self.grid_tail_slots
+        if isinstance(ts, (list, tuple)):
+            ok = all(isinstance(t, int) and not isinstance(t, bool)
+                     and t >= 1 for t in ts)
+            if ok:
+                object.__setattr__(self, "grid_tail_slots", tuple(ts))
+        else:
+            ok = (ts is None or ts == "auto"
+                  or (isinstance(ts, int) and not isinstance(ts, bool)
+                      and ts >= 0))
+        if not ok:
+            raise ValueError(
+                f"grid_tail_slots must be 'auto', None, an int >= 0, or "
+                f"a tuple of int widths >= 1, got {self.grid_tail_slots!r}")
         if self.linkage not in LINKAGE_METHODS:
             raise ValueError(
                 f"linkage must be one of {LINKAGE_METHODS}, got "

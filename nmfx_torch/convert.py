@@ -12,38 +12,55 @@ import dataclasses
 import numpy as np
 import torch
 
-from nmfx_torch.config import SolverConfig
+from nmfx_torch.config import (ConsensusConfig, ExperimentalConfig,
+                               SolverConfig)
 
 #: reference SolverConfig fields the port has no counterpart for, with
-#: the value under which each is inert on the per-rank mu route (None =
-#: inert at any value: it configures an engine this route never runs)
+#: the value under which each is inert on the port's mu routes (None =
+#: inert at any value: it configures an engine these routes never run)
 _INERT = {
     "tol_pg": None, "ls_max_steps": None, "ls_beta": None, "ls_sigma": None,
     "sub_max_iter": None, "sparsity_beta": None, "ridge_eta": None,
     "sketch": None, "restart_chunk": None, "screen": False,
-    "screen_keep": None, "tile_rows": None, "experimental": None,
+    "screen_keep": None, "tile_rows": None,
 }
+
+
+def _own_fields(cls, d: dict, inert: dict) -> dict:
+    own = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(d) - own - set(inert)
+    if unknown:
+        raise ValueError(f"unknown {cls.__name__} fields: {sorted(unknown)}")
+    return {k: v for k, v in d.items() if k in own}
 
 
 def solver_config_from_dict(d: dict) -> SolverConfig:
     """The port's SolverConfig from ``dataclasses.asdict`` of a reference
-    ``SolverConfig``. Raises ``NotImplementedError`` when the dict turns
-    on something the port has not got (screening, out-of-core tiles, the
-    block-shape autotuner) and ``ValueError`` on an unknown field."""
-    own = {f.name for f in dataclasses.fields(SolverConfig)}
-    unknown = set(d) - own - set(_INERT)
-    if unknown:
-        raise ValueError(f"unknown SolverConfig fields: {sorted(unknown)}")
+    ``SolverConfig``, its nested ``experimental`` dict included. Raises
+    ``NotImplementedError`` when the dict turns on something the port has
+    not got (screening, out-of-core tiles, an unported experimental knob)
+    and ``ValueError`` on an unknown field."""
+    kw = _own_fields(SolverConfig, d, _INERT)
     for name, inert in _INERT.items():
         if inert is not None and d.get(name, inert) != inert:
             raise NotImplementedError(
                 f"SolverConfig.{name}={d[name]!r} has no counterpart in "
                 "the port yet (ROADMAP 'Modules to port')")
-    if (d.get("experimental") or {}).get("autotune", "off") != "off":
-        raise NotImplementedError(
-            "experimental.autotune has no counterpart in the port yet "
-            "(ROADMAP 'Modules to port' item 13)")
-    return SolverConfig(**{k: v for k, v in d.items() if k in own})
+    exp = kw.get("experimental")
+    if isinstance(exp, dict):
+        kw["experimental"] = ExperimentalConfig(
+            **_own_fields(ExperimentalConfig, exp, {}))
+    return SolverConfig(**kw)
+
+
+def consensus_config_from_dict(d: dict) -> ConsensusConfig:
+    """The port's ConsensusConfig from ``dataclasses.asdict`` of a
+    reference ``ConsensusConfig`` (every field has a counterpart);
+    ``ValueError`` on an unknown field."""
+    kw = _own_fields(ConsensusConfig, d, {})
+    if isinstance(kw.get("grid_tail_slots"), list):
+        kw["grid_tail_slots"] = tuple(kw["grid_tail_slots"])
+    return ConsensusConfig(**kw)
 
 
 def factors_from_numpy(w0s: np.ndarray, h0s: np.ndarray, device

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -28,3 +29,11 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"device must be 'cuda' or 'cpu', got {dev}")
     return dev
+
+
+def to_device(x, dtype, device) -> torch.Tensor:
+    """A tensor or array-like as a ``dtype`` tensor on ``device`` (host
+    arrays are copied, so read-only buffers are never aliased)."""
+    if torch.is_tensor(x):
+        return x.to(device=device, dtype=dtype)
+    return torch.as_tensor(np.array(x), dtype=dtype, device=device)

@@ -3,10 +3,11 @@ through ctypes.
 
 Each ``nmfx_torch/csrc/<name>.cu`` compiles on its own into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
-seconds, not minutes). The library lands in ``nmfx_torch/_build/``
-(git-ignored) under a name keyed by a hash of the source and the flags,
-so an edited source rebuilds and an unchanged one loads at once.
-Nothing here runs at import time.
+seconds, not minutes); the sources share device code through
+``csrc/*.cuh`` headers. The library lands in ``nmfx_torch/_build/``
+(git-ignored) under a name keyed by a hash of the source, the headers
+and the flags, so an edited source or header rebuilds and an unchanged
+one loads at once. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -36,6 +37,10 @@ SIGNATURES = {
         "nmfx_fused_w_update": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                                 _P),
     },
+    "block_mu": {
+        "nmfx_block_split_rows": (),
+        "nmfx_block_iterations": (_P,) * 19 + (_I,) * 6 + (_F, _F, _P),
+    },
 }
 
 _lock = threading.Lock()
@@ -57,8 +62,11 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the built library for ``csrc/<name>.cu`` lives."""
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 

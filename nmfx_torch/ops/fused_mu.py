@@ -1,16 +1,19 @@
-"""The restart-packed MU half-updates: hand-written CUDA kernels and their
-plain PyTorch versions (counterpart of ``nmfx/ops/pallas_mu.py``'s
-``fused_h_update`` / ``fused_w_update``).
+"""The restart-packed MU kernels: hand-written CUDA and their plain
+PyTorch versions (counterpart of ``nmfx/ops/pallas_mu.py``).
 
 * ``fused_h_update``: Hp ← ep(Hp, WpᵀA, (WpᵀWp ∘ B)·Hp)
 * ``fused_w_update``: Wp ← ep(Wp, A·Hpᵀ, Wp·gh), with gh = bd_select(Hp·Hpᵀ)
   computed by the caller
+* ``fused_block_iterations``: ``iters · check_block`` full MU iterations
+  of the slot scheduler's packed pool in one call, with lane freezes,
+  the per-lane iteration budget, per-boundary TolX stats and H
+  snapshots (the reference's phased block kernel)
 
 where B is the block-diagonal restart mask and ep the mu epilogue
 (``nmfx_torch.solvers.mu._mu_update``). The kernels live in
-``nmfx_torch/csrc/fused_mu.cu``, built at first use
-(``nmfx_torch.ops._build``); their design notes sit at the top of that
-file.
+``nmfx_torch/csrc/fused_mu.cu`` and ``nmfx_torch/csrc/block_mu.cu``,
+built at first use (``nmfx_torch.ops._build``); their design notes sit
+at the top of those files.
 
 A wrapper given CPU tensors runs the plain version (``*_ref``), which
 computes the full masked Grams as the reference's packed path does. Given
@@ -25,7 +28,8 @@ import torch
 from nmfx_torch.solvers.mu import _mu_update
 
 #: kernel launches per wrapper, incremented only where a kernel launches
-LAUNCHES = {"fused_h_update": 0, "fused_w_update": 0}
+LAUNCHES = {"fused_h_update": 0, "fused_w_update": 0,
+            "fused_block_iterations": 0}
 
 _TILE = 64  # output tile edge of the CUDA kernels
 _BK = 16  # their contraction depth per stage
@@ -149,3 +153,114 @@ def fused_w_update(a, wp, hp, gh, *, k: int, eps: float = 1e-9,
     _raise_on("fused_w_update", rc)
     LAUNCHES["fused_w_update"] += 1
     return out
+
+
+def fused_block_iterations_ref(a, wp, hp, frozen_cols, *, k: int,
+                               iters: int = 2, eps: float = 1e-9,
+                               zero_threshold: float = 0.0,
+                               check_block: int = 1, budget_cols=None):
+    """Plain version of :func:`fused_block_iterations`: the same masks,
+    fences, stats and snapshots, with full masked Grams."""
+    if check_block > 1 and budget_cols is None:
+        raise ValueError("check_block > 1 needs budget_cols (each lane's "
+                         "remaining iteration allowance at launch entry)")
+    rk, n = hp.shape
+    bd = _lane_mask(rk, k, a.device)
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    frozen = frozen_cols.reshape(rk) > 0
+    budget = None if check_block == 1 else budget_cols.reshape(rk)
+    f32 = dict(dtype=torch.float32, device=a.device)
+    wd = torch.zeros((check_block, rk), **f32)
+    wm = torch.zeros((check_block, rk), **f32)
+    hd = torch.zeros((check_block * rk, 1), **f32)
+    hm = torch.zeros((check_block * rk, 1), **f32)
+    h_checks = (torch.zeros((check_block, rk, n), **f32)
+                if check_block > 1 else None)
+    w, h = wp, hp
+    for it in range(iters * check_block):
+        fr = frozen if budget is None else frozen | (budget <= it)
+        gram = torch.where(bd, w.T @ w, zero)
+        hn = _mu_update(h, w.T @ a, gram @ h, eps, zero_threshold)
+        hn = torch.where(fr[:, None], h, hn)
+        gh = torch.where(bd, hn @ hn.T, zero)
+        wn = _mu_update(w, a @ hn.T, w @ gh, eps, zero_threshold)
+        wn = torch.where(fr[None, :], w, wn)
+        if (it + 1) % iters == 0:
+            b = (it + 1) // iters - 1
+            rows = slice(b * rk, (b + 1) * rk)
+            hd[rows, 0] = (hn - h).abs().amax(dim=1)
+            hm[rows, 0] = h.abs().amax(dim=1)
+            wd[b] = (wn - w).abs().amax(dim=0)
+            wm[b] = w.abs().amax(dim=0)
+            if h_checks is not None:
+                h_checks[b] = hn
+        w, h = wn, hn
+    out = (w, h, wd, wm, hd, hm)
+    return out if h_checks is None else out + (h_checks,)
+
+
+def fused_block_iterations(a, wp, hp, frozen_cols, *, k: int,
+                           iters: int = 2, eps: float = 1e-9,
+                           zero_threshold: float = 0.0,
+                           check_block: int = 1, budget_cols=None):
+    """``iters · check_block`` full MU iterations of the packed pool
+    (A (m, n), Wp (m, rk), Hp (rk, n), float32, contiguous, one CUDA
+    device; the uniform pool's lanes are k consecutive columns).
+
+    ``frozen_cols`` (1, rk) f32: > 0 marks a frozen lane whose columns
+    must not change. ``check_block > 1`` needs ``budget_cols`` (1, rk)
+    f32, each lane's remaining iteration allowance at entry: a lane
+    freezes once the call-local iteration index reaches it. Returns
+    ``(wp, hp, wdiff, wmax, hdiff, hmax)`` — per-column TolX
+    ingredients at every check boundary, (check_block, rk) for W and
+    (check_block·rk, 1) for H — plus ``h_checks`` (check_block, rk, n),
+    the H snapshot at each boundary, when ``check_block > 1``.
+    """
+    if check_block > 1 and budget_cols is None:
+        raise ValueError("check_block > 1 needs budget_cols (each lane's "
+                         "remaining iteration allowance at launch entry)")
+    if a.device.type == "cpu":
+        return fused_block_iterations_ref(
+            a, wp, hp, frozen_cols, k=k, iters=iters, eps=eps,
+            zero_threshold=zero_threshold, check_block=check_block,
+            budget_cols=budget_cols)
+    m, n = a.shape
+    rk = wp.shape[1]
+    operands = {"a": (a, (m, n)), "wp": (wp, (m, rk)), "hp": (hp, (rk, n)),
+             "frozen_cols": (frozen_cols, (1, rk))}
+    if check_block > 1:
+        operands["budget_cols"] = (budget_cols, (1, rk))
+    _check_operands("fused_block_iterations", k, **operands)
+    from nmfx_torch.ops import _build
+
+    lib = _build.load("block_mu")
+    split = lib.nmfx_block_split_rows()
+    splits = -(-m // split)
+    mtiles = -(-m // _TILE)
+    nck = check_block
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=a.device)
+
+    wp_out, hp_out = empty(m, rk), empty(rk, n)
+    wd, wm = empty(nck, rk), empty(nck, rk)
+    hd, hm = empty(nck * rk, 1), empty(nck * rk, 1)
+    h_checks = empty(nck, rk, n) if nck > 1 else None
+    work = (empty(m, rk), empty(rk, n), empty(splits, rk, n),
+            empty(splits, rk // k, k, k), empty(rk // k, k, k),
+            empty(mtiles, rk), empty(mtiles, rk))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    rc = lib.nmfx_block_iterations(
+        a.data_ptr(), wp.data_ptr(), hp.data_ptr(), frozen_cols.data_ptr(),
+        ptr(budget_cols if nck > 1 else None), wp_out.data_ptr(),
+        hp_out.data_ptr(), wd.data_ptr(), wm.data_ptr(), hd.data_ptr(),
+        hm.data_ptr(), ptr(h_checks), *(t.data_ptr() for t in work),
+        m, n, rk, k, iters, nck, eps, zero_threshold, stream)
+    _raise_on("fused_block_iterations", rc)
+    LAUNCHES["fused_block_iterations"] += 1
+    out = (wp_out, hp_out, wd, wm, hd, hm)
+    return out if h_checks is None else out + (h_checks,)

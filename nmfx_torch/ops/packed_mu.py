@@ -134,17 +134,27 @@ def flip_budget(class_flip_tol: float, n: int) -> int:
     return int(class_flip_tol * n + 1e-9)
 
 
-def batch_convergence(cfg: SolverConfig, it: int, *, new_classes, delta,
+def batch_convergence(cfg: SolverConfig, it, *, new_classes, delta,
                       n_glob: int, classes, stable, done, done_iter,
-                      stop_reason, nonfinite=None):
+                      stop_reason, flip_floor=None, nonfinite=None):
     """(B,)-batched convergence bookkeeping: the noise-tolerant
     class-stability snapshot rule plus the TolX test, with per-lane
-    freeze flags (reference ``batch_convergence``). ``it`` is the host
-    clock; off a check boundary nothing changes. A ``nonfinite`` lane
-    stops FIRST with NUMERIC_FAULT. Returns the five updated arrays."""
-    if not (it > 1 and it % cfg.check_every == 0):
+    freeze flags (reference ``batch_convergence``).
+
+    ``it`` is either the shared host clock (an int: off a check boundary
+    nothing changes, and no device work is issued) or a (B,) int tensor
+    of per-lane iteration counts (the slot scheduler's, whose lanes are
+    at different iterations): then the check gate
+    ``(it > 1) & (it % check_every == 0)`` is taken per lane.
+    ``flip_floor`` overrides the ``floor(class_flip_tol · n_glob)`` flip
+    budget. A ``nonfinite`` lane stops FIRST with NUMERIC_FAULT. Returns
+    the five updated arrays."""
+    if torch.is_tensor(it):
+        active = ((it > 1) & (it % cfg.check_every == 0)) & ~done
+    elif it > 1 and it % cfg.check_every == 0:
+        active = ~done
+    else:
         return classes, stable, done, done_iter, stop_reason
-    active = ~done
     done_in = done
     reason = stop_reason
 
@@ -155,7 +165,8 @@ def batch_convergence(cfg: SolverConfig, it: int, *, new_classes, delta,
         reason = torch.where(bad, int(StopReason.NUMERIC_FAULT), reason)
 
     if cfg.use_class_stop:
-        flip_tol = flip_budget(cfg.class_flip_tol, n_glob)
+        flip_tol = (flip_budget(cfg.class_flip_tol, n_glob)
+                    if flip_floor is None else flip_floor)
         mism = (new_classes != classes).sum(dim=1, dtype=torch.int32)
         same = mism <= flip_tol
         stable = torch.where(active, torch.where(same, stable + 1, 0),

@@ -1,0 +1,460 @@
+"""Slot-scheduled whole-grid MU (counterpart of ``nmfx/ops/sched_mu.py``
+for mu, with the uniform pool).
+
+All J (k, restart) jobs of a sweep are queued at once and solved through
+a fixed pool of S slots (default 48): each slot hosts one job, padded to
+the largest rank with exact zeros; when a job converges its factors
+scatter into per-job result buffers and the slot reloads the next queued
+job. Jobs are dispatched in the order given (the sweep passes them
+rank-descending: longest expected first). Once the queue drains, the
+straggler-tail cascade compacts the survivors into narrower pools.
+
+Two layouts, as in the reference:
+
+* ``backend="pallas"``: packed columns, Wp (m_pad, S·k_max) / Hp
+  (S·k_max, n), iterated by the hand-written block kernel
+  (``fused_block_iterations``): one launch per trip runs ``check_block``
+  check blocks of ``check_every`` iterations and exports each boundary's
+  TolX stats and H snapshot, against which the trip replays every check.
+  When ``max_iter`` is not a multiple of ``check_every`` the block route
+  gives way to the per-iteration kernel pair (``fused_h_update`` /
+  ``fused_w_update``) with a per-step iteration fence.
+* ``backend="auto"``/``"packed"``: dense (S, m, k_max) / (S, k_max, n)
+  lanes iterated by ``grid_mu.mu_block``'s batched products.
+
+The reference's ``lax.while_loop``/``lax.cond`` become a host loop. The
+pool's state lives on the device; the host keeps the queue position and
+mirrors of the active and pending slot counts. Each trip ends with ONE
+device→host read of those two counts, from which the host takes both the
+harvest decision and the stage condition (the harvest claims a count of
+queued jobs the host can compute), and it counts the reads in
+``host_syncs``.
+
+Not ported: the ragged class-blocked pool, the bf16 pool factors,
+``alias_io``, the tile-shape override and autotuner, meshes
+(``varying_axes``) and the fault-injection hooks
+(``ExperimentalConfig`` refuses the knobs). The reference's slot clamp
+(``_pallas_slot_clamp``) fits a TPU core's VMEM; here the factors stay in
+device memory, so the pool is bounded by device memory only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from nmfx_torch.config import SolverConfig, check_ported
+from nmfx_torch.device import resolve_device, to_device
+from nmfx_torch.ops.fused_mu import (fused_block_iterations, fused_h_update,
+                                     fused_w_update)
+from nmfx_torch.ops.grid_mu import BLOCKS, conv_cfg, make_block
+from nmfx_torch.ops.packed_mu import (batch_convergence, bd_select,
+                                      block_diag_mask, residual_norms_direct)
+from nmfx_torch.solvers.base import StopReason
+
+#: measured on the reference's hardware as the best single tail stage
+#: (a narrower pool for the stragglers once the queue drains)
+_AUTO_TAIL_SLOTS = (8,)
+
+
+class SchedMUResult(NamedTuple):
+    w: torch.Tensor  # (J, m, k_max) final factors per job, zero-padded
+    h: torch.Tensor  # (J, k_max, n)
+    iterations: torch.Tensor  # (J,) i32
+    dnorm: torch.Tensor  # (J,) final RMS residual (direct form)
+    stop_reason: torch.Tensor  # (J,) i32 StopReason
+    #: one entry per cascade stage: its pool width, the trips run at that
+    #: width, and the live slots summed over those trips (occupancy =
+    #: lanes / (trips · width))
+    pool_widths: tuple
+    pool_trips: tuple
+    pool_lanes: tuple
+    #: device→host reads of the loop state (one per trip)
+    host_syncs: int = 0
+
+
+def _pallas_block_geometry(m: int) -> tuple[int, int, int]:
+    """(tiles, block_m, m_pad): ~512-row tiles, 16-row aligned, as the
+    reference pads A and Wp on its block-kernel route."""
+    tiles = -(-m // 512)
+    block_m = -(-(-(-m // tiles)) // 16) * 16
+    return tiles, block_m, tiles * block_m
+
+
+def _resolve_tail(tail_slots, s: int) -> tuple[int, ...]:
+    """The tail cascade as a strictly decreasing tuple of pool widths
+    (() = off). Accepts None/0, "auto", an int, or a sequence of ints;
+    widths at or above the current pool (or out of order) are dropped."""
+    if tail_slots in (None, 0):
+        return ()
+    if tail_slots == "auto":
+        tail_slots = _AUTO_TAIL_SLOTS
+    if isinstance(tail_slots, int):
+        tail_slots = (tail_slots,)
+    widths = []
+    prev = s
+    for t in tail_slots:
+        t = int(t)
+        if t < 1:
+            raise ValueError(f"tail widths must be >= 1, got {t}")
+        if t < prev:
+            widths.append(t)
+            prev = t
+    return tuple(widths)
+
+
+@dataclasses.dataclass
+class _Pool:
+    """The slot pool: device tensors, plus host mirrors of the queue
+    position and of the active and pending slot counts."""
+
+    wp: torch.Tensor
+    hp: torch.Tensor
+    slot_iter: torch.Tensor  # (S,) i32 iterations done by the slot's job
+    classes: torch.Tensor  # (S, n) i32
+    stable: torch.Tensor  # (S,) i32
+    slot_job: torch.Tensor  # (S,) i64 job in each slot (J = none)
+    active: torch.Tensor  # (S,) bool slot holds a live job
+    pending: torch.Tensor  # (S,) bool finished, factors not harvested
+    queue: int  # next job to load
+    n_active: int
+    n_pending: int
+
+
+class _Layout:
+    """The layout hooks of one of the two pool layouts."""
+
+    def init_slots(self, s): ...
+    def labels(self, hp): ...
+    def nonfinite(self, wp, hp): ...
+    def dense_views(self, wp, hp): ...
+    def reload(self, pool, slots, first_job, count): ...
+    def gather(self, wp, hp, order): ...
+
+
+def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
+             tail_slots="auto", job_ks=None, flip_floor=None, *,
+             device=None) -> SchedMUResult:
+    """Solve J zero-padded jobs through an S-slot scheduler.
+
+    ``w0``/``h0``: (J, m, k_max) / (J, k_max, n) initial factors (numpy
+    or tensors), in dispatch order; results come back in the same job
+    order. Each job's trajectory is its own: only the schedule depends on
+    ``slots`` and ``tail_slots``. ``job_ks`` (per-job true ranks) is
+    checked for length only (mu's padding is exact without it).
+    ``flip_floor`` overrides the class-stability flip budget. ``device``:
+    None = CUDA (raising without one; TF32 off there), or "cpu", where
+    the kernels' plain versions run.
+    """
+    check_ported(cfg)
+    if cfg.algorithm not in BLOCKS:
+        raise ValueError(
+            f"the slot scheduler implements {tuple(BLOCKS)}, got "
+            f"algorithm={cfg.algorithm!r}")
+    cfg = conv_cfg(cfg)
+    dev = resolve_device(device)
+    f32 = torch.float32
+    a, w0, h0 = (to_device(x, f32, dev) for x in (a, w0, h0))
+    j, m, k_max = w0.shape
+    n = h0.shape[2]
+    if job_ks is not None and len(job_ks) != j:
+        raise ValueError(
+            f"job_ks has {len(job_ks)} entries but w0/h0 carry {j} jobs "
+            "— per-job true ranks must match the job batch exactly")
+    s = min(slots, j)
+    ce = cfg.check_every
+    use_pallas = cfg.backend == "pallas"
+    # the block-kernel route: one launch per trip (the only route where
+    # check_block batches inside the kernel)
+    blk_route = use_pallas and cfg.max_iter % ce == 0
+    ncheck = cfg.check_block
+    if ncheck == "auto":
+        ncheck = 4 if blk_route else 1
+    ncheck = int(ncheck)
+    multi = blk_route and ncheck > 1
+    evict_batch = cfg.experimental.evict_batch
+    sqrteps = torch.sqrt(torch.tensor(torch.finfo(f32).eps, device=dev))
+    kern_kw = dict(eps=cfg.div_eps, zero_threshold=cfg.zero_threshold)
+
+    def ratio(diff, ref):
+        return diff / (sqrteps + ref)
+
+    def lane_max(x):  # (·rk) stats → per-slot max over the slot's k_max
+        return x.reshape(-1, k_max).amax(dim=1)
+
+    def fence(active, slot_iter, step=0):
+        return ~active | (slot_iter + step >= cfg.max_iter)
+
+    def stepped_block(step_fn, delta_fn):
+        """check_every single iterations with the per-step max_iter
+        fence; the TolX delta compares the last two iterates."""
+        def do_block(wp, hp, active, slot_iter):
+            for i in range(ce):
+                if i == ce - 1:
+                    wprev, hprev = wp, hp
+                wp, hp = step_fn(wp, hp, fence(active, slot_iter, i))
+            return wp, hp, delta_fn(wp, hp, wprev, hprev)
+
+        return do_block
+
+    if use_pallas:
+        _, _, m_pad = _pallas_block_geometry(m)
+        a_loop = torch.nn.functional.pad(a, (0, 0, 0, m_pad - m))
+        w0 = torch.nn.functional.pad(w0, (0, 0, 0, m_pad - m))
+
+        def fcols(active, slot_iter):
+            return fence(active, slot_iter).repeat_interleave(k_max).to(
+                f32)[None, :]
+
+        def do_block(wp, hp, active, slot_iter):
+            # one launch: slot_iter is a multiple of check_every here, so
+            # a slot crosses the cap only at a block boundary
+            wp, hp, wd, wm, hd, hm = fused_block_iterations(
+                a_loop, wp, hp, fcols(active, slot_iter), k=k_max, iters=ce,
+                **kern_kw)
+            return wp, hp, torch.maximum(ratio(lane_max(wd), lane_max(wm)),
+                                         ratio(lane_max(hd), lane_max(hm)))
+
+        def do_multi(wp, hp, active, slot_iter):
+            """ncheck check blocks in one launch, with the per-lane
+            max_iter fence in-kernel and each boundary's labels and TolX
+            delta from the exported snapshots and stats."""
+            rk = wp.shape[1]
+            budget = (cfg.max_iter - slot_iter).clamp(min=0)
+            wp, hp, wd, wm, hd, hm, hck = fused_block_iterations(
+                a_loop, wp, hp, fcols(active, slot_iter), k=k_max, iters=ce,
+                check_block=ncheck,
+                budget_cols=budget.repeat_interleave(k_max).to(f32)[None, :],
+                **kern_kw)
+            deltas = [torch.maximum(
+                ratio(lane_max(wd[b]), lane_max(wm[b])),
+                ratio(lane_max(hd[b * rk:(b + 1) * rk]),
+                      lane_max(hm[b * rk:(b + 1) * rk])))
+                for b in range(ncheck)]
+            labels = torch.argmax(hck.reshape(ncheck, -1, k_max, n),
+                                  dim=2).to(torch.int32)
+            return wp, hp, deltas, labels
+
+        def one_step(wp, hp, frozen):
+            k = k_max
+            fcol = frozen.repeat_interleave(k)
+            hn = fused_h_update(a_loop, wp, hp, k=k, **kern_kw)
+            hn = torch.where(fcol[:, None], hp, hn)
+            bd = block_diag_mask(hp.shape[0] // k, k, dev)
+            gh = bd_select(hn @ hn.T, bd)  # small; a plain product
+            wn = fused_w_update(a_loop, wp, hn, gh, k=k, **kern_kw)
+            return torch.where(fcol[None, :], wp, wn), hn
+
+        def packed_deltas(wp, hp, wprev, hprev):
+            def _d(cur, prev, shape, dims):
+                return ratio((cur - prev).abs().reshape(shape).amax(dim=dims),
+                             prev.abs().reshape(shape).amax(dim=dims))
+
+            width = wp.shape[1] // k_max
+            return torch.maximum(_d(wp, wprev, (m_pad, width, k_max), (0, 2)),
+                                 _d(hp, hprev, (width, k_max, n), (1, 2)))
+
+        if not blk_route:
+            do_block = stepped_block(one_step, packed_deltas)
+
+        class Layout(_Layout):
+            def init_slots(self, s):
+                return (w0[:s].permute(1, 0, 2).reshape(m_pad, -1).clone(),
+                        h0[:s].reshape(-1, n).clone())
+
+            def labels(self, hp):
+                return torch.argmax(hp.reshape(-1, k_max, n), dim=1).to(
+                    torch.int32)
+
+            def nonfinite(self, wp, hp):
+                return ~(torch.isfinite(wp.reshape(m_pad, -1, k_max)).all(
+                    dim=2).all(dim=0)
+                    & torch.isfinite(hp.reshape(-1, k_max, n)).all(
+                        dim=2).all(dim=1))
+
+            def dense_views(self, wp, hp):
+                return (wp.reshape(m_pad, -1, k_max).permute(1, 0, 2)[:, :m],
+                        hp.reshape(-1, k_max, n))
+
+            def reload(self, pool, slot_ids, first, count):
+                w3 = pool.wp.view(m_pad, -1, k_max)
+                w3[:, slot_ids] = w0[first:first + count].permute(1, 0, 2)
+                pool.hp.view(-1, k_max, n)[slot_ids] = h0[first:first + count]
+
+            def gather(self, wp, hp, order):
+                return (wp.reshape(m_pad, -1, k_max)[:, order].reshape(
+                    m_pad, -1).contiguous(),
+                    hp.reshape(-1, k_max, n)[order].reshape(-1, n))
+    else:
+        block = make_block(cfg, a)
+
+        def dense_deltas(wp, hp, wprev, hprev):
+            def _d(cur, prev):
+                return ratio((cur - prev).abs().amax(dim=(1, 2)),
+                             prev.abs().amax(dim=(1, 2)))
+
+            return torch.maximum(_d(wp, wprev), _d(hp, hprev))
+
+        do_block = stepped_block(
+            lambda wp, hp, frozen: block(a, wp, hp, frozen, cfg),
+            dense_deltas)
+
+        class Layout(_Layout):
+            def init_slots(self, s):
+                return w0[:s].clone(), h0[:s].clone()
+
+            def labels(self, hp):
+                return torch.argmax(hp, dim=1).to(torch.int32)
+
+            def nonfinite(self, wp, hp):
+                return ~(torch.isfinite(wp).all(dim=2).all(dim=1)
+                         & torch.isfinite(hp).all(dim=2).all(dim=1))
+
+            def dense_views(self, wp, hp):
+                return wp, hp
+
+            def reload(self, pool, slot_ids, first, count):
+                pool.wp[slot_ids] = w0[first:first + count]
+                pool.hp[slot_ids] = h0[first:first + count]
+
+            def gather(self, wp, hp, order):
+                return wp[order], hp[order]
+
+    layout = Layout()
+    i32 = dict(dtype=torch.int32, device=dev)
+    out_w = torch.zeros((j, m, k_max), dtype=f32, device=dev)
+    out_h = torch.zeros((j, k_max, n), dtype=f32, device=dev)
+    # row j is the drop target of the per-check outcome scatters
+    out_iters = torch.zeros((j + 1,), **i32)
+    out_stop = torch.full((j + 1,), int(StopReason.MAX_ITER), **i32)
+    drop = torch.tensor(j, dtype=torch.long, device=dev)
+
+    def apply_check(pool: _Pool, wp, hp, delta, new_labels) -> None:
+        """ONE convergence check's bookkeeping: class stability, TolX,
+        the max_iter fence and the per-job outcome scatters. On the
+        multi-check launch every check sees the launch-final factors (the
+        reference's drift class); labels and deltas are the boundary
+        exports."""
+        it_new = torch.clamp(pool.slot_iter + ce, max=cfg.max_iter)
+        classes, stable, conv, _, reason = batch_convergence(
+            cfg, it_new, new_classes=new_labels,
+            delta=delta if cfg.use_tol_checks else None, n_glob=n,
+            classes=pool.classes, stable=pool.stable, done=~pool.active,
+            done_iter=torch.zeros_like(pool.slot_iter),
+            stop_reason=torch.full_like(pool.slot_iter,
+                                        int(StopReason.MAX_ITER)),
+            flip_floor=flip_floor,
+            nonfinite=(layout.nonfinite(wp, hp) if cfg.nonfinite_guard
+                       else None))
+        finished = pool.active & (conv | (it_new >= cfg.max_iter))
+        idx = torch.where(finished, pool.slot_job, drop)
+        out_iters[idx] = it_new
+        out_stop[idx] = reason
+        pool.wp, pool.hp = wp, hp
+        # a pending slot holds its counter at 0 until harvest, so its
+        # successor starts at iteration 0 however long the harvest waits
+        pool.slot_iter = torch.where(
+            finished, 0, torch.where(pool.active, it_new, pool.slot_iter))
+        pool.classes = torch.where(finished[:, None], -1, classes)
+        pool.stable = torch.where(finished, 0, stable)
+        pool.active = pool.active & ~finished
+        pool.pending = pool.pending | finished
+
+    def harvest(pool: _Pool) -> None:
+        """Scatter the pending slots' factors into the result buffers and
+        reload queued jobs into the first of them (the reference's
+        prefix-sum claim, in slot order)."""
+        order = torch.argsort((~pool.pending).to(torch.int8), stable=True)
+        order = order[:pool.n_pending]  # the pending slots, in slot order
+        wdv, hdv = layout.dense_views(pool.wp, pool.hp)
+        jobs = pool.slot_job[order]
+        out_w.index_copy_(0, jobs, wdv[order])
+        out_h.index_copy_(0, jobs, hdv[order])
+        count = min(pool.n_pending, j - pool.queue)
+        slot_job = pool.slot_job.clone()
+        slot_job[order] = j
+        if count:
+            loads = order[:count]
+            layout.reload(pool, loads, pool.queue, count)
+            slot_job[loads] = torch.arange(pool.queue, pool.queue + count,
+                                           device=dev)
+            pool.active = pool.active.clone()
+            pool.active[loads] = True
+        pool.slot_job = slot_job
+        pool.pending = torch.zeros_like(pool.pending)
+        pool.queue += count
+        pool.n_active += count
+        pool.n_pending = 0
+
+    stats = {"trips": 0, "lanes": 0, "syncs": 0}
+
+    def trip(pool: _Pool) -> None:
+        """One trip: ncheck check blocks, their checks, one read of the
+        slot counts, then the harvest decision (the evict_batch rule)."""
+        stats["lanes"] += pool.n_active
+        if multi:
+            wp, hp, deltas, labels = do_multi(pool.wp, pool.hp, pool.active,
+                                              pool.slot_iter)
+            for b in range(ncheck):
+                apply_check(pool, wp, hp, deltas[b], labels[b])
+        else:
+            for _ in range(ncheck):
+                wp, hp, delta = do_block(pool.wp, pool.hp, pool.active,
+                                         pool.slot_iter)
+                apply_check(pool, wp, hp, delta, layout.labels(hp))
+        stats["trips"] += 1
+        counts = torch.stack([pool.active.sum(), pool.pending.sum()])
+        pool.n_active, pool.n_pending = (int(c) for c in counts.tolist())
+        stats["syncs"] += 1
+        live = pool.n_active + pool.n_pending
+        if pool.n_pending and pool.n_pending >= min(evict_batch, live):
+            harvest(pool)
+
+    def compact(pool: _Pool, width: int) -> _Pool:
+        order = torch.argsort((~pool.active).to(torch.int8),
+                              stable=True)[:width]
+        wp, hp = layout.gather(pool.wp, pool.hp, order)
+        return dataclasses.replace(
+            pool, wp=wp, hp=hp, slot_iter=pool.slot_iter[order],
+            classes=pool.classes[order], stable=pool.stable[order],
+            slot_job=pool.slot_job[order], active=pool.active[order],
+            pending=pool.pending[order])
+
+    wp0, hp0 = layout.init_slots(s)
+    pool = _Pool(
+        wp=wp0, hp=hp0, slot_iter=torch.zeros((s,), **i32),
+        classes=torch.full((s, n), -1, **i32),
+        stable=torch.zeros((s,), **i32),
+        slot_job=torch.arange(s, dtype=torch.long, device=dev),
+        active=torch.ones((s,), dtype=torch.bool, device=dev),
+        pending=torch.zeros((s,), dtype=torch.bool, device=dev),
+        queue=s, n_active=s, n_pending=0)
+    widths = [s]
+    marks = []  # cumulative (trips, lanes) at each stage's end
+    for width in _resolve_tail(tail_slots, s):
+        while (pool.n_active or pool.n_pending) and (
+                pool.queue < j or pool.n_active + pool.n_pending > width):
+            trip(pool)
+        if pool.n_pending:
+            harvest(pool)
+        marks.append((stats["trips"], stats["lanes"]))
+        pool = compact(pool, width)
+        widths.append(width)
+    while pool.n_active:
+        trip(pool)
+    if pool.n_pending:
+        harvest(pool)
+    marks.append((stats["trips"], stats["lanes"]))
+    trips = np.diff([0] + [t for t, _ in marks])
+    lanes = np.diff([0] + [ln for _, ln in marks])
+    # exact final residuals, once, from the retained per-job factors
+    dnorm = residual_norms_direct(a, out_w, out_h)
+    return SchedMUResult(
+        w=out_w, h=out_h, iterations=out_iters[:j], dnorm=dnorm,
+        stop_reason=out_stop[:j], pool_widths=tuple(widths),
+        pool_trips=tuple(int(t) for t in trips),
+        pool_lanes=tuple(int(x) for x in lanes),
+        host_syncs=stats["syncs"])

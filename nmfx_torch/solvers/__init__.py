@@ -1,1 +1,6 @@
-"""Solver vocabulary and the mu epilogue."""
+"""Single-restart solvers (counterpart of ``nmfx/solvers``); the port
+has mu."""
+
+from nmfx_torch.solvers import mu
+
+SOLVERS = {"mu": mu}

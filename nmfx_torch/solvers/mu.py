@@ -1,18 +1,24 @@
-"""Multiplicative-update epilogue (counterpart of ``nmfx/solvers/mu.py``'s
-``_mu_update``; reference ``libnmf/nmf_mu.c:174-216``).
+"""Multiplicative-update NMF (counterpart of ``nmfx/solvers/mu.py``;
+reference ``libnmf/nmf_mu.c:174-216``).
 
-    X ← X ∘ numer / (denom + ε), then the exact-zero short-circuit (an
-    element whose previous value or numerator is exactly 0 stays 0), then
-    the zero-threshold clamp.
+Update rule per iteration:
 
-This is the plain epilogue the hand-written kernels' epilogue must equal
-(``nmfx_torch/csrc/fused_mu.cu``, ``mu_epilogue``).
+    H ← H ∘ (WᵀA) / (WᵀW·H + ε),  then the zero-threshold clamp
+    W ← W ∘ (AHᵀ) / (W·HHᵀ + ε)   (using the new H), then the clamp
+
+with the exact-zero short-circuit: an element whose previous value or
+numerator is exactly 0 stays 0. ``_mu_update`` is the plain epilogue the
+hand-written kernels' epilogue must equal (``nmfx_torch/csrc``,
+``mu_epilogue``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from nmfx_torch.solvers import base
 from nmfx_torch.solvers.base import clamp
 
 
@@ -23,3 +29,20 @@ def _mu_update(prev: torch.Tensor, numer: torch.Tensor,
     ratio = torch.where((prev == 0) | (numer == 0),
                         torch.zeros_like(ratio), ratio)
     return clamp(ratio, zero_threshold)
+
+
+def init_aux(a, w0, h0, cfg):
+    return ()
+
+
+def step(a, state: base.State, cfg, check: bool = True) -> base.State:
+    w0, h0 = state.w, state.h
+    h = _mu_update(h0, w0.T @ a, (w0.T @ w0) @ h0, cfg.div_eps,
+                   cfg.zero_threshold)
+    w = _mu_update(w0, a @ h.T, w0 @ (h @ h.T), cfg.div_eps,
+                   cfg.zero_threshold)
+    state = dataclasses.replace(state, w=w, h=h)
+    if not check:
+        return state
+    return base.check_convergence(state, cfg, use_class=cfg.use_class_stop,
+                                  use_tolx=True)

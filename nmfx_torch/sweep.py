@@ -1,12 +1,20 @@
-"""Per-rank restart sweep (counterpart of the unmeshed per-rank route of
+"""The (k × restart) sweep (counterpart of the unmeshed routes of
 ``nmfx/sweep.py``).
 
-For each rank k the sweep draws R initial factor pairs from the
-reference's key chain ``split(fold_in(key(seed), k), R)``, solves them as
-one restart-packed batch (``nmfx_torch.ops.packed_mu``), and reduces the
-batch to a consensus matrix on the device. Ranks run one after another.
-The whole-grid slot scheduler (the reference's default route), meshes,
-the registry and the executable cache are not ported yet.
+Every restart of rank k starts from the reference's key chain
+``split(fold_in(key(seed), k), R)``. Two routes, chosen as the reference
+chooses them:
+
+* whole grid (``grid_exec="auto"`` with more than one rank, or
+  ``"grid"``): every (k, restart) job goes through one slot-scheduled
+  solve (``nmfx_torch.ops.sched_mu``), dispatched rank-descending;
+* per rank (``"per_k"``, or a single rank): each rank's restarts are
+  solved as one restart-packed batch (``nmfx_torch.ops.packed_mu``),
+  ranks one after another.
+
+Either way each rank's batch reduces to a consensus matrix on the
+device. Meshes, the registry and the executable cache are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -17,12 +25,17 @@ import numpy as np
 import torch
 
 from nmfx_torch import random as _random
-from nmfx_torch.config import ConsensusConfig, InitConfig, SolverConfig
+from nmfx_torch.config import (ConsensusConfig, InitConfig, SolverConfig,
+                               check_ported)
 from nmfx_torch.consensus import labels_from_h, one_hot
 from nmfx_torch.device import resolve_device
 from nmfx_torch.init import restart_inits
 from nmfx_torch.ops.packed_mu import mu_packed, unpack_w
+from nmfx_torch.ops.sched_mu import mu_sched
 from nmfx_torch.solvers.base import StopReason
+
+#: backends that route each algorithm into the slot scheduler
+_GRID_EXEC_BACKENDS = {"mu": ("auto", "packed", "pallas")}
 
 
 class KSweepOutput(NamedTuple):
@@ -36,8 +49,14 @@ class KSweepOutput(NamedTuple):
     #: every restart's factors, retained only under ``keep_factors=True``
     all_w: "torch.Tensor | None" = None  # (restarts, m, k)
     all_h: "torch.Tensor | None" = None  # (restarts, k, n)
-    #: device→host reads of the solve's done flags (mu_packed)
+    #: device→host reads of the solve's loop state (mu_packed, or the
+    #: whole grid's mu_sched, whose count every rank carries)
     host_syncs: int = 0
+    #: the whole grid's pool diagnostics (``SchedMUResult.pool_*``),
+    #: carried by every rank; empty on the per-rank route
+    pool_widths: tuple = ()
+    pool_trips: tuple = ()
+    pool_lanes: tuple = ()
 
 
 def _quarantine_lanes(labels, dnorm, stops):
@@ -100,24 +119,98 @@ def sweep_one_k(a: torch.Tensor, key: np.ndarray, k: int, restarts: int,
     return fn(a, key)
 
 
+def grid_exec_ok(solver_cfg: SolverConfig) -> bool:
+    """Whether the whole-grid slot scheduler can run this configuration:
+    an algorithm with a dense-batched block under a backend that routes
+    it there (``_GRID_EXEC_BACKENDS``)."""
+    return solver_cfg.backend in _GRID_EXEC_BACKENDS.get(
+        solver_cfg.algorithm, ())
+
+
+def _build_grid_exec_sweep_fn(ks: tuple[int, ...], restarts: int,
+                              solver_cfg: SolverConfig,
+                              init_cfg: InitConfig, label_rule: str,
+                              keep_factors: bool = False, slots: int = 48,
+                              tail_slots="auto"):
+    """The whole-grid sweep as a function of (A on its device, the root
+    key): every (k, restart) job through one ``mu_sched`` solve, jobs
+    rank-descending (longest expected first), lanes rank-major and
+    zero-padded to the largest rank; per-rank labels, quarantine,
+    consensus and best restart from static slices of the per-job
+    results."""
+    ks = tuple(sorted(ks, reverse=True))  # LPT dispatch order
+    k_max = max(ks)
+
+    def impl(a: torch.Tensor, root_key: np.ndarray
+             ) -> dict[int, KSweepOutput]:
+        w0l, h0l = [], []
+        for k in ks:
+            keys = _random.split(_random.fold_in(root_key, k), restarts)
+            w0s, h0s = restart_inits(a, keys, k, init_cfg)
+            w0l.append(torch.nn.functional.pad(w0s, (0, k_max - k)))
+            h0l.append(torch.nn.functional.pad(h0s, (0, 0, 0, k_max - k)))
+        res = mu_sched(a, torch.cat(w0l), torch.cat(h0l), solver_cfg,
+                       slots=slots, tail_slots=tail_slots,
+                       job_ks=tuple(k for k in ks for _ in range(restarts)),
+                       device=a.device)
+        out: dict[int, KSweepOutput] = {}
+        for g, k in enumerate(ks):
+            sl = slice(g * restarts, (g + 1) * restarts)
+            hk = res.h[sl, :k, :]  # true rows only: right under both rules
+            wk = res.w[sl, :, :k]
+            labels = labels_from_h(hk, label_rule)
+            labels, masked, faulted = _quarantine_lanes(
+                labels, res.dnorm[sl], res.stop_reason[sl])
+            cons = _quarantined_consensus(labels, k, restarts, faulted)
+            best = torch.argmin(masked)
+            extra = (wk, hk) if keep_factors else (None, None)
+            out[k] = KSweepOutput(cons, res.iterations[sl], res.dnorm[sl],
+                                  res.stop_reason[sl], labels, wk[best],
+                                  hk[best], *extra,
+                                  host_syncs=res.host_syncs,
+                                  pool_widths=res.pool_widths,
+                                  pool_trips=res.pool_trips,
+                                  pool_lanes=res.pool_lanes)
+        return out
+
+    return impl
+
+
 def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
           solver_cfg: SolverConfig = SolverConfig(),
           init_cfg: InitConfig = InitConfig(), *, device=None,
           on_rank=None) -> dict[int, KSweepOutput]:
-    """The (k × restart) grid, one rank at a time.
+    """The (k × restart) grid: one slot-scheduled solve of every rank, or
+    one rank at a time (see the module docstring for the routing).
 
     ``device``: None means CUDA (raising if there is none; TF32 off).
     A moves to the device once. ``on_rank(k, out)`` runs after each rank
-    (its outputs are device tensors, complete up to the last host read).
+    (after the whole solve on the grid route); its outputs are device
+    tensors, complete up to the last host read.
     """
-    if cfg.grid_exec != "per_k":
-        raise NotImplementedError(
-            f"grid_exec={cfg.grid_exec!r} is not ported yet: the "
-            "whole-grid slot scheduler is ROADMAP 'Modules to port' item "
-            "7; pass grid_exec='per_k'")
+    eligible = grid_exec_ok(solver_cfg)
+    if cfg.grid_exec == "grid" and not eligible:
+        raise ValueError(
+            "grid_exec='grid' needs an algorithm/backend pair that routes "
+            "into the slot scheduler — mu with backend 'auto', 'packed' or "
+            f"'pallas'; got algorithm={solver_cfg.algorithm!r}, "
+            f"backend={solver_cfg.backend!r} (use grid_exec='auto' to "
+            "fall back per configuration)")
+    check_ported(solver_cfg)
+    use_grid = eligible and (cfg.grid_exec == "grid"
+                             or (cfg.grid_exec == "auto" and len(cfg.ks) > 1))
     dev = resolve_device(device)
     a_dev = torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
     root = _random.key(cfg.seed)
+    if use_grid:
+        fn = _build_grid_exec_sweep_fn(
+            cfg.ks, cfg.restarts, solver_cfg, init_cfg, cfg.label_rule,
+            cfg.keep_factors, cfg.grid_slots, cfg.grid_tail_slots)
+        solved = fn(a_dev, root)
+        for k in cfg.ks:
+            if on_rank is not None:
+                on_rank(k, solved[k])
+        return {k: solved[k] for k in cfg.ks}
     out: dict[int, KSweepOutput] = {}
     for k in cfg.ks:
         # fold in k itself, so a given (seed, k) always yields the same

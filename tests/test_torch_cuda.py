@@ -67,7 +67,8 @@ def test_kernels_match_plain_versions(card, case):
     if zeros:
         assert torch.equal(h == 0, want_h == 0)
         assert torch.equal(w == 0, want_w == 0)
-    assert fused_mu.LAUNCHES == {"fused_h_update": 1, "fused_w_update": 1}
+    assert fused_mu.LAUNCHES == {"fused_h_update": 1, "fused_w_update": 1,
+                                 "fused_block_iterations": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
@@ -97,3 +98,56 @@ def test_packed_solve_on_card_matches_cpu(card):
     assert int(got.stop_reason[1]) == int(StopReason.NUMERIC_FAULT)
     torch.testing.assert_close(got.hp.cpu(), want.hp, rtol=1e-3, atol=1e-5)
     assert fused_mu.LAUNCHES["fused_h_update"] == int(got.iterations.max())
+
+
+@pytest.mark.parametrize("check_block", [1, 4])
+def test_block_kernel_matches_plain_version(card, check_block):
+    """A ragged pool (m, n and rk off every tile edge) with a frozen lane,
+    a budget that runs out mid-launch and a zero-padded column."""
+    m, n, slots, k = 203, 37, 5, 3
+    a, wp, hp = _operands(m, n, slots, k, False, card)
+    wp[:, k - 1] = 0.0
+    hp[k - 1] = 0.0
+    frozen = torch.zeros((1, slots * k), device=card)
+    frozen[0, k:2 * k] = 1.0
+    budget = torch.full((1, slots * k), 100.0, device=card)
+    budget[0, 2 * k:3 * k] = 3.0
+    kw = dict(k=k, iters=2, check_block=check_block,
+              budget_cols=budget if check_block > 1 else None)
+    fused_mu.reset_launch_counts()
+    got = fused_mu.fused_block_iterations(a, wp, hp, frozen, **kw)
+    want = fused_mu.fused_block_iterations_ref(a, wp, hp, frozen, **kw)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == (7 if check_block > 1 else 6)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+        assert torch.equal(g == 0, w == 0)
+    assert torch.equal(got[0][:, k:2 * k], wp[:, k:2 * k])
+    assert torch.equal(got[1][k:2 * k], hp[k:2 * k])
+    assert fused_mu.LAUNCHES["fused_block_iterations"] == 1
+
+
+def test_whole_grid_on_card_matches_cpu(card):
+    """The pallas slot scheduler on the block kernel against its plain
+    versions on the CPU: the same iterations, stop reasons and labels."""
+    from nmfx_torch.datasets import two_group_matrix
+    from nmfx_torch.ops.sched_mu import mu_sched
+
+    rng = np.random.default_rng(4)
+    a = two_group_matrix(n_genes=200, n_per_group=12, seed=3)
+    k_max, ks = 3, (3, 3, 3, 2, 2, 2)
+    w0 = rng.uniform(0.0, 1.0, (len(ks), 200, k_max)).astype(np.float32)
+    h0 = rng.uniform(0.0, 1.0, (len(ks), k_max, 24)).astype(np.float32)
+    for j, k in enumerate(ks):
+        w0[j, :, k:] = 0.0
+        h0[j, k:] = 0.0
+    cfg = SolverConfig(backend="pallas", max_iter=200)
+    fused_mu.reset_launch_counts()
+    got = mu_sched(a, w0, h0, cfg, slots=4, job_ks=ks, device=card)
+    want = mu_sched(a, w0, h0, cfg, slots=4, job_ks=ks, device="cpu")
+    assert torch.equal(got.iterations.cpu(), want.iterations)
+    assert torch.equal(got.stop_reason.cpu(), want.stop_reason)
+    assert torch.equal(got.h.cpu().argmax(dim=1), want.h.argmax(dim=1))
+    torch.testing.assert_close(got.h.cpu(), want.h, rtol=1e-3, atol=1e-5)
+    assert (got.h[3:, 2] == 0).all()  # the rank-2 jobs' padded row
+    assert fused_mu.LAUNCHES["fused_block_iterations"] == sum(got.pool_trips)

@@ -88,9 +88,16 @@ def test_cpu_wrappers_run_plain_versions_without_launching():
     fused_mu.reset_launch_counts()
     h = fused_mu.fused_h_update(a, wp, hp, k=2)
     w = fused_mu.fused_w_update(a, wp, h, gh, k=2)
+    frozen = torch.zeros((1, 6))
+    blk = fused_mu.fused_block_iterations(a, wp, hp, frozen, k=2)
     assert torch.equal(h, fused_mu.fused_h_update_ref(a, wp, hp, k=2))
     assert torch.equal(w, fused_mu.fused_w_update_ref(a, wp, h, gh, k=2))
-    assert fused_mu.LAUNCHES == {"fused_h_update": 0, "fused_w_update": 0}
+    for got, want in zip(blk, fused_mu.fused_block_iterations_ref(
+            a, wp, hp, frozen, k=2)):
+        assert torch.equal(got, want)
+    assert set(fused_mu.LAUNCHES) == {"fused_h_update", "fused_w_update",
+                                      "fused_block_iterations"}
+    assert all(count == 0 for count in fused_mu.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("m,n,rk", [(5000, 500, 500), (5000, 500, 100),

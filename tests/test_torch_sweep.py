@@ -102,8 +102,9 @@ def test_solver_config_round_trips_from_reference_dict():
                                    class_flip_tol=0.1, check_block=3)):
         d = dataclasses.asdict(jcfg)
         cfg = solver_config_from_dict(d)
+        got = dataclasses.asdict(cfg)
         for f in dataclasses.fields(cfg):
-            assert getattr(cfg, f.name) == d[f.name], f.name
+            assert got[f.name] == d[f.name], f.name
     with pytest.raises(NotImplementedError):
         solver_config_from_dict(dataclasses.asdict(
             nmfx.SolverConfig(screen=True, screen_keep=2)))
@@ -112,17 +113,21 @@ def test_solver_config_round_trips_from_reference_dict():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(grid_exec="auto"), "item 7"),
-    (dict(solver_cfg=nmfx_torch.SolverConfig()), "item 7"),
-    (dict(solver_cfg=nmfx_torch.SolverConfig(
+    # each a callable: an unported experimental knob raises when built
+    (lambda: dict(solver_cfg=nmfx_torch.SolverConfig(
+        backend="pallas",
+        experimental=nmfx_torch.ExperimentalConfig(ragged=True))), "item 7"),
+    (lambda: dict(solver_cfg=nmfx_torch.SolverConfig(
+        experimental=nmfx_torch.ExperimentalConfig(
+            factor_dtype="bfloat16"))), "item 7"),
+    (lambda: dict(solver_cfg=nmfx_torch.SolverConfig(
         backend="pallas", matmul_precision="bfloat16")), "item 1"),
 ])
 def test_unported_routes_name_their_roadmap_item(kw, item):
     a = two_group_matrix(40, 6, seed=0)
-    kw = {"grid_exec": "per_k",
-          "solver_cfg": nmfx_torch.SolverConfig(backend="pallas"), **kw}
     with pytest.raises(NotImplementedError, match=item):
-        nmfx_torch.nmfconsensus(a, ks=(2,), restarts=2, device="cpu", **kw)
+        nmfx_torch.nmfconsensus(a, ks=(2,), restarts=2, device="cpu",
+                                **{"grid_exec": "per_k", **kw()})
 
 
 def test_save_results_writes_reference_outputs(results, tmp_path):
