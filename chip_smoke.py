@@ -10,25 +10,34 @@ Phases (any failure exits non-zero; nothing is caught):
      (one nvcc per source, all started together);
   2. kernel parity: each kernel against its plain PyTorch version at the
      north-star shape, a ragged shape and with planted exact zeros (the
-     block kernel also with frozen lanes and budgets that run out
-     mid-launch);
+     block kernels also with frozen lanes, budgets that run out
+     mid-launch and a zero-padded rank-3 job); the join-the-updates mu
+     block kernel against the phased one, all outputs byte-equal;
   3. kernel timing (CUDA events, median of 25 after warm-up) beside the
      plain version, a torch.matmul composite and the card's bound;
   4. the main paths, each with every kernel's launch count set to 0 just
      before it and read just after, on the 5000x500 two-group matrix,
      ks 2..10, 50 restarts:
      a. the whole grid (backend "pallas", grid_exec "auto": the slot
-        scheduler on the block kernel), beside the same sweep with every
-        default (backend "auto": the dense scheduler, plain products);
-     b. the per-rank route (backend "pallas", grid_exec "per_k") on the
+        scheduler on the phased mu block kernel), beside the same sweep
+        with every default (backend "auto": the dense scheduler, plain
+        products);
+     b. the same whole grid on the join-the-updates kernel
+        (fused_updates "fused"), byte-equal to a;
+     c. the per-rank route (backend "pallas", grid_exec "per_k") on the
         per-iteration kernel pair;
+     d. hals on the whole grid (backend "pallas": the slot scheduler on
+        the HALS block kernel), beside the same sweep on the dense layout
+        (backend "auto"), held to the reference's agreement band;
   5. agreement: the bundled 1000x40 design (best k must be 2) on both
-     routes, a small input on the card and on the CPU (plain versions),
-     which must agree on both routes, and the whole grid at other slot
-     counts and tail settings, which must give the same results;
+     routes and with hals, a small input on the card and on the CPU
+     (plain versions), which must agree on both routes and for hals on
+     both layouts, and the whole grid at other slot counts and tail
+     settings, which must give the same results;
   6. profiles: 200 packed iterations at k=2 and k=10, and 20 trips of
-     the 48-slot scheduler at k=10 (160 iterations, no lane stops): time
-     per iteration, the device's busy share, the kernels by device time.
+     the 48-slot scheduler at k=10 for mu (160 iterations, no lane
+     stops) and for hals (40 iterations): time per iteration, the
+     device's busy share, the kernels by device time.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -190,21 +199,26 @@ def block_operands(torch, m, n, slots, k, seed, *, zeros=False, frozen=(),
     return a, wp, hp, frz, budget
 
 
+#: the block kernels' parity cases: (label, m, n, slots, k, options); the
+#: north star is the whole grid's pool (m padded to 5120, 48 slots of
+#: k = 10), the zeros case carries a zero-padded rank-3 job in slot 0
+BLOCK_CASES = (
+    ("north-star", 5000, 500, SLOTS, 10,
+     dict(frozen=(3, 11, 20, 33, 47), budgets={5: 3, 17: 5, 40: 7})),
+    ("ragged", 1237, 77, 13, 3, dict(frozen=(2,), budgets={7: 4}, pad=False)),
+    ("zeros", 1000, 96, 9, 5,
+     dict(zeros=True, frozen=(1,), budgets={4: 6}, short_k=3)),
+)
+
+
 def phase_block_parity(torch, fm):
-    """fused_block_iterations against its plain version: every output,
+    """fused_block_iterations against its plain version (every output,
     exact zeros identical, frozen lanes and padded rows bit-equal to the
-    input. Returns the north-star max abs error over all outputs."""
+    input), and the join-the-updates order against the phased one (all
+    outputs byte-equal). Returns the north-star max abs errors of both."""
     kw = dict(iters=CHECK_EVERY, check_block=CHECK_BLOCK)
-    cases = [
-        ("north-star", 5000, 500, SLOTS, 10,
-         dict(frozen=(3, 11, 20, 33, 47), budgets={5: 3, 17: 5, 40: 7})),
-        ("ragged", 1237, 77, 13, 3,
-         dict(frozen=(2,), budgets={7: 4}, pad=False)),
-        ("zeros", 1000, 96, 9, 5,
-         dict(zeros=True, frozen=(1,), budgets={4: 6}, short_k=3)),
-    ]
-    ns_err = 0.0
-    for label, m, n, slots, k, opts in cases:
+    ns_err = {}
+    for label, m, n, slots, k, opts in BLOCK_CASES:
         a, wp, hp, frz, budget = block_operands(torch, m, n, slots, k,
                                                 seed=3, **opts)
         want = fm.fused_block_iterations_ref(a, wp, hp, frz, k=k,
@@ -214,22 +228,125 @@ def phase_block_parity(torch, fm):
         errs = [check_close(torch, f"fused_block_iterations[{label}].{o}",
                             g, w, zeros=True)[0]
                 for o, g, w in zip(BLOCK_OUTPUTS, got, want)]
-        cols = frz[0] > 0
-        if not (torch.equal(got[0][:, cols], wp[:, cols])
-                and torch.equal(got[1][cols], hp[cols])):
-            raise AssertionError(f"fused_block_iterations[{label}]: a "
-                                 "frozen lane changed")
-        if not (got[0][m:] == 0).all():
-            raise AssertionError(f"fused_block_iterations[{label}]: a "
-                                 "zero-padded row of Wp changed")
+        check_padding(torch, f"fused_block_iterations[{label}]", got, wp, hp,
+                      frz, m, k, opts.get("short_k"))
         print(f"parity fused_block_iterations {label} m={a.shape[0]} n={n} "
               f"slots={slots} k={k} iters={CHECK_EVERY} "
               f"check_block={CHECK_BLOCK}: max abs "
               + ", ".join(f"{o} {e:.3e}" for o, e in zip(BLOCK_OUTPUTS, errs))
               + f" (rtol={RTOL}, atol={ATOL_REL}*max|ref|); frozen lanes "
               "and padded rows bit-equal; exact zeros identical", flush=True)
+        for nck in (1, CHECK_BLOCK):
+            fkw = dict(k=k, iters=CHECK_EVERY, check_block=nck,
+                       budget_cols=budget if nck > 1 else None)
+            phased = got if nck == CHECK_BLOCK else \
+                fm.fused_block_iterations(a, wp, hp, frz, **fkw)
+            fused = fm.fused_block_iterations(a, wp, hp, frz, fused=True,
+                                              **fkw)
+            torch.cuda.synchronize()
+            if len(fused) != len(phased) or not all(
+                    torch.equal(f.view(torch.int32), p.view(torch.int32))
+                    for f, p in zip(fused, phased)):
+                raise AssertionError(
+                    f"fused_block_iterations(fused=True)[{label}, "
+                    f"check_block={nck}]: not byte-equal to the phased "
+                    "kernel")
+            print(f"parity fused_block_iterations(fused=True) {label} "
+                  f"check_block={nck}: all {len(fused)} outputs byte-equal "
+                  "to the phased kernel's", flush=True)
         if label == "north-star":
-            ns_err = max(errs)
+            ns_err["fused_block_iterations"] = max(errs)
+            errs_f = [check_close(torch, f"fused[{label}].{o}", g, w,
+                                  zeros=True)[0]
+                      for o, g, w in zip(BLOCK_OUTPUTS, fused, want)]
+            ns_err["fused_block_iterations_fused"] = max(errs_f)
+    return ns_err
+
+
+def check_padding(torch, name, got, wp, hp, frz, m, k, short_k):
+    """Frozen lanes bit-equal to the input, the zero-padded rows of Wp
+    and (``short_k``) slot 0's padded components exactly zero."""
+    cols = frz[0] > 0
+    if not (torch.equal(got[0][:, cols], wp[:, cols])
+            and torch.equal(got[1][cols], hp[cols])):
+        raise AssertionError(f"{name}: a frozen lane changed")
+    if not (got[0][m:] == 0).all():
+        raise AssertionError(f"{name}: a zero-padded row of Wp changed")
+    if short_k is not None and not ((got[0][:, short_k:k] == 0).all()
+                                    and (got[1][short_k:k] == 0).all()):
+        raise AssertionError(f"{name}: a zero-padded component changed")
+
+
+#: HALS kernel against the float64 plain version: its max abs error per
+#: output at most HALS_FACTOR times the float32 plain version's own
+HALS_FACTOR = 4.0
+
+
+def check_hals(torch, name, got, plain, exact):
+    """The HALS kernel (``got``) and its float32 plain version
+    (``plain``) against the float64 plain version (``exact``) on the same
+    inputs. The coordinate sweep divides cancelling differences by the
+    lanes' Gram diagonals, so from a random start float32 itself is far
+    from exact (rtol 1e-4 fails for the plain version too); the kernel
+    must be as close to exact as the plain version: max|got - exact| <=
+    HALS_FACTOR * max|plain - exact| + ATOL_REL * max|exact|, and every
+    entry exactly zero in one of got and exact but not the other within
+    that bound of zero. Returns (max|got - plain|, max|got - exact|,
+    max|plain - exact|, entries whose zero-ness differs from exact)."""
+    torch.cuda.synchronize()
+    exact = exact.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    e_k = (got - exact).abs().max().item()
+    e_p = (plain - exact).abs().max().item()
+    bound = HALS_FACTOR * e_p + ATOL_REL * exact.abs().max().item()
+    flip = (got == 0) != (exact == 0)
+    if e_k > bound or (flip & ((got.abs() > bound)
+                               | (exact.abs() > bound))).any():
+        raise AssertionError(
+            f"{name}: max abs err against float64 {e_k:.3e} (float32 plain "
+            f"version {e_p:.3e}) or a zero flip exceeds {bound:.3e}")
+    return (got - plain).abs().max().item(), e_k, e_p, int(flip.sum())
+
+
+def phase_hals_parity(torch, fm):
+    """hals_block_iterations against its plain version in float32 and
+    float64 at the block cases, check_block 1 and 4 (see check_hals);
+    frozen lanes, padded rows and padded components bit-equal. Returns
+    the north-star max abs error against the float32 plain version."""
+    ns_err = 0.0
+    for label, m, n, slots, k, opts in BLOCK_CASES:
+        a, wp, hp, frz, budget = block_operands(torch, m, n, slots, k,
+                                                seed=5, **opts)
+        for nck in (1, CHECK_BLOCK):
+            kw = dict(k=k, slots=slots, iters=CHECK_EVERY, check_block=nck)
+            got = fm.hals_block_iterations(
+                a, wp, hp, frz, budget_cols=budget if nck > 1 else None,
+                **kw)
+            plain = fm.hals_block_iterations_ref(
+                a, wp, hp, frz, budget_cols=budget if nck > 1 else None,
+                **kw)
+            exact = fm.hals_block_iterations_ref(
+                *(x.double() for x in (a, wp, hp, frz)),
+                budget_cols=budget.double() if nck > 1 else None, **kw)
+            res = [check_hals(torch, f"hals_block_iterations[{label}, "
+                                     f"check_block={nck}].{o}", g, p, x)
+                   for o, g, p, x in zip(BLOCK_OUTPUTS, got, plain, exact)]
+            check_padding(torch, f"hals_block_iterations[{label}]", got, wp,
+                          hp, frz, m, k, opts.get("short_k"))
+            print(f"parity hals_block_iterations {label} m={a.shape[0]} "
+                  f"n={n} slots={slots} k={k} iters={CHECK_EVERY} "
+                  f"check_block={nck}: max abs against the float32 plain "
+                  "version / kernel against float64 / float32 plain "
+                  "against float64 / zero flips against float64: "
+                  + ", ".join(f"{o} {r[0]:.3e} / {r[1]:.3e} / {r[2]:.3e} "
+                              f"/ {r[3]}"
+                              for o, r in zip(BLOCK_OUTPUTS, res))
+                  + f" (bound {HALS_FACTOR} x the plain version's error + "
+                  f"{ATOL_REL}*max|ref|); frozen lanes, padded rows and "
+                  "components bit-equal", flush=True)
+            if label == "north-star":
+                ns_err = max(ns_err, *(r[0] for r in res))
     return ns_err
 
 
@@ -322,27 +439,102 @@ def block_bound(m, n, rk, k, iters, nck, rates):
     return max(tb, to), "bytes" if tb >= to else "operations"
 
 
+def library_hals(torch, a, wp, hp, k, iters, nck):
+    """torch.matmul/bmm composite of hals_block_iterations with no lane
+    frozen and no budget running out: each half's numerator as one
+    product over the packed pool, the lanes' Grams and the k-step sweeps
+    by batched products, the boundary stats and snapshots."""
+    m, rk = wp.shape
+    n = hp.shape[1]
+    r = rk // k
+    wd, wm, hd, hm, hck = [], [], [], [], []
+    w, h = wp, hp
+    for it in range(iters * nck):
+        w3 = w.reshape(m, r, k).permute(1, 0, 2)
+        gw = torch.bmm(w3.transpose(1, 2), w3)
+        wta = (w.T @ a).reshape(r, k, n)
+        h3 = h.reshape(r, k, n).clone()
+        for jj in range(k):
+            num = wta[:, jj] - torch.bmm(gw[:, jj:jj + 1], h3)[:, 0]
+            h3[:, jj] = (h3[:, jj] + num / (gw[:, jj, jj, None] + 1e-9)
+                         ).clamp(min=0.0)
+        hn = h3.reshape(rk, n)
+        gh = torch.bmm(h3, h3.transpose(1, 2))
+        aht = (a @ hn.T).reshape(m, r, k)
+        w3 = w.reshape(m, r, k).clone()
+        for jj in range(k):
+            num = aht[:, :, jj] - torch.einsum("mrk,rk->mr", w3,
+                                               gh[:, :, jj])
+            w3[:, :, jj] = (w3[:, :, jj] + num / (gh[:, jj, jj] + 1e-9)
+                            ).clamp(min=0.0)
+        wn = w3.reshape(m, rk)
+        if (it + 1) % iters == 0:
+            wd.append((wn - w).abs().amax(dim=0))
+            wm.append(w.abs().amax(dim=0))
+            hd.append((hn - h).abs().amax(dim=1))
+            hm.append(h.abs().amax(dim=1))
+            hck.append(hn)
+        w, h = wn, hn
+    return (w, h, torch.stack(wd), torch.stack(wm), torch.cat(hd)[:, None],
+            torch.cat(hm)[:, None], torch.stack(hck))
+
+
+def hals_bound(m, n, rk, k, iters, nck, rates):
+    """The least time of hals_block_iterations, as block_bound counts it:
+    the same bytes; per iteration the two numerators, the diagonal-block
+    Grams and the two k-step sweeps (2k + 4 operations a factor entry)."""
+    flops, bw = rates
+    nbytes = 4 * (m * n + 2 * m * rk + 2 * rk * n + 2 * rk + 4 * nck * rk
+                  + nck * rk * n)
+    per_it = (2 * m * n * rk + 2 * m * rk * k + rk * n * (2 * k + 4)
+              + 2 * rk * n * k + 2 * m * n * rk + m * rk * (2 * k + 4))
+    tb, to = nbytes / bw * 1e3, iters * nck * per_it / flops * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations"
+
+
 def phase_block_timing(torch, fm, rates):
-    """The block kernel at the north-star pool (m padded to 5120, 48
-    slots of k=10, 2 x 4 iterations, no lane frozen) beside its plain
-    version, the matmul/bmm composite and the bound."""
+    """The three block kernels at the north-star pool (m padded to 5120,
+    48 slots of k=10, 2 x 4 iterations, no lane frozen) beside their
+    plain versions, the matmul/bmm composites and the bounds: the mu
+    kernel in both orders, then the HALS kernel (2 x 1 iterations, as
+    its main path runs it with TolFun on, and 2 x 4)."""
     m, n, _, k = NORTH_STAR
     a, wp, hp, frz, budget = block_operands(torch, m, n, SLOTS, k, seed=4)
+    mp, rk = a.shape[0], SLOTS * k
     kw = dict(k=k, iters=CHECK_EVERY, check_block=CHECK_BLOCK,
               budget_cols=budget)
-    ms = time_ms(torch, lambda: fm.fused_block_iterations(a, wp, hp, frz,
-                                                          **kw))
-    plain = time_ms(torch, lambda: fm.fused_block_iterations_ref(
-        a, wp, hp, frz, **kw))
+    table = {}
     lib = time_ms(torch, lambda: library_block(torch, a, wp, hp, k,
                                                CHECK_EVERY, CHECK_BLOCK))
-    bound, by = block_bound(a.shape[0], n, SLOTS * k, k, CHECK_EVERY,
-                            CHECK_BLOCK, rates)
-    print(f"timing fused_block_iterations m={a.shape[0]} n={n} "
-          f"slots={SLOTS} k={k} ({CHECK_EVERY * CHECK_BLOCK} iterations): "
-          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms, "
-          f"bound {bound:.4f} ms ({by})", flush=True)
-    return ms, plain, lib, bound, by
+    bound, by = block_bound(mp, n, rk, k, CHECK_EVERY, CHECK_BLOCK, rates)
+    for name, fused in (("fused_block_iterations", False),
+                        ("fused_block_iterations_fused", True)):
+        ms = time_ms(torch, lambda: fm.fused_block_iterations(
+            a, wp, hp, frz, fused=fused, **kw))
+        plain = time_ms(torch, lambda: fm.fused_block_iterations_ref(
+            a, wp, hp, frz, **kw))
+        print(f"timing {name} m={mp} n={n} slots={SLOTS} k={k} "
+              f"({CHECK_EVERY * CHECK_BLOCK} iterations): kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, library {lib:.4f} ms, bound "
+              f"{bound:.4f} ms ({by})", flush=True)
+        table[name] = (ms, plain, lib, bound, by)
+    for nck in (CHECK_BLOCK, 1):
+        hkw = dict(k=k, slots=SLOTS, iters=CHECK_EVERY, check_block=nck,
+                   budget_cols=budget if nck > 1 else None)
+        ms = time_ms(torch, lambda: fm.hals_block_iterations(a, wp, hp, frz,
+                                                             **hkw))
+        plain = time_ms(torch, lambda: fm.hals_block_iterations_ref(
+            a, wp, hp, frz, **hkw))
+        lib = time_ms(torch, lambda: library_hals(torch, a, wp, hp, k,
+                                                  CHECK_EVERY, nck))
+        bound, by = hals_bound(mp, n, rk, k, CHECK_EVERY, nck, rates)
+        print(f"timing hals_block_iterations m={mp} n={n} slots={SLOTS} "
+              f"k={k} ({CHECK_EVERY * nck} iterations): kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, library {lib:.4f} ms, bound "
+              f"{bound:.4f} ms ({by})", flush=True)
+    # the main path's launch: check_block 1 (TolFun on)
+    table["hals_block_iterations"] = (ms, plain, lib, bound, by)
+    return table
 
 
 def phase_timing(torch, fm, rates):
@@ -401,6 +593,25 @@ def stop_counts(kr) -> dict:
             for s in sorted(set(kr.stop_reasons.tolist()))}
 
 
+def solve_clock(torch, seen):
+    """An on_rank callback keeping the first rank's output and the time
+    the whole-grid solve (inits, scheduler, per-rank consensus on the
+    card) ended: the first callback comes after all of it."""
+    def on_rank(k, out):
+        if "out" not in seen:
+            torch.cuda.synchronize()
+            seen["solved"] = time.perf_counter()
+            seen["out"] = out
+
+    return on_rank
+
+
+def split(seen, t0, wall) -> str:
+    solve = seen["solved"] - t0
+    return (f"solve {solve:.3f} s, then host transfer and rank selection "
+            f"{wall - solve:.3f} s")
+
+
 def phase_grid_path(torch, fm):
     """nmfconsensus at the north star through the whole grid: backend
     "pallas" with grid_exec "auto" (the slot scheduler on the block
@@ -411,21 +622,19 @@ def phase_grid_path(torch, fm):
     a = north_star_matrix()
     seen = {}
 
-    def on_rank(k, out):
-        seen.setdefault("out", out)
-
     fm.reset_launch_counts()
     t0 = time.perf_counter()
     res = nmfx_torch.nmfconsensus(
         a, ks=KS, restarts=r, solver_cfg=nmfx_torch.SolverConfig(
-            backend="pallas"), on_rank=on_rank)
+            backend="pallas"), on_rank=solve_clock(torch, seen))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(fm.LAUNCHES)
     out = seen["out"]
     check_sweep(res, "whole grid", n)
     print(f"main grid (pallas, {SLOTS} slots, check_block "
-          f"{CHECK_BLOCK}): wall {wall:.3f} s, pool_widths "
+          f"{CHECK_BLOCK}): wall {wall:.3f} s ({split(seen, t0, wall)}), "
+          "pool_widths "
           f"{out.pool_widths}, pool_trips {out.pool_trips}, pool_lanes "
           f"{out.pool_lanes}, host syncs {out.host_syncs}, launches "
           f"{launches}, best k {res.best_k}", flush=True)
@@ -452,6 +661,126 @@ def phase_grid_path(torch, fm):
     print(f"main dense grid (every default, backend auto): wall "
           f"{dense_wall:.3f} s beside the pallas grid's {wall:.3f} s, best "
           f"k {dense.best_k}", flush=True)
+    return launches, res, wall
+
+
+def phase_fused_grid_path(torch, fm, phased, phased_wall):
+    """The whole grid of phase_grid_path on the join-the-updates block
+    kernel (fused_updates "fused"): one launch per trip, and iterations,
+    stop reasons and consensus byte-equal to the phased run."""
+    import nmfx_torch
+
+    m, n, r, _ = NORTH_STAR
+    a = north_star_matrix()
+    seen = {}
+    fm.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = nmfx_torch.nmfconsensus(
+        a, ks=KS, restarts=r, solver_cfg=nmfx_torch.SolverConfig(
+            backend="pallas", experimental=nmfx_torch.ExperimentalConfig(
+                fused_updates="fused")),
+        on_rank=lambda k, out: seen.setdefault("out", out))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fm.LAUNCHES)
+    out = seen["out"]
+    check_sweep(res, "fused grid", n)
+    same = all(
+        np.array_equal(res.per_k[k].iterations, phased.per_k[k].iterations)
+        and np.array_equal(res.per_k[k].stop_reasons,
+                           phased.per_k[k].stop_reasons)
+        and np.array_equal(res.per_k[k].consensus.view(np.int64),
+                           phased.per_k[k].consensus.view(np.int64))
+        for k in KS)
+    print(f"main fused grid (pallas, fused_updates fused): wall {wall:.3f} s "
+          f"beside the phased grid's {phased_wall:.3f} s, pool_trips "
+          f"{out.pool_trips}, host syncs {out.host_syncs}, launches "
+          f"{launches}; iterations, stop reasons and consensus byte-equal "
+          f"to the phased run: {same}", flush=True)
+    need = sum(out.pool_trips)
+    if launches["fused_block_iterations_fused"] != need or need < 1:
+        raise AssertionError(
+            f"fused_block_iterations(fused=True) launched "
+            f"{launches['fused_block_iterations_fused']} times for {need} "
+            "trips")
+    if launches["fused_block_iterations"]:
+        raise AssertionError("the fused grid launched the phased kernel")
+    if not same:
+        raise AssertionError("fused grid: results differ from the phased "
+                             "grid's")
+    return launches
+
+
+def hals_labels(res, k):
+    """(restarts, n) labels of every restart of a keep_factors result."""
+    return np.argmax(res.per_k[k].all_h, axis=1)
+
+
+def phase_hals_path(torch, fm):
+    """hals through nmfconsensus at the north star: the whole grid on the
+    HALS block kernel (backend "pallas"), then the dense layout (backend
+    "auto"), held to the reference's band against it (mean|dC| * R <= 0.6
+    and at most 10 % of the labels of any restart flipped)."""
+    import nmfx_torch
+
+    m, n, r, _ = NORTH_STAR
+    a = north_star_matrix()
+    seen = {}
+    cfg = nmfx_torch.SolverConfig(algorithm="hals", backend="pallas")
+    fm.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = nmfx_torch.nmfconsensus(
+        a, ks=KS, restarts=r, solver_cfg=cfg, keep_factors=True,
+        on_rank=solve_clock(torch, seen))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fm.LAUNCHES)
+    out = seen["out"]
+    check_sweep(res, "hals grid", n)
+    need = sum(out.pool_trips)
+    print(f"main hals grid (pallas, {SLOTS} slots, check_block 1): wall "
+          f"{wall:.3f} s ({split(seen, t0, wall)}), pool_widths "
+          f"{out.pool_widths}, pool_trips "
+          f"{out.pool_trips}, pool_lanes {out.pool_lanes}, host syncs "
+          f"{out.host_syncs}, launches {launches}, best k {res.best_k}",
+          flush=True)
+    for k in KS:
+        kr = res.per_k[k]
+        print(f"main hals grid k={k}: mean iters {kr.iterations.mean():.1f}, "
+              f"max iters {int(kr.iterations.max())}, stop reasons "
+              f"{stop_counts(kr)}, rho {kr.rho:.4f}", flush=True)
+    if launches["hals_block_iterations"] != need or need < 1:
+        raise AssertionError(
+            f"hals_block_iterations launched "
+            f"{launches['hals_block_iterations']} times for {need} trips "
+            "(check_block resolves to 1: one launch a trip)")
+    if out.host_syncs != need:
+        raise AssertionError(f"hals grid: {out.host_syncs} host syncs for "
+                             f"{need} trips")
+
+    t0 = time.perf_counter()
+    dense = nmfx_torch.nmfconsensus(
+        a, ks=KS, restarts=r, keep_factors=True,
+        solver_cfg=nmfx_torch.SolverConfig(algorithm="hals"))
+    torch.cuda.synchronize()
+    dense_wall = time.perf_counter() - t0
+    check_sweep(dense, "hals dense grid", n)
+    bands = {}
+    for k in KS:
+        dc = float(np.abs(res.per_k[k].consensus
+                          - dense.per_k[k].consensus).mean()) * r
+        flips = float((hals_labels(res, k) != hals_labels(dense, k)).mean(
+            axis=1).max())
+        bands[k] = (dc, flips)
+    print(f"main hals dense grid (backend auto): wall {dense_wall:.3f} s, "
+          f"best k {dense.best_k}; against the pallas grid, per k "
+          "(mean|dC|*R, max label flips per restart): "
+          + ", ".join(f"k={k} ({dc:.4f}, {fl:.4f})"
+                      for k, (dc, fl) in bands.items()), flush=True)
+    bad = {k: v for k, v in bands.items() if v[0] > 0.6 or v[1] > 0.1}
+    if bad:
+        raise AssertionError(f"hals pallas vs dense outside the band "
+                             f"(mean|dC|*R <= 0.6, flips <= 0.1): {bad}")
     return launches
 
 
@@ -500,30 +829,39 @@ def phase_per_rank_path(torch, fm):
 
 
 def phase_checks(torch):
-    """On both routes the bundled design must select k=2, and a small
-    input must agree between the card (kernels) and the CPU (plain
-    versions); the whole grid must give the same results at any slot
-    count and tail setting."""
+    """On both routes, and with hals, the bundled design must select k=2,
+    and a small input must agree between the card (kernels) and the CPU
+    (plain versions); the whole grid must give the same results at any
+    slot count and tail setting."""
     import nmfx_torch
     from nmfx_torch.datasets import two_group_matrix
 
     cfg = nmfx_torch.SolverConfig(backend="pallas")
+    hals = nmfx_torch.SolverConfig(algorithm="hals", backend="pallas")
     a = two_group_matrix(n_genes=1000, n_per_group=20, seed=123)
-    for route in ("per_k", "auto"):
+    for label, route, scfg in (("mu", "per_k", cfg), ("mu", "auto", cfg),
+                               ("hals", "auto", hals)):
         t0 = time.perf_counter()
         res = nmfx_torch.nmfconsensus(a, ks=(2, 3, 4, 5), restarts=10,
-                                      seed=123, solver_cfg=cfg,
+                                      seed=123, solver_cfg=scfg,
                                       grid_exec=route)
-        print(f"bundled 1000x40 grid_exec={route}: "
+        print(f"bundled 1000x40 {label} grid_exec={route}: "
               f"{time.perf_counter() - t0:.3f} s, best k = {res.best_k}, "
               f"rho {res.rhos.tolist()}", flush=True)
         if res.best_k != 2:
-            raise AssertionError(f"bundled design, grid_exec={route}: best "
-                                 f"k {res.best_k} != 2")
+            raise AssertionError(f"bundled design, {label} grid_exec="
+                                 f"{route}: best k {res.best_k} != 2")
 
     small = two_group_matrix(n_genes=200, n_per_group=12, seed=3)
-    scfg = nmfx_torch.SolverConfig(backend="pallas", max_iter=200)
-    for route in ("per_k", "auto"):
+    for label, route, scfg in (
+            ("mu", "per_k", nmfx_torch.SolverConfig(backend="pallas",
+                                                    max_iter=200)),
+            ("mu", "auto", nmfx_torch.SolverConfig(backend="pallas",
+                                                   max_iter=200)),
+            ("hals packed", "auto", nmfx_torch.SolverConfig(
+                algorithm="hals", backend="pallas", max_iter=200)),
+            ("hals dense", "auto", nmfx_torch.SolverConfig(
+                algorithm="hals", max_iter=200))):
         kw = dict(ks=(2, 3), restarts=4, seed=5, solver_cfg=scfg,
                   grid_exec=route)
         gpu = nmfx_torch.nmfconsensus(small, **kw)
@@ -531,8 +869,8 @@ def phase_checks(torch):
         for k in (2, 3):
             g, c = gpu.per_k[k], cpu.per_k[k]
             diff = float(np.abs(g.consensus - c.consensus).max())
-            print(f"small 200x24 grid_exec={route} k={k}: card vs CPU "
-                  f"iterations equal "
+            print(f"small 200x24 {label} grid_exec={route} k={k}: card vs "
+                  f"CPU iterations equal "
                   f"{np.array_equal(g.iterations, c.iterations)}, stop "
                   f"reasons equal "
                   f"{np.array_equal(g.stop_reasons, c.stop_reasons)}, max "
@@ -541,8 +879,8 @@ def phase_checks(torch):
                     and np.array_equal(g.iterations, c.iterations)
                     and np.array_equal(g.stop_reasons, c.stop_reasons)
                     and diff <= 0.25):
-                raise AssertionError(f"small input grid_exec={route} "
-                                     f"k={k}: card and CPU disagree")
+                raise AssertionError(f"small input {label} grid_exec="
+                                     f"{route} k={k}: card and CPU disagree")
 
     # schedule-free: the block kernel's sums do not depend on the pool
     # width or a lane's slot, so only the schedule may change
@@ -611,8 +949,9 @@ def phase_profile(torch):
     """Where one solve iteration's time goes, on both routes, with every
     check run and no lane stopping (so the iteration count is fixed):
     a 200-iteration packed solve per rank (k=2, k=10), and 20 trips of
-    the 48-slot scheduler on 48 k=10 jobs (160 iterations), each timed
-    alone after a warm-up and then under torch.profiler. Device busy
+    the 48-slot scheduler on 48 k=10 jobs (mu: 160 iterations; hals: 40,
+    its lanes reported if TolFun stops any), each timed alone after a
+    warm-up and then under torch.profiler. Device busy
     share = summed device time of the CUDA kernels over the profiled
     wall."""
     from nmfx_torch import random as rnd
@@ -641,25 +980,34 @@ def phase_profile(torch):
         print(f"{line}; init draws {init_s:.3f} s", flush=True)
 
     k = NORTH_STAR[3]
-    iters = 20 * CHECK_EVERY * CHECK_BLOCK
-    cfg = SolverConfig(backend="pallas", max_iter=iters,
-                       stable_checks=10**6, tol_x=0.0)
     w0s, h0s = restart_inits(a, rnd.split(rnd.fold_in(rnd.key(123), k),
                                           SLOTS), k, InitConfig())
-    out = {}
+    # mu: 20 trips of check_block launches; hals as its main path runs
+    # it, one 2-iteration launch and one check (with TolFun's direct
+    # residual) a trip, 20 trips
+    for algorithm, iters in (("mu", 20 * CHECK_EVERY * CHECK_BLOCK),
+                             ("hals", 20 * CHECK_EVERY)):
+        cfg = SolverConfig(algorithm=algorithm, backend="pallas",
+                           max_iter=iters, stable_checks=10**6, tol_x=0.0,
+                           tol_fun=0.0)
+        out = {}
 
-    def run():
-        out["res"] = mu_sched(a, w0s, h0s, cfg, slots=SLOTS, device="cuda")
+        def run():
+            out["res"] = mu_sched(a, w0s, h0s, cfg, slots=SLOTS,
+                                  device="cuda")
 
-    run()  # warm-up
-    plain_wall = timed(torch, run)
-    prof = profiled(torch, run)
-    res = out["res"]
-    if not (res.iterations == iters).all():
-        raise AssertionError("scheduler profile: a lane stopped early")
-    print(profile_line(f"profile grid {SLOTS} slots k={k} "
-                       f"({sum(res.pool_trips)} trips, {res.host_syncs} host "
-                       "syncs)", iters, plain_wall, *prof), flush=True)
+        run()  # warm-up
+        plain_wall = timed(torch, run)
+        prof = profiled(torch, run)
+        res = out["res"]
+        early = int((res.iterations < iters).sum())
+        if algorithm == "mu" and early:
+            raise AssertionError("scheduler profile: a lane stopped early")
+        label = "grid" if algorithm == "mu" else "hals grid"
+        print(profile_line(f"profile {label} {SLOTS} slots k={k} "
+                           f"({sum(res.pool_trips)} trips, {res.host_syncs} "
+                           f"host syncs, {early} lanes stopped early)",
+                           iters, plain_wall, *prof), flush=True)
 
 
 def main(argv=None) -> int:
@@ -694,23 +1042,30 @@ def main(argv=None) -> int:
           flush=True)
 
     ns_err = phase_parity(torch, fm)
-    ns_err["fused_block_iterations"] = phase_block_parity(torch, fm)
+    ns_err.update(phase_block_parity(torch, fm))
+    ns_err["hals_block_iterations"] = phase_hals_parity(torch, fm)
     if not args.quick:
         rates = peaks(kind)
         timing = phase_timing(torch, fm, rates)[NORTH_STAR[3]]
-        timing["fused_block_iterations"] = phase_block_timing(torch, fm,
-                                                              rates)
-        launches = phase_grid_path(torch, fm)
-        launches.update({name: count for name, count in
-                         phase_per_rank_path(torch, fm).items()
-                         if name != "fused_block_iterations"})
+        timing.update(phase_block_timing(torch, fm, rates))
+        # each kernel's launches come from its own main path's run
+        launches, phased, phased_wall = phase_grid_path(torch, fm)
+        launches["fused_block_iterations_fused"] = phase_fused_grid_path(
+            torch, fm, phased, phased_wall)["fused_block_iterations_fused"]
+        per_rank = phase_per_rank_path(torch, fm)
+        for name in ("fused_h_update", "fused_w_update"):
+            launches[name] = per_rank[name]
+        launches["hals_block_iterations"] = phase_hals_path(
+            torch, fm)["hals_block_iterations"]
         phase_checks(torch)
         phase_profile(torch)
         kernels = []
         for name, source, line in (
                 ("fused_h_update", "fused_mu.cu", 147),
                 ("fused_w_update", "fused_mu.cu", 731),
-                ("fused_block_iterations", "block_mu.cu", 539)):
+                ("fused_block_iterations", "block_mu.cu", 539),
+                ("fused_block_iterations_fused", "block_mu.cu", 382),
+                ("hals_block_iterations", "hals_block.cu", 984)):
             ms, plain, lib, bound, by = timing[name]
             kernels.append({
                 "name": name, "route": "cuda",

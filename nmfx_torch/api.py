@@ -204,7 +204,8 @@ def nmf(a, k: int, *, seed: int = 0, algorithm: str | None = None,
         init_cfg: InitConfig | None = None, w0=None, h0=None,
         device=None) -> SolverResult:
     """One non-negative factorization A ≈ W·H at rank k (reference
-    ``nmf``, without its sketched engine).
+    ``nmf``, without its sketched engine), by ``algorithm`` "mu" (the
+    default) or "hals", in float32 or float64 (``solver_cfg.dtype``).
 
     ``w0``/``h0``: explicit initial factors (both or neither); otherwise
     they come from ``init``/``init_cfg`` with the key ``key(seed)``, the
@@ -286,16 +287,20 @@ def nmfconsensus(
     in ``ks``, a consensus matrix per rank on the device, cophenetic rank
     selection on the host, and optional GCT outputs.
 
-    Routes, as the reference takes them, for algorithm "mu":
+    Routes, as the reference takes them, for algorithms "mu" and "hals":
 
     * whole grid (``grid_exec="auto"`` with more than one rank, or
       ``"grid"``): every (k, restart) job through one slot-scheduled
       solve of ``grid_slots`` slots with the ``grid_tail_slots`` cascade;
-      ``backend="pallas"`` runs it on the hand-written block kernel,
-      ``"auto"`` (the default) and ``"packed"`` on plain batched products;
-    * per rank (``grid_exec="per_k"``, or one rank): each rank's restarts
-      as one packed batch, on the hand-written per-iteration kernels
-      under ``backend="pallas"``, plain products otherwise.
+      ``backend="pallas"`` runs it on a hand-written block kernel (mu's,
+      phased, or join-the-updates under
+      ``ExperimentalConfig(fused_updates="fused")``; hals' coordinate-sweep
+      kernel), ``"auto"`` (the default) and ``"packed"`` on plain batched
+      products;
+    * per rank (``grid_exec="per_k"``, or one rank): mu solves each
+      rank's restarts as one packed batch, on the hand-written
+      per-iteration kernels under ``backend="pallas"``, plain products
+      otherwise; hals runs the slot scheduler at that one rank.
 
     Other settings raise ``NotImplementedError`` naming the ROADMAP item.
 

@@ -7,9 +7,9 @@ reference configuration that sets one of them to a non-inert value.
 
 What the port runs is narrower than what validates: ``check_ported``
 raises ``NotImplementedError`` for a solver setting the port has no
-route for yet, and so does ``ExperimentalConfig`` for an experimental
-knob the port has not got; each message names the ROADMAP item that
-brings it.
+route for yet (it runs mu and hals), and so does ``ExperimentalConfig``
+for an experimental knob the port has not got; each message names the
+ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -24,6 +24,8 @@ LINKAGE_METHODS = ("average", "complete", "single")
 #: kernels; "auto" and "packed" the plain PyTorch products (the packed
 #: per-rank solve, or the dense slot-scheduler layout)
 PORTED_BACKENDS = ("auto", "packed", "pallas")
+#: algorithms with a route in the port
+PORTED_ALGORITHMS = ("mu", "hals")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,9 +33,10 @@ class ExperimentalConfig:
     """Measured-but-not-default opt-ins of the reference
     (``nmfx.ExperimentalConfig``), with its fields, defaults and
     validation. The port runs ``evict_batch`` (harvest hysteresis of the
-    slot scheduler) and ``fused_updates`` in {"auto", "phased"}; any other
-    knob at a non-default value raises ``NotImplementedError`` naming the
-    ROADMAP item that brings it. ``kl_bf16_quotient`` configures kl only
+    slot scheduler) and ``fused_updates`` ("auto" and "phased": the phased
+    mu block kernel; "fused": the join-the-updates one); any other knob at
+    a non-default value raises ``NotImplementedError`` naming the ROADMAP
+    item that brings it. ``kl_bf16_quotient`` configures kl only
     and is inert here."""
 
     ragged: bool = False
@@ -85,9 +88,6 @@ class ExperimentalConfig:
              "'Modules to port' item 7"),
             (self.autotune != "off", "autotune='on'",
              "'Modules to port' item 13"),
-            (self.fused_updates == "fused",
-             "fused_updates='fused' (the join-the-updates block kernel)",
-             "'TPU kernels to port' item 3"),
         )
         for on, what, item in unported:
             if on:
@@ -164,10 +164,10 @@ class SolverConfig:
 def check_ported(cfg: SolverConfig) -> None:
     """Raise ``NotImplementedError`` for a valid setting the port cannot
     run yet (ROADMAP "Open items")."""
-    if cfg.algorithm != "mu":
+    if cfg.algorithm not in PORTED_ALGORITHMS:
         raise NotImplementedError(
             f"algorithm={cfg.algorithm!r} is not ported yet (ROADMAP "
-            "'Modules to port' item 8); the port runs 'mu'")
+            "'Modules to port' item 8); the port runs 'mu' and 'hals'")
     if cfg.backend not in PORTED_BACKENDS:
         raise NotImplementedError(
             f"backend={cfg.backend!r} is not ported yet: the vmapped "

@@ -40,6 +40,12 @@ SIGNATURES = {
     "block_mu": {
         "nmfx_block_split_rows": (),
         "nmfx_block_iterations": (_P,) * 19 + (_I,) * 6 + (_F, _F, _P),
+        "nmfx_block_iterations_fused": (_P,) * 19 + (_I,) * 6 + (_F, _F, _P),
+    },
+    "hals_block": {
+        "nmfx_block_split_rows": (),
+        "nmfx_hals_sweep_positions": (),
+        "nmfx_hals_block_iterations": (_P,) * 20 + (_I,) * 6 + (_F, _F, _P),
     },
 }
 

@@ -7,29 +7,36 @@ PyTorch versions (counterpart of ``nmfx/ops/pallas_mu.py``).
 * ``fused_block_iterations``: ``iters · check_block`` full MU iterations
   of the slot scheduler's packed pool in one call, with lane freezes,
   the per-lane iteration budget, per-boundary TolX stats and H
-  snapshots (the reference's phased block kernel)
+  snapshots, in the phased order (``fused=False``) or the
+  join-the-updates order (``fused=True``, byte-equal outputs)
+* ``hals_block_iterations``: the same for HALS coordinate sweeps
 
 where B is the block-diagonal restart mask and ep the mu epilogue
 (``nmfx_torch.solvers.mu._mu_update``). The kernels live in
-``nmfx_torch/csrc/fused_mu.cu`` and ``nmfx_torch/csrc/block_mu.cu``,
-built at first use (``nmfx_torch.ops._build``); their design notes sit
-at the top of those files.
+``nmfx_torch/csrc/fused_mu.cu``, ``nmfx_torch/csrc/block_mu.cu`` and
+``nmfx_torch/csrc/hals_block.cu``, built at first use
+(``nmfx_torch.ops._build``); their design notes sit at the top of those
+files.
 
 A wrapper given CPU tensors runs the plain version (``*_ref``), which
-computes the full masked Grams as the reference's packed path does. Given
-CUDA tensors it launches its kernel or raises; it never falls back.
-``LAUNCHES`` counts kernel launches per wrapper (never the plain runs).
+computes the full masked Grams (or, for HALS, the dense per-lane sweeps)
+as the reference's engines do. Given CUDA tensors it launches its kernel
+or raises; it never falls back. ``LAUNCHES`` counts the launches of each
+kernel (never the plain runs); the two orders of the MU block kernel
+count apart.
 """
 
 from __future__ import annotations
 
 import torch
 
+from nmfx_torch.solvers.hals import hals_h_sweep, hals_w_sweep
 from nmfx_torch.solvers.mu import _mu_update
 
-#: kernel launches per wrapper, incremented only where a kernel launches
+#: kernel launches, incremented only where a kernel launches
 LAUNCHES = {"fused_h_update": 0, "fused_w_update": 0,
-            "fused_block_iterations": 0}
+            "fused_block_iterations": 0, "fused_block_iterations_fused": 0,
+            "hals_block_iterations": 0}
 
 _TILE = 64  # output tile edge of the CUDA kernels
 _BK = 16  # their contraction depth per stage
@@ -155,18 +162,20 @@ def fused_w_update(a, wp, hp, gh, *, k: int, eps: float = 1e-9,
     return out
 
 
-def fused_block_iterations_ref(a, wp, hp, frozen_cols, *, k: int,
-                               iters: int = 2, eps: float = 1e-9,
-                               zero_threshold: float = 0.0,
-                               check_block: int = 1, budget_cols=None):
-    """Plain version of :func:`fused_block_iterations`: the same masks,
-    fences, stats and snapshots, with full masked Grams."""
+def _need_budget(check_block, budget_cols) -> None:
     if check_block > 1 and budget_cols is None:
         raise ValueError("check_block > 1 needs budget_cols (each lane's "
                          "remaining iteration allowance at launch entry)")
+
+
+def _block_ref(update, a, wp, hp, frozen_cols, *, iters, check_block,
+               budget_cols):
+    """The launch bookkeeping the plain block versions share: the lane
+    freezes and budget fence, then per-boundary stats and snapshots
+    around ``update(w, h, frozen) -> (wn, hn)`` (one iteration, frozen
+    rows and columns kept)."""
+    _need_budget(check_block, budget_cols)
     rk, n = hp.shape
-    bd = _lane_mask(rk, k, a.device)
-    zero = torch.zeros((), dtype=a.dtype, device=a.device)
     frozen = frozen_cols.reshape(rk) > 0
     budget = None if check_block == 1 else budget_cols.reshape(rk)
     f32 = dict(dtype=torch.float32, device=a.device)
@@ -179,12 +188,7 @@ def fused_block_iterations_ref(a, wp, hp, frozen_cols, *, k: int,
     w, h = wp, hp
     for it in range(iters * check_block):
         fr = frozen if budget is None else frozen | (budget <= it)
-        gram = torch.where(bd, w.T @ w, zero)
-        hn = _mu_update(h, w.T @ a, gram @ h, eps, zero_threshold)
-        hn = torch.where(fr[:, None], h, hn)
-        gh = torch.where(bd, hn @ hn.T, zero)
-        wn = _mu_update(w, a @ hn.T, w @ gh, eps, zero_threshold)
-        wn = torch.where(fr[None, :], w, wn)
+        wn, hn = update(w, h, fr)
         if (it + 1) % iters == 0:
             b = (it + 1) // iters - 1
             rows = slice(b * rk, (b + 1) * rk)
@@ -199,10 +203,108 @@ def fused_block_iterations_ref(a, wp, hp, frozen_cols, *, k: int,
     return out if h_checks is None else out + (h_checks,)
 
 
+def fused_block_iterations_ref(a, wp, hp, frozen_cols, *, k: int,
+                               iters: int = 2, eps: float = 1e-9,
+                               zero_threshold: float = 0.0,
+                               check_block: int = 1, budget_cols=None):
+    """Plain version of :func:`fused_block_iterations` (either order):
+    the same masks, fences, stats and snapshots, with full masked
+    Grams."""
+    bd = _lane_mask(hp.shape[0], k, a.device)
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+
+    def update(w, h, fr):
+        gram = torch.where(bd, w.T @ w, zero)
+        hn = _mu_update(h, w.T @ a, gram @ h, eps, zero_threshold)
+        hn = torch.where(fr[:, None], h, hn)
+        gh = torch.where(bd, hn @ hn.T, zero)
+        wn = _mu_update(w, a @ hn.T, w @ gh, eps, zero_threshold)
+        return torch.where(fr[None, :], w, wn), hn
+
+    return _block_ref(update, a, wp, hp, frozen_cols, iters=iters,
+                      check_block=check_block, budget_cols=budget_cols)
+
+
+def hals_block_iterations_ref(a, wp, hp, frozen_cols, *, k: int,
+                              slots: int, iters: int = 2, eps: float = 1e-9,
+                              zero_threshold: float = 0.0,
+                              check_block: int = 1, budget_cols=None):
+    """Plain version of :func:`hals_block_iterations`: the dense per-lane
+    sweeps of ``grid_mu.hals_block`` on the pool's (S, m, k) / (S, k, n)
+    views, with the block kernel's masks, fences, stats and snapshots."""
+    _check_slots(wp.shape[1], k, slots)
+    m, rk = wp.shape
+    n = hp.shape[1]
+
+    def update(w, h, fr):
+        w3 = w.reshape(m, slots, k).permute(1, 0, 2)
+        hn = hals_h_sweep(a, w3, h.reshape(slots, k, n), eps,
+                          zero_threshold).reshape(rk, n)
+        hn = torch.where(fr[:, None], h, hn)
+        wn = hals_w_sweep(a, w3, hn.reshape(slots, k, n), eps,
+                          zero_threshold).permute(1, 0, 2).reshape(m, rk)
+        return torch.where(fr[None, :], w, wn), hn
+
+    return _block_ref(update, a, wp, hp, frozen_cols, iters=iters,
+                      check_block=check_block, budget_cols=budget_cols)
+
+
+def _check_slots(rk: int, k: int, slots: int) -> None:
+    if rk != k * slots:
+        raise ValueError(f"packed width {rk} != k*slots = {k}*{slots}")
+
+
+def _block_launch(name, symbol, lib_name, extra_work, a, wp, hp,
+                  frozen_cols, *, k, iters, eps, zero_threshold, check_block,
+                  budget_cols):
+    """Check the operands, allocate outputs and workspace, and run one
+    block kernel's C entry point (the shared argument list of
+    ``block_mu.cu`` and ``hals_block.cu``; ``extra_work(lib, m, n, rk)``
+    gives the kernel's own workspace shapes)."""
+    m, n = a.shape
+    rk = wp.shape[1]
+    operands = {"a": (a, (m, n)), "wp": (wp, (m, rk)), "hp": (hp, (rk, n)),
+                "frozen_cols": (frozen_cols, (1, rk))}
+    if check_block > 1:
+        operands["budget_cols"] = (budget_cols, (1, rk))
+    _check_operands(name, k, **operands)
+    from nmfx_torch.ops import _build
+
+    lib = _build.load(lib_name)
+    splits = -(-m // lib.nmfx_block_split_rows())
+    nck = check_block
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=a.device)
+
+    wp_out, hp_out = empty(m, rk), empty(rk, n)
+    wd, wm = empty(nck, rk), empty(nck, rk)
+    hd, hm = empty(nck * rk, 1), empty(nck * rk, 1)
+    h_checks = empty(nck, rk, n) if nck > 1 else None
+    work = (empty(m, rk), empty(rk, n), empty(splits, rk, n),
+            empty(splits, rk // k, k, k), empty(rk // k, k, k),
+            *(empty(*shape) for shape in extra_work(lib, m, n, rk)))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    rc = getattr(lib, symbol)(
+        a.data_ptr(), wp.data_ptr(), hp.data_ptr(), frozen_cols.data_ptr(),
+        ptr(budget_cols if nck > 1 else None), wp_out.data_ptr(),
+        hp_out.data_ptr(), wd.data_ptr(), wm.data_ptr(), hd.data_ptr(),
+        hm.data_ptr(), ptr(h_checks), *(t.data_ptr() for t in work),
+        m, n, rk, k, iters, nck, eps, zero_threshold, stream)
+    _raise_on(name, rc)
+    out = (wp_out, hp_out, wd, wm, hd, hm)
+    return out if h_checks is None else out + (h_checks,)
+
+
 def fused_block_iterations(a, wp, hp, frozen_cols, *, k: int,
                            iters: int = 2, eps: float = 1e-9,
                            zero_threshold: float = 0.0,
-                           check_block: int = 1, budget_cols=None):
+                           check_block: int = 1, budget_cols=None,
+                           fused: bool = False):
     """``iters · check_block`` full MU iterations of the packed pool
     (A (m, n), Wp (m, rk), Hp (rk, n), float32, contiguous, one CUDA
     device; the uniform pool's lanes are k consecutive columns).
@@ -215,52 +317,54 @@ def fused_block_iterations(a, wp, hp, frozen_cols, *, k: int,
     ingredients at every check boundary, (check_block, rk) for W and
     (check_block·rk, 1) for H — plus ``h_checks`` (check_block, rk, n),
     the H snapshot at each boundary, when ``check_block > 1``.
+
+    ``fused=True`` runs the join-the-updates order (each pass reads an A
+    chunk once for the W half of one iteration and the H numerator of
+    the next); its outputs are byte-equal to ``fused=False``'s.
     """
-    if check_block > 1 and budget_cols is None:
-        raise ValueError("check_block > 1 needs budget_cols (each lane's "
-                         "remaining iteration allowance at launch entry)")
+    _need_budget(check_block, budget_cols)
     if a.device.type == "cpu":
         return fused_block_iterations_ref(
             a, wp, hp, frozen_cols, k=k, iters=iters, eps=eps,
             zero_threshold=zero_threshold, check_block=check_block,
             budget_cols=budget_cols)
-    m, n = a.shape
-    rk = wp.shape[1]
-    operands = {"a": (a, (m, n)), "wp": (wp, (m, rk)), "hp": (hp, (rk, n)),
-             "frozen_cols": (frozen_cols, (1, rk))}
-    if check_block > 1:
-        operands["budget_cols"] = (budget_cols, (1, rk))
-    _check_operands("fused_block_iterations", k, **operands)
-    from nmfx_torch.ops import _build
+    mtiles = -(-a.shape[0] // _TILE)
+    name = ("fused_block_iterations_fused" if fused
+            else "fused_block_iterations")
+    out = _block_launch(
+        "fused_block_iterations", ("nmfx_block_iterations_fused" if fused
+                                   else "nmfx_block_iterations"),
+        "block_mu", lambda lib, m, n, rk: ((mtiles, rk), (mtiles, rk)),
+        a, wp, hp, frozen_cols, k=k, iters=iters, eps=eps,
+        zero_threshold=zero_threshold, check_block=check_block,
+        budget_cols=budget_cols)
+    LAUNCHES[name] += 1
+    return out
 
-    lib = _build.load("block_mu")
-    split = lib.nmfx_block_split_rows()
-    splits = -(-m // split)
-    mtiles = -(-m // _TILE)
-    nck = check_block
 
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=a.device)
+def hals_block_iterations(a, wp, hp, frozen_cols, *, k: int, slots: int,
+                          iters: int = 2, eps: float = 1e-9,
+                          zero_threshold: float = 0.0,
+                          check_block: int = 1, budget_cols=None):
+    """``iters · check_block`` HALS iterations of the uniform packed pool
+    (``rk == k · slots``), with the operands, outputs, freezes, budget
+    fence, stats and snapshots of :func:`fused_block_iterations`."""
+    _check_slots(wp.shape[1], k, slots)
+    _need_budget(check_block, budget_cols)
+    if a.device.type == "cpu":
+        return hals_block_iterations_ref(
+            a, wp, hp, frozen_cols, k=k, slots=slots, iters=iters, eps=eps,
+            zero_threshold=zero_threshold, check_block=check_block,
+            budget_cols=budget_cols)
 
-    wp_out, hp_out = empty(m, rk), empty(rk, n)
-    wd, wm = empty(nck, rk), empty(nck, rk)
-    hd, hm = empty(nck * rk, 1), empty(nck * rk, 1)
-    h_checks = empty(nck, rk, n) if nck > 1 else None
-    work = (empty(m, rk), empty(rk, n), empty(splits, rk, n),
-            empty(splits, rk // k, k, k), empty(rk // k, k, k),
-            empty(mtiles, rk), empty(mtiles, rk))
+    def work(lib, m, n, rk):
+        tiles = -(-max(m, n) // lib.nmfx_hals_sweep_positions())
+        return (m, rk), (tiles, rk), (tiles, rk)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    rc = lib.nmfx_block_iterations(
-        a.data_ptr(), wp.data_ptr(), hp.data_ptr(), frozen_cols.data_ptr(),
-        ptr(budget_cols if nck > 1 else None), wp_out.data_ptr(),
-        hp_out.data_ptr(), wd.data_ptr(), wm.data_ptr(), hd.data_ptr(),
-        hm.data_ptr(), ptr(h_checks), *(t.data_ptr() for t in work),
-        m, n, rk, k, iters, nck, eps, zero_threshold, stream)
-    _raise_on("fused_block_iterations", rc)
-    LAUNCHES["fused_block_iterations"] += 1
-    out = (wp_out, hp_out, wd, wm, hd, hm)
-    return out if h_checks is None else out + (h_checks,)
+    out = _block_launch(
+        "hals_block_iterations", "nmfx_hals_block_iterations", "hals_block",
+        work, a, wp, hp, frozen_cols, k=k, iters=iters, eps=eps,
+        zero_threshold=zero_threshold, check_block=check_block,
+        budget_cols=budget_cols)
+    LAUNCHES["hals_block_iterations"] += 1
+    return out

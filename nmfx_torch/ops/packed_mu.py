@@ -260,6 +260,10 @@ def mu_packed(a, w0s, h0s, cfg: SolverConfig = SolverConfig(), *,
     none; TF32 is switched off there) as float32.
     """
     check_ported(cfg)
+    if cfg.algorithm != "mu":
+        raise ValueError(
+            f"mu_packed runs algorithm='mu', got {cfg.algorithm!r} (hals "
+            "runs through the slot scheduler, nmfx_torch.ops.sched_mu)")
     dev = resolve_device(device)
     dtype = torch.float32
     a = torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a,

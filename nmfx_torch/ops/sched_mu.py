@@ -1,5 +1,5 @@
-"""Slot-scheduled whole-grid MU (counterpart of ``nmfx/ops/sched_mu.py``
-for mu, with the uniform pool).
+"""Slot-scheduled whole grid (counterpart of ``nmfx/ops/sched_mu.py``
+for mu and hals, with the uniform pool).
 
 All J (k, restart) jobs of a sweep are queued at once and solved through
 a fixed pool of S slots (default 48): each slot hosts one job, padded to
@@ -12,15 +12,22 @@ straggler-tail cascade compacts the survivors into narrower pools.
 Two layouts, as in the reference:
 
 * ``backend="pallas"``: packed columns, Wp (m_pad, S·k_max) / Hp
-  (S·k_max, n), iterated by the hand-written block kernel
-  (``fused_block_iterations``): one launch per trip runs ``check_block``
+  (S·k_max, n), iterated by a hand-written block kernel (mu:
+  ``fused_block_iterations``, phased or, under
+  ``experimental.fused_updates="fused"``, join-the-updates; hals:
+  ``hals_block_iterations``): one launch per trip runs ``check_block``
   check blocks of ``check_every`` iterations and exports each boundary's
   TolX stats and H snapshot, against which the trip replays every check.
-  When ``max_iter`` is not a multiple of ``check_every`` the block route
+  When ``max_iter`` is not a multiple of ``check_every`` mu's block route
   gives way to the per-iteration kernel pair (``fused_h_update`` /
-  ``fused_w_update``) with a per-step iteration fence.
+  ``fused_w_update``) with a per-step iteration fence; hals has no such
+  fallback and refuses the cap.
 * ``backend="auto"``/``"packed"``: dense (S, m, k_max) / (S, k_max, n)
-  lanes iterated by ``grid_mu.mu_block``'s batched products.
+  lanes iterated by ``grid_mu``'s batched blocks.
+
+hals adds the TolFun test to every check, on the residual of each
+slot's dense view; its residual cannot be replayed from a launch's
+boundary exports, so with TolFun on it runs one check block per trip.
 
 The reference's ``lax.while_loop``/``lax.cond`` become a host loop. The
 pool's state lives on the device; the host keeps the queue position and
@@ -49,8 +56,9 @@ import torch
 from nmfx_torch.config import SolverConfig, check_ported
 from nmfx_torch.device import resolve_device, to_device
 from nmfx_torch.ops.fused_mu import (fused_block_iterations, fused_h_update,
-                                     fused_w_update)
-from nmfx_torch.ops.grid_mu import BLOCKS, conv_cfg, make_block
+                                     fused_w_update, hals_block_iterations)
+from nmfx_torch.ops.grid_mu import (BLOCKS, USES_TOLFUN, conv_cfg,
+                                    make_block, tolfun_update)
 from nmfx_torch.ops.packed_mu import (batch_convergence, bd_select,
                                       block_diag_mask, residual_norms_direct)
 from nmfx_torch.solvers.base import StopReason
@@ -116,6 +124,7 @@ class _Pool:
     slot_iter: torch.Tensor  # (S,) i32 iterations done by the slot's job
     classes: torch.Tensor  # (S, n) i32
     stable: torch.Tensor  # (S,) i32
+    dnorm: torch.Tensor  # (S,) residual at the last check (TolFun), inf
     slot_job: torch.Tensor  # (S,) i64 job in each slot (J = none)
     active: torch.Tensor  # (S,) bool slot holds a live job
     pending: torch.Tensor  # (S,) bool finished, factors not harvested
@@ -167,13 +176,39 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
     s = min(slots, j)
     ce = cfg.check_every
     use_pallas = cfg.backend == "pallas"
+    hals = cfg.algorithm == "hals"
+    ce_ok = cfg.max_iter % ce == 0
+    if use_pallas and hals and not ce_ok:
+        raise ValueError(
+            "backend='pallas' with algorithm='hals' requires max_iter to be "
+            "a multiple of check_every (the block-kernel route; there is no "
+            "per-iteration hals fallback)")
     # the block-kernel route: one launch per trip (the only route where
     # check_block batches inside the kernel)
-    blk_route = use_pallas and cfg.max_iter % ce == 0
+    blk_route = use_pallas and ce_ok
+    # hals' TolFun residual cannot be replayed from a launch's boundary
+    # exports (the snapshots carry H, not the residual), so its multi-check
+    # launch is sound only with TolFun off
+    tolfun = USES_TOLFUN[cfg.algorithm] and cfg.use_tol_checks
     ncheck = cfg.check_block
     if ncheck == "auto":
-        ncheck = 4 if blk_route else 1
+        ncheck = 4 if (blk_route and not tolfun) else 1
     ncheck = int(ncheck)
+    if ncheck > 1 and blk_route and tolfun:
+        raise ValueError(
+            "check_block > 1 on the pallas hals route needs "
+            "use_tol_checks=False: TolFun's residual cannot be replayed "
+            "from the kernel's boundary exports")
+    use_fused = cfg.experimental.fused_updates == "fused"
+    if use_fused and cfg.algorithm != "mu":
+        raise ValueError(
+            "experimental.fused_updates='fused' is the mu join-the-updates "
+            "kernel; the hals block kernel has its own schedule")
+    if use_fused and not blk_route:
+        raise ValueError(
+            "experimental.fused_updates='fused' is the pallas block-kernel "
+            "route only: backend='pallas' and max_iter a multiple of "
+            "check_every")
     multi = blk_route and ncheck > 1
     evict_batch = cfg.experimental.evict_batch
     sqrteps = torch.sqrt(torch.tensor(torch.finfo(f32).eps, device=dev))
@@ -209,12 +244,23 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
             return fence(active, slot_iter).repeat_interleave(k_max).to(
                 f32)[None, :]
 
+        def block_launch(wp, hp, fcol, **kw):
+            """The one block-kernel dispatch: hals' sweep kernel or the
+            mu kernel (phased or join-the-updates), which share operands
+            and outputs."""
+            if hals:
+                return hals_block_iterations(
+                    a_loop, wp, hp, fcol, k=k_max,
+                    slots=wp.shape[1] // k_max, iters=ce, **kern_kw, **kw)
+            return fused_block_iterations(a_loop, wp, hp, fcol, k=k_max,
+                                          iters=ce, fused=use_fused,
+                                          **kern_kw, **kw)
+
         def do_block(wp, hp, active, slot_iter):
             # one launch: slot_iter is a multiple of check_every here, so
             # a slot crosses the cap only at a block boundary
-            wp, hp, wd, wm, hd, hm = fused_block_iterations(
-                a_loop, wp, hp, fcols(active, slot_iter), k=k_max, iters=ce,
-                **kern_kw)
+            wp, hp, wd, wm, hd, hm = block_launch(
+                wp, hp, fcols(active, slot_iter))
             return wp, hp, torch.maximum(ratio(lane_max(wd), lane_max(wm)),
                                          ratio(lane_max(hd), lane_max(hm)))
 
@@ -224,11 +270,9 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
             delta from the exported snapshots and stats."""
             rk = wp.shape[1]
             budget = (cfg.max_iter - slot_iter).clamp(min=0)
-            wp, hp, wd, wm, hd, hm, hck = fused_block_iterations(
-                a_loop, wp, hp, fcols(active, slot_iter), k=k_max, iters=ce,
-                check_block=ncheck,
-                budget_cols=budget.repeat_interleave(k_max).to(f32)[None, :],
-                **kern_kw)
+            wp, hp, wd, wm, hd, hm, hck = block_launch(
+                wp, hp, fcols(active, slot_iter), check_block=ncheck,
+                budget_cols=budget.repeat_interleave(k_max).to(f32)[None, :])
             deltas = [torch.maximum(
                 ratio(lane_max(wd[b]), lane_max(wm[b])),
                 ratio(lane_max(hd[b * rk:(b + 1) * rk]),
@@ -334,10 +378,10 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
 
     def apply_check(pool: _Pool, wp, hp, delta, new_labels) -> None:
         """ONE convergence check's bookkeeping: class stability, TolX,
-        the max_iter fence and the per-job outcome scatters. On the
-        multi-check launch every check sees the launch-final factors (the
-        reference's drift class); labels and deltas are the boundary
-        exports."""
+        TolFun where the algorithm uses it, the max_iter fence and the
+        per-job outcome scatters. On the multi-check launch every check
+        sees the launch-final factors (the reference's drift class);
+        labels and deltas are the boundary exports."""
         it_new = torch.clamp(pool.slot_iter + ce, max=cfg.max_iter)
         classes, stable, conv, _, reason = batch_convergence(
             cfg, it_new, new_classes=new_labels,
@@ -349,6 +393,11 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
             flip_floor=flip_floor,
             nonfinite=(layout.nonfinite(wp, hp) if cfg.nonfinite_guard
                        else None))
+        dnorm = pool.dnorm
+        if tolfun:
+            dnorm, conv, reason = tolfun_update(
+                a, *layout.dense_views(wp, hp), it_new, cfg, dnorm=dnorm,
+                done=conv, done_in=~pool.active, stop_reason=reason)
         finished = pool.active & (conv | (it_new >= cfg.max_iter))
         idx = torch.where(finished, pool.slot_job, drop)
         out_iters[idx] = it_new
@@ -360,6 +409,7 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
             finished, 0, torch.where(pool.active, it_new, pool.slot_iter))
         pool.classes = torch.where(finished[:, None], -1, classes)
         pool.stable = torch.where(finished, 0, stable)
+        pool.dnorm = torch.where(finished, torch.inf, dnorm)
         pool.active = pool.active & ~finished
         pool.pending = pool.pending | finished
 
@@ -420,14 +470,15 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
         return dataclasses.replace(
             pool, wp=wp, hp=hp, slot_iter=pool.slot_iter[order],
             classes=pool.classes[order], stable=pool.stable[order],
-            slot_job=pool.slot_job[order], active=pool.active[order],
-            pending=pool.pending[order])
+            dnorm=pool.dnorm[order], slot_job=pool.slot_job[order],
+            active=pool.active[order], pending=pool.pending[order])
 
     wp0, hp0 = layout.init_slots(s)
     pool = _Pool(
         wp=wp0, hp=hp0, slot_iter=torch.zeros((s,), **i32),
         classes=torch.full((s, n), -1, **i32),
         stable=torch.zeros((s,), **i32),
+        dnorm=torch.full((s,), torch.inf, dtype=f32, device=dev),
         slot_job=torch.arange(s, dtype=torch.long, device=dev),
         active=torch.ones((s,), dtype=torch.bool, device=dev),
         pending=torch.zeros((s,), dtype=torch.bool, device=dev),

@@ -1,6 +1,6 @@
 """Single-restart solvers (counterpart of ``nmfx/solvers``); the port
-has mu."""
+has mu and hals."""
 
-from nmfx_torch.solvers import mu
+from nmfx_torch.solvers import hals, mu
 
-SOLVERS = {"mu": mu}
+SOLVERS = {"mu": mu, "hals": hals}

@@ -213,7 +213,7 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 def solve(a, w0, h0, cfg=None, *, device=None) -> SolverResult:
     """Factorize A ≈ W·H from (W0, H0) with the configured algorithm
-    (reference ``solve``; the port runs mu).
+    (reference ``solve``; the port runs mu and hals).
 
     Plain PyTorch products on ``device`` (None = CUDA, raising if there is
     none; TF32 off there), in ``cfg.dtype``: "float32" or "float64".
@@ -225,7 +225,7 @@ def solve(a, w0, h0, cfg=None, *, device=None) -> SolverResult:
     if cfg.algorithm not in SOLVERS:
         raise NotImplementedError(
             f"algorithm={cfg.algorithm!r} is not ported yet (ROADMAP "
-            "'Modules to port' item 8); the port runs 'mu'")
+            f"'Modules to port' item 8); the port runs {tuple(SOLVERS)}")
     if cfg.backend == "sketched":
         raise NotImplementedError(
             "backend='sketched' is not ported yet (ROADMAP 'Modules to "

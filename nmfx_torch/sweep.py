@@ -8,9 +8,11 @@ chooses them:
 * whole grid (``grid_exec="auto"`` with more than one rank, or
   ``"grid"``): every (k, restart) job goes through one slot-scheduled
   solve (``nmfx_torch.ops.sched_mu``), dispatched rank-descending;
-* per rank (``"per_k"``, or a single rank): each rank's restarts are
-  solved as one restart-packed batch (``nmfx_torch.ops.packed_mu``),
-  ranks one after another.
+* per rank (``"per_k"``, or a single rank): ranks one after another.
+  mu solves each rank's restarts as one restart-packed batch
+  (``nmfx_torch.ops.packed_mu``); hals runs the slot scheduler at that
+  one rank, whose key arrives already folded, so its restarts start from
+  the same factors as on the whole grid.
 
 Either way each rank's batch reduces to a consensus matrix on the
 device. Meshes, the registry and the executable cache are not ported
@@ -34,8 +36,10 @@ from nmfx_torch.ops.packed_mu import mu_packed, unpack_w
 from nmfx_torch.ops.sched_mu import mu_sched
 from nmfx_torch.solvers.base import StopReason
 
-#: backends that route each algorithm into the slot scheduler
-_GRID_EXEC_BACKENDS = {"mu": ("auto", "packed", "pallas")}
+#: backends that route each algorithm into the slot scheduler; hals runs
+#: nowhere else (its per-rank route is the scheduler at one rank)
+_GRID_EXEC_BACKENDS = {"mu": ("auto", "packed", "pallas"),
+                       "hals": ("auto", "packed", "pallas")}
 
 
 class KSweepOutput(NamedTuple):
@@ -111,9 +115,17 @@ def sweep_one_k(a: torch.Tensor, key: np.ndarray, k: int, restarts: int,
                 solver_cfg: SolverConfig = SolverConfig(),
                 init_cfg: InitConfig = InitConfig(),
                 label_rule: str = "argmax",
-                keep_factors: bool = False) -> KSweepOutput:
-    """Run ``restarts`` factorizations at rank k on A's device and reduce
-    them to one consensus matrix there."""
+                keep_factors: bool = False, slots: int = 48,
+                tail_slots="auto") -> KSweepOutput:
+    """Run ``restarts`` factorizations at rank k on A's device (``key``
+    is the rank's folded key) and reduce them to one consensus matrix
+    there: mu as one packed batch, hals through the slot scheduler at
+    this one rank (``slots`` wide, with the ``tail_slots`` cascade)."""
+    if solver_cfg.algorithm != "mu":
+        fn = _build_grid_exec_sweep_fn((k,), restarts, solver_cfg, init_cfg,
+                                       label_rule, keep_factors, slots,
+                                       tail_slots, fold_keys=False)
+        return fn(a, key)[k]
     fn = _build_packed_sweep_fn(k, restarts, solver_cfg, init_cfg,
                                 label_rule, keep_factors)
     return fn(a, key)
@@ -131,13 +143,17 @@ def _build_grid_exec_sweep_fn(ks: tuple[int, ...], restarts: int,
                               solver_cfg: SolverConfig,
                               init_cfg: InitConfig, label_rule: str,
                               keep_factors: bool = False, slots: int = 48,
-                              tail_slots="auto"):
+                              tail_slots="auto", fold_keys: bool = True):
     """The whole-grid sweep as a function of (A on its device, the root
     key): every (k, restart) job through one ``mu_sched`` solve, jobs
     rank-descending (longest expected first), lanes rank-major and
     zero-padded to the largest rank; per-rank labels, quarantine,
     consensus and best restart from static slices of the per-job
-    results."""
+    results. ``fold_keys=False`` is the single-rank mode whose key is
+    already folded with its k."""
+    if not fold_keys and len(ks) != 1:
+        raise ValueError("fold_keys=False is the single-rank (pre-folded "
+                         "key) mode; got several ks")
     ks = tuple(sorted(ks, reverse=True))  # LPT dispatch order
     k_max = max(ks)
 
@@ -145,7 +161,8 @@ def _build_grid_exec_sweep_fn(ks: tuple[int, ...], restarts: int,
              ) -> dict[int, KSweepOutput]:
         w0l, h0l = [], []
         for k in ks:
-            keys = _random.split(_random.fold_in(root_key, k), restarts)
+            keys = _random.split(_random.fold_in(root_key, k) if fold_keys
+                                 else root_key, restarts)
             w0s, h0s = restart_inits(a, keys, k, init_cfg)
             w0l.append(torch.nn.functional.pad(w0s, (0, k_max - k)))
             h0l.append(torch.nn.functional.pad(h0s, (0, 0, 0, k_max - k)))
@@ -192,8 +209,8 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
     if cfg.grid_exec == "grid" and not eligible:
         raise ValueError(
             "grid_exec='grid' needs an algorithm/backend pair that routes "
-            "into the slot scheduler — mu with backend 'auto', 'packed' or "
-            f"'pallas'; got algorithm={solver_cfg.algorithm!r}, "
+            "into the slot scheduler — mu or hals with backend 'auto', "
+            f"'packed' or 'pallas'; got algorithm={solver_cfg.algorithm!r}, "
             f"backend={solver_cfg.backend!r} (use grid_exec='auto' to "
             "fall back per configuration)")
     check_ported(solver_cfg)
@@ -217,7 +234,8 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
         # factorizations whatever the sweep's composition
         out[k] = sweep_one_k(a_dev, _random.fold_in(root, k), k,
                              cfg.restarts, solver_cfg, init_cfg,
-                             cfg.label_rule, cfg.keep_factors)
+                             cfg.label_rule, cfg.keep_factors,
+                             cfg.grid_slots, cfg.grid_tail_slots)
         if on_rank is not None:
             on_rank(k, out[k])
     return out

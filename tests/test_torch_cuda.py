@@ -68,7 +68,9 @@ def test_kernels_match_plain_versions(card, case):
         assert torch.equal(h == 0, want_h == 0)
         assert torch.equal(w == 0, want_w == 0)
     assert fused_mu.LAUNCHES == {"fused_h_update": 1, "fused_w_update": 1,
-                                 "fused_block_iterations": 0}
+                                 "fused_block_iterations": 0,
+                                 "fused_block_iterations_fused": 0,
+                                 "hals_block_iterations": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
@@ -151,3 +153,81 @@ def test_whole_grid_on_card_matches_cpu(card):
     torch.testing.assert_close(got.h.cpu(), want.h, rtol=1e-3, atol=1e-5)
     assert (got.h[3:, 2] == 0).all()  # the rank-2 jobs' padded row
     assert fused_mu.LAUNCHES["fused_block_iterations"] == sum(got.pool_trips)
+
+
+@pytest.mark.parametrize("check_block", [1, 4])
+def test_fused_block_kernel_byte_equal_to_phased(card, check_block):
+    """The join-the-updates order against the phased one on the card:
+    every output byte-equal (the same sums in the same order)."""
+    m, n, slots, k = 203, 37, 5, 3
+    a, wp, hp = _operands(m, n, slots, k, False, card)
+    frozen = torch.zeros((1, slots * k), device=card)
+    frozen[0, k:2 * k] = 1.0
+    budget = torch.full((1, slots * k), 100.0, device=card)
+    budget[0, 2 * k:3 * k] = 3.0
+    kw = dict(k=k, iters=2, check_block=check_block,
+              budget_cols=budget if check_block > 1 else None)
+    fused_mu.reset_launch_counts()
+    phased = fused_mu.fused_block_iterations(a, wp, hp, frozen, **kw)
+    fused = fused_mu.fused_block_iterations(a, wp, hp, frozen, fused=True,
+                                            **kw)
+    torch.cuda.synchronize()
+    assert len(fused) == len(phased)
+    for f, p in zip(fused, phased):
+        assert torch.equal(f.view(torch.int32), p.view(torch.int32))
+    assert fused_mu.LAUNCHES["fused_block_iterations"] == 1
+    assert fused_mu.LAUNCHES["fused_block_iterations_fused"] == 1
+
+
+@pytest.mark.parametrize("check_block", [1, 4])
+def test_hals_block_kernel_matches_plain_version(card, check_block):
+    """The HALS block kernel on a ragged pool with a frozen lane, a budget
+    that runs out mid-launch and a zero-padded component (rtol=1e-4,
+    atol=1e-5: at k=3 the sweeps' divisions magnify little)."""
+    m, n, slots, k = 203, 37, 5, 3
+    a, wp, hp = _operands(m, n, slots, k, False, card)
+    wp[:, k - 1] = 0.0
+    hp[k - 1] = 0.0
+    frozen = torch.zeros((1, slots * k), device=card)
+    frozen[0, k:2 * k] = 1.0
+    budget = torch.full((1, slots * k), 100.0, device=card)
+    budget[0, 2 * k:3 * k] = 3.0
+    kw = dict(k=k, slots=slots, iters=2, check_block=check_block,
+              budget_cols=budget if check_block > 1 else None)
+    fused_mu.reset_launch_counts()
+    got = fused_mu.hals_block_iterations(a, wp, hp, frozen, **kw)
+    want = fused_mu.hals_block_iterations_ref(a, wp, hp, frozen, **kw)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == (7 if check_block > 1 else 6)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+    assert torch.equal(got[0][:, k:2 * k], wp[:, k:2 * k])
+    assert torch.equal(got[1][k:2 * k], hp[k:2 * k])
+    assert (got[0][:, k - 1] == 0).all() and (got[1][k - 1] == 0).all()
+    assert fused_mu.LAUNCHES["hals_block_iterations"] == 1
+
+
+def test_hals_whole_grid_on_card_matches_cpu(card):
+    """hals on the pallas slot scheduler (the HALS block kernel) against
+    its plain versions on the CPU: the same iterations, stop reasons and
+    labels, one launch a trip."""
+    from nmfx_torch.datasets import two_group_matrix
+    from nmfx_torch.ops.sched_mu import mu_sched
+
+    rng = np.random.default_rng(4)
+    a = two_group_matrix(n_genes=200, n_per_group=12, seed=3)
+    k_max, ks = 3, (3, 3, 3, 2, 2, 2)
+    w0 = rng.uniform(0.0, 1.0, (len(ks), 200, k_max)).astype(np.float32)
+    h0 = rng.uniform(0.0, 1.0, (len(ks), k_max, 24)).astype(np.float32)
+    for j, k in enumerate(ks):
+        w0[j, :, k:] = 0.0
+        h0[j, k:] = 0.0
+    cfg = SolverConfig(algorithm="hals", backend="pallas", max_iter=200)
+    fused_mu.reset_launch_counts()
+    got = mu_sched(a, w0, h0, cfg, slots=4, job_ks=ks, device=card)
+    want = mu_sched(a, w0, h0, cfg, slots=4, job_ks=ks, device="cpu")
+    assert torch.equal(got.iterations.cpu(), want.iterations)
+    assert torch.equal(got.stop_reason.cpu(), want.stop_reason)
+    assert torch.equal(got.h.cpu().argmax(dim=1), want.h.argmax(dim=1))
+    assert (got.h[3:, 2] == 0).all()  # the rank-2 jobs' padded row
+    assert fused_mu.LAUNCHES["hals_block_iterations"] == sum(got.pool_trips)

@@ -92,11 +92,20 @@ def test_cpu_wrappers_run_plain_versions_without_launching():
     blk = fused_mu.fused_block_iterations(a, wp, hp, frozen, k=2)
     assert torch.equal(h, fused_mu.fused_h_update_ref(a, wp, hp, k=2))
     assert torch.equal(w, fused_mu.fused_w_update_ref(a, wp, h, gh, k=2))
+    joined = fused_mu.fused_block_iterations(a, wp, hp, frozen, k=2,
+                                             fused=True)
+    hals = fused_mu.hals_block_iterations(a, wp, hp, frozen, k=2, slots=3)
     for got, want in zip(blk, fused_mu.fused_block_iterations_ref(
             a, wp, hp, frozen, k=2)):
         assert torch.equal(got, want)
-    assert set(fused_mu.LAUNCHES) == {"fused_h_update", "fused_w_update",
-                                      "fused_block_iterations"}
+    for got, want in zip(joined, blk):
+        assert torch.equal(got, want)
+    for got, want in zip(hals, fused_mu.hals_block_iterations_ref(
+            a, wp, hp, frozen, k=2, slots=3)):
+        assert torch.equal(got, want)
+    assert set(fused_mu.LAUNCHES) == {
+        "fused_h_update", "fused_w_update", "fused_block_iterations",
+        "fused_block_iterations_fused", "hals_block_iterations"}
     assert all(count == 0 for count in fused_mu.LAUNCHES.values())
 
 

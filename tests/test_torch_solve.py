@@ -122,7 +122,7 @@ def test_nmf_validates_its_inputs():
     with pytest.raises(ValueError, match="non-negative"):
         nmfx_torch.nmf(-a, 2, device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
-        nmfx_torch.nmf(a, 2, algorithm="hals", device="cpu")
+        nmfx_torch.nmf(a, 2, algorithm="kl", device="cpu")
     with pytest.raises(NotImplementedError, match="item 1"):
         nmfx_torch.nmf(a, 2, solver_cfg=nmfx_torch.SolverConfig(
             dtype="float64"), device="cpu")
@@ -216,7 +216,7 @@ def test_configs_round_trip_from_reference_dicts():
 @pytest.mark.parametrize("knob,item", [
     (dict(ragged=True), "item 7"),
     (dict(factor_dtype="bfloat16"), "item 7"),
-    (dict(fused_updates="fused"), "'TPU kernels to port' item 3"),
+    (dict(autotune="on"), "item 13"),
     (dict(alias_io=True), "item 7"),
 ])
 def test_converter_refuses_unported_experimental_knobs(knob, item):
