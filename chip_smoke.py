@@ -7,11 +7,13 @@ versions.
 
 Phases (any failure exits non-zero; nothing is caught):
   1. card and build: nvidia-smi's name and power limit, the nvcc build
-     (one nvcc per source, all started together);
+     (one nvcc per source, all started together), and each mu block
+     kernel function's registers, shared memory and spills (ptxas -v);
   2. kernel parity: each kernel against its plain PyTorch version at the
      north-star shape, a ragged shape and with planted exact zeros (the
      block kernels also with frozen lanes, budgets that run out
-     mid-launch and a zero-padded rank-3 job); the join-the-updates mu
+     mid-launch and a zero-padded rank-3 job; the mu block kernel also at
+     a pool whose rows are not 16-byte aligned); the join-the-updates mu
      block kernel against the phased one, all outputs byte-equal;
   3. kernel timing (CUDA events, median of 25 after warm-up) beside the
      plain version, a torch.matmul composite and the card's bound;
@@ -80,6 +82,29 @@ def smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def print_resources(build, lib: str) -> None:
+    """One line per kernel function of csrc/<lib>.cu: registers, static
+    shared memory and spills from the build's ptxas -v log (dynamic shared
+    memory is set at launch, block_gemm.cuh's *_RING_BYTES)."""
+    res = build.kernel_resources(build.build_log(lib))
+    if not res:
+        raise AssertionError(f"no ptxas -v log for {lib}")
+    names = list(res)
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True, check=True,
+                               timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        pass  # the mangled names then
+    for name, r in sorted(zip(names, res.values())):
+        name = name.replace("(anonymous namespace)::", "")
+        name = name.removeprefix("void ").split("(")[0]
+        print(f"resources {lib} {name}: {r['registers']} "
+              f"registers, {r['smem']} bytes static shared memory, "
+              f"{r['stack']} bytes stack, spill stores {r['spill_stores']} "
+              f"/ loads {r['spill_loads']} bytes", flush=True)
 
 
 def peaks(name: str) -> tuple[float, float]:
@@ -211,6 +236,15 @@ BLOCK_CASES = (
 )
 
 
+#: the mu block kernel's cases add a pool of 5 slots x k = 7 at the ragged
+#: shape: rk = 35 and n = 77 leave its rows off 16-byte alignment, so its
+#: products copy with 4-byte cp.async
+MU_BLOCK_CASES = BLOCK_CASES + (
+    ("unaligned", 1237, 77, 5, 7, dict(frozen=(1,), budgets={3: 5},
+                                      pad=False)),
+)
+
+
 def phase_block_parity(torch, fm):
     """fused_block_iterations against its plain version (every output,
     exact zeros identical, frozen lanes and padded rows bit-equal to the
@@ -218,7 +252,7 @@ def phase_block_parity(torch, fm):
     outputs byte-equal). Returns the north-star max abs errors of both."""
     kw = dict(iters=CHECK_EVERY, check_block=CHECK_BLOCK)
     ns_err = {}
-    for label, m, n, slots, k, opts in BLOCK_CASES:
+    for label, m, n, slots, k, opts in MU_BLOCK_CASES:
         a, wp, hp, frz, budget = block_operands(torch, m, n, slots, k,
                                                 seed=3, **opts)
         want = fm.fused_block_iterations_ref(a, wp, hp, frz, k=k,
@@ -1040,6 +1074,7 @@ def main(argv=None) -> int:
     print(f"nvcc build {time.perf_counter() - t0:.2f} s "
           f"({'cold' if any(built.values()) else 'cached'}: {built})",
           flush=True)
+    print_resources(_build, "block_mu")
 
     ns_err = phase_parity(torch, fm)
     ns_err.update(phase_block_parity(torch, fm))

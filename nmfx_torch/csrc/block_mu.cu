@@ -31,15 +31,18 @@
 // What bounds it on an H100: at the north star (m = 5120 padded rows,
 // n = 500, rk = 48 slots x k = 10) an iteration is 4*m*n*rk = 4.9 GFLOP
 // of numerator products against ~41 MB of traffic, so a call is bound by
-// operations (f32 FMA on the CUDA cores, as in fused_mu.cu: 64 x 64
-// tiles, 16-deep shared-memory stages, 4 x 4 outputs per thread).
+// operations: f32 FMA on the CUDA cores. The two numerator products run
+// on block_gemm.cuh's register-tiled, pipelined tiles (W: 128 rows x 64
+// lane columns, 8 x 4 outputs a thread; H: 64 lane columns x 128 columns
+// of A, 8 x 8 a thread), whose every output is the same in-order fmaf
+// chain as before, so the results do not depend on the tiling.
 //
 // What the design does about the TPU kernel's structure: the Pallas
 // kernel holds all of Wp (9.8 MB here) and Hp in one core's VMEM for the
 // whole launch; an SM has 227 KB. So the factors stay in device memory
 // (A, Wp and Hp together fit the 50 MB L2) and one C call enqueues, per
 // iteration, five kernels on the caller's stream with no host sync:
-//   1. h_numer_partial: Wp^T A, m split into SPLIT_ROWS-row chunks;
+//   1. h_numer_split: Wp^T A, m split into SPLIT_ROWS-row chunks;
 //   2. h_gram_partial:  each lane's k x k Wp^T Wp block per chunk;
 //   3. h_block_epilogue: one block per H row; sums the partials in split
 //      order, applies the epilogue and the freeze, and at a boundary the
@@ -55,26 +58,34 @@
 // so the scheduler's results do not depend on the schedule.
 //
 // The join-the-updates variant runs T + 1 passes (T = iters*check_block)
-// instead of T iterations. Pass p runs, on each SPLIT_ROWS-row chunk of A
-// in one block per (64-column lane tile, chunk) (wh_pass): the W half of
-// iteration p-1 on the chunk's rows (skipped at p = 0; fence <= p-1),
-// kept in shared memory, then the H-numerator partial of iteration p from
-// the same A rows and that W (skipped at p = T). Then h_gram_partial,
-// h_block_epilogue (fence <= p) and h_gram_diag finish iteration p's H
-// half. W stats land when p % iters == 0 (p > 0, row p/iters - 1), H
-// stats and snapshots when (p+1) % iters == 0 (p < T). Every output
-// element is the same chain of fmaf and adds as in the phased kernel, so
-// all seven outputs are byte-equal to it. The W half needs the complete
-// H of the previous pass, so a pass stays four launches. What it saves
-// is one of the two reads of A per iteration, but A (10.2 MB here) sits
-// in L2 either way, and a pass's 8 x 20 blocks each run four W tiles
-// and eight numerator tiles in series: on an H100 it is slower than the
-// phased order (PERF.md).
+// instead of T iterations. Pass p (wh_pass) runs one thread block cluster
+// of PAIR = SPLIT_ROWS / 128 CTAs per (64-column lane tile, SPLIT_ROWS-row
+// chunk of A): each CTA computes the W half of iteration p-1 on its 128
+// rows of the chunk (skipped at p = 0; fence <= p-1) with w_block_update's
+// own tile code and keeps the new rows in its shared memory; after a
+// cluster barrier each CTA copies its peers' rows through distributed
+// shared memory, so it holds the chunk's whole W strip, and sums its
+// share of the chunk's n columns of iteration p's H-numerator partial
+// from it (skipped at p = T). Then the W-Gram partials, h_block_epilogue
+// (fence <= p) and the H-Gram finish iteration p's H half. W stats land
+// when p % iters == 0 (p > 0, row p/iters - 1), H stats and snapshots
+// when (p+1) % iters == 0 (p < T). Every output element is the same chain
+// of fmaf and adds as in the phased kernel, so all seven outputs are
+// byte-equal to it. The W half needs the complete H of the previous pass,
+// so a pass stays four launches. What the order saves is one of the two
+// reads of A per iteration, but A (10.2 MB here) sits in L2 either way
+// (PERF.md).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include <algorithm>
+
 #include "block_common.cuh"
+#include "block_gemm.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -141,162 +152,286 @@ h_block_epilogue(const float* __restrict__ hp, const float* __restrict__ part,
   }
 }
 
-// The W epilogue of the 64 x 64 tile (i0, c0) whose numerators A Hp^T
-// are in `acc` (w_numer_tile's layout):
+// The W epilogue of the WBM x WBN tile (i0, c0) whose numerators A Hp^T
+// are in `acc` (w_numer_core's layout):
 //   out[i, c] = epilogue(Wp[i, c], acc,
 //                        sum_q Wp[i, r*k+q] * gh[r, q, c - r*k]),
-// r = c / k, or Wp[i, c] on a frozen column; `keep` (may be null) gets
-// the same values, row-major with leading dimension TILE from row i0.
-// With `stats`, the tile's column maxima of |out - Wp| and |Wp| go to
-// row `trow` of wdp / wmp. Every thread of the block must call it.
+// r = c / k, or Wp[i, c] on a frozen column (float4 stores with vec_out).
+// `keep` (may be null) gets the same values, row-major with leading
+// dimension WBN from row i0, and zeros outside the matrix. With `stats`,
+// the tile's column maxima of |out - Wp| and |Wp| go to row `trow` of wdp
+// / wmp. When the tile's rows of Wp over the lanes its columns touch fit
+// `stage` (`stage_floats` floats of shared memory, the ring's once the
+// product is done), they are staged there, so the denominators' chains
+// (4 interleaved a thread) read shared memory; otherwise they read Wp in
+// global memory in the same order. Every thread of the block must call it.
 __device__ __forceinline__ void w_tile_epilogue(
-    const float (&acc)[4][4], const float* __restrict__ wp,
+    const float (&acc)[WTM][WTN], const float* __restrict__ wp,
     const float* __restrict__ gh, const float* __restrict__ frozen,
     const float* __restrict__ budget, float* __restrict__ out,
     float* __restrict__ keep, float* __restrict__ wdp,
-    float* __restrict__ wmp, int trow, int m, int rk, int k, int i0, int c0,
-    int it, int stats, float eps, float zero_threshold) {
-  __shared__ float red_d[16][TILE];
-  __shared__ float red_m[16][TILE];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float cd[4] = {0.f, 0.f, 0.f, 0.f}, cm[4] = {0.f, 0.f, 0.f, 0.f};
+    float* __restrict__ wmp, float* stage, int stage_floats, int vec_out,
+    int trow, int m, int rk, int k, int i0, int c0, int it, int stats,
+    float eps, float zero_threshold) {
+  // the columns [cb, ce) of the lanes this tile's columns belong to
+  const int cb = (c0 / k) * k;
+  const int ce = min(rk, ((min(rk, c0 + WBN) - 1) / k + 1) * k);
+  const int span = ce - cb;
+  const bool staged = stage_floats >= WBM * span;
+  int lbase[WTN], goff[WTN];
+  bool live[WTN], frz[WTN];
+  float cd[WTN], cm[WTN];
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int i = i0 + ty + 16 * u;
-    if (i >= m) continue;
-    const float* wrow = wp + (size_t)i * rk;
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int c = c0 + tx + 16 * v;
-      if (c >= rk) continue;
-      const float w0 = wrow[c];
-      float wn = w0;
-      if (!lane_frozen(frozen, budget, c, it)) {
-        const int r = c / k, base = r * k, p = c - base;
-        float denom = 0.f;
-        for (int q = 0; q < k; ++q)
-          denom = fmaf(wrow[base + q], gh[((size_t)r * k + q) * k + p], denom);
-        wn = mu_epilogue(w0, acc[u][v], denom, eps, zero_threshold);
+  for (int v = 0; v < WTN; ++v) {
+    const int c = c0 + w_col(v);
+    live[v] = c < rk;
+    const int r = live[v] ? c / k : cb / k, p = live[v] ? c - r * k : 0;
+    lbase[v] = r * k - cb;
+    goff[v] = r * k * k + p;
+    frz[v] = live[v] && lane_frozen(frozen, budget, c, it);
+    cd[v] = cm[v] = 0.f;
+  }
+  if (staged) {
+    // element (rl, cc) of the stage, walked without divisions
+    const int dr = W_THREADS / span, dc = W_THREADS % span;
+    int rl = threadIdx.x / span, cc = threadIdx.x % span;
+    while (rl < WBM) {
+      const int i = i0 + rl;
+      const bool in = i < m;
+      cp_async4(stage + rl * span + cc,
+                in ? wp + (size_t)i * rk + cb + cc : wp, in ? 4 : 0);
+      rl += dr;
+      cc += dc;
+      if (cc >= span) {
+        cc -= span;
+        ++rl;
       }
-      out[(size_t)i * rk + c] = wn;
-      if (keep != nullptr) keep[(ty + 16 * u) * TILE + tx + 16 * v] = wn;
-      cd[v] = nan_max(cd[v], fabsf(wn - w0));
-      cm[v] = nan_max(cm[v], fabsf(w0));
     }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  // float4 stores of the thread's column groups that lie inside rk
+  bool quad[WTN / 4];
+#pragma unroll
+  for (int h = 0; h < WTN / 4; ++h)
+    quad[h] = vec_out && c0 + w_col(4 * h + 3) < rk;
+#pragma unroll
+  for (int u = 0; u < WTM; ++u) {
+    const int i = i0 + w_row(u);
+    float wn[WTN];
+    if (i < m) {
+      // srow[j] = Wp[i, cb + j]
+      const float* srow =
+          staged ? stage + w_row(u) * span : wp + (size_t)i * rk + cb;
+      float denom[WTN];
+#pragma unroll
+      for (int v = 0; v < WTN; ++v) denom[v] = 0.f;
+      for (int q = 0; q < k; ++q)
+#pragma unroll
+        for (int v = 0; v < WTN; ++v)
+          denom[v] = fmaf(srow[lbase[v] + q], gh[goff[v] + q * k], denom[v]);
+#pragma unroll
+      for (int v = 0; v < WTN; ++v) {
+        wn[v] = 0.f;
+        if (!live[v]) continue;
+        const float w0 = srow[c0 + w_col(v) - cb];
+        wn[v] = frz[v] ? w0
+                       : mu_epilogue(w0, acc[u][v], denom[v], eps,
+                                     zero_threshold);
+        cd[v] = nan_max(cd[v], fabsf(wn[v] - w0));
+        cm[v] = nan_max(cm[v], fabsf(w0));
+      }
+#pragma unroll
+      for (int h = 0; h < WTN / 4; ++h) {
+        float* o = out + (size_t)i * rk + c0 + w_col(4 * h);
+        if (quad[h]) {
+          *reinterpret_cast<float4*>(o) = make_float4(
+              wn[4 * h], wn[4 * h + 1], wn[4 * h + 2], wn[4 * h + 3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (live[4 * h + e]) o[e] = wn[4 * h + e];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < WTN; ++v) wn[v] = 0.f;
+    }
+    if (keep != nullptr)
+#pragma unroll
+      for (int h = 0; h < WTN / 4; ++h)
+        *reinterpret_cast<float4*>(keep + w_row(u) * WBN + w_col(4 * h)) =
+            make_float4(wn[4 * h], wn[4 * h + 1], wn[4 * h + 2],
+                        wn[4 * h + 3]);
   }
   if (!stats) return;  // the same for every thread of the block
+  __syncthreads();     // the stage's last reads are done
+  // column maxima over the tile: the GROUPS threads that share a column
+  // each hold WTM of its rows
+  constexpr int GROUPS = W_THREADS / (WBN / WTN);
+  float* red_d = stage;                 // [GROUPS][WBN]
+  float* red_m = stage + GROUPS * WBN;  // [GROUPS][WBN]
+  const int g = w_group();
 #pragma unroll
-  for (int v = 0; v < 4; ++v) {
-    red_d[ty][tx + 16 * v] = cd[v];
-    red_m[ty][tx + 16 * v] = cm[v];
+  for (int v = 0; v < WTN; ++v) {
+    red_d[g * WBN + w_col(v)] = cd[v];
+    red_m[g * WBN + w_col(v)] = cm[v];
   }
   __syncthreads();
-  if (threadIdx.x < TILE) {
+  if (threadIdx.x < WBN) {
     const int c = c0 + threadIdx.x;
     float d = 0.f, mx = 0.f;
-    for (int t = 0; t < 16; ++t) {
-      d = nan_max(d, red_d[t][threadIdx.x]);
-      mx = nan_max(mx, red_m[t][threadIdx.x]);
+    for (int t = 0; t < GROUPS; ++t) {
+      d = nan_max(d, red_d[t * WBN + threadIdx.x]);
+      mx = nan_max(mx, red_m[t * WBN + threadIdx.x]);
     }
     if (c < rk) {
       wdp[(size_t)trow * rk + c] = d;
       wmp[(size_t)trow * rk + c] = mx;
     }
   }
-  __syncthreads();  // red_* may be reused by the caller's next tile
+  __syncthreads();  // the stage may be reused by the caller
 }
 
-// The tile-local W half; grid (ceil(rk / TILE), ceil(m / TILE)).
-__global__ void __launch_bounds__(THREADS)
+// The tile-local W half; grid (ceil(rk / WBN), ceil(m / WBM)), max(ring,
+// stage) of dynamic shared memory (w_stage_floats). VEC: float4 loads of
+// A and Hp; vec_out: float4 stores of out. Three blocks an SM: the 320
+// tiles of the north star then run in one wave (at two, 1.2 waves; the
+// register cap this sets costs a few spilled bytes, PERF.md).
+template <bool VEC>
+__global__ void __launch_bounds__(W_THREADS, 3)
 w_block_update(const float* __restrict__ a, const float* __restrict__ wp,
                const float* __restrict__ hp, const float* __restrict__ gh,
                const float* __restrict__ frozen,
                const float* __restrict__ budget, float* __restrict__ out,
                float* __restrict__ wdp, float* __restrict__ wmp, int m, int n,
-               int rk, int k, int it, int stats, float eps,
-               float zero_threshold) {
-  const int c0 = blockIdx.x * TILE, i0 = blockIdx.y * TILE;
-  float acc[4][4];
-  w_numer_tile(a, hp, m, n, rk, i0, c0, acc);
-  w_tile_epilogue(acc, wp, gh, frozen, budget, out, nullptr, wdp, wmp,
-                  blockIdx.y, m, rk, k, i0, c0, it, stats, eps,
-                  zero_threshold);
+               int rk, int k, int it, int stats, int stage_floats,
+               int vec_out, float eps, float zero_threshold) {
+  extern __shared__ __align__(16) float w_ring[];
+  const int c0 = blockIdx.x * WBN, i0 = blockIdx.y * WBM;
+  float acc[WTM][WTN];
+  w_numer_core<VEC>(a, hp, m, n, rk, i0, c0, w_ring, acc);
+  w_tile_epilogue(acc, wp, gh, frozen, budget, out, nullptr, wdp, wmp, w_ring,
+                  stage_floats, vec_out, blockIdx.y, m, rk, k, i0, c0, it,
+                  stats, eps, zero_threshold);
 }
 
-// One pass of the join-the-updates schedule on SPLIT_ROWS-row chunk s =
-// blockIdx.y and lane columns c0 .. c0+63 (c0 = blockIdx.x * TILE):
-// with do_w, the W half of iteration `it` on the chunk's rows, computed
-// and written exactly as w_block_update does, and kept in shared memory
-// (without do_w, the chunk's rows of wp are kept instead); then, with
-// do_h, the chunk's H-numerator partial part[s, c, :] = sum over the
-// chunk's rows of W[row, c] * A[row, :], summed exactly as
-// h_numer_partial sums it.
-__global__ void __launch_bounds__(THREADS)
+// Floats of the W epilogue's stage: the WBM rows of the widest lane span a
+// WBN-column tile can touch, when they fit 96 KB; else 0 (the
+// denominators then read global memory).
+int w_stage_floats(int rk, int k) {
+  const int span = std::min(rk, WBN + 2 * (k - 1));
+  return WBM * span <= 96 * 1024 / (int)sizeof(float) ? WBM * span : 0;
+}
+
+// CTAs per cluster of the join-the-updates pass: one per W tile of a chunk
+constexpr int PAIR = SPLIT_ROWS / WBM;
+// the fused H numerator tile: the WBN lane columns of the strip by HBN
+// columns of A, FCV x 8 outputs a thread (h_step's layout)
+constexpr int FCV = WBN * HBN / (W_THREADS * 8);
+constexpr int FTCN = WBN / FCV, FTJN = HBN / 8;
+static_assert(FCV % 4 == 0 && FTCN * FTJN == W_THREADS,
+              "the fused H tile covers the strip's columns");
+constexpr int FH_STAGE = GBK * HBN;
+constexpr size_t STRIP_BYTES = sizeof(float) * SPLIT_ROWS * WBN;
+constexpr size_t FH_RING_BYTES = sizeof(float) * GSTAGES * FH_STAGE;
+static_assert(2 * (W_THREADS / (WBN / WTN)) * WBN * sizeof(float) <=
+                  W_RING_BYTES,
+              "the W stats reduction reuses the ring");
+
+// One pass of the join-the-updates schedule; grid (ceil(rk / WBN),
+// splits * PAIR) in clusters of (1, PAIR, 1), STRIP_BYTES + max(W ring,
+// H ring, stage) of dynamic shared memory: cluster (x, s) owns lane
+// columns c0 .. c0+63 (c0 = x * WBN) and SPLIT_ROWS-row chunk s, and its
+// CTA of rank r the chunk's rows from s * SPLIT_ROWS + r * WBM. With
+// do_w, each CTA computes the W half of iteration `it` on its rows,
+// exactly as w_block_update does, and keeps them in its part of the
+// shared strip; without do_w the strip is the chunk's rows of wp. Then,
+// with do_h, each CTA completes the strip from its peers' shared memory
+// and computes the chunk's H-numerator partial part[s, c, j] = sum over
+// the chunk's rows of W[row, c] * A[row, j] for the column tiles j0 =
+// (r + PAIR t) * HBN, summed exactly as h_numer_split sums it.
+template <bool VEC>
+__global__ void __cluster_dims__(1, PAIR, 1)
+    __launch_bounds__(W_THREADS, 2)
 wh_pass(const float* __restrict__ a, const float* __restrict__ wp,
         const float* __restrict__ hp, const float* __restrict__ gh,
         const float* __restrict__ frozen, const float* __restrict__ budget,
         float* __restrict__ out, float* __restrict__ wdp,
         float* __restrict__ wmp, float* __restrict__ part, int m, int n,
-        int rk, int k, int it, int do_w, int do_h, int stats, float eps,
-        float zero_threshold) {
-  extern __shared__ float strip[];  // [SPLIT_ROWS][TILE]: the chunk's W
-  __shared__ float wst[BK][TILE];
-  __shared__ float ast[BK][TILE];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int c0 = blockIdx.x * TILE, s = blockIdx.y;
+        int rk, int k, int it, int do_w, int do_h, int stats,
+        int stage_floats, int vec_out, float eps, float zero_threshold) {
+  extern __shared__ __align__(16) float pass_smem[];
+  float* strip = pass_smem;  // [SPLIT_ROWS][WBN]: the chunk's W rows
+  float* ring = pass_smem + SPLIT_ROWS * WBN;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int c0 = blockIdx.x * WBN, s = blockIdx.y / PAIR;
   const int mb = s * SPLIT_ROWS, me = min(m, mb + SPLIT_ROWS);
+  const int i0 = mb + rank * WBM;
+  float* mine = strip + rank * WBM * WBN;
   if (do_w) {
-    for (int i0 = mb; i0 < me; i0 += TILE) {
-      float acc[4][4];
-      w_numer_tile(a, hp, m, n, rk, i0, c0, acc);
+    if (i0 < m) {  // the same for every thread of the block
+      float acc[WTM][WTN];
+      w_numer_core<VEC>(a, hp, m, n, rk, i0, c0, ring, acc);
       w_tile_epilogue(acc, wp, gh, frozen, budget, out,
-                      strip + (size_t)(i0 - mb) * TILE, wdp, wmp, i0 / TILE,
-                      m, rk, k, i0, c0, it, stats, eps, zero_threshold);
+                      do_h ? mine : nullptr, wdp, wmp, ring, stage_floats,
+                      vec_out, i0 / WBM, m, rk, k, i0, c0, it, stats, eps,
+                      zero_threshold);
+    } else if (do_h) {
+      for (int e = threadIdx.x; e < WBM * WBN; e += W_THREADS) mine[e] = 0.f;
     }
+    if (!do_h) return;  // the same for every CTA of the cluster
+    cluster.sync();     // every CTA's rows of the strip are written
+    for (int peer = 0; peer < PAIR; ++peer) {
+      if (peer == rank) continue;
+      const float4* src = reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(strip + peer * WBM * WBN, peer));
+      float4* dst = reinterpret_cast<float4*>(strip + peer * WBM * WBN);
+      for (int e = threadIdx.x; e < WBM * WBN / 4; e += W_THREADS)
+        dst[e] = src[e];
+    }
+    cluster.sync();  // no CTA leaves while a peer still reads its rows
   } else {
-    for (int e = threadIdx.x; e < (me - mb) * TILE; e += THREADS) {
-      const int row = mb + e / TILE, c = c0 + e % TILE;
-      strip[e] = c < rk ? wp[(size_t)row * rk + c] : 0.f;
+    if (!do_h) return;
+    for (int e = threadIdx.x; e < SPLIT_ROWS * WBN; e += W_THREADS) {
+      const int row = mb + e / WBN, c = c0 + e % WBN;
+      strip[e] = (row < me && c < rk) ? wp[(size_t)row * rk + c] : 0.f;
     }
+    __syncthreads();
   }
-  if (!do_h) return;  // the same for every thread of the block
-  __syncthreads();
-  for (int j0 = 0; j0 < n; j0 += TILE) {
-    float acc[4][4] = {};
-    for (int m0 = mb; m0 < me; m0 += BK) {
-      for (int e = threadIdx.x; e < BK * TILE; e += THREADS) {
-        const int kk = e / TILE, c = e % TILE, row = m0 + kk;
-        const bool in = row < me;
-        wst[kk][c] = (in && c0 + c < rk) ? strip[(row - mb) * TILE + c] : 0.f;
-        ast[kk][c] = (in && j0 + c < n) ? a[(size_t)row * n + j0 + c] : 0.f;
-      }
-      __syncthreads();
+  const int tj = threadIdx.x % FTJN, tc = threadIdx.x / FTJN;
+  const int stages = (me - mb + GBK - 1) / GBK;
+  for (int j0 = rank * HBN; j0 < n; j0 += PAIR * HBN) {
+    float acc[FCV][8];
 #pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        float wv[4], av[4];
+    for (int u = 0; u < FCV; ++u)
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          wv[u] = wst[kk][ty + 16 * u];
-          av[u] = ast[kk][tx + 16 * u];
-        }
+      for (int v = 0; v < 8; ++v) acc[u][v] = 0.f;
+    auto load = [&](int kt) {
+      load_cols<HBN, W_THREADS, VEC>(ring + (kt % GSTAGES) * FH_STAGE, a,
+                                     n, mb + kt * GBK, me, j0);
+    };
 #pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int v = 0; v < 4; ++v)
-            acc[u][v] = fmaf(wv[u], av[v], acc[u][v]);
-      }
-      __syncthreads();
+    for (int kt = 0; kt < GSTAGES - 1; ++kt) {
+      if (kt < stages) load(kt);
+      cp_async_commit();
     }
+    for (int kt = 0; kt < stages; ++kt) {
+      cp_async_wait<GSTAGES - 2>();
+      __syncthreads();
+      if (kt + GSTAGES - 1 < stages) load(kt + GSTAGES - 1);
+      cp_async_commit();
+      const float* as = ring + (kt % GSTAGES) * FH_STAGE;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i = c0 + ty + 16 * u;
-      if (i >= rk) continue;
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int j = j0 + tx + 16 * v;
-        if (j < n) part[((size_t)s * rk + i) * n + j] = acc[u][v];
-      }
+      for (int kk = 0; kk < GBK; ++kk)
+        h_step<FCV, FTCN, FTJN>(strip + (kt * GBK + kk) * WBN,
+                                as + kk * HBN, tc, tj, acc);
     }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is refilled by the next column tile
+    h_store<FCV, FTCN, FTJN, VEC>(acc, part, s, n, rk, c0, j0, tc, tj);
   }
 }
 
@@ -306,9 +441,9 @@ struct Launch {
   int m, n, rk, k, iters, check_block, splits, mtiles;
   float eps, zero_threshold;
   cudaStream_t st;
-  size_t gram_smem, ep_smem, hg_smem;
+  size_t gram_smem, ep_smem, hg_smem, w_smem, pass_smem;
   dim3 gram_grid, hg_grid;
-  int red_blocks;
+  int red_blocks, stage_floats, vec_out;
 
   // the H half of iteration `it` from the numerator partials in `part`:
   // the W-Gram partials of w, the epilogue into h_next (stats and
@@ -332,6 +467,73 @@ struct Launch {
   }
 };
 
+// The phased iterations with the copy widths fixed: VN = 16-byte copies
+// of the n-strided operands (A, Hp, part), VR = of the rk-strided (Wp).
+template <bool VN, bool VR>
+cudaError_t phased(const Launch& L, const float* w_cur, const float* h_cur,
+                   float* const (&w_dest)[2], float* const (&h_dest)[2]) {
+  cudaError_t err;
+  if ((err = set_smem((const void*)h_numer_split<VR, VN>, H_RING_BYTES)) !=
+          cudaSuccess ||
+      (err = set_smem((const void*)w_block_update<VN>, L.w_smem)) !=
+          cudaSuccess)
+    return err;
+  const dim3 numer_grid((L.n + HBN - 1) / HBN, (L.rk + HBC - 1) / HBC,
+                        L.splits);
+  const dim3 w_grid((L.rk + WBN - 1) / WBN, L.mtiles);
+  const int total = L.iters * L.check_block;
+  for (int it = 0; it < total; ++it) {
+    // iteration it writes the outputs when (total - 1 - it) is even, the
+    // scratch buffers otherwise, so the last iteration lands in the output
+    float* w_next = w_dest[(total - 1 - it) % 2];
+    float* h_next = h_dest[(total - 1 - it) % 2];
+    const bool boundary = (it + 1) % L.iters == 0;
+    h_numer_split<VR, VN><<<numer_grid, H_THREADS, H_RING_BYTES, L.st>>>(
+        L.a, w_cur, L.part, L.m, L.n, L.rk);
+    L.h_half(w_cur, h_cur, h_next, it);
+    w_block_update<VN><<<w_grid, W_THREADS, L.w_smem, L.st>>>(
+        L.a, w_cur, h_next, L.gh, L.frozen, L.budget, w_next, L.wdp, L.wmp,
+        L.m, L.n, L.rk, L.k, it, boundary ? 1 : 0, L.stage_floats, L.vec_out,
+        L.eps, L.zero_threshold);
+    if (boundary) L.w_stats((it + 1) / L.iters - 1);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    w_cur = w_next;
+    h_cur = h_next;
+  }
+  return cudaSuccess;
+}
+
+// The join-the-updates passes; VN as in phased (Wp is read by scalar
+// loads only).
+template <bool VN>
+cudaError_t joined(const Launch& L, const float* w_cur, const float* h_cur,
+                   float* const (&w_dest)[2], float* const (&h_dest)[2]) {
+  cudaError_t err;
+  if ((err = set_smem((const void*)wh_pass<VN>, L.pass_smem)) != cudaSuccess)
+    return err;
+  const dim3 pass_grid((L.rk + WBN - 1) / WBN, L.splits * PAIR);
+  const int total = L.iters * L.check_block;
+  for (int p = 0; p <= total; ++p) {
+    const bool do_w = p > 0, do_h = p < total;
+    const bool w_boundary = do_w && p % L.iters == 0;
+    float* w_next = do_w ? w_dest[(total - p) % 2] : nullptr;
+    wh_pass<VN><<<pass_grid, W_THREADS, L.pass_smem, L.st>>>(
+        L.a, w_cur, h_cur, L.gh, L.frozen, L.budget, w_next, L.wdp, L.wmp,
+        L.part, L.m, L.n, L.rk, L.k, p - 1, do_w ? 1 : 0, do_h ? 1 : 0,
+        w_boundary ? 1 : 0, L.stage_floats, L.vec_out, L.eps,
+        L.zero_threshold);
+    if (w_boundary) L.w_stats(p / L.iters - 1);
+    if (do_w) w_cur = w_next;
+    if (do_h) {
+      float* h_next = h_dest[(total - 1 - p) % 2];
+      L.h_half(w_cur, h_cur, h_next, p);
+      h_cur = h_next;
+    }
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 int block_iterations(const float* a, const float* wp_in, const float* hp_in,
                      const float* frozen, const float* budget, float* wp_out,
                      float* hp_out, float* wd, float* wm, float* hd,
@@ -340,103 +542,48 @@ int block_iterations(const float* a, const float* wp_in, const float* hp_in,
                      float* wdp, float* wmp, int m, int n, int rk, int k,
                      int iters, int check_block, float eps,
                      float zero_threshold, void* stream, bool fused) {
-  Launch L;
-  L.a = a;
-  L.frozen = frozen;
-  L.budget = budget;
-  L.wd = wd;
-  L.wm = wm;
-  L.hd = hd;
-  L.hm = hm;
-  L.h_checks = h_checks;
-  L.part = part;
-  L.gpart = gpart;
-  L.gh = gh;
-  L.wdp = wdp;
-  L.wmp = wmp;
-  L.m = m;
-  L.n = n;
-  L.rk = rk;
-  L.k = k;
-  L.iters = iters;
-  L.check_block = check_block;
-  L.splits = (m + SPLIT_ROWS - 1) / SPLIT_ROWS;
-  L.mtiles = (m + TILE - 1) / TILE;
-  L.eps = eps;
-  L.zero_threshold = zero_threshold;
-  L.st = static_cast<cudaStream_t>(stream);
-  L.gram_smem = sizeof(float) * GRAM_ROWS * k;
-  L.ep_smem = sizeof(float) * (k + 2 * ROW_THREADS);
-  L.hg_smem = sizeof(float) * k * (GRAM_COLS + 1);
   const int lanes = rk / k;
-  L.gram_grid = dim3(lanes, L.splits, (k * k + THREADS - 1) / THREADS);
-  L.hg_grid = dim3(lanes, (k * k + THREADS - 1) / THREADS);
-  L.red_blocks = (rk + ROW_THREADS - 1) / ROW_THREADS;
-  const size_t strip_smem = sizeof(float) * SPLIT_ROWS * TILE;
+  const int splits = (m + SPLIT_ROWS - 1) / SPLIT_ROWS;
+  const int stage_floats = w_stage_floats(rk, k);
+  const size_t stage_bytes = sizeof(float) * stage_floats;
+  // the n-strided operands the products read (A, every H buffer, part)
+  // and the rk-strided ones (every W buffer): 16-byte copies, loads and
+  // stores where all rows are 16-byte aligned, 4-byte ones otherwise, in
+  // the same arithmetic
+  const bool vn = rows_aligned(a, n) && rows_aligned(hp_in, n) &&
+                  rows_aligned(hp_out, n) && rows_aligned(hp_tmp, n) &&
+                  rows_aligned(part, n);
+  const bool vr = rows_aligned(wp_in, rk) && rows_aligned(wp_out, rk) &&
+                  rows_aligned(wp_tmp, rk);
+  Launch L{a, frozen, budget, wd, wm, hd, hm, h_checks, part, gpart, gh,
+           wdp, wmp, m, n, rk, k, iters, check_block, splits,
+           (m + WBM - 1) / WBM, eps, zero_threshold,
+           static_cast<cudaStream_t>(stream),
+           sizeof(float) * GRAM_ROWS * k,
+           sizeof(float) * (k + 2 * ROW_THREADS),
+           sizeof(float) * k * (GRAM_COLS + 1),
+           std::max(W_RING_BYTES, stage_bytes),
+           STRIP_BYTES + std::max({W_RING_BYTES, FH_RING_BYTES, stage_bytes}),
+           dim3(lanes, splits, (k * k + THREADS - 1) / THREADS),
+           dim3(lanes, (k * k + THREADS - 1) / THREADS),
+           (rk + ROW_THREADS - 1) / ROW_THREADS, stage_floats, vr ? 1 : 0};
   cudaError_t err;
   if ((err = set_smem((const void*)h_gram_partial, L.gram_smem)) !=
-      cudaSuccess)
+          cudaSuccess ||
+      (err = set_smem((const void*)h_block_epilogue, L.ep_smem)) !=
+          cudaSuccess ||
+      (err = set_smem((const void*)h_gram_diag, L.hg_smem)) != cudaSuccess)
     return err;
-  if ((err = set_smem((const void*)h_block_epilogue, L.ep_smem)) !=
-      cudaSuccess)
-    return err;
-  if ((err = set_smem((const void*)h_gram_diag, L.hg_smem)) != cudaSuccess)
-    return err;
-  if (fused &&
-      (err = set_smem((const void*)wh_pass, strip_smem)) != cudaSuccess)
-    return err;
-  const cudaStream_t st = L.st;
-  const int total = iters * check_block;
-  // iteration it writes the outputs when (total - 1 - it) is even, the
-  // scratch buffers otherwise, so the last iteration lands in the output
-  auto w_dest = [&](int it) {
-    return (total - 1 - it) % 2 == 0 ? wp_out : wp_tmp;
-  };
-  auto h_dest = [&](int it) {
-    return (total - 1 - it) % 2 == 0 ? hp_out : hp_tmp;
-  };
-  const float* w_cur = wp_in;
-  const float* h_cur = hp_in;
-  if (!fused) {
-    const dim3 numer_grid((n + TILE - 1) / TILE, (rk + TILE - 1) / TILE,
-                          L.splits);
-    const dim3 w_grid((rk + TILE - 1) / TILE, L.mtiles);
-    for (int it = 0; it < total; ++it) {
-      float* w_next = w_dest(it);
-      float* h_next = h_dest(it);
-      const bool boundary = (it + 1) % iters == 0;
-      h_numer_partial<<<numer_grid, THREADS, 0, st>>>(a, w_cur, part, m, n,
-                                                      rk, SPLIT_ROWS);
-      L.h_half(w_cur, h_cur, h_next, it);
-      w_block_update<<<w_grid, THREADS, 0, st>>>(
-          a, w_cur, h_next, gh, frozen, budget, w_next, wdp, wmp, m, n, rk,
-          k, it, boundary ? 1 : 0, eps, zero_threshold);
-      if (boundary) L.w_stats((it + 1) / iters - 1);
-      if ((err = cudaGetLastError()) != cudaSuccess) return err;
-      w_cur = w_next;
-      h_cur = h_next;
-    }
-    return cudaSuccess;
-  }
-  const dim3 pass_grid((rk + TILE - 1) / TILE, L.splits);
-  for (int p = 0; p <= total; ++p) {
-    const bool do_w = p > 0, do_h = p < total;
-    const bool w_boundary = do_w && p % iters == 0;
-    float* w_next = do_w ? w_dest(p - 1) : nullptr;
-    wh_pass<<<pass_grid, THREADS, strip_smem, st>>>(
-        a, w_cur, h_cur, gh, frozen, budget, w_next, wdp, wmp, part, m, n,
-        rk, k, p - 1, do_w ? 1 : 0, do_h ? 1 : 0, w_boundary ? 1 : 0, eps,
-        zero_threshold);
-    if (w_boundary) L.w_stats(p / iters - 1);
-    if (do_w) w_cur = w_next;
-    if (do_h) {
-      float* h_next = h_dest(p);
-      L.h_half(w_cur, h_cur, h_next, p);
-      h_cur = h_next;
-    }
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+  float* const w_dest[2] = {wp_out, wp_tmp};
+  float* const h_dest[2] = {hp_out, hp_tmp};
+  if (fused)
+    return vn ? joined<true>(L, wp_in, hp_in, w_dest, h_dest)
+              : joined<false>(L, wp_in, hp_in, w_dest, h_dest);
+  if (vn)
+    return vr ? phased<true, true>(L, wp_in, hp_in, w_dest, h_dest)
+              : phased<true, false>(L, wp_in, hp_in, w_dest, h_dest);
+  return vr ? phased<false, true>(L, wp_in, hp_in, w_dest, h_dest)
+            : phased<false, false>(L, wp_in, hp_in, w_dest, h_dest);
 }
 
 }  // namespace
@@ -447,10 +594,14 @@ extern "C" {
 // `gpart` with ceil(m / split_rows) splits).
 int nmfx_block_split_rows() { return SPLIT_ROWS; }
 
+// Rows of A per W tile (the caller sizes `wdp` and `wmp` with
+// ceil(m / w_tile_rows) rows).
+int nmfx_block_w_tile_rows() { return WBM; }
+
 // iters * check_block MU iterations of the packed pool; see the top of
 // this file. budget and h_checks may be null (check_block == 1).
 // Workspace: wp_tmp (m, rk), hp_tmp (rk, n), part (splits, rk, n), gpart
-// (splits, rk/k, k, k), gh (rk/k, k, k), wdp and wmp (ceil(m/64), rk).
+// (splits, rk/k, k, k), gh (rk/k, k, k), wdp and wmp (ceil(m/128), rk).
 int nmfx_block_iterations(const float* a, const float* wp_in,
                           const float* hp_in, const float* frozen,
                           const float* budget, float* wp_out, float* hp_out,

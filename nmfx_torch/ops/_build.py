@@ -7,7 +7,9 @@ seconds, not minutes); the sources share device code through
 ``csrc/*.cuh`` headers. The library lands in ``nmfx_torch/_build/``
 (git-ignored) under a name keyed by a hash of the source, the headers
 and the flags, so an edited source or header rebuilds and an unchanged
-one loads at once. Nothing here runs at import time.
+one loads at once, with ``nvcc``'s log beside it (``ptxas -v``: each
+kernel's registers, static shared memory and spills, read back by
+:func:`kernel_resources`). Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -25,7 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C signatures per library: {symbol: argtypes}; every entry point
@@ -39,6 +42,7 @@ SIGNATURES = {
     },
     "block_mu": {
         "nmfx_block_split_rows": (),
+        "nmfx_block_w_tile_rows": (),
         "nmfx_block_iterations": (_P,) * 19 + (_I,) * 6 + (_F, _F, _P),
         "nmfx_block_iterations_fused": (_P,) * 19 + (_I,) * 6 + (_F, _F, _P),
     },
@@ -99,6 +103,7 @@ def build(names=tuple(SIGNATURES)) -> dict[str, bool]:
             os.unlink(tmp)
             failed.append(f"{name}.cu:\n{log}")
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)  # atomic: a concurrent process never
             # loads a half-written library
     if failed:
@@ -119,3 +124,39 @@ def load(name: str) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _loaded[name] = lib
         return lib
+
+
+def kernel_resources(log: str) -> dict[str, dict[str, int]]:
+    """Per kernel (mangled name) of an ``nvcc -Xptxas -v`` log: its
+    registers, static shared memory, stack frame and spill bytes."""
+    out: dict[str, dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        hit = re.search(r"(?:Compiling entry function|Function properties "
+                        r"for) '?([^' ]+)'?", line)
+        if hit:
+            name = hit.group(1)
+            out.setdefault(name, dict(registers=0, smem=0, stack=0,
+                                      spill_stores=0, spill_loads=0))
+            continue
+        if name is None:
+            continue
+        hit = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                        r"(\d+) bytes spill loads", line)
+        if hit:
+            out[name].update(stack=int(hit.group(1)),
+                             spill_stores=int(hit.group(2)),
+                             spill_loads=int(hit.group(3)))
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit:
+            out[name]["registers"] = int(hit.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def build_log(name: str) -> str:
+    """``nvcc``'s log of the built library for ``csrc/<name>.cu`` ("" when
+    the library was built without one)."""
+    path = library_path(name).with_suffix(".log")
+    return path.read_text() if path.exists() else ""

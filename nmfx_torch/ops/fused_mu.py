@@ -254,13 +254,47 @@ def _check_slots(rk: int, k: int, slots: int) -> None:
         raise ValueError(f"packed width {rk} != k*slots = {k}*{slots}")
 
 
-def _block_launch(name, symbol, lib_name, extra_work, a, wp, hp,
+#: rows of A per split of the block kernels' H numerator (SPLIT_ROWS,
+#: ``csrc/block_common.cuh``) and per W tile of the mu block kernel (WBM,
+#: ``csrc/block_gemm.cuh``); each launch checks them against its library
+SPLIT_ROWS = 256
+MU_W_TILE_ROWS = 128
+
+
+def mu_block_workspace(m: int, n: int, rk: int, k: int):
+    """Shapes of ``csrc/block_mu.cu``'s workspace, in its argument order:
+    wp_tmp, hp_tmp, part (one (rk, n) block per split of the H numerator),
+    gpart, gh, then wdp and wmp (one row of column maxima per W tile)."""
+    splits = -(-m // SPLIT_ROWS)
+    w_tiles = -(-m // MU_W_TILE_ROWS)
+    return ((m, rk), (rk, n), (splits, rk, n), (splits, rk // k, k, k),
+            (rk // k, k, k), (w_tiles, rk), (w_tiles, rk))
+
+
+def hals_block_workspace(m: int, n: int, rk: int, k: int, positions: int):
+    """Shapes of ``csrc/hals_block.cu``'s workspace: mu's first five, then
+    the W numerator (m, rk) and two rows of maxima per ``positions``-long
+    sweep tile."""
+    tiles = -(-max(m, n) // positions)
+    return (mu_block_workspace(m, n, rk, k)[:5]
+            + ((m, rk), (tiles, rk), (tiles, rk)))
+
+
+def _check_library_rows(lib, name: str, symbol: str, want: int) -> None:
+    got = getattr(lib, symbol)()
+    if got != want:
+        raise RuntimeError(f"{name}: the built library has {symbol}() = "
+                           f"{got}, the wrapper sizes its workspace for "
+                           f"{want}")
+
+
+def _block_launch(name, symbol, lib_name, workspace, a, wp, hp,
                   frozen_cols, *, k, iters, eps, zero_threshold, check_block,
                   budget_cols):
     """Check the operands, allocate outputs and workspace, and run one
     block kernel's C entry point (the shared argument list of
-    ``block_mu.cu`` and ``hals_block.cu``; ``extra_work(lib, m, n, rk)``
-    gives the kernel's own workspace shapes)."""
+    ``block_mu.cu`` and ``hals_block.cu``; ``workspace(lib, m, n, rk)``
+    gives the kernel's workspace shapes in argument order)."""
     m, n = a.shape
     rk = wp.shape[1]
     operands = {"a": (a, (m, n)), "wp": (wp, (m, rk)), "hp": (hp, (rk, n)),
@@ -271,7 +305,7 @@ def _block_launch(name, symbol, lib_name, extra_work, a, wp, hp,
     from nmfx_torch.ops import _build
 
     lib = _build.load(lib_name)
-    splits = -(-m // lib.nmfx_block_split_rows())
+    _check_library_rows(lib, name, "nmfx_block_split_rows", SPLIT_ROWS)
     nck = check_block
 
     def empty(*shape):
@@ -281,9 +315,7 @@ def _block_launch(name, symbol, lib_name, extra_work, a, wp, hp,
     wd, wm = empty(nck, rk), empty(nck, rk)
     hd, hm = empty(nck * rk, 1), empty(nck * rk, 1)
     h_checks = empty(nck, rk, n) if nck > 1 else None
-    work = (empty(m, rk), empty(rk, n), empty(splits, rk, n),
-            empty(splits, rk // k, k, k), empty(rk // k, k, k),
-            *(empty(*shape) for shape in extra_work(lib, m, n, rk)))
+    work = [empty(*shape) for shape in workspace(lib, m, n, rk)]
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -328,14 +360,18 @@ def fused_block_iterations(a, wp, hp, frozen_cols, *, k: int,
             a, wp, hp, frozen_cols, k=k, iters=iters, eps=eps,
             zero_threshold=zero_threshold, check_block=check_block,
             budget_cols=budget_cols)
-    mtiles = -(-a.shape[0] // _TILE)
     name = ("fused_block_iterations_fused" if fused
             else "fused_block_iterations")
+
+    def work(lib, m, n, rk):
+        _check_library_rows(lib, name, "nmfx_block_w_tile_rows",
+                            MU_W_TILE_ROWS)
+        return mu_block_workspace(m, n, rk, k)
+
     out = _block_launch(
         "fused_block_iterations", ("nmfx_block_iterations_fused" if fused
                                    else "nmfx_block_iterations"),
-        "block_mu", lambda lib, m, n, rk: ((mtiles, rk), (mtiles, rk)),
-        a, wp, hp, frozen_cols, k=k, iters=iters, eps=eps,
+        "block_mu", work, a, wp, hp, frozen_cols, k=k, iters=iters, eps=eps,
         zero_threshold=zero_threshold, check_block=check_block,
         budget_cols=budget_cols)
     LAUNCHES[name] += 1
@@ -358,8 +394,8 @@ def hals_block_iterations(a, wp, hp, frozen_cols, *, k: int, slots: int,
             budget_cols=budget_cols)
 
     def work(lib, m, n, rk):
-        tiles = -(-max(m, n) // lib.nmfx_hals_sweep_positions())
-        return (m, rk), (tiles, rk), (tiles, rk)
+        return hals_block_workspace(m, n, rk, k,
+                                    lib.nmfx_hals_sweep_positions())
 
     out = _block_launch(
         "hals_block_iterations", "nmfx_hals_block_iterations", "hals_block",

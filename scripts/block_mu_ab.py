@@ -1,0 +1,220 @@
+#!/usr/bin/env python3
+"""A/B of the mu block kernel (nmfx_torch/csrc/block_mu.cu) on one CUDA
+card: this checkout's build against another checkout's, plus diagnostic
+builds of this one.
+
+    python3 scripts/block_mu_ab.py --parent DIR [--rounds 2]
+
+DIR is another checkout of the repository (for example `git archive` of
+the parent commit unpacked into a git-ignored directory). Both
+`block_mu.cu` sources are built with the port's nvcc flags into
+DIR/_ab_build, then:
+  1. byte-equality: every output of both orders of this build against
+     the other build's phased order at chip_smoke.py's block pools and a
+     pool whose last 256-row chunk is shorter than one W tile,
+     check_block 4 (fails on any difference);
+  2. timing at the north-star pool (2 x 4 iterations), CUDA events,
+     median of 25, the builds in turns (other, this, ..., this, other);
+  3. per-kernel device time per iteration under torch.profiler;
+  4. diagnostic builds of this source, timed and profiled like it but
+     not byte-equal: `no-w-epilogue` (the W tile stores its numerators
+     and skips the denominators, the update and the stats) and
+     `no-w-loop` (the W product's main loop is skipped; the epilogue
+     stays). Their W times split the W kernel's time between the two.
+The other build's workspace is sized for its own W tile height, given by
+its nmfx_block_w_tile_rows() or, where it has none, 64 rows.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import shutil
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+
+#: diagnostic edits of this source: (file, old text, new text); each old
+#: text must occur once
+DIAGNOSTICS = {
+    "no-w-epilogue": [(
+        "block_mu.cu",
+        "  // the columns [cb, ce) of the lanes this tile's columns belong to\n",
+        "  if (k > 0) {\n"
+        "    for (int u = 0; u < WTM; ++u)\n"
+        "      for (int v = 0; v < WTN; ++v) {\n"
+        "        const int i = i0 + w_row(u), c = c0 + w_col(v);\n"
+        "        if (i < m && c < rk) out[(size_t)i * rk + c] = acc[u][v];\n"
+        "      }\n"
+        "    return;\n"
+        "  }\n")],
+    "no-w-loop": [(
+        "block_gemm.cuh",
+        "  const int stages = (n + GBK - 1) / GBK;\n  float ra[8], rb[4];",
+        "  const int stages = 0 * n;\n  float ra[8], rb[4];")],
+}
+
+
+def build(nvcc, flags, src_dir, out_dir, edits=()):
+    """Copy src_dir, apply the edits, start nvcc on block_mu.cu; returns
+    (process, library path)."""
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.copytree(src_dir, out_dir)
+    for name, old, new in edits:
+        path = os.path.join(out_dir, name)
+        text = open(path).read()
+        if text.count(old) != 1:
+            raise SystemExit(f"diagnostic edit does not apply to {name}: "
+                             f"{old[:60]!r}")
+        open(path, "w").write(text.replace(old, new))
+    lib = os.path.join(out_dir, "libblock_mu.so")
+    proc = subprocess.Popen([nvcc, *flags, "-o", lib,
+                             os.path.join(out_dir, "block_mu.cu")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, lib
+
+
+def load(path, signatures):
+    lib = ctypes.CDLL(path)
+    for sym, argtypes in signatures.items():
+        fn = getattr(lib, sym, None)
+        if fn is not None:
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def runner(torch, lib):
+    """fn(a, wp, hp, frz, budget, k, fused) -> outputs of one launch of
+    2 x 4 iterations of `lib`, its workspace sized by its own tiles."""
+    split = lib.nmfx_block_split_rows()
+    w_rows = (lib.nmfx_block_w_tile_rows()
+              if hasattr(lib, "nmfx_block_w_tile_rows") else 64)
+
+    def run(a, wp, hp, frz, budget, k, fused):
+        m, n = a.shape
+        rk = wp.shape[1]
+
+        def empty(*shape):
+            return torch.empty(shape, dtype=torch.float32, device=a.device)
+
+        outs = [empty(m, rk), empty(rk, n), empty(4, rk), empty(4, rk),
+                empty(4 * rk, 1), empty(4 * rk, 1), empty(4, rk, n)]
+        splits, tiles = -(-m // split), -(-m // w_rows)
+        work = [empty(m, rk), empty(rk, n), empty(splits, rk, n),
+                empty(splits, rk // k, k, k), empty(rk // k, k, k),
+                empty(tiles, rk), empty(tiles, rk)]
+        sym = ("nmfx_block_iterations_fused" if fused
+               else "nmfx_block_iterations")
+        rc = getattr(lib, sym)(
+            a.data_ptr(), wp.data_ptr(), hp.data_ptr(), frz.data_ptr(),
+            budget.data_ptr(), *(t.data_ptr() for t in outs),
+            *(t.data_ptr() for t in work), m, n, rk, k, 2, 4, 1e-9, 0.0,
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"{sym} failed with CUDA error {rc}")
+        return outs
+
+    return run
+
+
+def profile_line(torch, fn, iters):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total, e.key)
+                   for e in prof.key_averages()
+                   if e.self_device_time_total > 0), reverse=True)
+
+    def name(key):
+        key = key.replace("(anonymous namespace)::", "")
+        return key.removeprefix("void ").split("(")[0]
+
+    return "; ".join(f"{name(key)} {us / (5 * iters) / 1e3:.4f} ms"
+                     for us, key in rows[:6])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", required=True,
+                    help="another checkout of the repository")
+    ap.add_argument("--rounds", type=int, default=2)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, ROOT)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("block_mu_ab: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from nmfx_torch.device import resolve_device
+    from nmfx_torch.ops import _build
+
+    resolve_device(None)
+    print(f"card: {cs.smi()}", flush=True)
+    out = os.path.join(os.path.abspath(args.parent), "_ab_build")
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    srcs = {"other": os.path.join(args.parent, "nmfx_torch", "csrc"),
+            "this": str(_build.SRC_DIR)}
+    procs = {name: build(_build._nvcc(), flags, src,
+                         os.path.join(out, name))
+             for name, src in srcs.items()}
+    for name, edits in DIAGNOSTICS.items():
+        procs[name] = build(_build._nvcc(), flags, srcs["this"],
+                            os.path.join(out, name), edits)
+    runs = {}
+    for name, (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed for {name}:\n{log}")
+        runs[name] = runner(torch, load(lib, _build.SIGNATURES["block_mu"]))
+
+    pools = [c for c in cs.MU_BLOCK_CASES] + [
+        ("short-last-chunk", 1100, 300, 9, 8,
+         dict(frozen=(4,), budgets={0: 2}, pad=False))]
+    for label, m, n, slots, k, opts in pools:
+        a, wp, hp, frz, budget = cs.block_operands(torch, m, n, slots, k,
+                                                   seed=3, **opts)
+        want = runs["other"](a, wp, hp, frz, budget, k, False)
+        for fused in (False, True):
+            got = runs["this"](a, wp, hp, frz, budget, k, fused)
+            torch.cuda.synchronize()
+            same = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                       for g, w in zip(got, want))
+            print(f"byte-equal {label} m={a.shape[0]} n={n} slots={slots} "
+                  f"k={k} fused={fused}: {same}", flush=True)
+            if not same:
+                raise SystemExit(f"{label}: this build differs from the "
+                                 "other one")
+
+    m, n, _, k = cs.NORTH_STAR
+    a, wp, hp, frz, budget = cs.block_operands(torch, m, n, cs.SLOTS, k,
+                                               seed=4)
+    order = ["other", "this"] + list(DIAGNOSTICS)
+    times = {}
+    for _ in range(args.rounds):
+        for name in order + order[::-1]:
+            for fused in (False, True):
+                fn = lambda: runs[name](a, wp, hp, frz, budget, k, fused)  # noqa
+                times.setdefault((name, fused), []).append(
+                    cs.time_ms(torch, fn))
+    for name in order:
+        for fused in (False, True):
+            fn = lambda: runs[name](a, wp, hp, frz, budget, k, fused)  # noqa
+            ts = ", ".join(f"{t:.4f}" for t in times[(name, fused)])
+            print(f"timing {name} fused={fused} m={a.shape[0]} n={n} "
+                  f"slots={cs.SLOTS} k={k} (8 iterations): {ts} ms; per "
+                  f"iteration: {profile_line(torch, fn, 8)}", flush=True)
+    print(f"card: {cs.smi()}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -102,11 +102,18 @@ def test_packed_solve_on_card_matches_cpu(card):
     assert fused_mu.LAUNCHES["fused_h_update"] == int(got.iterations.max())
 
 
-@pytest.mark.parametrize("check_block", [1, 4])
-def test_block_kernel_matches_plain_version(card, check_block):
-    """A ragged pool (m, n and rk off every tile edge) with a frozen lane,
-    a budget that runs out mid-launch and a zero-padded column."""
-    m, n, slots, k = 203, 37, 5, 3
+#: the block kernels' pools (m, n, slots, k): m, n and rk off every tile
+#: edge; the ragged 1237 x 77 with rk = 35, whose rows are not 16-byte
+#: aligned (4-byte copies); and a last 256-row chunk shorter than one
+#: 128-row W tile (a cluster CTA with no rows)
+BLOCK_POOLS = {"203x37": (203, 37, 5, 3), "1237x77_rk35": (1237, 77, 5, 7),
+               "1100x300": (1100, 300, 9, 8)}
+
+
+def _block_pool(pool, card):
+    """A pool with lane 1 frozen, lane 2's budget running out mid-launch
+    (3 of 2 x 4 iterations) and lane 0's last component zero-padded."""
+    m, n, slots, k = BLOCK_POOLS[pool]
     a, wp, hp = _operands(m, n, slots, k, False, card)
     wp[:, k - 1] = 0.0
     hp[k - 1] = 0.0
@@ -114,6 +121,15 @@ def test_block_kernel_matches_plain_version(card, check_block):
     frozen[0, k:2 * k] = 1.0
     budget = torch.full((1, slots * k), 100.0, device=card)
     budget[0, 2 * k:3 * k] = 3.0
+    return k, a, wp, hp, frozen, budget
+
+
+@pytest.mark.parametrize("pool", sorted(BLOCK_POOLS))
+@pytest.mark.parametrize("check_block", [1, 4])
+def test_block_kernel_matches_plain_version(card, check_block, pool):
+    """A ragged pool with a frozen lane, a budget that runs out mid-launch
+    and a zero-padded column."""
+    k, a, wp, hp, frozen, budget = _block_pool(pool, card)
     kw = dict(k=k, iters=2, check_block=check_block,
               budget_cols=budget if check_block > 1 else None)
     fused_mu.reset_launch_counts()
@@ -155,16 +171,12 @@ def test_whole_grid_on_card_matches_cpu(card):
     assert fused_mu.LAUNCHES["fused_block_iterations"] == sum(got.pool_trips)
 
 
+@pytest.mark.parametrize("pool", sorted(BLOCK_POOLS))
 @pytest.mark.parametrize("check_block", [1, 4])
-def test_fused_block_kernel_byte_equal_to_phased(card, check_block):
+def test_fused_block_kernel_byte_equal_to_phased(card, check_block, pool):
     """The join-the-updates order against the phased one on the card:
     every output byte-equal (the same sums in the same order)."""
-    m, n, slots, k = 203, 37, 5, 3
-    a, wp, hp = _operands(m, n, slots, k, False, card)
-    frozen = torch.zeros((1, slots * k), device=card)
-    frozen[0, k:2 * k] = 1.0
-    budget = torch.full((1, slots * k), 100.0, device=card)
-    budget[0, 2 * k:3 * k] = 3.0
+    k, a, wp, hp, frozen, budget = _block_pool(pool, card)
     kw = dict(k=k, iters=2, check_block=check_block,
               budget_cols=budget if check_block > 1 else None)
     fused_mu.reset_launch_counts()
@@ -177,6 +189,42 @@ def test_fused_block_kernel_byte_equal_to_phased(card, check_block):
         assert torch.equal(f.view(torch.int32), p.view(torch.int32))
     assert fused_mu.LAUNCHES["fused_block_iterations"] == 1
     assert fused_mu.LAUNCHES["fused_block_iterations_fused"] == 1
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_block_kernel_schedule_free(card, fused):
+    """One job's lane in slot 2 of a 5-slot pool and in slot 37 of a
+    48-slot pool (other lanes random, some frozen): its W columns, H
+    rows, stats and snapshots bit-equal. Its budget runs out mid-launch."""
+    m, n, k = 1237, 77, 7
+    rng = np.random.default_rng(9)
+    job_w = rng.uniform(0.0, 1.0, (m, k)).astype(np.float32)
+    job_h = rng.uniform(0.0, 1.0, (k, n)).astype(np.float32)
+    a = torch.as_tensor(rng.uniform(0.0, 1.0, (m, n)).astype(np.float32),
+                        device=card)
+    outs = []
+    for slots, at in ((5, 2), (48, 37)):
+        wp = rng.uniform(0.0, 1.0, (m, slots * k)).astype(np.float32)
+        hp = rng.uniform(0.0, 1.0, (slots * k, n)).astype(np.float32)
+        wp[:, at * k:(at + 1) * k] = job_w
+        hp[at * k:(at + 1) * k] = job_h
+        frozen = torch.zeros((1, slots * k), device=card)
+        frozen[0, (at - 1) * k:at * k] = 1.0
+        budget = torch.full((1, slots * k), 100.0, device=card)
+        budget[0, at * k:(at + 1) * k] = 5.0
+        got = fused_mu.fused_block_iterations(
+            a, torch.as_tensor(wp, device=card),
+            torch.as_tensor(hp, device=card), frozen, k=k, iters=2,
+            check_block=4, budget_cols=budget, fused=fused)
+        cols = slice(at * k, (at + 1) * k)
+        wpo, hpo, wd, wm, hd, hm, hck = got
+        rows = [b * slots * k + at * k + p for b in range(4)
+                for p in range(k)]
+        outs.append((wpo[:, cols], hpo[cols], wd[:, cols], wm[:, cols],
+                     hd[rows], hm[rows], hck[:, cols]))
+    torch.cuda.synchronize()
+    for x, y in zip(*outs):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
 @pytest.mark.parametrize("check_block", [1, 4])
