@@ -7,14 +7,15 @@ versions.
 
 Phases (any failure exits non-zero; nothing is caught):
   1. card and build: nvidia-smi's name and power limit, the nvcc build
-     (one nvcc per source, all started together), and each mu block
-     kernel function's registers, shared memory and spills (ptxas -v);
+     (one nvcc per source, all started together), and each block kernel
+     function's registers, shared memory and spills (ptxas -v);
   2. kernel parity: each kernel against its plain PyTorch version at the
      north-star shape, a ragged shape and with planted exact zeros (the
      block kernels also with frozen lanes, budgets that run out
-     mid-launch and a zero-padded rank-3 job; the mu block kernel also at
-     a pool whose rows are not 16-byte aligned); the join-the-updates mu
-     block kernel against the phased one, all outputs byte-equal;
+     mid-launch and a zero-padded rank-3 job; the mu block kernel also
+     at a pool whose rows are not 16-byte aligned, the HALS kernel at a
+     lane wider than its W tile); the join-the-updates mu block kernel
+     against the phased one, all outputs byte-equal;
   3. kernel timing (CUDA events, median of 25 after warm-up) beside the
      plain version, a torch.matmul composite and the card's bound;
   4. the main paths, each with every kernel's launch count set to 0 just
@@ -87,7 +88,8 @@ def smi() -> str:
 def print_resources(build, lib: str) -> None:
     """One line per kernel function of csrc/<lib>.cu: registers, static
     shared memory and spills from the build's ptxas -v log (dynamic shared
-    memory is set at launch, block_gemm.cuh's *_RING_BYTES)."""
+    memory is set at launch: block_gemm.cuh's *_RING_BYTES and the HALS
+    W tile's WTileSmem)."""
     res = build.kernel_resources(build.build_log(lib))
     if not res:
         raise AssertionError(f"no ptxas -v log for {lib}")
@@ -244,6 +246,13 @@ MU_BLOCK_CASES = BLOCK_CASES + (
                                       pad=False)),
 )
 
+#: the HALS block kernel's cases add a pool of 3 slots x k = 70: a lane
+#: wider than a W product tile (64 columns), which the kernel sweeps
+#: through its W numerator workspace instead of in the product's tile
+HALS_BLOCK_CASES = BLOCK_CASES + (
+    ("wide-k", 400, 50, 3, 70, dict(frozen=(1,), budgets={2: 3})),
+)
+
 
 def phase_block_parity(torch, fm):
     """fused_block_iterations against its plain version (every output,
@@ -345,11 +354,12 @@ def check_hals(torch, name, got, plain, exact):
 
 def phase_hals_parity(torch, fm):
     """hals_block_iterations against its plain version in float32 and
-    float64 at the block cases, check_block 1 and 4 (see check_hals);
-    frozen lanes, padded rows and padded components bit-equal. Returns
-    the north-star max abs error against the float32 plain version."""
+    float64 at the HALS block cases, check_block 1 and 4 (see
+    check_hals); frozen lanes, padded rows and padded components
+    bit-equal. Returns the north-star max abs error against the float32
+    plain version."""
     ns_err = 0.0
-    for label, m, n, slots, k, opts in BLOCK_CASES:
+    for label, m, n, slots, k, opts in HALS_BLOCK_CASES:
         a, wp, hp, frz, budget = block_operands(torch, m, n, slots, k,
                                                 seed=5, **opts)
         for nck in (1, CHECK_BLOCK):
@@ -772,12 +782,14 @@ def phase_hals_path(torch, fm):
     out = seen["out"]
     check_sweep(res, "hals grid", n)
     need = sum(out.pool_trips)
+    mean_iters = {k: round(float(res.per_k[k].iterations.mean()), 1)
+                  for k in KS}
     print(f"main hals grid (pallas, {SLOTS} slots, check_block 1): wall "
           f"{wall:.3f} s ({split(seen, t0, wall)}), pool_widths "
           f"{out.pool_widths}, pool_trips "
           f"{out.pool_trips}, pool_lanes {out.pool_lanes}, host syncs "
-          f"{out.host_syncs}, launches {launches}, best k {res.best_k}",
-          flush=True)
+          f"{out.host_syncs}, launches {launches}, best k {res.best_k}, "
+          f"mean iters per k {mean_iters}", flush=True)
     for k in KS:
         kr = res.per_k[k]
         print(f"main hals grid k={k}: mean iters {kr.iterations.mean():.1f}, "
@@ -1075,6 +1087,7 @@ def main(argv=None) -> int:
           f"({'cold' if any(built.values()) else 'cached'}: {built})",
           flush=True)
     print_resources(_build, "block_mu")
+    print_resources(_build, "hals_block")
 
     ns_err = phase_parity(torch, fm)
     ns_err.update(phase_block_parity(torch, fm))

@@ -1,7 +1,7 @@
 // Device code shared by the slot scheduler's block kernels (block_mu.cu,
 // hals_block.cu): the fixed split of the m-reduction, the per-lane
-// freeze and budget fence, the NaN-keeping maximum, the diagonal H-Gram
-// and the reduction of per-tile TolX maxima.
+// freeze and budget fence, the NaN-keeping maximum, cp.async copies, the
+// diagonal H-Gram and the reduction of per-tile TolX maxima.
 //
 // Like mu_common.cuh, everything sits in an anonymous namespace: each
 // source that includes this header compiles its own copy.
@@ -17,7 +17,8 @@ namespace {
 
 constexpr int SPLIT_ROWS = 256;  // rows of A per split of the H numerator
 constexpr int ROW_THREADS = 256;
-constexpr int GRAM_COLS = 64;    // columns of H staged per H-Gram step
+// most floats of H that h_gram_diag stages at a time (48 KB)
+constexpr int HG_STAGE_FLOATS = 12 * 1024;
 
 __device__ __forceinline__ bool lane_frozen(const float* __restrict__ frozen,
                                             const float* __restrict__ budget,
@@ -30,29 +31,64 @@ __device__ __forceinline__ float nan_max(float m, float x) {
   return (x > m || x != x) ? x : m;
 }
 
-// gh[r, p, q] = sum over j of H[r*k+p, j] * H[r*k+q, j];
-// grid (R, ceil(k*k / THREADS)), one (p, q) pair per thread.
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
+                                           int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
+                                          int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Columns of H that h_gram_diag stages at a time: all n where the lane's
+// k rows (at an odd row stride) fit 48 KB.
+inline __host__ __device__ int h_gram_cols(int n, int k) {
+  const int fit = HG_STAGE_FLOATS / k - 1;
+  return n < fit ? n : (fit > 1 ? fit : 1);
+}
+
+// gh[r, p, q] = sum over j of H[r*k+p, j] * H[r*k+q, j], fmaf from +0
+// over j in order; grid (R, ceil(k*k / THREADS)), one (p, q) pair per
+// thread, sizeof(float) * k * (h_gram_cols(n, k) + 1) bytes of dynamic
+// shared memory: the lane's k rows, copied h_gram_cols(n, k) columns at a
+// time (all of them where they fit).
 __global__ void __launch_bounds__(THREADS)
 h_gram_diag(const float* __restrict__ h, float* __restrict__ gh, int n,
             int k) {
-  extern __shared__ float htile[];  // [k][GRAM_COLS + 1]
-  constexpr int LD = GRAM_COLS + 1;
+  extern __shared__ float hstage[];  // [k][cols | 1]
+  const int cols = h_gram_cols(n, k);
   const int r = blockIdx.x;
   const int pair = blockIdx.y * THREADS + threadIdx.x;
   const bool owns = pair < k * k;
   const int p = owns ? pair / k : 0, q = owns ? pair % k : 0;
   float acc = 0.f;
-  for (int j0 = 0; j0 < n; j0 += GRAM_COLS) {
-    const int cols = min(GRAM_COLS, n - j0);
-    for (int e = threadIdx.x; e < k * GRAM_COLS; e += THREADS) {
-      const int row = e / GRAM_COLS, c = e % GRAM_COLS;
-      htile[row * LD + c] =
-          c < cols ? h[(size_t)(r * k + row) * n + j0 + c] : 0.f;
-    }
+  for (int j0 = 0; j0 < n; j0 += cols) {
+    const int nc = min(cols, n - j0), ld = nc | 1;
+    for (int e = threadIdx.x; e < k * nc; e += THREADS)
+      cp_async4(hstage + e / nc * ld + e % nc,
+                h + (size_t)(r * k + e / nc) * n + j0 + e % nc, 4);
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
-    if (owns)
-      for (int c = 0; c < cols; ++c)
-        acc = fmaf(htile[p * LD + c], htile[q * LD + c], acc);
+    if (owns) {
+      const float* hp = hstage + p * ld;
+      const float* hq = hstage + q * ld;
+      for (int c = 0; c < nc; ++c) acc = fmaf(hp[c], hq[c], acc);
+    }
     __syncthreads();
   }
   if (owns) gh[((size_t)r * k + p) * k + q] = acc;

@@ -1,6 +1,6 @@
-// Register-tiled, cp.async-pipelined f32 product tiles for the mu block
-// kernel (block_mu.cu): the W numerator A * Hp^T and the split-m H
-// numerator Wp^T A.
+// Register-tiled, cp.async-pipelined f32 product tiles for the block
+// kernels (block_mu.cu, hals_block.cu): the W numerator A * Hp^T and the
+// split-m H numerator Wp^T A.
 //
 // Byte-equal to mu_common.cuh's w_numer_tile and h_numer_partial: every
 // output is one accumulator, started at +0 and advanced by fmaf over the
@@ -73,29 +73,6 @@ constexpr size_t H_RING_BYTES = sizeof(float) * GSTAGES * H_STAGE;
 static_assert(SPLIT_ROWS % WBM == 0, "a split holds whole W tiles");
 static_assert(SPLIT_ROWS % GBK == 0, "a split holds whole stages");
 static_assert(HTC % 4 == 0, "whole float4 fragments");
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
-                                           int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
-                                          int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // 16-byte copies need 16-byte-aligned rows: a row stride that is a
 // multiple of 4 floats and an aligned base
@@ -253,16 +230,17 @@ __device__ __forceinline__ void h_step(const float* wrow, const float* arow,
 }
 
 // part[s, c, j] for the thread's outputs (h_step's layout) of the tile
-// (c0, j0); float4 stores when the rows of part are 16-byte aligned.
+// (c0, j0), columns c < cend; float4 stores when the rows of part are
+// 16-byte aligned.
 template <int CV, int TCN, int TJN, bool VEC>
 __device__ __forceinline__ void h_store(const float (&acc)[CV][8],
                                         float* __restrict__ part, int s,
-                                        int n, int rk, int c0, int j0,
-                                        int tc, int tj) {
+                                        int n, int rk, int cend, int c0,
+                                        int j0, int tc, int tj) {
 #pragma unroll
   for (int u = 0; u < CV; ++u) {
     const int c = c0 + 4 * tc + 4 * TCN * (u / 4) + u % 4;
-    if (c >= rk) continue;
+    if (c >= cend) continue;
     float* row = part + ((size_t)s * rk + c) * n;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -282,17 +260,21 @@ __device__ __forceinline__ void h_store(const float (&acc)[CV][8],
 }
 
 // part[s, c, j] = sum over the rows t of SPLIT_ROWS-chunk s of
-// Wp[t, c] * A[t, j], in row order: h_numer_partial's chains on an HBC x
-// HBN tile; grid (ceil(n / HBN), ceil(rk / HBC), splits), H_RING_BYTES of
-// dynamic shared memory. VW / VA: 16-byte copies of Wp / A (and stores
-// of part).
-template <bool VW, bool VA>
-__global__ void __launch_bounds__(H_THREADS, 3)
-h_numer_split(const float* __restrict__ a, const float* __restrict__ wp,
-              float* __restrict__ part, int m, int n, int rk) {
-  extern __shared__ __align__(16) float h_ring[];
+// Wp[t, c] * A[t, j], in row order: h_numer_partial's chains on the HBC x
+// HBN tile of columns c0 .. (stored below cend) and j0 = blockIdx.x *
+// HBN, s = blockIdx.z; `ring` holds H_RING_BYTES of shared memory. After
+// each stage's products, hook(ws) sees that stage's Wp rows ws[GBK][HBC]
+// (columns from c0; zero past the chunk and past rk) until the next
+// barrier; it must not sync. Every thread of the block must call it.
+// VW / VA: 16-byte copies of Wp / A (and stores of part).
+template <bool VW, bool VA, class Hook>
+__device__ __forceinline__ void h_numer_tile(const float* __restrict__ a,
+                                             const float* __restrict__ wp,
+                                             float* __restrict__ part, int m,
+                                             int n, int rk, int c0, int cend,
+                                             float* ring, Hook&& hook) {
   const int tj = threadIdx.x % HTJN, tc = threadIdx.x / HTJN;
-  const int j0 = blockIdx.x * HBN, c0 = blockIdx.y * HBC, s = blockIdx.z;
+  const int j0 = blockIdx.x * HBN, s = blockIdx.z;
   const int mb = s * SPLIT_ROWS, me = min(m, mb + SPLIT_ROWS);
   float acc[HTC][8];
 #pragma unroll
@@ -301,7 +283,7 @@ h_numer_split(const float* __restrict__ a, const float* __restrict__ wp,
     for (int v = 0; v < 8; ++v) acc[u][v] = 0.f;
   const int stages = (me - mb + GBK - 1) / GBK;
   auto load = [&](int kt) {
-    float* st = h_ring + (kt % GSTAGES) * H_STAGE;
+    float* st = ring + (kt % GSTAGES) * H_STAGE;
     load_cols<HBC, H_THREADS, VW>(st, wp, rk, mb + kt * GBK, me, c0);
     load_cols<HBN, H_THREADS, VA>(st + GBK * HBC, a, n, mb + kt * GBK, me,
                                   j0);
@@ -316,14 +298,26 @@ h_numer_split(const float* __restrict__ a, const float* __restrict__ wp,
     __syncthreads();
     if (kt + GSTAGES - 1 < stages) load(kt + GSTAGES - 1);
     cp_async_commit();
-    const float* ws = h_ring + (kt % GSTAGES) * H_STAGE;
+    const float* ws = ring + (kt % GSTAGES) * H_STAGE;
     const float* as = ws + GBK * HBC;
 #pragma unroll
     for (int kk = 0; kk < GBK; ++kk)
       h_step<HTC, HTCN, HTJN>(ws + kk * HBC, as + kk * HBN, tc, tj, acc);
+    hook(ws);
   }
   cp_async_wait<0>();
-  h_store<HTC, HTCN, HTJN, VA>(acc, part, s, n, rk, c0, j0, tc, tj);
+  h_store<HTC, HTCN, HTJN, VA>(acc, part, s, n, rk, cend, c0, j0, tc, tj);
+}
+
+// h_numer_tile on the column tiles c0 = blockIdx.y * HBC; grid (ceil(n /
+// HBN), ceil(rk / HBC), splits), H_RING_BYTES of dynamic shared memory.
+template <bool VW, bool VA>
+__global__ void __launch_bounds__(H_THREADS, 3)
+h_numer_split(const float* __restrict__ a, const float* __restrict__ wp,
+              float* __restrict__ part, int m, int n, int rk) {
+  extern __shared__ __align__(16) float h_ring[];
+  h_numer_tile<VW, VA>(a, wp, part, m, n, rk, blockIdx.y * HBC, rk, h_ring,
+                       [](const float*) {});
 }
 
 }  // namespace

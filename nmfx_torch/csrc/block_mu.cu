@@ -431,7 +431,7 @@ wh_pass(const float* __restrict__ a, const float* __restrict__ wp,
     }
     cp_async_wait<0>();
     __syncthreads();  // the ring is refilled by the next column tile
-    h_store<FCV, FTCN, FTJN, VEC>(acc, part, s, n, rk, c0, j0, tc, tj);
+    h_store<FCV, FTCN, FTJN, VEC>(acc, part, s, n, rk, rk, c0, j0, tc, tj);
   }
 }
 
@@ -561,7 +561,7 @@ int block_iterations(const float* a, const float* wp_in, const float* hp_in,
            static_cast<cudaStream_t>(stream),
            sizeof(float) * GRAM_ROWS * k,
            sizeof(float) * (k + 2 * ROW_THREADS),
-           sizeof(float) * k * (GRAM_COLS + 1),
+           sizeof(float) * k * (h_gram_cols(n, k) + 1),
            std::max(W_RING_BYTES, stage_bytes),
            STRIP_BYTES + std::max({W_RING_BYTES, FH_RING_BYTES, stage_bytes}),
            dim3(lanes, splits, (k * k + THREADS - 1) / THREADS),

@@ -48,6 +48,8 @@ SIGNATURES = {
     },
     "hals_block": {
         "nmfx_block_split_rows": (),
+        "nmfx_block_w_tile_rows": (),
+        "nmfx_hals_w_tile_cols": (),
         "nmfx_hals_sweep_positions": (),
         "nmfx_hals_block_iterations": (_P,) * 20 + (_I,) * 6 + (_F, _F, _P),
     },

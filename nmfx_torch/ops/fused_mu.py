@@ -255,10 +255,13 @@ def _check_slots(rk: int, k: int, slots: int) -> None:
 
 
 #: rows of A per split of the block kernels' H numerator (SPLIT_ROWS,
-#: ``csrc/block_common.cuh``) and per W tile of the mu block kernel (WBM,
-#: ``csrc/block_gemm.cuh``); each launch checks them against its library
+#: ``csrc/block_common.cuh``), rows per W tile of both block kernels
+#: (WBM, ``csrc/block_gemm.cuh``) and columns per W product tile (WBN):
+#: the HALS kernel sweeps a lane of k <= WBN columns in the tile that
+#: computes its numerators; each launch checks them against its library
 SPLIT_ROWS = 256
 MU_W_TILE_ROWS = 128
+W_TILE_COLS = 64
 
 
 def mu_block_workspace(m: int, n: int, rk: int, k: int):
@@ -271,13 +274,28 @@ def mu_block_workspace(m: int, n: int, rk: int, k: int):
             (rk // k, k, k), (w_tiles, rk), (w_tiles, rk))
 
 
+def hals_w_tiles(m: int, rk: int, k: int, positions: int):
+    """The HALS kernel's W half: (lanes per tile, column tiles, row tiles).
+    For k <= W_TILE_COLS one tile of MU_W_TILE_ROWS rows takes
+    W_TILE_COLS // k whole lanes; a wider lane is swept one lane and
+    ``positions`` rows at a time. Each row tile writes one row of W
+    maxima at a boundary."""
+    lanes = rk // k
+    if k <= W_TILE_COLS:
+        per = W_TILE_COLS // k
+        return per, -(-lanes // per), -(-m // MU_W_TILE_ROWS)
+    return 1, lanes, -(-m // positions)
+
+
 def hals_block_workspace(m: int, n: int, rk: int, k: int, positions: int):
     """Shapes of ``csrc/hals_block.cu``'s workspace: mu's first five, then
-    the W numerator (m, rk) and two rows of maxima per ``positions``-long
-    sweep tile."""
-    tiles = -(-max(m, n) // positions)
+    the W numerator (m, rk), used only when k > W_TILE_COLS (else empty),
+    and two arrays of maxima with one row per ``positions``-column block
+    of the H sweep or per row tile of the W half, whichever are more."""
+    tiles = max(-(-n // positions), hals_w_tiles(m, rk, k, positions)[2])
+    aht = (m, rk) if k > W_TILE_COLS else (0, rk)
     return (mu_block_workspace(m, n, rk, k)[:5]
-            + ((m, rk), (tiles, rk), (tiles, rk)))
+            + (aht, (tiles, rk), (tiles, rk)))
 
 
 def _check_library_rows(lib, name: str, symbol: str, want: int) -> None:
@@ -394,6 +412,10 @@ def hals_block_iterations(a, wp, hp, frozen_cols, *, k: int, slots: int,
             budget_cols=budget_cols)
 
     def work(lib, m, n, rk):
+        name = "hals_block_iterations"
+        _check_library_rows(lib, name, "nmfx_block_w_tile_rows",
+                            MU_W_TILE_ROWS)
+        _check_library_rows(lib, name, "nmfx_hals_w_tile_cols", W_TILE_COLS)
         return hals_block_workspace(m, n, rk, k,
                                     lib.nmfx_hals_sweep_positions())
 

@@ -28,11 +28,10 @@ its nmfx_block_w_tile_rows() or, where it has none, 64 rows.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import os
-import shutil
-import subprocess
 import sys
+
+from ab_common import build, build_all, load, profile_line, turns
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -56,36 +55,6 @@ DIAGNOSTICS = {
         "  const int stages = (n + GBK - 1) / GBK;\n  float ra[8], rb[4];",
         "  const int stages = 0 * n;\n  float ra[8], rb[4];")],
 }
-
-
-def build(nvcc, flags, src_dir, out_dir, edits=()):
-    """Copy src_dir, apply the edits, start nvcc on block_mu.cu; returns
-    (process, library path)."""
-    shutil.rmtree(out_dir, ignore_errors=True)
-    shutil.copytree(src_dir, out_dir)
-    for name, old, new in edits:
-        path = os.path.join(out_dir, name)
-        text = open(path).read()
-        if text.count(old) != 1:
-            raise SystemExit(f"diagnostic edit does not apply to {name}: "
-                             f"{old[:60]!r}")
-        open(path, "w").write(text.replace(old, new))
-    lib = os.path.join(out_dir, "libblock_mu.so")
-    proc = subprocess.Popen([nvcc, *flags, "-o", lib,
-                             os.path.join(out_dir, "block_mu.cu")],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    return proc, lib
-
-
-def load(path, signatures):
-    lib = ctypes.CDLL(path)
-    for sym, argtypes in signatures.items():
-        fn = getattr(lib, sym, None)
-        if fn is not None:
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-    return lib
 
 
 def runner(torch, lib):
@@ -122,25 +91,6 @@ def runner(torch, lib):
     return run
 
 
-def profile_line(torch, fn, iters):
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            fn()
-        torch.cuda.synchronize()
-    rows = sorted(((e.self_device_time_total, e.key)
-                   for e in prof.key_averages()
-                   if e.self_device_time_total > 0), reverse=True)
-
-    def name(key):
-        key = key.replace("(anonymous namespace)::", "")
-        return key.removeprefix("void ").split("(")[0]
-
-    return "; ".join(f"{name(key)} {us / (5 * iters) / 1e3:.4f} ms"
-                     for us, key in rows[:6])
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True,
@@ -164,17 +114,13 @@ def main(argv=None) -> int:
     srcs = {"other": os.path.join(args.parent, "nmfx_torch", "csrc"),
             "this": str(_build.SRC_DIR)}
     procs = {name: build(_build._nvcc(), flags, src,
-                         os.path.join(out, name))
+                         os.path.join(out, name), "block_mu.cu")
              for name, src in srcs.items()}
     for name, edits in DIAGNOSTICS.items():
         procs[name] = build(_build._nvcc(), flags, srcs["this"],
-                            os.path.join(out, name), edits)
-    runs = {}
-    for name, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed for {name}:\n{log}")
-        runs[name] = runner(torch, load(lib, _build.SIGNATURES["block_mu"]))
+                            os.path.join(out, name), "block_mu.cu", edits)
+    runs = {name: runner(torch, load(lib, _build.SIGNATURES["block_mu"]))
+            for name, lib in build_all(procs).items()}
 
     pools = [c for c in cs.MU_BLOCK_CASES] + [
         ("short-last-chunk", 1100, 300, 9, 8,
@@ -198,13 +144,10 @@ def main(argv=None) -> int:
     a, wp, hp, frz, budget = cs.block_operands(torch, m, n, cs.SLOTS, k,
                                                seed=4)
     order = ["other", "this"] + list(DIAGNOSTICS)
-    times = {}
-    for _ in range(args.rounds):
-        for name in order + order[::-1]:
-            for fused in (False, True):
-                fn = lambda: runs[name](a, wp, hp, frz, budget, k, fused)  # noqa
-                times.setdefault((name, fused), []).append(
-                    cs.time_ms(torch, fn))
+    times = turns(lambda fn: cs.time_ms(torch, fn), {
+        (name, fused): (lambda name=name, fused=fused: runs[name](
+            a, wp, hp, frz, budget, k, fused))
+        for name in order for fused in (False, True)}, args.rounds)
     for name in order:
         for fused in (False, True):
             fn = lambda: runs[name](a, wp, hp, frz, budget, k, fused)  # noqa

@@ -1,5 +1,6 @@
 """The block kernels' workspace sizing (``nmfx_torch/ops/fused_mu.py``)
-against the tiling of ``nmfx_torch/csrc/block_mu.cu``, on the CPU.
+against the tiling of ``nmfx_torch/csrc/block_mu.cu`` and
+``nmfx_torch/csrc/hals_block.cu``, on the CPU.
 
 A workspace that is too small shows on a card as a fault, or as a W stat
 read from memory no kernel wrote; here the sizes are held to a model of
@@ -10,6 +11,7 @@ integer arithmetic, no tolerance.
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 from nmfx_torch.ops import _build, fused_mu
@@ -33,6 +35,7 @@ def _constant(header: str, name: str) -> int:
 def test_python_constants_match_the_headers():
     assert fused_mu.SPLIT_ROWS == _constant("block_common.cuh", "SPLIT_ROWS")
     assert fused_mu.MU_W_TILE_ROWS == _constant("block_gemm.cuh", "WBM")
+    assert fused_mu.W_TILE_COLS == _constant("block_gemm.cuh", "WBN")
     assert fused_mu.SPLIT_ROWS % fused_mu.MU_W_TILE_ROWS == 0
 
 
@@ -67,13 +70,64 @@ def test_mu_block_workspace_covers_every_tile(m, n, slots, k):
 
 @pytest.mark.parametrize("m,n,slots,k", SHAPES)
 def test_hals_block_workspace_keeps_its_layout(m, n, slots, k):
+    """mu's first five, the W numerator only for a lane wider than a W
+    tile, then one row of maxima per H sweep block or W row tile."""
     rk = slots * k
-    positions = 256
+    positions = _constant("hals_block.cu", "SWEEP_POS")
     got = fused_mu.hals_block_workspace(m, n, rk, k, positions)
     splits = -(-m // fused_mu.SPLIT_ROWS)
-    tiles = -(-max(m, n) // positions)
+    w_tiles = -(-m // fused_mu.MU_W_TILE_ROWS)
+    tiles = max(-(-n // positions), w_tiles)
     assert got == ((m, rk), (rk, n), (splits, rk, n), (splits, slots, k, k),
-                   (slots, k, k), (m, rk), (tiles, rk), (tiles, rk))
+                   (slots, k, k), (0, rk), (tiles, rk), (tiles, rk))
+    wide = fused_mu.W_TILE_COLS + 6
+    got = fused_mu.hals_block_workspace(m, n, slots * wide, wide, positions)
+    tiles = -(-max(m, n) // positions)
+    assert got[5:] == ((m, slots * wide), (tiles, slots * wide),
+                       (tiles, slots * wide))
+
+
+def _hals_w_tile_model(m: int, rk: int, k: int):
+    """hals_block.cu's W half: {tile (bx, by): (columns, rows)}. For k <=
+    WBN, w_sweep_tile's CTA (bx, by) owns the WBN // k whole lanes from
+    lane bx * (WBN // k) and rows by * WBM ..; for a wider lane,
+    hals_sweep's block (lane bx, by) owns the lane and SWEEP_POS rows."""
+    wbm, wbn = _constant("block_gemm.cuh", "WBM"), _constant(
+        "block_gemm.cuh", "WBN")
+    pos = _constant("hals_block.cu", "SWEEP_POS")
+    per, rows = (wbn // k, wbm) if k <= wbn else (1, pos)
+    lanes = rk // k
+    return {(bx, by): (range(bx * per * k, min(lanes, bx * per + per) * k),
+                       range(by * rows, min(m, by * rows + rows)))
+            for bx in range(-(-lanes // per)) for by in range(-(-m // rows))}
+
+
+@pytest.mark.parametrize("k", [*range(1, 17), 70])
+@pytest.mark.parametrize("m,n,slots,_k", SHAPES)
+def test_hals_w_tiles_hold_whole_lanes(m, n, slots, _k, k):
+    """Every lane's k columns lie in exactly one W tile of at most WBN
+    columns, every (row, column) in exactly one tile, and the stat rows
+    (one per row tile) cover every tile and fit the workspace."""
+    rk = slots * k
+    pos = _constant("hals_block.cu", "SWEEP_POS")
+    model = _hals_w_tile_model(m, rk, k)
+    per, ctiles, rtiles = fused_mu.hals_w_tiles(m, rk, k, pos)
+    assert {bx for bx, _ in model} == set(range(ctiles))
+    assert {by for _, by in model} == set(range(rtiles))
+    for lane in range(slots):
+        cols = set(range(lane * k, lane * k + k))
+        holding = {bx for (bx, _), (c, _) in model.items()
+                   if cols & set(c)}
+        assert len(holding) == 1
+        assert all(cols <= set(c) for (bx, _), (c, _) in model.items()
+                   if bx in holding)
+    writes = np.zeros((m, rk), dtype=np.int64)
+    for cols, rows in model.values():
+        assert cols and (len(cols) <= fused_mu.W_TILE_COLS or len(cols) == k)
+        writes[rows.start:rows.stop, cols.start:cols.stop] += 1
+    assert (writes == 1).all()
+    dp = fused_mu.hals_block_workspace(m, n, rk, k, pos)[6]
+    assert dp[0] >= rtiles and dp[0] >= -(-n // pos) and dp[1] == rk
 
 
 def test_library_row_counts_are_checked():

@@ -191,10 +191,11 @@ def test_fused_block_kernel_byte_equal_to_phased(card, check_block, pool):
     assert fused_mu.LAUNCHES["fused_block_iterations_fused"] == 1
 
 
-@pytest.mark.parametrize("fused", [False, True])
-def test_block_kernel_schedule_free(card, fused):
+@pytest.mark.parametrize("kernel", ["phased", "fused", "hals"])
+def test_block_kernel_schedule_free(card, kernel):
     """One job's lane in slot 2 of a 5-slot pool and in slot 37 of a
-    48-slot pool (other lanes random, some frozen): its W columns, H
+    48-slot pool (other lanes random, some frozen), on the mu block
+    kernel in either order or the HALS block kernel: its W columns, H
     rows, stats and snapshots bit-equal. Its budget runs out mid-launch."""
     m, n, k = 1237, 77, 7
     rng = np.random.default_rng(9)
@@ -212,10 +213,14 @@ def test_block_kernel_schedule_free(card, fused):
         frozen[0, (at - 1) * k:at * k] = 1.0
         budget = torch.full((1, slots * k), 100.0, device=card)
         budget[0, at * k:(at + 1) * k] = 5.0
-        got = fused_mu.fused_block_iterations(
-            a, torch.as_tensor(wp, device=card),
-            torch.as_tensor(hp, device=card), frozen, k=k, iters=2,
-            check_block=4, budget_cols=budget, fused=fused)
+        operands = (a, torch.as_tensor(wp, device=card),
+                    torch.as_tensor(hp, device=card), frozen)
+        kw = dict(k=k, iters=2, check_block=4, budget_cols=budget)
+        if kernel == "hals":
+            got = fused_mu.hals_block_iterations(*operands, slots=slots, **kw)
+        else:
+            got = fused_mu.fused_block_iterations(
+                *operands, fused=kernel == "fused", **kw)
         cols = slice(at * k, (at + 1) * k)
         wpo, hpo, wd, wm, hd, hm, hck = got
         rows = [b * slots * k + at * k + p for b in range(4)
