@@ -15,7 +15,11 @@ Phases (any failure exits non-zero; nothing is caught):
      mid-launch and a zero-padded rank-3 job; the mu block kernel also
      at a pool whose rows are not 16-byte aligned, the HALS kernel at a
      lane wider than its W tile); the join-the-updates mu block kernel
-     against the phased one, all outputs byte-equal;
+     against the phased one, all outputs byte-equal; the per-iteration
+     pair (fused_h_update, lane_gram, fused_w_update) against one
+     iteration of the phased block kernel, Hp and Wp byte-equal, at the
+     block pools and the per-rank route's north-star pools (k = 10 and
+     k = 3, whose rows are not 16-byte aligned);
   3. kernel timing (CUDA events, median of 25 after warm-up) beside the
      plain version, a torch.matmul composite and the card's bound;
   4. the main paths, each with every kernel's launch count set to 0 just
@@ -28,7 +32,8 @@ Phases (any failure exits non-zero; nothing is caught):
      b. the same whole grid on the join-the-updates kernel
         (fused_updates "fused"), byte-equal to a;
      c. the per-rank route (backend "pallas", grid_exec "per_k") on the
-        per-iteration kernel pair;
+        per-iteration kernel pair, each rank's mean iterations beside
+        the whole grid's from a;
      d. hals on the whole grid (backend "pallas": the slot scheduler on
         the HALS block kernel), beside the same sweep on the dense layout
         (backend "auto"), held to the reference's agreement band;
@@ -36,7 +41,10 @@ Phases (any failure exits non-zero; nothing is caught):
      routes and with hals, a small input on the card and on the CPU
      (plain versions), which must agree on both routes and for hals on
      both layouts, and the whole grid at other slot counts and tail
-     settings, which must give the same results;
+     settings, which must give the same results; the scheduler's
+     per-iteration fallback (max_iter not a multiple of check_every, on
+     the kernel pair) against its block route on the bundled design: the
+     same per-job iterations, stop reasons and consensus;
   6. profiles: 200 packed iterations at k=2 and k=10, and 20 trips of
      the 48-slot scheduler at k=10 for mu (160 iterations, no lane
      stops) and for hals (40 iterations): time per iteration, the
@@ -147,13 +155,6 @@ def operands(torch, m, n, r, k, seed, zeros=False):
     return a, wp, hp
 
 
-def masked_h_gram(torch, hp, k):
-    from nmfx_torch.ops.packed_mu import bd_select, block_diag_mask
-
-    return bd_select(hp @ hp.T, block_diag_mask(hp.shape[0] // k, k,
-                                                hp.device))
-
-
 def check_close(torch, name, got, want, zeros):
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
@@ -182,13 +183,16 @@ def phase_parity(torch, fm):
         got_h = fm.fused_h_update(a, wp, hp, k=k)
         eh = check_close(torch, f"fused_h_update[{label}]", got_h, want_h,
                          zeros)
-        gh = masked_h_gram(torch, want_h, k)
+        gh = fm.lane_gram_ref(want_h, k=k)
+        eg = check_close(torch, f"lane_gram[{label}]",
+                         fm.lane_gram(want_h, k=k), gh, zeros)
         want_w = fm.fused_w_update_ref(a, wp, want_h, gh, k=k)
         got_w = fm.fused_w_update(a, wp, want_h, gh, k=k)
         ew = check_close(torch, f"fused_w_update[{label}]", got_w, want_w,
                          zeros)
         print(f"parity {label} m={m} n={n} R={r} k={k}: fused_h_update "
-              f"max abs {eh[0]:.3e} rel {eh[1]:.3e}; fused_w_update max "
+              f"max abs {eh[0]:.3e} rel {eh[1]:.3e}; lane_gram max abs "
+              f"{eg[0]:.3e} rel {eg[1]:.3e}; fused_w_update max "
               f"abs {ew[0]:.3e} rel {ew[1]:.3e} (rtol={RTOL}, "
               f"atol={ATOL_REL}*max|ref|)", flush=True)
         if label == "north-star":
@@ -306,6 +310,36 @@ def phase_block_parity(torch, fm):
     return ns_err
 
 
+#: the per-rank route's north-star pools for the pair: m padded as
+#: mu_packed pads it (5040 rows, a last 256-row chunk of 176), 50
+#: restarts of k = 10, and of k = 3 (rk = 150: rows off 16-byte alignment)
+PAIR_CASES = (("per-rank north-star", 5040, 500, 50, 10, dict(pad=False)),
+              ("per-rank k=3", 5040, 500, 50, 3, dict(pad=False)))
+
+
+def phase_pair_equality(torch, fm):
+    """One call of fused_h_update, lane_gram and fused_w_update against
+    one iteration of the phased block kernel (iters = check_block = 1, no
+    lane frozen) from the same inputs: Hp and Wp byte-equal at the block
+    kernel's parity pools and the per-rank pools."""
+    for label, m, n, slots, k, opts in MU_BLOCK_CASES + PAIR_CASES:
+        a, wp, hp, frz, _ = block_operands(
+            torch, m, n, slots, k, seed=6,
+            **{key: opts[key] for key in ("zeros", "pad", "short_k")
+               if key in opts})
+        h = fm.fused_h_update(a, wp, hp, k=k)
+        w = fm.fused_w_update(a, wp, h, fm.lane_gram(h, k=k), k=k)
+        want = fm.fused_block_iterations(a, wp, hp, frz, k=k, iters=1)
+        torch.cuda.synchronize()
+        if not (torch.equal(h.view(torch.int32), want[1].view(torch.int32))
+                and torch.equal(w.view(torch.int32),
+                                want[0].view(torch.int32))):
+            raise AssertionError(f"pair [{label}]: Hp or Wp differs from "
+                                 "one block iteration's")
+        print(f"pair == block iteration [{label} m={a.shape[0]} n={n} "
+              f"R={slots} k={k}]: byte-equal", flush=True)
+
+
 def check_padding(torch, name, got, wp, hp, frz, m, k, short_k):
     """Frozen lanes bit-equal to the input, the zero-padded rows of Wp
     and (``short_k``) slot 0's padded components exactly zero."""
@@ -407,14 +441,19 @@ def library_h(torch, a, wp, hp, k):
     return _mu_update(hp, wp.T @ a, denom.reshape(rk, -1), 1e-9, 0.0)
 
 
+def library_gram(torch, hp, k):
+    """torch.bmm composite of lane_gram: the lanes' Grams in one call."""
+    h3 = hp.reshape(hp.shape[0] // k, k, -1)
+    return torch.bmm(h3, h3.transpose(1, 2))
+
+
 def library_w(torch, a, wp, hp, gh, k):
+    """torch.matmul composite of fused_w_update (gh per lane)."""
     from nmfx_torch.solvers.mu import _mu_update
 
     m, rk = wp.shape
     r = rk // k
-    g3 = torch.diagonal(gh.reshape(r, k, r, k), dim1=0,
-                        dim2=2).permute(2, 0, 1)
-    denom = torch.bmm(wp.reshape(m, r, k).permute(1, 0, 2), g3)
+    denom = torch.bmm(wp.reshape(m, r, k).permute(1, 0, 2), gh)
     return _mu_update(wp, a @ hp.T, denom.permute(1, 0, 2).reshape(m, rk),
                       1e-9, 0.0)
 
@@ -457,10 +496,13 @@ def bounds(m, n, rk, k, rates):
     flops, bw = rates
     h_bytes = 4 * (m * n + m * rk + rk * n + rk * n)
     h_ops = 2 * m * n * rk + 2 * m * rk * k + 2 * rk * n * k + 5 * rk * n
-    w_bytes = 4 * (m * n + m * rk + rk * n + rk * rk + m * rk)
+    g_bytes = 4 * (rk * n + rk * k)
+    g_ops = 2 * rk * k * n
+    w_bytes = 4 * (m * n + m * rk + rk * n + rk * k + m * rk)
     w_ops = 2 * m * n * rk + 2 * m * rk * k + 5 * m * rk
     out = {}
     for name, nb, no in (("fused_h_update", h_bytes, h_ops),
+                         ("lane_gram", g_bytes, g_ops),
                          ("fused_w_update", w_bytes, w_ops)):
         tb, to = nb / bw * 1e3, no / flops * 1e3
         out[name] = (max(tb, to), "bytes" if tb >= to else "operations")
@@ -586,7 +628,7 @@ def phase_timing(torch, fm, rates):
     table = {}
     for m, n, r, k in (NORTH_STAR, (5000, 500, 50, 2)):
         a, wp, hp = operands(torch, m, n, r, k, seed=2)
-        gh = masked_h_gram(torch, hp, k)
+        gh = fm.lane_gram_ref(hp, k=k)
         bnd = bounds(m, n, r * k, k, rates)
         row = {
             "fused_h_update": (
@@ -594,6 +636,10 @@ def phase_timing(torch, fm, rates):
                 time_ms(torch, lambda: fm.fused_h_update_ref(a, wp, hp,
                                                              k=k)),
                 time_ms(torch, lambda: library_h(torch, a, wp, hp, k))),
+            "lane_gram": (
+                time_ms(torch, lambda: fm.lane_gram(hp, k=k)),
+                time_ms(torch, lambda: fm.lane_gram_ref(hp, k=k)),
+                time_ms(torch, lambda: library_gram(torch, hp, k))),
             "fused_w_update": (
                 time_ms(torch, lambda: fm.fused_w_update(a, wp, hp, gh,
                                                          k=k)),
@@ -830,9 +876,10 @@ def phase_hals_path(torch, fm):
     return launches
 
 
-def phase_per_rank_path(torch, fm):
+def phase_per_rank_path(torch, fm, grid):
     """nmfconsensus at the north-star width, one rank at a time, through
-    the per-iteration kernel pair."""
+    the per-iteration kernel pair; each rank's iterations beside those of
+    the whole grid's run ``grid`` (recorded, not a gate)."""
     import nmfx_torch
 
     m, n, r, _ = NORTH_STAR
@@ -853,16 +900,24 @@ def phase_per_rank_path(torch, fm):
             backend="pallas"), grid_exec="per_k", on_rank=on_rank)
     launches = dict(fm.LAUNCHES)
     need = 0
+    same = []
     for k in KS:
-        kr = res.per_k[k]
+        kr, gr = res.per_k[k], grid.per_k[k]
         wall, syncs = ranks[k]
+        jobs = np.array_equal(kr.iterations, gr.iterations)
+        if jobs:
+            same.append(k)
         print(f"main per-rank k={k}: wall {wall:.3f} s, mean iters "
-              f"{kr.iterations.mean():.1f}, max iters "
+              f"{kr.iterations.mean():.1f} (whole grid "
+              f"{gr.iterations.mean():.1f}, per-job iterations equal "
+              f"{jobs}), max iters "
               f"{int(kr.iterations.max())}, stop reasons {stop_counts(kr)}, "
               f"host syncs {syncs}", flush=True)
         need += int(kr.iterations.max())
+    print(f"main per-rank vs whole grid: per-job iterations equal at ks "
+          f"{same} of {list(KS)}", flush=True)
     check_sweep(res, "per-rank route", n)
-    for name in ("fused_h_update", "fused_w_update"):
+    for name in ("fused_h_update", "lane_gram", "fused_w_update"):
         if launches[name] < need:
             raise AssertionError(
                 f"{name} launched {launches[name]} times on the per-rank "
@@ -874,11 +929,12 @@ def phase_per_rank_path(torch, fm):
     return launches
 
 
-def phase_checks(torch):
-    """On both routes, and with hals, the bundled design must select k=2,
-    and a small input must agree between the card (kernels) and the CPU
-    (plain versions); the whole grid must give the same results at any
-    slot count and tail setting."""
+def phase_checks(torch, fm):
+    """On both routes, and with hals, the bundled design must select k=2;
+    on it the whole grid's per-iteration fallback must give the block
+    route's results; a small input must agree between the card (kernels)
+    and the CPU (plain versions); the whole grid must give the same
+    results at any slot count and tail setting."""
     import nmfx_torch
     from nmfx_torch.datasets import two_group_matrix
 
@@ -897,6 +953,42 @@ def phase_checks(torch):
         if res.best_k != 2:
             raise AssertionError(f"bundled design, {label} grid_exec="
                                  f"{route}: best k {res.best_k} != 2")
+
+    # the reference's fallback contract (nmfx/ops/pallas_mu.py:43-45): with
+    # max_iter not a multiple of check_every the whole grid runs the
+    # per-iteration pair instead of the block kernel, and no job reaches
+    # either cap, so per-job iterations, stop reasons and consensus match
+    kw = dict(ks=(2, 3, 4, 5), restarts=10, seed=123)
+    runs = {}
+    for max_iter in (10_000, 10_001):
+        scfg = nmfx_torch.SolverConfig(backend="pallas", max_iter=max_iter)
+        fm.reset_launch_counts()
+        t0 = time.perf_counter()
+        runs[max_iter] = (nmfx_torch.nmfconsensus(a, solver_cfg=scfg, **kw),
+                          dict(fm.LAUNCHES), time.perf_counter() - t0)
+    (blk, blk_n, blk_s), (pair, pair_n, pair_s) = runs.values()
+    same = {k: (np.array_equal(blk.per_k[k].iterations,
+                               pair.per_k[k].iterations)
+                and np.array_equal(blk.per_k[k].stop_reasons,
+                                   pair.per_k[k].stop_reasons)
+                and np.array_equal(blk.per_k[k].consensus.view(np.int64),
+                                   pair.per_k[k].consensus.view(np.int64)))
+            for k in kw["ks"]}
+    capped = max(int(res.per_k[k].iterations.max())
+                 for res in (blk, pair) for k in kw["ks"])
+    print(f"fallback contract 1000x40 ks 2..5 x10: max_iter 10001 (the "
+          f"pair, {pair_s:.3f} s, launches {pair_n}) vs 10000 (the block "
+          f"kernel, {blk_s:.3f} s, launches {blk_n}): per-job iterations, "
+          f"stop reasons and consensus equal per k {same}; longest job "
+          f"{capped} iterations", flush=True)
+    if not all(same.values()) or capped >= 10_000:
+        raise AssertionError("fallback contract: the per-iteration pair "
+                             "and the block kernel disagree on the whole "
+                             "grid")
+    if (pair_n["fused_h_update"] < 1 or pair_n["fused_block_iterations"]
+            or blk_n["fused_block_iterations"] < 1 or blk_n["fused_h_update"]):
+        raise AssertionError("fallback contract: a route ran the other "
+                             "route's kernels")
 
     small = two_group_matrix(n_genes=200, n_per_group=12, seed=3)
     for label, route, scfg in (
@@ -1091,6 +1183,7 @@ def main(argv=None) -> int:
 
     ns_err = phase_parity(torch, fm)
     ns_err.update(phase_block_parity(torch, fm))
+    phase_pair_equality(torch, fm)
     ns_err["hals_block_iterations"] = phase_hals_parity(torch, fm)
     if not args.quick:
         rates = peaks(kind)
@@ -1100,17 +1193,17 @@ def main(argv=None) -> int:
         launches, phased, phased_wall = phase_grid_path(torch, fm)
         launches["fused_block_iterations_fused"] = phase_fused_grid_path(
             torch, fm, phased, phased_wall)["fused_block_iterations_fused"]
-        per_rank = phase_per_rank_path(torch, fm)
+        per_rank = phase_per_rank_path(torch, fm, phased)
         for name in ("fused_h_update", "fused_w_update"):
             launches[name] = per_rank[name]
         launches["hals_block_iterations"] = phase_hals_path(
             torch, fm)["hals_block_iterations"]
-        phase_checks(torch)
+        phase_checks(torch, fm)
         phase_profile(torch)
         kernels = []
         for name, source, line in (
-                ("fused_h_update", "fused_mu.cu", 147),
-                ("fused_w_update", "fused_mu.cu", 731),
+                ("fused_h_update", "block_mu.cu", 147),
+                ("fused_w_update", "block_mu.cu", 731),
                 ("fused_block_iterations", "block_mu.cu", 539),
                 ("fused_block_iterations_fused", "block_mu.cu", 382),
                 ("hals_block_iterations", "hals_block.cu", 984)):

@@ -1,29 +1,44 @@
-// Device code shared by the slot scheduler's block kernels (block_mu.cu,
-// hals_block.cu): the fixed split of the m-reduction, the per-lane
-// freeze and budget fence, the NaN-keeping maximum, cp.async copies, the
-// diagonal H-Gram and the reduction of per-tile TolX maxima.
+// Device code shared by the port's block kernels (block_mu.cu,
+// hals_block.cu): the mu epilogue, the fixed split of the m-reduction,
+// the per-lane freeze and budget fence, the NaN-keeping maximum, cp.async
+// copies, the W-Gram partials, the diagonal H-Gram and the reduction of
+// per-tile TolX maxima.
 //
-// Like mu_common.cuh, everything sits in an anonymous namespace: each
-// source that includes this header compiles its own copy.
+// Layout (all float32, row-major, contiguous): A (m, n), Wp (m, rk),
+// Hp (rk, n), rk = R*k with lane r owning columns/rows r*k .. r*k+k-1.
+//
+// Everything sits in an anonymous namespace: each source that includes
+// this header compiles its own copy.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
-#include "mu_common.cuh"
-
 namespace {
 
 constexpr int SPLIT_ROWS = 256;  // rows of A per split of the H numerator
 constexpr int ROW_THREADS = 256;
+constexpr int THREADS = 256;    // threads of the Gram kernels
+constexpr int GRAM_ROWS = 64;   // rows of W staged per Gram step
 // most floats of H that h_gram_diag stages at a time (48 KB)
 constexpr int HG_STAGE_FLOATS = 12 * 1024;
 
+__device__ __forceinline__ float mu_epilogue(float prev, float numer,
+                                             float denom, float eps,
+                                             float zero_threshold) {
+  float res = prev * (numer / (denom + eps));
+  if (prev == 0.0f || numer == 0.0f) res = 0.0f;
+  if (res <= zero_threshold) res = 0.0f;
+  return res;
+}
+
+// a null frozen or budget freezes no lane
 __device__ __forceinline__ bool lane_frozen(const float* __restrict__ frozen,
                                             const float* __restrict__ budget,
                                             int c, int it) {
-  return frozen[c] > 0.f || (budget != nullptr && budget[c] <= (float)it);
+  return (frozen != nullptr && frozen[c] > 0.f) ||
+         (budget != nullptr && budget[c] <= (float)it);
 }
 
 // max that keeps a NaN once it has seen one
@@ -52,6 +67,36 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// gpart[s, r, p, q] = sum over rows m of chunk s of Wp[m, r*k+p] * Wp[m, r*k+q]
+// grid (R, splits, ceil(k*k / THREADS)); one (p, q) pair per thread.
+__global__ void __launch_bounds__(THREADS)
+h_gram_partial(const float* __restrict__ wp, float* __restrict__ gpart,
+               int m, int rk, int k, int chunk) {
+  extern __shared__ float wtile[];  // [GRAM_ROWS][k]
+  const int r = blockIdx.x, s = blockIdx.y;
+  const int lanes = rk / k;
+  const int pair = blockIdx.z * THREADS + threadIdx.x;
+  const bool owns = pair < k * k;
+  const int p = owns ? pair / k : 0, q = owns ? pair % k : 0;
+  const int mb = s * chunk;
+  const int me = min(m, mb + chunk);
+  float acc = 0.f;
+  for (int m0 = mb; m0 < me; m0 += GRAM_ROWS) {
+    for (int e = threadIdx.x; e < GRAM_ROWS * k; e += THREADS) {
+      const int row = m0 + e / k, c = e % k;
+      wtile[e] = row < me ? wp[(size_t)row * rk + r * k + c] : 0.f;
+    }
+    __syncthreads();
+    if (owns) {
+      const int rows = min(GRAM_ROWS, me - m0);
+      for (int t = 0; t < rows; ++t)
+        acc = fmaf(wtile[t * k + p], wtile[t * k + q], acc);
+    }
+    __syncthreads();
+  }
+  if (owns) gpart[(((size_t)s * lanes + r) * k + p) * k + q] = acc;
 }
 
 // Columns of H that h_gram_diag stages at a time: all n where the lane's

@@ -2,11 +2,13 @@
 // kernels (block_mu.cu, hals_block.cu): the W numerator A * Hp^T and the
 // split-m H numerator Wp^T A.
 //
-// Byte-equal to mu_common.cuh's w_numer_tile and h_numer_partial: every
-// output is one accumulator, started at +0 and advanced by fmaf over the
-// contraction index in order (the W numerator over j = 0..n-1, the H
-// numerator over the rows of one SPLIT_ROWS chunk). Only the tiling, the
-// copies and the shared-memory layout differ. Past an edge both operands
+// The chains: every output is one accumulator, started at +0 and
+// advanced by fmaf over the contraction index in order, the W numerator
+// acc(i, c) = fmaf(A[i, j], Hp[c, j], acc) for j = 0..n-1 and the H
+// numerator partial acc(s, c, j) = fmaf(Wp[t, c], A[t, j], acc) for the
+// rows t of SPLIT_ROWS-chunk s in row order. So an output depends on m,
+// n and its own row and column only, never on the tile that computes it,
+// the copy width or the shared-memory layout. Past an edge both operands
 // are zero-filled, and fmaf(0, 0, acc) == acc for every acc these chains
 // reach (+0 stays +0, since a sum that starts at +0 never becomes -0), so
 // the padding to whole stages changes no bit either.
@@ -27,7 +29,7 @@
 //     where aligned) while the previous one is summed, then stored
 //     transposed into the other of two shared buffers.
 //
-// Like mu_common.cuh, everything sits in an anonymous namespace.
+// Like block_common.cuh, everything sits in an anonymous namespace.
 
 #pragma once
 
@@ -155,7 +157,7 @@ __device__ __forceinline__ void w_stash(float* buf, const float (&ra)[8],
 }
 
 // acc[u][v] = sum over j of A[i0 + w_row(u), j] * Hp[c0 + w_col(v), j]
-// over j in order: w_numer_tile's chains on a WBM x WBN tile. `ring`
+// over j in order (the W chain above) on a WBM x WBN tile. `ring`
 // holds W_RING_BYTES of shared memory; it is free again when this
 // returns. Every thread of the block must call it.
 template <bool VEC>
@@ -260,7 +262,7 @@ __device__ __forceinline__ void h_store(const float (&acc)[CV][8],
 }
 
 // part[s, c, j] = sum over the rows t of SPLIT_ROWS-chunk s of
-// Wp[t, c] * A[t, j], in row order: h_numer_partial's chains on the HBC x
+// Wp[t, c] * A[t, j], in row order (the H chain above) on the HBC x
 // HBN tile of columns c0 .. (stored below cend) and j0 = blockIdx.x *
 // HBN, s = blockIdx.z; `ring` holds H_RING_BYTES of shared memory. After
 // each stage's products, hook(ws) sees that stage's Wp rows ws[GBK][HBC]

@@ -8,6 +8,16 @@
 // per-lane iteration budget fence, per-boundary TolX stats and, when
 // check_block > 1, an H snapshot at every check boundary.
 //
+// Also replaces nmfx/ops/pallas_mu.py:fused_h_update (_h_kernel) and
+// nmfx/ops/pallas_mu.py:fused_w_update (_w_kernel), the per-iteration
+// pair of the per-rank route and of the scheduler's fallback: entries
+// nmfx_fused_h_update (kernels 1-3 below), nmfx_lane_gram (kernel 4) and
+// nmfx_fused_w_update (kernel 5), each one call with no lane frozen and
+// no stats (the caller freezes). One call of each in turn is byte-equal,
+// in every bit of Hp and Wp, to one iteration of nmfx_block_iterations
+// with no lane frozen from the same inputs: the same kernels on the same
+// chains.
+//
 // Layout (float32, row-major, contiguous): A (m, n), Wp (m, rk), Hp
 // (rk, n), rk = S*k with slot s owning columns/rows s*k .. s*k+k-1. The
 // uniform pool's segment ids are iota // k, so the kernel takes k alone
@@ -34,8 +44,8 @@
 // operations: f32 FMA on the CUDA cores. The two numerator products run
 // on block_gemm.cuh's register-tiled, pipelined tiles (W: 128 rows x 64
 // lane columns, 8 x 4 outputs a thread; H: 64 lane columns x 128 columns
-// of A, 8 x 8 a thread), whose every output is the same in-order fmaf
-// chain as before, so the results do not depend on the tiling.
+// of A, 8 x 8 a thread), whose every output is one in-order fmaf chain,
+// so the results do not depend on the tiling.
 //
 // What the design does about the TPU kernel's structure: the Pallas
 // kernel holds all of Wp (9.8 MB here) and Hp in one core's VMEM for the
@@ -435,29 +445,98 @@ wh_pass(const float* __restrict__ a, const float* __restrict__ wp,
   }
 }
 
+// One call's launch configuration. The pointers a call does not set stay
+// null: a null frozen or budget freezes no lane, and the stats, the
+// snapshots and the per-tile maxima are written only at a boundary.
 struct Launch {
-  const float *a, *frozen, *budget;
-  float *wd, *wm, *hd, *hm, *h_checks, *part, *gpart, *gh, *wdp, *wmp;
-  int m, n, rk, k, iters, check_block, splits, mtiles;
+  const float *a = nullptr, *frozen = nullptr, *budget = nullptr;
+  float *wd = nullptr, *wm = nullptr, *hd = nullptr, *hm = nullptr,
+        *h_checks = nullptr, *part = nullptr, *gpart = nullptr,
+        *gh = nullptr, *wdp = nullptr, *wmp = nullptr;
+  int m, n, rk, k, iters = 1, check_block = 1, splits, mtiles;
   float eps, zero_threshold;
   cudaStream_t st;
   size_t gram_smem, ep_smem, hg_smem, w_smem, pass_smem;
-  dim3 gram_grid, hg_grid;
-  int red_blocks, stage_floats, vec_out;
+  dim3 numer_grid, gram_grid, hg_grid, w_grid;
+  int red_blocks, stage_floats, vec_out = 0;
 
-  // the H half of iteration `it` from the numerator partials in `part`:
-  // the W-Gram partials of w, the epilogue into h_next (stats and
-  // snapshot at a boundary), then the diagonal H-Gram of h_next
-  void h_half(const float* w, const float* h, float* h_next, int it) const {
-    const bool boundary = (it + 1) % iters == 0;
-    const int brow = boundary ? (it + 1) / iters - 1 : -1;
+  Launch(int m_, int n_, int rk_, int k_, float eps_, float zero_threshold_,
+         void* stream) {
+    m = m_, n = n_, rk = rk_, k = k_;
+    eps = eps_, zero_threshold = zero_threshold_;
+    st = static_cast<cudaStream_t>(stream);
+    splits = (m + SPLIT_ROWS - 1) / SPLIT_ROWS;
+    mtiles = (m + WBM - 1) / WBM;
+    stage_floats = w_stage_floats(rk, k);
+    const size_t stage_bytes = sizeof(float) * stage_floats;
+    gram_smem = sizeof(float) * GRAM_ROWS * k;
+    ep_smem = sizeof(float) * (k + 2 * ROW_THREADS);
+    hg_smem = sizeof(float) * k * (h_gram_cols(n, k) + 1);
+    w_smem = std::max(W_RING_BYTES, stage_bytes);
+    pass_smem =
+        STRIP_BYTES + std::max({W_RING_BYTES, FH_RING_BYTES, stage_bytes});
+    const int lanes = rk / k, pair_blocks = (k * k + THREADS - 1) / THREADS;
+    numer_grid = dim3((n + HBN - 1) / HBN, (rk + HBC - 1) / HBC, splits);
+    gram_grid = dim3(lanes, splits, pair_blocks);
+    hg_grid = dim3(lanes, pair_blocks);
+    w_grid = dim3((rk + WBN - 1) / WBN, mtiles);
+    red_blocks = (rk + ROW_THREADS - 1) / ROW_THREADS;
+  }
+
+  // the dynamic shared memory of the H half's kernels
+  cudaError_t set_h_smem() const {
+    cudaError_t err;
+    if ((err = set_smem((const void*)h_gram_partial, gram_smem)) !=
+            cudaSuccess ||
+        (err = set_smem((const void*)h_block_epilogue, ep_smem)) !=
+            cudaSuccess)
+      return err;
+    return set_smem((const void*)h_gram_diag, hg_smem);
+  }
+
+  // the H numerator partials of w into part (VW / VA: 16-byte copies of
+  // w / of A and stores of part)
+  template <bool VW, bool VA>
+  void h_numer(const float* w) const {
+    h_numer_split<VW, VA><<<numer_grid, H_THREADS, H_RING_BYTES, st>>>(
+        a, w, part, m, n, rk);
+  }
+
+  // the W-Gram partials of w, then the epilogue of iteration `it` into
+  // h_next from the numerator partials in part, with the stats and the
+  // snapshot in boundary row brow (none when brow < 0)
+  void h_epilogue(const float* w, const float* h, float* h_next, int it,
+                  int brow) const {
     h_gram_partial<<<gram_grid, THREADS, gram_smem, st>>>(w, gpart, m, rk, k,
                                                           SPLIT_ROWS);
     h_block_epilogue<<<rk, ROW_THREADS, ep_smem, st>>>(
         h, part, gpart, frozen, budget, h_next, hd, hm,
         check_block > 1 ? h_checks : nullptr, n, rk, k, splits, it, brow, eps,
         zero_threshold);
-    h_gram_diag<<<hg_grid, THREADS, hg_smem, st>>>(h_next, gh, n, k);
+  }
+
+  // gh = the diagonal H-Gram of h
+  void h_gram(const float* h) const {
+    h_gram_diag<<<hg_grid, THREADS, hg_smem, st>>>(h, gh, n, k);
+  }
+
+  // the H half of iteration `it` from the numerator partials in `part`:
+  // the epilogue into h_next (stats and snapshot at a boundary), then the
+  // diagonal H-Gram of h_next
+  void h_half(const float* w, const float* h, float* h_next, int it) const {
+    const bool boundary = (it + 1) % iters == 0;
+    h_epilogue(w, h, h_next, it, boundary ? (it + 1) / iters - 1 : -1);
+    h_gram(h_next);
+  }
+
+  // the W half of iteration `it` into w_next from w, the new h and its
+  // H-Gram g, with the per-tile maxima when `stats`
+  template <bool VEC>
+  void w_update(const float* w, const float* h, const float* g,
+                float* w_next, int it, int stats) const {
+    w_block_update<VEC><<<w_grid, W_THREADS, w_smem, st>>>(
+        a, w, h, g, frozen, budget, w_next, wdp, wmp, m, n, rk, k, it, stats,
+        stage_floats, vec_out, eps, zero_threshold);
   }
 
   // the W stats of boundary row `brow` from the per-tile maxima
@@ -478,9 +557,6 @@ cudaError_t phased(const Launch& L, const float* w_cur, const float* h_cur,
       (err = set_smem((const void*)w_block_update<VN>, L.w_smem)) !=
           cudaSuccess)
     return err;
-  const dim3 numer_grid((L.n + HBN - 1) / HBN, (L.rk + HBC - 1) / HBC,
-                        L.splits);
-  const dim3 w_grid((L.rk + WBN - 1) / WBN, L.mtiles);
   const int total = L.iters * L.check_block;
   for (int it = 0; it < total; ++it) {
     // iteration it writes the outputs when (total - 1 - it) is even, the
@@ -488,13 +564,9 @@ cudaError_t phased(const Launch& L, const float* w_cur, const float* h_cur,
     float* w_next = w_dest[(total - 1 - it) % 2];
     float* h_next = h_dest[(total - 1 - it) % 2];
     const bool boundary = (it + 1) % L.iters == 0;
-    h_numer_split<VR, VN><<<numer_grid, H_THREADS, H_RING_BYTES, L.st>>>(
-        L.a, w_cur, L.part, L.m, L.n, L.rk);
+    L.h_numer<VR, VN>(w_cur);
     L.h_half(w_cur, h_cur, h_next, it);
-    w_block_update<VN><<<w_grid, W_THREADS, L.w_smem, L.st>>>(
-        L.a, w_cur, h_next, L.gh, L.frozen, L.budget, w_next, L.wdp, L.wmp,
-        L.m, L.n, L.rk, L.k, it, boundary ? 1 : 0, L.stage_floats, L.vec_out,
-        L.eps, L.zero_threshold);
+    L.w_update<VN>(w_cur, h_next, L.gh, w_next, it, boundary ? 1 : 0);
     if (boundary) L.w_stats((it + 1) / L.iters - 1);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     w_cur = w_next;
@@ -542,10 +614,6 @@ int block_iterations(const float* a, const float* wp_in, const float* hp_in,
                      float* wdp, float* wmp, int m, int n, int rk, int k,
                      int iters, int check_block, float eps,
                      float zero_threshold, void* stream, bool fused) {
-  const int lanes = rk / k;
-  const int splits = (m + SPLIT_ROWS - 1) / SPLIT_ROWS;
-  const int stage_floats = w_stage_floats(rk, k);
-  const size_t stage_bytes = sizeof(float) * stage_floats;
   // the n-strided operands the products read (A, every H buffer, part)
   // and the rk-strided ones (every W buffer): 16-byte copies, loads and
   // stores where all rows are 16-byte aligned, 4-byte ones otherwise, in
@@ -555,25 +623,13 @@ int block_iterations(const float* a, const float* wp_in, const float* hp_in,
                   rows_aligned(part, n);
   const bool vr = rows_aligned(wp_in, rk) && rows_aligned(wp_out, rk) &&
                   rows_aligned(wp_tmp, rk);
-  Launch L{a, frozen, budget, wd, wm, hd, hm, h_checks, part, gpart, gh,
-           wdp, wmp, m, n, rk, k, iters, check_block, splits,
-           (m + WBM - 1) / WBM, eps, zero_threshold,
-           static_cast<cudaStream_t>(stream),
-           sizeof(float) * GRAM_ROWS * k,
-           sizeof(float) * (k + 2 * ROW_THREADS),
-           sizeof(float) * k * (h_gram_cols(n, k) + 1),
-           std::max(W_RING_BYTES, stage_bytes),
-           STRIP_BYTES + std::max({W_RING_BYTES, FH_RING_BYTES, stage_bytes}),
-           dim3(lanes, splits, (k * k + THREADS - 1) / THREADS),
-           dim3(lanes, (k * k + THREADS - 1) / THREADS),
-           (rk + ROW_THREADS - 1) / ROW_THREADS, stage_floats, vr ? 1 : 0};
-  cudaError_t err;
-  if ((err = set_smem((const void*)h_gram_partial, L.gram_smem)) !=
-          cudaSuccess ||
-      (err = set_smem((const void*)h_block_epilogue, L.ep_smem)) !=
-          cudaSuccess ||
-      (err = set_smem((const void*)h_gram_diag, L.hg_smem)) != cudaSuccess)
-    return err;
+  Launch L(m, n, rk, k, eps, zero_threshold, stream);
+  L.a = a, L.frozen = frozen, L.budget = budget;
+  L.wd = wd, L.wm = wm, L.hd = hd, L.hm = hm, L.h_checks = h_checks;
+  L.part = part, L.gpart = gpart, L.gh = gh, L.wdp = wdp, L.wmp = wmp;
+  L.iters = iters, L.check_block = check_block, L.vec_out = vr ? 1 : 0;
+  cudaError_t err = L.set_h_smem();
+  if (err != cudaSuccess) return err;
   float* const w_dest[2] = {wp_out, wp_tmp};
   float* const h_dest[2] = {hp_out, hp_tmp};
   if (fused)
@@ -584,6 +640,30 @@ int block_iterations(const float* a, const float* wp_in, const float* hp_in,
               : phased<true, false>(L, wp_in, hp_in, w_dest, h_dest);
   return vr ? phased<false, true>(L, wp_in, hp_in, w_dest, h_dest)
             : phased<false, false>(L, wp_in, hp_in, w_dest, h_dest);
+}
+
+// The H half of the per-iteration pair: an iteration's h_numer_split,
+// h_gram_partial and h_block_epilogue, with no lane frozen and no stats.
+template <bool VW, bool VA>
+cudaError_t pair_h(const Launch& L, const float* wp, const float* hp,
+                   float* out) {
+  cudaError_t err =
+      set_smem((const void*)h_numer_split<VW, VA>, H_RING_BYTES);
+  if (err != cudaSuccess) return err;
+  L.h_numer<VW, VA>(wp);
+  L.h_epilogue(wp, hp, out, 0, -1);
+  return cudaGetLastError();
+}
+
+// The W half of the pair: an iteration's w_block_update, with no lane
+// frozen and no stats.
+template <bool VEC>
+cudaError_t pair_w(const Launch& L, const float* wp, const float* hp,
+                   const float* gh, float* out) {
+  cudaError_t err = set_smem((const void*)w_block_update<VEC>, L.w_smem);
+  if (err != cudaSuccess) return err;
+  L.w_update<VEC>(wp, hp, gh, out, 0, 0);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -631,6 +711,53 @@ int nmfx_block_iterations_fused(
                           wd, wm, hd, hm, h_checks, wp_tmp, hp_tmp, part,
                           gpart, gh, wdp, wmp, m, n, rk, k, iters,
                           check_block, eps, zero_threshold, stream, true);
+}
+
+// The per-iteration pair. One call of each, in this order, from the same
+// inputs, gives Hp and Wp byte-equal to one nmfx_block_iterations
+// iteration (iters = check_block = 1) with no lane frozen:
+//
+// Hp -> out = epilogue(Hp, Wp^T A, (Wp^T Wp o B) Hp). Workspace: part
+// (splits, rk, n), gpart (splits, rk/k, k, k), splits = ceil(m /
+// split_rows).
+int nmfx_fused_h_update(const float* a, const float* wp, const float* hp,
+                        float* out, float* part, float* gpart, int m, int n,
+                        int rk, int k, float eps, float zero_threshold,
+                        void* stream) {
+  Launch L(m, n, rk, k, eps, zero_threshold, stream);
+  L.a = a, L.part = part, L.gpart = gpart;
+  const cudaError_t err = L.set_h_smem();
+  if (err != cudaSuccess) return err;
+  const bool va = rows_aligned(a, n) && rows_aligned(part, n);
+  if (rows_aligned(wp, rk))
+    return va ? pair_h<true, true>(L, wp, hp, out)
+              : pair_h<true, false>(L, wp, hp, out);
+  return va ? pair_h<false, true>(L, wp, hp, out)
+            : pair_h<false, false>(L, wp, hp, out);
+}
+
+// gh (rk/k, k, k) = each lane's k x k block of Hp Hp^T (h_gram_diag).
+int nmfx_lane_gram(const float* hp, float* gh, int n, int rk, int k,
+                   void* stream) {
+  Launch L(0, n, rk, k, 0.f, 0.f, stream);
+  L.gh = gh;
+  const cudaError_t err = set_smem((const void*)h_gram_diag, L.hg_smem);
+  if (err != cudaSuccess) return err;
+  L.h_gram(hp);
+  return cudaGetLastError();
+}
+
+// Wp -> out = epilogue(Wp, A Hp^T, Wp gh), gh nmfx_lane_gram's (rk/k, k,
+// k) of the new Hp.
+int nmfx_fused_w_update(const float* a, const float* wp, const float* hp,
+                        const float* gh, float* out, int m, int n, int rk,
+                        int k, float eps, float zero_threshold,
+                        void* stream) {
+  Launch L(m, n, rk, k, eps, zero_threshold, stream);
+  L.a = a, L.vec_out = rows_aligned(out, rk) ? 1 : 0;
+  return rows_aligned(a, n) && rows_aligned(hp, n)
+             ? pair_w<true>(L, wp, hp, gh, out)
+             : pair_w<false>(L, wp, hp, gh, out);
 }
 
 }  // extern "C"

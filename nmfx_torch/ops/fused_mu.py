@@ -2,8 +2,9 @@
 PyTorch versions (counterpart of ``nmfx/ops/pallas_mu.py``).
 
 * ``fused_h_update``: Hp ← ep(Hp, WpᵀA, (WpᵀWp ∘ B)·Hp)
-* ``fused_w_update``: Wp ← ep(Wp, A·Hpᵀ, Wp·gh), with gh = bd_select(Hp·Hpᵀ)
-  computed by the caller
+* ``lane_gram``: gh = each lane's k×k block of Hp·Hpᵀ, the masked H-Gram
+  bd_select(Hp·Hpᵀ) keeps
+* ``fused_w_update``: Wp ← ep(Wp, A·Hpᵀ, Wp·gh)
 * ``fused_block_iterations``: ``iters · check_block`` full MU iterations
   of the slot scheduler's packed pool in one call, with lane freezes,
   the per-lane iteration budget, per-boundary TolX stats and H
@@ -13,7 +14,11 @@ PyTorch versions (counterpart of ``nmfx/ops/pallas_mu.py``).
 
 where B is the block-diagonal restart mask and ep the mu epilogue
 (``nmfx_torch.solvers.mu._mu_update``). The kernels live in
-``nmfx_torch/csrc/fused_mu.cu``, ``nmfx_torch/csrc/block_mu.cu`` and
+``nmfx_torch/csrc/block_mu.cu`` (the MU block, and the per-iteration
+pair with ``lane_gram`` between its halves, which launches one block
+iteration's kernels: one call each of ``fused_h_update``, ``lane_gram``
+and ``fused_w_update`` is byte-equal to ``fused_block_iterations(iters=1)``
+with no lane frozen) and
 ``nmfx_torch/csrc/hals_block.cu``, built at first use
 (``nmfx_torch.ops._build``); their design notes sit at the top of those
 files.
@@ -34,12 +39,9 @@ from nmfx_torch.solvers.hals import hals_h_sweep, hals_w_sweep
 from nmfx_torch.solvers.mu import _mu_update
 
 #: kernel launches, incremented only where a kernel launches
-LAUNCHES = {"fused_h_update": 0, "fused_w_update": 0,
+LAUNCHES = {"fused_h_update": 0, "lane_gram": 0, "fused_w_update": 0,
             "fused_block_iterations": 0, "fused_block_iterations_fused": 0,
             "hals_block_iterations": 0}
-
-_TILE = 64  # output tile edge of the CUDA kernels
-_BK = 16  # their contraction depth per stage
 
 
 def reset_launch_counts() -> None:
@@ -60,15 +62,37 @@ def fused_h_update_ref(a, wp, hp, *, k: int, eps: float = 1e-9,
     return _mu_update(hp, wp.T @ a, gram @ hp, eps, zero_threshold)
 
 
+def _lane_blocks(g: torch.Tensor, k: int) -> torch.Tensor:
+    """(rk/k, k, k), contiguous: the lanes' diagonal k×k blocks of an
+    (rk, rk) matrix."""
+    r = g.shape[0] // k
+    return torch.diagonal(g.reshape(r, k, r, k), dim1=0,
+                          dim2=2).permute(2, 0, 1).contiguous()
+
+
+def lane_gram_ref(hp, *, k: int) -> torch.Tensor:
+    """Plain version of :func:`lane_gram`: the diagonal blocks of the full
+    product, the blocks bd_select(Hp·Hpᵀ) keeps."""
+    return _lane_blocks(hp @ hp.T, k)
+
+
 def fused_w_update_ref(a, wp, hp, gh, *, k: int, eps: float = 1e-9,
                        zero_threshold: float = 0.0) -> torch.Tensor:
-    """Plain version of :func:`fused_w_update` (``gh`` already masked)."""
+    """Plain version of :func:`fused_w_update`: the full product with the
+    masked (rk, rk) H-Gram (a per-lane ``gh`` laid out block-diagonally
+    first)."""
+    if gh.dim() == 3:
+        gh = torch.block_diag(*gh)
     return _mu_update(wp, a @ hp.T, wp @ gh, eps, zero_threshold)
 
 
 def _check_operands(name: str, k: int, **shapes) -> None:
     """Device, dtype, shape and contiguity checks before any pointer goes
-    to the kernel; ``shapes`` maps operand name → (tensor, shape)."""
+    to the kernel; ``shapes`` maps operand name → (tensor, shape), with
+    rk from ``wp`` or else ``hp``."""
+    rk = shapes["wp"][1][1] if "wp" in shapes else shapes["hp"][1][0]
+    if k < 1 or rk % k:
+        raise ValueError(f"{name}: rk={rk} is not a multiple of k={k}")
     ref_device = None
     for arg, (t, shape) in shapes.items():
         if t.device.type != "cuda":
@@ -85,26 +109,20 @@ def _check_operands(name: str, k: int, **shapes) -> None:
                              f"expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
-    rk = shapes["wp"][1][1]
-    if k < 1 or rk % k:
-        raise ValueError(f"{name}: rk={rk} is not a multiple of k={k}")
-
-
-def h_splits(m: int, n: int, rk: int, sm_count: int) -> tuple[int, int]:
-    """(splits, chunk) of the H kernel's m-reduction: enough m-chunks
-    that the numerator tiles times the chunks cover two waves of the
-    SMs, each chunk a multiple of the stage depth. Depends on shapes and
-    the SM count only, so a run's sums are always taken in one order."""
-    tiles = -(-n // _TILE) * -(-rk // _TILE)
-    want = max(1, min(-(-2 * sm_count // tiles), -(-m // _TILE)))
-    chunk = -(-(-(-m // want)) // _BK) * _BK
-    return -(-m // chunk), chunk
 
 
 def _raise_on(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{rc}")
+
+
+def _pair_library(name: str):
+    from nmfx_torch.ops import _build
+
+    lib = _build.load("block_mu")
+    _check_library_rows(lib, name, "nmfx_block_split_rows", SPLIT_ROWS)
+    return lib
 
 
 def fused_h_update(a, wp, hp, *, k: int, eps: float = 1e-9,
@@ -118,40 +136,54 @@ def fused_h_update(a, wp, hp, *, k: int, eps: float = 1e-9,
     rk = wp.shape[1]
     _check_operands("fused_h_update", k, a=(a, (m, n)), wp=(wp, (m, rk)),
                     hp=(hp, (rk, n)))
-    from nmfx_torch.ops import _build
-
-    lib = _build.load("fused_mu")
-    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-    splits, chunk = h_splits(m, n, rk, sms)
+    lib = _pair_library("fused_h_update")
     out = torch.empty((rk, n), dtype=torch.float32, device=a.device)
-    part = torch.empty((splits, rk, n), dtype=torch.float32, device=a.device)
-    gpart = torch.empty((splits, rk // k, k, k), dtype=torch.float32,
-                        device=a.device)
+    part, gpart = (torch.empty(shape, dtype=torch.float32, device=a.device)
+                   for shape in pair_workspace(m, n, rk, k))
     stream = torch.cuda.current_stream(a.device).cuda_stream
     rc = lib.nmfx_fused_h_update(
         a.data_ptr(), wp.data_ptr(), hp.data_ptr(), out.data_ptr(),
-        part.data_ptr(), gpart.data_ptr(), m, n, rk, k, splits, chunk,
-        eps, zero_threshold, stream)
+        part.data_ptr(), gpart.data_ptr(), m, n, rk, k, eps, zero_threshold,
+        stream)
     _raise_on("fused_h_update", rc)
     LAUNCHES["fused_h_update"] += 1
     return out
 
 
+def lane_gram(hp, *, k: int) -> torch.Tensor:
+    """gh (rk/k, k, k): each lane's k×k block of Hp·Hpᵀ, the masked H-Gram
+    that :func:`fused_w_update` reads. Hp (rk, n) float32, contiguous."""
+    if hp.device.type == "cpu":
+        return lane_gram_ref(hp, k=k)
+    rk, n = hp.shape
+    _check_operands("lane_gram", k, hp=(hp, (rk, n)))
+    lib = _pair_library("lane_gram")
+    gh = torch.empty((rk // k, k, k), dtype=torch.float32, device=hp.device)
+    stream = torch.cuda.current_stream(hp.device).cuda_stream
+    rc = lib.nmfx_lane_gram(hp.data_ptr(), gh.data_ptr(), n, rk, k, stream)
+    _raise_on("lane_gram", rc)
+    LAUNCHES["lane_gram"] += 1
+    return gh
+
+
 def fused_w_update(a, wp, hp, gh, *, k: int, eps: float = 1e-9,
                    zero_threshold: float = 0.0) -> torch.Tensor:
-    """Wp ← mu_epilogue(Wp, A·Hpᵀ, Wp·gh); gh (rk, rk) is the caller's
-    block-diagonal-masked H-Gram, of which the kernel reads only each
-    lane's k×k diagonal block."""
+    """Wp ← mu_epilogue(Wp, A·Hpᵀ, Wp·gh), gh the new Hp's masked H-Gram:
+    :func:`lane_gram`'s (rk/k, k, k), or the (rk, rk) block-diagonal
+    matrix the reference takes, of which only each lane's diagonal block
+    is read."""
     if a.device.type == "cpu":
         return fused_w_update_ref(a, wp, hp, gh, k=k, eps=eps,
                                   zero_threshold=zero_threshold)
     m, n = a.shape
     rk = wp.shape[1]
+    dense = gh.dim() == 2
     _check_operands("fused_w_update", k, a=(a, (m, n)), wp=(wp, (m, rk)),
-                    hp=(hp, (rk, n)), gh=(gh, (rk, rk)))
-    from nmfx_torch.ops import _build
-
-    lib = _build.load("fused_mu")
+                    hp=(hp, (rk, n)),
+                    gh=(gh, (rk, rk) if dense else (rk // k, k, k)))
+    if dense:
+        gh = _lane_blocks(gh, k)
+    lib = _pair_library("fused_w_update")
     out = torch.empty((m, rk), dtype=torch.float32, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     rc = lib.nmfx_fused_w_update(
@@ -272,6 +304,12 @@ def mu_block_workspace(m: int, n: int, rk: int, k: int):
     w_tiles = -(-m // MU_W_TILE_ROWS)
     return ((m, rk), (rk, n), (splits, rk, n), (splits, rk // k, k, k),
             (rk // k, k, k), (w_tiles, rk), (w_tiles, rk))
+
+
+def pair_workspace(m: int, n: int, rk: int, k: int):
+    """Shapes of :func:`fused_h_update`'s workspace: part and gpart, as an
+    iteration of ``csrc/block_mu.cu``'s block sizes them."""
+    return mu_block_workspace(m, n, rk, k)[2:4]
 
 
 def hals_w_tiles(m: int, rk: int, k: int, positions: int):

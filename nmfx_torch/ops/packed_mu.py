@@ -30,7 +30,8 @@ import torch
 from nmfx_torch.config import SolverConfig, check_ported
 from nmfx_torch.device import resolve_device
 from nmfx_torch.ops.fused_mu import (fused_h_update, fused_h_update_ref,
-                                     fused_w_update, fused_w_update_ref)
+                                     fused_w_update, fused_w_update_ref,
+                                     lane_gram)
 from nmfx_torch.solvers.base import StopReason
 
 
@@ -192,13 +193,14 @@ def _step(a, bd, state: PackedState, cfg: SolverConfig, r: int,
     """One packed mu iteration, updating ``state`` in place."""
     k = state.hp.shape[0] // r
     wp0, hp0 = state.wp, state.hp
-    upd_h, upd_w = ((fused_h_update, fused_w_update) if use_kernels
-                    else (fused_h_update_ref, fused_w_update_ref))
-    hp = upd_h(a, wp0, hp0, k=k, eps=cfg.div_eps,
-               zero_threshold=cfg.zero_threshold)
-    gh = bd_select(hp @ hp.T, bd)  # small; plain product, as in nmfx
-    wp = upd_w(a, wp0, hp, gh, k=k, eps=cfg.div_eps,
-               zero_threshold=cfg.zero_threshold)
+    kw = dict(k=k, eps=cfg.div_eps, zero_threshold=cfg.zero_threshold)
+    if use_kernels:
+        hp = fused_h_update(a, wp0, hp0, **kw)
+        wp = fused_w_update(a, wp0, hp, lane_gram(hp, k=k), **kw)
+    else:
+        hp = fused_h_update_ref(a, wp0, hp0, **kw)
+        gh = bd_select(hp @ hp.T, bd)  # small; plain product, as in nmfx
+        wp = fused_w_update_ref(a, wp0, hp, gh, **kw)
 
     # numeric quarantine: a lane whose new factors are non-finite is
     # rolled back to its last finite iterate the same iteration, so the

@@ -20,8 +20,10 @@ Two layouts, as in the reference:
   TolX stats and H snapshot, against which the trip replays every check.
   When ``max_iter`` is not a multiple of ``check_every`` mu's block route
   gives way to the per-iteration kernel pair (``fused_h_update`` /
-  ``fused_w_update``) with a per-step iteration fence; hals has no such
-  fallback and refuses the cap.
+  ``fused_w_update``, ``lane_gram`` between) with a per-step iteration
+  fence; the pair runs one block iteration's kernels, so on the card
+  both give the same bits and the same per-job iterations. hals has no
+  such fallback and refuses the cap.
 * ``backend="auto"``/``"packed"``: dense (S, m, k_max) / (S, k_max, n)
   lanes iterated by ``grid_mu``'s batched blocks.
 
@@ -56,11 +58,12 @@ import torch
 from nmfx_torch.config import SolverConfig, check_ported
 from nmfx_torch.device import resolve_device, to_device
 from nmfx_torch.ops.fused_mu import (fused_block_iterations, fused_h_update,
-                                     fused_w_update, hals_block_iterations)
+                                     fused_w_update, hals_block_iterations,
+                                     lane_gram)
 from nmfx_torch.ops.grid_mu import (BLOCKS, USES_TOLFUN, conv_cfg,
                                     make_block, tolfun_update)
-from nmfx_torch.ops.packed_mu import (batch_convergence, bd_select,
-                                      block_diag_mask, residual_norms_direct)
+from nmfx_torch.ops.packed_mu import (batch_convergence,
+                                      residual_norms_direct)
 from nmfx_torch.solvers.base import StopReason
 
 #: measured on the reference's hardware as the best single tail stage
@@ -287,9 +290,8 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
             fcol = frozen.repeat_interleave(k)
             hn = fused_h_update(a_loop, wp, hp, k=k, **kern_kw)
             hn = torch.where(fcol[:, None], hp, hn)
-            bd = block_diag_mask(hp.shape[0] // k, k, dev)
-            gh = bd_select(hn @ hn.T, bd)  # small; a plain product
-            wn = fused_w_update(a_loop, wp, hn, gh, k=k, **kern_kw)
+            wn = fused_w_update(a_loop, wp, hn, lane_gram(hn, k=k), k=k,
+                                **kern_kw)
             return torch.where(fcol[None, :], wp, wn), hn
 
         def packed_deltas(wp, hp, wprev, hprev):

@@ -67,8 +67,41 @@ def test_kernels_match_plain_versions(card, case):
     if zeros:
         assert torch.equal(h == 0, want_h == 0)
         assert torch.equal(w == 0, want_w == 0)
-    assert fused_mu.LAUNCHES == {"fused_h_update": 1, "fused_w_update": 1,
+    assert fused_mu.LAUNCHES == {"fused_h_update": 1, "lane_gram": 0,
+                                 "fused_w_update": 1,
                                  "fused_block_iterations": 0,
+                                 "fused_block_iterations_fused": 0,
+                                 "hals_block_iterations": 0}
+
+
+#: the pair's pools (m, n, restarts, k, planted zeros): the per-rank
+#: north star (m padded to 5040 rows, a last 256-row chunk of 176), rk =
+#: 150 (rows off 16-byte alignment: 4-byte copies, scalar stores), the
+#: ragged 1237 x 77 and planted exact zeros
+PAIR_POOLS = {"north_star": (5040, 500, 50, 10, False),
+              "rk150": (5040, 500, 50, 3, False),
+              "ragged": (1237, 77, 13, 3, False),
+              "zeros": (1000, 96, 7, 5, True)}
+
+
+@pytest.mark.parametrize("pool", sorted(PAIR_POOLS))
+def test_pair_byte_equal_to_one_block_iteration(card, pool):
+    """fused_h_update, lane_gram, then fused_w_update: Hp and Wp
+    byte-equal to one iteration of the phased block kernel with no lane
+    frozen (the same kernels on the same chains)."""
+    m, n, r, k, zeros = PAIR_POOLS[pool]
+    a, wp, hp = _operands(m, n, r, k, zeros, card)
+    fused_mu.reset_launch_counts()
+    h = fused_mu.fused_h_update(a, wp, hp, k=k)
+    w = fused_mu.fused_w_update(a, wp, h, fused_mu.lane_gram(h, k=k), k=k)
+    want = fused_mu.fused_block_iterations(
+        a, wp, hp, torch.zeros((1, r * k), device=card), k=k, iters=1)
+    torch.cuda.synchronize()
+    assert torch.equal(h.view(torch.int32), want[1].view(torch.int32))
+    assert torch.equal(w.view(torch.int32), want[0].view(torch.int32))
+    assert fused_mu.LAUNCHES == {"fused_h_update": 1, "lane_gram": 1,
+                                 "fused_w_update": 1,
+                                 "fused_block_iterations": 1,
                                  "fused_block_iterations_fused": 0,
                                  "hals_block_iterations": 0}
 
