@@ -7,8 +7,9 @@ versions.
 
 Phases (any failure exits non-zero; nothing is caught):
   1. card and build: nvidia-smi's name and power limit, the nvcc build
-     (one nvcc per source, all started together), and each block kernel
-     function's registers, shared memory and spills (ptxas -v);
+     (one nvcc per source, all started together) and the host library's
+     g++ build, and each block kernel function's registers, shared
+     memory and spills (ptxas -v);
   2. kernel parity: each kernel against its plain PyTorch version at the
      north-star shape, a ragged shape and with planted exact zeros (the
      block kernels also with frozen lanes, budgets that run out
@@ -37,6 +38,13 @@ Phases (any failure exits non-zero; nothing is caught):
      d. hals on the whole grid (backend "pallas": the slot scheduler on
         the HALS block kernel), beside the same sweep on the dense layout
         (backend "auto"), held to the reference's agreement band;
+     e. the host tail: the hals whole grid of d under a Profiler with the
+        streamed harvest (the default), the sequential one and device
+        rank selection, each run's wall and phases; streamed and
+        sequential byte-equal, device and host the same best k and k = 2
+        memberships; then the native linkage and cutree against numpy's
+        on the run's n = 500 consensus matrices, byte-equal, both timed;
+     the main grid lines split each wall by the profiler's phases;
   5. agreement: the bundled 1000x40 design (best k must be 2) on both
      routes and with hals, a small input on the card and on the CPU
      (plain versions), which must agree on both routes and for hals on
@@ -696,10 +704,23 @@ def solve_clock(torch, seen):
     return on_rank
 
 
-def split(seen, t0, wall) -> str:
-    solve = seen["solved"] - t0
-    return (f"solve {solve:.3f} s, then host transfer and rank selection "
-            f"{wall - solve:.3f} s")
+#: the profiler's phases of a streamed whole-grid sweep after its solve,
+#: in the order they run (all overlap the main thread)
+TAIL_PHASES = ("xfer.overlap", "xfer.d2h_overlap", "post.rank_selection")
+
+
+def split(prof, seen, t0, wall) -> str:
+    """The wall split by the profiler's phases: solve.grid, the rest, and
+    each phase after the solve; beside it the time of the first on_rank
+    callback (solve_clock: the solve and the copies' start)."""
+    solve = prof.phases["solve.grid"].seconds
+    tail = ", ".join(f"{name} {prof.phases[name].seconds:.4f} s"
+                     for name in TAIL_PHASES)
+    audit = prof.audit(wall)
+    return (f"solve.grid {solve:.3f} s, after it {wall - solve:.3f} s "
+            f"[{tail}; overlapped], phase coverage "
+            f"{audit['coverage']}; first on_rank at "
+            f"{seen['solved'] - t0:.3f} s")
 
 
 def phase_grid_path(torch, fm):
@@ -708,22 +729,28 @@ def phase_grid_path(torch, fm):
     kernel), then every default (backend "auto": the dense scheduler)."""
     import nmfx_torch
 
+    from nmfx_torch.profiling import Profiler
+
     m, n, r, _ = NORTH_STAR
     a = north_star_matrix()
     seen = {}
 
+    prof = Profiler()
     fm.reset_launch_counts()
     t0 = time.perf_counter()
-    res = nmfx_torch.nmfconsensus(
-        a, ks=KS, restarts=r, solver_cfg=nmfx_torch.SolverConfig(
-            backend="pallas"), on_rank=solve_clock(torch, seen))
+    with prof:
+        res = nmfx_torch.nmfconsensus(
+            a, ks=KS, restarts=r, solver_cfg=nmfx_torch.SolverConfig(
+                backend="pallas"), on_rank=solve_clock(torch, seen),
+            profiler=prof)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(fm.LAUNCHES)
     out = seen["out"]
     check_sweep(res, "whole grid", n)
     print(f"main grid (pallas, {SLOTS} slots, check_block "
-          f"{CHECK_BLOCK}): wall {wall:.3f} s ({split(seen, t0, wall)}), "
+          f"{CHECK_BLOCK}): wall {wall:.3f} s "
+          f"({split(prof, seen, t0, wall)}), "
           "pool_widths "
           f"{out.pool_widths}, pool_trips {out.pool_trips}, pool_lanes "
           f"{out.pool_lanes}, host syncs {out.host_syncs}, launches "
@@ -812,16 +839,19 @@ def phase_hals_path(torch, fm):
     "auto"), held to the reference's band against it (mean|dC| * R <= 0.6
     and at most 10 % of the labels of any restart flipped)."""
     import nmfx_torch
+    from nmfx_torch.profiling import Profiler
 
     m, n, r, _ = NORTH_STAR
     a = north_star_matrix()
     seen = {}
     cfg = nmfx_torch.SolverConfig(algorithm="hals", backend="pallas")
+    prof = Profiler()
     fm.reset_launch_counts()
     t0 = time.perf_counter()
-    res = nmfx_torch.nmfconsensus(
-        a, ks=KS, restarts=r, solver_cfg=cfg, keep_factors=True,
-        on_rank=solve_clock(torch, seen))
+    with prof:
+        res = nmfx_torch.nmfconsensus(
+            a, ks=KS, restarts=r, solver_cfg=cfg, keep_factors=True,
+            on_rank=solve_clock(torch, seen), profiler=prof)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(fm.LAUNCHES)
@@ -831,7 +861,7 @@ def phase_hals_path(torch, fm):
     mean_iters = {k: round(float(res.per_k[k].iterations.mean()), 1)
                   for k in KS}
     print(f"main hals grid (pallas, {SLOTS} slots, check_block 1): wall "
-          f"{wall:.3f} s ({split(seen, t0, wall)}), pool_widths "
+          f"{wall:.3f} s ({split(prof, seen, t0, wall)}), pool_widths "
           f"{out.pool_widths}, pool_trips "
           f"{out.pool_trips}, pool_lanes {out.pool_lanes}, host syncs "
           f"{out.host_syncs}, launches {launches}, best k {res.best_k}, "
@@ -874,6 +904,109 @@ def phase_hals_path(torch, fm):
         raise AssertionError(f"hals pallas vs dense outside the band "
                              f"(mean|dC|*R <= 0.6, flips <= 0.1): {bad}")
     return launches
+
+
+def same_bytes(x, y) -> bool:
+    x, y = np.asarray(x), np.asarray(y)
+    return x.dtype == y.dtype and x.shape == y.shape and \
+        x.tobytes() == y.tobytes()
+
+
+#: the KResult fields a streamed run must reproduce byte for byte
+KRESULT_FIELDS = ("consensus", "rho", "dispersion", "membership", "order",
+                  "iterations", "dnorms", "stop_reasons", "best_w", "best_h")
+
+
+def phase_host_tail(torch, fm):
+    """The host tail of the north-star hals grid (backend "pallas"), each
+    run under a Profiler and with the kernel and native call counts set to
+    0 just before it: the streamed harvest (the default), the sequential
+    one, and device rank selection. Streamed and sequential must be
+    byte-equal and take the native library's linkage and cutree once a
+    rank; device and host must give the same best k and k = 2
+    memberships. Then native against numpy linkage and cutree on the
+    streamed run's n = 500 consensus matrices: byte-equal, both timed."""
+    import nmfx_torch
+    from nmfx_torch import cophenetic, native
+    from nmfx_torch.profiling import Profiler
+
+    m, n, r, _ = NORTH_STAR
+    a = north_star_matrix()
+    cfg = nmfx_torch.SolverConfig(algorithm="hals", backend="pallas")
+    runs = {}
+    for label, kw in (("streamed", {}),
+                      ("sequential", dict(harvest="sequential")),
+                      ("device", dict(rank_selection="device"))):
+        prof = Profiler()
+        fm.reset_launch_counts()
+        native.reset_call_counts()
+        t0 = time.perf_counter()
+        with prof:
+            res = nmfx_torch.nmfconsensus(a, ks=KS, restarts=r,
+                                          solver_cfg=cfg, profiler=prof,
+                                          **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fm.LAUNCHES["hals_block_iterations"]
+        calls = dict(native.CALLS)
+        check_sweep(res, f"host tail {label}", n)
+        solve = prof.phases["solve.grid"].seconds
+        phases = ", ".join(f"{rec.name} {rec.seconds:.4f} s x{rec.count}"
+                           for rec in prof.phases.values())
+        print(f"host tail hals grid, {label}: wall {wall:.3f} s, solve.grid "
+              f"{solve:.3f} s, after it {wall - solve:.3f} s; phases "
+              f"{phases}; audit {prof.audit(wall)}; hals_block_iterations "
+              f"launches {launches}; native calls {calls}; best k "
+              f"{res.best_k}", flush=True)
+        if launches < 1:
+            raise AssertionError(f"host tail {label}: the hals grid launched "
+                                 "no hals_block_iterations")
+        want = 0 if label == "device" else len(KS)
+        if (calls["average_linkage"], calls["cut_tree"]) != (want, want):
+            raise AssertionError(
+                f"host tail {label}: native linkage/cutree called "
+                f"{calls['average_linkage']}/{calls['cut_tree']} times, "
+                f"{want} expected")
+        runs[label] = res
+    streamed, sequential, device = runs.values()
+    diff = [(k, f) for k in KS for f in KRESULT_FIELDS
+            if not same_bytes(getattr(streamed.per_k[k], f),
+                              getattr(sequential.per_k[k], f))]
+    print(f"host tail: streamed and sequential byte-equal in "
+          f"{', '.join(KRESULT_FIELDS)} at every k: {not diff}", flush=True)
+    if diff:
+        raise AssertionError(f"host tail: streamed differs from sequential "
+                             f"at (k, field) {diff}")
+    rho_gap = max(abs(device.per_k[k].rho - streamed.per_k[k].rho)
+                  for k in KS)
+    memb = [k for k in KS if np.array_equal(device.per_k[k].membership,
+                                            streamed.per_k[k].membership)]
+    print(f"host tail: device rank selection best k {device.best_k} vs host "
+          f"{streamed.best_k}, memberships equal at ks {memb}, largest rho "
+          f"difference {rho_gap:.3g}", flush=True)
+    if device.best_k != streamed.best_k or 2 not in memb:
+        raise AssertionError("host tail: device and host rank selection "
+                             "disagree")
+
+    for k in (2, KS[-1]):
+        dist = 1.0 - streamed.per_k[k].consensus
+        np.fill_diagonal(dist, 0.0)
+        t0 = time.perf_counter()
+        nat = cophenetic.average_linkage(dist)
+        nat_cut = cophenetic.cut_tree(nat.linkage, n, k)
+        nat_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = cophenetic.average_linkage_numpy(dist)
+        ref_cut = cophenetic.cut_tree_numpy(ref.linkage, n, k)
+        ref_s = time.perf_counter() - t0
+        equal = all(same_bytes(x, y) for x, y in zip(
+            (*nat, nat_cut), (*ref, ref_cut)))
+        print(f"host tail: linkage and cutree of the k={k} consensus (n={n}):"
+              f" native {nat_s:.4f} s, numpy {ref_s:.4f} s; linkage, coph, "
+              f"order and memberships byte-equal {equal}", flush=True)
+        if not equal:
+            raise AssertionError(f"host tail: native and numpy linkage differ"
+                                 f" at k={k}")
 
 
 def phase_per_rank_path(torch, fm, grid):
@@ -1163,6 +1296,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from nmfx_torch import native
     from nmfx_torch.device import resolve_device
     from nmfx_torch.ops import _build
     from nmfx_torch.ops import fused_mu as fm
@@ -1178,6 +1312,11 @@ def main(argv=None) -> int:
     print(f"nvcc build {time.perf_counter() - t0:.2f} s "
           f"({'cold' if any(built.values()) else 'cached'}: {built})",
           flush=True)
+    t0 = time.perf_counter()
+    host_lib = native.build()
+    native.load()
+    print(f"host library g++ build {time.perf_counter() - t0:.2f} s: "
+          f"{os.path.relpath(host_lib, HERE)}", flush=True)
     print_resources(_build, "block_mu")
     print_resources(_build, "hals_block")
 
@@ -1198,6 +1337,7 @@ def main(argv=None) -> int:
             launches[name] = per_rank[name]
         launches["hals_block_iterations"] = phase_hals_path(
             torch, fm)["hals_block_iterations"]
+        phase_host_tail(torch, fm)
         phase_checks(torch, fm)
         phase_profile(torch)
         kernels = []

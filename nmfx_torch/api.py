@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Mapping, Sequence
+from typing import Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -21,8 +21,11 @@ from nmfx_torch import random as _random
 from nmfx_torch.config import (ConsensusConfig, InitConfig, OutputConfig,
                                SolverConfig)
 from nmfx_torch.device import resolve_device
+from nmfx_torch.harvest import HarvestPipeline, fetch_host, start_host_fetch
 from nmfx_torch.init import nndsvd_init, random_init
 from nmfx_torch.io import Dataset, read_dataset, write_gct
+from nmfx_torch.ops.hclust import rank_selection_torch
+from nmfx_torch.profiling import NullProfiler
 from nmfx_torch.solvers.base import SolverResult, StopReason, solve
 from nmfx_torch.sweep import sweep
 
@@ -141,10 +144,14 @@ class ConsensusResult:
                          else "exact"))
 
 
-def _build_k_result(k: int, out, linkage: str,
+def _build_k_result(k: int, out, linkage: str, selection=None,
                     min_restarts: int = 1) -> KResult:
-    """One rank's host-side assembly from a host (numpy) KSweepOutput:
-    the survivor floor, then hclust/cophenetic/cutree."""
+    """One rank's host-side assembly from a host (numpy) KSweepOutput: the
+    survivor floor, then hclust/cophenetic/cutree. The one implementation
+    the sequential loop and the streamed harvest's workers share, so their
+    results are equal byte for byte. ``selection`` is a precomputed
+    ``(rho, membership, order)`` (device rank selection); without it the
+    host rank selection runs here."""
     stops = np.asarray(out.stop_reasons)
     masked = ((stops == int(StopReason.NUMERIC_FAULT))
               | (stops == int(StopReason.SCREENED)))
@@ -157,13 +164,16 @@ def _build_k_result(k: int, out, linkage: str,
             f"{n_fault}), below the configured floor "
             f"min_restarts={min_restarts}")
     cons = np.asarray(out.consensus, dtype=np.float64)
-    rho, membership, order = coph.rank_selection(cons, k, linkage)
-    rho = float(np.format_float_positional(
-        rho, precision=4, fractional=False))  # signif(rho,4) nmf.r:172
+    if selection is None:
+        selection = coph.rank_selection(cons, k, linkage)
+    rho, membership, order = selection
+    # signif(rho, 4), nmf.r:172
+    rho = float(np.format_float_positional(float(rho), precision=4,
+                                           fractional=False))
     return KResult(
         k=k, consensus=cons, rho=rho,
         dispersion=float(np.mean((2.0 * cons - 1.0) ** 2)),
-        membership=membership, order=order,
+        membership=np.asarray(membership), order=np.asarray(order),
         iterations=out.iterations, dnorms=out.dnorms,
         stop_reasons=out.stop_reasons, best_w=out.best_w,
         best_h=out.best_h, all_w=out.all_w, all_h=out.all_h)
@@ -251,14 +261,12 @@ def nmf(a, k: int, *, seed: int = 0, algorithm: str | None = None,
     return solve(arr, w0, h0, scfg, device=device)
 
 
-def _to_host(out):
-    """A KSweepOutput of device tensors → numpy (labels stay behind)."""
-    def host(x):
-        return None if x is None else x.detach().cpu().numpy()
+class _Selection(NamedTuple):
+    """One rank's device rank selection (``rank_selection_torch``)."""
 
-    return out._replace(**{f: host(getattr(out, f)) for f in (
-        "consensus", "iterations", "dnorms", "stop_reasons", "best_w",
-        "best_h", "all_w", "all_h")}, labels=None)
+    rho: torch.Tensor
+    membership: torch.Tensor
+    order: torch.Tensor
 
 
 def nmfconsensus(
@@ -282,6 +290,9 @@ def nmfconsensus(
     output: OutputConfig | None = None,
     device=None,
     on_rank=None,
+    rank_selection: str = "host",
+    harvest: str = "streamed",
+    profiler=None,
 ) -> ConsensusResult:
     """Full consensus-NMF rank sweep: ``restarts`` factorizations per rank
     in ``ks``, a consensus matrix per rank on the device, cophenetic rank
@@ -309,8 +320,31 @@ def nmfconsensus(
     CUDA the entry point switches TF32 off for float32 matmuls.
     ``on_rank(k, out)`` is called after each rank's solve with its
     device-side ``KSweepOutput`` (on the grid route, after the whole
-    solve). Ranks are harvested sequentially.
+    solve), before the rank is handed to the harvest.
+
+    ``rank_selection``: "host" (default) runs hclust/cophenetic/cutree on
+    the host, in the native library (``nmfx_torch/cophenetic.py``);
+    "device" runs the clustering on the consensus's device
+    (``nmfx_torch/ops/hclust.py``), dispatched for every rank before the
+    one host transfer, and implies the sequential assembly.
+
+    ``harvest``: "streamed" (default) hands each rank, the moment its
+    output exists and its host copies are started, to worker threads that
+    wait for the copies and run the host rank selection while later ranks
+    still solve (``nmfx_torch/harvest.py``); "sequential" waits for every
+    rank's copies after the sweep, then selects rank by rank. Both give
+    byte-equal results.
+
+    ``profiler``: an ``nmfx_torch.profiling.Profiler`` that books the
+    phases (``solve.*``, ``xfer.*``, ``post.rank_selection`` or
+    ``device_to_host`` / ``rank_selection``, ``write_outputs``).
     """
+    if rank_selection not in ("host", "device"):
+        raise ValueError("rank_selection must be 'host' or 'device', got "
+                         f"{rank_selection!r}")
+    if harvest not in ("streamed", "sequential"):
+        raise ValueError("harvest must be 'streamed' or 'sequential', got "
+                         f"{harvest!r}")
     arr, col_names = _as_matrix(data)
     if not np.isfinite(arr).all():
         raise ValueError("input matrix contains non-finite values")
@@ -330,13 +364,51 @@ def nmfconsensus(
                            min_restarts=min_restarts)
     scfg, icfg = _resolve_cfgs(algorithm, max_iter, init, solver_cfg,
                                init_cfg)
-    raw = sweep(arr, ccfg, scfg, icfg, device=device, on_rank=on_rank)
-    per_k = {k: _build_k_result(k, _to_host(raw[k]), ccfg.linkage,
-                                ccfg.min_restarts) for k in ccfg.ks}
+    if profiler is None:
+        profiler = NullProfiler()
+
+    if harvest == "streamed" and rank_selection == "host":
+        pipeline = HarvestPipeline(linkage=ccfg.linkage, profiler=profiler,
+                                   min_restarts=ccfg.min_restarts)
+
+        def rank_done(k, out):
+            if on_rank is not None:
+                on_rank(k, out)
+            pipeline.submit(k, out)
+
+        try:
+            sweep(arr, ccfg, scfg, icfg, device=device, on_rank=rank_done,
+                  profiler=profiler)
+            per_k = pipeline.results()
+        finally:
+            pipeline.close()
+        per_k = {k: per_k[k] for k in ccfg.ks}
+    else:
+        raw = sweep(arr, ccfg, scfg, icfg, device=device, on_rank=on_rank,
+                    profiler=profiler)
+        sel = {}
+        if rank_selection == "device":
+            # dispatched for every rank before anything is read on the
+            # host, so the clustering queues behind the copies
+            with profiler.phase("rank_selection_dispatch"):
+                sel = {k: start_host_fetch(_Selection(*rank_selection_torch(
+                    out.consensus, k, ccfg.linkage)))
+                    for k, out in raw.items()}
+        # the sweep started every rank's copies; this waits for them once
+        with profiler.phase("device_to_host"):
+            host = {k: fetch_host(out) for k, out in raw.items()}
+            sel = {k: s.wait() for k, s in sel.items()}
+        per_k = {}
+        for k in ccfg.ks:
+            with profiler.phase("rank_selection"):
+                per_k[k] = _build_k_result(
+                    k, host[k], ccfg.linkage, selection=sel.get(k),
+                    min_restarts=ccfg.min_restarts)
     result = ConsensusResult(ks=ccfg.ks, per_k=per_k,
                              col_names=tuple(col_names))
     if output is not None:
-        save_results(result, output)
+        with profiler.phase("write_outputs"):
+            save_results(result, output)
     return result
 
 

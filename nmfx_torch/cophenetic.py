@@ -1,10 +1,18 @@
 """Hierarchical clustering (average/complete/single linkage), cophenetic
-correlation, cut-tree: a copy of the numpy path of ``nmfx/cophenetic.py``.
+correlation, cut-tree: the port of ``nmfx/cophenetic.py``.
 
 The rank-selection step the reference delegates to base R:
 ``hclust(as.dist(1-C), method="average")`` → ``cophenetic`` → ``cor`` →
 ``cutree`` (reference ``nmf.r:165-177``). n is the number of samples
-(tiny next to the NMF work), so this runs on host numpy.
+(tiny next to the NMF work), so this runs on the host.
+
+``hierarchical_linkage`` (average linkage), ``average_linkage`` and
+``cut_tree`` run in the port's C++ host library (``nmfx_torch/native``,
+built with the host compiler at first use; a failed build raises); the
+numpy implementations ``linkage_numpy`` / ``average_linkage_numpy`` /
+``cut_tree_numpy`` stay as named entry points: "complete" and "single"
+linkage run there, and the tests hold the native path to them byte for
+byte. ``nmfx_torch.ops.hclust`` is the on-device alternative.
 """
 
 from __future__ import annotations
@@ -13,6 +21,7 @@ from typing import NamedTuple
 
 import numpy as np
 
+from nmfx_torch import native
 from nmfx_torch.config import LINKAGE_METHODS
 
 
@@ -22,6 +31,34 @@ class HClust(NamedTuple):
     linkage: np.ndarray  # (n-1, 4) scipy-style: id_a, id_b, height, size
     coph: np.ndarray  # (n, n) cophenetic distances
     order: np.ndarray  # (n,) dendrogram leaf order
+
+
+def hierarchical_linkage(dist: np.ndarray,
+                         method: str = "average") -> HClust:
+    """Agglomerative clustering of a distance matrix under the Lance-Williams
+    rule ``method``: "average" (UPGMA, the reference's
+    hclust(method="average"), nmf.r:166) in the native library, "complete"
+    and "single" in numpy."""
+    if method == "average":
+        return HClust(*native.average_linkage(dist))
+    return linkage_numpy(dist, method)
+
+
+def average_linkage(dist: np.ndarray) -> HClust:
+    """UPGMA agglomerative clustering (native)."""
+    return hierarchical_linkage(dist, "average")
+
+
+def cut_tree(linkage: np.ndarray, n: int, k: int) -> np.ndarray:
+    """Memberships 1..k from the first n-k merges (reference ``cutree``,
+    nmf.r:177), native."""
+    return native.cut_tree(linkage, n, k)
+
+
+def average_linkage_numpy(dist: np.ndarray) -> HClust:
+    """UPGMA clustering, pure numpy (the named entry the native path is
+    held to)."""
+    return linkage_numpy(dist, "average")
 
 
 def linkage_numpy(dist: np.ndarray, method: str = "average") -> HClust:
@@ -144,7 +181,7 @@ def rank_selection(consensus: np.ndarray, k: int,
     (rho, memberships, leaf order), mirroring reference nmf.r:165-177."""
     dist = 1.0 - np.asarray(consensus)
     np.fill_diagonal(dist, 0.0)
-    hc = linkage_numpy(dist, linkage)
+    hc = hierarchical_linkage(dist, linkage)
     rho = cophenetic_rho(dist, hc.coph)
-    membership = cut_tree_numpy(hc.linkage, dist.shape[0], k)
+    membership = cut_tree(hc.linkage, dist.shape[0], k)
     return rho, membership, hc.order

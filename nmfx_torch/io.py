@@ -1,11 +1,14 @@
-"""GCT / RES expression-matrix I/O (pure numpy; copy of the dense half of
+"""GCT / RES expression-matrix I/O (copy of the dense half of
 ``nmfx/io.py``).
 
 Covers the reference's R readers/writer ``read.dataset``/``read.gct``/
-``read.res``/``write.gct`` (``nmf.r:261-408``). Values are formatted
-exactly as the reference package formats them (shortest round-trip
-digits, ``std::to_chars`` notation), so either package reads the
-other's files to the bit. The sparse formats (``.mtx``, ``.csr.npz``)
+``read.res``/``write.gct`` (``nmf.r:261-408``). A GCT file's numeric
+block is parsed and formatted by the port's C++ host library
+(``nmfx_torch/native``: ``std::from_chars`` / ``std::to_chars``); values
+are written exactly as the reference package writes them (shortest
+round-trip digits, ``std::to_chars`` notation), so either package reads
+the other's files to the bit. ``gct_body_text`` is the Python formatter
+the native one is held to. The sparse formats (``.mtx``, ``.csr.npz``)
 are not ported yet.
 """
 
@@ -16,6 +19,8 @@ import os
 from typing import NamedTuple, Sequence
 
 import numpy as np
+
+from nmfx_torch import native
 
 
 class Dataset(NamedTuple):
@@ -80,15 +85,12 @@ def read_gct(path: str, chunk_rows: int = _GCT_CHUNK_ROWS) -> Dataset:
         def _flush() -> None:
             r0 = seen - len(chunk)
             try:
-                block = np.loadtxt(
-                    [line.decode() for line in chunk],
-                    delimiter="\t", dtype=np.float64, comments=None,
-                    usecols=range(2, 2 + n_cols), ndmin=2)
+                block, _ = native.parse_gct_rows(
+                    b"\n".join(chunk) + b"\n", len(chunk), n_cols)
             except ValueError as e:
                 raise ValueError(
-                    f"{path}: malformed GCT data row ({e}); expected "
-                    f"name<TAB>description<TAB>{n_cols} numeric values "
-                    "per row") from e
+                    f"{path}: {e}; expected name<TAB>description<TAB>"
+                    f"{n_cols} numeric values per row") from e
             values[r0:seen] = block
             chunk.clear()
 
@@ -206,10 +208,26 @@ def write_gct(
     if parent:
         os.makedirs(parent, exist_ok=True)
     vals = np.ascontiguousarray(values, dtype=np.float64)
-    with open(path, "wt") as f:
-        f.write("#1.2\n" + f"{n_rows}\t{n_cols}\n"
-                + "Name\tDescription\t" + "\t".join(map(str, col_names))
-                + "\n")
-        for name, desc, row in zip(row_names, descriptions, vals):
-            cells = "\t".join(_to_chars_double(v) for v in row)
-            f.write(f"{name}\t{desc}\t{cells}\n")
+    header = ("#1.2\n" + f"{n_rows}\t{n_cols}\n"
+              + "Name\tDescription\t" + "\t".join(map(str, col_names))
+              + "\n")
+    # C interleaves the name/description prefixes and the formatted
+    # values into one buffer, written in binary
+    prefs = [f"{name}\t{desc}\t".encode()
+             for name, desc in zip(row_names, descriptions)]
+    ends = np.cumsum([len(p) for p in prefs], dtype=np.int64)
+    body = native.format_gct_body(vals, b"".join(prefs), ends)
+    with open(path, "wb") as f:
+        f.write(header.encode())
+        f.write(body)
+
+
+def gct_body_text(values: np.ndarray, row_names: Sequence[str],
+                  descriptions: Sequence[str]) -> str:
+    """The GCT data block as ``write_gct`` writes it, formatted in Python
+    (per value ``_to_chars_double``): the reference the native formatter
+    is held to byte for byte."""
+    vals = np.ascontiguousarray(np.atleast_2d(values), dtype=np.float64)
+    return "".join(
+        f"{name}\t{desc}\t" + "\t".join(_to_chars_double(v) for v in row)
+        + "\n" for name, desc, row in zip(row_names, descriptions, vals))

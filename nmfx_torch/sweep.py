@@ -15,8 +15,10 @@ chooses them:
   the same factors as on the whole grid.
 
 Either way each rank's batch reduces to a consensus matrix on the
-device. Meshes, the registry and the executable cache are not ported
-yet.
+device. At each rank's ``on_rank`` site the sweep starts the rank's
+device→host copies (``harvest.start_host_fetch``, carried in the output's
+``fetch`` field), so they stream while later ranks solve. Meshes, the
+registry and the executable cache are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,9 +33,11 @@ from nmfx_torch.config import (ConsensusConfig, InitConfig, SolverConfig,
                                check_ported)
 from nmfx_torch.consensus import labels_from_h, one_hot
 from nmfx_torch.device import resolve_device
+from nmfx_torch.harvest import start_host_fetch
 from nmfx_torch.init import restart_inits
 from nmfx_torch.ops.packed_mu import mu_packed, unpack_w
 from nmfx_torch.ops.sched_mu import mu_sched
+from nmfx_torch.profiling import NullProfiler
 from nmfx_torch.solvers.base import StopReason
 
 #: backends that route each algorithm into the slot scheduler; hals runs
@@ -61,6 +65,9 @@ class KSweepOutput(NamedTuple):
     pool_widths: tuple = ()
     pool_trips: tuple = ()
     pool_lanes: tuple = ()
+    #: the rank's device→host copies, started at its on_rank site
+    #: (``harvest.HostFetch``); None until the sweep starts them
+    fetch: "object | None" = None
 
 
 def _quarantine_lanes(labels, dnorm, stops):
@@ -196,15 +203,20 @@ def _build_grid_exec_sweep_fn(ks: tuple[int, ...], restarts: int,
 def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
           solver_cfg: SolverConfig = SolverConfig(),
           init_cfg: InitConfig = InitConfig(), *, device=None,
-          on_rank=None) -> dict[int, KSweepOutput]:
+          on_rank=None, profiler=None) -> dict[int, KSweepOutput]:
     """The (k × restart) grid: one slot-scheduled solve of every rank, or
     one rank at a time (see the module docstring for the routing).
 
     ``device``: None means CUDA (raising if there is none; TF32 off).
     A moves to the device once. ``on_rank(k, out)`` runs after each rank
-    (after the whole solve on the grid route); its outputs are device
-    tensors, complete up to the last host read.
+    (after the whole solve on the grid route), once the rank's host copies
+    are started (``out.fetch``); its outputs are device tensors.
+    ``profiler`` (``nmfx_torch.profiling.Profiler``) times the phases
+    ``solve.grid`` or ``solve.k={k}`` and ``xfer.overlap`` (starting the
+    copies).
     """
+    if profiler is None:
+        profiler = NullProfiler()
     eligible = grid_exec_ok(solver_cfg)
     if cfg.grid_exec == "grid" and not eligible:
         raise ValueError(
@@ -223,7 +235,13 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
         fn = _build_grid_exec_sweep_fn(
             cfg.ks, cfg.restarts, solver_cfg, init_cfg, cfg.label_rule,
             cfg.keep_factors, cfg.grid_slots, cfg.grid_tail_slots)
-        solved = fn(a_dev, root)
+        with profiler.phase("solve.grid") as sync:
+            solved = sync(fn(a_dev, root))
+        with profiler.phase("xfer.overlap"):
+            # one executable produced every rank, but each rank's copies
+            # land (and harvest) independently
+            solved = {k: v._replace(fetch=start_host_fetch(v))
+                      for k, v in solved.items()}
         for k in cfg.ks:
             if on_rank is not None:
                 on_rank(k, solved[k])
@@ -232,10 +250,14 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
     for k in cfg.ks:
         # fold in k itself, so a given (seed, k) always yields the same
         # factorizations whatever the sweep's composition
-        out[k] = sweep_one_k(a_dev, _random.fold_in(root, k), k,
-                             cfg.restarts, solver_cfg, init_cfg,
-                             cfg.label_rule, cfg.keep_factors,
-                             cfg.grid_slots, cfg.grid_tail_slots)
+        with profiler.phase(f"solve.k={k}") as sync:
+            res = sync(sweep_one_k(a_dev, _random.fold_in(root, k), k,
+                                   cfg.restarts, solver_cfg, init_cfg,
+                                   cfg.label_rule, cfg.keep_factors,
+                                   cfg.grid_slots, cfg.grid_tail_slots))
+        with profiler.phase("xfer.overlap"):
+            # rank k's results stream to the host while rank k+1 solves
+            out[k] = res._replace(fetch=start_host_fetch(res))
         if on_rank is not None:
             on_rank(k, out[k])
     return out

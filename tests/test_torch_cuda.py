@@ -317,3 +317,58 @@ def test_hals_whole_grid_on_card_matches_cpu(card):
     assert torch.equal(got.h.cpu().argmax(dim=1), want.h.argmax(dim=1))
     assert (got.h[3:, 2] == 0).all()  # the rank-2 jobs' padded row
     assert fused_mu.LAUNCHES["hals_block_iterations"] == sum(got.pool_trips)
+
+
+#: every KResult field the streamed harvest must reproduce byte for byte
+KRESULT_FIELDS = ("consensus", "rho", "dispersion", "membership", "order",
+                  "iterations", "dnorms", "stop_reasons", "best_w", "best_h")
+
+
+@pytest.mark.parametrize("algorithm,grid_exec", [
+    ("mu", "auto"), ("hals", "auto"), ("mu", "per_k")])
+def test_streamed_harvest_byte_equal_to_sequential_on_card(card, algorithm,
+                                                           grid_exec):
+    """Each harvest worker waits on its own rank's event before it reads
+    the pinned copies: on a grid whose ranks finish at different trips (5
+    slots for 4 ranks of 6 restarts) and per rank, the streamed harvest
+    equals the sequential one byte for byte."""
+    import nmfx_torch
+    from nmfx_torch.datasets import two_group_matrix
+
+    a = two_group_matrix(n_genes=200, n_per_group=12, seed=3)
+    kw = dict(ks=(2, 3, 4, 5), restarts=6, seed=5, grid_slots=5,
+              grid_exec=grid_exec, device=card,
+              solver_cfg=SolverConfig(algorithm=algorithm, backend="pallas",
+                                      max_iter=300))
+    streamed = nmfx_torch.nmfconsensus(a, **kw)
+    sequential = nmfx_torch.nmfconsensus(a, harvest="sequential", **kw)
+    for k in kw["ks"]:
+        for field in KRESULT_FIELDS:
+            s = np.asarray(getattr(streamed.per_k[k], field))
+            q = np.asarray(getattr(sequential.per_k[k], field))
+            assert s.dtype == q.dtype and s.tobytes() == q.tobytes(), (
+                f"k={k} {field}")
+
+
+@pytest.mark.parametrize("method", ["average", "complete", "single"])
+def test_rank_selection_torch_on_card_equals_cpu(card, method):
+    """Device rank selection on the card against itself on the CPU: the
+    merges are elementwise IEEE operations and first-minimum argmins on
+    both, so linkage, cophenetic matrix, order and memberships are equal;
+    rho's float32 reductions run in another order (within 1e-6)."""
+    from nmfx_torch.ops.hclust import linkage_torch, rank_selection_torch
+
+    rng = np.random.default_rng(7)
+    labels = rng.integers(0, 4, (10, 60))
+    cons = (labels[:, :, None] == labels[:, None, :]).mean(0)
+    cons = torch.as_tensor(cons, dtype=torch.float32)
+    dist = torch.where(torch.eye(60, dtype=torch.bool), 0.0, 1.0 - cons)
+    got = [x.cpu() for x in linkage_torch(dist.to(card), 3, method)]
+    want = linkage_torch(dist, 3, method)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    rho, memb, order = (x.cpu() for x in rank_selection_torch(
+        cons.to(card), 3, method))
+    rho_c, memb_c, order_c = rank_selection_torch(cons, 3, method)
+    assert torch.equal(memb, memb_c) and torch.equal(order, order_c)
+    assert abs(float(rho) - float(rho_c)) <= 1e-6
