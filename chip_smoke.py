@@ -56,7 +56,21 @@ Phases (any failure exits non-zero; nothing is caught):
   6. profiles: 200 packed iterations at k=2 and k=10, and 20 trips of
      the 48-slot scheduler at k=10 for mu (160 iterations, no lane
      stops) and for hals (40 iterations): time per iteration, the
-     device's busy share, the kernels by device time.
+     device's busy share, the kernels by device time;
+  7. other solvers: kl, neals, als, snmf, pg (max_iter 100) and alspg
+     (max_iter 20, sub_max_iter 100) through nmfconsensus at the north
+     star with every other default (backend "auto": the batched restart
+     route, plain products), then kl and neals on the packed whole grid
+     (backend "packed", 48 slots), each with the kernels' launch counts
+     set to 0 just before it (0 expected: no kernel lies on these
+     routes): the wall split by the profiler's phases, per-k mean
+     iterations, stop reasons and host syncs, best k, the grid's
+     pool_trips, and packed beside batched (per-k mean iterations,
+     max|dC|); then the gates: each solver's best k on the bundled
+     1000x40 design on the card, on the CPU and as the JAX package gives
+     it, all equal; a small input on the card and on the CPU, the same
+     best k and k = 2 memberships; als on the packed grid at ks (2, 5)
+     (a zero-padded lane in every pool) finite.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -671,9 +685,8 @@ def north_star_matrix():
     return two_group_matrix(n_genes=m, n_per_group=n // 2, seed=123)
 
 
-def check_sweep(res, label, n):
-    """Finite consensus and residuals of the right shape at every rank,
-    and best k = 2 (the matrix has two groups)."""
+def check_finite(res, label, n):
+    """Finite consensus and residuals of the right shape at every rank."""
     for k in res.ks:
         kr = res.per_k[k]
         if not (np.isfinite(kr.consensus).all()
@@ -682,6 +695,11 @@ def check_sweep(res, label, n):
         if kr.consensus.shape != (n, n):
             raise AssertionError(f"{label} k={k}: consensus shape "
                                  f"{kr.consensus.shape}")
+
+
+def check_sweep(res, label, n):
+    """check_finite, and best k = 2 (the matrix has two groups)."""
+    check_finite(res, label, n)
     if res.best_k != 2:
         raise AssertionError(f"{label}: best k {res.best_k} != 2")
 
@@ -1281,6 +1299,152 @@ def phase_profile(torch):
                            iters, plain_wall, *prof), flush=True)
 
 
+#: phase 7: the other six solvers on their default route (backend "auto",
+#: the batched restart route), pg and alspg at the JAX package's own
+#: budgets at this shape (benchmarks/run.py:69-73)
+OTHER_SOLVERS = {"kl": {}, "neals": {}, "als": {}, "snmf": {},
+                 "pg": dict(max_iter=100),
+                 "alspg": dict(max_iter=20, sub_max_iter=100)}
+#: ... and on the packed whole grid (backend "packed")
+PACKED_SOLVERS = ("kl", "neals")
+#: each solver's best k on the bundled 1000x40 design (ks 2..5, 10
+#: restarts, seed 123) at those budgets, as the JAX package gives it
+#: (nmfconsensus on its CPU backend): neals and als stop on TolFun after
+#: ~60 iterations with a k = 2 rho of 0.871, and pg's 100 iterations give
+#: 0.74-0.76, so neither family recovers the two groups there
+BUNDLED_BEST_K = {"kl": 2, "neals": 4, "als": 4, "snmf": 2, "pg": 3,
+                  "alspg": 2}
+
+
+def solver_sweep(torch, fm, a, scfg, label):
+    """One nmfconsensus at the north star's ranks and restarts under a
+    Profiler, with every kernel's launch count set to 0 just before it:
+    its line and per-k lines. No kernel may launch (none lies on these
+    routes)."""
+    import nmfx_torch
+    from nmfx_torch.profiling import Profiler
+
+    _, n, r, _ = NORTH_STAR
+    prof = Profiler()
+    outs = {}
+    fm.reset_launch_counts()
+    t0 = time.perf_counter()
+    with prof:
+        res = nmfx_torch.nmfconsensus(
+            a, ks=KS, restarts=r, solver_cfg=scfg, profiler=prof,
+            on_rank=lambda k, out: outs.setdefault(k, out))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fm.LAUNCHES)
+    check_finite(res, label, n)
+    grid = bool(outs[KS[0]].pool_trips)
+    syncs = (outs[KS[0]].host_syncs if grid
+             else sum(out.host_syncs for out in outs.values()))
+    solve = sum(rec.seconds for name, rec in prof.phases.items()
+                if name.startswith("solve."))
+    after = ", ".join(f"{rec.name} {rec.seconds:.4f} s"
+                      for rec in prof.phases.values()
+                      if not rec.name.startswith("solve."))
+    mean_iters = {k: round(float(res.per_k[k].iterations.mean()), 1)
+                  for k in KS}
+    pool = (f", pool_widths {outs[KS[0]].pool_widths}, pool_trips "
+            f"{outs[KS[0]].pool_trips}, pool_lanes {outs[KS[0]].pool_lanes}"
+            if grid else "")
+    print(f"solvers {label}: wall {wall:.3f} s (solve {solve:.3f} s, after "
+          f"it {wall - solve:.3f} s [{after}]; audit {prof.audit(wall)}), "
+          f"host syncs {syncs}{pool}, launches {launches}, best k "
+          f"{res.best_k}, mean iters per k {mean_iters}", flush=True)
+    for k in KS:
+        kr = res.per_k[k]
+        rank = prof.phases.get(f"solve.k={k}")
+        print(f"solvers {label} k={k}: mean iters "
+              f"{kr.iterations.mean():.1f}, max iters "
+              f"{int(kr.iterations.max())}, stop reasons {stop_counts(kr)}, "
+              + (f"solve {rank.seconds:.3f} s, host syncs "
+                 f"{outs[k].host_syncs}, " if rank else "")
+              + f"rho {kr.rho:.4f}", flush=True)
+    if any(launches.values()):
+        raise AssertionError(f"solvers {label}: a kernel launched on a "
+                             f"route without kernels: {launches}")
+    return res
+
+
+def phase_solvers(torch, fm):
+    """Phase 7: the other six solvers at the north star on their default
+    route, kl and neals on the packed whole grid beside it, then the
+    gates on the bundled design, a small input and als' padded pool."""
+    import nmfx_torch
+    from nmfx_torch.datasets import two_group_matrix
+
+    _, n, r, _ = NORTH_STAR
+    a = north_star_matrix()
+    batched = {}
+    for alg, kw in OTHER_SOLVERS.items():
+        batched[alg] = solver_sweep(
+            torch, fm, a, nmfx_torch.SolverConfig(algorithm=alg, **kw),
+            f"{alg} batched")
+    for alg in PACKED_SOLVERS:
+        packed = solver_sweep(
+            torch, fm, a, nmfx_torch.SolverConfig(algorithm=alg,
+                                                  backend="packed"),
+            f"{alg} packed grid")
+        print(f"solvers {alg} packed grid vs batched, per k (mean iters "
+              "packed / batched, max|dC|): " + ", ".join(
+                  f"k={k} ({packed.per_k[k].iterations.mean():.1f} / "
+                  f"{batched[alg].per_k[k].iterations.mean():.1f}, "
+                  f"{np.abs(packed.per_k[k].consensus - batched[alg].per_k[k].consensus).max():.4g})"
+                  for k in KS), flush=True)
+
+    bundled = two_group_matrix(n_genes=1000, n_per_group=20, seed=123)
+    small = two_group_matrix(n_genes=200, n_per_group=12, seed=3)
+    for alg, kw in OTHER_SOLVERS.items():
+        scfg = nmfx_torch.SolverConfig(algorithm=alg, **kw)
+        t0 = time.perf_counter()
+        card = nmfx_torch.nmfconsensus(bundled, ks=(2, 3, 4, 5),
+                                       restarts=10, seed=123, solver_cfg=scfg)
+        card_s = time.perf_counter() - t0
+        cpu = nmfx_torch.nmfconsensus(bundled, ks=(2, 3, 4, 5), restarts=10,
+                                      seed=123, solver_cfg=scfg, device="cpu")
+        print(f"solvers bundled 1000x40 {alg}: card {card_s:.3f} s, best k "
+              f"{card.best_k} (CPU {cpu.best_k}, the JAX package "
+              f"{BUNDLED_BEST_K[alg]}), rho {card.rhos.tolist()} (CPU "
+              f"{cpu.rhos.tolist()})", flush=True)
+        if not card.best_k == cpu.best_k == BUNDLED_BEST_K[alg]:
+            raise AssertionError(f"bundled design {alg}: best k {card.best_k}"
+                                 f" on the card, {cpu.best_k} on the CPU, "
+                                 f"{BUNDLED_BEST_K[alg]} expected")
+
+        kw_small = dict(ks=(2, 3, 4), restarts=6, seed=5, solver_cfg=scfg)
+        gpu = nmfx_torch.nmfconsensus(small, **kw_small)
+        cpu = nmfx_torch.nmfconsensus(small, device="cpu", **kw_small)
+        for k in (2, 3, 4):
+            g, c = gpu.per_k[k], cpu.per_k[k]
+            print(f"solvers small 200x24 {alg} k={k}: card vs CPU iterations "
+                  f"equal {np.array_equal(g.iterations, c.iterations)}, stop "
+                  f"reasons equal "
+                  f"{np.array_equal(g.stop_reasons, c.stop_reasons)}, max "
+                  f"|dC| {np.abs(g.consensus - c.consensus).max():.3g}, "
+                  f"memberships equal "
+                  f"{np.array_equal(g.membership, c.membership)}", flush=True)
+        if not (gpu.best_k == cpu.best_k and np.array_equal(
+                gpu.per_k[2].membership, cpu.per_k[2].membership)):
+            raise AssertionError(f"small input {alg}: card and CPU disagree "
+                                 f"(best k {gpu.best_k} / {cpu.best_k})")
+
+    res = nmfx_torch.nmfconsensus(
+        small, ks=(2, 5), restarts=6, seed=5, keep_factors=True,
+        solver_cfg=nmfx_torch.SolverConfig(algorithm="als",
+                                           backend="packed"))
+    finite = all(np.isfinite(res.per_k[k].all_w).all()
+                 and np.isfinite(res.per_k[k].all_h).all()
+                 and np.isfinite(res.per_k[k].consensus).all()
+                 for k in (2, 5))
+    print(f"solvers als packed grid ks (2, 5), zero-padded k=2 lanes: "
+          f"finite {finite}, best k {res.best_k}", flush=True)
+    if not finite:
+        raise AssertionError("als on the packed grid: non-finite output")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -1340,6 +1504,7 @@ def main(argv=None) -> int:
         phase_host_tail(torch, fm)
         phase_checks(torch, fm)
         phase_profile(torch)
+        phase_solvers(torch, fm)
         kernels = []
         for name, source, line in (
                 ("fused_h_update", "block_mu.cu", 147),

@@ -18,8 +18,8 @@ import torch
 
 from nmfx_torch import cophenetic as coph
 from nmfx_torch import random as _random
-from nmfx_torch.config import (ConsensusConfig, InitConfig, OutputConfig,
-                               SolverConfig)
+from nmfx_torch.config import (ROADMAP_DTYPES, ConsensusConfig, InitConfig,
+                               OutputConfig, SolverConfig)
 from nmfx_torch.device import resolve_device
 from nmfx_torch.harvest import HarvestPipeline, fetch_host, start_host_fetch
 from nmfx_torch.init import nndsvd_init, random_init
@@ -214,8 +214,9 @@ def nmf(a, k: int, *, seed: int = 0, algorithm: str | None = None,
         init_cfg: InitConfig | None = None, w0=None, h0=None,
         device=None) -> SolverResult:
     """One non-negative factorization A ≈ W·H at rank k (reference
-    ``nmf``, without its sketched engine), by ``algorithm`` "mu" (the
-    default) or "hals", in float32 or float64 (``solver_cfg.dtype``).
+    ``nmf``, without its sketched engine), by any of the eight
+    ``algorithm``s: "mu" (the default), "als", "neals", "pg", "alspg",
+    "kl", "snmf" or "hals", in float32 or float64 (``solver_cfg.dtype``).
 
     ``w0``/``h0``: explicit initial factors (both or neither); otherwise
     they come from ``init``/``init_cfg`` with the key ``key(seed)``, the
@@ -241,7 +242,7 @@ def nmf(a, k: int, *, seed: int = 0, algorithm: str | None = None,
         elif scfg.dtype != "float32":
             raise NotImplementedError(
                 "float64 random draws from the key chain are not ported "
-                "(ROADMAP 'Modules to port' item 1); pass w0/h0 or "
+                f"({ROADMAP_DTYPES}); pass w0/h0 or "
                 "init='nndsvd'")
         else:
             w0, h0 = random_init(_random.key(seed), m, n, k, icfg)
@@ -298,20 +299,27 @@ def nmfconsensus(
     in ``ks``, a consensus matrix per rank on the device, cophenetic rank
     selection on the host, and optional GCT outputs.
 
-    Routes, as the reference takes them, for algorithms "mu" and "hals":
+    Routes, as the reference takes them, for the eight algorithms:
 
     * whole grid (``grid_exec="auto"`` with more than one rank, or
-      ``"grid"``): every (k, restart) job through one slot-scheduled
-      solve of ``grid_slots`` slots with the ``grid_tail_slots`` cascade;
+      ``"grid"``), for mu and hals under ``backend`` "auto" (the default),
+      "packed" and "pallas", and for neals, als, snmf and kl under
+      "packed": every (k, restart) job through one slot-scheduled solve
+      of ``grid_slots`` slots with the ``grid_tail_slots`` cascade;
       ``backend="pallas"`` runs it on a hand-written block kernel (mu's,
       phased, or join-the-updates under
       ``ExperimentalConfig(fused_updates="fused")``; hals' coordinate-sweep
-      kernel), ``"auto"`` (the default) and ``"packed"`` on plain batched
-      products;
-    * per rank (``grid_exec="per_k"``, or one rank): mu solves each
-      rank's restarts as one packed batch, on the hand-written
-      per-iteration kernels under ``backend="pallas"``, plain products
-      otherwise; hals runs the slot scheduler at that one rank.
+      kernel), the other backends on plain batched products;
+    * per rank (``grid_exec="per_k"``, one rank, or any other pair): mu
+      under "auto", "packed" or "pallas" solves each rank's restarts as
+      one packed batch, on the hand-written per-iteration kernels under
+      ``backend="pallas"``, plain products otherwise; the grid's other
+      pairs run the slot scheduler at that one rank; and the rest — als,
+      neals, snmf, kl, pg and alspg under "auto", and all eight under
+      ``backend="vmap"`` — take the batched restart route: a rank's
+      restarts as lanes of one solve on plain products, in
+      ``solver_cfg.restart_chunk`` chunks. pg and alspg refuse
+      ``backend="packed"``, as the reference does.
 
     Other settings raise ``NotImplementedError`` naming the ROADMAP item.
 

@@ -1,15 +1,17 @@
 """Typed configuration for the port: the fields of the reference's
 ``SolverConfig`` / ``ExperimentalConfig`` / ``InitConfig`` /
-``ConsensusConfig`` that the port's mu routes read, with the reference's
+``ConsensusConfig`` that the port's routes read, with the reference's
 defaults and validation (``nmfx/config.py``). Fields of engines the port
-does not have yet are left out; ``nmfx_torch.convert`` refuses a
-reference configuration that sets one of them to a non-inert value.
+does not have yet (the sketched engine, screening, out-of-core tiles) are
+left out; ``nmfx_torch.convert`` refuses a reference configuration that
+sets one of them to a non-inert value.
 
 What the port runs is narrower than what validates: ``check_ported``
 raises ``NotImplementedError`` for a solver setting the port has no
-route for yet (it runs mu and hals), and so does ``ExperimentalConfig``
-for an experimental knob the port has not got; each message names the
-ROADMAP item that brings it.
+route for yet (the sketched engine, bf16 operands, float64 on the
+batched routes), and so does ``ExperimentalConfig`` for an experimental
+knob the port has not got; each message names the ROADMAP section and
+item that brings it.
 """
 
 from __future__ import annotations
@@ -20,12 +22,21 @@ from typing import Sequence
 ALGORITHMS = ("mu", "als", "neals", "pg", "alspg", "kl", "snmf", "hals")
 INIT_METHODS = ("random", "nndsvd")
 LINKAGE_METHODS = ("average", "complete", "single")
+#: algorithms with a dense-batched block (``ops.grid_mu.BLOCKS``), the
+#: only ones ``backend="packed"`` accepts (reference ``PACKED_ALGORITHMS``)
+PACKED_ALGORITHMS = ("mu", "hals", "neals", "als", "snmf", "kl")
 #: backends with a route in the port: "pallas" runs the hand-written
-#: kernels; "auto" and "packed" the plain PyTorch products (the packed
-#: per-rank solve, or the dense slot-scheduler layout)
-PORTED_BACKENDS = ("auto", "packed", "pallas")
-#: algorithms with a route in the port
-PORTED_ALGORITHMS = ("mu", "hals")
+#: kernels; "auto", "vmap" and "packed" plain PyTorch products (the packed
+#: per-rank solve, the batched restart route or the dense slot-scheduler
+#: layout, chosen per algorithm as in ``nmfx_torch.sweep``)
+PORTED_BACKENDS = ("auto", "vmap", "packed", "pallas")
+
+#: where the ROADMAP brings each refused setting ("Open items")
+ROADMAP_SCHEDULER = "ROADMAP §1 item 3, the scheduler's remaining options"
+ROADMAP_DTYPES = "ROADMAP §1 item 4, config and dtype remnants"
+ROADMAP_SCALE = "ROADMAP §1 item 10, scale engines"
+ROADMAP_TOOLING = "ROADMAP §1 item 11, tooling"
+ROADMAP_BF16 = "ROADMAP §2 item 6, bf16 operands"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,21 +90,19 @@ class ExperimentalConfig:
             object.__setattr__(self, "ragged_iters_est", est)
         unported = (
             (self.ragged, "ragged=True (the class-blocked slot pool)",
-             "'Modules to port' item 7"),
+             ROADMAP_SCHEDULER),
             (self.factor_dtype is not None,
              f"factor_dtype={self.factor_dtype!r} (bf16 pool factors)",
-             "'Modules to port' item 7"),
-            (self.alias_io, "alias_io=True", "'Modules to port' item 7"),
+             ROADMAP_SCHEDULER),
+            (self.alias_io, "alias_io=True", ROADMAP_SCHEDULER),
             (self.block_m is not None, f"block_m={self.block_m}",
-             "'Modules to port' item 7"),
-            (self.autotune != "off", "autotune='on'",
-             "'Modules to port' item 13"),
+             ROADMAP_SCHEDULER),
+            (self.autotune != "off", "autotune='on'", ROADMAP_TOOLING),
         )
         for on, what, item in unported:
             if on:
                 raise NotImplementedError(
-                    f"experimental.{what} is not ported yet (ROADMAP "
-                    f"{item})")
+                    f"experimental.{what} is not ported yet ({item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,7 +110,8 @@ class SolverConfig:
     """Per-factorization solver settings (reference ``nmfx.SolverConfig``).
 
     ``matmul_precision``: "default" and "highest" both mean full float32
-    products on the card (TF32 is switched off by the entry points);
+    products on the card (TF32 is switched off by the entry points, and
+    the ``torch.linalg`` solves of als, neals and snmf follow it);
     "bfloat16" operands are not ported yet.
     """
 
@@ -109,6 +119,9 @@ class SolverConfig:
     max_iter: int = 10000
     tol_x: float = 1e-4
     tol_fun: float = 1e-4
+    #: pg/alspg: stop when the projected-gradient norm falls below
+    #: tol_pg times its initial value (Lin 2007)
+    tol_pg: float = 1e-4
     check_every: int = 2
     #: check blocks per host-loop trip (the host reads the loop's state
     #: once per trip). "auto" resolves to 4 on the slot scheduler's
@@ -122,11 +135,26 @@ class SolverConfig:
     use_tol_checks: bool = True
     zero_threshold: float = 0.0
     div_eps: float = 1e-9
+    #: pg/alspg line search: trials per inner search, the step's
+    #: shrink/grow factor and the sufficient-decrease constant
+    ls_max_steps: int = 20
+    ls_beta: float = 0.1
+    ls_sigma: float = 0.01
+    #: pg/alspg: outer iterations of one NNLS subproblem
+    sub_max_iter: int = 1000
     dtype: str = "float32"
     matmul_precision: str = "default"
     backend: str = "auto"
     experimental: ExperimentalConfig = ExperimentalConfig()
+    #: snmf: the L1 weight on H's columns, and the ridge on W (None =
+    #: max(A)², Kim & Park's choice)
+    sparsity_beta: float = 0.01
+    ridge_eta: "float | None" = None
     nonfinite_guard: bool = True
+    #: the batched restart route: solve a rank's restarts in sequential
+    #: chunks of this many (bounds kl's (chunk, m, n) quotients); None =
+    #: all at once. Results do not depend on it
+    restart_chunk: "int | None" = None
 
     def __post_init__(self):
         if self.backend not in ("auto", "vmap", "packed", "pallas",
@@ -139,6 +167,12 @@ class SolverConfig:
             raise ValueError(
                 "backend='pallas' is only implemented for algorithm='mu' "
                 "and 'hals'; use 'auto' to fall back per algorithm")
+        if (self.backend == "packed"
+                and self.algorithm not in PACKED_ALGORITHMS):
+            raise ValueError(
+                "backend='packed' is only implemented for algorithms with "
+                f"a dense-batched block {PACKED_ALGORITHMS}; use "
+                "'auto' to fall back per algorithm")
         if self.algorithm not in ALGORITHMS:
             raise ValueError(
                 f"algorithm must be one of {ALGORITHMS}, got "
@@ -156,33 +190,34 @@ class SolverConfig:
             raise ValueError(
                 "matmul_precision must be 'default', 'bfloat16' or "
                 f"'highest', got {self.matmul_precision!r}")
+        if self.restart_chunk is not None and self.restart_chunk < 1:
+            raise ValueError("restart_chunk must be >= 1 or None")
         if not 0.0 <= self.class_flip_tol < 1.0:
             raise ValueError(
                 f"class_flip_tol must be in [0, 1), got {self.class_flip_tol}")
+        if self.sparsity_beta < 0:
+            raise ValueError("sparsity_beta must be >= 0")
+        if self.ridge_eta is not None and self.ridge_eta < 0:
+            raise ValueError("ridge_eta must be >= 0 or None")
 
 
 def check_ported(cfg: SolverConfig) -> None:
     """Raise ``NotImplementedError`` for a valid setting the port cannot
     run yet (ROADMAP "Open items")."""
-    if cfg.algorithm not in PORTED_ALGORITHMS:
-        raise NotImplementedError(
-            f"algorithm={cfg.algorithm!r} is not ported yet (ROADMAP "
-            "'Modules to port' item 8); the port runs 'mu' and 'hals'")
     if cfg.backend not in PORTED_BACKENDS:
         raise NotImplementedError(
-            f"backend={cfg.backend!r} is not ported yet: the vmapped "
-            "restart sweep is ROADMAP 'Modules to port' item 5 and the "
-            "sketched engine item 12; pass backend='auto', 'packed' or "
-            "'pallas' (the hand-written kernels)")
+            f"backend={cfg.backend!r} is not ported yet: the sketched "
+            f"engine is {ROADMAP_SCALE}; pass backend='auto', 'vmap', "
+            "'packed' or 'pallas' (the hand-written kernels)")
     if cfg.matmul_precision == "bfloat16":
         raise NotImplementedError(
             "matmul_precision='bfloat16' (bf16 operands, f32 accumulation) "
-            "is not ported yet (ROADMAP 'TPU kernels to port' item 1)")
+            f"is not ported yet ({ROADMAP_BF16})")
     if cfg.dtype != "float32":
         raise NotImplementedError(
             f"dtype={cfg.dtype!r} is not ported on the batched routes, "
-            "whose kernels are float32 (ROADMAP 'Modules to port' item 1); "
-            "the single-restart nmfx_torch.solve / nmf run float64")
+            f"whose kernels are float32 ({ROADMAP_DTYPES}); the "
+            "single-restart nmfx_torch.solve / nmf run float64")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,8 +237,8 @@ class InitConfig:
                 f"{self.method!r}")
         if self.svd_method != "dense":
             raise NotImplementedError(
-                "svd_method='lanczos' is not ported yet (ROADMAP "
-                "'Modules to port' item 12); use 'dense'")
+                f"svd_method='lanczos' is not ported yet ({ROADMAP_SCALE}); "
+                "use 'dense'")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,18 +12,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from nmfx_torch.config import (ConsensusConfig, ExperimentalConfig,
-                               SolverConfig)
+from nmfx_torch.config import (ROADMAP_SCALE, ConsensusConfig,
+                               ExperimentalConfig, SolverConfig)
 
 #: reference SolverConfig fields the port has no counterpart for, with
-#: the value under which each is inert on the port's mu routes (None =
+#: the value under which each is inert on the port's routes (None =
 #: inert at any value: it configures an engine these routes never run)
-_INERT = {
-    "tol_pg": None, "ls_max_steps": None, "ls_beta": None, "ls_sigma": None,
-    "sub_max_iter": None, "sparsity_beta": None, "ridge_eta": None,
-    "sketch": None, "restart_chunk": None, "screen": False,
-    "screen_keep": None, "tile_rows": None,
-}
+_INERT = {"sketch": None, "screen": False, "screen_keep": None,
+          "tile_rows": None}
 
 
 def _own_fields(cls, d: dict, inert: dict) -> dict:
@@ -45,7 +41,7 @@ def solver_config_from_dict(d: dict) -> SolverConfig:
         if inert is not None and d.get(name, inert) != inert:
             raise NotImplementedError(
                 f"SolverConfig.{name}={d[name]!r} has no counterpart in "
-                "the port yet (ROADMAP 'Modules to port')")
+                f"the port yet ({ROADMAP_SCALE})")
     exp = kw.get("experimental")
     if isinstance(exp, dict):
         kw["experimental"] = ExperimentalConfig(

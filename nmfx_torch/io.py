@@ -21,6 +21,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 
 from nmfx_torch import native
+from nmfx_torch.config import ROADMAP_SCALE
 
 
 class Dataset(NamedTuple):
@@ -45,8 +46,7 @@ def read_dataset(path: str) -> Dataset:
         return read_res(path)
     if lower.endswith((".mtx", ".csr.npz")):
         raise NotImplementedError(
-            f"{path}: sparse inputs are not ported yet (ROADMAP 'Modules "
-            "to port' item 12)")
+            f"{path}: sparse inputs are not ported yet ({ROADMAP_SCALE})")
     raise ValueError(f"Input is not a res/gct file: {path}")
 
 

@@ -1,5 +1,5 @@
 """Slot-scheduled whole grid (counterpart of ``nmfx/ops/sched_mu.py``
-for mu and hals, with the uniform pool).
+for mu, hals, neals, als, snmf and kl, with the uniform pool).
 
 All J (k, restart) jobs of a sweep are queued at once and solved through
 a fixed pool of S slots (default 48): each slot hosts one job, padded to
@@ -25,11 +25,17 @@ Two layouts, as in the reference:
   both give the same bits and the same per-job iterations. hals has no
   such fallback and refuses the cap.
 * ``backend="auto"``/``"packed"``: dense (S, m, k_max) / (S, k_max, n)
-  lanes iterated by ``grid_mu``'s batched blocks.
+  lanes iterated by ``grid_mu``'s batched blocks (mu and hals under
+  "auto"; neals, als, snmf and kl under "packed" only, as in the
+  reference; pg and alspg have no block). snmf's blocks take each slot's
+  padding mask from a per-job table whose extra all-False row serves the
+  empty slots; kl's pool is clamped so its (S, m, n) quotients stay
+  under 4 GB (``_kl_slot_clamp``).
 
-hals adds the TolFun test to every check, on the residual of each
-slot's dense view; its residual cannot be replayed from a launch's
-boundary exports, so with TolFun on it runs one check block per trip.
+hals, als, neals and snmf add the TolFun test to every check, on the
+residual of each slot's dense view; hals' residual cannot be replayed
+from a launch's boundary exports, so with TolFun on it runs one check
+block per trip.
 
 The reference's ``lax.while_loop``/``lax.cond`` become a host loop. The
 pool's state lives on the device; the host keeps the queue position and
@@ -50,6 +56,7 @@ device memory, so the pool is bounded by device memory only.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import NamedTuple
 
 import numpy as np
@@ -61,7 +68,7 @@ from nmfx_torch.ops.fused_mu import (fused_block_iterations, fused_h_update,
                                      fused_w_update, hals_block_iterations,
                                      lane_gram)
 from nmfx_torch.ops.grid_mu import (BLOCKS, USES_TOLFUN, conv_cfg,
-                                    make_block, tolfun_update)
+                                    make_block, pad_live_mask, tolfun_update)
 from nmfx_torch.ops.packed_mu import (batch_convergence,
                                       residual_norms_direct)
 from nmfx_torch.solvers.base import StopReason
@@ -93,6 +100,19 @@ def _pallas_block_geometry(m: int) -> tuple[int, int, int]:
     tiles = -(-m // 512)
     block_m = -(-(-(-m // tiles)) // 16) * 16
     return tiles, block_m, tiles * block_m
+
+
+def _kl_slot_clamp(s: int, m: int, n: int) -> int:
+    """Bound kl's quotient working set: each live lane holds m×n float32
+    intermediates, budgeted as three (reconstruction, quotient and the
+    contraction's operand), and the pool keeps them under 4 GB (the
+    reference's ``_kl_slot_clamp``). Logged when it shrinks the pool."""
+    clamped = max(1, min(s, int(4e9 // (3 * m * n * 4))))
+    if clamped < s:
+        logging.getLogger("nmfx_torch").warning(
+            "kl scheduler: slot pool clamped %d -> %d (each lane holds "
+            "~3 m*n quotient intermediates; m=%d, n=%d)", s, clamped, m, n)
+    return clamped
 
 
 def _resolve_tail(tail_slots, s: int) -> tuple[int, ...]:
@@ -155,8 +175,9 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
     ``w0``/``h0``: (J, m, k_max) / (J, k_max, n) initial factors (numpy
     or tensors), in dispatch order; results come back in the same job
     order. Each job's trajectory is its own: only the schedule depends on
-    ``slots`` and ``tail_slots``. ``job_ks`` (per-job true ranks) is
-    checked for length only (mu's padding is exact without it).
+    ``slots`` and ``tail_slots``. ``job_ks`` (per-job true ranks) gives
+    snmf's padding masks (without it they are read from the initial
+    factors); the other rules' padding is exact without it.
     ``flip_floor`` overrides the class-stability flip budget. ``device``:
     None = CUDA (raising without one; TF32 off there), or "cpu", where
     the kernels' plain versions run.
@@ -177,6 +198,8 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
             f"job_ks has {len(job_ks)} entries but w0/h0 carry {j} jobs "
             "— per-job true ranks must match the job batch exactly")
     s = min(slots, j)
+    if cfg.algorithm == "kl":
+        s = _kl_slot_clamp(s, m, n)
     ce = cfg.check_every
     use_pallas = cfg.backend == "pallas"
     hals = cfg.algorithm == "hals"
@@ -229,11 +252,12 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
     def stepped_block(step_fn, delta_fn):
         """check_every single iterations with the per-step max_iter
         fence; the TolX delta compares the last two iterates."""
-        def do_block(wp, hp, active, slot_iter):
+        def do_block(wp, hp, active, slot_iter, slot_job):
             for i in range(ce):
                 if i == ce - 1:
                     wprev, hprev = wp, hp
-                wp, hp = step_fn(wp, hp, fence(active, slot_iter, i))
+                wp, hp = step_fn(wp, hp, fence(active, slot_iter, i),
+                                 slot_job)
             return wp, hp, delta_fn(wp, hp, wprev, hprev)
 
         return do_block
@@ -259,7 +283,7 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
                                           iters=ce, fused=use_fused,
                                           **kern_kw, **kw)
 
-        def do_block(wp, hp, active, slot_iter):
+        def do_block(wp, hp, active, slot_iter, slot_job):
             # one launch: slot_iter is a multiple of check_every here, so
             # a slot crosses the cap only at a block boundary
             wp, hp, wd, wm, hd, hm = block_launch(
@@ -285,7 +309,7 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
                                   dim=2).to(torch.int32)
             return wp, hp, deltas, labels
 
-        def one_step(wp, hp, frozen):
+        def one_step(wp, hp, frozen, slot_job):
             k = k_max
             fcol = frozen.repeat_interleave(k)
             hn = fused_h_update(a_loop, wp, hp, k=k, **kern_kw)
@@ -336,6 +360,19 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
                     hp.reshape(-1, k_max, n)[order].reshape(-1, n))
     else:
         block = make_block(cfg, a)
+        if cfg.algorithm == "snmf":
+            # per-job true-rank masks; row j (an empty slot's job) is
+            # all-False, and its lane is frozen
+            pad_jobs = torch.cat([pad_live_mask(w0, h0, job_ks),
+                                  torch.zeros((1, k_max), dtype=torch.bool,
+                                              device=dev)])
+
+            def step_fn(wp, hp, frozen, slot_job):
+                return block(a, wp, hp, frozen, cfg,
+                             pad_live=pad_jobs[slot_job])
+        else:
+            def step_fn(wp, hp, frozen, slot_job):
+                return block(a, wp, hp, frozen, cfg)
 
         def dense_deltas(wp, hp, wprev, hprev):
             def _d(cur, prev):
@@ -344,9 +381,7 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
 
             return torch.maximum(_d(wp, wprev), _d(hp, hprev))
 
-        do_block = stepped_block(
-            lambda wp, hp, frozen: block(a, wp, hp, frozen, cfg),
-            dense_deltas)
+        do_block = stepped_block(step_fn, dense_deltas)
 
         class Layout(_Layout):
             def init_slots(self, s):
@@ -455,7 +490,7 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
         else:
             for _ in range(ncheck):
                 wp, hp, delta = do_block(pool.wp, pool.hp, pool.active,
-                                         pool.slot_iter)
+                                         pool.slot_iter, pool.slot_job)
                 apply_check(pool, wp, hp, delta, layout.labels(hp))
         stats["trips"] += 1
         counts = torch.stack([pool.active.sum(), pool.pending.sum()])

@@ -17,7 +17,8 @@ Convergence: class stability when enabled, TolX and TolFun at every
 ``check_every``-th iteration.
 
 The two sweeps take lane-batched factors, (B, m, k) and (B, k, n): the
-single-restart step runs them at B = 1, the whole grid's dense layout
+single-restart step runs them at B = 1, the batched restart route at
+B = the restarts, the whole grid's dense layout
 (``nmfx_torch.ops.grid_mu.hals_block``) and the plain version of the
 HALS block kernel at B = the pool's lanes.
 """
@@ -65,9 +66,12 @@ def init_aux(a, w0, h0, cfg):
 
 def step(a, state: base.State, cfg, check: bool = True) -> base.State:
     eps, zt = cfg.div_eps, cfg.zero_threshold
-    h = hals_h_sweep(a, state.w[None], state.h[None], eps, zt)
-    w = hals_w_sweep(a, state.w[None], h, eps, zt)
-    state = dataclasses.replace(state, w=w[0], h=h[0])
+    one = state.w.dim() == 2  # one restart: a lane axis of 1
+    w0, h0 = (state.w[None], state.h[None]) if one else (state.w, state.h)
+    h = hals_h_sweep(a, w0, h0, eps, zt)
+    w = hals_w_sweep(a, w0, h, eps, zt)
+    state = dataclasses.replace(state, w=w[0] if one else w,
+                                h=h[0] if one else h)
     if not check:
         return state
     return base.check_convergence(state, cfg, a=a,

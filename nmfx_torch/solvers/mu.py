@@ -36,10 +36,10 @@ def init_aux(a, w0, h0, cfg):
 
 
 def step(a, state: base.State, cfg, check: bool = True) -> base.State:
-    w0, h0 = state.w, state.h
-    h = _mu_update(h0, w0.T @ a, (w0.T @ w0) @ h0, cfg.div_eps,
+    w0, h0 = state.w, state.h  # one restart's, or (B, ·, ·) lanes
+    h = _mu_update(h0, w0.mT @ a, (w0.mT @ w0) @ h0, cfg.div_eps,
                    cfg.zero_threshold)
-    w = _mu_update(w0, a @ h.T, w0 @ (h @ h.T), cfg.div_eps,
+    w = _mu_update(w0, a @ h.mT, w0 @ (h @ h.mT), cfg.div_eps,
                    cfg.zero_threshold)
     state = dataclasses.replace(state, w=w, h=h)
     if not check:

@@ -2,17 +2,25 @@
 ``nmfx/sweep.py``).
 
 Every restart of rank k starts from the reference's key chain
-``split(fold_in(key(seed), k), R)``. Two routes, chosen as the reference
-chooses them:
+``split(fold_in(key(seed), k), R)``. The routes, chosen as the reference
+chooses them (``_build_sweep_fn``, ``_GRID_EXEC_BACKENDS``):
 
 * whole grid (``grid_exec="auto"`` with more than one rank, or
-  ``"grid"``): every (k, restart) job goes through one slot-scheduled
-  solve (``nmfx_torch.ops.sched_mu``), dispatched rank-descending;
-* per rank (``"per_k"``, or a single rank): ranks one after another.
-  mu solves each rank's restarts as one restart-packed batch
-  (``nmfx_torch.ops.packed_mu``); hals runs the slot scheduler at that
-  one rank, whose key arrives already folded, so its restarts start from
-  the same factors as on the whole grid.
+  ``"grid"``), for an algorithm/backend pair in ``_GRID_EXEC_BACKENDS``
+  (mu and hals under "auto", "packed" and "pallas"; neals, als, snmf and
+  kl under "packed"): every (k, restart) job goes through one
+  slot-scheduled solve (``nmfx_torch.ops.sched_mu``), dispatched
+  rank-descending;
+* per rank (``"per_k"``, one rank, or a pair the grid does not take):
+  ranks one after another. mu under "auto", "packed" or "pallas" solves
+  each rank's restarts as one restart-packed batch
+  (``nmfx_torch.ops.packed_mu``); the other pairs of
+  ``_GRID_EXEC_BACKENDS`` run the slot scheduler at that one rank, whose
+  key arrives already folded, so its restarts start from the same factors
+  as on the whole grid; everything else (pg and alspg, the Gram family
+  and kl under "auto", and every algorithm under "vmap") takes the
+  batched restart route: the rank's restarts as lanes of one
+  ``solvers.base.run_loop_batched`` solve, in ``restart_chunk`` chunks.
 
 Either way each rank's batch reduces to a consensus matrix on the
 device. At each rank's ``on_rank`` site the sweep starts the rank's
@@ -38,12 +46,17 @@ from nmfx_torch.init import restart_inits
 from nmfx_torch.ops.packed_mu import mu_packed, unpack_w
 from nmfx_torch.ops.sched_mu import mu_sched
 from nmfx_torch.profiling import NullProfiler
-from nmfx_torch.solvers.base import StopReason
+from nmfx_torch.solvers import SOLVERS
+from nmfx_torch.solvers.base import StopReason, run_loop_batched
 
-#: backends that route each algorithm into the slot scheduler; hals runs
-#: nowhere else (its per-rank route is the scheduler at one rank)
+#: backends that route each algorithm into the slot scheduler (the
+#: reference's table): mu and hals by default; neals, als, snmf and kl
+#: only as the explicit backend="packed" opt-in, their "auto" staying on
+#: the batched restart route; pg and alspg have no dense-batched block
 _GRID_EXEC_BACKENDS = {"mu": ("auto", "packed", "pallas"),
-                       "hals": ("auto", "packed", "pallas")}
+                       "hals": ("auto", "packed", "pallas"),
+                       "neals": ("packed",), "als": ("packed",),
+                       "snmf": ("packed",), "kl": ("packed",)}
 
 
 class KSweepOutput(NamedTuple):
@@ -57,8 +70,9 @@ class KSweepOutput(NamedTuple):
     #: every restart's factors, retained only under ``keep_factors=True``
     all_w: "torch.Tensor | None" = None  # (restarts, m, k)
     all_h: "torch.Tensor | None" = None  # (restarts, k, n)
-    #: device→host reads of the solve's loop state (mu_packed, or the
-    #: whole grid's mu_sched, whose count every rank carries)
+    #: device→host reads of the solve's loop state (mu_packed, the batched
+    #: restart route's loops, or the whole grid's mu_sched, whose count
+    #: every rank carries)
     host_syncs: int = 0
     #: the whole grid's pool diagnostics (``SchedMUResult.pool_*``),
     #: carried by every rank; empty on the per-rank route
@@ -118,6 +132,44 @@ def _build_packed_sweep_fn(k: int, restarts: int, solver_cfg: SolverConfig,
     return impl
 
 
+def _build_vmap_sweep_fn(k: int, restarts: int, solver_cfg: SolverConfig,
+                         init_cfg: InitConfig, label_rule: str,
+                         keep_factors: bool = False):
+    """The batched restart route at rank k (the reference's
+    ``jax.vmap`` of its generic ``solve``): the rank's restarts as lanes
+    of one ``run_loop_batched`` solve of ``solver_cfg.algorithm``, then
+    labels, quarantine, consensus and best restart as on the other
+    routes. With
+    ``restart_chunk`` the restarts run in sequential chunks of that many
+    (the last one smaller), which bounds the lanes' (chunk, m, n)
+    intermediates; only the per-restart outputs are concatenated, so the
+    results do not depend on the chunking."""
+    mod = SOLVERS[solver_cfg.algorithm]
+    chunk = solver_cfg.restart_chunk or restarts
+
+    def impl(a: torch.Tensor, key: np.ndarray) -> KSweepOutput:
+        keys = _random.split(key, restarts)
+        parts, syncs = [], 0
+        for c in range(0, restarts, chunk):
+            w0s, h0s = restart_inits(a, keys[c:c + chunk], k, init_cfg)
+            res = run_loop_batched(a, w0s, h0s, solver_cfg, mod.step,
+                                   mod.init_aux(a, w0s, h0s, solver_cfg))
+            syncs += res.host_syncs
+            parts.append(res)
+        ws, hs, iters, dnorm, stops = (
+            torch.cat([getattr(p, f) for p in parts])
+            for f in ("w", "h", "iterations", "dnorm", "stop_reason"))
+        labels = labels_from_h(hs, label_rule)
+        labels, masked, faulted = _quarantine_lanes(labels, dnorm, stops)
+        cons = _quarantined_consensus(labels, k, restarts, faulted)
+        best = torch.argmin(masked)
+        extra = (ws, hs) if keep_factors else (None, None)
+        return KSweepOutput(cons, iters, dnorm, stops, labels, ws[best],
+                            hs[best], *extra, host_syncs=syncs)
+
+    return impl
+
+
 def sweep_one_k(a: torch.Tensor, key: np.ndarray, k: int, restarts: int,
                 solver_cfg: SolverConfig = SolverConfig(),
                 init_cfg: InitConfig = InitConfig(),
@@ -126,15 +178,23 @@ def sweep_one_k(a: torch.Tensor, key: np.ndarray, k: int, restarts: int,
                 tail_slots="auto") -> KSweepOutput:
     """Run ``restarts`` factorizations at rank k on A's device (``key``
     is the rank's folded key) and reduce them to one consensus matrix
-    there: mu as one packed batch, hals through the slot scheduler at
-    this one rank (``slots`` wide, with the ``tail_slots`` cascade)."""
-    if solver_cfg.algorithm != "mu":
+    there, by the reference's order: mu under "auto", "packed" or
+    "pallas" as one packed batch; another pair of ``_GRID_EXEC_BACKENDS``
+    through the slot scheduler at this one rank (``slots`` wide, with the
+    ``tail_slots`` cascade); everything else on the batched restart
+    route."""
+    alg, backend = solver_cfg.algorithm, solver_cfg.backend
+    if alg == "mu" and backend in ("auto", "packed", "pallas"):
+        fn = _build_packed_sweep_fn(k, restarts, solver_cfg, init_cfg,
+                                    label_rule, keep_factors)
+        return fn(a, key)
+    if grid_exec_ok(solver_cfg):
         fn = _build_grid_exec_sweep_fn((k,), restarts, solver_cfg, init_cfg,
                                        label_rule, keep_factors, slots,
                                        tail_slots, fold_keys=False)
         return fn(a, key)[k]
-    fn = _build_packed_sweep_fn(k, restarts, solver_cfg, init_cfg,
-                                label_rule, keep_factors)
+    fn = _build_vmap_sweep_fn(k, restarts, solver_cfg, init_cfg, label_rule,
+                              keep_factors)
     return fn(a, key)
 
 
@@ -222,7 +282,8 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
         raise ValueError(
             "grid_exec='grid' needs an algorithm/backend pair that routes "
             "into the slot scheduler — mu or hals with backend 'auto', "
-            f"'packed' or 'pallas'; got algorithm={solver_cfg.algorithm!r}, "
+            "'packed' or 'pallas', or neals, als, snmf or kl with "
+            f"'packed'; got algorithm={solver_cfg.algorithm!r}, "
             f"backend={solver_cfg.backend!r} (use grid_exec='auto' to "
             "fall back per configuration)")
     check_ported(solver_cfg)

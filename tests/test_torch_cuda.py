@@ -372,3 +372,31 @@ def test_rank_selection_torch_on_card_equals_cpu(card, method):
     rho_c, memb_c, order_c = rank_selection_torch(cons, 3, method)
     assert torch.equal(memb, memb_c) and torch.equal(order, order_c)
     assert abs(float(rho) - float(rho_c)) <= 1e-6
+
+
+@pytest.mark.parametrize("algorithm,backend", [
+    ("als", "auto"), ("neals", "auto"), ("snmf", "auto"), ("kl", "auto"),
+    ("pg", "auto"), ("alspg", "auto"), ("mu", "vmap"), ("neals", "packed"),
+    ("kl", "packed")])
+def test_other_solvers_on_card_match_cpu(card, algorithm, backend):
+    """The batched restart route (and, under "packed", the dense whole
+    grid) on the card against the CPU at a small input: the same best k
+    and k = 2 memberships, finite everywhere. Iterations may part: the
+    card's float32 products round in another order, and a TolFun or
+    projected-gradient threshold can move a stop by a check."""
+    import nmfx_torch
+    from nmfx_torch.datasets import two_group_matrix
+
+    a = two_group_matrix(n_genes=200, n_per_group=12, seed=3)
+    budget = dict(max_iter=60) if algorithm in ("pg", "alspg") else {}
+    kw = dict(ks=(2, 3, 4), restarts=6, seed=5,
+              solver_cfg=SolverConfig(algorithm=algorithm, backend=backend,
+                                      **budget))
+    got = nmfx_torch.nmfconsensus(a, device=card, **kw)
+    want = nmfx_torch.nmfconsensus(a, device="cpu", **kw)
+    assert got.best_k == want.best_k
+    np.testing.assert_array_equal(got.per_k[2].membership,
+                                  want.per_k[2].membership)
+    for k in kw["ks"]:
+        assert np.isfinite(got.per_k[k].consensus).all()
+        assert np.isfinite(got.per_k[k].dnorms).all()

@@ -262,8 +262,11 @@ def test_sched_validates(jobs):
     with pytest.raises(ValueError, match="job_ks"):
         mu_sched(a, w0, h0, nmfx_torch.SolverConfig(max_iter=10), slots=4,
                  job_ks=JOB_KS[:-1], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        mu_sched(a, w0, h0, nmfx_torch.SolverConfig(algorithm="kl"),
+    with pytest.raises(ValueError, match="slot scheduler implements"):
+        mu_sched(a, w0, h0, nmfx_torch.SolverConfig(algorithm="pg"),
+                 device="cpu")
+    with pytest.raises(NotImplementedError, match="§1 item 10"):
+        mu_sched(a, w0, h0, nmfx_torch.SolverConfig(backend="sketched"),
                  device="cpu")
     assert _pallas_block_geometry(5000) == (10, 512, 5120)
     assert _pallas_block_geometry(200) == (1, 208, 208)

@@ -121,9 +121,10 @@ def test_nmf_validates_its_inputs():
         nmfx_torch.nmf(a, 2, w0=np.ones((30, 2)), device="cpu")
     with pytest.raises(ValueError, match="non-negative"):
         nmfx_torch.nmf(-a, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        nmfx_torch.nmf(a, 2, algorithm="kl", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 1"):
+    with pytest.raises(NotImplementedError, match="§1 item 10"):
+        nmfx_torch.nmf(a, 2, solver_cfg=nmfx_torch.SolverConfig(
+            backend="sketched"), device="cpu")
+    with pytest.raises(NotImplementedError, match="§1 item 4"):
         nmfx_torch.nmf(a, 2, solver_cfg=nmfx_torch.SolverConfig(
             dtype="float64"), device="cpu")
 
@@ -214,10 +215,10 @@ def test_configs_round_trip_from_reference_dicts():
 
 
 @pytest.mark.parametrize("knob,item", [
-    (dict(ragged=True), "item 7"),
-    (dict(factor_dtype="bfloat16"), "item 7"),
-    (dict(autotune="on"), "item 13"),
-    (dict(alias_io=True), "item 7"),
+    (dict(ragged=True), "§1 item 3"),
+    (dict(factor_dtype="bfloat16"), "§1 item 3"),
+    (dict(autotune="on"), "§1 item 11"),
+    (dict(alias_io=True), "§1 item 3"),
 ])
 def test_converter_refuses_unported_experimental_knobs(knob, item):
     d = dataclasses.asdict(nmfx.SolverConfig(
