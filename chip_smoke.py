@@ -20,9 +20,19 @@ Phases (any failure exits non-zero; nothing is caught):
      pair (fused_h_update, lane_gram, fused_w_update) against one
      iteration of the phased block kernel, Hp and Wp byte-equal, at the
      block pools and the per-rank route's north-star pools (k = 10 and
-     k = 3, whose rows are not 16-byte aligned);
+     k = 3, whose rows are not 16-byte aligned); then each kernel's
+     options (phase_option_parity): bf16 operands in rows 1-5 (the pair
+     also byte-equal to one bf16 block iteration; the block kernels held
+     to float64 as close as their float32 plain versions), bf16 pool
+     factors ("bfloat16", "bfloat16_w") in rows 3-5, segment ids of a
+     ragged class-blocked pool in rows 3-4 (the north star's and one at
+     1237x77; iota // k byte-equal to the k-only launch), alias_io in
+     rows 3-5 and block_m None / 128 / 256, each byte-equal to the
+     default launch;
   3. kernel timing (CUDA events, median of 25 after warm-up) beside the
-     plain version, a torch.matmul composite and the card's bound;
+     plain version, a torch.matmul composite and the card's bound, also
+     for the option variants the option paths run (a bf16 variant's
+     bound counts A at 2 bytes and the bf16 tensor-core peak);
   4. the main paths, each with every kernel's launch count set to 0 just
      before it and read just after, on the 5000x500 two-group matrix,
      ks 2..10, 50 restarts:
@@ -44,6 +54,14 @@ Phases (any failure exits non-zero; nothing is caught):
         sequential byte-equal, device and host the same best k and k = 2
         memberships; then the native linkage and cutree against numpy's
         on the run's n = 500 consensus matrices, byte-equal, both timed;
+     f. the options (phase_option_paths), each beside the float32 run of
+        its route: the whole grid, the per-rank route and hals under
+        matmul_precision "bfloat16", the grid with factor_dtype
+        "bfloat16_w", the ragged class-blocked pool (its per-job
+        iterations and stops equal to a uniform check_block = 1 run's)
+        and alias_io with block_m 256 (byte-equal to a); then the 200x24
+        input under each option (and factor_dtype "bfloat16") on the
+        card and on the CPU: the same iterations, stops and memberships;
      the main grid lines split each wall by the profiler's phases;
   5. agreement: the bundled 1000x40 design (best k must be 2) on both
      routes and with hals, a small input on the card and on the CPU
@@ -376,29 +394,34 @@ def check_padding(torch, name, got, wp, hp, frz, m, k, short_k):
         raise AssertionError(f"{name}: a zero-padded component changed")
 
 
-#: HALS kernel against the float64 plain version: its max abs error per
+#: a kernel against the float64 plain version: its max abs error per
 #: output at most HALS_FACTOR times the float32 plain version's own
 HALS_FACTOR = 4.0
 
 
-def check_hals(torch, name, got, plain, exact):
-    """The HALS kernel (``got``) and its float32 plain version
-    (``plain``) against the float64 plain version (``exact``) on the same
-    inputs. The coordinate sweep divides cancelling differences by the
-    lanes' Gram diagonals, so from a random start float32 itself is far
-    from exact (rtol 1e-4 fails for the plain version too); the kernel
-    must be as close to exact as the plain version: max|got - exact| <=
-    HALS_FACTOR * max|plain - exact| + ATOL_REL * max|exact|, and every
-    entry exactly zero in one of got and exact but not the other within
-    that bound of zero. Returns (max|got - plain|, max|got - exact|,
-    max|plain - exact|, entries whose zero-ness differs from exact)."""
+def check_exact(torch, name, got, plain, exact, atol_rel=ATOL_REL):
+    """A kernel (``got``) and its float32 plain version (``plain``)
+    against the float64 plain version (``exact``) on the same inputs,
+    where float32 itself is far from exact: HALS, whose coordinate sweep
+    divides cancelling differences by the lanes' Gram diagonals (rtol
+    1e-4 fails for the plain version too), and the bf16 variants of the
+    block kernels, where a float32 sum that straddles a bf16 rounding
+    boundary moves an operand by a whole bf16 ulp and the iterations
+    carry it on (the float32 plain version is 1 % off float64 after 8
+    iterations). The kernel must be as close to exact as the plain
+    version: max|got - exact| <= HALS_FACTOR * max|plain - exact| +
+    atol_rel * max|exact| (ATOL_REL, or POOL_ULP for bf16 pool factors),
+    and every entry exactly zero in one of got and
+    exact but not the other within that bound of zero. Returns (max|got -
+    plain|, max|got - exact|, max|plain - exact|, entries whose zero-ness
+    differs from exact)."""
     torch.cuda.synchronize()
     exact = exact.float()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: non-finite kernel output")
     e_k = (got - exact).abs().max().item()
     e_p = (plain - exact).abs().max().item()
-    bound = HALS_FACTOR * e_p + ATOL_REL * exact.abs().max().item()
+    bound = HALS_FACTOR * e_p + atol_rel * exact.abs().max().item()
     flip = (got == 0) != (exact == 0)
     if e_k > bound or (flip & ((got.abs() > bound)
                                | (exact.abs() > bound))).any():
@@ -411,7 +434,7 @@ def check_hals(torch, name, got, plain, exact):
 def phase_hals_parity(torch, fm):
     """hals_block_iterations against its plain version in float32 and
     float64 at the HALS block cases, check_block 1 and 4 (see
-    check_hals); frozen lanes, padded rows and padded components
+    check_exact); frozen lanes, padded rows and padded components
     bit-equal. Returns the north-star max abs error against the float32
     plain version."""
     ns_err = 0.0
@@ -429,7 +452,7 @@ def phase_hals_parity(torch, fm):
             exact = fm.hals_block_iterations_ref(
                 *(x.double() for x in (a, wp, hp, frz)),
                 budget_cols=budget.double() if nck > 1 else None, **kw)
-            res = [check_hals(torch, f"hals_block_iterations[{label}, "
+            res = [check_exact(torch, f"hals_block_iterations[{label}, "
                                      f"check_block={nck}].{o}", g, p, x)
                    for o, g, p, x in zip(BLOCK_OUTPUTS, got, plain, exact)]
             check_padding(torch, f"hals_block_iterations[{label}]", got, wp,
@@ -531,20 +554,36 @@ def bounds(m, n, rk, k, rates):
     return out
 
 
-def block_bound(m, n, rk, k, iters, nck, rates):
-    """The same for fused_block_iterations with no lane frozen (every
-    lane does all iters * nck iterations): inputs A, Wp, Hp, frozen and
-    budget read once; outputs Wp, Hp, the 4 stat arrays and h_checks
-    written once; per iteration the two numerators, the diagonal-block
-    Grams, the denominators and the epilogues."""
+def block_bytes(m, n, rk, nck, a_bytes=4, w_bytes=4, h_bytes=4):
+    """Bytes of one block launch: A, Wp, Hp, frozen and budget read once;
+    Wp, Hp, the 4 stat arrays and h_checks written once (h_checks counted
+    at every check_block, as since PR 2)."""
+    return (a_bytes * m * n + 2 * w_bytes * m * rk + 2 * h_bytes * rk * n
+            + 4 * (2 * rk + 4 * nck * rk + nck * rk * n))
+
+
+def block_ops(m, n, rk, kk, iters, nck):
+    """Operations of iters * nck MU iterations with no lane frozen: the
+    two numerators, the diagonal-block Grams, the denominators and the
+    epilogues; kk = the sum over columns of their segment's width (rk * k
+    for the uniform pool)."""
+    per_it = (2 * m * n * rk + 2 * m * kk + 2 * n * kk + 5 * rk * n
+              + 2 * n * kk + 2 * m * n * rk + 2 * m * kk + 5 * m * rk)
+    return iters * nck * per_it
+
+
+def bound_of(nbytes, ops, rates):
+    """(ms, "bytes" or "operations"): the larger of the two least times."""
     flops, bw = rates
-    nbytes = 4 * (m * n + 2 * m * rk + 2 * rk * n + 2 * rk + 4 * nck * rk
-                  + nck * rk * n)
-    per_it = (2 * m * n * rk + 2 * m * rk * k + 2 * rk * n * k + 5 * rk * n
-              + 2 * rk * n * k
-              + 2 * m * n * rk + 2 * m * rk * k + 5 * m * rk)
-    tb, to = nbytes / bw * 1e3, iters * nck * per_it / flops * 1e3
+    tb, to = nbytes / bw * 1e3, ops / flops * 1e3
     return max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def block_bound(m, n, rk, k, iters, nck, rates):
+    """The least time of fused_block_iterations with no lane frozen
+    (every lane does all iters * nck iterations)."""
+    return bound_of(block_bytes(m, n, rk, nck),
+                    block_ops(m, n, rk, rk * k, iters, nck), rates)
 
 
 def library_hals(torch, a, wp, hp, k, iters, nck):
@@ -587,17 +626,19 @@ def library_hals(torch, a, wp, hp, k, iters, nck):
             torch.cat(hm)[:, None], torch.stack(hck))
 
 
-def hals_bound(m, n, rk, k, iters, nck, rates):
-    """The least time of hals_block_iterations, as block_bound counts it:
-    the same bytes; per iteration the two numerators, the diagonal-block
-    Grams and the two k-step sweeps (2k + 4 operations a factor entry)."""
-    flops, bw = rates
-    nbytes = 4 * (m * n + 2 * m * rk + 2 * rk * n + 2 * rk + 4 * nck * rk
-                  + nck * rk * n)
+def hals_ops(m, n, rk, k, iters, nck):
+    """Operations of iters * nck HALS iterations: the two numerators, the
+    diagonal-block Grams and the two k-step sweeps (2k + 4 operations a
+    factor entry)."""
     per_it = (2 * m * n * rk + 2 * m * rk * k + rk * n * (2 * k + 4)
               + 2 * rk * n * k + 2 * m * n * rk + m * rk * (2 * k + 4))
-    tb, to = nbytes / bw * 1e3, iters * nck * per_it / flops * 1e3
-    return max(tb, to), "bytes" if tb >= to else "operations"
+    return iters * nck * per_it
+
+
+def hals_bound(m, n, rk, k, iters, nck, rates):
+    """The least time of hals_block_iterations, as block_bound counts it."""
+    return bound_of(block_bytes(m, n, rk, nck),
+                    hals_ops(m, n, rk, k, iters, nck), rates)
 
 
 def phase_block_timing(torch, fm, rates):
@@ -921,7 +962,7 @@ def phase_hals_path(torch, fm):
     if bad:
         raise AssertionError(f"hals pallas vs dense outside the band "
                              f"(mean|dC|*R <= 0.6, flips <= 0.1): {bad}")
-    return launches
+    return launches, res, wall
 
 
 def same_bytes(x, y) -> bool:
@@ -1073,11 +1114,11 @@ def phase_per_rank_path(torch, fm, grid):
             raise AssertionError(
                 f"{name} launched {launches[name]} times on the per-rank "
                 f"route; the ranks' longest lanes need {need}")
+    wall = sum(w for w, _ in ranks.values())
     print(f"main per-rank launches {launches} (sum over ranks of the "
-          f"longest lane: {need}); sweep wall "
-          f"{sum(w for w, _ in ranks.values()):.3f} s", flush=True)
+          f"longest lane: {need}); sweep wall {wall:.3f} s", flush=True)
     print(res.summary(), flush=True)
-    return launches
+    return launches, res, wall
 
 
 def phase_checks(torch, fm):
@@ -1445,6 +1486,667 @@ def phase_solvers(torch, fm):
         raise AssertionError("als on the packed grid: non-finite output")
 
 
+# --- the kernels' options (bf16 operands, bf16 pool factors, segment
+# ids, alias_io, block_m) ----------------------------------------------
+
+BF16 = "bfloat16"
+#: one call of a bf16-operand pair kernel (rows 1-2) against its plain
+#: version: both round the same float32 values to bf16, except where
+#: the two float32 sums feeding an operand (a Gram entry) straddle a bf16
+#: rounding boundary; such an operand moves by one bf16 ulp (2^-8) and an
+#: output by a small fraction of it: elementwise rtol 2e-3 (half an ulp)
+#: + ATOL_REL. The block kernels' bf16 variants iterate, which carries
+#: such moves on: they are held to float64 (check_exact)
+BF16_RTOL = 2e-3
+#: bf16 pool factors: where float32 and float64 round a stored factor the
+#: same way, a kernel's float32 update that straddles the boundary stores
+#: the neighbouring bf16 value, one ulp (at most 2^-7 of it) away, so
+#: check_exact allows one ulp at the output's largest magnitude
+POOL_ULP = 2.0 ** -7
+#: the tolerated bf16 bound's peak: dense bf16 tensor-core FLOP/s of an
+#: H100 SXM (NVIDIA's data sheet, without sparsity); the bf16 variants run
+#: on the CUDA cores in float32, so this is the least time the card could
+#: take for the work, not what these kernels aim at
+BF16_PEAK = 989e12
+
+
+def check_band(torch, name, got, want, rtol):
+    """check_close with another rtol (bf16 operands or pool factors)."""
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = (got - want).abs()
+    tol = rtol * want.abs() + ATOL_REL * want.abs().max()
+    if (err > tol).any():
+        raise AssertionError(
+            f"{name}: max abs err {err.max().item():.3e} exceeds rtol={rtol} "
+            f"atol={ATOL_REL}*max|ref|")
+    return err.max().item(), (err / want.abs().clamp(min=1e-30)).max().item()
+
+
+def byte_equal(torch, xs, ys) -> bool:
+    torch.cuda.synchronize()
+    return len(xs) == len(ys) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.view(torch.int16 if x.element_size() == 2
+                               else torch.int32),
+                        y.view(torch.int16 if y.element_size() == 2
+                               else torch.int32))
+        for x, y in zip(xs, ys))
+
+
+def ragged_pool(torch, m, n, job_ks, budget, seed):
+    """A ragged class-blocked pool as the scheduler lays it out: the
+    segment ids of _ragged_layout's classes over ``job_ks`` within
+    ``budget`` columns, and block_operands-style inputs at that width."""
+    from nmfx_torch.ops.sched_mu import _pallas_block_geometry, _ragged_layout
+
+    layout = _ragged_layout(job_ks, budget, max_iter=10000)
+    widths = np.concatenate([np.full(c.slots, c.k) for c in layout])
+    seg = np.repeat(np.arange(widths.size, dtype=np.int32), widths)
+    rk = int(widths.sum())
+    a, wp, hp = operands(torch, m, n, rk, 1, seed)
+    m_pad = _pallas_block_geometry(m)[2]
+    a = torch.nn.functional.pad(a, (0, 0, 0, m_pad - m))
+    wp = torch.nn.functional.pad(wp, (0, 0, 0, m_pad - m))
+    frz = torch.zeros((1, rk), device="cuda")
+    frz[0, torch.as_tensor(seg == 3, device="cuda")] = 1.0
+    return a, wp, hp, frz, seg, int(widths.max())
+
+
+#: ragged pools: the north star's class-major columns for ks 2..10 (50
+#: restarts each) in the uniform pool's 480 columns, and a mixed layout
+#: at the ragged 1237 x 77 shape
+RAGGED_CASES = (
+    ("north-star", 5000, 500, tuple(k for k in KS[::-1] for _ in range(50)),
+     SLOTS * 10),
+    ("ragged", 1237, 77, (7,) * 3 + (5,) * 4 + (3,) * 6 + (2,) * 5, 60),
+)
+
+
+def phase_option_parity(torch, fm):
+    """Every kernel under each option it takes, against its plain version
+    on the same inputs: bf16 operands in rows 1-5 (the per-iteration pair
+    also byte-equal to one bf16 block iteration), bf16 pool factors in
+    rows 3-5, segment ids in rows 3-4 (the north star's class-major pool
+    and a mixed one at 1237 x 77; iota // k byte-equal to the k-only
+    launch; the join-the-updates order byte-equal to the phased one),
+    alias_io in rows 3-5 and block_m None / 128 / 256 byte-equal to the
+    default launch. Returns the north-star max abs errors of the variants
+    the main paths run."""
+    errs = {}
+
+    def exact_line(res):
+        return ", ".join(f"{o} {r[0]:.3e} / {r[1]:.3e} / {r[2]:.3e}"
+                         for o, r in zip(BLOCK_OUTPUTS, res))
+
+    def against_exact(name, got, fn, a, wp, hp, frz, budget=None, **kw):
+        """check_exact of every output: fn (a plain version) in float32
+        and in float64, the pool's bf16 storage kept."""
+        pool = {torch.bfloat16: "bfloat16_w"}.get(wp.dtype)
+        if hp.dtype == torch.bfloat16:
+            pool = "bfloat16"
+        plain = fn(a, wp, hp, frz, budget_cols=budget, **kw)
+        exact = fn(a.double(), wp.double(), hp.double(), frz.double(),
+                   budget_cols=None if budget is None else budget.double(),
+                   factor_dtype=pool, **kw)
+        tol = ATOL_REL if pool is None else POOL_ULP
+        return [check_exact(torch, f"{name}.{o}", g.float(), p.float(),
+                            x.double(), tol)
+                for o, g, p, x in zip(BLOCK_OUTPUTS, got, plain, exact)]
+
+    for label, m, n, r, k in (("per-rank north-star", 5040, 500, 50, 10),
+                              ("ragged", 1237, 77, 13, 3)):
+        a, wp, hp = operands(torch, m, n, r, k, seed=11)
+        ab = a.to(torch.bfloat16)
+        want_h = fm.fused_h_update_ref(a, wp, hp, k=k, matmul_precision=BF16)
+        eh = check_band(torch, f"fused_h_update[bf16, {label}]",
+                        fm.fused_h_update(ab, wp, hp, k=k,
+                                          matmul_precision=BF16),
+                        want_h, BF16_RTOL)
+        gh = fm.lane_gram_ref(want_h, k=k, matmul_precision=BF16)
+        eg = check_band(torch, f"lane_gram[bf16, {label}]",
+                        fm.lane_gram(want_h, k=k, matmul_precision=BF16), gh,
+                        BF16_RTOL)
+        want_w = fm.fused_w_update_ref(a, wp, want_h, gh, k=k,
+                                       matmul_precision=BF16)
+        ew = check_band(torch, f"fused_w_update[bf16, {label}]",
+                        fm.fused_w_update(ab, wp, want_h, gh, k=k,
+                                          matmul_precision=BF16),
+                        want_w, BF16_RTOL)
+        print(f"options parity bf16 operands {label} m={m} n={n} R={r} "
+              f"k={k}: fused_h_update max abs {eh[0]:.3e} rel {eh[1]:.3e}; "
+              f"lane_gram {eg[0]:.3e} rel {eg[1]:.3e}; fused_w_update "
+              f"{ew[0]:.3e} rel {ew[1]:.3e} (rtol={BF16_RTOL}, "
+              f"atol={ATOL_REL}*max|ref|)", flush=True)
+        if label.endswith("north-star"):
+            errs["fused_h_update[bf16]"] = eh[0]
+            errs["fused_w_update[bf16]"] = ew[0]
+    for label, m, n, slots, k, opts in MU_BLOCK_CASES + PAIR_CASES:
+        a, wp, hp, frz, _ = block_operands(
+            torch, m, n, slots, k, seed=6,
+            **{key: opts[key] for key in ("zeros", "pad", "short_k")
+               if key in opts})
+        ab = a.to(torch.bfloat16)
+        h = fm.fused_h_update(ab, wp, hp, k=k, matmul_precision=BF16)
+        w = fm.fused_w_update(ab, wp, h, fm.lane_gram(
+            h, k=k, matmul_precision=BF16), k=k, matmul_precision=BF16)
+        want = fm.fused_block_iterations(ab, wp, hp, frz, k=k, iters=1,
+                                         matmul_precision=BF16)
+        if not byte_equal(torch, (w, h), want[:2]):
+            raise AssertionError(f"bf16 pair [{label}]: Hp or Wp differs "
+                                 "from one bf16 block iteration's")
+        print(f"options parity bf16 pair == block iteration [{label} "
+              f"m={a.shape[0]} n={n} R={slots} k={k}]: byte-equal",
+              flush=True)
+
+    kw = dict(iters=CHECK_EVERY, check_block=CHECK_BLOCK)
+    for label, m, n, slots, k, opts in MU_BLOCK_CASES:
+        a, wp, hp, frz, budget = block_operands(torch, m, n, slots, k,
+                                                seed=3, **opts)
+        ab = a.to(torch.bfloat16)
+        got = fm.fused_block_iterations(ab, wp, hp, frz, k=k,
+                                        budget_cols=budget,
+                                        matmul_precision=BF16, **kw)
+        res = against_exact(f"fused_block_iterations[bf16, {label}]", got,
+                            fm.fused_block_iterations_ref, a, wp, hp, frz,
+                            budget, k=k, matmul_precision=BF16, **kw)
+        check_padding(torch, f"fused_block_iterations[bf16, {label}]", got,
+                      wp, hp, frz, m, k, opts.get("short_k"))
+        fused = fm.fused_block_iterations(ab, wp, hp, frz, k=k, fused=True,
+                                          budget_cols=budget,
+                                          matmul_precision=BF16, **kw)
+        if not byte_equal(torch, fused, got):
+            raise AssertionError(f"bf16 fused[{label}]: not byte-equal to "
+                                 "the phased kernel")
+        print(f"options parity fused_block_iterations bf16 operands {label} "
+              f"m={a.shape[0]} n={n} slots={slots} k={k}: max abs against "
+              "the float32 plain version / kernel against float64 / plain "
+              f"against float64: {exact_line(res)}; fused=True byte-equal "
+              "to phased; frozen lanes and padded rows bit-equal",
+              flush=True)
+        if label == "north-star":
+            errs["fused_block_iterations[bf16]"] = max(x[0] for x in res)
+        # bf16 pool factors, one launch of 2 iterations
+        for pool in ("bfloat16_w", "bfloat16"):
+            wq = wp.to(torch.bfloat16)
+            hq = hp.to(torch.bfloat16) if pool == "bfloat16" else hp
+            pk = dict(k=k, iters=CHECK_EVERY)
+            got = fm.fused_block_iterations(a, wq, hq, frz, **pk)
+            if got[0].dtype != torch.bfloat16 or got[1].dtype != hq.dtype:
+                raise AssertionError(f"{pool}: outputs not in the pool's "
+                                     "dtypes")
+            res = against_exact(f"fused_block_iterations[{pool}, {label}]",
+                                got, fm.fused_block_iterations_ref, a, wq,
+                                hq, frz, **pk)
+            fused = fm.fused_block_iterations(a, wq, hq, frz, fused=True,
+                                              **pk)
+            if not byte_equal(torch, fused, got):
+                raise AssertionError(f"{pool} fused[{label}]: not "
+                                     "byte-equal to the phased kernel")
+            print(f"options parity fused_block_iterations {pool} {label}: "
+                  "max abs against the float32 plain version / kernel "
+                  f"against float64 / plain against float64: "
+                  f"{exact_line(res)}; fused=True byte-equal to phased",
+                  flush=True)
+            if label == "north-star" and pool == "bfloat16_w":
+                errs["fused_block_iterations[bfloat16_w]"] = max(
+                    x[0] for x in res)
+        # alias_io: byte-equal to the unaliased launch, in place; block
+        # kernels of an odd iteration count copy the input first
+        for total in ((CHECK_EVERY, CHECK_BLOCK), (3, 1)):
+            ak = dict(k=k, iters=total[0], check_block=total[1],
+                      budget_cols=budget if total[1] > 1 else None)
+            plain = fm.fused_block_iterations(a, wp, hp, frz, **ak)
+            for fused in (False, True):
+                w2, h2 = wp.clone(), hp.clone()
+                got = fm.fused_block_iterations(a, w2, h2, frz, fused=fused,
+                                                alias_io=True, **ak)
+                if not (got[0] is w2 and got[1] is h2
+                        and byte_equal(torch, got, plain)):
+                    raise AssertionError(f"alias_io[{label}, fused={fused},"
+                                         f" {total}]: not byte-equal in "
+                                         "place")
+        print(f"options parity fused_block_iterations alias_io {label}: "
+              "both orders, 8 and 3 iterations, in place and byte-equal to "
+              "the unaliased launch", flush=True)
+        # iota // k segment ids: the k-only launch's chains
+        seg = np.arange(slots * k) // k
+        plain = fm.fused_block_iterations(a, wp, hp, frz, k=k,
+                                          budget_cols=budget, **kw)
+        for fused in (False, True):
+            got = fm.fused_block_iterations(a, wp, hp, frz, k=k,
+                                            budget_cols=budget, seg_ids=seg,
+                                            fused=fused, **kw)
+            if not byte_equal(torch, got, plain):
+                raise AssertionError(f"seg_ids iota//k [{label}, fused="
+                                     f"{fused}]: not byte-equal to k-only")
+        print(f"options parity fused_block_iterations seg_ids iota//k "
+              f"{label}: both orders byte-equal to the k-only launch",
+              flush=True)
+
+    for label, m, n, job_ks, budget_cols in RAGGED_CASES:
+        a, wp, hp, frz, seg, kmax = ragged_pool(torch, m, n, job_ks,
+                                                budget_cols, seed=7)
+        for mp in ("default", BF16):
+            sk = dict(k=kmax, iters=CHECK_EVERY, seg_ids=seg,
+                      matmul_precision=mp)
+            got = fm.fused_block_iterations(a, wp, hp, frz, **sk)
+            if mp == BF16:
+                res = against_exact(f"fused_block_iterations[seg_ids, bf16,"
+                                    f" {label}]", got,
+                                    fm.fused_block_iterations_ref, a, wp, hp,
+                                    frz, **sk)
+                e = [x[0] for x in res]
+            else:
+                want = fm.fused_block_iterations_ref(a, wp, hp, frz, **sk)
+                e = [check_close(torch, f"fused_block_iterations[seg_ids, "
+                                 f"{label}].{o}", g, w_, True)[0]
+                     for o, g, w_ in zip(BLOCK_OUTPUTS, got, want)]
+            cols = frz[0] > 0
+            if not (torch.equal(got[0][:, cols], wp[:, cols])
+                    and torch.equal(got[1][cols], hp[cols])):
+                raise AssertionError(f"seg_ids[{label}]: a frozen job "
+                                     "changed")
+            fused = fm.fused_block_iterations(a, wp, hp, frz, fused=True,
+                                              **sk)
+            if not byte_equal(torch, fused, got):
+                raise AssertionError(f"seg_ids fused[{label}, {mp}]: not "
+                                     "byte-equal to the phased kernel")
+            how = ("against the plain version" if mp == "default" else
+                   "against the float32 plain version (float64 rule)")
+            print(f"options parity fused_block_iterations seg_ids {label} "
+                  f"m={a.shape[0]} n={n} rk={wp.shape[1]} segments "
+                  f"{int(seg.max()) + 1} (widths <= {kmax}), {mp} "
+                  f"operands: max abs {how} "
+                  + ", ".join(f"{o} {x:.3e}"
+                              for o, x in zip(BLOCK_OUTPUTS, e))
+                  + "; frozen job bit-equal; fused=True byte-equal to "
+                  "phased", flush=True)
+            if label == "north-star" and mp == "default":
+                errs["fused_block_iterations[seg_ids]"] = max(e)
+
+    for label, m, n, slots, k, opts in HALS_BLOCK_CASES:
+        a, wp, hp, frz, budget = block_operands(torch, m, n, slots, k,
+                                                seed=5, **opts)
+        ab = a.to(torch.bfloat16)
+        hk = dict(k=k, slots=slots, iters=CHECK_EVERY)
+        variants = {"bf16": (ab, wp, hp, dict(matmul_precision=BF16)),
+                    "bfloat16_w": (a, wp.to(torch.bfloat16), hp, {}),
+                    "bfloat16": (a, wp.to(torch.bfloat16),
+                                 hp.to(torch.bfloat16), {})}
+        for name, (av, wv, hv, okw) in variants.items():
+            got = fm.hals_block_iterations(av, wv, hv, frz, **hk, **okw)
+            plain = fm.hals_block_iterations_ref(a, wv, hv, frz, **hk, **okw)
+            # float64, the pool's bf16 storage rounding kept
+            pool = None if name == "bf16" else name
+            exact = fm.hals_block_iterations_ref(
+                a.double(), wv.double(), hv.double(), frz.double(),
+                factor_dtype=pool, **hk, **okw)
+            tol = ATOL_REL if pool is None else POOL_ULP
+            res = [check_exact(torch, f"hals_block_iterations[{name}, "
+                                      f"{label}].{o}", g.float(), p.float(),
+                               x.double(), tol)
+                   for o, g, p, x in zip(BLOCK_OUTPUTS, got, plain, exact)]
+            print(f"options parity hals_block_iterations {name} {label} "
+                  f"m={a.shape[0]} n={n} slots={slots} k={k}: max abs "
+                  "against the float32 plain version / kernel against "
+                  "float64 / plain against float64: "
+                  + ", ".join(f"{o} {r[0]:.3e} / {r[1]:.3e} / {r[2]:.3e}"
+                              for o, r in zip(BLOCK_OUTPUTS, res)),
+                  flush=True)
+            if label == "north-star" and name == "bf16":
+                errs["hals_block_iterations[bf16]"] = max(r[0] for r in res)
+        w2, h2 = wp.clone(), hp.clone()
+        plain = fm.hals_block_iterations(a, wp, hp, frz, **hk)
+        got = fm.hals_block_iterations(a, w2, h2, frz, alias_io=True, **hk)
+        if not (got[0] is w2 and byte_equal(torch, got, plain)):
+            raise AssertionError(f"hals alias_io[{label}]: not byte-equal")
+        print(f"options parity hals_block_iterations alias_io {label}: in "
+              "place, byte-equal to the unaliased launch", flush=True)
+
+    # block_m: only m_pad changes; the first m rows, H and the stats are
+    # byte-equal, the padded rows zero
+    from nmfx_torch.ops.sched_mu import _pallas_block_geometry
+
+    for m, n, slots, k in ((1237, 77, 13, 3), (5000, 500, SLOTS, 10)):
+        a, wp, hp, frz, budget = block_operands(torch, m, n, slots, k,
+                                                seed=8, pad=False)
+        outs = {}
+        for bm in (None, 128, 256):
+            m_pad = _pallas_block_geometry(m, bm)[2]
+            ap = torch.nn.functional.pad(a, (0, 0, 0, m_pad - m))
+            wpp = torch.nn.functional.pad(wp, (0, 0, 0, m_pad - m))
+            got = fm.fused_block_iterations(ap, wpp, hp, frz, k=k,
+                                            budget_cols=budget, **kw)
+            outs[bm] = (m_pad, (got[0][:m],) + tuple(got[1:]))
+            if not (got[0][m:] == 0).all():
+                raise AssertionError(f"block_m={bm}: a padded row changed")
+        same = all(byte_equal(torch, outs[bm][1], outs[None][1])
+                   for bm in (128, 256))
+        print(f"options parity block_m m={m} n={n} slots={slots} k={k}: "
+              f"m_pad {[outs[bm][0] for bm in outs]} for block_m "
+              f"{list(outs)}; byte-equal: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"block_m at m={m}: results differ")
+    return errs
+
+
+#: the north-star paths of the options, each beside the float32 run of
+#: the same route: (label, base route, SolverConfig keywords, grid_exec,
+#: variant the path must launch)
+OPTION_PATHS = (
+    ("grid bf16", "grid", dict(backend="pallas", matmul_precision=BF16),
+     "auto", "fused_block_iterations[bf16]"),
+    ("per-rank bf16", "per_k", dict(backend="pallas",
+                                    matmul_precision=BF16), "per_k",
+     "fused_h_update[bf16]"),
+    ("hals grid bf16", "hals", dict(backend="pallas", algorithm="hals",
+                                    matmul_precision=BF16), "auto",
+     "hals_block_iterations[bf16]"),
+    ("grid factor_dtype bfloat16_w", "grid", dict(
+        backend="pallas", experimental=dict(factor_dtype="bfloat16_w")),
+     "auto", "fused_block_iterations[bfloat16_w]"),
+    ("grid ragged", "uniform cb1", dict(
+        backend="pallas", check_block=1, experimental=dict(ragged=True)),
+     "auto", "fused_block_iterations[seg_ids]"),
+    ("grid alias_io block_m 256", "grid", dict(
+        backend="pallas", experimental=dict(alias_io=True, block_m=256)),
+     "auto", "fused_block_iterations[alias_io]"),
+)
+
+
+def solver_cfg(nmfx_torch, kw):
+    kw = dict(kw)
+    if "experimental" in kw:
+        kw["experimental"] = nmfx_torch.ExperimentalConfig(
+            **kw["experimental"])
+    return nmfx_torch.SolverConfig(**kw)
+
+
+def same_jobs(x, y) -> bool:
+    return all(np.array_equal(x.per_k[k].iterations, y.per_k[k].iterations)
+               and np.array_equal(x.per_k[k].stop_reasons,
+                                  y.per_k[k].stop_reasons) for k in x.ks)
+
+
+def pool_factors(kw) -> bool:
+    return "factor_dtype" in kw.get("experimental", {})
+
+
+def check_pool_sweep(res, label, n, max_iter=10_000):
+    """A sweep with bf16 pool factors, held as nmfx holds its own
+    (tests/test_sched_mu.py): finite, iterations within the cap and stop
+    reasons of the rule set (the factors come back float32: the CPU
+    tests check it). Its labels may freeze at a bf16
+    fixed point, which moves best k in nmfx too (best k 3 under
+    "bfloat16" at 300 x 20, ks 2..4, in nmfx and in the port, PERF.md
+    §6), so best k is reported, not gated."""
+    check_finite(res, label, n)
+    for k in res.ks:
+        kr = res.per_k[k]
+        if kr.iterations.max() > max_iter or not set(
+                kr.stop_reasons.tolist()) <= {0, 1, 2, 3}:
+            raise AssertionError(f"{label} k={k}: iterations or stop "
+                                 "reasons out of range")
+
+
+def phase_option_paths(torch, fm, base):
+    """nmfconsensus at the north star under each option (OPTION_PATHS),
+    with every launch count set to 0 just before each run: wall, trips,
+    host syncs, launches, per-k mean iterations beside the float32 run of
+    the same route (``base``: route -> (result, wall)), best k (2 on
+    every path but the bf16 pool factors', held as nmfx holds them:
+    check_pool_sweep). The ragged run's per-job iterations and stop
+    reasons must equal a uniform check_block = 1 run's; alias_io with
+    block_m 256 must be byte-equal to the default grid. Then the 200 x 24
+    input under each option on the card and on the CPU: the same
+    iterations, stop reasons and memberships (bf16 pool factors: the same
+    best k and k = 2 memberships, a float32 sum straddling a bf16
+    boundary storing the neighbouring value on one of them; hals under
+    bf16 operands: the same stops and memberships, iterations may part).
+    Returns each path's variant launches."""
+    import nmfx_torch
+    from nmfx_torch.datasets import two_group_matrix
+
+    m, n, r, _ = NORTH_STAR
+    a = north_star_matrix()
+    base = dict(base)
+    t0 = time.perf_counter()
+    base["uniform cb1"] = (nmfx_torch.nmfconsensus(
+        a, ks=KS, restarts=r, solver_cfg=nmfx_torch.SolverConfig(
+            backend="pallas", check_block=1)), None)
+    torch.cuda.synchronize()
+    base["uniform cb1"] = (base["uniform cb1"][0], time.perf_counter() - t0)
+    variants = {}
+    for label, route, kw, grid_exec, variant in OPTION_PATHS:
+        seen = {}
+        syncs = []
+
+        def on_rank(k, out):
+            seen.setdefault("out", out)
+            syncs.append(out.host_syncs)
+
+        fm.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = nmfx_torch.nmfconsensus(
+            a, ks=KS, restarts=r, solver_cfg=solver_cfg(nmfx_torch, kw),
+            grid_exec=grid_exec, on_rank=on_rank)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {key: v for key, v in fm.LAUNCHES.items() if v}
+        if pool_factors(kw):
+            check_pool_sweep(res, label, n)
+        else:
+            check_sweep(res, label, n)
+        ref, ref_wall = base[route]
+        out = seen["out"]
+        host_syncs = out.host_syncs if grid_exec == "auto" else sum(syncs)
+        iters = {k: (round(float(res.per_k[k].iterations.mean()), 1),
+                     round(float(ref.per_k[k].iterations.mean()), 1))
+                 for k in res.ks}
+        equal = same_jobs(res, ref)
+        stops = {k: stop_counts(res.per_k[k]) for k in res.ks}
+        print(f"main option {label}: wall {wall:.3f} s (float32 {route} "
+              f"run {ref_wall:.3f} s), pool_widths {out.pool_widths}, "
+              f"pool_trips {out.pool_trips}, host syncs {host_syncs}, "
+              f"launches {launches}, best k {res.best_k} (rho "
+              f"{[round(float(x), 4) for x in res.rhos]}); per-job "
+              f"iterations and stop reasons equal to the {route} run "
+              f"{equal}; per k mean iterations (this, {route}) {iters}; "
+              f"stop reasons {stops}", flush=True)
+        if not launches.get(variant):
+            raise AssertionError(f"{label}: {variant} never launched")
+        if grid_exec == "auto" and "fused_block_iterations" in variant and \
+                launches.get("fused_block_iterations", 0) < sum(
+                    out.pool_trips):
+            raise AssertionError(f"{label}: fewer launches than trips")
+        if route == "uniform cb1" and not equal:
+            raise AssertionError("ragged pool: per-job iterations or stop "
+                                 "reasons differ from the uniform pool's")
+        if "alias_io" in variant and not (equal and all(
+                same_bytes(res.per_k[k].consensus, ref.per_k[k].consensus)
+                for k in res.ks)):
+            raise AssertionError("alias_io with block_m 256: not byte-equal "
+                                 "to the default grid")
+        variants[variant] = launches[variant]
+        if label == "per-rank bf16":
+            variants["fused_w_update[bf16]"] = launches[
+                "fused_w_update[bf16]"]
+
+    small = two_group_matrix(n_genes=200, n_per_group=12, seed=3)
+    for label, _, kw, grid_exec, _ in OPTION_PATHS + (
+            ("grid factor_dtype bfloat16", None, dict(
+                backend="pallas",
+                experimental=dict(factor_dtype="bfloat16")), "auto", None),):
+        kw = dict(kw, max_iter=200)
+        args = dict(ks=(2, 3), restarts=4, seed=5, grid_exec=grid_exec,
+                    solver_cfg=solver_cfg(nmfx_torch, kw))
+        gpu = nmfx_torch.nmfconsensus(small, **args)
+        cpu = nmfx_torch.nmfconsensus(small, device="cpu", **args)
+        for k in (2, 3):
+            g, c = gpu.per_k[k], cpu.per_k[k]
+            diff = float(np.abs(g.consensus - c.consensus).max())
+            if pool_factors(kw):
+                ok = gpu.best_k == cpu.best_k and (
+                    k != 2 or np.array_equal(g.membership, c.membership))
+            elif kw.get("algorithm") == "hals" and "matmul_precision" in kw:
+                # HALS divides cancelling differences by Gram diagonals,
+                # so a bf16 operand straddling a rounding boundary on one
+                # device moves a TolX check by a block: the same stops,
+                # memberships and consensus band, not the same iterations
+                ok = (np.array_equal(g.membership, c.membership)
+                      and np.array_equal(g.stop_reasons, c.stop_reasons)
+                      and diff <= 0.25)
+            else:
+                ok = (np.array_equal(g.membership, c.membership)
+                      and np.array_equal(g.iterations, c.iterations)
+                      and np.array_equal(g.stop_reasons, c.stop_reasons)
+                      and diff <= 0.25)
+            print(f"small 200x24 option {label} k={k}: card vs CPU "
+                  f"iterations equal "
+                  f"{np.array_equal(g.iterations, c.iterations)}, stop "
+                  f"reasons equal "
+                  f"{np.array_equal(g.stop_reasons, c.stop_reasons)}, "
+                  f"memberships equal "
+                  f"{np.array_equal(g.membership, c.membership)}, max |dC| "
+                  f"{diff:.3g}, best k {gpu.best_k} vs {cpu.best_k}",
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"small input, option {label}, k={k}: "
+                                     "card and CPU disagree")
+    return variants
+
+
+def bf16_rates(rates):
+    """The bound's rates for a bf16-operand variant: the bf16 dense
+    tensor-core peak beside the card's memory rate."""
+    return BF16_PEAK, rates[1]
+
+
+def library_masked(torch, a, wp, hp, mask, iters, nck):
+    """torch.matmul composite of the block iterations of a pool whose
+    Gram mask is ``mask`` (rk, rk): full products, masked."""
+    from nmfx_torch.solvers.mu import _mu_update
+
+    w, h = wp, hp
+    for _ in range(iters * nck):
+        g = torch.where(mask, w.T @ w, 0.0)
+        hn = _mu_update(h, w.T @ a, g @ h, 1e-9, 0.0)
+        gh = torch.where(mask, hn @ hn.T, 0.0)
+        w, h = _mu_update(w, a @ hn.T, w @ gh, 1e-9, 0.0), hn
+    return w, h
+
+
+def phase_option_timing(torch, fm, rates):
+    """The variants the option paths run, at the north-star shapes (CUDA
+    events, median of 25): kernel, plain version, a torch.matmul composite
+    of the same function on the same (bf16-rounded) inputs, and the bound
+    (bf16 operands: A at 2 bytes and the bf16 tensor-core peak; bf16 W: W
+    at 2 bytes; the ragged pool: its own columns and segment widths).
+    Returns {variant: (ms, plain, library, bound, by)}."""
+    table = {}
+
+    def row(name, label, kernel, plain, lib, bound):
+        ms = time_ms(torch, kernel)
+        pl = time_ms(torch, plain)
+        lb = time_ms(torch, lib)
+        table[name] = (ms, pl, lb, *bound)
+        print(f"timing {name} {label}: kernel {ms:.4f} ms, plain {pl:.4f} "
+              f"ms, library {lb:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]})", flush=True)
+
+    m, n, r, k = NORTH_STAR
+    a, wp, hp = operands(torch, m, n, r, k, seed=2)
+    ab = a.to(torch.bfloat16)
+    ar, wr, hr = (fm.round_bf16(x) for x in (a, wp, hp))
+    gh = fm.lane_gram_ref(hp, k=k, matmul_precision=BF16)
+    half = 2 * m * n  # A at 2 bytes, not 4
+    # bounds()'s bytes and operations, A at 2 bytes
+    h_ops = (2 * m * n * r * k + 2 * m * r * k * k + 2 * r * k * n * k
+             + 5 * r * k * n)
+    w_ops = 2 * m * n * r * k + 2 * m * r * k * k + 5 * m * r * k
+    row("fused_h_update[bf16]", f"m={m} n={n} R={r} k={k}",
+        lambda: fm.fused_h_update(ab, wp, hp, k=k, matmul_precision=BF16),
+        lambda: fm.fused_h_update_ref(a, wp, hp, k=k, matmul_precision=BF16),
+        lambda: library_h(torch, ar, wr, hr, k),
+        bound_of(4 * (m * n + m * r * k + 2 * r * k * n) - half, h_ops,
+                 bf16_rates(rates)))
+    row("fused_w_update[bf16]", f"m={m} n={n} R={r} k={k}",
+        lambda: fm.fused_w_update(ab, wp, hp, gh, k=k, matmul_precision=BF16),
+        lambda: fm.fused_w_update_ref(a, wp, hp, gh, k=k,
+                                      matmul_precision=BF16),
+        lambda: library_w(torch, ar, wr, hr, fm.round_bf16(gh), k),
+        bound_of(4 * (m * n + 2 * m * r * k + r * k * n + r * k * k) - half,
+                 w_ops, bf16_rates(rates)))
+
+    a, wp, hp, frz, budget = block_operands(torch, m, n, SLOTS, k, seed=4)
+    mp, rk = a.shape[0], SLOTS * k
+    ab = a.to(torch.bfloat16)
+    ar, wr, hr = (fm.round_bf16(x) for x in (a, wp, hp))
+    kw = dict(k=k, iters=CHECK_EVERY, check_block=CHECK_BLOCK,
+              budget_cols=budget)
+    label = f"m={mp} n={n} slots={SLOTS} k={k} (8 iterations)"
+    ops8 = block_ops(mp, n, rk, rk * k, CHECK_EVERY, CHECK_BLOCK)
+    row("fused_block_iterations[bf16]", label,
+        lambda: fm.fused_block_iterations(ab, wp, hp, frz,
+                                          matmul_precision=BF16, **kw),
+        lambda: fm.fused_block_iterations_ref(a, wp, hp, frz,
+                                              matmul_precision=BF16, **kw),
+        lambda: library_block(torch, ar, wr, hr, k, CHECK_EVERY,
+                              CHECK_BLOCK),
+        bound_of(block_bytes(mp, n, rk, CHECK_BLOCK, a_bytes=2), ops8,
+                 bf16_rates(rates)))
+    wq = wp.to(torch.bfloat16)
+    row("fused_block_iterations[bfloat16_w]", label,
+        lambda: fm.fused_block_iterations(a, wq, hp, frz, **kw),
+        lambda: fm.fused_block_iterations_ref(a, wq, hp, frz, **kw),
+        lambda: library_block(torch, a, wq.float(), hp, k, CHECK_EVERY,
+                              CHECK_BLOCK),
+        bound_of(block_bytes(mp, n, rk, CHECK_BLOCK, w_bytes=2), ops8,
+                 rates))
+    w2, h2 = wp.clone(), hp.clone()
+    row("fused_block_iterations[alias_io]", label,
+        lambda: fm.fused_block_iterations(a, w2, h2, frz, alias_io=True,
+                                          **kw),
+        lambda: fm.fused_block_iterations_ref(a, wp, hp, frz, **kw),
+        lambda: library_block(torch, a, wp, hp, k, CHECK_EVERY,
+                              CHECK_BLOCK),
+        bound_of(block_bytes(mp, n, rk, CHECK_BLOCK), ops8, rates))
+    hkw = dict(k=k, slots=SLOTS, iters=CHECK_EVERY)
+    row("hals_block_iterations[bf16]", f"m={mp} n={n} slots={SLOTS} k={k} "
+        "(2 iterations)",
+        lambda: fm.hals_block_iterations(ab, wp, hp, frz,
+                                         matmul_precision=BF16, **hkw),
+        lambda: fm.hals_block_iterations_ref(a, wp, hp, frz,
+                                             matmul_precision=BF16, **hkw),
+        lambda: library_hals(torch, ar, wr, hr, k, CHECK_EVERY, 1),
+        bound_of(block_bytes(mp, n, rk, 1, a_bytes=2),
+                 hals_ops(mp, n, rk, k, CHECK_EVERY, 1), bf16_rates(rates)))
+    # the ragged pool: the ragged path's launch (2 iterations, check-per-
+    # trip) over the north star's class-major columns
+    label_r, m_r, n_r, job_ks, budget_cols = RAGGED_CASES[0]
+    a, wp, hp, frz, seg, kmax = ragged_pool(torch, m_r, n_r, job_ks,
+                                            budget_cols, seed=9)
+    frz.zero_()
+    mp, rk = a.shape[0], wp.shape[1]
+    widths = np.bincount(seg)
+    mask = torch.as_tensor(seg[:, None] == seg[None, :], device="cuda")
+    row("fused_block_iterations[seg_ids]", f"m={mp} n={n_r} rk={rk} "
+        f"segments {widths.size} (2 iterations)",
+        lambda: fm.fused_block_iterations(a, wp, hp, frz, k=kmax,
+                                          iters=CHECK_EVERY, seg_ids=seg),
+        lambda: fm.fused_block_iterations_ref(a, wp, hp, frz, k=kmax,
+                                              iters=CHECK_EVERY,
+                                              seg_ids=seg),
+        lambda: library_masked(torch, a, wp, hp, mask, CHECK_EVERY, 1),
+        bound_of(block_bytes(mp, n_r, rk, 1),
+                 block_ops(mp, n_r, rk, int((widths ** 2).sum()),
+                           CHECK_EVERY, 1), rates))
+    return table
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -1488,19 +2190,30 @@ def main(argv=None) -> int:
     ns_err.update(phase_block_parity(torch, fm))
     phase_pair_equality(torch, fm)
     ns_err["hals_block_iterations"] = phase_hals_parity(torch, fm)
+    ns_err.update(phase_option_parity(torch, fm))
     if not args.quick:
         rates = peaks(kind)
         timing = phase_timing(torch, fm, rates)[NORTH_STAR[3]]
         timing.update(phase_block_timing(torch, fm, rates))
+        timing.update(phase_option_timing(torch, fm, rates))
+        # byte-equal to the unaliased launch (phase_option_parity), so
+        # its error against the plain version is the default launch's
+        ns_err["fused_block_iterations[alias_io]"] = ns_err[
+            "fused_block_iterations"]
         # each kernel's launches come from its own main path's run
         launches, phased, phased_wall = phase_grid_path(torch, fm)
         launches["fused_block_iterations_fused"] = phase_fused_grid_path(
             torch, fm, phased, phased_wall)["fused_block_iterations_fused"]
-        per_rank = phase_per_rank_path(torch, fm, phased)
+        per_rank, per_rank_res, per_rank_wall = phase_per_rank_path(
+            torch, fm, phased)
         for name in ("fused_h_update", "fused_w_update"):
             launches[name] = per_rank[name]
-        launches["hals_block_iterations"] = phase_hals_path(
-            torch, fm)["hals_block_iterations"]
+        hals_n, hals_res, hals_wall = phase_hals_path(torch, fm)
+        launches["hals_block_iterations"] = hals_n["hals_block_iterations"]
+        launches.update(phase_option_paths(
+            torch, fm, {"grid": (phased, phased_wall),
+                        "per_k": (per_rank_res, per_rank_wall),
+                        "hals": (hals_res, hals_wall)}))
         phase_host_tail(torch, fm)
         phase_checks(torch, fm)
         phase_profile(torch)
@@ -1511,7 +2224,15 @@ def main(argv=None) -> int:
                 ("fused_w_update", "block_mu.cu", 731),
                 ("fused_block_iterations", "block_mu.cu", 539),
                 ("fused_block_iterations_fused", "block_mu.cu", 382),
-                ("hals_block_iterations", "hals_block.cu", 984)):
+                ("hals_block_iterations", "hals_block.cu", 984),
+                # the option variants the option paths run
+                ("fused_h_update[bf16]", "block_mu.cu", 147),
+                ("fused_w_update[bf16]", "block_mu.cu", 731),
+                ("fused_block_iterations[bf16]", "block_mu.cu", 539),
+                ("fused_block_iterations[bfloat16_w]", "block_mu.cu", 539),
+                ("fused_block_iterations[seg_ids]", "block_mu.cu", 539),
+                ("fused_block_iterations[alias_io]", "block_mu.cu", 539),
+                ("hals_block_iterations[bf16]", "hals_block.cu", 984)):
             ms, plain, lib, bound, by = timing[name]
             kernels.append({
                 "name": name, "route": "cuda",

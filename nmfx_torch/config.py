@@ -8,10 +8,13 @@ sets one of them to a non-inert value.
 
 What the port runs is narrower than what validates: ``check_ported``
 raises ``NotImplementedError`` for a solver setting the port has no
-route for yet (the sketched engine, bf16 operands, float64 on the
-batched routes), and so does ``ExperimentalConfig`` for an experimental
-knob the port has not got; each message names the ROADMAP section and
-item that brings it.
+route for yet (the sketched engine, bf16 operands off the kernel routes,
+float64 on the batched routes), and so does ``ExperimentalConfig`` for
+an experimental knob the port has not got (the autotuner); each message
+names the ROADMAP section and item that brings it. The scheduler's own
+preconditions on the options it runs (ragged, factor_dtype, alias_io,
+block_m) raise ``ValueError`` in ``nmfx_torch.ops.sched_mu.mu_sched``,
+with the reference's words.
 """
 
 from __future__ import annotations
@@ -32,11 +35,9 @@ PACKED_ALGORITHMS = ("mu", "hals", "neals", "als", "snmf", "kl")
 PORTED_BACKENDS = ("auto", "vmap", "packed", "pallas")
 
 #: where the ROADMAP brings each refused setting ("Open items")
-ROADMAP_SCHEDULER = "ROADMAP §1 item 3, the scheduler's remaining options"
 ROADMAP_DTYPES = "ROADMAP §1 item 4, config and dtype remnants"
 ROADMAP_SCALE = "ROADMAP §1 item 10, scale engines"
 ROADMAP_TOOLING = "ROADMAP §1 item 11, tooling"
-ROADMAP_BF16 = "ROADMAP §2 item 6, bf16 operands"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,10 +45,13 @@ class ExperimentalConfig:
     """Measured-but-not-default opt-ins of the reference
     (``nmfx.ExperimentalConfig``), with its fields, defaults and
     validation. The port runs ``evict_batch`` (harvest hysteresis of the
-    slot scheduler) and ``fused_updates`` ("auto" and "phased": the phased
-    mu block kernel; "fused": the join-the-updates one); any other knob at
-    a non-default value raises ``NotImplementedError`` naming the ROADMAP
-    item that brings it. ``kl_bf16_quotient`` configures kl only
+    slot scheduler), ``fused_updates`` ("auto" and "phased": the phased
+    mu block kernel; "fused": the join-the-updates one), ``ragged`` (the
+    class-blocked slot pool, with ``ragged_iters_est``), ``factor_dtype``
+    (bf16 pool factors), ``alias_io`` (the block kernels update the pool
+    in place) and ``block_m`` (the row tiling, which sets the padded row
+    count); ``autotune="on"`` raises ``NotImplementedError`` naming the
+    ROADMAP item that brings it. ``kl_bf16_quotient`` configures kl only
     and is inert here."""
 
     ragged: bool = False
@@ -88,21 +92,10 @@ class ExperimentalConfig:
                     "experimental.ragged_iters_est iteration estimates "
                     "must be positive")
             object.__setattr__(self, "ragged_iters_est", est)
-        unported = (
-            (self.ragged, "ragged=True (the class-blocked slot pool)",
-             ROADMAP_SCHEDULER),
-            (self.factor_dtype is not None,
-             f"factor_dtype={self.factor_dtype!r} (bf16 pool factors)",
-             ROADMAP_SCHEDULER),
-            (self.alias_io, "alias_io=True", ROADMAP_SCHEDULER),
-            (self.block_m is not None, f"block_m={self.block_m}",
-             ROADMAP_SCHEDULER),
-            (self.autotune != "off", "autotune='on'", ROADMAP_TOOLING),
-        )
-        for on, what, item in unported:
-            if on:
-                raise NotImplementedError(
-                    f"experimental.{what} is not ported yet ({item})")
+        if self.autotune != "off":
+            raise NotImplementedError(
+                "experimental.autotune='on' is not ported yet "
+                f"({ROADMAP_TOOLING})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,7 +105,9 @@ class SolverConfig:
     ``matmul_precision``: "default" and "highest" both mean full float32
     products on the card (TF32 is switched off by the entry points, and
     the ``torch.linalg`` solves of als, neals and snmf follow it);
-    "bfloat16" operands are not ported yet.
+    "bfloat16" rounds every product operand of the hand-written kernels
+    to bf16 (float32 sums) and runs where the solve reaches them,
+    ``backend="pallas"``; elsewhere it is not ported yet.
     """
 
     algorithm: str = "mu"
@@ -209,10 +204,12 @@ def check_ported(cfg: SolverConfig) -> None:
             f"backend={cfg.backend!r} is not ported yet: the sketched "
             f"engine is {ROADMAP_SCALE}; pass backend='auto', 'vmap', "
             "'packed' or 'pallas' (the hand-written kernels)")
-    if cfg.matmul_precision == "bfloat16":
+    if cfg.matmul_precision == "bfloat16" and cfg.backend != "pallas":
         raise NotImplementedError(
             "matmul_precision='bfloat16' (bf16 operands, f32 accumulation) "
-            f"is not ported yet ({ROADMAP_BF16})")
+            "runs on the hand-written kernels, backend='pallas'; on the "
+            f"routes that reach no kernel it is not ported yet "
+            f"({ROADMAP_DTYPES})")
     if cfg.dtype != "float32":
         raise NotImplementedError(
             f"dtype={cfg.dtype!r} is not ported on the batched routes, "

@@ -29,6 +29,12 @@
 //     where aligned) while the previous one is summed, then stored
 //     transposed into the other of two shared buffers.
 //
+// Under bf16 operands (BF, block_common.cuh) A is read as bf16: 8-byte
+// copies of 4 values where a float copy moves 16 bytes, 2-byte plain
+// copies where it moves 4. The H product's W operand is a bf16 copy of
+// Wp (or a shared strip already rounded), the W product rounds each Hp
+// value as it is fetched; the chains are unchanged.
+//
 // Like block_common.cuh, everything sits in an anonymous namespace.
 
 #pragma once
@@ -37,9 +43,15 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "block_common.cuh"
 
 namespace {
+
+// the element type of A (and of the H product's W operand) under BF
+template <bool BF>
+using a_t = typename std::conditional<BF, bf16_t, float>::type;
 
 constexpr int GBK = 16;     // contraction depth per stage
 constexpr int GSTAGES = 3;  // stages in the cp.async ring
@@ -76,17 +88,16 @@ static_assert(SPLIT_ROWS % WBM == 0, "a split holds whole W tiles");
 static_assert(SPLIT_ROWS % GBK == 0, "a split holds whole stages");
 static_assert(HTC % 4 == 0, "whole float4 fragments");
 
-// 16-byte copies need 16-byte-aligned rows: a row stride that is a
-// multiple of 4 floats and an aligned base
-inline bool rows_aligned(const void* p, int ld) {
-  return ld % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+// 4-element copies need rows aligned to 4 elements: a row stride that
+// is a multiple of 4 and a base aligned to 4 elements of `elem` bytes
+inline bool rows_aligned(const void* p, int ld, int elem = 4) {
+  return ld % 4 == 0 && reinterpret_cast<uintptr_t>(p) % (4 * elem) == 0;
 }
 
 // dst[t][c] (leading dimension COLS) = src[t0 + t, c0 + c] for GBK rows
 // and COLS columns, zero where t0 + t >= tend or c0 + c >= ld.
-template <int COLS, int NT, bool VEC>
-__device__ __forceinline__ void load_cols(float* dst,
-                                          const float* __restrict__ src,
+template <int COLS, int NT, bool VEC, class T>
+__device__ __forceinline__ void load_cols(T* dst, const T* __restrict__ src,
                                           int ld, int t0, int tend, int c0) {
   constexpr int PER = VEC ? 4 : 1;
   constexpr int CHUNKS = GBK * (COLS / PER);
@@ -94,20 +105,27 @@ __device__ __forceinline__ void load_cols(float* dst,
     const int t = e / (COLS / PER), c = (e % (COLS / PER)) * PER;
     const int row = t0 + t, col = c0 + c;
     const bool in = row < tend && col < ld;
-    const float* g = in ? src + (size_t)row * ld + col : src;
-    if (VEC)
-      cp_async16(dst + t * COLS + c, g, in ? 16 : 0);
-    else
-      cp_async4(dst + t * COLS + c, g, in ? 4 : 0);
+    const T* g = in ? src + (size_t)row * ld + col : src;
+    if constexpr (sizeof(T) == 4) {
+      if (VEC)
+        cp_async16(dst + t * COLS + c, g, in ? 16 : 0);
+      else
+        cp_async4(dst + t * COLS + c, g, in ? 4 : 0);
+    } else if constexpr (VEC) {
+      cp_async8(dst + t * COLS + c, g, in ? 8 : 0);
+    } else {
+      // no 2-byte cp.async: a plain copy, seen after the stage's barrier
+      dst[t * COLS + c] = in ? *g : T(0);
+    }
   }
 }
 
 // Stage j0 .. j0+GBK-1 of the W numerator into registers: ra[e] = A[i0 +
-// t % WBM, j0 + 8 (t / WBM) + e] and rb[e] = Hp[c0 + t % WBN, j0 + 4 (t /
-// WBN) + e], zero outside the matrices. VEC: float4 loads (n % 4 == 0, so
-// a float4 is all in or all out).
-template <bool VEC>
-__device__ __forceinline__ void w_fetch(const float* __restrict__ a,
+// t % WBM, j0 + 8 (t / WBM) + e] and rb[e] = opnd<BF>(Hp[c0 + t % WBN, j0
+// + 4 (t / WBN) + e]), zero outside the matrices. VEC: 4-element loads
+// (n % 4 == 0, so one is all in or all out).
+template <bool VEC, bool BF>
+__device__ __forceinline__ void w_fetch(const a_t<BF>* __restrict__ a,
                                         const float* __restrict__ hp, int m,
                                         int n, int rk, int i0, int c0, int j0,
                                         float (&ra)[8], float (&rb)[4]) {
@@ -116,30 +134,25 @@ __device__ __forceinline__ void w_fetch(const float* __restrict__ a,
   const int bc = c0 + t % WBN, bj = j0 + 4 * (t / WBN);
   if (VEC) {
     const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-    const float* arow = a + (size_t)ai * n;
-    const float4 x0 = (ai < m && aj < n)
-                          ? __ldg(reinterpret_cast<const float4*>(arow + aj))
-                          : z;
-    const float4 x1 =
-        (ai < m && aj + 4 < n)
-            ? __ldg(reinterpret_cast<const float4*>(arow + aj + 4))
-            : z;
+    const a_t<BF>* arow = a + (size_t)ai * n;
+    const float4 x0 = (ai < m && aj < n) ? ldg4(arow + aj) : z;
+    const float4 x1 = (ai < m && aj + 4 < n) ? ldg4(arow + aj + 4) : z;
     const float4 y =
-        (bc < rk && bj < n)
-            ? __ldg(reinterpret_cast<const float4*>(hp + (size_t)bc * n + bj))
-            : z;
+        (bc < rk && bj < n) ? ldg4(hp + (size_t)bc * n + bj) : z;
     ra[0] = x0.x, ra[1] = x0.y, ra[2] = x0.z, ra[3] = x0.w;
     ra[4] = x1.x, ra[5] = x1.y, ra[6] = x1.z, ra[7] = x1.w;
-    rb[0] = y.x, rb[1] = y.y, rb[2] = y.z, rb[3] = y.w;
+    rb[0] = opnd<BF>(y.x), rb[1] = opnd<BF>(y.y), rb[2] = opnd<BF>(y.z),
+    rb[3] = opnd<BF>(y.w);
   } else {
 #pragma unroll
     for (int e = 0; e < 8; ++e)
-      ra[e] = (ai < m && aj + e < n) ? __ldg(a + (size_t)ai * n + aj + e)
+      ra[e] = (ai < m && aj + e < n) ? ldg1(a + (size_t)ai * n + aj + e)
                                      : 0.f;
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      rb[e] = (bc < rk && bj + e < n) ? __ldg(hp + (size_t)bc * n + bj + e)
-                                      : 0.f;
+      rb[e] = (bc < rk && bj + e < n)
+                  ? opnd<BF>(__ldg(hp + (size_t)bc * n + bj + e))
+                  : 0.f;
   }
 }
 
@@ -160,8 +173,8 @@ __device__ __forceinline__ void w_stash(float* buf, const float (&ra)[8],
 // over j in order (the W chain above) on a WBM x WBN tile. `ring`
 // holds W_RING_BYTES of shared memory; it is free again when this
 // returns. Every thread of the block must call it.
-template <bool VEC>
-__device__ __forceinline__ void w_numer_core(const float* __restrict__ a,
+template <bool VEC, bool BF>
+__device__ __forceinline__ void w_numer_core(const a_t<BF>* __restrict__ a,
                                              const float* __restrict__ hp,
                                              int m, int n, int rk, int i0,
                                              int c0, float* ring,
@@ -173,13 +186,13 @@ __device__ __forceinline__ void w_numer_core(const float* __restrict__ a,
     for (int v = 0; v < WTN; ++v) acc[u][v] = 0.f;
   const int stages = (n + GBK - 1) / GBK;
   float ra[8], rb[4];
-  w_fetch<VEC>(a, hp, m, n, rk, i0, c0, 0, ra, rb);
+  w_fetch<VEC, BF>(a, hp, m, n, rk, i0, c0, 0, ra, rb);
   w_stash(ring, ra, rb);
   __syncthreads();
   for (int kt = 0; kt < stages; ++kt) {
     // stage kt+1's loads fly while stage kt is summed
     if (kt + 1 < stages)
-      w_fetch<VEC>(a, hp, m, n, rk, i0, c0, (kt + 1) * GBK, ra, rb);
+      w_fetch<VEC, BF>(a, hp, m, n, rk, i0, c0, (kt + 1) * GBK, ra, rb);
     const float* as = ring + (kt % 2) * W_STAGE + 4 * ti;
     const float* bs = ring + (kt % 2) * W_STAGE + GBK * WBM + 4 * tc;
 #pragma unroll
@@ -202,15 +215,15 @@ __device__ __forceinline__ void w_numer_core(const float* __restrict__ a,
 
 // One contraction step of the H numerator: acc[u][v] += w[cu] * a[jv] for
 // the thread's CV columns cu = 4 tc + 4 TCN (u / 4) + u % 4 of `wrow` and
-// 8 columns jv = 4 tj + 4 TJN (v / 4) + v % 4 of `arow`.
-template <int CV, int TCN, int TJN>
-__device__ __forceinline__ void h_step(const float* wrow, const float* arow,
+// 8 columns jv = 4 tj + 4 TJN (v / 4) + v % 4 of `arow` (float or bf16
+// rows, each 4-element aligned).
+template <int CV, int TCN, int TJN, class TW, class TA>
+__device__ __forceinline__ void h_step(const TW* wrow, const TA* arow,
                                        int tc, int tj, float (&acc)[CV][8]) {
   float wv[CV], av[8];
 #pragma unroll
   for (int h = 0; h < CV / 4; ++h) {
-    const float4 x =
-        *reinterpret_cast<const float4*>(wrow + 4 * TCN * h + 4 * tc);
+    const float4 x = ld4(wrow + 4 * TCN * h + 4 * tc);
     wv[4 * h] = x.x;
     wv[4 * h + 1] = x.y;
     wv[4 * h + 2] = x.z;
@@ -218,8 +231,7 @@ __device__ __forceinline__ void h_step(const float* wrow, const float* arow,
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const float4 x =
-        *reinterpret_cast<const float4*>(arow + 4 * TJN * h + 4 * tj);
+    const float4 x = ld4(arow + 4 * TJN * h + 4 * tj);
     av[4 * h] = x.x;
     av[4 * h + 1] = x.y;
     av[4 * h + 2] = x.z;
@@ -266,15 +278,17 @@ __device__ __forceinline__ void h_store(const float (&acc)[CV][8],
 // HBN tile of columns c0 .. (stored below cend) and j0 = blockIdx.x *
 // HBN, s = blockIdx.z; `ring` holds H_RING_BYTES of shared memory. After
 // each stage's products, hook(ws) sees that stage's Wp rows ws[GBK][HBC]
-// (columns from c0; zero past the chunk and past rk) until the next
-// barrier; it must not sync. Every thread of the block must call it.
-// VW / VA: 16-byte copies of Wp / A (and stores of part).
-template <bool VW, bool VA, class Hook>
-__device__ __forceinline__ void h_numer_tile(const float* __restrict__ a,
-                                             const float* __restrict__ wp,
+// (type T; columns from c0; zero past the chunk and past rk) until the
+// next barrier; it must not sync. Every thread of the block must call it.
+// VW / VA: 4-element copies of Wp / A (and stores of part). T: float, or
+// bf16 for both operands (a bf16 copy of Wp) under bf16 operands.
+template <bool VW, bool VA, class T, class Hook>
+__device__ __forceinline__ void h_numer_tile(const T* __restrict__ a,
+                                             const T* __restrict__ wp,
                                              float* __restrict__ part, int m,
                                              int n, int rk, int c0, int cend,
-                                             float* ring, Hook&& hook) {
+                                             float* ring_f, Hook&& hook) {
+  T* ring = reinterpret_cast<T*>(ring_f);
   const int tj = threadIdx.x % HTJN, tc = threadIdx.x / HTJN;
   const int j0 = blockIdx.x * HBN, s = blockIdx.z;
   const int mb = s * SPLIT_ROWS, me = min(m, mb + SPLIT_ROWS);
@@ -285,7 +299,7 @@ __device__ __forceinline__ void h_numer_tile(const float* __restrict__ a,
     for (int v = 0; v < 8; ++v) acc[u][v] = 0.f;
   const int stages = (me - mb + GBK - 1) / GBK;
   auto load = [&](int kt) {
-    float* st = ring + (kt % GSTAGES) * H_STAGE;
+    T* st = ring + (kt % GSTAGES) * H_STAGE;
     load_cols<HBC, H_THREADS, VW>(st, wp, rk, mb + kt * GBK, me, c0);
     load_cols<HBN, H_THREADS, VA>(st + GBK * HBC, a, n, mb + kt * GBK, me,
                                   j0);
@@ -300,8 +314,8 @@ __device__ __forceinline__ void h_numer_tile(const float* __restrict__ a,
     __syncthreads();
     if (kt + GSTAGES - 1 < stages) load(kt + GSTAGES - 1);
     cp_async_commit();
-    const float* ws = ring + (kt % GSTAGES) * H_STAGE;
-    const float* as = ws + GBK * HBC;
+    const T* ws = ring + (kt % GSTAGES) * H_STAGE;
+    const T* as = ws + GBK * HBC;
 #pragma unroll
     for (int kk = 0; kk < GBK; ++kk)
       h_step<HTC, HTCN, HTJN>(ws + kk * HBC, as + kk * HBN, tc, tj, acc);
@@ -313,13 +327,13 @@ __device__ __forceinline__ void h_numer_tile(const float* __restrict__ a,
 
 // h_numer_tile on the column tiles c0 = blockIdx.y * HBC; grid (ceil(n /
 // HBN), ceil(rk / HBC), splits), H_RING_BYTES of dynamic shared memory.
-template <bool VW, bool VA>
+template <bool VW, bool VA, class T>
 __global__ void __launch_bounds__(H_THREADS, 3)
-h_numer_split(const float* __restrict__ a, const float* __restrict__ wp,
+h_numer_split(const T* __restrict__ a, const T* __restrict__ wp,
               float* __restrict__ part, int m, int n, int rk) {
   extern __shared__ __align__(16) float h_ring[];
-  h_numer_tile<VW, VA>(a, wp, part, m, n, rk, blockIdx.y * HBC, rk, h_ring,
-                       [](const float*) {});
+  h_numer_tile<VW, VA, T>(a, wp, part, m, n, rk, blockIdx.y * HBC, rk,
+                          h_ring, [](const T*) {});
 }
 
 }  // namespace

@@ -66,6 +66,14 @@
 // A lane wider than a tile (k > 64) runs the same chains on other tiles:
 // h_numer_split and h_gram_partial for the H half, w_numer_store into the
 // aht workspace and hals_sweep for the W half.
+//
+// Options, as in block_mu.cu (flags: 1 bf16 operands, 2 / 4 bf16 pool
+// W / H; wp_out == wp_in and hp_out == hp_in for alias_io): under bf16
+// operands the reference casts only the products' operands here (A and
+// Wp in the H numerator and the W-Gram, the fresh H in the H-Gram, A and
+// the new H in the W numerator); the sweeps stay float32. The pool is
+// uniform (segment ids iota // k), as the reference's HALS kernel takes
+// no other.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -105,9 +113,9 @@ inline size_t h_numer_gram_smem(int pairs_per_cta) {
 // t of Wp[t, c0 + ll*k + p] * Wp[t, c0 + ll*k + q], fmaf from +0 in row
 // order (h_gram_partial's chain), in shared memory from each stage of the
 // product.
-template <bool VW, bool VA>
+template <bool VW, bool VA, class T>
 __global__ void __launch_bounds__(H_THREADS, 3)
-h_numer_gram(const float* __restrict__ a, const float* __restrict__ wp,
+h_numer_gram(const T* __restrict__ a, const T* __restrict__ wp,
              float* __restrict__ part, float* __restrict__ gpart, int m,
              int n, int rk, int k) {
   extern __shared__ __align__(16) float hg_smem[];
@@ -126,19 +134,19 @@ h_numer_gram(const float* __restrict__ a, const float* __restrict__ wp,
     gacc[i] = 0.f;
     gcol[i] = (ll * k + p) | (ll * k + q) << 16;
   }
-  auto gram_stage = [&](const float* ws) {
+  auto gram_stage = [&](const T* ws) {
     for (int i = threadIdx.x; i < mine; i += H_THREADS) {
-      const float* wpc = ws + (gcol[i] & 0xffff);
-      const float* wqc = ws + (gcol[i] >> 16);
+      const T* wpc = ws + (gcol[i] & 0xffff);
+      const T* wqc = ws + (gcol[i] >> 16);
       float g = gacc[i];
 #pragma unroll
       for (int kk = 0; kk < GBK; ++kk)
-        g = fmaf(wpc[kk * HBC], wqc[kk * HBC], g);
+        g = fmaf(to_f(wpc[kk * HBC]), to_f(wqc[kk * HBC]), g);
       gacc[i] = g;
     }
   };
-  h_numer_tile<VW, VA>(a, wp, part, m, n, rk, c0, c0 + nl * k, hg_smem,
-                       gram_stage);
+  h_numer_tile<VW, VA, T>(a, wp, part, m, n, rk, c0, c0 + nl * k, hg_smem,
+                          gram_stage);
   for (int i = threadIdx.x; i < mine; i += H_THREADS) {
     const int e = bx + nbx * i;
     gpart[((size_t)blockIdx.z * lanes + l0) * k * k + e] = gacc[i];
@@ -154,17 +162,20 @@ h_numer_gram(const float* __restrict__ a, const float* __restrict__ wp,
 // (r*k + p)*k + q]. The block's SWEEP_WARPS warps sum the numerators (a
 // component each in turn) and the Gram into shared memory, warp 0 sweeps,
 // then each warp writes its components: out (and snap, when not null) at
-// the same offsets, frozen components keeping f0, and with `stats` the
-// block's maxima over its positions of |out - f0| and |f0| per component
-// c = r*k + jj, by warp shuffles, to dp / mp [blockIdx.y * rk + c].
+// the same offsets, rounded to bf16 when `round` (raw, when not null,
+// unrounded), frozen components keeping f0, and with `stats` the block's
+// maxima over its positions of |update - f0| (before the rounding) and
+// |f0| per component c = r*k + jj, by warp shuffles, to dp / mp
+// [blockIdx.y * rk + c].
 __global__ void __launch_bounds__(SWEEP_THREADS)
 hals_sweep(const float* __restrict__ f0, const float* __restrict__ numer,
            const float* __restrict__ gram, const float* __restrict__ frozen,
            const float* __restrict__ budget, float* __restrict__ out,
-           float* __restrict__ snap, float* __restrict__ dp,
-           float* __restrict__ mp, int positions, int sx, int sq, int rk,
-           int k, int splits, size_t nstride, size_t gstride, int it,
-           int stats, float eps, float zero_threshold) {
+           float* __restrict__ snap, float* __restrict__ raw,
+           float* __restrict__ dp, float* __restrict__ mp, int positions,
+           int sx, int sq, int rk, int k, int splits, size_t nstride,
+           size_t gstride, int it, int stats, int round, float eps,
+           float zero_threshold) {
   extern __shared__ float sm[];
   float* g = sm;                    // [k][k] the lane's Gram
   float* num = g + k * k;           // [k][SWEEP_POS] the numerators
@@ -211,8 +222,10 @@ hals_sweep(const float* __restrict__ f0, const float* __restrict__ numer,
       const float v0 = f0[off];
       const float v = lane_frozen(frozen, budget, c, it)
                           ? v0 : fv[jj * SWEEP_POS + lane];
-      out[off] = v;
-      if (snap != nullptr) snap[off] = v;
+      const float vs = stored(v, round);
+      out[off] = vs;
+      if (snap != nullptr) snap[off] = vs;
+      if (raw != nullptr) raw[off] = v;
       d = fabsf(v - v0);
       mx = fabsf(v0);
     }
@@ -256,16 +269,16 @@ struct WTileSmem {
 // dropped. out[i, c] is the sweep of row i's lane over 0 + (A hp^T)[i,
 // c] (w_numer_core's chain), the lane's Gram 0 + gh and the row's old
 // W, or wp[i, c] on a frozen column; with `stats`, the tile's column
-// maxima of |out - wp| and |wp| go to row by of wdp / wmp. VEC: float4
-// loads of A and hp.
-template <bool VEC>
+// maxima of |update - wp| (before out's bf16 rounding under round_w)
+// and |wp| go to row by of wdp / wmp. VEC: 4-element loads of A and hp.
+template <bool VEC, bool BF>
 __global__ void __launch_bounds__(W_THREADS, 2)
-w_sweep_tile(const float* __restrict__ a, const float* __restrict__ hp,
+w_sweep_tile(const a_t<BF>* __restrict__ a, const float* __restrict__ hp,
              const float* __restrict__ wp, const float* __restrict__ gh,
              const float* __restrict__ frozen,
              const float* __restrict__ budget, float* __restrict__ out,
              float* __restrict__ wdp, float* __restrict__ wmp, int m, int n,
-             int rk, int k, int it, int stats, float eps,
+             int rk, int k, int it, int stats, int round_w, float eps,
              float zero_threshold) {
   extern __shared__ __align__(16) float w_smem[];
   const WTileSmem lay(k);
@@ -300,7 +313,7 @@ w_sweep_tile(const float* __restrict__ a, const float* __restrict__ hp,
   for (int cl = threadIdx.x; cl < span; cl += W_THREADS)
     frz[cl] = lane_frozen(frozen, budget, c0 + cl, it) ? 1.f : 0.f;
   float acc[WTM][WTN];
-  w_numer_core<VEC>(a, hp, m, n, rk, i0, c0, w_smem, acc);
+  w_numer_core<VEC, BF>(a, hp, m, n, rk, i0, c0, w_smem, acc);
   // the ring is free: the core ends on a barrier
 #pragma unroll
   for (int u = 0; u < WTM; ++u)
@@ -334,7 +347,7 @@ w_sweep_tile(const float* __restrict__ a, const float* __restrict__ hp,
     while (rl < rows) {
       const float v0 = w0s[rl * ld + cl];
       const float v = frz[cl] > 0.f ? v0 : num[rl * ld + cl];
-      out[(size_t)(i0 + rl) * rk + c0 + cl] = v;
+      out[(size_t)(i0 + rl) * rk + c0 + cl] = stored(v, round_w);
       num[rl * ld + cl] = v;
       rl += dr;
       cl += dc;
@@ -372,14 +385,14 @@ w_sweep_tile(const float* __restrict__ a, const float* __restrict__ hp,
 // aht[i, c] = sum over j of A[i, j] * Hp[c, j] (w_numer_core's chain),
 // for k > WBN; grid (ceil(rk / WBN), ceil(m / WBM)), W_RING_BYTES of
 // dynamic shared memory.
-template <bool VEC>
+template <bool VEC, bool BF>
 __global__ void __launch_bounds__(W_THREADS, 3)
-w_numer_store(const float* __restrict__ a, const float* __restrict__ hp,
+w_numer_store(const a_t<BF>* __restrict__ a, const float* __restrict__ hp,
               float* __restrict__ aht, int m, int n, int rk) {
   extern __shared__ __align__(16) float w_ring[];
   const int c0 = blockIdx.x * WBN, i0 = blockIdx.y * WBM;
   float acc[WTM][WTN];
-  w_numer_core<VEC>(a, hp, m, n, rk, i0, c0, w_ring, acc);
+  w_numer_core<VEC, BF>(a, hp, m, n, rk, i0, c0, w_ring, acc);
 #pragma unroll
   for (int u = 0; u < WTM; ++u) {
     const int i = i0 + w_row(u);
@@ -393,22 +406,29 @@ w_numer_store(const float* __restrict__ a, const float* __restrict__ hp,
 }
 
 struct Launch {
-  const float *a, *frozen, *budget;
-  float *wd, *wm, *hd, *hm, *h_checks, *part, *gpart, *gh, *aht, *dp, *mp;
-  int m, n, rk, k, iters, check_block;
+  const void* a;
+  const float *frozen, *budget;
+  float *wd, *wm, *hd, *hm, *h_checks, *part, *gpart, *gh, *aht, *dp, *mp,
+      *hraw;
+  bf16_t* wb;
+  int m, n, rk, k, iters, check_block, round_w, round_h;
   float eps, zero_threshold;
   cudaStream_t st;
 };
 
-// The iterations with the copy widths fixed: VN = 16-byte copies of the
-// n-strided operands (A, every H buffer, part), VR = of the rk-strided
-// (every W buffer).
-template <bool VN, bool VR>
+// The iterations with the copy widths fixed: VN = 4-element copies of the
+// n-strided operands (A, every H buffer, part), VW = of the H product's
+// W operand (every W buffer, or its bf16 copy under BF).
+template <bool VN, bool VW, bool BF>
 cudaError_t iterate(const Launch& L, const float* w_cur, const float* h_cur,
                     float* const (&w_dest)[2], float* const (&h_dest)[2]) {
+  using T = a_t<BF>;
   const int m = L.m, n = L.n, rk = L.rk, k = L.k;
+  const T* a = static_cast<const T*>(L.a);
   const int lanes = rk / k;
   const int splits = (m + SPLIT_ROWS - 1) / SPLIT_ROWS;
+  Segs sg;
+  sg.k = k;
   // whole lanes in every column tile: the W-Gram folded into the H
   // product, the W sweep into the W product
   const bool whole = k <= HBC && k <= WBN;
@@ -420,8 +440,8 @@ cudaError_t iterate(const Launch& L, const float* w_cur, const float* h_cur,
       whole ? h_numer_gram_smem((hl * k * k + numer_grid.x - 1) /
                                 numer_grid.x)
             : H_RING_BYTES;
-  // 16-byte copies of Wp need lane-aligned tiles to start on 4 columns
-  const bool vw = VR && (!whole || hl * k % 4 == 0);
+  // 4-element copies of Wp need lane-aligned tiles to start on 4 columns
+  const bool vw = VW && (!whole || hl * k % 4 == 0);
   const dim3 gram_grid(lanes, splits, (k * k + THREADS - 1) / THREADS);
   const size_t gram_smem = sizeof(float) * GRAM_ROWS * k;
   const size_t hg_smem = sizeof(float) * k * (h_gram_cols(n, k) + 1);
@@ -435,19 +455,20 @@ cudaError_t iterate(const Launch& L, const float* w_cur, const float* h_cur,
                            : (m + SWEEP_POS - 1) / SWEEP_POS;
   const int red_blocks = (rk + ROW_THREADS - 1) / ROW_THREADS;
   cudaError_t err;
-  if ((err = set_smem((const void*)h_numer_gram<true, VN>, numer_smem)) !=
+  if ((err = set_smem((const void*)h_numer_gram<true, VN, T>, numer_smem)) !=
           cudaSuccess ||
-      (err = set_smem((const void*)h_numer_gram<false, VN>, numer_smem)) !=
-          cudaSuccess ||
-      (err = set_smem((const void*)h_numer_split<VR, VN>, H_RING_BYTES)) !=
-          cudaSuccess ||
-      (err = set_smem((const void*)h_gram_partial, gram_smem)) !=
+      (err = set_smem((const void*)h_numer_gram<false, VN, T>,
+                      numer_smem)) != cudaSuccess ||
+      (err = set_smem((const void*)h_numer_split<VW, VN, T>,
+                      H_RING_BYTES)) != cudaSuccess ||
+      (err = set_smem((const void*)h_gram_partial<BF>, gram_smem)) !=
           cudaSuccess ||
       (err = set_smem((const void*)hals_sweep, sweep_smem)) != cudaSuccess ||
-      (err = set_smem((const void*)h_gram_diag, hg_smem)) != cudaSuccess ||
-      (err = set_smem((const void*)w_sweep_tile<VN>, tile_smem)) !=
+      (err = set_smem((const void*)h_gram_diag<BF>, hg_smem)) !=
           cudaSuccess ||
-      (err = set_smem((const void*)w_numer_store<VN>, W_RING_BYTES)) !=
+      (err = set_smem((const void*)w_sweep_tile<VN, BF>, tile_smem)) !=
+          cudaSuccess ||
+      (err = set_smem((const void*)w_numer_store<VN, BF>, W_RING_BYTES)) !=
           cudaSuccess)
     return err;
   const int total = L.iters * L.check_block;
@@ -460,38 +481,51 @@ cudaError_t iterate(const Launch& L, const float* w_cur, const float* h_cur,
     const int brow = boundary ? (it + 1) / L.iters - 1 : -1;
     float* snap = (boundary && L.check_block > 1)
                       ? L.h_checks + (size_t)brow * rk * n : nullptr;
-    if (!whole) {
-      h_numer_split<VR, VN><<<numer_grid, H_THREADS, H_RING_BYTES, L.st>>>(
-          L.a, w_cur, L.part, m, n, rk);
-      h_gram_partial<<<gram_grid, THREADS, gram_smem, L.st>>>(
-          w_cur, L.gpart, m, rk, k, SPLIT_ROWS);
-    } else if (vw) {
-      h_numer_gram<true, VN><<<numer_grid, H_THREADS, numer_smem, L.st>>>(
-          L.a, w_cur, L.part, L.gpart, m, n, rk, k);
+    // the H product's W operand: w_cur, or its bf16 copy
+    const T* wop;
+    if constexpr (BF) {
+      narrow_bf16<<<cast_blocks((size_t)m * rk), 256, 0, L.st>>>(
+          w_cur, L.wb, (size_t)m * rk);
+      wop = L.wb;
     } else {
-      h_numer_gram<false, VN><<<numer_grid, H_THREADS, numer_smem, L.st>>>(
-          L.a, w_cur, L.part, L.gpart, m, n, rk, k);
+      wop = w_cur;
+    }
+    if (!whole) {
+      h_numer_split<VW, VN, T><<<numer_grid, H_THREADS, H_RING_BYTES, L.st>>>(
+          a, wop, L.part, m, n, rk);
+      h_gram_partial<BF><<<gram_grid, THREADS, gram_smem, L.st>>>(
+          w_cur, L.gpart, m, rk, sg, SPLIT_ROWS);
+    } else if (vw) {
+      h_numer_gram<true, VN, T><<<numer_grid, H_THREADS, numer_smem, L.st>>>(
+          a, wop, L.part, L.gpart, m, n, rk, k);
+    } else {
+      h_numer_gram<false, VN, T><<<numer_grid, H_THREADS, numer_smem, L.st>>>(
+          a, wop, L.part, L.gpart, m, n, rk, k);
     }
     hals_sweep<<<dim3(lanes, jtiles), SWEEP_THREADS, sweep_smem, L.st>>>(
-        h_cur, L.part, L.gpart, L.frozen, L.budget, h_next, snap, L.dp, L.mp,
-        n, 1, n, rk, k, splits, (size_t)rk * n, (size_t)rk * k, it,
-        boundary ? 1 : 0, L.eps, L.zero_threshold);
+        h_cur, L.part, L.gpart, L.frozen, L.budget, h_next, snap,
+        L.round_h ? L.hraw : nullptr, L.dp, L.mp, n, 1, n, rk, k, splits,
+        (size_t)rk * n, (size_t)rk * k, it, boundary ? 1 : 0, L.round_h,
+        L.eps, L.zero_threshold);
     if (boundary)
       w_stats_reduce<<<red_blocks, ROW_THREADS, 0, L.st>>>(
           L.dp, L.mp, L.hd + (size_t)brow * rk, L.hm + (size_t)brow * rk, rk,
           jtiles);
-    h_gram_diag<<<hg_grid, THREADS, hg_smem, L.st>>>(h_next, L.gh, n, k);
+    // the H-Gram of the new H before its storage rounding
+    h_gram_diag<BF><<<hg_grid, THREADS, hg_smem, L.st>>>(
+        L.round_h ? L.hraw : h_next, L.gh, n, sg);
     if (whole) {
-      w_sweep_tile<VN><<<tile_grid, W_THREADS, tile_smem, L.st>>>(
-          L.a, h_next, w_cur, L.gh, L.frozen, L.budget, w_next, L.dp, L.mp, m,
-          n, rk, k, it, boundary ? 1 : 0, L.eps, L.zero_threshold);
-    } else {
-      w_numer_store<VN><<<store_grid, W_THREADS, W_RING_BYTES, L.st>>>(
-          L.a, h_next, L.aht, m, n, rk);
-      hals_sweep<<<dim3(lanes, mtiles), SWEEP_THREADS, sweep_smem, L.st>>>(
-          w_cur, L.aht, L.gh, L.frozen, L.budget, w_next, nullptr, L.dp,
-          L.mp, m, rk, 1, rk, k, 1, 0, 0, it, boundary ? 1 : 0, L.eps,
+      w_sweep_tile<VN, BF><<<tile_grid, W_THREADS, tile_smem, L.st>>>(
+          a, h_next, w_cur, L.gh, L.frozen, L.budget, w_next, L.dp, L.mp, m,
+          n, rk, k, it, boundary ? 1 : 0, L.round_w, L.eps,
           L.zero_threshold);
+    } else {
+      w_numer_store<VN, BF><<<store_grid, W_THREADS, W_RING_BYTES, L.st>>>(
+          a, h_next, L.aht, m, n, rk);
+      hals_sweep<<<dim3(lanes, mtiles), SWEEP_THREADS, sweep_smem, L.st>>>(
+          w_cur, L.aht, L.gh, L.frozen, L.budget, w_next, nullptr, nullptr,
+          L.dp, L.mp, m, rk, 1, rk, k, 1, 0, 0, it, boundary ? 1 : 0,
+          L.round_w, L.eps, L.zero_threshold);
     }
     if (boundary)
       w_stats_reduce<<<red_blocks, ROW_THREADS, 0, L.st>>>(
@@ -502,6 +536,17 @@ cudaError_t iterate(const Launch& L, const float* w_cur, const float* h_cur,
     h_cur = h_next;
   }
   return cudaSuccess;
+}
+
+template <bool BF>
+cudaError_t run_widths(const Launch& L, bool vn, bool vw, const float* w_cur,
+                       const float* h_cur, float* const (&w_dest)[2],
+                       float* const (&h_dest)[2]) {
+  if (vn)
+    return vw ? iterate<true, true, BF>(L, w_cur, h_cur, w_dest, h_dest)
+              : iterate<true, false, BF>(L, w_cur, h_cur, w_dest, h_dest);
+  return vw ? iterate<false, true, BF>(L, w_cur, h_cur, w_dest, h_dest)
+            : iterate<false, false, BF>(L, w_cur, h_cur, w_dest, h_dest);
 }
 
 }  // namespace
@@ -524,6 +569,9 @@ int nmfx_hals_w_tile_cols() { return WBN; }
 // the sweeps.
 int nmfx_hals_sweep_positions() { return SWEEP_POS; }
 
+// The version of this C interface (2: flags and the option workspace).
+int nmfx_block_abi() { return 2; }
+
 // iters * check_block HALS iterations of the packed pool; see the top of
 // this file and of block_mu.cu. budget and h_checks may be null
 // (check_block == 1). Workspace: wp_tmp (m, rk), hp_tmp (rk, n), part
@@ -531,34 +579,54 @@ int nmfx_hals_sweep_positions() { return SWEEP_POS; }
 // (m, rk) when k > w_tile_cols (unused, and may be empty, otherwise),
 // dp and mp (max(ceil(n / sweep_positions), row tiles of W), rk), the W
 // row tiles ceil(m / w_tile_rows) when k <= w_tile_cols, else ceil(m /
-// sweep_positions).
-int nmfx_hals_block_iterations(const float* a, const float* wp_in,
-                               const float* hp_in, const float* frozen,
-                               const float* budget, float* wp_out,
-                               float* hp_out, float* wd, float* wm, float* hd,
-                               float* hm, float* h_checks, float* wp_tmp,
-                               float* hp_tmp, float* part, float* gpart,
-                               float* gh, float* aht, float* dp, float* mp,
-                               int m, int n, int rk, int k, int iters,
-                               int check_block, float eps,
-                               float zero_threshold, void* stream) {
+// sweep_positions); then w_ext (m, rk), h_ext and hraw (rk, n) float32
+// under bf16 W / H, wb (m, rk) bf16 under bf16 operands, else null. The
+// flags, the bf16 operands and outputs and alias_io as in
+// nmfx_block_iterations (block_mu.cu).
+int nmfx_hals_block_iterations(
+    const void* a, const void* wp_in, const void* hp_in, const float* frozen,
+    const float* budget, void* wp_out, void* hp_out, float* wd, float* wm,
+    float* hd, float* hm, float* h_checks, float* wp_tmp, float* hp_tmp,
+    float* part, float* gpart, float* gh, float* aht, float* dp, float* mp,
+    float* w_ext, float* h_ext, float* hraw, void* wb, int m, int n, int rk,
+    int k, int iters, int check_block, int flags, float eps,
+    float zero_threshold, void* stream) {
+  const bool bf = flags & 1, rw = flags & 2, rh = flags & 4;
   const Launch L{a, frozen, budget, wd, wm, hd, hm, h_checks, part, gpart,
-                 gh, aht, dp, mp, m, n, rk, k, iters, check_block, eps,
+                 gh, aht, dp, mp, hraw, static_cast<bf16_t*>(wb), m, n, rk,
+                 k, iters, check_block, rw ? 1 : 0, rh ? 1 : 0, eps,
                  zero_threshold, static_cast<cudaStream_t>(stream)};
-  // 16-byte copies, loads and stores where all rows are 16-byte aligned,
-  // 4-byte ones otherwise, in the same arithmetic
-  const bool vn = rows_aligned(a, n) && rows_aligned(hp_in, n) &&
-                  rows_aligned(hp_out, n) && rows_aligned(hp_tmp, n) &&
-                  rows_aligned(part, n);
-  const bool vr = rows_aligned(wp_in, rk) && rows_aligned(wp_out, rk) &&
-                  rows_aligned(wp_tmp, rk);
-  float* const w_dest[2] = {wp_out, wp_tmp};
-  float* const h_dest[2] = {hp_out, hp_tmp};
-  if (vn)
-    return vr ? iterate<true, true>(L, wp_in, hp_in, w_dest, h_dest)
-              : iterate<true, false>(L, wp_in, hp_in, w_dest, h_dest);
-  return vr ? iterate<false, true>(L, wp_in, hp_in, w_dest, h_dest)
-            : iterate<false, false>(L, wp_in, hp_in, w_dest, h_dest);
+  const int total = iters * check_block;
+  float* const w_dest[2] = {rw ? w_ext : static_cast<float*>(wp_out),
+                            wp_tmp};
+  float* const h_dest[2] = {rh ? h_ext : static_cast<float*>(hp_out),
+                            hp_tmp};
+  const bool first_writes_out = total % 2 == 1;
+  const float* w_cur =
+      entry_buffer(wp_in, wp_out, w_dest[total % 2], (size_t)m * rk, rw,
+                   first_writes_out, L.st);
+  const float* h_cur =
+      entry_buffer(hp_in, hp_out, h_dest[total % 2], (size_t)rk * n, rh,
+                   first_writes_out, L.st);
+  // 4-element copies, loads and stores where all rows are aligned,
+  // 1-element ones otherwise, in the same arithmetic
+  const bool vn = rows_aligned(a, n, bf ? 2 : 4) &&
+                  rows_aligned(h_cur, n) && rows_aligned(h_dest[0], n) &&
+                  rows_aligned(h_dest[1], n) && rows_aligned(part, n);
+  const bool vr = rows_aligned(w_cur, rk) && rows_aligned(w_dest[0], rk) &&
+                  rows_aligned(w_dest[1], rk);
+  const bool vw = bf ? rows_aligned(wb, rk, 2) : vr;
+  const cudaError_t err =
+      bf ? run_widths<true>(L, vn, vw, w_cur, h_cur, w_dest, h_dest)
+         : run_widths<false>(L, vn, vw, w_cur, h_cur, w_dest, h_dest);
+  if (err != cudaSuccess) return err;
+  if (rw)
+    narrow_bf16<<<cast_blocks((size_t)m * rk), 256, 0, L.st>>>(
+        w_dest[0], static_cast<bf16_t*>(wp_out), (size_t)m * rk);
+  if (rh)
+    narrow_bf16<<<cast_blocks((size_t)rk * n), 256, 0, L.st>>>(
+        h_dest[0], static_cast<bf16_t*>(hp_out), (size_t)rk * n);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

@@ -35,20 +35,22 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: returns the launch's cudaError_t as an int
 SIGNATURES = {
     "block_mu": {
+        "nmfx_block_abi": (),
         "nmfx_block_split_rows": (),
         "nmfx_block_w_tile_rows": (),
-        "nmfx_block_iterations": (_P,) * 19 + (_I,) * 6 + (_F, _F, _P),
-        "nmfx_block_iterations_fused": (_P,) * 19 + (_I,) * 6 + (_F, _F, _P),
-        "nmfx_fused_h_update": (_P,) * 6 + (_I,) * 4 + (_F, _F, _P),
-        "nmfx_lane_gram": (_P, _P, _I, _I, _I, _P),
-        "nmfx_fused_w_update": (_P,) * 5 + (_I,) * 4 + (_F, _F, _P),
+        "nmfx_block_iterations": (_P,) * 26 + (_I,) * 8 + (_F, _F, _P),
+        "nmfx_block_iterations_fused": (_P,) * 26 + (_I,) * 8 + (_F, _F, _P),
+        "nmfx_fused_h_update": (_P,) * 7 + (_I,) * 5 + (_F, _F, _P),
+        "nmfx_lane_gram": (_P, _P, _I, _I, _I, _I, _P),
+        "nmfx_fused_w_update": (_P,) * 5 + (_I,) * 5 + (_F, _F, _P),
     },
     "hals_block": {
+        "nmfx_block_abi": (),
         "nmfx_block_split_rows": (),
         "nmfx_block_w_tile_rows": (),
         "nmfx_hals_w_tile_cols": (),
         "nmfx_hals_sweep_positions": (),
-        "nmfx_hals_block_iterations": (_P,) * 20 + (_I,) * 6 + (_F, _F, _P),
+        "nmfx_hals_block_iterations": (_P,) * 24 + (_I,) * 7 + (_F, _F, _P),
     },
 }
 

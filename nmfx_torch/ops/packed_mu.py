@@ -193,10 +193,12 @@ def _step(a, bd, state: PackedState, cfg: SolverConfig, r: int,
     """One packed mu iteration, updating ``state`` in place."""
     k = state.hp.shape[0] // r
     wp0, hp0 = state.wp, state.hp
-    kw = dict(k=k, eps=cfg.div_eps, zero_threshold=cfg.zero_threshold)
+    kw = dict(k=k, eps=cfg.div_eps, zero_threshold=cfg.zero_threshold,
+              matmul_precision=cfg.matmul_precision)
     if use_kernels:
         hp = fused_h_update(a, wp0, hp0, **kw)
-        wp = fused_w_update(a, wp0, hp, lane_gram(hp, k=k), **kw)
+        wp = fused_w_update(a, wp0, hp, lane_gram(
+            hp, k=k, matmul_precision=cfg.matmul_precision), **kw)
     else:
         hp = fused_h_update_ref(a, wp0, hp0, **kw)
         gh = bd_select(hp @ hp.T, bd)  # small; plain product, as in nmfx
@@ -283,6 +285,9 @@ def mu_packed(a, w0s, h0s, cfg: SolverConfig = SolverConfig(), *,
         pad = padded_rows(m) - m
         a = torch.nn.functional.pad(a, (0, 0, 0, pad))
         wp = torch.nn.functional.pad(wp, (0, 0, 0, pad))
+    if use_kernels and cfg.matmul_precision == "bfloat16":
+        # A in the bf16 form every product reads it in, once a solve
+        a = a.to(torch.bfloat16)
     bd = block_diag_mask(r, k, dev)
 
     nonfinite0 = None

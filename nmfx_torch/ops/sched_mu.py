@@ -45,12 +45,31 @@ harvest decision and the stage condition (the harvest claims a count of
 queued jobs the host can compute), and it counts the reads in
 ``host_syncs``.
 
-Not ported: the ragged class-blocked pool, the bf16 pool factors,
-``alias_io``, the tile-shape override and autotuner, meshes
-(``varying_axes``) and the fault-injection hooks
-(``ExperimentalConfig`` refuses the knobs). The reference's slot clamp
-(``_pallas_slot_clamp``) fits a TPU core's VMEM; here the factors stay in
-device memory, so the pool is bounded by device memory only.
+The block-kernel route's options, as in the reference:
+``matmul_precision="bfloat16"`` (A cast to bf16 once a solve, every
+product operand rounded to bf16 in the kernels), ``factor_dtype`` (the
+pool's W, and H under "bfloat16", stored as bf16: converted at the
+pool's edges, results float32), ``alias_io`` (the kernels update the
+pool in place), ``block_m`` (the row tiling: it sets m_pad, and zero
+rows change no result) and ``ragged`` (below). Their preconditions raise
+the reference's ``ValueError``s.
+
+``experimental.ragged=True`` (mu, the block-kernel route, ``job_ks``):
+the class-blocked main stage. Jobs of each rank get their own slots of
+their true width, laid out class-major with no padding columns
+(``_ragged_layout``: a greedy minimax over the uniform pool's column
+budget, slots · k_max); one block launch a trip, with per-column segment
+ids, advances every class; each trip checks every slot and evicts and
+reloads from each class's own queue at once. The per-slot bookkeeping
+runs batched over all classes' slots; the host reads one small flag
+array a trip (its host sync). Once the queues drain and at most the
+tail width's jobs survive, they move into a uniform k_max-padded pool
+for the straggler tail.
+
+Not ported: the autotuner, meshes (``varying_axes``) and the
+fault-injection hooks. The reference's slot clamp (``_pallas_slot_clamp``)
+fits a TPU core's VMEM; here the factors stay in device memory, so the
+pool is bounded by device memory only.
 """
 
 from __future__ import annotations
@@ -94,12 +113,111 @@ class SchedMUResult(NamedTuple):
     host_syncs: int = 0
 
 
-def _pallas_block_geometry(m: int) -> tuple[int, int, int]:
+def _pallas_block_geometry(m: int, block_m: "int | None" = None
+                           ) -> tuple[int, int, int]:
     """(tiles, block_m, m_pad): ~512-row tiles, 16-row aligned, as the
-    reference pads A and Wp on its block-kernel route."""
+    reference pads A and Wp on its block-kernel route; ``block_m``
+    (``experimental.block_m``, a multiple of 16) overrides the tile rows
+    and m pads up to a multiple. The port's kernels split m in their own
+    fixed way, so only m_pad reaches them: its zero rows add exact zeros
+    to every sum."""
+    if block_m is not None:
+        tiles = -(-m // block_m)
+        return tiles, block_m, tiles * block_m
     tiles = -(-m // 512)
     block_m = -(-(-(-m // tiles)) // 16) * 16
     return tiles, block_m, tiles * block_m
+
+
+class _RaggedClass(NamedTuple):
+    """One rank class of the ragged pool."""
+    k: int  # true rank of the class's jobs
+    jobs: tuple  # global job indices, dispatch order
+    slots: int  # resident slots of the class
+    off: int  # first packed column of the class's span
+
+
+def _ragged_iters_est(k: int) -> float:
+    """The reference's expected class-stability stop iteration by rank
+    (its empirical north-star profile: flat ~515 through k = 4, then
+    ~k^1.45). Only the schedule depends on it, never a result."""
+    return 515.0 * max(1.0, k / 4.0) ** 1.45
+
+
+def ragged_estimates_from_iterations(job_ks, iterations
+                                     ) -> tuple[tuple[int, float], ...]:
+    """Per-class mean stop iterations from a previous run's per-job
+    ``iterations`` aligned with ``job_ks``, in the form
+    ``ExperimentalConfig.ragged_iters_est`` takes."""
+    its = np.asarray(iterations, dtype=np.float64)
+    if len(job_ks) != its.shape[0]:
+        raise ValueError(
+            f"job_ks has {len(job_ks)} entries but iterations carries "
+            f"{its.shape[0]} jobs")
+    by_k: dict[int, list[float]] = {}
+    for k, it in zip(job_ks, its):
+        by_k.setdefault(int(k), []).append(float(it))
+    return tuple(sorted((k, float(np.mean(v))) for k, v in by_k.items()))
+
+
+def _resolve_est(iters_est, job_ks, max_iter: int):
+    """The per-rank iteration estimate the ragged layout allocates with:
+    the caller's measured estimates, else the built-in model, with the
+    reference's warning where that model extrapolates (ranks above 10,
+    or a cap below its fitted stop range)."""
+    if iters_est is not None:
+        table = {int(k): float(v) for k, v in iters_est}
+        missing = sorted({int(k) for k in job_ks} - set(table))
+        if missing:
+            raise ValueError(
+                "experimental.ragged_iters_est is missing estimates for "
+                f"rank classes {missing}")
+        return lambda k: table[int(k)]
+    ks = {int(k) for k in job_ks}
+    if max(ks) > 10 or max_iter < 1030:
+        logging.getLogger("nmfx_torch").warning(
+            "ragged slot allocation is using the built-in iteration model "
+            "calibrated on the north-star profile (mu, k=2..10, "
+            "class-stability stops ~515..2000 iterations); this job mix "
+            "(k in %s, max_iter=%d) departs it, so the greedy-minimax "
+            "allocation may be poor. Pass measured per-class estimates via "
+            "ExperimentalConfig.ragged_iters_est (see "
+            "ragged_estimates_from_iterations)", sorted(ks), max_iter)
+    return _ragged_iters_est
+
+
+def _ragged_layout(job_ks: tuple, budget_cols: int, iters_est=None,
+                   max_iter: int = 10000) -> list:
+    """Rank classes and their slots by greedy minimax (the reference's
+    ``_ragged_layout``): one slot per class, then each further slot to
+    the class with the largest estimated remaining makespan (jobs ×
+    expected iterations / slots) while Σ slots_c·k_c <= budget_cols.
+    Classes widest first, laid out class-major."""
+    by_k: dict = {}
+    for i, k in enumerate(job_ks):
+        by_k.setdefault(int(k), []).append(i)
+    ks_desc = sorted(by_k, reverse=True)
+    if sum(ks_desc) > budget_cols:
+        raise ValueError(
+            f"ragged pool: one slot per rank class needs {sum(ks_desc)} "
+            f"columns, budget is {budget_cols}; use the uniform pool")
+    est = _resolve_est(iters_est, job_ks, max_iter)
+    load = {k: len(by_k[k]) * est(k) for k in ks_desc}
+    slots = {k: 1 for k in ks_desc}
+    while True:
+        spare = budget_cols - sum(slots[k] * k for k in ks_desc)
+        grow = [k for k in ks_desc
+                if slots[k] < len(by_k[k]) and k <= spare]
+        if not grow:
+            break
+        best = max(grow, key=lambda k: load[k] / slots[k])
+        slots[best] += 1
+    layout, off = [], 0
+    for k in ks_desc:
+        layout.append(_RaggedClass(k=k, jobs=tuple(by_k[k]),
+                                   slots=slots[k], off=off))
+        off += slots[k] * k
+    return layout
 
 
 def _kl_slot_clamp(s: int, m: int, n: int) -> int:
@@ -201,44 +319,84 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
     if cfg.algorithm == "kl":
         s = _kl_slot_clamp(s, m, n)
     ce = cfg.check_every
+    exp = cfg.experimental
     use_pallas = cfg.backend == "pallas"
     hals = cfg.algorithm == "hals"
     ce_ok = cfg.max_iter % ce == 0
-    if use_pallas and hals and not ce_ok:
+    # the reference's preconditions, in its order and words
+    if exp.ragged and not (use_pallas and ce_ok and job_ks is not None):
         raise ValueError(
-            "backend='pallas' with algorithm='hals' requires max_iter to be "
-            "a multiple of check_every (the block-kernel route; there is no "
-            "per-iteration hals fallback)")
-    # the block-kernel route: one launch per trip (the only route where
-    # check_block batches inside the kernel)
-    blk_route = use_pallas and ce_ok
+            "experimental.ragged=True needs backend='pallas', job_ks, "
+            "and max_iter a multiple of check_every (the block-kernel "
+            "route)")
+    use_ragged = bool(exp.ragged)
+    if use_pallas and hals:
+        if not ce_ok:
+            raise ValueError(
+                "backend='pallas' with algorithm='hals' requires max_iter to "
+                "be a multiple of check_every (the block-kernel route; there "
+                "is no per-iteration hals fallback)")
+        if use_ragged:
+            raise ValueError(
+                "experimental.ragged=True is mu-only (the ragged "
+                "class-blocked kernel); use the uniform pool for hals")
+    # the launch: one block kernel a trip (the ragged stage's too)
+    kernel_route = use_pallas and ce_ok
+    # the uniform pool's block-kernel route: the only one where
+    # check_block batches inside the kernel and the pool options apply
+    blk_route = kernel_route and not use_ragged
     # hals' TolFun residual cannot be replayed from a launch's boundary
     # exports (the snapshots carry H, not the residual), so its multi-check
     # launch is sound only with TolFun off
     tolfun = USES_TOLFUN[cfg.algorithm] and cfg.use_tol_checks
     ncheck = cfg.check_block
     if ncheck == "auto":
-        ncheck = 4 if (blk_route and not tolfun) else 1
+        ncheck = 4 if (blk_route and not (hals and tolfun)) else 1
     ncheck = int(ncheck)
-    if ncheck > 1 and blk_route and tolfun:
+    if ncheck > 1 and blk_route and hals and tolfun:
         raise ValueError(
             "check_block > 1 on the pallas hals route needs "
             "use_tol_checks=False: TolFun's residual cannot be replayed "
             "from the kernel's boundary exports")
-    use_fused = cfg.experimental.fused_updates == "fused"
+    if ncheck > 1 and use_ragged:
+        raise ValueError(
+            "check_block > 1 requires the uniform pool "
+            "(experimental.ragged=False) — the ragged stage's per-class "
+            "bookkeeping is check-per-trip")
+    if exp.factor_dtype is not None and not blk_route:
+        raise ValueError(
+            "experimental.factor_dtype='bfloat16'/'bfloat16_w' is the "
+            "pallas block-kernel pool experiment: backend='pallas', "
+            "max_iter a multiple of check_every, uniform (non-ragged) "
+            "pool")
+    if exp.alias_io and not blk_route:
+        raise ValueError(
+            "experimental.alias_io=True is the uniform pallas "
+            "block-kernel route only: backend='pallas', max_iter a "
+            "multiple of check_every, non-ragged")
+    use_fused = exp.fused_updates == "fused"
     if use_fused and cfg.algorithm != "mu":
         raise ValueError(
             "experimental.fused_updates='fused' is the mu join-the-updates "
             "kernel; the hals block kernel has its own schedule")
     if use_fused and not blk_route:
         raise ValueError(
-            "experimental.fused_updates='fused' is the pallas block-kernel "
-            "route only: backend='pallas' and max_iter a multiple of "
-            "check_every")
+            "experimental.fused_updates='fused' is the uniform pallas "
+            "block-kernel route only: backend='pallas', max_iter a "
+            "multiple of check_every, non-ragged")
+    if exp.block_m is not None and not use_pallas:
+        raise ValueError(
+            "experimental.block_m is a pallas tile-shape override; it has "
+            f"no meaning for backend={cfg.backend!r}")
     multi = blk_route and ncheck > 1
-    evict_batch = cfg.experimental.evict_batch
+    evict_batch = exp.evict_batch
     sqrteps = torch.sqrt(torch.tensor(torch.finfo(f32).eps, device=dev))
-    kern_kw = dict(eps=cfg.div_eps, zero_threshold=cfg.zero_threshold)
+    kern_kw = dict(eps=cfg.div_eps, zero_threshold=cfg.zero_threshold,
+                   matmul_precision=cfg.matmul_precision)
+    # bf16 pool factors: W, and H under "bfloat16" (the reference's
+    # to_pool_w / to_pool_h); the result buffers stay float32
+    w_pool = torch.bfloat16 if exp.factor_dtype else f32
+    h_pool = torch.bfloat16 if exp.factor_dtype == "bfloat16" else f32
 
     def ratio(diff, ref):
         return diff / (sqrteps + ref)
@@ -263,8 +421,11 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
         return do_block
 
     if use_pallas:
-        _, _, m_pad = _pallas_block_geometry(m)
+        _, _, m_pad = _pallas_block_geometry(m, exp.block_m)
         a_loop = torch.nn.functional.pad(a, (0, 0, 0, m_pad - m))
+        if cfg.matmul_precision == "bfloat16":
+            # A in the bf16 form every product reads it in, once a solve
+            a_loop = a_loop.to(torch.bfloat16)
         w0 = torch.nn.functional.pad(w0, (0, 0, 0, m_pad - m))
 
         def fcols(active, slot_iter):
@@ -278,10 +439,12 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
             if hals:
                 return hals_block_iterations(
                     a_loop, wp, hp, fcol, k=k_max,
-                    slots=wp.shape[1] // k_max, iters=ce, **kern_kw, **kw)
+                    slots=wp.shape[1] // k_max, iters=ce,
+                    alias_io=exp.alias_io, **kern_kw, **kw)
             return fused_block_iterations(a_loop, wp, hp, fcol, k=k_max,
                                           iters=ce, fused=use_fused,
-                                          **kern_kw, **kw)
+                                          alias_io=exp.alias_io, **kern_kw,
+                                          **kw)
 
         def do_block(wp, hp, active, slot_iter, slot_job):
             # one launch: slot_iter is a multiple of check_every here, so
@@ -314,8 +477,8 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
             fcol = frozen.repeat_interleave(k)
             hn = fused_h_update(a_loop, wp, hp, k=k, **kern_kw)
             hn = torch.where(fcol[:, None], hp, hn)
-            wn = fused_w_update(a_loop, wp, hn, lane_gram(hn, k=k), k=k,
-                                **kern_kw)
+            gh = lane_gram(hn, k=k, matmul_precision=cfg.matmul_precision)
+            wn = fused_w_update(a_loop, wp, hn, gh, k=k, **kern_kw)
             return torch.where(fcol[None, :], wp, wn), hn
 
         def packed_deltas(wp, hp, wprev, hprev):
@@ -327,13 +490,14 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
             return torch.maximum(_d(wp, wprev, (m_pad, width, k_max), (0, 2)),
                                  _d(hp, hprev, (width, k_max, n), (1, 2)))
 
-        if not blk_route:
+        if not kernel_route:
             do_block = stepped_block(one_step, packed_deltas)
 
         class Layout(_Layout):
             def init_slots(self, s):
-                return (w0[:s].permute(1, 0, 2).reshape(m_pad, -1).clone(),
-                        h0[:s].reshape(-1, n).clone())
+                return (w0[:s].permute(1, 0, 2).reshape(m_pad, -1).to(
+                            w_pool, copy=True),
+                        h0[:s].reshape(-1, n).to(h_pool, copy=True))
 
             def labels(self, hp):
                 return torch.argmax(hp.reshape(-1, k_max, n), dim=1).to(
@@ -346,13 +510,17 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
                         dim=2).all(dim=1))
 
             def dense_views(self, wp, hp):
-                return (wp.reshape(m_pad, -1, k_max).permute(1, 0, 2)[:, :m],
-                        hp.reshape(-1, k_max, n))
+                # the result buffers stay float32
+                return (wp.reshape(m_pad, -1, k_max).permute(1, 0, 2)[:, :m]
+                        .to(f32),
+                        hp.reshape(-1, k_max, n).to(f32))
 
             def reload(self, pool, slot_ids, first, count):
                 w3 = pool.wp.view(m_pad, -1, k_max)
-                w3[:, slot_ids] = w0[first:first + count].permute(1, 0, 2)
-                pool.hp.view(-1, k_max, n)[slot_ids] = h0[first:first + count]
+                w3[:, slot_ids] = w0[first:first + count].permute(
+                    1, 0, 2).to(w_pool)
+                pool.hp.view(-1, k_max, n)[slot_ids] = h0[
+                    first:first + count].to(h_pool)
 
             def gather(self, wp, hp, order):
                 return (wp.reshape(m_pad, -1, k_max)[:, order].reshape(
@@ -510,27 +678,186 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
             dnorm=pool.dnorm[order], slot_job=pool.slot_job[order],
             active=pool.active[order], pending=pool.pending[order])
 
-    wp0, hp0 = layout.init_slots(s)
-    pool = _Pool(
-        wp=wp0, hp=hp0, slot_iter=torch.zeros((s,), **i32),
-        classes=torch.full((s, n), -1, **i32),
-        stable=torch.zeros((s,), **i32),
-        dnorm=torch.full((s,), torch.inf, dtype=f32, device=dev),
-        slot_job=torch.arange(s, dtype=torch.long, device=dev),
-        active=torch.ones((s,), dtype=torch.bool, device=dev),
-        pending=torch.zeros((s,), dtype=torch.bool, device=dev),
-        queue=s, n_active=s, n_pending=0)
-    widths = [s]
-    marks = []  # cumulative (trips, lanes) at each stage's end
-    for width in _resolve_tail(tail_slots, s):
-        while (pool.n_active or pool.n_pending) and (
-                pool.queue < j or pool.n_active + pool.n_pending > width):
-            trip(pool)
-        if pool.n_pending:
-            harvest(pool)
+    def ragged_stage(layout_r, tw: int, drain_tail: bool) -> _Pool:
+        """The class-blocked main stage (the reference's
+        ``_make_ragged_stage``): one row-3 launch a trip over the
+        class-major columns with per-column segment ids, every slot
+        checked at once, finished jobs evicted and each class's next
+        queued jobs loaded the same trip. Runs until every class queue
+        is drained and at most ``tw`` jobs survive (``drain_tail``) or to
+        the end; returns the survivors as a ``tw``-slot uniform pool (the
+        reference's ``_ragged_to_uniform``) with its queue empty."""
+        i64 = dict(dtype=torch.long, device=dev)
+        # per slot (class-major): its class, true width, first column
+        slot_k = np.concatenate([np.full(c.slots, c.k) for c in layout_r])
+        slot_off = np.concatenate([c.off + c.k * np.arange(c.slots)
+                                   for c in layout_r])
+        s_total, rk = slot_k.size, int(slot_k.sum())
+        seg_ids = np.repeat(np.arange(s_total, dtype=np.int32), slot_k)
+        col_slot = torch.as_tensor(seg_ids, dtype=torch.long, device=dev)
+        # (S, k_max) column of each slot's q-th component; rk (a zero pad
+        # column) past the slot's width
+        q = np.arange(k_max)
+        cols_np = np.where(q[None, :] < slot_k[:, None],
+                           slot_off[:, None] + q[None, :], rk)
+        cols = torch.as_tensor(cols_np, **i64)
+
+        def seg_max(x):  # (rk,) per-column stats → per-slot max
+            x = torch.cat([x.reshape(rk), x.new_zeros(1)])
+            return x[cols].amax(dim=1)
+
+        def true_cols(slot_ids):
+            """(columns, components) of the slots' true columns, flat."""
+            cs = [slot_off[i] + np.arange(slot_k[i]) for i in slot_ids]
+            qs = [np.arange(slot_k[i]) for i in slot_ids]
+            return (torch.as_tensor(np.concatenate(cs), **i64),
+                    torch.as_tensor(np.concatenate(qs), **i64))
+
+        def load(wp, hp, slot_ids, jobs):
+            """Each slot's true columns from its job's initial factors."""
+            c, qq = true_cols(slot_ids)
+            g = torch.as_tensor(np.repeat(jobs, slot_k[slot_ids]), **i64)
+            wp[:, c] = w0[g, :, qq].T
+            hp[c] = h0[g, qq, :]
+
+        queues = [list(cl.jobs) for cl in layout_r]
+        slot_class = np.concatenate([np.full(cl.slots, ci)
+                                     for ci, cl in enumerate(layout_r)])
+        slot_job = np.concatenate([np.asarray(cl.jobs[:cl.slots])
+                                   for cl in layout_r])
+        qpos = [cl.slots for cl in layout_r]
+        active = np.ones(s_total, bool)
+        wp = torch.zeros((m_pad, rk), dtype=f32, device=dev)
+        hp = torch.zeros((rk, n), dtype=f32, device=dev)
+        load(wp, hp, np.arange(s_total), slot_job)
+        slot_iter = torch.zeros((s_total,), **i32)
+        classes = torch.full((s_total, n), -1, **i32)
+        stable = torch.zeros((s_total,), **i32)
+        active_d = torch.ones((s_total,), dtype=torch.bool, device=dev)
+        neg_inf = torch.full((1, n), -torch.inf, dtype=f32, device=dev)
+        trips = lanes = 0
+
+        def pending():
+            return any(qpos[ci] < len(queues[ci])
+                       for ci in range(len(layout_r)))
+
+        while active.any() and (not drain_tail or pending()
+                                or active.sum() > tw):
+            lanes += int(active.sum())
+            frozen = ~active_d | (slot_iter >= cfg.max_iter)
+            fcol = frozen[col_slot].to(f32)[None, :]
+            wp, hp, wd, wm, hd, hm = fused_block_iterations(
+                a_loop, wp, hp, fcol, k=k_max, iters=ce, seg_ids=seg_ids,
+                **kern_kw)
+            it_new = torch.clamp(slot_iter + ce, max=cfg.max_iter)
+            delta = None
+            if cfg.use_tol_checks:
+                delta = torch.maximum(ratio(seg_max(wd[0]), seg_max(wm[0])),
+                                      ratio(seg_max(hd[:, 0]),
+                                            seg_max(hm[:, 0])))
+            labels = torch.argmax(torch.cat([hp, neg_inf])[cols], dim=1).to(
+                torch.int32)
+            nonfinite = None
+            if cfg.nonfinite_guard:
+                ok = torch.cat([torch.isfinite(wp).all(dim=0)
+                                & torch.isfinite(hp).all(dim=1),
+                                torch.ones(1, dtype=torch.bool, device=dev)])
+                nonfinite = ~ok[cols].all(dim=1)
+            classes, stable, conv, _, reason = batch_convergence(
+                cfg, it_new, new_classes=labels, delta=delta, n_glob=n,
+                classes=classes, stable=stable, done=~active_d,
+                done_iter=torch.zeros_like(slot_iter),
+                stop_reason=torch.full_like(slot_iter,
+                                            int(StopReason.MAX_ITER)),
+                flip_floor=flip_floor, nonfinite=nonfinite)
+            finished = active_d & (conv | (it_new >= cfg.max_iter))
+            fin = finished.cpu().numpy()  # the trip's one host read
+            stats["syncs"] += 1
+            trips += 1
+            slot_iter = torch.where(finished, 0, it_new)
+            classes = torch.where(finished[:, None], -1, classes)
+            stable = torch.where(finished, 0, stable)
+            if not fin.any():
+                continue
+            # evict: the finished jobs' factors, iterations and stops
+            done = np.flatnonzero(fin)
+            c, qq = true_cols(done)
+            g = torch.as_tensor(np.repeat(slot_job[done], slot_k[done]),
+                                **i64)
+            out_w[g, :, qq] = wp[:m, c].T
+            out_h[g, qq, :] = hp[c]
+            jobs = torch.as_tensor(slot_job[done], **i64)
+            done_d = torch.as_tensor(done, **i64)
+            out_iters[jobs] = it_new[done_d]
+            out_stop[jobs] = reason[done_d]
+            # reload: each class's next queued jobs, in slot order
+            loads, new_jobs = [], []
+            for i in done:
+                ci = slot_class[i]
+                if qpos[ci] < len(queues[ci]):
+                    loads.append(i)
+                    new_jobs.append(queues[ci][qpos[ci]])
+                    qpos[ci] += 1
+                    slot_job[i] = new_jobs[-1]
+                else:
+                    active[i] = False
+                    slot_job[i] = j
+            if loads:
+                load(wp, hp, np.asarray(loads), np.asarray(new_jobs))
+            active_d = torch.as_tensor(active, device=dev)
+        stats["trips"] += trips
+        stats["lanes"] += lanes
         marks.append((stats["trips"], stats["lanes"]))
-        pool = compact(pool, width)
-        widths.append(width)
+        # the survivors, zero-padded to k_max, into a uniform pool
+        order = np.argsort(~active, kind="stable")[:tw]
+        wpad = torch.cat([wp, wp.new_zeros((m_pad, 1))], dim=1)
+        hpad = torch.cat([hp, hp.new_zeros((1, n))])
+        sel = cols[torch.as_tensor(order, **i64)]  # (tw, k_max)
+        order_d = torch.as_tensor(order, **i64)
+        n_live = int(active.sum())
+        return _Pool(
+            wp=wpad[:, sel.reshape(-1)].contiguous(),
+            hp=hpad[sel.reshape(-1)].contiguous(),
+            slot_iter=slot_iter[order_d], classes=classes[order_d],
+            stable=stable[order_d],
+            dnorm=torch.full((tw,), torch.inf, dtype=f32, device=dev),
+            slot_job=torch.as_tensor(slot_job[order], **i64),
+            active=active_d[order_d],
+            pending=torch.zeros((tw,), dtype=torch.bool, device=dev),
+            queue=j, n_active=n_live, n_pending=0)
+
+    marks = []  # cumulative (trips, lanes) at each stage's end
+    if use_ragged:
+        layout_r = _ragged_layout(job_ks, s * k_max,
+                                  iters_est=exp.ragged_iters_est,
+                                  max_iter=cfg.max_iter)
+        s_total = sum(c.slots for c in layout_r)
+        tail_w = _resolve_tail(tail_slots, s_total)
+        tw = tail_w[-1] if tail_w else 1
+        pool = ragged_stage(layout_r, tw, bool(tail_w))
+        widths = [s_total, tw]
+    else:
+        wp0, hp0 = layout.init_slots(s)
+        pool = _Pool(
+            wp=wp0, hp=hp0, slot_iter=torch.zeros((s,), **i32),
+            classes=torch.full((s, n), -1, **i32),
+            stable=torch.zeros((s,), **i32),
+            dnorm=torch.full((s,), torch.inf, dtype=f32, device=dev),
+            slot_job=torch.arange(s, dtype=torch.long, device=dev),
+            active=torch.ones((s,), dtype=torch.bool, device=dev),
+            pending=torch.zeros((s,), dtype=torch.bool, device=dev),
+            queue=s, n_active=s, n_pending=0)
+        widths = [s]
+        for width in _resolve_tail(tail_slots, s):
+            while (pool.n_active or pool.n_pending) and (
+                    pool.queue < j
+                    or pool.n_active + pool.n_pending > width):
+                trip(pool)
+            if pool.n_pending:
+                harvest(pool)
+            marks.append((stats["trips"], stats["lanes"]))
+            pool = compact(pool, width)
+            widths.append(width)
     while pool.n_active:
         trip(pool)
     if pool.n_pending:

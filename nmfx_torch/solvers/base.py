@@ -36,7 +36,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from nmfx_torch.config import ROADMAP_BF16, ROADMAP_SCALE, SolverConfig
+from nmfx_torch.config import ROADMAP_DTYPES, ROADMAP_SCALE, SolverConfig
 from nmfx_torch.device import resolve_device, to_device
 
 
@@ -345,7 +345,8 @@ def solve(a, w0, h0, cfg=None, *, device=None) -> SolverResult:
             f"backend='sketched' is not ported yet ({ROADMAP_SCALE})")
     if cfg.matmul_precision == "bfloat16":
         raise NotImplementedError(
-            f"matmul_precision='bfloat16' is not ported yet ({ROADMAP_BF16})")
+            "matmul_precision='bfloat16' on the single-restart route, which "
+            f"reaches no kernel, is not ported yet ({ROADMAP_DTYPES})")
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"dtype must be one of {tuple(_DTYPES)}, got "
                          f"{cfg.dtype!r}")

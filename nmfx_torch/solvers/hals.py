@@ -37,10 +37,16 @@ def hals_h_sweep(a, w, h, eps: float, zero_threshold: float):
     """The H half: the shared products once, then the k coordinate
     updates in order, each against the rows already updated
     (Gauss–Seidel). ``w`` (B, m, k), ``h`` (B, k, n); returns a new H."""
-    wta = torch.einsum("bmk,mn->bkn", w, a)
-    wtw = torch.einsum("bmk,bml->bkl", w, w)
+    return hals_h_sweep_from(torch.einsum("bmk,mn->bkn", w, a),
+                             torch.einsum("bmk,bml->bkl", w, w), h, eps,
+                             zero_threshold)
+
+
+def hals_h_sweep_from(wta, wtw, h, eps: float, zero_threshold: float):
+    """The H half's sweep from its products WᵀA (B, k, n) and WᵀW
+    (B, k, k)."""
     h = h.clone()
-    for jj in range(w.shape[2]):
+    for jj in range(h.shape[1]):
         num = wta[:, jj, :] - torch.einsum("bl,bln->bn", wtw[:, jj, :], h)
         hj = h[:, jj, :] + num / (wtw[:, jj, jj, None] + eps)
         h[:, jj, :] = clamp(hj, zero_threshold)
@@ -50,8 +56,14 @@ def hals_h_sweep(a, w, h, eps: float, zero_threshold: float):
 def hals_w_sweep(a, w, h, eps: float, zero_threshold: float):
     """The W half against the fresh H, in the same component order;
     returns a new W."""
-    aht = torch.einsum("mn,bkn->bmk", a, h)
-    hht = torch.einsum("bkn,bln->bkl", h, h)
+    return hals_w_sweep_from(torch.einsum("mn,bkn->bmk", a, h),
+                             torch.einsum("bkn,bln->bkl", h, h), w, eps,
+                             zero_threshold)
+
+
+def hals_w_sweep_from(aht, hht, w, eps: float, zero_threshold: float):
+    """The W half's sweep from its products AHᵀ (B, m, k) and HHᵀ
+    (B, k, k)."""
     w = w.clone()
     for jj in range(w.shape[2]):
         num = aht[:, :, jj] - torch.einsum("bmk,bk->bm", w, hht[:, :, jj])

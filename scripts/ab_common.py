@@ -44,10 +44,46 @@ def build_all(builds):
     return libs
 
 
-def load(path, signatures):
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+#: the C interface before nmfx_block_abi() existed (version 1): no
+#: segments, flags or option workspace
+ABI1_SIGNATURES = {
+    "block_mu": {
+        "nmfx_block_split_rows": (),
+        "nmfx_block_w_tile_rows": (),
+        "nmfx_block_iterations": (_P,) * 19 + (_I,) * 6 + (_F, _F, _P),
+        "nmfx_block_iterations_fused": (_P,) * 19 + (_I,) * 6 + (_F, _F, _P),
+        "nmfx_fused_h_update": (_P,) * 6 + (_I,) * 4 + (_F, _F, _P),
+        "nmfx_lane_gram": (_P, _P, _I, _I, _I, _P),
+        "nmfx_fused_w_update": (_P,) * 5 + (_I,) * 4 + (_F, _F, _P),
+    },
+    "hals_block": {
+        "nmfx_block_split_rows": (),
+        "nmfx_block_w_tile_rows": (),
+        "nmfx_hals_w_tile_cols": (),
+        "nmfx_hals_sweep_positions": (),
+        "nmfx_hals_block_iterations": (_P,) * 20 + (_I,) * 6 + (_F, _F, _P),
+    },
+}
+
+
+def abi(lib) -> int:
+    """The version of a built library's C interface."""
+    fn = getattr(lib, "nmfx_block_abi", None)
+    if fn is None:
+        return 1
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
+
+
+def load(path, signatures, name=None):
     """The library at `path` with the argument types of every symbol in
-    `signatures` that it has."""
+    `signatures` that it has; with `name` ("block_mu" or "hals_block"), a
+    library of interface version 1 takes ABI1_SIGNATURES[name] instead."""
     lib = ctypes.CDLL(path)
+    if name is not None and abi(lib) == 1:
+        signatures = ABI1_SIGNATURES[name]
     for sym, argtypes in signatures.items():
         fn = getattr(lib, sym, None)
         if fn is not None:

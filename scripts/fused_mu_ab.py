@@ -35,7 +35,7 @@ import importlib.util
 import os
 import sys
 
-from ab_common import build, build_all, load, profile_line, turns
+from ab_common import abi, build, build_all, load, profile_line, turns
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -62,6 +62,8 @@ class Pair:
     def __init__(self, torch, lib, k, split=None):
         self.torch, self.lib, self.k, self.split = torch, lib, k, split
         self.bufs = {}
+        # C interface version 2 adds the bf16 workspace and the flags
+        self.v2 = split is None and abi(lib) >= 2
 
     def _buf(self, name, *shape):
         key = (name, shape)
@@ -89,8 +91,9 @@ class Pair:
         gpart = self._buf("gpart", splits, rk // k, k, k)
         rc = self.lib.nmfx_fused_h_update(
             a.data_ptr(), wp.data_ptr(), hp.data_ptr(), out.data_ptr(),
-            part.data_ptr(), gpart.data_ptr(), m, n, rk, k, *extra, 1e-9,
-            0.0, self._stream())
+            part.data_ptr(), gpart.data_ptr(), *([None] if self.v2 else []),
+            m, n, rk, k, *extra, *([0] if self.v2 else []), 1e-9, 0.0,
+            self._stream())
         if rc:
             raise RuntimeError(f"fused_h_update failed with CUDA error {rc}")
         return out
@@ -106,6 +109,7 @@ class Pair:
             return self.torch.where(self.bufs[key], h @ h.T, 0.0)
         gh = self._buf("gh", rk // k, k, k)
         rc = self.lib.nmfx_lane_gram(h.data_ptr(), gh.data_ptr(), n, rk, k,
+                                     *([0] if self.v2 else []),
                                      self._stream())
         if rc:
             raise RuntimeError(f"lane_gram failed with CUDA error {rc}")
@@ -117,7 +121,8 @@ class Pair:
         out = self._buf("w", m, rk)
         rc = self.lib.nmfx_fused_w_update(
             a.data_ptr(), wp.data_ptr(), h.data_ptr(), gh.data_ptr(),
-            out.data_ptr(), m, n, rk, self.k, 1e-9, 0.0, self._stream())
+            out.data_ptr(), m, n, rk, self.k, *([0] if self.v2 else []),
+            1e-9, 0.0, self._stream())
         if rc:
             raise RuntimeError(f"fused_w_update failed with CUDA error {rc}")
         return out
@@ -142,10 +147,13 @@ def block_iteration(torch, lib, a, wp, hp, k):
     outs = [empty(m, rk), empty(rk, n), empty(1, rk), empty(1, rk),
             empty(rk, 1), empty(rk, 1)]
     work = [empty(*shape) for shape in mu_block_workspace(m, n, rk, k)]
+    v2 = abi(lib) >= 2
     rc = lib.nmfx_block_iterations(
         a.data_ptr(), wp.data_ptr(), hp.data_ptr(), frozen.data_ptr(), None,
         *(t.data_ptr() for t in outs), None, *(t.data_ptr() for t in work),
-        m, n, rk, k, 1, 1, 1e-9, 0.0, torch.cuda.current_stream().cuda_stream)
+        *([None] * 7 if v2 else []), m, n, rk, k, *([0] if v2 else []), 1, 1,
+        *([0] if v2 else []), 1e-9, 0.0,
+        torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"nmfx_block_iterations failed with CUDA error "
                            f"{rc}")
@@ -190,9 +198,10 @@ def main(argv=None) -> int:
                        "fused_mu.cu" if split_layout else "block_mu.cu"),
         "this": build(_build._nvcc(), flags, str(_build.SRC_DIR),
                       os.path.join(out, "this"), "block_mu.cu")})
-    this_lib = load(libs["this"], _build.SIGNATURES["block_mu"])
-    other_lib = load(libs["other"], SPLIT_SIGNATURES if split_layout
-                     else _build.SIGNATURES["block_mu"])
+    this_lib = load(libs["this"], _build.SIGNATURES["block_mu"], "block_mu")
+    other_lib = (load(libs["other"], SPLIT_SIGNATURES) if split_layout
+                 else load(libs["other"], _build.SIGNATURES["block_mu"],
+                           "block_mu"))
     split = other_h_splits(parent) if split_layout else None
     print("other build: " + ("fused_mu.cu (m split by h_splits, dense gh)"
                              if split_layout else "block_mu.cu"), flush=True)

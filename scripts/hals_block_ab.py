@@ -9,8 +9,9 @@ DIR is another checkout of the repository (for example `git archive` of
 the parent commit unpacked into a git-ignored directory). Both
 `hals_block.cu` sources are built with the port's nvcc flags into
 DIR/_ab_build (helpers in scripts/ab_common.py), then:
-  1. byte-equality: all seven outputs of this build (and of the
-     byte-equal diagnostic builds below) against the other build's at chip_smoke.py's HALS block pools (the north star, the
+  1. byte-equality, with no option set: all seven outputs of this build
+     (and of the byte-equal diagnostic builds below) against the other
+     build's at chip_smoke.py's HALS block pools (the north star, the
      ragged 1237x77 pool of 13 x k=3, the unaligned one of 5 x k=7, the
      zeros pool, a lane wider than a W tile) and a pool whose last
      256-row chunk is shorter than one W tile, each at check_block 1
@@ -28,7 +29,8 @@ DIR/_ab_build (helpers in scripts/ab_common.py), then:
      staging and the stores stay; not byte-equal).
 Each build's workspace is sized for the larger of both layouts: the W
 numerator (m, rk) and one row of maxima per `nmfx_hals_sweep_positions()`
-positions of max(m, n).
+positions of max(m, n); a build of C interface version 1 is called with
+its own argument list (ab_common.abi).
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import argparse
 import os
 import sys
 
-from ab_common import build, build_all, load, profile_line, turns
+from ab_common import abi, build, build_all, load, profile_line, turns
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -47,14 +49,14 @@ ROOT = os.path.dirname(HERE)
 DIAGNOSTICS = {
     "w-three-blocks": [(
         "hals_block.cu",
-        "template <bool VEC>\n__global__ void __launch_bounds__(W_THREADS, 2)"
-        "\nw_sweep_tile(",
-        "template <bool VEC>\n__global__ void __launch_bounds__(W_THREADS, 3)"
-        "\nw_sweep_tile(")],
+        "template <bool VEC, bool BF>\n"
+        "__global__ void __launch_bounds__(W_THREADS, 2)\nw_sweep_tile(",
+        "template <bool VEC, bool BF>\n"
+        "__global__ void __launch_bounds__(W_THREADS, 3)\nw_sweep_tile(")],
     "separate-gram": [(
         "hals_block.cu",
-        "    if (!whole) {\n      h_numer_split<VR, VN>",
-        "    if (!whole || k > 0) {\n      h_numer_split<VR, VN>")],
+        "    if (!whole) {\n      h_numer_split<VW, VN, T>",
+        "    if (!whole || k > 0) {\n      h_numer_split<VW, VN, T>")],
     "no-w-sweep": [(
         "hals_block.cu",
         "  for (int e = threadIdx.x; e < WBM * nl; e += W_THREADS) {\n",
@@ -71,6 +73,7 @@ def runner(torch, lib):
     2 x nck iterations of `lib`."""
     split = lib.nmfx_block_split_rows()
     positions = lib.nmfx_hals_sweep_positions()
+    v2 = abi(lib) >= 2
 
     def run(a, wp, hp, frz, budget, k, nck):
         m, n = a.shape
@@ -91,7 +94,8 @@ def runner(torch, lib):
             a.data_ptr(), wp.data_ptr(), hp.data_ptr(), frz.data_ptr(),
             budget.data_ptr() if nck > 1 else None,
             *(t.data_ptr() for t in outs), *([None] if nck == 1 else []),
-            *(t.data_ptr() for t in work), m, n, rk, k, 2, nck, 1e-9, 0.0,
+            *(t.data_ptr() for t in work), *([None] * 4 if v2 else []),
+            m, n, rk, k, 2, nck, *([0] if v2 else []), 1e-9, 0.0,
             torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"nmfx_hals_block_iterations failed with "
@@ -129,7 +133,8 @@ def main(argv=None) -> int:
     for name, edits in DIAGNOSTICS.items():
         procs[name] = build(_build._nvcc(), flags, srcs["this"],
                             os.path.join(out, name), "hals_block.cu", edits)
-    runs = {name: runner(torch, load(lib, _build.SIGNATURES["hals_block"]))
+    runs = {name: runner(torch, load(lib, _build.SIGNATURES["hals_block"],
+                                     "hals_block"))
             for name, lib in build_all(procs).items()}
 
     pools = list(cs.HALS_BLOCK_CASES) + [

@@ -400,3 +400,135 @@ def test_other_solvers_on_card_match_cpu(card, algorithm, backend):
     for k in kw["ks"]:
         assert np.isfinite(got.per_k[k].consensus).all()
         assert np.isfinite(got.per_k[k].dnorms).all()
+
+
+# --- the kernels' options ------------------------------------------------
+
+def _exact_close(got, plain, exact, atol_rel=1e-6, factor=4.0):
+    """A kernel held to the float64 plain version: as close to it as the
+    float32 plain version is (4x its error + atol_rel max|exact|), where
+    float32 itself is far from float64 (bf16 operands and pool factors
+    carry a straddled rounding boundary on as a whole bf16 ulp; a bf16
+    pool factor's kernel may store the neighbouring bf16 value where
+    float32 and float64 round alike: atol_rel 2^-7, one ulp)."""
+    exact = exact.double()
+    e_k = (got.double() - exact).abs().max().item()
+    e_p = (plain.double() - exact).abs().max().item()
+    assert e_k <= factor * e_p + atol_rel * exact.abs().max().item()
+
+
+#: (kernel, option): every option each block kernel takes
+BLOCK_OPTIONS = [(kernel, option) for kernel in ("phased", "fused", "hals")
+                 for option in ("bf16", "bfloat16_w", "bfloat16",
+                                "alias_io")] + [
+    ("phased", "seg_ids"), ("fused", "seg_ids")]
+
+
+@pytest.mark.parametrize("kernel,option", BLOCK_OPTIONS)
+def test_block_kernel_options_on_card(card, kernel, option):
+    """Each option of rows 3-5 at the 1237 x 77 pool of 5 x k = 7 (rows
+    off 16-byte alignment) with a frozen lane and a budget running out:
+    bf16 operands and pool factors held to float64 as close as the plain
+    version, outputs in the pool's dtypes; alias_io byte-equal to the
+    unaliased launch and in place; segment ids of a class-major ragged
+    pool against the plain version."""
+    k, a, wp, hp, frozen, budget = _block_pool("1237x77_rk35", card)
+    kw = dict(k=k, iters=2, check_block=4, budget_cols=budget)
+    if kernel == "hals":
+        fn, ref, extra = (fused_mu.hals_block_iterations,
+                          fused_mu.hals_block_iterations_ref,
+                          dict(slots=wp.shape[1] // k))
+    else:
+        fn, ref, extra = (fused_mu.fused_block_iterations,
+                          fused_mu.fused_block_iterations_ref, {})
+    kw_fn = dict(fused=kernel == "fused") if kernel != "hals" else {}
+    fused_mu.reset_launch_counts()
+    if option == "alias_io":
+        plain = fn(a, wp, hp, frozen, **kw, **extra, **kw_fn)
+        w2, h2 = wp.clone(), hp.clone()
+        got = fn(a, w2, h2, frozen, alias_io=True, **kw, **extra, **kw_fn)
+        torch.cuda.synchronize()
+        assert got[0] is w2 and got[1] is h2
+        for g, p in zip(got, plain):
+            assert torch.equal(g.view(torch.int32), p.view(torch.int32))
+        return
+    if option == "seg_ids":
+        # class-major jobs of widths 7 .. 2 over the pool's 35 columns
+        seg = np.repeat(np.arange(8), [7, 6, 5, 5, 4, 3, 3, 2])
+        got = fn(a, wp, hp, frozen, seg_ids=seg, **kw, **kw_fn)
+        want = ref(a, wp, hp, frozen, seg_ids=seg, **kw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+        name = "fused_block_iterations" + ("_fused" if kernel == "fused"
+                                           else "")
+        assert fused_mu.LAUNCHES[f"{name}[seg_ids]"] == 1
+        return
+    okw, pool = {}, None
+    if option == "bf16":
+        okw = dict(matmul_precision="bfloat16")
+    else:
+        pool = option
+        wp = wp.to(torch.bfloat16)
+        if option == "bfloat16":
+            hp = hp.to(torch.bfloat16)
+    got = fn(a, wp, hp, frozen, **kw, **extra, **kw_fn, **okw)
+    plain = ref(a, wp, hp, frozen, **kw, **extra, **okw)
+    exact = ref(a.double(), wp.double(), hp.double(), frozen.double(),
+                **dict(kw, budget_cols=budget.double()), **extra, **okw,
+                factor_dtype=pool)
+    torch.cuda.synchronize()
+    assert got[0].dtype == wp.dtype and got[1].dtype == hp.dtype
+    for g, p, x in zip(got, plain, exact):
+        assert torch.isfinite(g.float()).all()
+        _exact_close(g, p, x, 1e-6 if pool is None else 2.0 ** -7)
+
+
+@pytest.mark.parametrize("pool", sorted(PAIR_POOLS))
+def test_bf16_pair_byte_equal_to_one_block_iteration(card, pool):
+    """Under bf16 operands too, the pair is one block iteration."""
+    m, n, r, k, zeros = PAIR_POOLS[pool]
+    a, wp, hp = _operands(m, n, r, k, zeros, card)
+    ab, bf = a.to(torch.bfloat16), dict(matmul_precision="bfloat16")
+    h = fused_mu.fused_h_update(ab, wp, hp, k=k, **bf)
+    w = fused_mu.fused_w_update(ab, wp, h, fused_mu.lane_gram(h, k=k, **bf),
+                                k=k, **bf)
+    want = fused_mu.fused_block_iterations(
+        ab, wp, hp, torch.zeros((1, r * k), device=card), k=k, iters=1,
+        **bf)
+    torch.cuda.synchronize()
+    assert torch.equal(h.view(torch.int32), want[1].view(torch.int32))
+    assert torch.equal(w.view(torch.int32), want[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("option", ["bf16", "ragged", "alias_io",
+                                    "block_m", "bfloat16_w"])
+def test_sched_options_on_card_match_cpu(card, option):
+    """The whole grid under each option on the card and on the CPU: the
+    same iterations, stop reasons and labels."""
+    from nmfx_torch.config import ExperimentalConfig
+    from nmfx_torch.datasets import two_group_matrix
+    from nmfx_torch.ops.sched_mu import mu_sched
+
+    rng = np.random.default_rng(4)
+    a = two_group_matrix(n_genes=200, n_per_group=12, seed=3)
+    k_max, ks = 3, (3, 3, 3, 2, 2, 2)
+    w0 = rng.uniform(0.0, 1.0, (len(ks), 200, k_max)).astype(np.float32)
+    h0 = rng.uniform(0.0, 1.0, (len(ks), k_max, 24)).astype(np.float32)
+    for j, k in enumerate(ks):
+        w0[j, :, k:] = 0.0
+        h0[j, k:] = 0.0
+    kw = dict(backend="pallas", max_iter=200)
+    exp = {"ragged": dict(ragged=True), "alias_io": dict(alias_io=True),
+           "block_m": dict(block_m=256),
+           "bfloat16_w": dict(factor_dtype="bfloat16_w")}.get(option, {})
+    if option == "bf16":
+        kw["matmul_precision"] = "bfloat16"
+    if option == "ragged":
+        kw["check_block"] = 1
+    cfg = SolverConfig(experimental=ExperimentalConfig(**exp), **kw)
+    got = mu_sched(a, w0, h0, cfg, slots=4, job_ks=ks, device=card)
+    want = mu_sched(a, w0, h0, cfg, slots=4, job_ks=ks, device="cpu")
+    assert torch.equal(got.iterations.cpu(), want.iterations)
+    assert torch.equal(got.stop_reason.cpu(), want.stop_reason)
+    assert torch.equal(got.h.cpu().argmax(dim=1), want.h.argmax(dim=1))

@@ -116,13 +116,13 @@ def test_solver_config_round_trips_from_reference_dict():
     # each a callable: an unported experimental knob raises when built
     (lambda: dict(solver_cfg=nmfx_torch.SolverConfig(
         backend="pallas",
-        experimental=nmfx_torch.ExperimentalConfig(ragged=True))),
-     "§1 item 3"),
+        experimental=nmfx_torch.ExperimentalConfig(autotune="on"))),
+     "§1 item 11"),
+    (lambda: dict(solver_cfg=nmfx_torch.SolverConfig(dtype="float64")),
+     "§1 item 4"),
+    # bf16 operands on a route that reaches no kernel
     (lambda: dict(solver_cfg=nmfx_torch.SolverConfig(
-        experimental=nmfx_torch.ExperimentalConfig(
-            factor_dtype="bfloat16"))), "§1 item 3"),
-    (lambda: dict(solver_cfg=nmfx_torch.SolverConfig(
-        backend="pallas", matmul_precision="bfloat16")), "§2 item 6"),
+        backend="packed", matmul_precision="bfloat16")), "§1 item 4"),
 ])
 def test_unported_routes_name_their_roadmap_item(kw, item):
     a = two_group_matrix(40, 6, seed=0)
