@@ -78,7 +78,9 @@ Phases (any failure exits non-zero; nothing is caught):
   7. other solvers: kl, neals, als, snmf, pg (max_iter 100) and alspg
      (max_iter 20, sub_max_iter 100) through nmfconsensus at the north
      star with every other default (backend "auto": the batched restart
-     route, plain products), then kl and neals on the packed whole grid
+     route, plain products; kl and pg at ks 2..6, their depth cut to keep
+     the script inside its time limit), then kl and neals on the packed
+     whole grid
      (backend "packed", 48 slots), each with the kernels' launch counts
      set to 0 just before it (0 expected: no kernel lies on these
      routes): the wall split by the profiler's phases, per-k mean
@@ -88,7 +90,28 @@ Phases (any failure exits non-zero; nothing is caught):
      1000x40 design on the card, on the CPU and as the JAX package gives
      it, all equal; a small input on the card and on the CPU, the same
      best k and k = 2 memberships; als on the packed grid at ks (2, 5)
-     (a zero-padded lane in every pool) finite.
+     (a zero-padded lane in every pool) finite;
+  8. durability (phase_durability), each run with the launch counts set
+     to 0 just before it and read just after:
+     a. the north-star sweep of 4c (backend "pallas") through the
+        checkpoint ledger, 10 restarts a record (45 chunks on the kernel
+        pair), the wall split by the profiler's phases;
+     b. the same at ks 2..6 (25 chunks; the depth cut to keep the phase
+        near its budget) in a fresh directory, killed by proc.preempt at
+        the 13th chunk (12 records on disk), then resumed: 13 chunks
+        solved, 12 loaded, byte-equal to a at those ranks;
+     c. a's warm re-run: 0 chunks solved, 0 launches, 0 bytes copied;
+     d. a against 4c: the same best k and k = 2 memberships (the ranks
+        whose memberships are equal listed), max|dC| <= 1e-6 and whether
+        every per-restart iteration count is equal;
+     e. solve.nonfinite (5 % of the restarts) on the whole grid (row 3)
+        and on the hals grid (row 5): the poisoned restarts stop
+        NUMERIC_FAULT, every other one is byte-equal to 4a's / 4d's run;
+     f. sched.stale_reload on the bundled design's pallas grid (8
+        slots): the restarts that differ from the clean run are the
+        hashed set; disarmed, the run is byte-equal to the clean one;
+     g. the bundled design in float64 on the batched restart route: its
+        wall, best k as the JAX package gives it.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -1348,6 +1371,10 @@ OTHER_SOLVERS = {"kl": {}, "neals": {}, "als": {}, "snmf": {},
                  "alspg": dict(max_iter=20, sub_max_iter=100)}
 #: ... and on the packed whole grid (backend "packed")
 PACKED_SOLVERS = ("kl", "neals")
+#: the slowest of them at ks 2..6, their depth cut to keep the script
+#: inside its time limit (kl batched ran 111-116 s and pg 72-89 s at ks
+#: 2..10 on one H100)
+SOLVER_KS = {"kl": KS[:5], "pg": KS[:5]}
 #: each solver's best k on the bundled 1000x40 design (ks 2..5, 10
 #: restarts, seed 123) at those budgets, as the JAX package gives it
 #: (nmfconsensus on its CPU backend): neals and als stop on TolFun after
@@ -1357,8 +1384,8 @@ BUNDLED_BEST_K = {"kl": 2, "neals": 4, "als": 4, "snmf": 2, "pg": 3,
                   "alspg": 2}
 
 
-def solver_sweep(torch, fm, a, scfg, label):
-    """One nmfconsensus at the north star's ranks and restarts under a
+def solver_sweep(torch, fm, a, scfg, label, ks=KS):
+    """One nmfconsensus at the north star's restarts and ``ks`` under a
     Profiler, with every kernel's launch count set to 0 just before it:
     its line and per-k lines. No kernel may launch (none lies on these
     routes)."""
@@ -1372,14 +1399,14 @@ def solver_sweep(torch, fm, a, scfg, label):
     t0 = time.perf_counter()
     with prof:
         res = nmfx_torch.nmfconsensus(
-            a, ks=KS, restarts=r, solver_cfg=scfg, profiler=prof,
+            a, ks=ks, restarts=r, solver_cfg=scfg, profiler=prof,
             on_rank=lambda k, out: outs.setdefault(k, out))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(fm.LAUNCHES)
     check_finite(res, label, n)
-    grid = bool(outs[KS[0]].pool_trips)
-    syncs = (outs[KS[0]].host_syncs if grid
+    grid = bool(outs[ks[0]].pool_trips)
+    syncs = (outs[ks[0]].host_syncs if grid
              else sum(out.host_syncs for out in outs.values()))
     solve = sum(rec.seconds for name, rec in prof.phases.items()
                 if name.startswith("solve."))
@@ -1387,15 +1414,15 @@ def solver_sweep(torch, fm, a, scfg, label):
                       for rec in prof.phases.values()
                       if not rec.name.startswith("solve."))
     mean_iters = {k: round(float(res.per_k[k].iterations.mean()), 1)
-                  for k in KS}
-    pool = (f", pool_widths {outs[KS[0]].pool_widths}, pool_trips "
-            f"{outs[KS[0]].pool_trips}, pool_lanes {outs[KS[0]].pool_lanes}"
+                  for k in ks}
+    pool = (f", pool_widths {outs[ks[0]].pool_widths}, pool_trips "
+            f"{outs[ks[0]].pool_trips}, pool_lanes {outs[ks[0]].pool_lanes}"
             if grid else "")
     print(f"solvers {label}: wall {wall:.3f} s (solve {solve:.3f} s, after "
           f"it {wall - solve:.3f} s [{after}]; audit {prof.audit(wall)}), "
           f"host syncs {syncs}{pool}, launches {launches}, best k "
           f"{res.best_k}, mean iters per k {mean_iters}", flush=True)
-    for k in KS:
+    for k in ks:
         kr = res.per_k[k]
         rank = prof.phases.get(f"solve.k={k}")
         print(f"solvers {label} k={k}: mean iters "
@@ -1423,18 +1450,18 @@ def phase_solvers(torch, fm):
     for alg, kw in OTHER_SOLVERS.items():
         batched[alg] = solver_sweep(
             torch, fm, a, nmfx_torch.SolverConfig(algorithm=alg, **kw),
-            f"{alg} batched")
+            f"{alg} batched", SOLVER_KS.get(alg, KS))
     for alg in PACKED_SOLVERS:
         packed = solver_sweep(
             torch, fm, a, nmfx_torch.SolverConfig(algorithm=alg,
                                                   backend="packed"),
-            f"{alg} packed grid")
+            f"{alg} packed grid", SOLVER_KS.get(alg, KS))
         print(f"solvers {alg} packed grid vs batched, per k (mean iters "
               "packed / batched, max|dC|): " + ", ".join(
                   f"k={k} ({packed.per_k[k].iterations.mean():.1f} / "
                   f"{batched[alg].per_k[k].iterations.mean():.1f}, "
                   f"{np.abs(packed.per_k[k].consensus - batched[alg].per_k[k].consensus).max():.4g})"
-                  for k in KS), flush=True)
+                  for k in packed.ks), flush=True)
 
     bundled = two_group_matrix(n_genes=1000, n_per_group=20, seed=123)
     small = two_group_matrix(n_genes=200, n_per_group=12, seed=3)
@@ -2147,6 +2174,288 @@ def phase_option_timing(torch, fm, rates):
     return table
 
 
+#: phase 8: restarts a ledger record holds (45 records at the north star);
+#: the kill-and-resume run's ranks (its depth cut to ks 2..6, 25 chunks,
+#: to keep the phase near its budget) and the chunk solve the rehearsed
+#: preemption lands on
+CKPT_CHUNK, KILL_KS, KILL_AT = 10, tuple(range(2, 7)), 13
+#: phase 8e: the share of restarts poisoned (one NaN in W0)
+POISON_RATE = 0.05
+#: phase 8f: the stale reloads' rate and the pool that makes slots reload
+STALE_RATE, STALE_SLOTS = 0.25, 8
+#: phase 8g: best k of the bundled 1000x40 design on the batched restart
+#: route in float64 (ks 2..5, 10 restarts, seed 123), as the JAX package
+#: gives it on its CPU backend under jax_enable_x64
+FLOAT64_BEST_K = 2
+
+DURABILITY_FIELDS = ("consensus", "rho", "membership", "order",
+                     "iterations", "dnorms", "stop_reasons", "best_w",
+                     "best_h")
+
+
+def phase_seconds(prof, prefix) -> float:
+    return sum(rec.seconds for name, rec in prof.phases.items()
+               if name.startswith(prefix))
+
+
+def results_byte_equal(x, y, fields=DURABILITY_FIELDS) -> bool:
+    return x.ks == y.ks and all(
+        same_bytes(getattr(x.per_k[k], f), getattr(y.per_k[k], f))
+        for k in x.ks for f in fields)
+
+
+def expect_preempted(fn, ckpt):
+    """Run fn, which must raise checkpoint.Preempted (the rehearsed
+    kill); anything else propagates."""
+    try:
+        fn()
+    except ckpt.Preempted:
+        return
+    raise AssertionError("the armed proc.preempt site did not fire")
+
+
+def phase_durability(torch, fm, grid, per_rank, hals, *, a=None, ks=KS,
+                     restarts=None, chunk=CKPT_CHUNK, kill_ks=KILL_KS,
+                     kill_at=KILL_AT, bundled=None, device=None):
+    """Phase 8, the durable sweep (nmfx_torch.checkpoint) at the north
+    star on the per-iteration kernel pair, and the fault sites on the
+    block kernels: a. uninterrupted, b. killed by proc.preempt and
+    resumed (byte-equal to a), c. a's warm re-run (no solve, no launch,
+    no byte copied), d. against the per-rank route's result ``per_rank``,
+    e. solve.nonfinite on the whole grid and the hals grid against their
+    clean runs ``grid`` and ``hals``, f. sched.stale_reload on the
+    bundled design, g. float64 on the batched restart route. Returns the
+    launches of each run by name."""
+    import tempfile
+
+    import nmfx_torch
+    from nmfx_torch import checkpoint as ckpt
+    from nmfx_torch import data_cache, faults
+    from nmfx_torch.datasets import two_group_matrix
+    from nmfx_torch.profiling import Profiler
+
+    a = north_star_matrix() if a is None else a
+    r = NORTH_STAR[2] if restarts is None else restarts
+    n = a.shape[1]
+    n_chunks = len(ks) * -(-r // chunk)
+    kill_chunks = len(kill_ks) * -(-r // chunk)
+    bundled = (two_group_matrix(n_genes=1000, n_per_group=20, seed=123)
+               if bundled is None else bundled)
+    pallas = nmfx_torch.SolverConfig(backend="pallas")
+    sync = torch.cuda.synchronize if device is None else (lambda: None)
+    launches = {}
+
+    def run(directory, ks=ks, **kw):
+        return nmfx_torch.nmfconsensus(
+            a, ks=ks, restarts=r, solver_cfg=pallas, device=device,
+            checkpoint=nmfx_torch.CheckpointConfig(
+                directory=directory, every_n_restarts=chunk), **kw)
+
+    def counted(label, fn):
+        fm.reset_launch_counts()
+        s0, l0 = ckpt.chunks_solved_count(), ckpt.chunks_loaded_count()
+        b0 = data_cache.h2d_bytes()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        wall = time.perf_counter() - t0
+        launches[label] = {k: v for k, v in fm.LAUNCHES.items() if v}
+        return (res, wall, ckpt.chunks_solved_count() - s0,
+                ckpt.chunks_loaded_count() - l0, data_cache.h2d_bytes() - b0)
+
+    with tempfile.TemporaryDirectory(prefix=".ckpt_smoke_",
+                                     dir=HERE) as root:
+        dir_a, dir_b = os.path.join(root, "a"), os.path.join(root, "b")
+        # a. uninterrupted
+        prof = Profiler()
+
+        def profiled_run():
+            with prof:
+                return run(dir_a, profiler=prof)
+
+        res_a, wall_a, solved, loaded, _ = counted("a", profiled_run)
+        la = launches["a"]
+        print(f"durability a (uninterrupted, pallas, {n_chunks} chunks of "
+              f"{chunk}): wall {wall_a:.3f} s [solve.ckpt "
+              f"{phase_seconds(prof, 'solve.ckpt'):.3f} s, ckpt.load "
+              f"{phase_seconds(prof, 'ckpt.load'):.4f} s, checkpoint "
+              f"{phase_seconds(prof, 'checkpoint'):.4f} s, ckpt.finalize "
+              f"{phase_seconds(prof, 'ckpt.finalize'):.4f} s, "
+              f"post.rank_selection "
+              f"{phase_seconds(prof, 'post.rank_selection'):.4f} s "
+              f"overlapped], chunks solved {solved}, loaded {loaded}, "
+              f"launches {la}, best k {res_a.best_k}", flush=True)
+        check_sweep(res_a, "durability a", n)
+        if solved != n_chunks or loaded:
+            raise AssertionError(f"durability a: {solved} chunks solved, "
+                                 f"{loaded} loaded; want {n_chunks}, 0")
+        if device is None and not all(
+                la.get(name, 0) > 0 for name in
+                ("fused_h_update", "lane_gram", "fused_w_update")):
+            raise AssertionError(f"durability a: the pair did not launch "
+                                 f"({la})")
+
+        # b. killed at the kill_at-th chunk solve, then resumed
+        faults.arm("proc.preempt", every=kill_at, max_fires=1)
+        try:
+            _, wall_kill, _, _, _ = counted(
+                "b-killed", lambda: expect_preempted(
+                    lambda: run(dir_b, ks=kill_ks), ckpt))
+        finally:
+            faults.disarm("proc.preempt")
+        records = sum(1 for f in os.listdir(dir_b) if f.endswith(".npz"))
+        res_b, wall_b, solved, loaded, _ = counted(
+            "b", lambda: run(dir_b, ks=kill_ks))
+        same_b = all(same_bytes(getattr(res_b.per_k[k], f),
+                                getattr(res_a.per_k[k], f))
+                     for k in kill_ks for f in DURABILITY_FIELDS)
+        print(f"durability b (ks {kill_ks[0]}..{kill_ks[-1]}, killed at "
+              f"chunk {kill_at} of {kill_chunks}): killed run "
+              f"{wall_kill:.3f} s with {records} records on disk; resume "
+              f"{wall_b:.3f} s, chunks solved {solved}, loaded {loaded}, "
+              f"launches {launches['b']}; byte-equal to a at those ranks: "
+              f"{same_b}", flush=True)
+        if records != kill_at - 1 or solved != kill_chunks - kill_at + 1 \
+                or loaded != kill_at - 1 or not same_b:
+            raise AssertionError(
+                f"durability b: {records} records, resume solved {solved} "
+                f"and loaded {loaded}, byte-equal {same_b}")
+
+        # c. warm re-run of a's ledger
+        res_c, wall_c, solved, loaded, copied = counted(
+            "c", lambda: run(dir_a))
+        same_c = results_byte_equal(res_c, res_a)
+        print(f"durability c (warm re-run): wall {wall_c:.3f} s, chunks "
+              f"solved {solved}, loaded {loaded}, launches "
+              f"{sum(launches['c'].values())}, bytes copied to the card "
+              f"{copied}; byte-equal to a: {same_c}", flush=True)
+        if solved or loaded != n_chunks or launches["c"] or copied \
+                or not same_c:
+            raise AssertionError("durability c: the warm re-run did work")
+
+    # d. against the per-rank route (one 50-restart batch a rank): the
+    # same per-restart labels give consensus values c/50, divided in
+    # float64 here and in float32 there, so the rank selection's
+    # tie-heavy merges may part at higher k (as device against host
+    # selection does in 4e); the gate is best k and the k = 2 memberships
+    if per_rank is not None:
+        dc = max(float(np.abs(res_a.per_k[k].consensus
+                              - per_rank.per_k[k].consensus).max())
+                 for k in ks)
+        iters = all(np.array_equal(res_a.per_k[k].iterations,
+                                   per_rank.per_k[k].iterations) for k in ks)
+        members = [k for k in ks if np.array_equal(
+            res_a.per_k[k].membership, per_rank.per_k[k].membership)]
+        print(f"durability d (against the per-rank route): best k "
+              f"{res_a.best_k} / {per_rank.best_k}, memberships equal at "
+              f"ks {members} of {list(ks)}, max|dC| {dc:.3e}, every "
+              f"per-restart iteration count equal {iters}", flush=True)
+        if res_a.best_k != per_rank.best_k or ks[0] not in members \
+                or dc > 1e-6:
+            raise AssertionError("durability d: the checkpointed sweep "
+                                 "parts from the per-rank route")
+
+    # e. poisoned restarts on the block kernels (rows 3 and 5)
+    faults.arm("solve.nonfinite", rate=POISON_RATE, seed=0)
+    try:
+        for label, clean, scfg in (
+                ("grid", grid, pallas),
+                ("hals grid", hals, nmfx_torch.SolverConfig(
+                    algorithm="hals", backend="pallas"))):
+            if clean is None:
+                continue
+            res_e, wall_e, _, _, _ = counted(
+                f"e {label}", lambda: nmfx_torch.nmfconsensus(
+                    a, ks=ks, restarts=r, solver_cfg=scfg, device=device,
+                    keep_factors=clean.per_k[ks[0]].all_h is not None))
+            poisoned = {k: faults.poison_restarts(k, r) for k in ks}
+            ok, bad = True, {}
+            for k in ks:
+                g, c = res_e.per_k[k], clean.per_k[k]
+                hit = np.zeros(r, bool)
+                hit[list(poisoned[k])] = True
+                ok &= bool((g.stop_reasons[hit] == 5).all())
+                fields = ["iterations", "stop_reasons", "dnorms"]
+                if c.all_h is not None:
+                    fields.append("labels")
+                for f in fields:
+                    if f == "labels":
+                        x, y = (np.argmax(res.all_h, axis=1)
+                                for res in (g, c))
+                    else:
+                        x, y = getattr(g, f), getattr(c, f)
+                    if not same_bytes(x[~hit], y[~hit]):
+                        bad.setdefault(k, []).append(f)
+            print(f"durability e ({label}, solve.nonfinite rate "
+                  f"{POISON_RATE}): wall {wall_e:.3f} s, poisoned "
+                  f"{ {k: list(v) for k, v in poisoned.items() if v} }, all "
+                  f"NUMERIC_FAULT {ok}, unpoisoned restarts byte-equal to "
+                  f"the clean run {not bad} {bad or ''}, launches "
+                  f"{launches[f'e {label}']}, best k {res_e.best_k}",
+                  flush=True)
+            if not ok or bad or res_e.best_k != 2:
+                raise AssertionError(f"durability e ({label}): poisoned "
+                                     f"lanes leaked or were missed: {bad}")
+    finally:
+        faults.disarm("solve.nonfinite")
+
+    # f. stale reloads on the bundled design's pallas grid
+    bks, br = (2, 3, 4, 5), 10
+
+    def bundled_grid():
+        return nmfx_torch.nmfconsensus(
+            bundled, ks=bks, restarts=br, seed=123, solver_cfg=pallas,
+            grid_slots=STALE_SLOTS, device=device)
+
+    from nmfx_torch.ops.sched_mu import _stale_load_mask
+
+    # jobs run rank-descending, restart-major; the first STALE_SLOTS load
+    # at the start, every later one through a reload
+    order = [(k, rr) for k in sorted(bks, reverse=True) for rr in range(br)]
+    jobs = np.arange(STALE_SLOTS, len(order))
+    clean_f, _, _, _, _ = counted("f clean", bundled_grid)
+    faults.arm("sched.stale_reload", rate=STALE_RATE)
+    try:
+        want = {order[j] for j in jobs[~_stale_load_mask(jobs)]}
+        stale_f, wall_f, _, _, _ = counted("f stale", bundled_grid)
+    finally:
+        faults.disarm("sched.stale_reload")
+    again_f, _, _, _, _ = counted("f disarmed", bundled_grid)
+    got = {(k, rr) for k in bks for rr in range(br)
+           if not (same_bytes(stale_f.per_k[k].dnorms[rr],
+                              clean_f.per_k[k].dnorms[rr])
+                   and stale_f.per_k[k].iterations[rr]
+                   == clean_f.per_k[k].iterations[rr])}
+    same_f = results_byte_equal(again_f, clean_f)
+    print(f"durability f (sched.stale_reload rate {STALE_RATE}, "
+          f"{STALE_SLOTS} slots): wall {wall_f:.3f} s, dropped reloads "
+          f"{sorted(want)}, restarts that differ from the clean run "
+          f"{sorted(got)}, the hashed set {got == want}; disarmed run "
+          f"byte-equal to the clean one {same_f}", flush=True)
+    if got != want or not want or not same_f:
+        raise AssertionError("durability f: the stale reloads are not the "
+                             "hashed set, or disarm did not restore")
+
+    # g. float64 on the batched restart route
+    res_g, wall_g, _, _, _ = counted(
+        "g", lambda: nmfx_torch.nmfconsensus(
+            bundled, ks=bks, restarts=br, seed=123, device=device,
+            solver_cfg=nmfx_torch.SolverConfig(backend="vmap",
+                                               dtype="float64")))
+    iters_g = {k: round(float(res_g.per_k[k].iterations.mean()), 1)
+               for k in bks}
+    print(f"durability g (float64, batched restart route, bundled "
+          f"1000x40): wall {wall_g:.3f} s, best k {res_g.best_k} (the JAX "
+          f"package: {FLOAT64_BEST_K}), mean iters per k {iters_g}, "
+          f"launches {sum(launches['g'].values())}, best_w dtype "
+          f"{res_g.per_k[2].best_w.dtype}", flush=True)
+    check_finite(res_g, "durability g", bundled.shape[1])
+    if res_g.best_k != FLOAT64_BEST_K or launches["g"] \
+            or res_g.per_k[2].best_w.dtype != np.float64:
+        raise AssertionError("durability g: float64 batched sweep off")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -2218,6 +2527,11 @@ def main(argv=None) -> int:
         phase_checks(torch, fm)
         phase_profile(torch)
         phase_solvers(torch, fm)
+        t0 = time.perf_counter()
+        durable = phase_durability(torch, fm, phased, per_rank_res,
+                                   hals_res)
+        print(f"durability phase {time.perf_counter() - t0:.3f} s; "
+              f"launches by run {durable}", flush=True)
         kernels = []
         for name, source, line in (
                 ("fused_h_update", "block_mu.cu", 147),

@@ -7,13 +7,16 @@ This package imports ``torch`` and numpy, never ``jax`` nor anything of
 """
 
 from nmfx_torch.api import (ConsensusResult, InsufficientRestarts, KResult,
-                            nmf, nmfconsensus, save_results)
-from nmfx_torch.config import (ConsensusConfig, ExperimentalConfig,
-                               InitConfig, OutputConfig, SolverConfig)
+                            nmf, nmfconsensus, restart_factors,
+                            save_results)
+from nmfx_torch.config import (CheckpointConfig, ConsensusConfig,
+                               ExperimentalConfig, InitConfig, OutputConfig,
+                               SolverConfig)
 from nmfx_torch.solvers.base import SolverResult, StopReason
 
 __all__ = ["ConsensusResult", "InsufficientRestarts", "KResult", "nmf",
-           "nmfconsensus", "save_results", "ConsensusConfig",
+           "nmfconsensus", "restart_factors", "save_results",
+           "CheckpointConfig", "ConsensusConfig",
            "ExperimentalConfig", "InitConfig", "OutputConfig",
            "SolverConfig", "SolverResult", "StopReason",
            "kernels_available"]

@@ -18,22 +18,18 @@ import torch
 
 from nmfx_torch import cophenetic as coph
 from nmfx_torch import random as _random
-from nmfx_torch.config import (ROADMAP_DTYPES, ConsensusConfig, InitConfig,
-                               OutputConfig, SolverConfig)
+from nmfx_torch.config import (ROADMAP_SCALE, CheckpointConfig,
+                               ConsensusConfig, InitConfig, OutputConfig,
+                               SolverConfig)
 from nmfx_torch.device import resolve_device
+from nmfx_torch.faults import InsufficientRestarts
 from nmfx_torch.harvest import HarvestPipeline, fetch_host, start_host_fetch
-from nmfx_torch.init import nndsvd_init, random_init
+from nmfx_torch.init import nndsvd_init, random_init, restart_inits
 from nmfx_torch.io import Dataset, read_dataset, write_gct
 from nmfx_torch.ops.hclust import rank_selection_torch
 from nmfx_torch.profiling import NullProfiler
 from nmfx_torch.solvers.base import SolverResult, StopReason, solve
 from nmfx_torch.sweep import sweep
-
-
-class InsufficientRestarts(RuntimeError):
-    """A rank's surviving (non-quarantined) restarts fell below
-    ``min_restarts``: too many lanes stopped with NUMERIC_FAULT for the
-    consensus to be trustworthy."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,6 +184,9 @@ def _as_matrix(data) -> tuple[np.ndarray, list[str]]:
     return arr, [str(i + 1) for i in range(arr.shape[1])]
 
 
+_NP_DTYPES = {"float32": np.float32, "float64": np.float64}
+
+
 def _resolve_cfgs(algorithm, max_iter, init, solver_cfg, init_cfg):
     """Merge convenience args with config objects; reject conflicts."""
     if solver_cfg is not None:
@@ -220,9 +219,8 @@ def nmf(a, k: int, *, seed: int = 0, algorithm: str | None = None,
 
     ``w0``/``h0``: explicit initial factors (both or neither); otherwise
     they come from ``init``/``init_cfg`` with the key ``key(seed)``, the
-    reference's draws bit for bit. Random draws from the key are float32,
-    so a float64 solve from a seed needs ``init="nndsvd"`` or explicit
-    factors. ``device``: None = CUDA (raising without one), or "cpu".
+    reference's draws bit for bit, in ``solver_cfg.dtype``. ``device``:
+    None = CUDA (raising without one), or "cpu".
     """
     arr, _ = _as_matrix(a)
     if not np.isfinite(arr).all():
@@ -239,13 +237,9 @@ def nmf(a, k: int, *, seed: int = 0, algorithm: str | None = None,
             dtype = torch.float64 if scfg.dtype == "float64" else torch.float32
             w0, h0 = nndsvd_init(torch.as_tensor(
                 arr, dtype=dtype, device=resolve_device(device)), k)
-        elif scfg.dtype != "float32":
-            raise NotImplementedError(
-                "float64 random draws from the key chain are not ported "
-                f"({ROADMAP_DTYPES}); pass w0/h0 or "
-                "init='nndsvd'")
         else:
-            w0, h0 = random_init(_random.key(seed), m, n, k, icfg)
+            w0, h0 = random_init(_random.key(seed), m, n, k, icfg,
+                                 _NP_DTYPES[scfg.dtype])
     else:
         if init is not None or init_cfg is not None:
             raise ValueError(
@@ -260,6 +254,39 @@ def nmf(a, k: int, *, seed: int = 0, algorithm: str | None = None,
         if (w0 < 0).any() or (h0 < 0).any():
             raise ValueError("initial factors must be non-negative")
     return solve(arr, w0, h0, scfg, device=device)
+
+
+def restart_factors(a, k: int, restart: int, *, restarts: int,
+                    seed: int = 123, algorithm: str | None = None,
+                    max_iter: int | None = None, init: str | None = None,
+                    solver_cfg: SolverConfig | None = None,
+                    init_cfg: InitConfig | None = None,
+                    device=None) -> SolverResult:
+    """Recompute one sweep restart's (W, H, iterations) from its key
+    (reference ``restart_factors``): restart ``r`` of rank ``k`` starts
+    from ``split(fold_in(key(seed), k), restarts)[r]``, so any job of an
+    ``nmfconsensus(seed=..., restarts=...)`` run is reproducible alone,
+    without the sweep having kept its factors (``keep_factors``; a
+    checkpointed sweep refuses that and names this instead). It runs the
+    exact single-restart ``solve``; the sweep's packed or batched route
+    sums in other orders, so the factors agree to float tolerance."""
+    if not 0 <= restart < restarts:
+        raise ValueError(
+            f"restart index {restart} outside [0, {restarts})")
+    arr, _ = _as_matrix(a)
+    scfg, icfg = _resolve_cfgs(algorithm, max_iter, init, solver_cfg,
+                               init_cfg)
+    if scfg.backend == "sketched":
+        raise NotImplementedError(
+            "restart_factors of a sketched sweep: the sketched engine is "
+            f"not ported yet ({ROADMAP_SCALE})")
+    dev = resolve_device(device)
+    kk = _random.split(_random.fold_in(_random.key(seed), k),
+                       restarts)[restart:restart + 1]
+    dtype = torch.float64 if scfg.dtype == "float64" else torch.float32
+    w0, h0 = restart_inits(torch.as_tensor(arr, dtype=dtype, device=dev),
+                           kk, k, icfg)
+    return solve(arr, w0[0], h0[0], scfg, device=dev)
 
 
 class _Selection(NamedTuple):
@@ -294,6 +321,8 @@ def nmfconsensus(
     rank_selection: str = "host",
     harvest: str = "streamed",
     profiler=None,
+    checkpoint=None,
+    checkpoint_dir: str | None = None,
 ) -> ConsensusResult:
     """Full consensus-NMF rank sweep: ``restarts`` factorizations per rank
     in ``ks``, a consensus matrix per rank on the device, cophenetic rank
@@ -345,7 +374,28 @@ def nmfconsensus(
 
     ``profiler``: an ``nmfx_torch.profiling.Profiler`` that books the
     phases (``solve.*``, ``xfer.*``, ``post.rank_selection`` or
-    ``device_to_host`` / ``rank_selection``, ``write_outputs``).
+    ``device_to_host`` / ``rank_selection``, ``write_outputs``; under a
+    checkpoint ``ckpt.load``, ``solve.ckpt.k=…``, ``checkpoint`` and
+    ``ckpt.finalize``).
+
+    ``checkpoint`` (a ``CheckpointConfig`` or a directory path): the
+    durable sweep ledger (``nmfx_torch/checkpoint.py``): one record per
+    (rank, restart-chunk), written atomically, so a killed run loses at
+    most the chunk in flight and a re-run solves only the missing chunks,
+    byte-equal to an uninterrupted checkpointed run; a manifest mismatch
+    cold-starts. Every rank runs the chunk executor (mu's packed solve
+    under "auto", "packed" and "pallas", the batched restart route
+    otherwise), whatever ``grid_exec`` says. Not with ``checkpoint_dir``
+    or ``keep_factors`` (``restart_factors`` recomputes any restart).
+
+    ``checkpoint_dir``: the per-rank registry
+    (``nmfx_torch/registry.py``): each finished rank is saved there and a
+    re-run loads it instead of solving it; a registry written for another
+    (data, config) is refused.
+
+    A moves to the device through the content-keyed input cache
+    (``nmfx_torch/data_cache.py``): a second call over the same array
+    copies nothing to the card.
     """
     if rank_selection not in ("host", "device"):
         raise ValueError("rank_selection must be 'host' or 'device', got "
@@ -372,8 +422,24 @@ def nmfconsensus(
                            min_restarts=min_restarts)
     scfg, icfg = _resolve_cfgs(algorithm, max_iter, init, solver_cfg,
                                init_cfg)
+    if checkpoint is not None:
+        if isinstance(checkpoint, (str, os.PathLike)):
+            checkpoint = CheckpointConfig(directory=os.fspath(checkpoint))
+        if checkpoint_dir is not None:
+            raise ValueError(
+                "pass either checkpoint (the durable chunked ledger) or "
+                "checkpoint_dir (the legacy per-rank registry), not both")
+    registry = None
+    if checkpoint_dir is not None:
+        from nmfx_torch.registry import SweepRegistry
+
+        registry = SweepRegistry.open(checkpoint_dir, arr, scfg, icfg,
+                                      restarts, seed, label_rule,
+                                      keep_factors)
     if profiler is None:
         profiler = NullProfiler()
+    run = dict(device=device, profiler=profiler, registry=registry,
+               checkpoint=checkpoint)
 
     if harvest == "streamed" and rank_selection == "host":
         pipeline = HarvestPipeline(linkage=ccfg.linkage, profiler=profiler,
@@ -385,22 +451,23 @@ def nmfconsensus(
             pipeline.submit(k, out)
 
         try:
-            sweep(arr, ccfg, scfg, icfg, device=device, on_rank=rank_done,
-                  profiler=profiler)
+            sweep(arr, ccfg, scfg, icfg, on_rank=rank_done, **run)
             per_k = pipeline.results()
         finally:
             pipeline.close()
         per_k = {k: per_k[k] for k in ccfg.ks}
     else:
-        raw = sweep(arr, ccfg, scfg, icfg, device=device, on_rank=on_rank,
-                    profiler=profiler)
+        raw = sweep(arr, ccfg, scfg, icfg, on_rank=on_rank, **run)
         sel = {}
         if rank_selection == "device":
             # dispatched for every rank before anything is read on the
-            # host, so the clustering queues behind the copies
+            # host, so the clustering queues behind the copies (a
+            # registry's or ledger's host consensus moves there first)
+            dev = resolve_device(device)
             with profiler.phase("rank_selection_dispatch"):
                 sel = {k: start_host_fetch(_Selection(*rank_selection_torch(
-                    out.consensus, k, ccfg.linkage)))
+                    torch.as_tensor(out.consensus, device=dev), k,
+                    ccfg.linkage)))
                     for k, out in raw.items()}
         # the sweep started every rank's copies; this waits for them once
         with profiler.phase("device_to_host"):
@@ -424,7 +491,9 @@ def save_results(result: ConsensusResult, out: OutputConfig) -> list[str]:
     """Write the reference's output set (nmf.r:195-252): per-k ordered
     membership GCTs, the all-k membership matrix, ``cophenetic.txt``,
     per-k consensus-matrix GCTs, per-k metagene GCTs and
-    ``rank_metrics.txt``. Plots are not ported yet."""
+    ``rank_metrics.txt``, for results of every route (checkpointed and
+    registry-loaded sweeps included). Plots (``nmfx/plots.py``) are not
+    ported: they need matplotlib."""
     os.makedirs(out.directory, exist_ok=True)
     doc = out.doc_string
     prefix = os.path.join(out.directory, f"{doc}." if doc else "")

@@ -9,7 +9,8 @@ sets one of them to a non-inert value.
 What the port runs is narrower than what validates: ``check_ported``
 raises ``NotImplementedError`` for a solver setting the port has no
 route for yet (the sketched engine, bf16 operands off the kernel routes,
-float64 on the batched routes), and so does ``ExperimentalConfig`` for
+float64 on the hand-written kernels), and so does ``ExperimentalConfig``
+for
 an experimental knob the port has not got (the autotuner); each message
 names the ROADMAP section and item that brings it. The scheduler's own
 preconditions on the options it runs (ragged, factor_dtype, alias_io,
@@ -210,11 +211,14 @@ def check_ported(cfg: SolverConfig) -> None:
             "runs on the hand-written kernels, backend='pallas'; on the "
             f"routes that reach no kernel it is not ported yet "
             f"({ROADMAP_DTYPES})")
-    if cfg.dtype != "float32":
+    if cfg.dtype not in ("float32", "float64"):
+        raise ValueError(
+            f"dtype must be 'float32' or 'float64', got {cfg.dtype!r}")
+    if cfg.dtype == "float64" and cfg.backend == "pallas":
         raise NotImplementedError(
-            f"dtype={cfg.dtype!r} is not ported on the batched routes, "
-            f"whose kernels are float32 ({ROADMAP_DTYPES}); the "
-            "single-restart nmfx_torch.solve / nmf run float64")
+            "dtype='float64' with backend='pallas': the hand-written "
+            f"kernels are float32 ({ROADMAP_DTYPES}); every other backend "
+            "runs float64 on plain products")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -302,3 +306,34 @@ class OutputConfig:
     directory: str = "./nmfx_out"
     doc_string: str = ""
     write_gcts: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointConfig:
+    """Durable-sweep policy (reference ``nmfx.CheckpointConfig``;
+    ``nmfx_torch/checkpoint.py``): a manifest plus one completion record
+    per (rank, restart-chunk) under ``directory``, written atomically,
+    so a killed run loses at most the chunk in flight and a re-run with
+    ``resume=True`` solves only the missing chunks, byte-equal to an
+    uninterrupted checkpointed run."""
+
+    #: ledger directory (manifest + per-(k, chunk) records)
+    directory: str = "./nmfx_ckpt"
+    #: restarts per record: the chunk plan ``[0,c), [c,2c), ...`` of
+    #: every rank; None = one chunk per rank
+    every_n_restarts: "int | None" = None
+    #: buffer records and write them at most every this many seconds
+    #: (and at rank boundaries, on ``flush()`` and from the SIGTERM /
+    #: SIGINT hook); None = write each record when its chunk completes
+    every_s: "float | None" = None
+    #: resume from the records in ``directory`` (a manifest mismatch
+    #: cold-starts); False clears the ledger first
+    resume: bool = True
+
+    def __post_init__(self):
+        if not self.directory:
+            raise ValueError("directory must be a non-empty path")
+        if self.every_n_restarts is not None and self.every_n_restarts < 1:
+            raise ValueError("every_n_restarts must be >= 1 or None")
+        if self.every_s is not None and self.every_s <= 0:
+            raise ValueError("every_s must be positive or None")

@@ -12,8 +12,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from nmfx_torch.config import (ROADMAP_SCALE, ConsensusConfig,
-                               ExperimentalConfig, SolverConfig)
+from nmfx_torch.config import (ROADMAP_SCALE, CheckpointConfig,
+                               ConsensusConfig, ExperimentalConfig,
+                               SolverConfig)
 
 #: reference SolverConfig fields the port has no counterpart for, with
 #: the value under which each is inert on the port's routes (None =
@@ -57,6 +58,13 @@ def consensus_config_from_dict(d: dict) -> ConsensusConfig:
     if isinstance(kw.get("grid_tail_slots"), list):
         kw["grid_tail_slots"] = tuple(kw["grid_tail_slots"])
     return ConsensusConfig(**kw)
+
+
+def checkpoint_config_from_dict(d: dict) -> CheckpointConfig:
+    """The port's CheckpointConfig from ``dataclasses.asdict`` of a
+    reference ``CheckpointConfig`` (every field has a counterpart);
+    ``ValueError`` on an unknown field."""
+    return CheckpointConfig(**_own_fields(CheckpointConfig, d, {}))
 
 
 def factors_from_numpy(w0s: np.ndarray, h0s: np.ndarray, device

@@ -28,10 +28,11 @@ import os
 import queue
 import threading
 import time
-import warnings
 from concurrent.futures import Future
 
 import torch
+
+from nmfx_torch import faults
 
 __all__ = ["HarvestPipeline", "HostFetch", "fetch_host", "harvest_rank",
            "start_host_fetch"]
@@ -164,6 +165,9 @@ class HarvestPipeline:
                 return
             k, out, fut = item
             try:
+                # fault site: a worker dying (results() harvests the
+                # rank again on its own thread, past this site)
+                faults.inject("harvest.worker")
                 fut.set_result(harvest_rank(k, out, self._linkage,
                                             self._prof, self._min_restarts))
                 self._outs.pop(k, None)  # free its buffers progressively
@@ -173,26 +177,24 @@ class HarvestPipeline:
     def results(self) -> dict:
         """Join every submitted rank and return ``{k: KResult}`` in
         submission order. A rank whose worker failed is harvested again on
-        this thread, with one warning (the same copies through the same
-        host math, so the result is exact); ``InsufficientRestarts`` is
-        deterministic and re-raised."""
-        from nmfx_torch.api import InsufficientRestarts
-
-        warned = False
+        this thread (the same copies through the same host math, so the
+        result is exact), with one ``faults.warn_once`` warning a
+        process; ``InsufficientRestarts`` is deterministic and
+        re-raised."""
         try:
             out: dict = {}
             for k, fut in self._futures.items():
                 try:
                     out[k] = fut.result()
-                except InsufficientRestarts:
+                except faults.InsufficientRestarts:
                     raise
                 except Exception as e:
-                    if not warned:
-                        warnings.warn(
-                            f"harvest worker for rank {k} failed ({e!r}); "
-                            "harvesting that rank on the calling thread",
-                            RuntimeWarning, stacklevel=2)
-                        warned = True
+                    faults.warn_once(
+                        "harvest-worker-fallback",
+                        f"harvest worker for rank {k} died ({e!r}); "
+                        "re-running that rank's harvest sequentially — "
+                        "results are unaffected, the overlap win is "
+                        "lost for this rank")
                     out[k] = harvest_rank(k, self._outs[k], self._linkage,
                                           self._prof, self._min_restarts)
                     self._outs.pop(k, None)

@@ -18,13 +18,14 @@ from nmfx_torch.config import InitConfig
 
 
 def random_init(key: np.ndarray, m: int, n: int, k: int,
-                cfg: InitConfig = InitConfig()
+                cfg: InitConfig = InitConfig(), dtype=np.float32
                 ) -> tuple[np.ndarray, np.ndarray]:
-    """Uniform random W0 (m×k), H0 (k×n) as float32 numpy arrays (the
-    reference's ``random_init``: one split, then one draw per factor)."""
+    """Uniform random W0 (m×k), H0 (k×n) as float32 or float64 numpy
+    arrays (the reference's ``random_init``: one split, then one draw per
+    factor, in ``dtype``)."""
     kw, kh = _random.split(key)
-    return (_random.uniform(kw, (m, k), cfg.minval, cfg.maxval),
-            _random.uniform(kh, (k, n), cfg.minval, cfg.maxval))
+    return (_random.uniform(kw, (m, k), cfg.minval, cfg.maxval, dtype),
+            _random.uniform(kh, (k, n), cfg.minval, cfg.maxval, dtype))
 
 
 def nndsvd_init(a: torch.Tensor, k: int, zero_threshold: float = 0.0
@@ -69,15 +70,17 @@ def nndsvd_init(a: torch.Tensor, k: int, zero_threshold: float = 0.0
 def restart_inits(a: torch.Tensor, keys: np.ndarray, k: int,
                   cfg: InitConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """Initial factors of a restart batch, stacked (R, m, k) / (R, k, n)
-    on A's device and in A's dtype. ``keys`` (R, 2) are the restart keys;
-    NNDSVD ignores them (deterministic in A, as in the reference)."""
+    on A's device and in A's dtype (random draws in float64 for a float64
+    A, float32 otherwise). ``keys`` (R, 2) are the restart keys; NNDSVD
+    ignores them (deterministic in A, as in the reference)."""
     m, n = a.shape
     r = keys.shape[0]
     if cfg.method == "nndsvd":
         w0, h0 = nndsvd_init(a, k)
         return (w0.expand(r, m, k).contiguous(),
                 h0.expand(r, k, n).contiguous())
-    pairs = [random_init(kk, m, n, k, cfg) for kk in keys]
+    dtype = np.float64 if a.dtype == torch.float64 else np.float32
+    pairs = [random_init(kk, m, n, k, cfg, dtype) for kk in keys]
     w0s = torch.from_numpy(np.stack([p[0] for p in pairs]))
     h0s = torch.from_numpy(np.stack([p[1] for p in pairs]))
     return (w0s.to(device=a.device, dtype=a.dtype),

@@ -261,7 +261,8 @@ def mu_packed(a, w0s, h0s, cfg: SolverConfig = SolverConfig(), *,
     convergence tests, same freeze-on-convergence and quarantine. ``a``
     (m, n), ``w0s`` (R, m, k), ``h0s`` (R, k, n) are numpy arrays or
     tensors; they move to ``device`` (None = CUDA, raising if there is
-    none; TF32 is switched off there) as float32.
+    none; TF32 is switched off there) in ``cfg.dtype`` (float64 only on
+    the plain products: ``check_ported`` keeps it off the kernels).
     """
     check_ported(cfg)
     if cfg.algorithm != "mu":
@@ -269,7 +270,7 @@ def mu_packed(a, w0s, h0s, cfg: SolverConfig = SolverConfig(), *,
             f"mu_packed runs algorithm='mu', got {cfg.algorithm!r} (hals "
             "runs through the slot scheduler, nmfx_torch.ops.sched_mu)")
     dev = resolve_device(device)
-    dtype = torch.float32
+    dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
     a = torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a,
                         dtype=dtype, device=dev)
     w0s = torch.as_tensor(w0s, dtype=dtype, device=dev)

@@ -81,6 +81,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from nmfx_torch import faults
 from nmfx_torch.config import SolverConfig, check_ported
 from nmfx_torch.device import resolve_device, to_device
 from nmfx_torch.ops.fused_mu import (fused_block_iterations, fused_h_update,
@@ -95,6 +96,79 @@ from nmfx_torch.solvers.base import StopReason
 #: measured on the reference's hardware as the best single tail stage
 #: (a narrower pool for the stragglers once the queue drains)
 _AUTO_TAIL_SLOTS = (8,)
+
+#: the stale-reload fault (``sched.stale_reload``): a reload that drops
+#: its factor write while the bookkeeping marks the new job loaded, so
+#: the slot solves on with the previous job's factors. Armed only through
+#: ``nmfx_torch.faults`` (or the :func:`enable_stale_reload_fault` shim);
+#: the NMFX_FAULT_INJECT_STALE_RELOAD environment variable alone is inert
+_announced = {"done": False}
+
+
+def enable_stale_reload_fault(fraction: float) -> None:
+    """Deprecated shim: ``faults.arm("sched.stale_reload",
+    rate=fraction)`` (0 disarms), with a loud banner on stderr and the
+    logger; results from an armed process are invalid by design."""
+    import warnings
+
+    frac = float(fraction)
+    if not 0.0 <= frac <= 1.0:
+        raise ValueError(
+            f"fault fraction must be in [0, 1], got {fraction!r}")
+    warnings.warn(
+        "enable_stale_reload_fault() is a deprecated shim; arm the "
+        "registry directly: nmfx_torch.faults.arm('sched.stale_reload', "
+        "rate=...)", DeprecationWarning, stacklevel=2)
+    if frac > 0:
+        faults.arm("sched.stale_reload", rate=frac)
+    else:
+        faults.disarm("sched.stale_reload")
+    if frac > 0 and not _announced["done"]:
+        _announced["done"] = True
+        import logging
+        import sys
+
+        banner = (
+            "stale-reload fault injection ARMED at fraction %g: slot "
+            "reloads are being deliberately corrupted (test-only). "
+            "Results from this process are INVALID." % frac)
+        print(f"nmfx_torch: *** {banner} ***", file=sys.stderr)
+        logging.getLogger("nmfx_torch").warning(banner)
+
+
+def _warn_inert_env_hook() -> None:
+    """Say so when the retired environment variable is set: it does
+    nothing by itself."""
+    import os
+
+    if os.environ.get("NMFX_FAULT_INJECT_STALE_RELOAD", ""):
+        import logging
+        import sys
+
+        notice = (
+            "NMFX_FAULT_INJECT_STALE_RELOAD is set but IGNORED by "
+            "library code: fault injection needs the explicit "
+            "nmfx_torch.faults.arm('sched.stale_reload', rate=...) "
+            "opt-in. An inherited env var alone cannot corrupt a run.")
+        print(f"nmfx_torch: *** {notice} ***", file=sys.stderr)
+        logging.getLogger("nmfx_torch").warning(notice)
+
+
+_warn_inert_env_hook()
+
+
+def _stale_load_mask(jobs: np.ndarray) -> np.ndarray:
+    """Which reloads of ``jobs`` (job ids) keep their factor write under
+    the armed ``sched.stale_reload`` rate: a job is dropped when the low
+    16 bits of its Knuth hash ``job * 2654435761`` fall under
+    ``rate * 2**16`` (the reference's ``_stale_load_mask``). All True
+    when unarmed."""
+    jobs = np.asarray(jobs)
+    frac = faults.stale_reload_fraction()
+    if frac <= 0:
+        return np.ones(jobs.shape, bool)
+    h = (jobs.astype(np.uint64) * np.uint64(2654435761)) & np.uint64(0xFFFF)
+    return ~(h < np.uint64(int(frac * (1 << 16))))
 
 
 class SchedMUResult(NamedTuple):
@@ -220,12 +294,13 @@ def _ragged_layout(job_ks: tuple, budget_cols: int, iters_est=None,
     return layout
 
 
-def _kl_slot_clamp(s: int, m: int, n: int) -> int:
-    """Bound kl's quotient working set: each live lane holds m×n float32
-    intermediates, budgeted as three (reconstruction, quotient and the
-    contraction's operand), and the pool keeps them under 4 GB (the
-    reference's ``_kl_slot_clamp``). Logged when it shrinks the pool."""
-    clamped = max(1, min(s, int(4e9 // (3 * m * n * 4))))
+def _kl_slot_clamp(s: int, m: int, n: int, itemsize: int = 4) -> int:
+    """Bound kl's quotient working set: each live lane holds m×n
+    intermediates of ``itemsize`` bytes, budgeted as three
+    (reconstruction, quotient and the contraction's operand), and the
+    pool keeps them under 4 GB (the reference's ``_kl_slot_clamp``).
+    Logged when it shrinks the pool."""
+    clamped = max(1, min(s, int(4e9 // (3 * m * n * itemsize))))
     if clamped < s:
         logging.getLogger("nmfx_torch").warning(
             "kl scheduler: slot pool clamped %d -> %d (each lane holds "
@@ -307,7 +382,9 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
             f"algorithm={cfg.algorithm!r}")
     cfg = conv_cfg(cfg)
     dev = resolve_device(device)
-    f32 = torch.float32
+    # the working dtype: float64 on the dense layout (check_ported keeps
+    # float64 off the kernels); the names say f32 for the kernel route
+    f32 = torch.float64 if cfg.dtype == "float64" else torch.float32
     a, w0, h0 = (to_device(x, f32, dev) for x in (a, w0, h0))
     j, m, k_max = w0.shape
     n = h0.shape[2]
@@ -317,7 +394,7 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
             "— per-job true ranks must match the job batch exactly")
     s = min(slots, j)
     if cfg.algorithm == "kl":
-        s = _kl_slot_clamp(s, m, n)
+        s = _kl_slot_clamp(s, m, n, torch.finfo(f32).bits // 8)
     ce = cfg.check_every
     exp = cfg.experimental
     use_pallas = cfg.backend == "pallas"
@@ -516,11 +593,18 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
                         hp.reshape(-1, k_max, n).to(f32))
 
             def reload(self, pool, slot_ids, first, count):
+                # the stale-reload fault drops some factor writes; the
+                # caller's bookkeeping goes on with every slot loaded
+                keep = _stale_load_mask(np.arange(first, first + count))
+                if not keep.all():
+                    idx = torch.as_tensor(np.flatnonzero(keep),
+                                          device=slot_ids.device)
+                    slot_ids, jobs = slot_ids[idx], first + idx
+                else:
+                    jobs = slice(first, first + count)
                 w3 = pool.wp.view(m_pad, -1, k_max)
-                w3[:, slot_ids] = w0[first:first + count].permute(
-                    1, 0, 2).to(w_pool)
-                pool.hp.view(-1, k_max, n)[slot_ids] = h0[
-                    first:first + count].to(h_pool)
+                w3[:, slot_ids] = w0[jobs].permute(1, 0, 2).to(w_pool)
+                pool.hp.view(-1, k_max, n)[slot_ids] = h0[jobs].to(h_pool)
 
             def gather(self, wp, hp, order):
                 return (wp.reshape(m_pad, -1, k_max)[:, order].reshape(
@@ -803,7 +887,12 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
                     active[i] = False
                     slot_job[i] = j
             if loads:
-                load(wp, hp, np.asarray(loads), np.asarray(new_jobs))
+                # the stale-reload fault drops some factor writes; the
+                # bookkeeping above has every slot loaded
+                keep = _stale_load_mask(new_jobs)
+                if keep.any():
+                    load(wp, hp, np.asarray(loads)[keep],
+                         np.asarray(new_jobs)[keep])
             active_d = torch.as_tensor(active, device=dev)
         stats["trips"] += trips
         stats["lanes"] += lanes

@@ -77,19 +77,37 @@ def split(k: np.ndarray, num: int = 2) -> np.ndarray:
     return np.stack([y0, y1], axis=1)
 
 
-def random_bits(k: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
-    """32-bit random words of ``shape`` (row-major counters)."""
+def random_bits(k: np.ndarray, shape: tuple[int, ...],
+                bit_width: int = 32) -> np.ndarray:
+    """Random words of ``shape`` (row-major counters): 32-bit words are
+    ``y0 ^ y1`` of the two hashed words, 64-bit ones ``y0 << 32 | y1``
+    (JAX's partitionable ``random_bits``)."""
     hi, lo = _counters(int(np.prod(shape, dtype=np.int64)))
     y0, y1 = threefry2x32(k, hi, lo)
-    return (y0 ^ y1).reshape(shape)
+    if bit_width == 64:
+        bits = (y0.astype(np.uint64) << np.uint64(32)) | y1.astype(np.uint64)
+    elif bit_width == 32:
+        bits = y0 ^ y1
+    else:
+        raise ValueError(f"bit_width must be 32 or 64, got {bit_width}")
+    return bits.reshape(shape)
 
 
 def uniform(k: np.ndarray, shape: tuple[int, ...], minval: float = 0.0,
-            maxval: float = 1.0) -> np.ndarray:
-    """``jax.random.uniform`` in float32: the top 23 bits fill a mantissa
-    of [1, 2), shifted to [0, 1), then scaled in float32 arithmetic."""
-    bits = random_bits(k, shape)
-    floats = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(
-        np.float32) - np.float32(1.0)
-    lo, hi = np.float32(minval), np.float32(maxval)
+            maxval: float = 1.0, dtype=np.float32) -> np.ndarray:
+    """``jax.random.uniform`` in float32 or float64: the top 23 (52) bits
+    of a 32-bit (64-bit) word fill a mantissa of [1, 2), shifted to
+    [0, 1), then scaled in ``dtype`` arithmetic."""
+    dtype = np.dtype(dtype)
+    if dtype == np.float64:
+        bits = random_bits(k, shape, 64)
+        floats = ((bits >> np.uint64(12))
+                  | np.uint64(0x3FF0000000000000)).view(np.float64) - 1.0
+    elif dtype == np.float32:
+        bits = random_bits(k, shape)
+        floats = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(
+            np.float32) - np.float32(1.0)
+    else:
+        raise ValueError(f"dtype must be float32 or float64, got {dtype}")
+    lo, hi = dtype.type(minval), dtype.type(maxval)
     return np.maximum(lo, floats * (hi - lo) + lo)

@@ -25,8 +25,17 @@ chooses them (``_build_sweep_fn``, ``_GRID_EXEC_BACKENDS``):
 Either way each rank's batch reduces to a consensus matrix on the
 device. At each rank's ``on_rank`` site the sweep starts the rank's
 device→host copies (``harvest.start_host_fetch``, carried in the output's
-``fetch`` field), so they stream while later ranks solve. Meshes, the
-registry and the executable cache are not ported yet.
+``fetch`` field), so they stream while later ranks solve.
+
+A moves to the device through the content-keyed input cache
+(``data_cache.place_resilient``), so a repeat sweep over the same matrix
+copies nothing. ``registry=`` (``nmfx_torch.registry.SweepRegistry``)
+loads finished ranks and saves new ones; ``checkpoint=`` runs the durable
+per-(rank, restart-chunk) ledger instead (``nmfx_torch.checkpoint``,
+through the chunk executor :func:`_build_chunk_sweep_fn`). The armed
+``solve.nonfinite`` fault poisons W0 at every place a route draws it.
+Float64 runs on every route of plain products (the kernels are
+float32). Meshes and the executable cache are not ported yet.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from nmfx_torch import faults
 from nmfx_torch import random as _random
 from nmfx_torch.config import (ConsensusConfig, InitConfig, SolverConfig,
                                check_ported)
@@ -84,6 +94,51 @@ class KSweepOutput(NamedTuple):
     fetch: "object | None" = None
 
 
+class ChunkSweepOutput(NamedTuple):
+    """One restart chunk's per-lane results: a durable-ledger record
+    (``nmfx_torch.checkpoint``), everything a rank's finalize needs."""
+
+    labels: torch.Tensor  # (chunk, n); quarantined lanes -1
+    iterations: torch.Tensor  # (chunk,)
+    dnorms: torch.Tensor  # (chunk,) raw final residuals
+    stop_reasons: torch.Tensor  # (chunk,)
+    #: chunk-local index of the lowest-dnorm surviving lane (first
+    #: minimum, as the global argmin picks it)
+    best_local: torch.Tensor  # () i32
+    best_w: torch.Tensor  # (m, k)
+    best_h: torch.Tensor  # (k, n)
+
+
+def _use_packed(solver_cfg: SolverConfig) -> bool:
+    """Whether mu's restart-packed solve (``mu_packed``) is the rank's
+    engine: mu under "auto", "packed" or "pallas"."""
+    return (solver_cfg.algorithm == "mu"
+            and solver_cfg.backend in ("auto", "packed", "pallas"))
+
+
+def resolve_engine_family(solver_cfg: SolverConfig) -> str:
+    """The engine family a configuration runs, in the reference's words:
+    "pallas" (the hand-written kernels), "packed" (mu's packed solve or
+    the dense slot scheduler) or "vmap" (the batched restart route).
+    Families sum products in other orders, so a registry never crosses
+    them."""
+    if solver_cfg.backend == "pallas":
+        return "pallas"
+    if _use_packed(solver_cfg) or grid_exec_ok(solver_cfg):
+        return "packed"
+    return "vmap"
+
+
+def _poison_restart_lanes(w0: torch.Tensor, lane_idx) -> torch.Tensor:
+    """The ``solve.nonfinite`` fault: one NaN at ``W0[lane, 0, 0]`` of
+    each listed lane (the reference's ``_poison_restart_lanes``)."""
+    if not lane_idx:
+        return w0
+    w0 = w0.clone()
+    w0[list(lane_idx), 0, 0] = torch.nan
+    return w0
+
+
 def _quarantine_lanes(labels, dnorm, stops):
     """Mask lanes that stopped with NUMERIC_FAULT (or SCREENED): labels
     become -1 (dropped from the consensus like pad lanes) and their dnorm
@@ -113,9 +168,12 @@ def _build_packed_sweep_fn(k: int, restarts: int, solver_cfg: SolverConfig,
     """The rank-k solve: init + packed solve + labels + consensus, as a
     function of (A on its device, the rank's key)."""
 
+    poison = faults.poison_restarts(k, restarts)
+
     def impl(a: torch.Tensor, key: np.ndarray) -> KSweepOutput:
         keys = _random.split(key, restarts)
         w0s, h0s = restart_inits(a, keys, k, init_cfg)
+        w0s = _poison_restart_lanes(w0s, poison)
         res = mu_packed(a, w0s, h0s, solver_cfg, device=a.device)
         hs = res.hp.reshape(restarts, k, -1)
         labels = labels_from_h(hs, label_rule)
@@ -146,12 +204,19 @@ def _build_vmap_sweep_fn(k: int, restarts: int, solver_cfg: SolverConfig,
     results do not depend on the chunking."""
     mod = SOLVERS[solver_cfg.algorithm]
     chunk = solver_cfg.restart_chunk or restarts
+    poison = faults.poison_restarts(k, restarts)
+    if poison and chunk < restarts:
+        raise ValueError(
+            "solve.nonfinite fault injection does not compose with "
+            "restart_chunk (chunked batches lose the global lane index); "
+            "disarm the site or drop restart_chunk for the chaos run")
 
     def impl(a: torch.Tensor, key: np.ndarray) -> KSweepOutput:
         keys = _random.split(key, restarts)
         parts, syncs = [], 0
         for c in range(0, restarts, chunk):
             w0s, h0s = restart_inits(a, keys[c:c + chunk], k, init_cfg)
+            w0s = _poison_restart_lanes(w0s, poison)
             res = run_loop_batched(a, w0s, h0s, solver_cfg, mod.step,
                                    mod.init_aux(a, w0s, h0s, solver_cfg))
             syncs += res.host_syncs
@@ -170,6 +235,42 @@ def _build_vmap_sweep_fn(k: int, restarts: int, solver_cfg: SolverConfig,
     return impl
 
 
+def _build_chunk_sweep_fn(k: int, n_chunk: int, solver_cfg: SolverConfig,
+                          init_cfg: InitConfig, label_rule: str,
+                          poison: tuple = ()):
+    """The durable ledger's chunk executor (``nmfx_torch.checkpoint``):
+    ``n_chunk`` restarts of rank ``k`` from explicit per-restart keys (a
+    slice of ``split(fold_in(key(seed), k), restarts)``), returned as the
+    per-lane :class:`ChunkSweepOutput` a record holds. ``poison`` holds
+    the chunk-local ``solve.nonfinite`` lanes. mu under "auto", "packed"
+    or "pallas" runs ``mu_packed`` (the hand-written pair under
+    "pallas"); everything else the batched restart route, the chunk's
+    lanes as one solve."""
+    packed = _use_packed(solver_cfg)
+    mod = SOLVERS[solver_cfg.algorithm]
+
+    def impl(a: torch.Tensor, keys: np.ndarray) -> ChunkSweepOutput:
+        w0s, h0s = restart_inits(a, keys, k, init_cfg)
+        w0s = _poison_restart_lanes(w0s, poison)
+        if packed:
+            res = mu_packed(a, w0s, h0s, solver_cfg, device=a.device)
+            hs = res.hp.reshape(n_chunk, k, -1)
+            ws = unpack_w(res.wp, n_chunk)
+        else:
+            res = run_loop_batched(a, w0s, h0s, solver_cfg, mod.step,
+                                   mod.init_aux(a, w0s, h0s, solver_cfg))
+            hs, ws = res.h, res.w
+        labels = labels_from_h(hs, label_rule)
+        labels, masked, _ = _quarantine_lanes(labels, res.dnorm,
+                                              res.stop_reason)
+        best = torch.argmin(masked)
+        return ChunkSweepOutput(labels, res.iterations, res.dnorm,
+                                res.stop_reason, best.to(torch.int32),
+                                ws[best], hs[best])
+
+    return impl
+
+
 def sweep_one_k(a: torch.Tensor, key: np.ndarray, k: int, restarts: int,
                 solver_cfg: SolverConfig = SolverConfig(),
                 init_cfg: InitConfig = InitConfig(),
@@ -183,8 +284,7 @@ def sweep_one_k(a: torch.Tensor, key: np.ndarray, k: int, restarts: int,
     through the slot scheduler at this one rank (``slots`` wide, with the
     ``tail_slots`` cascade); everything else on the batched restart
     route."""
-    alg, backend = solver_cfg.algorithm, solver_cfg.backend
-    if alg == "mu" and backend in ("auto", "packed", "pallas"):
+    if _use_packed(solver_cfg):
         fn = _build_packed_sweep_fn(k, restarts, solver_cfg, init_cfg,
                                     label_rule, keep_factors)
         return fn(a, key)
@@ -223,6 +323,9 @@ def _build_grid_exec_sweep_fn(ks: tuple[int, ...], restarts: int,
                          "key) mode; got several ks")
     ks = tuple(sorted(ks, reverse=True))  # LPT dispatch order
     k_max = max(ks)
+    # the global lane of each poisoned (k, restart) in the rank-major stack
+    poison = tuple(g * restarts + r for g, k in enumerate(ks)
+                   for r in faults.poison_restarts(k, restarts))
 
     def impl(a: torch.Tensor, root_key: np.ndarray
              ) -> dict[int, KSweepOutput]:
@@ -233,7 +336,8 @@ def _build_grid_exec_sweep_fn(ks: tuple[int, ...], restarts: int,
             w0s, h0s = restart_inits(a, keys, k, init_cfg)
             w0l.append(torch.nn.functional.pad(w0s, (0, k_max - k)))
             h0l.append(torch.nn.functional.pad(h0s, (0, 0, 0, k_max - k)))
-        res = mu_sched(a, torch.cat(w0l), torch.cat(h0l), solver_cfg,
+        res = mu_sched(a, _poison_restart_lanes(torch.cat(w0l), poison),
+                       torch.cat(h0l), solver_cfg,
                        slots=slots, tail_slots=tail_slots,
                        job_ks=tuple(k for k in ks for _ in range(restarts)),
                        device=a.device)
@@ -263,20 +367,40 @@ def _build_grid_exec_sweep_fn(ks: tuple[int, ...], restarts: int,
 def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
           solver_cfg: SolverConfig = SolverConfig(),
           init_cfg: InitConfig = InitConfig(), *, device=None,
-          on_rank=None, profiler=None) -> dict[int, KSweepOutput]:
+          on_rank=None, profiler=None, registry=None,
+          checkpoint=None) -> dict[int, KSweepOutput]:
     """The (k × restart) grid: one slot-scheduled solve of every rank, or
     one rank at a time (see the module docstring for the routing).
 
     ``device``: None means CUDA (raising if there is none; TF32 off).
-    A moves to the device once. ``on_rank(k, out)`` runs after each rank
-    (after the whole solve on the grid route), once the rank's host copies
-    are started (``out.fetch``); its outputs are device tensors.
+    A moves to the device once, through the input cache.
+    ``on_rank(k, out)`` runs after each rank (after the whole solve on the
+    grid route), once the rank's host copies are started (``out.fetch``);
+    its outputs are device tensors (host arrays for ranks loaded from a
+    registry or finalized from a checkpoint ledger).
     ``profiler`` (``nmfx_torch.profiling.Profiler``) times the phases
     ``solve.grid`` or ``solve.k={k}`` and ``xfer.overlap`` (starting the
-    copies).
+    copies), and ``checkpoint`` (registry saves).
+
+    ``registry`` (``nmfx_torch.registry.SweepRegistry``): finished ranks
+    load from it and the ranks still needed are solved (on the grid
+    route as one smaller grid) and saved. ``checkpoint``
+    (``CheckpointConfig``): run through the durable ledger
+    (``nmfx_torch.checkpoint.run_checkpointed_sweep``); not with
+    ``registry``.
     """
     if profiler is None:
         profiler = NullProfiler()
+    if checkpoint is not None:
+        if registry is not None:
+            raise ValueError(
+                "pass either checkpoint (the durable chunked ledger) or "
+                "registry (the legacy per-rank SweepRegistry), not both")
+        from nmfx_torch.checkpoint import run_checkpointed_sweep
+
+        return run_checkpointed_sweep(a, cfg, solver_cfg, init_cfg,
+                                      checkpoint, device=device,
+                                      profiler=profiler, on_rank=on_rank)
     eligible = grid_exec_ok(solver_cfg)
     if cfg.grid_exec == "grid" and not eligible:
         raise ValueError(
@@ -287,15 +411,30 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
             f"backend={solver_cfg.backend!r} (use grid_exec='auto' to "
             "fall back per configuration)")
     check_ported(solver_cfg)
-    use_grid = eligible and (cfg.grid_exec == "grid"
-                             or (cfg.grid_exec == "auto" and len(cfg.ks) > 1))
     dev = resolve_device(device)
-    a_dev = torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
+    out: dict[int, KSweepOutput] = {}
+    needed: list[int] = []
+    for k in cfg.ks:
+        loaded = registry.try_load(k) if registry is not None else None
+        if loaded is None:
+            needed.append(k)
+            continue
+        out[k] = loaded
+        if on_rank is not None:
+            on_rank(k, loaded)
+    if not needed:  # a fully registered re-run copies nothing
+        return out
+    use_grid = eligible and (cfg.grid_exec == "grid"
+                             or (cfg.grid_exec == "auto" and len(needed) > 1))
+    from nmfx_torch.data_cache import place_resilient
+
+    a_dev = place_resilient(a, solver_cfg, dev, profiler=profiler)
     root = _random.key(cfg.seed)
     if use_grid:
         fn = _build_grid_exec_sweep_fn(
-            cfg.ks, cfg.restarts, solver_cfg, init_cfg, cfg.label_rule,
-            cfg.keep_factors, cfg.grid_slots, cfg.grid_tail_slots)
+            tuple(needed), cfg.restarts, solver_cfg, init_cfg,
+            cfg.label_rule, cfg.keep_factors, cfg.grid_slots,
+            cfg.grid_tail_slots)
         with profiler.phase("solve.grid") as sync:
             solved = sync(fn(a_dev, root))
         with profiler.phase("xfer.overlap"):
@@ -303,12 +442,16 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
             # land (and harvest) independently
             solved = {k: v._replace(fetch=start_host_fetch(v))
                       for k, v in solved.items()}
-        for k in cfg.ks:
+        out.update(solved)
+        for k in needed:
             if on_rank is not None:
                 on_rank(k, solved[k])
-        return {k: solved[k] for k in cfg.ks}
-    out: dict[int, KSweepOutput] = {}
-    for k in cfg.ks:
+        if registry is not None:
+            with profiler.phase("checkpoint"):
+                for k in needed:
+                    registry.save(k, out[k])
+        return {k: out[k] for k in cfg.ks}
+    for k in needed:
         # fold in k itself, so a given (seed, k) always yields the same
         # factorizations whatever the sweep's composition
         with profiler.phase(f"solve.k={k}") as sync:
@@ -321,4 +464,7 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
             out[k] = res._replace(fetch=start_host_fetch(res))
         if on_rank is not None:
             on_rank(k, out[k])
-    return out
+        if registry is not None:
+            with profiler.phase("checkpoint"):
+                registry.save(k, out[k])
+    return {k: out[k] for k in cfg.ks}

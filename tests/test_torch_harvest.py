@@ -29,6 +29,17 @@ FIELDS = ("consensus", "rho", "dispersion", "membership", "order",
           "iterations", "dnorms", "stop_reasons", "best_w", "best_h")
 
 
+@pytest.fixture(autouse=True)
+def _fresh_warnings():
+    """The fallback warns once a process (``faults.warn_once``): each test
+    starts with no category warned."""
+    from nmfx_torch import faults
+
+    faults._reset_warned()
+    yield
+    faults._reset_warned()
+
+
 @pytest.fixture(scope="module")
 def small_data():
     return two_group_matrix(n_genes=60, n_per_group=10, seed=3)

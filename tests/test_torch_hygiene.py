@@ -40,7 +40,9 @@ def test_no_jax_or_nmfx_imports(path):
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, nmfx_torch, nmfx_torch.api, nmfx_torch.convert, "
-            "nmfx_torch.ops.packed_mu, nmfx_torch.ops.fused_mu; "
+            "nmfx_torch.ops.packed_mu, nmfx_torch.ops.fused_mu, "
+            "nmfx_torch.checkpoint, nmfx_torch.data_cache, "
+            "nmfx_torch.faults, nmfx_torch.registry; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'nmfx')); print(bad); sys.exit(bool(bad))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -529,9 +529,11 @@ STILL_REFUSED = {
         np.ones((2, 4), np.float32),
         nmfx_torch.SolverConfig(matmul_precision=BF16), device="cpu"),
         "§1 item 4"),
+    # float64 runs on every plain-product route now; the kernels refuse
     "float64-batched": (lambda: nmfx_torch.nmfconsensus(
         two_group_matrix(40, 6, seed=0), ks=(2,), restarts=2,
-        solver_cfg=nmfx_torch.SolverConfig(dtype="float64"),
+        solver_cfg=nmfx_torch.SolverConfig(dtype="float64",
+                                           backend="pallas"),
         device="cpu"), "§1 item 4"),
 }
 

@@ -124,9 +124,10 @@ def test_nmf_validates_its_inputs():
     with pytest.raises(NotImplementedError, match="§1 item 10"):
         nmfx_torch.nmf(a, 2, solver_cfg=nmfx_torch.SolverConfig(
             backend="sketched"), device="cpu")
-    with pytest.raises(NotImplementedError, match="§1 item 4"):
-        nmfx_torch.nmf(a, 2, solver_cfg=nmfx_torch.SolverConfig(
-            dtype="float64"), device="cpu")
+    # float64 draws from the key chain are ported: a seed runs in float64
+    res = nmfx_torch.nmf(a, 2, solver_cfg=nmfx_torch.SolverConfig(
+        dtype="float64", max_iter=20), device="cpu")
+    assert res.w.dtype == torch.float64
 
 
 def _mu_numpy(a, w, h, iters, eps=1e-9):

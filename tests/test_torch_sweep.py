@@ -118,7 +118,9 @@ def test_solver_config_round_trips_from_reference_dict():
         backend="pallas",
         experimental=nmfx_torch.ExperimentalConfig(autotune="on"))),
      "§1 item 11"),
-    (lambda: dict(solver_cfg=nmfx_torch.SolverConfig(dtype="float64")),
+    # float64 runs on every plain-product route; the kernels refuse it
+    (lambda: dict(solver_cfg=nmfx_torch.SolverConfig(dtype="float64",
+                                                     backend="pallas")),
      "§1 item 4"),
     # bf16 operands on a route that reaches no kernel
     (lambda: dict(solver_cfg=nmfx_torch.SolverConfig(
