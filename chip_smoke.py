@@ -111,7 +111,32 @@ Phases (any failure exits non-zero; nothing is caught):
         slots): the restarts that differ from the clean run are the
         hashed set; disarmed, the run is byte-equal to the clean one;
      g. the bundled design in float64 on the batched restart route: its
-        wall, best k as the JAX package gives it.
+        wall, best k as the JAX package gives it;
+  9. observability and the job grid (phase_obs), each run with the
+     launch counts set to 0 just before it and read just after:
+     a. the north-star whole grid (backend "pallas") with the tracer on
+        under a Profiler, against 4a's untraced run of it: results and
+        row 3's launches byte-equal, the exported Chrome trace one span
+        (or instant) for each phase the profiler booked, nothing
+        dropped; both walls;
+     b. the cost model's attribution against the card's peak row of the
+        traced grid, of the hals grid (row 5) and of the per-rank route
+        at ks 2..4 (rows 1-2; the depth cut to keep the phase near its
+        budget): model FLOPs equal to the script's own sum of
+        iteration_flops x iterations, family "pallas", MFU finite in
+        (0, 1.05], the per-lane bandwidth fraction finite and above 0
+        (printed, no upper gate); each perf_summary() record and
+        perf_report();
+     c. the bundled design through the ledger (8 chunks of 5 restarts,
+        tracer on): the registry's chunk counter, its read shim, the
+        ckpt.commit flight events and spans all 8; the Prometheus text
+        names the checkpoint and input-cache series; solve.nonfinite
+        armed leaves a fire event and a NUMERIC_FAULT restart, and a
+        configured flight dump lists the armed site;
+     d. the job grid: reduce_grid of a keep_factors sweep by k (each
+        rank's consensus within 1e-6), by restart (10 groups of n x n)
+        and with a custom fun; run_example's best k 2; sweep_one_k
+        called with the JAX package's keywords and positions.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -2456,6 +2481,330 @@ def phase_durability(torch, fm, grid, per_rank, hals, *, a=None, ks=KS,
     return launches
 
 
+# --- phase 9: observability and the job grid ------------------------------
+
+#: phase 9b: the per-rank route's ranks (its depth cut to keep phase 9
+#: near its budget)
+OBS_PER_K_KS = (2, 3, 4)
+#: phase 9c/9d: the bundled design's ranks and restarts, and 9c's ledger
+#: records of 5 restarts (8 chunks)
+BUNDLED_KS, BUNDLED_RESTARTS, OBS_CHUNK = (2, 3, 4, 5), 10, 5
+#: the peak-table row the card's attributions must use
+OBS_PEAK_KIND = "NVIDIA H100 80GB HBM3"
+#: MFU's ceiling: the model's FLOPs are work every lane really does, so
+#: no run can pass the peak (the margin covers the wall's clock error)
+MFU_MAX = 1.05
+#: the phases a traced north-star grid must book as spans
+OBS_PHASES = ("solve.grid", "xfer.overlap", "xfer.d2h_overlap",
+              "post.rank_selection")
+
+
+def model_flops(res, scfg, m, n, ks=None):
+    """The script's own count: Σ_k iteration_flops(k) × the rank's
+    iterations summed over its restarts, from the result."""
+    from nmfx_torch.obs import costmodel as cm
+
+    return sum(cm.iteration_flops(scfg.algorithm, "pallas", m, n, k, scfg)
+               * int(res.per_k[k].iterations.astype(np.int64).sum())
+               for k in (res.ks if ks is None else ks))
+
+
+def check_attribution(label, rec, want_flops, peak_kind):
+    """9b's gates on one attributed dispatch record: the card's peak row,
+    the script's FLOP count, family "pallas", MFU finite in (0, MFU_MAX]
+    and the bandwidth fraction finite and above 0 (no upper gate: it is
+    a fraction of per-lane model bytes)."""
+    peak = rec["device_peak"]
+    kind = None if peak is None else peak["kind"]
+    mfu, bw = rec["mfu"], rec["hbm_bw_fraction"]
+    problems = []
+    if kind != peak_kind:
+        problems.append(f"device peak {kind!r}")
+    if rec["model_flops"] != want_flops:
+        problems.append(f"model_flops {rec['model_flops']!r} != "
+                        f"{want_flops!r}")
+    if rec["family"] != "pallas":
+        problems.append(f"family {rec['family']!r}")
+    if mfu is None or not (np.isfinite(mfu) and 0 < mfu <= MFU_MAX):
+        problems.append(f"mfu {mfu!r}")
+    if bw is None or not (np.isfinite(bw) and bw > 0):
+        problems.append(f"hbm_bw_fraction {bw!r}")
+    print(f"obs 9b {label}: model {rec['model_flops']:.6e} FLOP (script "
+          f"{want_flops:.6e}), {rec['model_bytes']:.6e} B, solve wall "
+          f"{rec['solve_s']:.4f} s, {rec['achieved_flops_per_s']:.6e} "
+          f"FLOP/s, AI {rec['arithmetic_intensity']:.4f}, mfu {mfu!r}, "
+          f"hbm_bw_fraction {bw!r}, verdict {rec['verdict']}", flush=True)
+    if problems:
+        raise AssertionError(f"obs 9b {label}: {problems}")
+
+
+def print_perf(label):
+    from nmfx_torch.obs import costmodel as cm
+
+    summary = cm.perf_summary()
+    for kind, rec in sorted(summary["kinds"].items()):
+        print(f"obs 9b {label} perf_summary[{kind!r}]: "
+              f"{json.dumps(rec, default=str)}", flush=True)
+    print(f"obs 9b {label} perf_report:\n{cm.perf_report()}", flush=True)
+
+
+def phase_obs(torch, fm, grid, *, a=None, ks=KS, restarts=None,
+              per_k_ks=OBS_PER_K_KS, bundled=None, device=None,
+              peak_kind=OBS_PEAK_KIND):
+    """Phase 9, the observability core and the job grid: a. the
+    north-star whole grid traced under a Profiler against ``grid``,
+    phase 4a's untraced run of it as (result, wall, row 3's launches):
+    byte-equal results and launches, one span a booked phase, nothing
+    dropped; b. the per-dispatch attribution of that traced run, of the
+    hals grid and of the per-rank route against the card's peak row;
+    c. the checkpoint counters, commit spans and flight events on the
+    bundled design's ledger, a solve.nonfinite fire event and a flight
+    dump naming the armed site; d. the job-grid API on a keep_factors
+    sweep, run_example, and sweep_one_k called with the reference's
+    keywords and positions. Returns the launches of each run by name."""
+    import tempfile
+
+    import nmfx_torch
+    from nmfx_torch import checkpoint as ckpt
+    from nmfx_torch import faults
+    from nmfx_torch import random as _random
+    from nmfx_torch import sweep as tsweep
+    from nmfx_torch.datasets import two_group_matrix
+    from nmfx_torch.obs import costmodel as cm
+    from nmfx_torch.obs import flight, metrics, trace
+    from nmfx_torch.profiling import Profiler
+
+    a = north_star_matrix() if a is None else a
+    r = NORTH_STAR[2] if restarts is None else restarts
+    m, n = a.shape
+    bundled = (two_group_matrix(n_genes=1000, n_per_group=20, seed=123)
+               if bundled is None else bundled)
+    bn = bundled.shape[1]
+    pallas = nmfx_torch.SolverConfig(backend="pallas")
+    on_card = device is None
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    tr = trace.default_tracer()
+    launches = {}
+
+    def counted(label, fn):
+        fm.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        wall = time.perf_counter() - t0
+        launches[label] = {k: v for k, v in fm.LAUNCHES.items() if v}
+        return res, wall
+
+    def sweep(data=a, sweep_ks=ks, sweep_r=r, scfg=pallas, **kw):
+        return nmfx_torch.nmfconsensus(data, ks=sweep_ks, restarts=sweep_r,
+                                       solver_cfg=scfg, device=device, **kw)
+
+    # a. the north-star grid traced under a Profiler, against phase 4a's
+    # untraced run of the same grid
+    plain, plain_wall, la_plain = grid
+    cm.reset_perf()
+    tr.clear()
+    prof = Profiler()
+    trace.enable()
+    try:
+        def traced_run():
+            with prof:
+                return sweep(profiler=prof)
+
+        traced, traced_wall = counted("a traced", traced_run)
+    finally:
+        trace.disable()
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(tr.export(os.path.join(tmp, "trace.json"))) as f:
+            chrome = json.load(f)
+    by_name: dict = {}
+    for ev in chrome["traceEvents"]:
+        if ev.get("ph") in ("X", "i"):
+            by_name[ev["name"]] = by_name.get(ev["name"], 0) + 1
+    booked = {name: rec.count for name, rec in prof.phases.items()}
+    spans_ok = (all(by_name.get(p, 0) == c for p, c in booked.items())
+                and all(p in booked for p in OBS_PHASES))
+    same_a = results_byte_equal(traced, plain)
+    row3 = "fused_block_iterations"
+    la_traced = launches["a traced"].get(row3, 0)
+    print(f"obs 9a (north-star grid, pallas): untraced wall (4a) "
+          f"{plain_wall:.3f} s, traced wall {traced_wall:.3f} s "
+          f"(+{(traced_wall - plain_wall) / plain_wall:.2%}), row 3 "
+          f"launches {la_plain} / {la_traced}, byte-equal {same_a}, best k "
+          f"{plain.best_k} / {traced.best_k}; trace events "
+          f"{len(chrome['traceEvents'])}, spans by phase {by_name} against "
+          f"the profiler's books {booked}: {spans_ok}, dropped "
+          f"{tr.dropped}", flush=True)
+    if not same_a or la_plain != la_traced or (on_card and not la_plain) \
+            or plain.best_k != 2 or not spans_ok or tr.dropped:
+        raise AssertionError("obs 9a: tracing moved the numbers or lost "
+                             "spans")
+    tr.clear()
+
+    # b. attribution: the traced grid, the hals grid, the per-rank route
+    grid_rec = [x for x in cm.recent_attributions()
+                if x["kind"] == "sweep.grid"]
+    if len(grid_rec) != 1:
+        raise AssertionError(f"obs 9b: {len(grid_rec)} sweep.grid records")
+    check_attribution("grid mu", grid_rec[0],
+                      model_flops(traced, pallas, m, n), peak_kind)
+    print_perf("grid mu")
+
+    cm.reset_perf()
+    hals_cfg = nmfx_torch.SolverConfig(algorithm="hals", backend="pallas")
+    prof = Profiler()
+
+    def hals_run():
+        with prof:
+            return sweep(scfg=hals_cfg, profiler=prof)
+
+    hals, hals_wall = counted("b hals grid", hals_run)
+    (hals_rec,) = cm.recent_attributions()
+    check_attribution("hals grid", hals_rec,
+                      model_flops(hals, hals_cfg, m, n), peak_kind)
+    print_perf("hals grid")
+    print(f"obs 9b hals grid: wall {hals_wall:.3f} s, launches "
+          f"{launches['b hals grid']}, best k {hals.best_k}", flush=True)
+
+    cm.reset_perf()
+    prof = Profiler()
+
+    def per_k_run():
+        with prof:
+            return sweep(sweep_ks=per_k_ks, grid_exec="per_k",
+                         profiler=prof)
+
+    per_k, per_k_wall = counted("b per-rank", per_k_run)
+    recs = cm.recent_attributions()
+    if [x["kind"] for x in recs] != ["sweep.k"] * len(per_k_ks):
+        raise AssertionError(f"obs 9b per-rank: records {recs}")
+    for k, rec in zip(per_k_ks, recs):
+        check_attribution(f"per-rank k={k}", rec,
+                          model_flops(per_k, pallas, m, n, (k,)), peak_kind)
+    print_perf("per-rank")
+    print(f"obs 9b per-rank (ks {per_k_ks[0]}..{per_k_ks[-1]}): wall "
+          f"{per_k_wall:.3f} s, launches {launches['b per-rank']}",
+          flush=True)
+    if on_card and not (launches["b hals grid"].get("hals_block_iterations")
+                        and launches["b per-rank"].get("fused_h_update")
+                        and launches["b per-rank"].get("fused_w_update")):
+        raise AssertionError("obs 9b: rows 1-2 or 5 did not launch")
+
+    # c. counters, spans and flight events on the durability path
+    rec_f = flight.default_recorder()
+    reg = metrics.registry()
+    n_chunks = len(BUNDLED_KS) * -(-BUNDLED_RESTARTS // OBS_CHUNK)
+    with tempfile.TemporaryDirectory(prefix=".ckpt_smoke_",
+                                     dir=HERE) as root:
+        snap = reg.snapshot()
+        s0 = ckpt.chunks_solved_count()
+        c0 = len(rec_f.events("ckpt.commit"))
+        trace.enable()
+        try:
+            res_c, wall_c = counted("c ledger", lambda: sweep(
+                bundled, BUNDLED_KS, BUNDLED_RESTARTS,
+                checkpoint=nmfx_torch.CheckpointConfig(
+                    directory=os.path.join(root, "ledger"),
+                    every_n_restarts=OBS_CHUNK)))
+        finally:
+            trace.disable()
+        delta = reg.delta(snap)["nmfx_ckpt_chunks_solved_total"]["series"]
+        reg_solved = int(delta.get((), 0))
+        shim_solved = ckpt.chunks_solved_count() - s0
+        commits = len(rec_f.events("ckpt.commit")) - c0
+        spans = sum(1 for ev in tr.events() if ev["name"] == "ckpt.commit")
+        tr.clear()
+        text = reg.prometheus_text()
+        series = ("nmfx_ckpt_chunks_solved_total",
+                  "nmfx_data_h2d_transfers_total",
+                  "nmfx_data_h2d_bytes_total")
+        named = all(f"# TYPE {s} counter" in text for s in series)
+        print(f"obs 9c (bundled 1000x40 through the ledger, {n_chunks} "
+              f"chunks of {OBS_CHUNK}): wall {wall_c:.3f} s, registry "
+              f"delta {reg_solved}, chunks_solved_count delta "
+              f"{shim_solved}, ckpt.commit flight events {commits}, spans "
+              f"{spans}, exposition names {series}: {named}, launches "
+              f"{launches['c ledger']}, best k {res_c.best_k}", flush=True)
+        check_sweep(res_c, "obs 9c", bn)
+        if not (reg_solved == shim_solved == commits == spans == n_chunks) \
+                or not named:
+            raise AssertionError("obs 9c: the counters, spans or commit "
+                                 "events disagree")
+
+        e0 = len(rec_f.events("fault.solve.nonfinite"))
+        faults.arm("solve.nonfinite", lanes=((2, 1),))
+        try:
+            # through a fresh ledger: each chunk is its own pool, so
+            # the other chunks of rank 2 survive even where a plain
+            # version spreads the NaN across its pool (the CPU)
+            res_p, _ = counted("c poisoned", lambda: sweep(
+                bundled, BUNDLED_KS, BUNDLED_RESTARTS,
+                checkpoint=nmfx_torch.CheckpointConfig(
+                    directory=os.path.join(root, "poisoned"),
+                    every_n_restarts=OBS_CHUNK)))
+            fired = len(rec_f.events("fault.solve.nonfinite")) - e0
+            flight.configure(os.path.join(root, "flight"))
+            try:
+                path = flight.dump("chip-smoke-9c")
+            finally:
+                flight.configure(None)
+        finally:
+            faults.disarm("solve.nonfinite")
+        with open(path) as f:
+            dumped = json.load(f)
+        stops = res_p.per_k[2].stop_reasons
+        print(f"obs 9c (solve.nonfinite at (k 2, restart 1)): fire events "
+              f"{fired}, k=2 stop reasons {stop_counts(res_p.per_k[2])}, "
+              f"dump {os.path.basename(path)} armed sites "
+              f"{sorted(dumped['armed_fault_sites'])}, events "
+              f"{len(dumped['events'])}, perf_recent "
+              f"{len(dumped['perf_recent'])}", flush=True)
+        if fired != 1 or int(stops[1]) != 5 \
+                or "solve.nonfinite" not in dumped["armed_fault_sites"]:
+            raise AssertionError("obs 9c: no fire event, no quarantine, or "
+                                 "the dump misses the armed site")
+
+    # d. the job grid on the card
+    res_d, wall_d = counted("d keep_factors", lambda: sweep(
+        bundled, BUNDLED_KS, BUNDLED_RESTARTS, keep_factors=True))
+    by_k = nmfx_torch.reduce_grid(res_d, by="k")
+    dk = max(float(np.abs(by_k[k] - res_d.per_k[k].consensus).max())
+             for k in BUNDLED_KS)
+    by_r = nmfx_torch.reduce_grid(res_d, by="restart")
+    shapes = sorted({v.shape for v in by_r.values()})
+    mean_w = nmfx_torch.reduce_grid(
+        res_d, lambda cells: np.mean([c.w for c in cells], axis=0))
+    dw = max(float(np.abs(mean_w[k] - res_d.per_k[k].all_w.mean(axis=0))
+                   .max()) for k in BUNDLED_KS)
+    example, wall_ex = counted("d run_example", lambda: nmfx_torch.run_example(
+        outdir=None, device=device))
+    a_dev = torch.as_tensor(bundled, dtype=torch.float32,
+                            device="cuda" if on_card else "cpu")
+    key = _random.fold_in(_random.key(123), 2)
+    kw_out = tsweep.sweep_one_k(
+        a_dev, key, k=2, restarts=BUNDLED_RESTARTS, solver_cfg=pallas,
+        init_cfg=nmfx_torch.InitConfig(), label_rule="argmax", mesh=None,
+        keep_factors=True, grid_slots=48, grid_tail_slots="auto")
+    pos_out = tsweep.sweep_one_k(
+        a_dev, key, 2, BUNDLED_RESTARTS, pallas, nmfx_torch.InitConfig(),
+        "argmax", None, True, 48, "auto")
+    same_call = all(same_bytes(x.cpu(), y.cpu()) for x, y in
+                    zip(kw_out[:9], pos_out[:9]))
+    print(f"obs 9d (keep_factors grid, bundled 1000x40): wall "
+          f"{wall_d:.3f} s; reduce_grid by k max|dC| {dk:.3e}; by restart "
+          f"{len(by_r)} groups of {shapes}; mean W max|d| {dw:.3e}; "
+          f"run_example {wall_ex:.3f} s best k {example.best_k}; "
+          f"sweep_one_k with the reference's keywords: all_w "
+          f"{tuple(kw_out.all_w.shape)}, positional call byte-equal "
+          f"{same_call}", flush=True)
+    if dk > 1e-6 or len(by_r) != BUNDLED_RESTARTS or shapes != [(bn, bn)] \
+            or dw > 1e-6 or example.best_k != 2 or not same_call \
+            or tuple(kw_out.all_w.shape) != (BUNDLED_RESTARTS,
+                                             bundled.shape[0], 2):
+        raise AssertionError("obs 9d: the job grid disagrees")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -2511,6 +2860,7 @@ def main(argv=None) -> int:
             "fused_block_iterations"]
         # each kernel's launches come from its own main path's run
         launches, phased, phased_wall = phase_grid_path(torch, fm)
+        grid = (phased, phased_wall, launches["fused_block_iterations"])
         launches["fused_block_iterations_fused"] = phase_fused_grid_path(
             torch, fm, phased, phased_wall)["fused_block_iterations_fused"]
         per_rank, per_rank_res, per_rank_wall = phase_per_rank_path(
@@ -2532,6 +2882,10 @@ def main(argv=None) -> int:
                                    hals_res)
         print(f"durability phase {time.perf_counter() - t0:.3f} s; "
               f"launches by run {durable}", flush=True)
+        t0 = time.perf_counter()
+        observed = phase_obs(torch, fm, grid)
+        print(f"observability phase {time.perf_counter() - t0:.3f} s; "
+              f"launches by run {observed}", flush=True)
         kernels = []
         for name, source, line in (
                 ("fused_h_update", "block_mu.cu", 147),

@@ -7,15 +7,19 @@ This package imports ``torch`` and numpy, never ``jax`` nor anything of
 """
 
 from nmfx_torch.api import (ConsensusResult, InsufficientRestarts, KResult,
-                            nmf, nmfconsensus, restart_factors,
+                            nmf, nmfconsensus, restart_factors, run_example,
                             save_results)
 from nmfx_torch.config import (CheckpointConfig, ConsensusConfig,
                                ExperimentalConfig, InitConfig, OutputConfig,
                                SolverConfig)
 from nmfx_torch.solvers.base import SolverResult, StopReason
+from nmfx_torch.sweep import (RestartResult, consensus_from_cells,
+                              grid_cells, reduce_grid)
 
 __all__ = ["ConsensusResult", "InsufficientRestarts", "KResult", "nmf",
-           "nmfconsensus", "restart_factors", "save_results",
+           "nmfconsensus", "restart_factors", "run_example", "save_results",
+           "RestartResult", "consensus_from_cells", "grid_cells",
+           "reduce_grid",
            "CheckpointConfig", "ConsensusConfig",
            "ExperimentalConfig", "InitConfig", "OutputConfig",
            "SolverConfig", "SolverResult", "StopReason",

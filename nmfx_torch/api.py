@@ -175,6 +175,23 @@ def _build_k_result(k: int, out, linkage: str, selection=None,
         best_h=out.best_h, all_w=out.all_w, all_h=out.all_h)
 
 
+def run_example(outdir: "str | None" = "./nmfx_out", **kwargs):
+    """The reference's ``runExample`` entry (nmf.r:6-14) on equivalent
+    synthetic data: a 1000x40 two-group expression matrix (the bundled
+    ``20+20x1000.gct`` design), swept at the reference defaults —
+    k=2..5, 10 restarts, maxiter 10000, seed 123. Returns the
+    ConsensusResult; pass ``outdir=None`` to skip file outputs. Other
+    keywords go to :func:`nmfconsensus`, ``device`` among them (the card
+    by default)."""
+    from nmfx_torch.datasets import two_group_matrix
+
+    a = two_group_matrix(n_genes=1000, n_per_group=20, seed=123)
+    output = None if outdir is None else OutputConfig(directory=outdir)
+    defaults = dict(ks=(2, 3, 4, 5), restarts=10, seed=123, output=output)
+    defaults.update(kwargs)
+    return nmfconsensus(a, **defaults)
+
+
 def _as_matrix(data) -> tuple[np.ndarray, list[str]]:
     if isinstance(data, str):
         data = read_dataset(data)

@@ -26,6 +26,14 @@ preemption and resume (counterpart of the in-core half of
   :func:`install_signal_flush` writes the buffered (``every_s``) records
   when SIGTERM or SIGINT arrives.
 
+Telemetry, as the reference emits it: the chunk counters are registry
+instruments (``nmfx_ckpt_chunks_solved_total``,
+``nmfx_ckpt_chunks_loaded_total``, ``nmfx_result_cache_extended_total``;
+:func:`chunks_solved_count` and :func:`chunks_loaded_count` read them),
+each record write is a ``ckpt.commit`` tracer span and flight event, and
+an extended ledger records ``ckpt.extend`` (and ``result_cache.extend``
+when the run reused records while solving new ones).
+
 A checkpointed run is byte-equal to every other checkpointed run of the
 same (data, config, plan), interrupted or not; against the
 non-checkpointed sweep it agrees to float tolerance (the device sums the
@@ -54,6 +62,9 @@ from nmfx_torch.config import (CheckpointConfig, ConsensusConfig,
                                InitConfig, SolverConfig, check_ported)
 from nmfx_torch.data_cache import default_cache, place_resilient
 from nmfx_torch.device import resolve_device
+from nmfx_torch.obs import flight as _flight
+from nmfx_torch.obs import metrics as _metrics
+from nmfx_torch.obs import trace as _trace
 from nmfx_torch.profiling import NullProfiler
 
 __all__ = ["MANIFEST_CONSENSUS_EXCLUDED", "Preempted", "SweepCheckpoint",
@@ -82,27 +93,40 @@ class Preempted(BaseException):
     swallows a preemption."""
 
 
-_count_lock = threading.Lock()
-_counts = {"solved": 0, "loaded": 0}
+# registry instruments under the reference's names and help strings;
+# the *_count() functions below read them
+_chunks_solved_total = _metrics.counter(
+    "nmfx_ckpt_chunks_solved_total",
+    "restart-chunks actually solved on device through the checkpoint "
+    "engine (loaded records do not count)")
+_chunks_loaded_total = _metrics.counter(
+    "nmfx_ckpt_chunks_loaded_total",
+    "restart-chunks served from completion records on disk")
+_extended_total = _metrics.counter(
+    "nmfx_result_cache_extended_total",
+    "checkpointed sweeps that resumed a compatible ledger under a "
+    "widened budget (more restarts / more ranks) and solved only the "
+    "delta chunks")
 
 
 def chunks_solved_count() -> int:
     """Chunks this process solved through the ledger (loaded records do
-    not count): a fully checkpointed re-run leaves it unchanged."""
-    with _count_lock:
-        return _counts["solved"]
+    not count): a fully checkpointed re-run leaves it unchanged. Reads
+    ``nmfx_ckpt_chunks_solved_total``."""
+    return int(_chunks_solved_total.total())
 
 
 def chunks_loaded_count() -> int:
-    """Chunks served from records on disk."""
-    with _count_lock:
-        return _counts["loaded"]
+    """Chunks served from records on disk
+    (``nmfx_ckpt_chunks_loaded_total``)."""
+    return int(_chunks_loaded_total.total())
 
 
 def _note(solved: int = 0, loaded: int = 0) -> None:
-    with _count_lock:
-        _counts["solved"] += solved
-        _counts["loaded"] += loaded
+    if solved:
+        _chunks_solved_total.inc(solved)
+    if loaded:
+        _chunks_loaded_total.inc(loaded)
 
 
 def engine_family(solver_cfg: SolverConfig) -> str:
@@ -242,6 +266,9 @@ class SweepCheckpoint:
                 # same under any budget R that holds it, so every record
                 # at a boundary of the new plan is still right
                 self.extended = True
+                _flight.record("ckpt.extend", directory=directory,
+                               old_restarts=old.get("restarts"),
+                               new_restarts=restarts)
             else:
                 faults.warn_once(
                     "ckpt-manifest-mismatch",
@@ -336,7 +363,11 @@ class SweepCheckpoint:
         arrays = {name: np.asarray(v) for name, v in zip(rec._fields, rec)}
         arrays["record_fingerprint"] = np.asarray(self.fingerprint)
         try:
-            atomic_save_npz(self._path(k, r0, r1), arrays)
+            with _trace.default_tracer().span(
+                    "ckpt.commit", cat="ckpt",
+                    args={"k": k, "r0": r0, "r1": r1}):
+                atomic_save_npz(self._path(k, r0, r1), arrays)
+            _flight.record("ckpt.commit", k=k, r0=r0, r1=r1)
         except Exception as e:
             faults.warn_once(
                 "ckpt-write-failed",
@@ -506,6 +537,7 @@ def run_checkpointed_sweep(a, cfg: ConsensusConfig, solver_cfg: SolverConfig,
     restore = install_signal_flush(ck)
     a_dev = None
     out: dict = {}
+    loaded_total = solved_total = 0
     try:
         for k in cfg.ks:
             recs: dict = {}
@@ -517,6 +549,8 @@ def run_checkpointed_sweep(a, cfg: ConsensusConfig, solver_cfg: SolverConfig,
                     missing.append((r0, r1))
                 else:
                     recs[(r0, r1)] = rec
+                    loaded_total += 1
+            solved_total += len(missing)
             if missing:
                 if a_dev is None:  # a fully resumed sweep copies nothing
                     a_dev = place_resilient(arr, solver_cfg, dev,
@@ -540,6 +574,14 @@ def run_checkpointed_sweep(a, cfg: ConsensusConfig, solver_cfg: SolverConfig,
             ck.flush()  # rank boundary: buffered records land
             if on_rank is not None:
                 on_rank(k, out[k])
+        if loaded_total > 0 and (ck.extended or solved_total > 0):
+            # an incremental run that REUSED records while producing new
+            # work (a widened budget, or widened ks / a partial resume);
+            # a fully loaded re-run is a replay, not an extension
+            _extended_total.inc()
+            _flight.record("result_cache.extend", directory=ck.directory,
+                           loaded=loaded_total, restarts=cfg.restarts,
+                           ks=list(cfg.ks))
         return {k: out[k] for k in cfg.ks}
     finally:
         ck.flush()

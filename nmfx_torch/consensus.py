@@ -20,6 +20,11 @@ def labels_from_h(h: torch.Tensor, rule: str = "argmax") -> torch.Tensor:
     raise ValueError(f"rule must be 'argmax' or 'argmin', got {rule!r}")
 
 
+def connectivity(labels: torch.Tensor) -> torch.Tensor:
+    """0/1 connectivity matrix of one labelling (n,) -> (n, n) float32."""
+    return (labels[:, None] == labels[None, :]).to(torch.float32)
+
+
 def one_hot(labels: torch.Tensor, k: int) -> torch.Tensor:
     """(R, n) labels → (R, n, k) float32 one-hot; a label of -1 (a masked
     lane) gives an all-zero row, as ``jax.nn.one_hot`` does."""

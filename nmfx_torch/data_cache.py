@@ -16,7 +16,11 @@ zero bytes to the card (counterpart of ``nmfx/data_cache.py``).
   blocking copy.
 * **Counters.** :func:`transfer_count` and :func:`h2d_bytes` count the
   copies actually made (on the CPU, the copy into the placed tensor);
-  a second sweep over the same array leaves both unchanged.
+  a second sweep over the same array leaves both unchanged. They read
+  the registry counters ``nmfx_data_h2d_transfers_total`` and
+  ``nmfx_data_h2d_bytes_total`` (``nmfx_torch.obs.metrics``); every
+  eviction counts in ``nmfx_data_cache_evictions_total`` and records a
+  ``cache.evict`` flight event.
 
 The cache holds live device tensors, so it is bounded by entries and by
 bytes (8 entries / 2 GiB by default; :meth:`DataCache.resize`, where
@@ -36,6 +40,8 @@ import numpy as np
 import torch
 
 from nmfx_torch import faults
+from nmfx_torch.obs import flight as _flight
+from nmfx_torch.obs import metrics as _metrics
 from nmfx_torch.profiling import NullProfiler
 
 __all__ = ["DataCache", "DataKey", "data_key_fields", "default_cache",
@@ -46,27 +52,34 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 _CHUNK_MIN_BYTES = 8 << 20
 _CHUNK_BYTES = 4 << 20
 
-_count_lock = threading.Lock()
-_counts = {"transfers": 0, "bytes": 0}
+# registry instruments under the reference's names and help strings;
+# transfer_count() / h2d_bytes() below read them
+_h2d_transfers_total = _metrics.counter(
+    "nmfx_data_h2d_transfers_total",
+    "input-matrix host-to-device transfers actually paid (cache hits "
+    "do not count)")
+_h2d_bytes_total = _metrics.counter(
+    "nmfx_data_h2d_bytes_total",
+    "bytes of input-matrix host-to-device transfers actually paid")
+_data_evictions_total = _metrics.counter(
+    "nmfx_data_cache_evictions_total",
+    "device-resident input-cache entries evicted (LRU bound)")
 
 
 def transfer_count() -> int:
     """Input matrices this process copied to their device through the
-    cache (hits do not count)."""
-    with _count_lock:
-        return _counts["transfers"]
+    cache (hits do not count); reads ``nmfx_data_h2d_transfers_total``."""
+    return int(_h2d_transfers_total.total())
 
 
 def h2d_bytes() -> int:
-    """Bytes of those copies."""
-    with _count_lock:
-        return _counts["bytes"]
+    """Bytes of those copies (``nmfx_data_h2d_bytes_total``)."""
+    return int(_h2d_bytes_total.total())
 
 
 def _note_transfer(nbytes: int) -> None:
-    with _count_lock:
-        _counts["transfers"] += 1
-        _counts["bytes"] += nbytes
+    _h2d_transfers_total.inc()
+    _h2d_bytes_total.inc(nbytes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,9 +174,13 @@ class DataCache:
         total = sum(e.nbytes for e in self._entries.values())
         while self._entries and (len(self._entries) > self.max_entries
                                  or total > self.max_bytes):
-            _, dropped = self._entries.popitem(last=False)
+            key, dropped = self._entries.popitem(last=False)
             total -= dropped.nbytes
             self.evictions += 1
+            _data_evictions_total.inc()
+            _flight.record("cache.evict", cache="data",
+                           nbytes=dropped.nbytes,
+                           fingerprint=key.fingerprint[:12])
 
     @property
     def stats(self) -> dict:

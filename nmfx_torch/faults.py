@@ -19,8 +19,11 @@ Rules, as in the reference:
 The reference keys its traced-executable caches by the armed specs
 (``trace_token``). The port traces nothing and keeps no builder cache:
 each sweep reads the armed specs when it runs, so arming or disarming
-between two runs always takes effect. The reference's flight-recorder
-events (ROADMAP §1 item 11) are not emitted; :func:`hits` and
+between two runs always takes effect. The flight recorder
+(``nmfx_torch.obs.flight``) gets a ``fault.armed`` event on every
+:func:`arm`, the site's ``FAULT_EVENTS`` category on every fire (for the
+lane-rate sites, where a lane or a reload is faulted), and a
+``degradation`` event on every :func:`warn_once`; :func:`hits` and
 :func:`fires` are plain counters.
 
 Sites:
@@ -48,10 +51,12 @@ import logging
 import threading
 import warnings
 
+from nmfx_torch.obs import flight as _flight
+
 __all__ = ["SITES", "FaultConfig", "FaultInjected", "InsufficientRestarts",
            "arm", "disarm", "armed", "fire", "fires", "hits", "inject",
-           "poison_restarts", "scoped", "stale_reload_fraction",
-           "warn_once"]
+           "poison_restarts", "record_rate_fire", "scoped",
+           "stale_reload_fraction", "warn_once"]
 
 #: every registered fault site: arming an unknown one is an error
 SITES = ("h2d.transfer", "compile.build", "persist.deserialize",
@@ -142,6 +147,7 @@ def arm(site: str, **kw) -> FaultConfig:
         "fault site %r ARMED (%s): failures are being injected "
         "deliberately — results from this process are a chaos "
         "rehearsal", site, spec)
+    _flight.record("fault.armed", site=site, spec=spec)
     return spec
 
 
@@ -203,7 +209,12 @@ def fire(site: str) -> bool:
         if _hits[site] % spec.every:
             return False
         _fires[site] += 1
-        return True
+        hit = _hits[site]
+    # one flight event per FIRE, outside the lock (the recorder has its
+    # own): a chaos run's postmortem shows which failures landed
+    _flight.record(_flight.FAULT_EVENTS.get(site, f"fault.{site}"),
+                   site=site, hit=hit)
+    return True
 
 
 def inject(site: str) -> None:
@@ -238,6 +249,15 @@ def poison_restarts(k: int, restarts: int) -> tuple[int, ...]:
                  if _mix01(spec.seed, int(k), r) < spec.rate)
 
 
+def record_rate_fire(site: str, **payload) -> None:
+    """The flight event of a lane-rate site's fire (its ``FAULT_EVENTS``
+    category). A lane-rate site never passes :func:`fire`, so the code
+    that applies the fault records it: the sweep where it poisons W0
+    lanes, the scheduler where it drops reloads (the reference records
+    no event for its rate sites)."""
+    _flight.record(_flight.FAULT_EVENTS[site], site=site, **payload)
+
+
 def stale_reload_fraction() -> float:
     """The armed ``sched.stale_reload`` rate (0.0 = off)."""
     spec = armed("sched.stale_reload")
@@ -250,7 +270,10 @@ _warned: "set[str]" = set()
 
 def warn_once(category: str, msg: str) -> None:
     """One ``RuntimeWarning`` per degradation category per process: the
-    first fallback of a kind is loud, later ones are logged only."""
+    first fallback of a kind is loud, later ones are logged only. EVERY
+    call also records a ``degradation`` flight event: a postmortem needs
+    the whole sequence."""
+    _flight.record("degradation", degradation=category, msg=msg)
     with _warned_lock:
         first = category not in _warned
         _warned.add(category)

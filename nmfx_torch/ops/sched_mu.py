@@ -168,7 +168,11 @@ def _stale_load_mask(jobs: np.ndarray) -> np.ndarray:
     if frac <= 0:
         return np.ones(jobs.shape, bool)
     h = (jobs.astype(np.uint64) * np.uint64(2654435761)) & np.uint64(0xFFFF)
-    return ~(h < np.uint64(int(frac * (1 << 16))))
+    keep = ~(h < np.uint64(int(frac * (1 << 16))))
+    if not keep.all():
+        faults.record_rate_fire("sched.stale_reload",
+                                jobs=jobs[~keep].tolist())
+    return keep
 
 
 class SchedMUResult(NamedTuple):

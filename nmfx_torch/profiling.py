@@ -23,8 +23,20 @@ prefix (``xfer.``, ``post.``) record work that runs concurrently with the
 main-thread pipeline. :meth:`Profiler.audit` keeps them out of the
 phase-sum-vs-wall reconciliation and reports them as an overlap ratio.
 
-The reference's structured tracer (``nmfx.obs``) and its cost-model
-columns are not ported yet.
+Tracer integration: every recording funnels through
+:meth:`Profiler.add_seconds`, which both accumulates the per-phase books
+kept here and, while the process-wide tracer (``nmfx_torch.obs.trace``)
+is enabled, books the same interval as a span on the recording THREAD's
+timeline (a retroactive ``Tracer.complete``; a zero-duration mark as an
+instant). ``NullProfiler`` keeps no books but keeps the tracer emission,
+and opens a phase's span only while the tracer is on; it never adds a
+device synchronize. While the tracer is off the extra cost is one
+attribute read a recording. The tracer holds host intervals; the
+``torch.profiler`` device trace of ``trace_dir`` is separate.
+
+Cost-model columns: the profiled sweep attributes its solve dispatches
+(``nmfx_torch.obs.costmodel``), and :meth:`Profiler.report` appends the
+roofline table when any dispatch was attributed.
 """
 
 from __future__ import annotations
@@ -35,6 +47,8 @@ import threading
 import time
 
 import torch
+
+from nmfx_torch.obs import trace as _trace
 
 #: phase-name prefixes recorded as OVERLAPPED work: async-transfer
 #: bookkeeping (``xfer.``) and post-solve host work streamed through
@@ -137,6 +151,7 @@ class Profiler:
             rec = self.phases.setdefault(name, PhaseRecord(name))
             rec.seconds += seconds
             rec.count += count
+        _emit_span(name, seconds)
 
     # -- reporting ---------------------------------------------------------
     def total_seconds(self) -> float:
@@ -191,6 +206,10 @@ class Profiler:
         lines.append(f"(~ = overlapped with the phases above; "
                      f"{a['overlap_s']:.3f}s overlapped, ratio "
                      f"{a['overlap_ratio']:.0%} of wall)")
+        from nmfx_torch.obs import costmodel as _costmodel
+
+        if _costmodel.perf_summary()["kinds"]:
+            lines.append(_costmodel.perf_report())
         if self.trace_dir is not None:
             lines.append(f"device trace written to "
                          f"{os.path.join(self.trace_dir, 'trace.json')} "
@@ -198,9 +217,26 @@ class Profiler:
         return "\n".join(lines)
 
 
+def _emit_span(name: str, seconds: float) -> None:
+    """Mirror one phase recording onto the structured tracer: a
+    retroactive span for a measured interval, an instant event for a
+    zero-duration mark. One enabled check while tracing is off."""
+    tracer = _trace.default_tracer()
+    if not tracer.enabled:
+        return
+    if seconds > 0.0:
+        tracer.complete(name, seconds, cat="phase")
+    else:
+        tracer.instant(name, cat="phase")
+
+
 class NullProfiler(Profiler):
-    """No-op drop-in so call sites need no ``if profiler`` branching; its
-    ``sync`` never blocks on the card."""
+    """No-op drop-in so call sites need no ``if profiler`` branching.
+
+    No-op for the books only: the tracer emission is kept, so a run
+    without a profiler still traces its phases once the tracer is on.
+    The phase region is timed only while tracing is on, and its ``sync``
+    stays a passthrough either way: it never blocks on the card."""
 
     def __enter__(self) -> "NullProfiler":
         return self
@@ -210,13 +246,18 @@ class NullProfiler(Profiler):
 
     @contextlib.contextmanager
     def phase(self, name: str):
-        yield lambda x: x
+        tracer = _trace.default_tracer()
+        if not tracer.enabled:
+            yield lambda x: x
+            return
+        with tracer.span(name, cat="phase"):
+            yield lambda x: x
 
     def mark(self, name: str) -> None:
-        pass
+        _emit_span(name, 0.0)
 
     def add_seconds(self, name: str, seconds: float, count: int = 1) -> None:
-        pass
+        _emit_span(name, seconds)
 
     def report(self) -> str:
         return "profiling disabled"

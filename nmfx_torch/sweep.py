@@ -36,23 +36,34 @@ through the chunk executor :func:`_build_chunk_sweep_fn`). The armed
 ``solve.nonfinite`` fault poisons W0 at every place a route draws it.
 Float64 runs on every route of plain products (the kernels are
 float32). Meshes and the executable cache are not ported yet.
+
+Under a real ``Profiler`` each solve dispatch (``"sweep.grid"``, and
+``"sweep.k"`` per rank) is attributed to the cost model
+(``nmfx_torch.obs.costmodel``: model FLOPs and bytes, MFU and the
+roofline verdict against the peak of A's device).
+
+The job-grid API (:class:`RestartResult`, :func:`grid_cells`,
+:func:`reduce_grid`, :func:`consensus_from_cells`; the reference's
+``reduceGridBy``) reduces a ``keep_factors=True`` sweep on the host.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import time
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from nmfx_torch import faults
 from nmfx_torch import random as _random
-from nmfx_torch.config import (ConsensusConfig, InitConfig, SolverConfig,
-                               check_ported)
+from nmfx_torch.config import (ROADMAP_SCALE, ConsensusConfig, InitConfig,
+                               SolverConfig, check_ported)
 from nmfx_torch.consensus import labels_from_h, one_hot
 from nmfx_torch.device import resolve_device
-from nmfx_torch.harvest import start_host_fetch
+from nmfx_torch.harvest import fetch_host, start_host_fetch
 from nmfx_torch.init import restart_inits
+from nmfx_torch.obs import costmodel
 from nmfx_torch.ops.packed_mu import mu_packed, unpack_w
 from nmfx_torch.ops.sched_mu import mu_sched
 from nmfx_torch.profiling import NullProfiler
@@ -131,9 +142,12 @@ def resolve_engine_family(solver_cfg: SolverConfig) -> str:
 
 def _poison_restart_lanes(w0: torch.Tensor, lane_idx) -> torch.Tensor:
     """The ``solve.nonfinite`` fault: one NaN at ``W0[lane, 0, 0]`` of
-    each listed lane (the reference's ``_poison_restart_lanes``)."""
+    each listed lane (the reference's ``_poison_restart_lanes``), and
+    the site's flight event naming the pool's poisoned lanes."""
     if not lane_idx:
         return w0
+    faults.record_rate_fire("solve.nonfinite", lanes=list(lane_idx),
+                            pool=int(w0.shape[0]))
     w0 = w0.clone()
     w0[list(lane_idx), 0, 0] = torch.nan
     return w0
@@ -271,27 +285,39 @@ def _build_chunk_sweep_fn(k: int, n_chunk: int, solver_cfg: SolverConfig,
     return impl
 
 
+def _refuse_mesh(mesh) -> None:
+    """The meshed route is not ported: only ``mesh=None`` runs."""
+    if mesh is not None:
+        raise NotImplementedError(
+            f"meshes are not ported yet ({ROADMAP_SCALE}); pass "
+            "mesh=None")
+
+
 def sweep_one_k(a: torch.Tensor, key: np.ndarray, k: int, restarts: int,
                 solver_cfg: SolverConfig = SolverConfig(),
                 init_cfg: InitConfig = InitConfig(),
                 label_rule: str = "argmax",
-                keep_factors: bool = False, slots: int = 48,
-                tail_slots="auto") -> KSweepOutput:
+                mesh=None,
+                keep_factors: bool = False,
+                grid_slots: int = 48,
+                grid_tail_slots="auto") -> KSweepOutput:
     """Run ``restarts`` factorizations at rank k on A's device (``key``
     is the rank's folded key) and reduce them to one consensus matrix
     there, by the reference's order: mu under "auto", "packed" or
     "pallas" as one packed batch; another pair of ``_GRID_EXEC_BACKENDS``
-    through the slot scheduler at this one rank (``slots`` wide, with the
-    ``tail_slots`` cascade); everything else on the batched restart
-    route."""
+    through the slot scheduler at this one rank (``grid_slots`` wide,
+    with the ``grid_tail_slots`` cascade); everything else on the
+    batched restart route. The parameters are the reference's, in its
+    order; ``mesh`` must be None."""
+    _refuse_mesh(mesh)
     if _use_packed(solver_cfg):
         fn = _build_packed_sweep_fn(k, restarts, solver_cfg, init_cfg,
                                     label_rule, keep_factors)
         return fn(a, key)
     if grid_exec_ok(solver_cfg):
         fn = _build_grid_exec_sweep_fn((k,), restarts, solver_cfg, init_cfg,
-                                       label_rule, keep_factors, slots,
-                                       tail_slots, fold_keys=False)
+                                       label_rule, keep_factors, grid_slots,
+                                       grid_tail_slots, fold_keys=False)
         return fn(a, key)[k]
     fn = _build_vmap_sweep_fn(k, restarts, solver_cfg, init_cfg, label_rule,
                               keep_factors)
@@ -380,7 +406,8 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
     registry or finalized from a checkpoint ledger).
     ``profiler`` (``nmfx_torch.profiling.Profiler``) times the phases
     ``solve.grid`` or ``solve.k={k}`` and ``xfer.overlap`` (starting the
-    copies), and ``checkpoint`` (registry saves).
+    copies), and ``checkpoint`` (registry saves); under a real profiler
+    each solve dispatch is attributed to the cost model.
 
     ``registry`` (``nmfx_torch.registry.SweepRegistry``): finished ranks
     load from it and the ranks still needed are solved (on the grid
@@ -435,6 +462,7 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
             tuple(needed), cfg.restarts, solver_cfg, init_cfg,
             cfg.label_rule, cfg.keep_factors, cfg.grid_slots,
             cfg.grid_tail_slots)
+        t0 = time.perf_counter()
         with profiler.phase("solve.grid") as sync:
             solved = sync(fn(a_dev, root))
         with profiler.phase("xfer.overlap"):
@@ -446,6 +474,8 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
         for k in needed:
             if on_rank is not None:
                 on_rank(k, solved[k])
+        _attribute_dispatch("sweep.grid", solver_cfg, a_dev, solved,
+                            time.perf_counter() - t0, profiler)
         if registry is not None:
             with profiler.phase("checkpoint"):
                 for k in needed:
@@ -454,17 +484,120 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
     for k in needed:
         # fold in k itself, so a given (seed, k) always yields the same
         # factorizations whatever the sweep's composition
+        t0 = time.perf_counter()
         with profiler.phase(f"solve.k={k}") as sync:
             res = sync(sweep_one_k(a_dev, _random.fold_in(root, k), k,
                                    cfg.restarts, solver_cfg, init_cfg,
-                                   cfg.label_rule, cfg.keep_factors,
+                                   cfg.label_rule, None, cfg.keep_factors,
                                    cfg.grid_slots, cfg.grid_tail_slots))
         with profiler.phase("xfer.overlap"):
             # rank k's results stream to the host while rank k+1 solves
             out[k] = res._replace(fetch=start_host_fetch(res))
         if on_rank is not None:
             on_rank(k, out[k])
+        _attribute_dispatch("sweep.k", solver_cfg, a_dev, {k: out[k]},
+                            time.perf_counter() - t0, profiler)
         if registry is not None:
             with profiler.phase("checkpoint"):
                 registry.save(k, out[k])
     return {k: out[k] for k in cfg.ks}
+
+
+def _attribute_dispatch(kind: str, solver_cfg: SolverConfig,
+                        a_dev: torch.Tensor, outs: dict, wall_s: float,
+                        profiler) -> None:
+    """Per-dispatch roofline attribution (``nmfx_torch.obs.costmodel``):
+    annotate a just-measured solve dispatch with its model FLOPs/bytes
+    against the peak of A's device. Only under a real ``Profiler``,
+    whose phase already synchronized the card, so the wall is honest;
+    the iteration counts come through the host copies the sweep already
+    started. A ``NullProfiler`` run attributes nothing and gains no
+    read."""
+    if (isinstance(profiler, NullProfiler)
+            or not costmodel.attribution_enabled() or not outs):
+        return
+    iters = {k: fetch_host(v).iterations for k, v in outs.items()}
+    costmodel.attribute_dispatch(kind, solver_cfg, a_dev.shape[0],
+                                 a_dev.shape[1], iters, wall_s,
+                                 device=a_dev.device)
+
+
+class RestartResult(NamedTuple):
+    """One grid cell's full result — the reference's per-job
+    ``list(W, H, iter)`` (nmf.r:50), plus the residual and stop reason
+    the reference never surfaces."""
+
+    k: int
+    restart: int
+    w: np.ndarray  # (m, k)
+    h: np.ndarray  # (k, n)
+    iterations: int
+    dnorm: float
+    stop_reason: int
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def grid_cells(results) -> list[RestartResult]:
+    """Flatten a ``keep_factors=True`` sweep into the (k × restart) grid
+    of per-job results the reference's registry holds. Accepts the raw
+    ``sweep`` output (``{k: KSweepOutput}``) or a ``ConsensusResult``
+    from ``nmfconsensus`` (its per-k records carry the same per-restart
+    fields)."""
+    if hasattr(results, "per_k"):  # ConsensusResult
+        results = results.per_k
+    cells: list[RestartResult] = []
+    for k in sorted(results):
+        out = results[k]
+        if out.all_w is None or out.all_h is None:
+            raise ValueError(
+                f"per-restart factors for k={k} were not retained; run the "
+                "sweep with keep_factors=True (or recompute a single "
+                "restart with nmfx_torch.restart_factors)")
+        all_w, all_h = _host(out.all_w), _host(out.all_h)
+        iters, dnorms = _host(out.iterations), _host(out.dnorms)
+        stops = _host(out.stop_reasons)
+        for r in range(all_w.shape[0]):
+            cells.append(RestartResult(k, r, all_w[r], all_h[r],
+                                       int(iters[r]), float(dnorms[r]),
+                                       int(stops[r])))
+    return cells
+
+
+def reduce_grid(results, fun=None, by: str = "k") -> dict[int, object]:
+    """Axis-grouped reduction over the (k × restart) job grid — the
+    reference's ``reduceGridBy`` (nmf.r:72-98): group the job results by
+    the kept axis and apply ``fun`` to each group's list of
+    :class:`RestartResult`. ``fun=None`` is the reference's own
+    reduction, :func:`consensus_from_cells`.
+
+    ``by="k"``: ``fun`` receives all restarts at one rank; ``by="restart"``:
+    one restart index across all ranks. ``results`` is the raw ``sweep``
+    output or a ``ConsensusResult`` (see :func:`grid_cells`). Returns
+    ``{axis_value: fun(cells)}`` sorted by axis value. Host numpy by
+    design; the performance path is the on-device consensus of the
+    sweep."""
+    if fun is None:
+        fun = consensus_from_cells
+    axes = {"k": 0, "restart": 1}
+    if by not in axes:
+        raise ValueError(f"by must be 'k' or 'restart', got {by!r}")
+    groups: dict[int, list[RestartResult]] = {}
+    for cell in grid_cells(results):
+        groups.setdefault(cell[axes[by]], []).append(cell)
+    return {g: fun(groups[g]) for g in sorted(groups)}
+
+
+def consensus_from_cells(cells: Sequence[RestartResult],
+                         label_rule: str = "argmax") -> np.ndarray:
+    """Host-numpy ``computeConsensusMatrixFromClusterings``
+    (nmf.r:121-144) over a group of grid cells — the reference's default
+    reduction, used by :func:`reduce_grid` when no ``fun`` is given."""
+    if label_rule not in ("argmax", "argmin"):
+        raise ValueError(
+            f"label_rule must be 'argmax' or 'argmin', got {label_rule!r}")
+    pick = np.argmax if label_rule == "argmax" else np.argmin
+    labels = np.stack([pick(c.h, axis=0) for c in cells])  # (R, n)
+    return (labels[:, :, None] == labels[:, None, :]).mean(axis=0)

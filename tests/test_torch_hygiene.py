@@ -42,7 +42,10 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys, nmfx_torch, nmfx_torch.api, nmfx_torch.convert, "
             "nmfx_torch.ops.packed_mu, nmfx_torch.ops.fused_mu, "
             "nmfx_torch.checkpoint, nmfx_torch.data_cache, "
-            "nmfx_torch.faults, nmfx_torch.registry; "
+            "nmfx_torch.faults, nmfx_torch.registry, nmfx_torch.guards, "
+            "nmfx_torch.obs, nmfx_torch.obs.metrics, nmfx_torch.obs.trace, "
+            "nmfx_torch.obs.flight, nmfx_torch.obs.export, "
+            "nmfx_torch.obs.costmodel; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'nmfx')); print(bad); sys.exit(bool(bad))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
