@@ -93,17 +93,18 @@ Phases (any failure exits non-zero; nothing is caught):
      (a zero-padded lane in every pool) finite;
   8. durability (phase_durability), each run with the launch counts set
      to 0 just before it and read just after:
-     a. the north-star sweep of 4c (backend "pallas") through the
-        checkpoint ledger, 10 restarts a record (45 chunks on the kernel
-        pair), the wall split by the profiler's phases;
-     b. the same at ks 2..6 (25 chunks; the depth cut to keep the phase
-        near its budget) in a fresh directory, killed by proc.preempt at
-        the 13th chunk (12 records on disk), then resumed: 13 chunks
-        solved, 12 loaded, byte-equal to a at those ranks;
+     a. the north-star sweep of 4c (backend "pallas") at ks 2..6
+        through the checkpoint ledger, 10 restarts a record (25 chunks
+        on the kernel pair; the depth cut to leave the serving phase its
+        time), the wall split by the profiler's phases;
+     b. the same in a fresh directory, killed by proc.preempt at the
+        13th chunk (12 records on disk), then resumed: 13 chunks solved,
+        12 loaded, byte-equal to a;
      c. a's warm re-run: 0 chunks solved, 0 launches, 0 bytes copied;
-     d. a against 4c: the same best k and k = 2 memberships (the ranks
-        whose memberships are equal listed), max|dC| <= 1e-6 and whether
-        every per-restart iteration count is equal;
+     d. a against 4c at the same ranks: the same best k and k = 2
+        memberships (the ranks whose memberships are equal listed),
+        max|dC| <= 1e-6 and whether every per-restart iteration count
+        is equal;
      e. solve.nonfinite (5 % of the restarts) on the whole grid (row 3)
         and on the hals grid (row 5): the poisoned restarts stop
         NUMERIC_FAULT, every other one is byte-equal to 4a's / 4d's run;
@@ -136,7 +137,37 @@ Phases (any failure exits non-zero; nothing is caught):
      d. the job grid: reduce_grid of a keep_factors sweep by k (each
         rank's consensus within 1e-6), by restart (10 groups of n x n)
         and with a custom fun; run_example's best k 2; sweep_one_k
-        called with the JAX package's keywords and positions.
+        called with the JAX package's keywords and positions;
+ 10. serving (phase_serve): the multi-tenant server over the bucketed
+     executable cache (5000x500 padded to its 5120x512 bucket), each run
+     with the launch counts set to 0 just before it and read just after:
+     a. four mu requests (backend "pallas", the JAX package's submit
+        defaults: ks 2..5, 10 restarts; seeds 1-4) submitted to a paused
+        server, then resumed: exactly one packed dispatch of 4 requests
+        on row 3, each result byte-equal to its solo
+        nmfconsensus(exec_cache=) run; one request against the plain
+        nmfconsensus at the agreement tier (best k, k = 2 memberships),
+        per-k mean iterations side by side;
+     b. two hals requests packed on row 5, each byte-equal to its solo
+        run;
+     c. eight requests at once (seeds 11-18) to a packing server and to
+        a pack=False one: wall, requests/s, e2e p50/p95, mean queue
+        wait, dispatches, packing efficiency, row 3 launches; every
+        packed result byte-equal to its pack=False twin;
+     d. on the bundled 1000x40 design: a result-cache warm hit (0
+        dispatches, 0 copies and bytes to the card, 0 launches), three
+        identical coalesced requests in 1 dispatch, close(cancel_pending)
+        with a spill directory then readmit (byte-equal), an armed
+        serve.scheduler failing the pending request with ServerCrashed
+        and the fresh scheduler's next result byte-equal, and a
+        deadline-clamped request byte-equal to a solo run at its clamped
+        max_iter;
+     e. mixed largest ranks: ks (2, 3) beside ks 2..5 (seeds 7-8) in one
+        pool through the server's packed builder, for mu on row 3 and
+        hals on row 5 (the server's compatibility key keeps such
+        requests apart): each group byte-equal or not to its solo
+        bucketed sweep, printed; the ks 2..5 request, whose lane width
+        is its solo run's, must be byte-equal.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -2204,6 +2235,10 @@ def phase_option_timing(torch, fm, rates):
 #: to keep the phase near its budget) and the chunk solve the rehearsed
 #: preemption lands on
 CKPT_CHUNK, KILL_KS, KILL_AT = 10, tuple(range(2, 7)), 13
+#: phase 8a/c/d: the checkpointed north star's ranks, cut to ks 2..6
+#: (25 chunks): at ks 2..10 it took 155 s of the script's 963.5 s (run I
+#: of the observability slice), and the serving phase needs that time
+CKPT_KS = tuple(range(2, 7))
 #: phase 8e: the share of restarts poisoned (one NaN in W0)
 POISON_RATE = 0.05
 #: phase 8f: the stale reloads' rate and the pool that makes slots reload
@@ -2240,8 +2275,9 @@ def expect_preempted(fn, ckpt):
 
 
 def phase_durability(torch, fm, grid, per_rank, hals, *, a=None, ks=KS,
-                     restarts=None, chunk=CKPT_CHUNK, kill_ks=KILL_KS,
-                     kill_at=KILL_AT, bundled=None, device=None):
+                     restarts=None, chunk=CKPT_CHUNK, ckpt_ks=CKPT_KS,
+                     kill_ks=KILL_KS, kill_at=KILL_AT, bundled=None,
+                     device=None):
     """Phase 8, the durable sweep (nmfx_torch.checkpoint) at the north
     star on the per-iteration kernel pair, and the fault sites on the
     block kernels: a. uninterrupted, b. killed by proc.preempt and
@@ -2249,8 +2285,9 @@ def phase_durability(torch, fm, grid, per_rank, hals, *, a=None, ks=KS,
     no byte copied), d. against the per-rank route's result ``per_rank``,
     e. solve.nonfinite on the whole grid and the hals grid against their
     clean runs ``grid`` and ``hals``, f. sched.stale_reload on the
-    bundled design, g. float64 on the batched restart route. Returns the
-    launches of each run by name."""
+    bundled design, g. float64 on the batched restart route. a, c and d
+    run at ``ckpt_ks``, e at ``ks``. Returns the launches of each run by
+    name."""
     import tempfile
 
     import nmfx_torch
@@ -2262,7 +2299,7 @@ def phase_durability(torch, fm, grid, per_rank, hals, *, a=None, ks=KS,
     a = north_star_matrix() if a is None else a
     r = NORTH_STAR[2] if restarts is None else restarts
     n = a.shape[1]
-    n_chunks = len(ks) * -(-r // chunk)
+    n_chunks = len(ckpt_ks) * -(-r // chunk)
     kill_chunks = len(kill_ks) * -(-r // chunk)
     bundled = (two_group_matrix(n_genes=1000, n_per_group=20, seed=123)
                if bundled is None else bundled)
@@ -2270,7 +2307,7 @@ def phase_durability(torch, fm, grid, per_rank, hals, *, a=None, ks=KS,
     sync = torch.cuda.synchronize if device is None else (lambda: None)
     launches = {}
 
-    def run(directory, ks=ks, **kw):
+    def run(directory, ks=ckpt_ks, **kw):
         return nmfx_torch.nmfconsensus(
             a, ks=ks, restarts=r, solver_cfg=pallas, device=device,
             checkpoint=nmfx_torch.CheckpointConfig(
@@ -2300,8 +2337,8 @@ def phase_durability(torch, fm, grid, per_rank, hals, *, a=None, ks=KS,
 
         res_a, wall_a, solved, loaded, _ = counted("a", profiled_run)
         la = launches["a"]
-        print(f"durability a (uninterrupted, pallas, {n_chunks} chunks of "
-              f"{chunk}): wall {wall_a:.3f} s [solve.ckpt "
+        print(f"durability a (uninterrupted, pallas, ks {ckpt_ks[0]}.."
+              f"{ckpt_ks[-1]}, {n_chunks} chunks of {chunk}): wall {wall_a:.3f} s [solve.ckpt "
               f"{phase_seconds(prof, 'solve.ckpt'):.3f} s, ckpt.load "
               f"{phase_seconds(prof, 'ckpt.load'):.4f} s, checkpoint "
               f"{phase_seconds(prof, 'checkpoint'):.4f} s, ckpt.finalize "
@@ -2366,16 +2403,21 @@ def phase_durability(torch, fm, grid, per_rank, hals, *, a=None, ks=KS,
     if per_rank is not None:
         dc = max(float(np.abs(res_a.per_k[k].consensus
                               - per_rank.per_k[k].consensus).max())
-                 for k in ks)
+                 for k in ckpt_ks)
         iters = all(np.array_equal(res_a.per_k[k].iterations,
-                                   per_rank.per_k[k].iterations) for k in ks)
-        members = [k for k in ks if np.array_equal(
+                                   per_rank.per_k[k].iterations)
+                    for k in ckpt_ks)
+        members = [k for k in ckpt_ks if np.array_equal(
             res_a.per_k[k].membership, per_rank.per_k[k].membership)]
-        print(f"durability d (against the per-rank route): best k "
-              f"{res_a.best_k} / {per_rank.best_k}, memberships equal at "
-              f"ks {members} of {list(ks)}, max|dC| {dc:.3e}, every "
-              f"per-restart iteration count equal {iters}", flush=True)
-        if res_a.best_k != per_rank.best_k or ks[0] not in members \
+        # best k over the same ranks: a's ks are a prefix of the route's
+        sub_best = max(ckpt_ks, key=lambda k: (per_rank.per_k[k].rho,
+                                               per_rank.per_k[k].dispersion))
+        print(f"durability d (against the per-rank route at ks "
+              f"{ckpt_ks[0]}..{ckpt_ks[-1]}): best k {res_a.best_k} / "
+              f"{sub_best}, memberships equal at ks {members} of "
+              f"{list(ckpt_ks)}, max|dC| {dc:.3e}, every per-restart "
+              f"iteration count equal {iters}", flush=True)
+        if res_a.best_k != sub_best or ckpt_ks[0] not in members \
                 or dc > 1e-6:
             raise AssertionError("durability d: the checkpointed sweep "
                                  "parts from the per-rank route")
@@ -2805,6 +2847,359 @@ def phase_obs(torch, fm, grid, *, a=None, ks=KS, restarts=None,
     return launches
 
 
+#: phase 10: nmfx's submit defaults (ks 2..5, 10 restarts), the packed
+#: requests' seeds (10a), the traffic burst's (10c), the hals pair's (10b)
+SERVE_KS, SERVE_RESTARTS = (2, 3, 4, 5), 10
+SERVE_SEEDS, TRAFFIC_SEEDS, HALS_SEEDS = (1, 2, 3, 4), tuple(range(11, 19)), \
+    (5, 6)
+#: phase 10d: the deadline clamp's rate estimate (iterations a second)
+#: and timeout: 4 x 600 s rounds up to a budget of 4096 < 10000
+CLAMP_RATE, CLAMP_TIMEOUT_S = 4.0, 600.0
+#: every served future's bound (a hang fails the phase, never the call)
+SERVE_TIMEOUT_S = 600.0
+#: phase 10e: two requests of different largest rank in one pool
+#: (seed, ks); the first's lane width is its solo run's
+MIXED_REQS = ((7, (2, 3, 4, 5)), (8, (2, 3)))
+
+
+def mixed_rank_pack(torch, cache, a, scfg, reqs=MIXED_REQS,
+                    restarts=SERVE_RESTARTS):
+    """Pack requests of different largest rank into one pool through
+    the server's packed builder, as its ExecCacheEngine.dispatch_packed
+    would, and hold each (seed, k) group against the same rank of the
+    request's solo bucketed sweep: {(seed, k): {field: max abs
+    difference} over the output fields that are not byte-equal}."""
+    import nmfx_torch
+    from nmfx_torch import random as rnd
+    from nmfx_torch.exec_cache import _unpad
+    from nmfx_torch.ops.packed_mu import flip_budget
+    from nmfx_torch.sweep import _build_packed_serve_fn
+
+    ccfgs = {seed: nmfx_torch.ConsensusConfig(ks=ks, restarts=restarts,
+                                              seed=seed)
+             for seed, ks in reqs}
+    c0 = next(iter(ccfgs.values()))
+    placed = cache.prefetch(a, scfg)
+    groups = sorted(((k, seed) for seed, ks in reqs for k in ks),
+                    key=lambda g: -g[0])
+    fn = _build_packed_serve_fn(
+        tuple((k, restarts) for k, _ in groups), scfg, c0.label_rule,
+        c0.grid_slots, c0.grid_tail_slots, placed.bucket,
+        nmfx_torch.InitConfig())
+    roots = np.stack([rnd.fold_in(rnd.key(seed), k) for k, seed in groups])
+    m, n = placed.true_shape
+    outs = fn(placed.a_pad, roots, m, n, flip_budget(scfg.class_flip_tol, n))
+    solo = {seed: cache.run_sweep(placed, c, scfg)
+            for seed, c in ccfgs.items()}
+    fields = ("consensus", "iterations", "dnorms", "stop_reasons", "labels",
+              "best_w", "best_h")
+    parted = {}
+    for (k, seed), out in zip(groups, outs):
+        out, ref = _unpad(out, m, n), solo[seed][k]
+        if not bool(torch.isfinite(out.consensus).all()):
+            raise AssertionError(f"serve 10e: seed {seed} k = {k} not finite")
+        parted[(seed, k)] = {
+            f: float((getattr(out, f).double()
+                      - getattr(ref, f).double()).abs().max())
+            for f in fields
+            if not torch.equal(getattr(out, f), getattr(ref, f))}
+    return parted
+
+
+def e2e_quantiles(snap, metrics, q=(0.5, 0.95)):
+    """p50/p95 of nmfx_serve_e2e_seconds{outcome="completed"} over a
+    server's window (its stats_snapshot delta), bucket-interpolated."""
+    rec = snap["nmfx_serve_e2e_seconds"]
+    state = rec["series"].get(("completed",))
+    buckets = metrics.registry().get("nmfx_serve_e2e_seconds").buckets
+    return [None if state is None else
+            metrics.bucket_quantile(buckets, state, x) for x in q]
+
+
+def phase_serve(torch, fm, *, a=None, bundled=None, ks=SERVE_KS,
+                restarts=SERVE_RESTARTS, device=None):
+    """Phase 10, the serving tier (nmfx_torch.serve): a. four north-star
+    mu requests packed into one dispatch on row 3, each byte-equal to
+    its solo nmfconsensus(exec_cache=) run, one held to the plain
+    nmfconsensus at the agreement tier; b. two hals requests packed on
+    row 5, each byte-equal to its solo run; c. a burst of eight requests
+    to a packing server and to a pack=False one (walls, requests/s, e2e
+    p50/p95, queue wait, dispatches, packing efficiency, launches),
+    every packed result byte-equal to its pack=False twin; d. the
+    policies on the bundled design: the result cache's warm hit (no
+    dispatch, no byte to the card), coalescing, spill and readmit, a
+    crashed scheduler and its fresh successor, the deadline clamp; e.
+    requests of different largest rank in one pool through the packed
+    builder, mu and hals, each group against its solo run (printed; the
+    request at its solo lane width must be byte-equal). Returns the
+    launches of each run by name."""
+    import tempfile
+
+    import nmfx_torch
+    from nmfx_torch import data_cache, faults
+    from nmfx_torch import serve
+    from nmfx_torch.datasets import two_group_matrix
+    from nmfx_torch.exec_cache import compile_count
+    from nmfx_torch.obs import metrics
+
+    a = north_star_matrix() if a is None else a
+    bundled = (two_group_matrix(n_genes=1000, n_per_group=20, seed=123)
+               if bundled is None else bundled)
+    n = a.shape[1]
+    on_card = device is None
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    pallas = nmfx_torch.SolverConfig(backend="pallas")
+    hals = nmfx_torch.SolverConfig(algorithm="hals", backend="pallas")
+    row3, row5 = "fused_block_iterations", "hals_block_iterations"
+    launches = {}
+    kw = dict(ks=ks, restarts=restarts)
+
+    def counted(label, fn):
+        fm.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        wall = time.perf_counter() - t0
+        launches[label] = {k: v for k, v in fm.LAUNCHES.items() if v}
+        return res, wall
+
+    def solo(cache, data, seed, scfg, **extra):
+        return nmfx_torch.nmfconsensus(data, seed=seed, solver_cfg=scfg,
+                                       exec_cache=cache, device=device,
+                                       **{**kw, **extra})
+
+    def served(srv_cfg, cache, data, seeds, scfg, **extra):
+        """Submit one request a seed to a paused server, then resume:
+        (results, futures, stats, stats_snapshot)."""
+        with serve.NMFXServer(srv_cfg, exec_cache=cache,
+                              start=False) as srv:
+            futs = [srv.submit(data, seed=s, solver_cfg=scfg,
+                               **{**kw, **extra}) for s in seeds]
+            srv.resume()
+            res = [f.result(timeout=SERVE_TIMEOUT_S) for f in futs]
+            stats, snap = srv.stats(), srv.stats_snapshot()
+        return res, futs, stats, snap
+
+    # a. four north-star mu requests in one packed dispatch on row 3
+    cache = nmfx_torch.ExecCache(device=device)
+    p0, c0 = serve.packed_dispatch_count(), compile_count()
+    (res_a, futs_a, st_a, _), wall_a = counted("a packed", lambda: served(
+        serve.ServeConfig(max_batch_requests=4), cache, a, SERVE_SEEDS,
+        pallas))
+    la = launches["a packed"].get(row3, 0)
+    packed_a = serve.packed_dispatch_count() - p0
+    solos, same = [], []
+    t0 = time.perf_counter()
+    for s, r in zip(SERVE_SEEDS, res_a):
+        solos.append(solo(cache, a, s, pallas))
+        same.append(results_byte_equal(r, solos[-1], KRESULT_FIELDS))
+    sync()
+    wall_solo = time.perf_counter() - t0
+    plain, wall_plain = counted("a plain", lambda: nmfx_torch.nmfconsensus(
+        a, seed=SERVE_SEEDS[0], solver_cfg=pallas, device=device, **kw))
+    agree = (plain.best_k == res_a[0].best_k and np.array_equal(
+        plain.per_k[ks[0]].membership, res_a[0].per_k[ks[0]].membership))
+    plain_equal = results_byte_equal(plain, res_a[0], KRESULT_FIELDS)
+    means = {k: (float(res_a[0].per_k[k].iterations.mean()),
+                 float(plain.per_k[k].iterations.mean())) for k in ks}
+    print(f"serve 10a (north star {a.shape[0]}x{n}, bucket "
+          f"{cache.bucket_shape(*a.shape)}, {len(SERVE_SEEDS)} mu requests "
+          f"of ks {ks[0]}..{ks[-1]} x {restarts} restarts, pallas): wall "
+          f"{wall_a:.3f} s, packed dispatches {packed_a}, packed requests "
+          f"{st_a['packed_requests']}, lanes {st_a['total_lanes']}, row 3 "
+          f"launches {la}, launches {launches['a packed']}, builds "
+          f"{compile_count() - c0}; each byte-equal to its solo "
+          f"nmfconsensus(exec_cache=) run {same} (4 solo runs "
+          f"{wall_solo:.3f} s); best k {[r.best_k for r in res_a]}",
+          flush=True)
+    print(f"serve 10a against the plain nmfconsensus (seed "
+          f"{SERVE_SEEDS[0]}, {wall_plain:.3f} s): best k {res_a[0].best_k}"
+          f" / {plain.best_k}, k = {ks[0]} memberships equal {agree}, "
+          f"byte-equal {plain_equal}; per-k mean iterations bucketed / "
+          f"plain { {k: (round(x, 1), round(y, 1)) for k, (x, y) in means.items()} }",
+          flush=True)
+    if packed_a != 1 or st_a["packed_requests"] != len(SERVE_SEEDS) \
+            or not all(same) or not agree or (on_card and not la):
+        raise AssertionError(
+            f"serve 10a: packed {packed_a}, requests "
+            f"{st_a['packed_requests']}, byte-equal {same}, agreement "
+            f"{agree}, row 3 launches {la}")
+    for r in res_a:
+        check_finite(r, "serve 10a", n)
+
+    # b. two hals requests packed on row 5
+    p0 = serve.packed_dispatch_count()
+    (res_b, _, st_b, _), wall_b = counted("b hals", lambda: served(
+        serve.ServeConfig(), cache, a, HALS_SEEDS, hals))
+    lb = launches["b hals"].get(row5, 0)
+    same_b = [results_byte_equal(r, solo(cache, a, s, hals), KRESULT_FIELDS)
+              for s, r in zip(HALS_SEEDS, res_b)]
+    print(f"serve 10b (hals, pallas, {len(HALS_SEEDS)} requests): wall "
+          f"{wall_b:.3f} s, packed dispatches "
+          f"{serve.packed_dispatch_count() - p0}, packed requests "
+          f"{st_b['packed_requests']}, row 5 launches {lb}, launches "
+          f"{launches['b hals']}; each byte-equal to its solo run "
+          f"{same_b}; best k {[r.best_k for r in res_b]}", flush=True)
+    if st_b["packed_requests"] != len(HALS_SEEDS) or not all(same_b) \
+            or (on_card and not lb):
+        raise AssertionError(f"serve 10b: packed requests "
+                             f"{st_b['packed_requests']}, byte-equal "
+                             f"{same_b}, row 5 launches {lb}")
+
+    # c. a burst of requests, packed against pack=False
+    burst = {}
+    for label, pack in (("packed", True), ("pack=False", False)):
+        (res, futs, st, snap), wall = counted(f"c {label}", lambda: served(
+            serve.ServeConfig(pack=pack), cache, a, TRAFFIC_SEEDS, pallas))
+        p50, p95 = e2e_quantiles(snap, metrics)
+        lat = [f.stats.latency_s for f in futs]
+        qw = [f.stats.queue_wait_s for f in futs]
+        burst[label] = res
+        print(f"serve 10c ({label}, {len(TRAFFIC_SEEDS)} requests at once):"
+              f" wall {wall:.3f} s, {len(TRAFFIC_SEEDS) / wall:.4f} "
+              f"requests/s, e2e p50 {p50:.3f} s p95 {p95:.3f} s (histogram"
+              f"; exact {float(np.percentile(lat, 50)):.3f} / "
+              f"{float(np.percentile(lat, 95)):.3f} s), mean queue wait "
+              f"{float(np.mean(qw)):.3f} s, dispatches {st['dispatches']}, "
+              f"packing efficiency {st['packing_efficiency']}, row 3 "
+              f"launches {launches[f'c {label}'].get(row3, 0)}", flush=True)
+    same_c = [results_byte_equal(x, y, KRESULT_FIELDS)
+              for x, y in zip(burst["packed"], burst["pack=False"])]
+    print(f"serve 10c: every packed result byte-equal to its pack=False "
+          f"twin {same_c}; card: {smi()}", flush=True)
+    if not all(same_c):
+        raise AssertionError(f"serve 10c: packed against pack=False "
+                             f"{same_c}")
+
+    # d. the policies, on the bundled design
+    small = dict(ks=(2, 3, 4, 5), restarts=10)
+    bcache = nmfx_torch.ExecCache(device=device)
+
+    def bsolo(seed, scfg=pallas):
+        return nmfx_torch.nmfconsensus(bundled, seed=seed, solver_cfg=scfg,
+                                       exec_cache=bcache, device=device,
+                                       **small)
+
+    with tempfile.TemporaryDirectory(prefix=".serve_smoke_",
+                                     dir=HERE) as root:
+        cfg = serve.ServeConfig(result_cache_dir=os.path.join(root, "rc"))
+        with serve.NMFXServer(cfg, exec_cache=bcache) as srv:
+            first = srv.submit(bundled, seed=21, solver_cfg=pallas,
+                               **small).result(timeout=SERVE_TIMEOUT_S)
+            d0, t0_, b0 = (serve.dispatch_count(),
+                           data_cache.transfer_count(),
+                           data_cache.h2d_bytes())
+            fm.reset_launch_counts()
+            hit = srv.submit(bundled, seed=21, solver_cfg=pallas,
+                             **small).result(timeout=SERVE_TIMEOUT_S)
+            moved = (serve.dispatch_count() - d0,
+                     data_cache.transfer_count() - t0_,
+                     data_cache.h2d_bytes() - b0, sum(fm.LAUNCHES.values()))
+            hits = srv.stats()["result_cache_hits"]
+        same_hit = results_byte_equal(hit, first, KRESULT_FIELDS)
+        print(f"serve 10d result cache: warm hit {hits}, dispatches / "
+              f"copies / bytes to the card / launches {moved}, byte-equal "
+              f"{same_hit}", flush=True)
+        if hits != 1 or any(moved) or not same_hit:
+            raise AssertionError("serve 10d: the warm hit did work")
+
+        d0 = serve.dispatch_count()
+        with serve.NMFXServer(serve.ServeConfig(coalesce_requests=True),
+                              exec_cache=bcache, start=False) as srv:
+            futs = [srv.submit(bundled, seed=22, solver_cfg=pallas,
+                               **small) for _ in range(3)]
+            srv.resume()
+            res = [f.result(timeout=SERVE_TIMEOUT_S) for f in futs]
+            st = srv.stats()
+        n_disp = serve.dispatch_count() - d0
+        print(f"serve 10d coalescing: 3 identical requests, dispatches "
+              f"{n_disp}, coalesced {st['coalesced']}, one result "
+              f"{res[1] is res[0] and res[2] is res[0]}", flush=True)
+        if n_disp != 1 or st["coalesced"] != 2:
+            raise AssertionError("serve 10d: coalescing dispatched more "
+                                 "than once")
+
+        spill = os.path.join(root, "spill")
+        srv = serve.NMFXServer(serve.ServeConfig(spill_dir=spill),
+                               exec_cache=bcache, start=False)
+        f = srv.submit(bundled, seed=23, solver_cfg=pallas, **small)
+        srv.close(cancel_pending=True)
+        try:
+            f.result(timeout=SERVE_TIMEOUT_S)
+            raise AssertionError("serve 10d: the spilled request resolved")
+        except serve.ServerClosed:
+            pass
+        with serve.NMFXServer(serve.ServeConfig(spill_dir=spill),
+                              exec_cache=bcache) as srv:
+            readmitted = [fu.result(timeout=SERVE_TIMEOUT_S)
+                          for fu in srv.readmit()]
+        same_spill = (len(readmitted) == 1 and results_byte_equal(
+            readmitted[0], bsolo(23), KRESULT_FIELDS))
+        print(f"serve 10d spill: {len(readmitted)} readmitted, byte-equal "
+              f"to the solo run {same_spill}", flush=True)
+        if not same_spill:
+            raise AssertionError("serve 10d: spill and readmit")
+
+    faults.arm("serve.scheduler", every=1, max_fires=1)
+    try:
+        with serve.NMFXServer(serve.ServeConfig(watchdog_interval_s=0.05),
+                              exec_cache=bcache) as srv:
+            f = srv.submit(bundled, seed=24, solver_cfg=pallas, **small)
+            try:
+                f.result(timeout=SERVE_TIMEOUT_S)
+                crashed = None
+            except serve.ServerCrashed as e:
+                crashed = e
+            after = srv.submit(bundled, seed=24, solver_cfg=pallas,
+                               **small).result(timeout=SERVE_TIMEOUT_S)
+    finally:
+        faults.disarm("serve.scheduler")
+    same_crash = results_byte_equal(after, bsolo(24), KRESULT_FIELDS)
+    print(f"serve 10d scheduler crash: pending request failed "
+          f"{type(crashed).__name__} (cause "
+          f"{type(getattr(crashed, '__cause__', None)).__name__}), the "
+          f"fresh scheduler's result byte-equal to the solo run "
+          f"{same_crash}", flush=True)
+    if crashed is None or not same_crash:
+        raise AssertionError("serve 10d: scheduler crash and restart")
+
+    fm.reset_launch_counts()
+    with serve.NMFXServer(serve.ServeConfig(iter_rate_estimate=CLAMP_RATE),
+                          exec_cache=bcache) as srv:
+        fut = srv.submit(bundled, seed=25, solver_cfg=pallas,
+                         timeout=CLAMP_TIMEOUT_S, **small)
+        got = fut.result(timeout=SERVE_TIMEOUT_S)
+    launches["d clamped"] = {k: v for k, v in fm.LAUNCHES.items() if v}
+    budget = fut.stats.budget_iters
+    ref = bsolo(25, nmfx_torch.SolverConfig(backend="pallas",
+                                            max_iter=budget or 1))
+    same_clamp = budget is not None and results_byte_equal(
+        got, ref, KRESULT_FIELDS)
+    print(f"serve 10d deadline clamp: budget {budget} iterations "
+          f"(max_iter {pallas.max_iter}), launches "
+          f"{launches['d clamped']}, byte-equal to the solo run at "
+          f"max_iter {budget}: {same_clamp}", flush=True)
+    if budget is None or budget >= pallas.max_iter or not same_clamp:
+        raise AssertionError("serve 10d: the deadline clamp")
+
+    # e. mixed largest ranks in one pool, each group against its solo run
+    for label, scfg, row in (("mu", pallas, row3), ("hals", hals, row5)):
+        parted, wall = counted(f"e mixed {label}", lambda: mixed_rank_pack(
+            torch, cache, a, scfg))
+        print(f"serve 10e mixed largest ranks ({label}, "
+              f"{' beside '.join(str(ks) for _, ks in MIXED_REQS)}): wall "
+              f"{wall:.3f} s with the solo runs, {row} launches "
+              f"{launches[f'e mixed {label}'].get(row, 0)}; fields parted "
+              f"from the solo run by (seed, k), {{}} = byte-equal "
+              f"{parted}", flush=True)
+        control = MIXED_REQS[0][0]
+        if any(d for (seed, _), d in parted.items() if seed == control) \
+                or (on_card and not launches[f"e mixed {label}"].get(row)):
+            raise AssertionError(f"serve 10e ({label}): the request at its "
+                                 f"solo lane width parted {parted}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -2886,6 +3281,10 @@ def main(argv=None) -> int:
         observed = phase_obs(torch, fm, grid)
         print(f"observability phase {time.perf_counter() - t0:.3f} s; "
               f"launches by run {observed}", flush=True)
+        t0 = time.perf_counter()
+        serving = phase_serve(torch, fm)
+        print(f"serving phase {time.perf_counter() - t0:.3f} s; launches "
+              f"by run {serving}", flush=True)
         kernels = []
         for name, source, line in (
                 ("fused_h_update", "block_mu.cu", 147),

@@ -10,8 +10,10 @@ from nmfx_torch.api import (ConsensusResult, InsufficientRestarts, KResult,
                             nmf, nmfconsensus, restart_factors, run_example,
                             save_results)
 from nmfx_torch.config import (CheckpointConfig, ConsensusConfig,
-                               ExperimentalConfig, InitConfig, OutputConfig,
+                               ExecCacheConfig, ExperimentalConfig,
+                               InitConfig, OutputConfig, ResultCacheConfig,
                                SolverConfig)
+from nmfx_torch.exec_cache import ExecCache
 from nmfx_torch.solvers.base import SolverResult, StopReason
 from nmfx_torch.sweep import (RestartResult, consensus_from_cells,
                               grid_cells, reduce_grid)
@@ -20,9 +22,9 @@ __all__ = ["ConsensusResult", "InsufficientRestarts", "KResult", "nmf",
            "nmfconsensus", "restart_factors", "run_example", "save_results",
            "RestartResult", "consensus_from_cells", "grid_cells",
            "reduce_grid",
-           "CheckpointConfig", "ConsensusConfig",
-           "ExperimentalConfig", "InitConfig", "OutputConfig",
-           "SolverConfig", "SolverResult", "StopReason",
+           "CheckpointConfig", "ConsensusConfig", "ExecCache",
+           "ExecCacheConfig", "ExperimentalConfig", "InitConfig",
+           "OutputConfig", "ResultCacheConfig", "SolverConfig", "SolverResult", "StopReason",
            "kernels_available"]
 
 

@@ -340,6 +340,8 @@ def nmfconsensus(
     profiler=None,
     checkpoint=None,
     checkpoint_dir: str | None = None,
+    exec_cache=None,
+    result_cache=None,
 ) -> ConsensusResult:
     """Full consensus-NMF rank sweep: ``restarts`` factorizations per rank
     in ``ks``, a consensus matrix per rank on the device, cophenetic rank
@@ -413,6 +415,19 @@ def nmfconsensus(
     A moves to the device through the content-keyed input cache
     (``nmfx_torch/data_cache.py``): a second call over the same array
     copies nothing to the card.
+
+    ``exec_cache`` (``nmfx_torch.ExecCache``): serve the sweep through
+    the shape-bucketed cache when the configuration is cacheable
+    (``ExecCache.cacheable``): A zero-padded to its bucket, the lanes
+    drawn at the true shape, one pool padded to ``grid_slots``; the
+    results are the serving tier's (``NMFXServer``), and agree with the
+    plain sweep at the agreement tier. The sweep runs on the cache's
+    device. Not with ``checkpoint``.
+
+    ``result_cache`` (a ``result_cache.ResultCache`` or a directory):
+    a finished result stored under this request's content-addressed key
+    is returned without solving, and a solved one is stored
+    (``keep_factors`` requests solve through).
     """
     if rank_selection not in ("host", "device"):
         raise ValueError("rank_selection must be 'host' or 'device', got "
@@ -439,6 +454,29 @@ def nmfconsensus(
                            min_restarts=min_restarts)
     scfg, icfg = _resolve_cfgs(algorithm, max_iter, init, solver_cfg,
                                init_cfg)
+    rcache = rkey = None
+    if result_cache is not None:
+        from nmfx_torch.result_cache import (ResultCache, cacheable,
+                                             key_for_array, request_quality)
+
+        if cacheable(ccfg):
+            rcache = (result_cache
+                      if isinstance(result_cache, ResultCache)
+                      else ResultCache(cache_dir=os.fspath(result_cache),
+                                       layer="api"))
+            # the sweep below takes the cache's route unless the legacy
+            # registry runs it (a checkpoint refuses exec_cache)
+            route = (exec_cache.route(arr.shape, ccfg, scfg)
+                     if exec_cache is not None and checkpoint_dir is None
+                     else None)
+            rkey = key_for_array(arr, scfg, ccfg, icfg,
+                                 request_quality(scfg), device=device,
+                                 route=route)
+            cached = rcache.lookup(rkey)
+            if cached is not None:
+                if output is not None:
+                    save_results(cached, output)
+                return cached
     if checkpoint is not None:
         if isinstance(checkpoint, (str, os.PathLike)):
             checkpoint = CheckpointConfig(directory=os.fspath(checkpoint))
@@ -446,6 +484,12 @@ def nmfconsensus(
             raise ValueError(
                 "pass either checkpoint (the durable chunked ledger) or "
                 "checkpoint_dir (the legacy per-rank registry), not both")
+        if exec_cache is not None:
+            raise ValueError(
+                "checkpoint does not compose with exec_cache: "
+                "checkpointed sweeps dispatch per (rank, restart-chunk) "
+                "through the durable ledger, which bypasses the "
+                "bucketed executable cache")
     registry = None
     if checkpoint_dir is not None:
         from nmfx_torch.registry import SweepRegistry
@@ -456,7 +500,7 @@ def nmfconsensus(
     if profiler is None:
         profiler = NullProfiler()
     run = dict(device=device, profiler=profiler, registry=registry,
-               checkpoint=checkpoint)
+               checkpoint=checkpoint, exec_cache=exec_cache)
 
     if harvest == "streamed" and rank_selection == "host":
         pipeline = HarvestPipeline(linkage=ccfg.linkage, profiler=profiler,
@@ -498,6 +542,11 @@ def nmfconsensus(
                     min_restarts=ccfg.min_restarts)
     result = ConsensusResult(ks=ccfg.ks, per_k=per_k,
                              col_names=tuple(col_names))
+    if rcache is not None and rkey is not None:
+        try:
+            rcache.put(rkey, result, ccfg=ccfg)
+        except Exception:  # cache trouble never fails a solved request
+            pass
     if output is not None:
         with profiler.phase("write_outputs"):
             save_results(result, output)

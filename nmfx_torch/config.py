@@ -39,6 +39,7 @@ PORTED_BACKENDS = ("auto", "vmap", "packed", "pallas")
 ROADMAP_DTYPES = "ROADMAP §1 item 4, config and dtype remnants"
 ROADMAP_SCALE = "ROADMAP §1 item 10, scale engines"
 ROADMAP_TOOLING = "ROADMAP §1 item 11, tooling"
+ROADMAP_WARM = "ROADMAP §1 item 6, warm path remnants"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -337,3 +338,68 @@ class CheckpointConfig:
             raise ValueError("every_n_restarts must be >= 1 or None")
         if self.every_s is not None and self.every_s <= 0:
             raise ValueError("every_s must be positive or None")
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecCacheConfig:
+    """Bucketed-sweep reuse policy for the serving layer (reference
+    ``nmfx.ExecCacheConfig``, ``nmfx_torch/exec_cache.py``), with its
+    fields, defaults and validation.
+
+    Incoming ``(m, n)`` rounds up to a coarse lattice (multiples of a
+    step that starts at the quantum and doubles once the dimension
+    exceeds ``growth_steps`` steps; the defaults land 5000×500 on
+    5120×512) and one built sweep serves every shape in its bucket.
+    ``max_entries`` bounds the live entries (LRU; ``pipeline_ranks``
+    raises the bound to a request's rank count). ``cache_dir`` must stay
+    None: the reference serializes compiled XLA executables there, and a
+    built torch sweep has no serialized form, so a directory raises
+    ``NotImplementedError`` naming the ROADMAP item. ``max_disk_bytes``,
+    ``donate_inits`` and ``compile_workers`` validate as in the
+    reference; nothing in the port reads them (no disk store, no
+    donation, builds are host closures)."""
+
+    m_quantum: int = 256
+    n_quantum: int = 64
+    growth_steps: int = 8
+    max_entries: int = 8
+    donate_inits: bool = True
+    cache_dir: "str | None" = None
+    max_disk_bytes: int = 2 << 30  # 2 GiB
+    pipeline_ranks: bool = False
+    compile_workers: int = 0
+
+    def __post_init__(self):
+        if self.m_quantum < 1 or self.n_quantum < 1:
+            raise ValueError("bucket quanta must be >= 1")
+        if self.growth_steps < 1:
+            raise ValueError("growth_steps must be >= 1")
+        if self.max_entries < 1:
+            raise ValueError("max_entries must be >= 1")
+        if self.max_disk_bytes < 1:
+            raise ValueError("max_disk_bytes must be >= 1")
+        if self.compile_workers < 0:
+            raise ValueError("compile_workers must be >= 0")
+        if self.cache_dir is not None:
+            raise NotImplementedError(
+                "ExecCacheConfig.cache_dir: the reference persists "
+                "serialized XLA executables there, which have no torch "
+                f"counterpart ({ROADMAP_WARM}); pass cache_dir=None")
+
+
+@dataclasses.dataclass(frozen=True)
+class ResultCacheConfig:
+    """Finished-result cache policy (reference ``nmfx.ResultCacheConfig``,
+    ``nmfx_torch/result_cache.py``): an in-memory LRU of ``max_entries``
+    results over an optional disk tier under ``cache_dir``, byte-capped
+    at ``max_disk_bytes`` by an mtime-LRU."""
+
+    cache_dir: "str | None" = None
+    max_entries: int = 32
+    max_disk_bytes: int = 4 << 30  # 4 GiB
+
+    def __post_init__(self):
+        if self.max_entries < 1:
+            raise ValueError("max_entries must be >= 1")
+        if self.max_disk_bytes < 1:
+            raise ValueError("max_disk_bytes must be >= 1")

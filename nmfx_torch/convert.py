@@ -14,7 +14,7 @@ import torch
 
 from nmfx_torch.config import (ROADMAP_SCALE, CheckpointConfig,
                                ConsensusConfig, ExperimentalConfig,
-                               SolverConfig)
+                               InitConfig, SolverConfig)
 
 #: reference SolverConfig fields the port has no counterpart for, with
 #: the value under which each is inert on the port's routes (None =
@@ -58,6 +58,17 @@ def consensus_config_from_dict(d: dict) -> ConsensusConfig:
     if isinstance(kw.get("grid_tail_slots"), list):
         kw["grid_tail_slots"] = tuple(kw["grid_tail_slots"])
     return ConsensusConfig(**kw)
+
+
+#: reference InitConfig fields the port has not got, inert at any value
+#: (``ncv`` sizes the Lanczos SVD, which the port refuses)
+_INIT_INERT = {"ncv": None}
+
+
+def init_config_from_dict(d: dict) -> InitConfig:
+    """The port's InitConfig from ``dataclasses.asdict`` of a reference
+    ``InitConfig``; ``ValueError`` on an unknown field."""
+    return InitConfig(**_own_fields(InitConfig, d, _INIT_INERT))
 
 
 def checkpoint_config_from_dict(d: dict) -> CheckpointConfig:

@@ -31,6 +31,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def explicit_device(device: torch.device) -> torch.device:
+    """``device`` with its index: a CUDA device without one names the
+    calling thread's current card. Threads keep their own current
+    device, so a device handed to another thread must carry its index."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def to_device(x, dtype, device) -> torch.Tensor:
     """A tensor or array-like as a ``dtype`` tensor on ``device`` (host
     arrays are copied, so read-only buffers are never aliased)."""

@@ -29,14 +29,17 @@ lane-rate sites, where a lane or a reload is faulted), and a
 Sites:
 
 ``h2d.transfer``        the data cache's host→device input copy
-``compile.build``       registered; fired by no port path yet
-``persist.deserialize`` registered; fired by no port path yet
-``harvest.worker``      a streamed-harvest worker thread
-``serve.scheduler``     registered; fired by no port path yet
+``compile.build``       building a bucketed sweep (``exec_cache``)
+``persist.deserialize`` registered; fired by no port path (the port
+                        keeps no serialized executables)
+``harvest.worker``      a streamed-harvest or serving completion worker
+``serve.scheduler``     the serving scheduler, a request popped and not
+                        yet dispatched
 ``solve.nonfinite``     a restart's W0 gets one NaN (rate or lanes)
 ``sched.stale_reload``  the slot scheduler drops a reload's factor write
 ``ckpt.write``          a ledger record write (degrades warn-once)
-``ckpt.load``           reading a ledger record back (skip and re-run)
+``ckpt.load``           reading a ledger or spill record back (skip and
+                        re-run)
 ``proc.preempt``        between a chunk's solve and its commit (raises
                         ``nmfx_torch.checkpoint.Preempted``)
 ``router.forward``, ``replica.spawn``, ``replica.heartbeat``

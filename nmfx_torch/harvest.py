@@ -95,9 +95,10 @@ def harvest_rank(k: int, out, linkage: str, profiler,
                  min_restarts: int = 1):
     """One rank's harvest: wait for rank ``k``'s host copies, then the
     host rank selection, through the SAME ``api._build_k_result`` as the
-    sequential path. Returns the rank's ``KResult``; the two walls are
-    credited to ``xfer.d2h_overlap`` / ``post.rank_selection`` on
-    ``profiler``."""
+    sequential path — the body the pipeline's workers and the serving
+    tier's completion workers share. Returns ``(KResult, fetch_seconds,
+    select_seconds)``; the two walls are also credited to
+    ``xfer.d2h_overlap`` / ``post.rank_selection`` on ``profiler``."""
     from nmfx_torch.api import _build_k_result
 
     t0 = time.perf_counter()
@@ -105,8 +106,9 @@ def harvest_rank(k: int, out, linkage: str, profiler,
     t1 = time.perf_counter()
     profiler.add_seconds("xfer.d2h_overlap", t1 - t0)
     res = _build_k_result(k, host, linkage, min_restarts=min_restarts)
-    profiler.add_seconds("post.rank_selection", time.perf_counter() - t1)
-    return res
+    select_s = time.perf_counter() - t1
+    profiler.add_seconds("post.rank_selection", select_s)
+    return res, t1 - t0, select_s
 
 
 class HarvestPipeline:
@@ -169,7 +171,8 @@ class HarvestPipeline:
                 # rank again on its own thread, past this site)
                 faults.inject("harvest.worker")
                 fut.set_result(harvest_rank(k, out, self._linkage,
-                                            self._prof, self._min_restarts))
+                                            self._prof,
+                                            self._min_restarts)[0])
                 self._outs.pop(k, None)  # free its buffers progressively
             except BaseException as e:  # a worker must resolve every
                 fut.set_exception(e)   # future; results() re-raises
@@ -196,7 +199,7 @@ class HarvestPipeline:
                         "results are unaffected, the overlap win is "
                         "lost for this rank")
                     out[k] = harvest_rank(k, self._outs[k], self._linkage,
-                                          self._prof, self._min_restarts)
+                                          self._prof, self._min_restarts)[0]
                     self._outs.pop(k, None)
             return out
         finally:

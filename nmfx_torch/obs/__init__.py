@@ -21,22 +21,27 @@ called), so a collector or a signal handler can load them cheaply.
 * :mod:`nmfx_torch.obs.costmodel` — analytic per-engine FLOPs/bytes
   models, the device peak table and per-dispatch roofline attribution
   (the ``nmfx_perf_*`` histograms, ``perf_report``).
+* :mod:`nmfx_torch.obs.slo` — declarative objectives evaluated as
+  multi-window burn rates over registry-snapshot deltas (the serving
+  tier's ``stats_snapshot()["slo"]``; flight dumps carry the last
+  status).
 
 Not ported yet (ROADMAP §1 item 11): ``aggregate`` (the fleet
-collector), ``slo`` (burn-rate objectives), ``top`` (the live
-dashboard) and ``regress`` (the bench-trajectory judge), and the cost
-model's XLA cross-check and communication halves.
+collector), ``top`` (the live dashboard) and ``regress`` (the
+bench-trajectory judge), and the cost model's XLA cross-check and
+communication halves.
 """
 
 from __future__ import annotations
 
-from nmfx_torch.obs import costmodel, export, flight, metrics, trace
+from nmfx_torch.obs import costmodel, export, flight, metrics, slo, trace
 from nmfx_torch.obs.export import TelemetryPublisher, serve_metrics
 from nmfx_torch.obs.flight import FlightRecorder
 from nmfx_torch.obs.metrics import MetricsRegistry, registry
+from nmfx_torch.obs.slo import Objective, SLOEngine, WindowPair
 from nmfx_torch.obs.trace import Tracer, default_tracer, merge_traces, traced
 
-__all__ = ["FlightRecorder", "MetricsRegistry", "TelemetryPublisher",
-           "Tracer", "costmodel", "default_tracer", "export", "flight",
-           "merge_traces", "metrics", "registry", "serve_metrics",
-           "trace", "traced"]
+__all__ = ["FlightRecorder", "MetricsRegistry", "Objective", "SLOEngine",
+           "TelemetryPublisher", "Tracer", "WindowPair", "costmodel",
+           "default_tracer", "export", "flight", "merge_traces", "metrics",
+           "registry", "serve_metrics", "slo", "trace", "traced"]

@@ -186,13 +186,13 @@ class FlightRecorder:
             "events": self.events(),
         }
         # what the process was DOING: the last per-dispatch roofline
-        # attributions ride along. The reference also carries its SLO
-        # engine's last status; the port has no SLO engine yet (ROADMAP
-        # §1 item 11), so the key stays None and the dumps read alike
+        # attributions and the latest SLO status ride along
+        from nmfx_torch.obs import slo as _slo
+
         artifact["perf_recent"] = [
             {k: _redact_value(v) for k, v in rec.items()}
             for rec in _costmodel.recent_attributions(limit=32)]
-        artifact["slo"] = None
+        artifact["slo"] = _slo.last_status()
         if extra:
             artifact["extra"] = {k: _redact_value(v)
                                  for k, v in extra.items()}

@@ -35,7 +35,17 @@ per-(rank, restart-chunk) ledger instead (``nmfx_torch.checkpoint``,
 through the chunk executor :func:`_build_chunk_sweep_fn`). The armed
 ``solve.nonfinite`` fault poisons W0 at every place a route draws it.
 Float64 runs on every route of plain products (the kernels are
-float32). Meshes and the executable cache are not ported yet.
+float32). Meshes are not ported yet.
+
+The serving tier's build functions (:func:`_build_bucketed_sweep_fn`, solo, and
+:func:`_build_packed_serve_fn`, lanes from several requests) run the
+whole grid on a matrix zero-padded to its shape bucket
+(``nmfx_torch/exec_cache.py``): lanes are drawn at the true shape and
+zero-padded (:func:`_dyn_lane_init`), the pool is padded to the full
+``grid_slots`` width with the tail cascade off (:func:`_pad_pool_lanes`),
+pad columns get label -1 and the residuals are rescaled to the true
+shape, so a request's lanes compute the same bytes whatever else shares
+the pool. ``sweep(exec_cache=)`` serves a sweep through that cache.
 
 Under a real ``Profiler`` each solve dispatch (``"sweep.grid"``, and
 ``"sweep.k"`` per rank) is attributed to the cost model
@@ -60,9 +70,9 @@ from nmfx_torch import random as _random
 from nmfx_torch.config import (ROADMAP_SCALE, ConsensusConfig, InitConfig,
                                SolverConfig, check_ported)
 from nmfx_torch.consensus import labels_from_h, one_hot
-from nmfx_torch.device import resolve_device
+from nmfx_torch.device import explicit_device, resolve_device
 from nmfx_torch.harvest import fetch_host, start_host_fetch
-from nmfx_torch.init import restart_inits
+from nmfx_torch.init import random_init, restart_inits
 from nmfx_torch.obs import costmodel
 from nmfx_torch.ops.packed_mu import mu_packed, unpack_w
 from nmfx_torch.ops.sched_mu import mu_sched
@@ -151,6 +161,24 @@ def _poison_restart_lanes(w0: torch.Tensor, lane_idx) -> torch.Tensor:
     w0 = w0.clone()
     w0[list(lane_idx), 0, 0] = torch.nan
     return w0
+
+
+def _pad_pool_lanes(w0, h0, job_ks: tuple, slots: int):
+    """Pad a serving-tier job batch with all-zero lanes up to the full
+    ``slots`` pool width (the reference's ``_pad_pool_lanes``): every
+    serving dispatch then runs a pool of one width, so a lane's
+    products do not depend on what else was packed beside it. Zero
+    lanes stay zero under every block (zero numerators) and stop at the
+    first check; their rows come after the real jobs and are never
+    read. No-op when the batch already fills the pool."""
+    pad = slots - w0.shape[0]
+    if pad <= 0:
+        return w0, h0, job_ks
+    k_max = w0.shape[2]
+    zw = w0.new_zeros((pad,) + tuple(w0.shape[1:]))
+    zh = h0.new_zeros((pad,) + tuple(h0.shape[1:]))
+    return (torch.cat([w0, zw]), torch.cat([h0, zh]),
+            tuple(job_ks) + (k_max,) * pad)
 
 
 def _quarantine_lanes(labels, dnorm, stops):
@@ -285,6 +313,263 @@ def _build_chunk_sweep_fn(k: int, n_chunk: int, solver_cfg: SolverConfig,
     return impl
 
 
+def _np_dtype(dtype: str):
+    return np.float64 if dtype == "float64" else np.float32
+
+
+def _dyn_lane_init(init_cfg: InitConfig, dtype: str, n_pad: int,
+                   m_pad: int, k_max: int):
+    """Lane initializer of the bucketed build functions (the reference's
+    ``_dyn_lane_init``): ``build(rank_keys, m_true, n_true, device)``
+    draws each lane's random W0 (m_true, k) and H0 (k, n_true) on the
+    host from its key (``init.random_init``, the reference's draws) and
+    zero-pads it to (m_pad, k_max) / (k_max, n_pad), rank-major in the
+    order of ``rank_keys`` (``[(k, (R, 2) keys), ...]``). The reference
+    draws at the padded shape inside its executable and masks; by the
+    threefry flat-index property its values equal the true-shape draws,
+    so both give the same bytes."""
+    np_dt = _np_dtype(dtype)
+    t_dt = torch.float64 if dtype == "float64" else torch.float32
+
+    def build(rank_keys, m_true: int, n_true: int, device="cpu"):
+        count = sum(len(keys) for _, keys in rank_keys)
+        w = np.zeros((count, m_pad, k_max), np_dt)
+        h = np.zeros((count, k_max, n_pad), np_dt)
+        lane = 0
+        for k, keys in rank_keys:
+            for kk in keys:
+                w0, h0 = random_init(kk, m_true, n_true, k, init_cfg,
+                                     np_dt)
+                w[lane, :m_true, :k] = w0
+                h[lane, :k, :n_true] = h0
+                lane += 1
+        return (torch.from_numpy(w).to(device=device, dtype=t_dt),
+                torch.from_numpy(h).to(device=device, dtype=t_dt))
+
+    return build
+
+
+def bucketed_lane_init_fn(true_shape: tuple, ks: tuple, padded_restarts: int,
+                          init_cfg: InitConfig, dtype_str: str,
+                          bucket_shape: tuple):
+    """Lane batch of a bucketed sweep built outside the bucket's sweep
+    (the reference's ``bucketed_lane_init_fn``; the NNDSVD route, which
+    factors the true matrix): ``build(a_true, root_key)`` returns every
+    (k, restart) lane's W0/H0 from the canonical keys
+    ``split(fold_in(root, k), R)`` at the true shape
+    (``init.restart_inits``: random draws or NNDSVD), zero-padded to the
+    bucket, rank-major and rank-descending."""
+    m_true, n_true = true_shape
+    m_pad, n_pad = bucket_shape
+    ks = tuple(sorted(ks, reverse=True))  # LPT dispatch order
+    k_max = max(ks)
+
+    def build(a_true: torch.Tensor, root_key: np.ndarray):
+        if tuple(a_true.shape) != (m_true, n_true):
+            raise ValueError(
+                f"a_true has shape {tuple(a_true.shape)}, the lane "
+                f"initializer was built for {(m_true, n_true)}")
+        w0l, h0l = [], []
+        for k in ks:
+            keys = _random.split(_random.fold_in(root_key, k),
+                                 padded_restarts)
+            w0s, h0s = restart_inits(a_true, keys, k, init_cfg)
+            w0l.append(torch.nn.functional.pad(
+                w0s, (0, k_max - k, 0, m_pad - m_true)))
+            h0l.append(torch.nn.functional.pad(
+                h0s, (0, n_pad - n_true, 0, k_max - k)))
+        return torch.cat(w0l), torch.cat(h0l)
+
+    return build
+
+
+def _true_scale(m_pad: int, n_pad: int, m_true: int, n_true: int,
+                dtype: torch.dtype, device) -> torch.Tensor:
+    """The residual rescale from the padded to the true RMS normalizer:
+    pad entries add exact zeros to the Frobenius sums, so only √(mn)
+    differs. ``sqrt(m_pad·n_pad / (m_true·n_true))`` in float32, as
+    the reference computes it (float math: an int32 m·n can overflow)."""
+    f32 = torch.float32
+    true_mn = (torch.tensor(m_true, dtype=f32)
+               * torch.tensor(n_true, dtype=f32))
+    scale = torch.sqrt(torch.tensor(float(m_pad * n_pad), dtype=f32)
+                       / true_mn)
+    return scale.to(device=device, dtype=dtype)
+
+
+def _masked_rank_output(res, start: int, k: int, restarts: int,
+                        label_rule: str, valid: torch.Tensor,
+                        scale: torch.Tensor,
+                        keep_factors: bool) -> KSweepOutput:
+    """One rank's block of a bucketed pool: labels with pad columns -1
+    (the consensus one-hot drops them), residuals rescaled to the true
+    shape, quarantine, consensus and best restart; outputs keep the
+    bucket's extents (``exec_cache._unpad`` slices them)."""
+    sl = slice(start, start + restarts)
+    hk = res.h[sl, :k, :]
+    wk = res.w[sl, :, :k]
+    labels = labels_from_h(hk, label_rule)
+    labels = torch.where(valid[None, :], labels, -1)
+    dnorm = res.dnorm[sl] * scale
+    labels, masked, faulted = _quarantine_lanes(labels, dnorm,
+                                                res.stop_reason[sl])
+    cons = _quarantined_consensus(labels, k, restarts, faulted)
+    best = torch.argmin(masked)
+    extra = (wk, hk) if keep_factors else (None, None)
+    return KSweepOutput(cons, res.iterations[sl], dnorm,
+                        res.stop_reason[sl], labels, wk[best], hk[best],
+                        *extra, host_syncs=res.host_syncs,
+                        pool_widths=res.pool_widths,
+                        pool_trips=res.pool_trips,
+                        pool_lanes=res.pool_lanes)
+
+
+def _solve_bucket_pool(a_pad, w0, h0, job_ks, solver_cfg, grid_slots,
+                       flip_floor):
+    """The serving build functions' one fixed-geometry pool: the batch padded to
+    ``grid_slots`` lanes and solved in one stage (tail cascade off), so
+    a lane's products are the same however the pool was composed."""
+    w0p, h0p, jks = _pad_pool_lanes(w0, h0, job_ks, grid_slots)
+    return mu_sched(a_pad, w0p, h0p, solver_cfg, slots=grid_slots,
+                    tail_slots=0, job_ks=jks, flip_floor=flip_floor,
+                    device=a_pad.device)
+
+
+def _build_bucketed_sweep_fn(ks: tuple, restarts: int,
+                             solver_cfg: SolverConfig, label_rule: str,
+                             mesh, keep_factors: bool, grid_slots: int,
+                             grid_tail_slots, bucket_shape: tuple,
+                             init_cfg: "InitConfig | None" = None):
+    """The whole-grid sweep of the shape-bucketed serving layer (the
+    reference's ``_build_bucketed_sweep_fn``, its unmeshed branch): one
+    built function serves every dataset whose shape rounds up to
+    ``bucket_shape``.
+
+    With ``init_cfg`` (random init) it is
+    ``fn(a_pad, root_key, m_true, n_true, flip_floor)`` and draws the
+    lanes itself (:func:`_dyn_lane_init`); without it (the NNDSVD route)
+    ``fn(a_pad, w0, h0, m_true, n_true, flip_floor)`` with the lane batch
+    of :func:`bucketed_lane_init_fn`. ``a_pad`` is the zero-padded
+    matrix on its device; ``flip_floor`` is the true sample count's
+    class-stability flip budget. Outputs keep the bucket's extents.
+    ``grid_tail_slots`` is accepted and pinned off (the fixed pool
+    geometry). A mesh raises."""
+    _refuse_mesh(mesh)
+    ks = tuple(sorted(ks, reverse=True))
+    k_max = max(ks)
+    m_pad, n_pad = bucket_shape
+    inside_init = init_cfg is not None
+    if inside_init and init_cfg.method != "random":
+        raise ValueError(
+            "inside-executable init is the random-init fast path; NNDSVD "
+            "lane batches are built per true shape (pass init_cfg=None)")
+    dyn_init = (_dyn_lane_init(init_cfg, solver_cfg.dtype, n_pad, m_pad,
+                               k_max) if inside_init else None)
+    job_ks = tuple(k for k in ks for _ in range(restarts))
+
+    def run(a_pad, w0, h0, m_true, n_true, flip_floor):
+        res = _solve_bucket_pool(a_pad, w0, h0, job_ks, solver_cfg,
+                                 grid_slots, flip_floor)
+        scale = _true_scale(m_pad, n_pad, m_true, n_true, res.dnorm.dtype,
+                            a_pad.device)
+        valid = torch.arange(n_pad, device=a_pad.device) < n_true
+        return {k: _masked_rank_output(res, g * restarts, k, restarts,
+                                       label_rule, valid, scale,
+                                       keep_factors)
+                for g, k in enumerate(ks)}
+
+    # the armed solve.nonfinite lanes are read when the function runs,
+    # so a cached build follows arm() and disarm()
+    def poison_lanes():
+        return tuple(g * restarts + r for g, k in enumerate(ks)
+                     for r in faults.poison_restarts(k, restarts))
+
+    if inside_init:
+
+        def impl(a_pad, root_key, m_true, n_true, flip_floor):
+            rank_keys = [(k, _random.split(_random.fold_in(root_key, k),
+                                           restarts)) for k in ks]
+            w0, h0 = dyn_init(rank_keys, m_true, n_true, a_pad.device)
+            w0 = _poison_restart_lanes(w0, poison_lanes())
+            return run(a_pad, w0, h0, m_true, n_true, flip_floor)
+
+        return impl
+
+    def impl_external(a_pad, w0, h0, m_true, n_true, flip_floor):
+        if poison_lanes():
+            raise ValueError(
+                "solve.nonfinite fault injection on the bucketed sweep "
+                "needs the random-init route (init inside the sweep); "
+                "disarm the site for NNDSVD runs")
+        return run(a_pad, w0, h0, m_true, n_true, flip_floor)
+
+    return impl_external
+
+
+def _build_packed_serve_fn(layout: tuple, solver_cfg: SolverConfig,
+                           label_rule: str, grid_slots: int,
+                           grid_tail_slots, bucket_shape: tuple,
+                           init_cfg: InitConfig):
+    """Cross-request lane packing (the reference's
+    ``_build_packed_serve_fn``, ``nmfx_torch/serve.py``): one
+    slot-scheduled solve whose lanes come from several requests.
+    ``layout`` is the static pack shape, ``((k, restarts), ...)`` groups
+    sorted rank-descending, one group per (request, rank). The built
+    function is
+
+        fn(a_pad, group_roots, m_true, n_true, flip_floor)
+            -> tuple[KSweepOutput, ...]   # one per group, layout order
+
+    where ``group_roots`` stacks each group's ``fold_in(key(seed), k)``
+    (G, 2), so a group draws exactly its solo run's key chain. The pool
+    is padded to ``grid_slots`` with the tail cascade off and the
+    epilogue is :func:`_build_bucketed_sweep_fn`'s, so a request's
+    results equal its solo bucketed sweep's byte for byte wherever each
+    lane's products do not depend on its pool neighbours: the card's
+    block kernels (one in-order chain per output) and the plain
+    versions at the pool's fixed width. Packing requires (the server's
+    compatibility key) one padded matrix, one true shape, one
+    configuration and random init."""
+    if init_cfg.method != "random":
+        raise ValueError(
+            "cross-request packing draws lanes inside the executable "
+            "(the random-init fast path); NNDSVD requests must dispatch "
+            "solo")
+    if any(layout[i][0] < layout[i + 1][0] for i in range(len(layout) - 1)):
+        raise ValueError(
+            f"layout must be sorted rank-descending (LPT), got {layout}")
+    k_max = max(k for k, _ in layout)
+    m_pad, n_pad = bucket_shape
+    dyn_init = _dyn_lane_init(init_cfg, solver_cfg.dtype, n_pad, m_pad,
+                              k_max)
+    job_ks = tuple(k for k, r in layout for _ in range(r))
+
+    def impl(a_pad, group_roots, m_true, n_true, flip_floor):
+        rank_keys = [(k, _random.split(group_roots[g], r))
+                     for g, (k, r) in enumerate(layout)]
+        w0, h0 = dyn_init(rank_keys, m_true, n_true, a_pad.device)
+        # each group poisons the lanes its solo run would: selection is
+        # (k, restart)-keyed, not request-keyed
+        poison, off = [], 0
+        for k, r in layout:
+            poison.extend(off + rr for rr in faults.poison_restarts(k, r))
+            off += r
+        w0 = _poison_restart_lanes(w0, tuple(poison))
+        res = _solve_bucket_pool(a_pad, w0, h0, job_ks, solver_cfg,
+                                 grid_slots, flip_floor)
+        scale = _true_scale(m_pad, n_pad, m_true, n_true, res.dnorm.dtype,
+                            a_pad.device)
+        valid = torch.arange(n_pad, device=a_pad.device) < n_true
+        out, start = [], 0
+        for k, r in layout:
+            out.append(_masked_rank_output(res, start, k, r, label_rule,
+                                           valid, scale, False))
+            start += r
+        return tuple(out)
+
+    return impl
+
+
 def _refuse_mesh(mesh) -> None:
     """The meshed route is not ported: only ``mesh=None`` runs."""
     if mesh is not None:
@@ -394,7 +679,7 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
           solver_cfg: SolverConfig = SolverConfig(),
           init_cfg: InitConfig = InitConfig(), *, device=None,
           on_rank=None, profiler=None, registry=None,
-          checkpoint=None) -> dict[int, KSweepOutput]:
+          checkpoint=None, exec_cache=None) -> dict[int, KSweepOutput]:
     """The (k × restart) grid: one slot-scheduled solve of every rank, or
     one rank at a time (see the module docstring for the routing).
 
@@ -428,6 +713,14 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
         return run_checkpointed_sweep(a, cfg, solver_cfg, init_cfg,
                                       checkpoint, device=device,
                                       profiler=profiler, on_rank=on_rank)
+    if (exec_cache is not None and registry is None
+            and exec_cache.cacheable(cfg, solver_cfg)):
+        if explicit_device(resolve_device(device)) != exec_cache.device:
+            raise ValueError(
+                f"the sweep's device ({resolve_device(device)}) is not the "
+                f"executable cache's ({exec_cache.device})")
+        return exec_cache.run_sweep(a, cfg, solver_cfg, init_cfg,
+                                    profiler=profiler, on_rank=on_rank)
     eligible = grid_exec_ok(solver_cfg)
     if cfg.grid_exec == "grid" and not eligible:
         raise ValueError(
@@ -505,20 +798,21 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
 
 def _attribute_dispatch(kind: str, solver_cfg: SolverConfig,
                         a_dev: torch.Tensor, outs: dict, wall_s: float,
-                        profiler) -> None:
+                        profiler, shape: "tuple | None" = None) -> None:
     """Per-dispatch roofline attribution (``nmfx_torch.obs.costmodel``):
     annotate a just-measured solve dispatch with its model FLOPs/bytes
     against the peak of A's device. Only under a real ``Profiler``,
     whose phase already synchronized the card, so the wall is honest;
     the iteration counts come through the host copies the sweep already
     started. A ``NullProfiler`` run attributes nothing and gains no
-    read."""
+    read. ``shape`` overrides A's (the true shape of a bucket-padded
+    matrix)."""
     if (isinstance(profiler, NullProfiler)
             or not costmodel.attribution_enabled() or not outs):
         return
     iters = {k: fetch_host(v).iterations for k, v in outs.items()}
-    costmodel.attribute_dispatch(kind, solver_cfg, a_dev.shape[0],
-                                 a_dev.shape[1], iters, wall_s,
+    m, n = a_dev.shape if shape is None else shape
+    costmodel.attribute_dispatch(kind, solver_cfg, m, n, iters, wall_s,
                                  device=a_dev.device)
 
 

@@ -45,7 +45,9 @@ def test_import_leaves_jax_unloaded():
             "nmfx_torch.faults, nmfx_torch.registry, nmfx_torch.guards, "
             "nmfx_torch.obs, nmfx_torch.obs.metrics, nmfx_torch.obs.trace, "
             "nmfx_torch.obs.flight, nmfx_torch.obs.export, "
-            "nmfx_torch.obs.costmodel; "
+            "nmfx_torch.obs.costmodel, nmfx_torch.obs.slo, "
+            "nmfx_torch.exec_cache, nmfx_torch.result_cache, "
+            "nmfx_torch.serve; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'nmfx')); print(bad); sys.exit(bool(bad))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -29,6 +29,7 @@ from nmfx_torch import faults
 from nmfx_torch.datasets import two_group_matrix
 from nmfx_torch.obs import costmodel as cm
 from nmfx_torch.obs import export, flight, metrics, trace
+from nmfx_torch.obs import slo as pslo
 from nmfx_torch.obs.trace import Tracer
 
 
@@ -494,6 +495,7 @@ def test_flight_dump_payload_matches_reference(monkeypatch):
     monkeypatch.setattr(ncm, "_recent", deque(maxlen=256))
     monkeypatch.setattr(cm, "_recent", deque(maxlen=256))
     monkeypatch.setattr(nslo, "_last_status", None)
+    monkeypatch.setattr(pslo, "_last_status", None)
     payloads = []
     for rec_cls, fmod in ((flight.FlightRecorder, faults),
                           (nflight.FlightRecorder, nfaults)):
