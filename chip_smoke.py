@@ -55,9 +55,9 @@ Phases (any failure exits non-zero; nothing is caught):
         memberships; then the native linkage and cutree against numpy's
         on the run's n = 500 consensus matrices, byte-equal, both timed;
      f. the options (phase_option_paths), each beside the float32 run of
-        its route: the whole grid, the per-rank route and hals under
-        matmul_precision "bfloat16", the grid with factor_dtype
-        "bfloat16_w", the ragged class-blocked pool (its per-job
+        its route: the whole grid (at ks 2..6), the per-rank route (at ks
+        2..5) and hals under matmul_precision "bfloat16", the grid with
+        factor_dtype "bfloat16_w", the ragged class-blocked pool (its per-job
         iterations and stops equal to a uniform check_block = 1 run's)
         and alias_io with block_m 256 (byte-equal to a); then the 200x24
         input under each option (and factor_dtype "bfloat16") on the
@@ -78,9 +78,9 @@ Phases (any failure exits non-zero; nothing is caught):
   7. other solvers: kl, neals, als, snmf, pg (max_iter 100) and alspg
      (max_iter 20, sub_max_iter 100) through nmfconsensus at the north
      star with every other default (backend "auto": the batched restart
-     route, plain products; kl and pg at ks 2..6, their depth cut to keep
-     the script inside its time limit), then kl and neals on the packed
-     whole grid
+     route, plain products; kl, als and alspg at ks 2..4 and pg at ks
+     2..3, their depth cut to keep the script inside its time limit),
+     then kl and neals on the packed whole grid
      (backend "packed", 48 slots), each with the kernels' launch counts
      set to 0 just before it (0 expected: no kernel lies on these
      routes): the wall split by the profiler's phases, per-k mean
@@ -93,13 +93,13 @@ Phases (any failure exits non-zero; nothing is caught):
      (a zero-padded lane in every pool) finite;
   8. durability (phase_durability), each run with the launch counts set
      to 0 just before it and read just after:
-     a. the north-star sweep of 4c (backend "pallas") at ks 2..6
-        through the checkpoint ledger, 10 restarts a record (25 chunks
-        on the kernel pair; the depth cut to leave the serving phase its
-        time), the wall split by the profiler's phases;
+     a. the north-star sweep of 4c (backend "pallas") at ks 2..4
+        through the checkpoint ledger, 10 restarts a record (15 chunks
+        on the kernel pair; the depth cut to keep the script inside its
+        time limit), the wall split by the profiler's phases;
      b. the same in a fresh directory, killed by proc.preempt at the
-        13th chunk (12 records on disk), then resumed: 13 chunks solved,
-        12 loaded, byte-equal to a;
+        8th chunk (7 records on disk), then resumed: 8 chunks solved,
+        7 loaded, byte-equal to a;
      c. a's warm re-run: 0 chunks solved, 0 launches, 0 bytes copied;
      d. a against 4c at the same ranks: the same best k and k = 2
         memberships (the ranks whose memberships are equal listed),
@@ -167,7 +167,32 @@ Phases (any failure exits non-zero; nothing is caught):
         hals on row 5 (the server's compatibility key keeps such
         requests apart): each group byte-equal or not to its solo
         bucketed sweep, printed; the ks 2..5 request, whose lane width
-        is its solo run's, must be byte-equal.
+        is its solo run's, must be byte-equal;
+ 11. the fleet tier and the command line (phase_fleet), each in-process
+     run with the launch counts set to 0 just before it and read just
+     after:
+     a. python -m nmfx_torch on the north star written as a GCT (ks
+        2..5, 10 restarts, backend "pallas") as a subprocess: its GCT
+        outputs, cophenetic.txt and rank table byte-equal to read_gct,
+        nmfconsensus and save_results of the same file in this
+        process; the walls and best k;
+     b. an NMFXRouter over two thread replicas sharing one ExecCache
+        (the 5120x512 bucket): two mu requests of the north star and two
+        of a second two-group matrix the rendezvous hash places on the
+        other replica, then a hals request (backend "pallas", ks 2..5,
+        10 restarts), each byte-equal to its solo
+        nmfconsensus(exec_cache=) run; both replicas served; rows 3 and
+        5 launched;
+     c. an NMFXRouter over two process replicas on the card (each
+        worker's spawn to first heartbeat): three mu requests of the
+        bundled design (stickiness_slack 8) on the sticky replica, which
+        is SIGKILLed right after the submits; every future resolves
+        byte-equal to the in-process kernel run of its request (the
+        children's launches cannot be counted here; the plain versions
+        part from the kernels, so byte-equality is the proof), the
+        router recovered 1, readmitted >= 1, completed 3, failed 0;
+     d. python -m nmfx_torch.obs.top --once over c's telemetry
+        directory: its roles line names the replicas.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -1427,10 +1452,13 @@ OTHER_SOLVERS = {"kl": {}, "neals": {}, "als": {}, "snmf": {},
                  "alspg": dict(max_iter=20, sub_max_iter=100)}
 #: ... and on the packed whole grid (backend "packed")
 PACKED_SOLVERS = ("kl", "neals")
-#: the slowest of them at ks 2..6, their depth cut to keep the script
-#: inside its time limit (kl batched ran 111-116 s and pg 72-89 s at ks
-#: 2..10 on one H100)
-SOLVER_KS = {"kl": KS[:5], "pg": KS[:5]}
+#: the slowest four at ks 2..4 (pg, whose ranks cost the same, at ks
+#: 2..3), their depth cut to keep the script inside its time limit (kl
+#: batched ran 111-116 s and pg 72-89 s at ks 2..10 on one H100; at ks
+#: 2..6 kl 43 s, pg 57 s; at ks 2..10 als 36 s, alspg 21 s; at ks 2..4
+#: pg 43.6 s)
+SOLVER_KS = dict({alg: KS[:3] for alg in ("kl", "als", "alspg")},
+                 pg=KS[:2])
 #: each solver's best k on the bundled 1000x40 design (ks 2..5, 10
 #: restarts, seed 123) at those budgets, as the JAX package gives it
 #: (nmfconsensus on its CPU backend): neals and als stop on TolFun after
@@ -1529,7 +1557,9 @@ def phase_solvers(torch, fm):
         card_s = time.perf_counter() - t0
         cpu = nmfx_torch.nmfconsensus(bundled, ks=(2, 3, 4, 5), restarts=10,
                                       seed=123, solver_cfg=scfg, device="cpu")
-        print(f"solvers bundled 1000x40 {alg}: card {card_s:.3f} s, best k "
+        cpu_s = time.perf_counter() - t0 - card_s
+        print(f"solvers bundled 1000x40 {alg}: card {card_s:.3f} s, CPU "
+              f"{cpu_s:.3f} s, best k "
               f"{card.best_k} (CPU {cpu.best_k}, the JAX package "
               f"{BUNDLED_BEST_K[alg]}), rho {card.rhos.tolist()} (CPU "
               f"{cpu.rhos.tolist()})", flush=True)
@@ -1938,6 +1968,12 @@ OPTION_PATHS = (
         backend="pallas", experimental=dict(alias_io=True, block_m=256)),
      "auto", "fused_block_iterations[alias_io]"),
 )
+#: the per-rank route under bf16 at ks 2..5 and the whole grid under
+#: bf16 at ks 2..6, their depth cut to keep the script inside its time
+#: limit (69 s and 29 s at ks 2..10 on one H100); a job's iterations do
+#: not depend on the others in its pool, so each rank meets the float32
+#: run's same rank
+OPTION_KS = {"per-rank bf16": KS[:4], "grid bf16": KS[:5]}
 
 
 def solver_cfg(nmfx_torch, kw):
@@ -2014,8 +2050,9 @@ def phase_option_paths(torch, fm, base):
         fm.reset_launch_counts()
         t0 = time.perf_counter()
         res = nmfx_torch.nmfconsensus(
-            a, ks=KS, restarts=r, solver_cfg=solver_cfg(nmfx_torch, kw),
-            grid_exec=grid_exec, on_rank=on_rank)
+            a, ks=OPTION_KS.get(label, KS), restarts=r,
+            solver_cfg=solver_cfg(nmfx_torch, kw), grid_exec=grid_exec,
+            on_rank=on_rank)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {key: v for key, v in fm.LAUNCHES.items() if v}
@@ -2231,14 +2268,13 @@ def phase_option_timing(torch, fm, rates):
 
 
 #: phase 8: restarts a ledger record holds (45 records at the north star);
-#: the kill-and-resume run's ranks (its depth cut to ks 2..6, 25 chunks,
-#: to keep the phase near its budget) and the chunk solve the rehearsed
-#: preemption lands on
-CKPT_CHUNK, KILL_KS, KILL_AT = 10, tuple(range(2, 7)), 13
-#: phase 8a/c/d: the checkpointed north star's ranks, cut to ks 2..6
-#: (25 chunks): at ks 2..10 it took 155 s of the script's 963.5 s (run I
-#: of the observability slice), and the serving phase needs that time
-CKPT_KS = tuple(range(2, 7))
+#: the kill-and-resume run's ranks (its depth cut to ks 2..4, 15 chunks,
+#: to keep the script inside its time limit) and the chunk solve the
+#: rehearsed preemption lands on
+CKPT_CHUNK, KILL_KS, KILL_AT = 10, tuple(range(2, 5)), 8
+#: phase 8a/c/d: the checkpointed north star's ranks, cut to ks 2..4
+#: (15 chunks): at ks 2..10 8a took 155 s, at ks 2..6 44.5 s
+CKPT_KS = tuple(range(2, 5))
 #: phase 8e: the share of restarts poisoned (one NaN in W0)
 POISON_RATE = 0.05
 #: phase 8f: the stale reloads' rate and the pool that makes slots reload
@@ -2856,7 +2892,7 @@ SERVE_SEEDS, TRAFFIC_SEEDS, HALS_SEEDS = (1, 2, 3, 4), tuple(range(11, 19)), \
 #: and timeout: 4 x 600 s rounds up to a budget of 4096 < 10000
 CLAMP_RATE, CLAMP_TIMEOUT_S = 4.0, 600.0
 #: every served future's bound (a hang fails the phase, never the call)
-SERVE_TIMEOUT_S = 600.0
+SERVE_TIMEOUT_S = 120.0
 #: phase 10e: two requests of different largest rank in one pool
 #: (seed, ks); the first's lane width is its solo run's
 MIXED_REQS = ((7, (2, 3, 4, 5)), (8, (2, 3)))
@@ -3200,6 +3236,268 @@ def phase_serve(torch, fm, *, a=None, bundled=None, ks=SERVE_KS,
     return launches
 
 
+
+#: phase 11: the command line's sweep (11a), the routed requests (11b:
+#: mu seeds on the north star and on the second matrix, then hals),
+#: the SIGKILL rehearsal's seeds on the bundled design (11c)
+FLEET_KS, FLEET_RESTARTS = (2, 3, 4, 5), 10
+FLEET_MU_SEEDS, FLEET_HALS_SEED, FLEET_KILL_SEEDS = (1, 2), 5, (31, 32, 33)
+#: every routed future's bound, and the process replicas' first
+#: heartbeat's (a hang fails the phase, never the call)
+FLEET_TIMEOUT_S, FLEET_SPAWN_TIMEOUT_S = 120.0, 120.0
+#: the output files the command line and save_results write, compared
+#: byte for byte (GCTs, cophenetic.txt and the rank table)
+FLEET_OUTPUTS = tuple(
+    [f"consensus.k.{k}.gct" for k in FLEET_KS]
+    + [f"consensus.matrix.k.{k}.gct" for k in FLEET_KS]
+    + [f"metagenes.k.{k}.gct" for k in FLEET_KS]
+    + ["membership.gct", "cophenetic.txt", "rank_metrics.txt"])
+
+
+def same_files(d1, d2, names) -> dict:
+    """{name: byte-equal} of the named files in two directories."""
+    out = {}
+    for name in names:
+        with open(os.path.join(d1, name), "rb") as f1, \
+                open(os.path.join(d2, name), "rb") as f2:
+            out[name] = f1.read() == f2.read()
+    return out
+
+
+def second_matrix(router, a, shape):
+    """A second north-star-shaped two-group matrix whose rendezvous
+    hash places it on another replica than ``a``'s (seeds 124, 125, ...
+    until one does): (matrix, its seed, a's replica, its replica)."""
+    import hashlib
+
+    from nmfx_torch.datasets import two_group_matrix
+
+    def sticky(x):
+        chash = hashlib.sha256(np.ascontiguousarray(x).view(np.uint8)
+                               .reshape(-1)).hexdigest()
+        return max((rep.replica_id for rep in router.pool.routable()),
+                   key=lambda rid: router._hrw(chash, rid))
+
+    first = sticky(a)
+    m, n = shape
+    for seed in range(124, 164):
+        b = two_group_matrix(n_genes=m, n_per_group=n // 2, seed=seed)
+        if sticky(b) != first:
+            return b, seed, first, sticky(b)
+    raise AssertionError("fleet 11b: no second matrix on another replica")
+
+
+def phase_fleet(torch, fm):
+    """Phase 11, the fleet tier and the command line: a. python -m
+    nmfx_torch on the north star written as a GCT (ks 2..5, 10 restarts,
+    backend pallas) against the same file through read_gct,
+    nmfconsensus and save_results in this process, output files
+    byte-equal; b. a router over two thread replicas sharing one
+    ExecCache (the 5120x512 bucket): two mu requests of the north star
+    and two of a second matrix placed on the other replica, then a hals
+    request, each byte-equal to its solo nmfconsensus(exec_cache=) run;
+    c. a router over two process replicas on the card (their spawn to
+    first heartbeat timed), three mu requests of the bundled design on
+    the sticky replica, which is SIGKILLed right after the submits:
+    every future resolves byte-equal to the in-process kernel run of
+    its request, the router recovered the replica and readmitted its
+    requests; d. python -m nmfx_torch.obs.top --once over c's telemetry
+    directory renders the replica role. Returns the launches of each
+    in-process run by name (a process replica's launches are its
+    child's: the byte-equality to the kernel runs is the proof, and
+    those runs must have launched row 3)."""
+    import tempfile
+
+    import nmfx_torch
+    from nmfx_torch import replica, router as router_mod
+    from nmfx_torch.datasets import two_group_matrix
+    from nmfx_torch.io import read_gct, write_gct
+
+    a = north_star_matrix()
+    bundled = two_group_matrix(n_genes=1000, n_per_group=20, seed=123)
+    m, n = a.shape
+    pallas = nmfx_torch.SolverConfig(backend="pallas")
+    hals = nmfx_torch.SolverConfig(algorithm="hals", backend="pallas")
+    row3, row5 = "fused_block_iterations", "hals_block_iterations"
+    kw = dict(ks=FLEET_KS, restarts=FLEET_RESTARTS)
+    launches = {}
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+
+    def counted(label, fn):
+        fm.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        launches[label] = {k: v for k, v in fm.LAUNCHES.items() if v}
+        return res, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix=".fleet_smoke_",
+                                     dir=HERE) as root:
+        # a. the command line against the in-process pipeline
+        gct = os.path.join(root, "north_star.gct")
+        write_gct(a, gct, row_names=[f"g{i}" for i in range(m)],
+                  col_names=[f"s{i}" for i in range(n)])
+        cli_dir, lib_dir = (os.path.join(root, d) for d in ("cli", "lib"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "nmfx_torch", gct, "--ks",
+             f"{FLEET_KS[0]}-{FLEET_KS[-1]}", "--restarts",
+             str(FLEET_RESTARTS), "--backend", "pallas", "--outdir",
+             cli_dir], env=env, capture_output=True, text=True,
+            timeout=FLEET_TIMEOUT_S)
+        cli_wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"fleet 11a: the command line failed "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+
+        def in_process():
+            res = nmfx_torch.nmfconsensus(read_gct(gct), solver_cfg=pallas,
+                                          **kw)
+            nmfx_torch.save_results(
+                res, nmfx_torch.OutputConfig(directory=lib_dir))
+            return res
+
+        res_a, wall_a = counted("a in-process", in_process)
+        same_a = same_files(cli_dir, lib_dir, FLEET_OUTPUTS)
+        cli_best = proc.stdout.split("best k = ")[-1].split()[0]
+        print(f"fleet 11a command line (python -m nmfx_torch, {m}x{n} GCT, "
+              f"ks {FLEET_KS[0]}..{FLEET_KS[-1]} x {FLEET_RESTARTS} "
+              f"restarts, pallas): wall {cli_wall:.3f} s with the "
+              f"interpreter's start, best k {cli_best}; in-process "
+              f"read_gct/nmfconsensus/save_results {wall_a:.3f} s, best k "
+              f"{res_a.best_k}, row 3 launches "
+              f"{launches['a in-process'].get(row3, 0)}; {len(same_a)} "
+              f"output files byte-equal {all(same_a.values())}",
+              flush=True)
+        if not all(same_a.values()) or cli_best != str(res_a.best_k) \
+                or not launches["a in-process"].get(row3):
+            raise AssertionError(f"fleet 11a: {same_a}, best k {cli_best}"
+                                 f" / {res_a.best_k}")
+
+        # b. two thread replicas on the card behind a router
+        cache = nmfx_torch.ExecCache()
+        pool = replica.ReplicaPool(2, root=os.path.join(root, "threads"),
+                                   mode="thread", exec_cache=cache)
+        with router_mod.NMFXRouter(pool) as router:
+            b, b_seed, rep_a, rep_b = second_matrix(router, a, (m, n))
+            reqs = ([(a, s, pallas) for s in FLEET_MU_SEEDS]
+                    + [(b, s, pallas) for s in FLEET_MU_SEEDS]
+                    + [(a, FLEET_HALS_SEED, hals)])
+
+            def routed():
+                futs = [router.submit(x, seed=s, solver_cfg=c, **kw)
+                        for x, s, c in reqs]
+                return [f.result(timeout=FLEET_TIMEOUT_S) for f in futs], \
+                    futs
+
+            (res_b, futs_b), wall_b = counted("b routed", routed)
+            stats_b = router.stats()
+        same_b = []
+        for (x, s, c), r in zip(reqs, res_b):
+            solo = nmfx_torch.nmfconsensus(x, seed=s, solver_cfg=c,
+                                           exec_cache=cache, **kw)
+            same_b.append(results_byte_equal(r, solo, KRESULT_FIELDS))
+        placed = [f.stats.replica for f in futs_b]
+        print(f"fleet 11b thread replicas (2, one ExecCache, bucket "
+              f"{cache.bucket_shape(m, n)}): the north star on {rep_a}, "
+              f"two_group_matrix seed {b_seed} on {rep_b}; "
+              f"{len(reqs)} requests (4 mu, 1 hals) wall {wall_b:.3f} s, "
+              f"replicas {placed}, row 3 launches "
+              f"{launches['b routed'].get(row3, 0)}, row 5 launches "
+              f"{launches['b routed'].get(row5, 0)}; each byte-equal to "
+              f"its solo run {same_b}; router completed "
+              f"{stats_b['completed']} failed {stats_b['failed']}",
+              flush=True)
+        if not all(same_b) or len(set(placed)) != 2 \
+                or not (launches["b routed"].get(row3)
+                        and launches["b routed"].get(row5)) \
+                or stats_b["completed"] != len(reqs):
+            raise AssertionError(f"fleet 11b: byte-equal {same_b}, "
+                                 f"replicas {placed}")
+
+        # c. two process replicas on the card, one SIGKILLed
+        tdir = os.path.join(root, "telemetry")
+        os.environ["NMFX_REPLICA_WORKER_STDERR"] = "1"
+        t0 = time.perf_counter()
+        try:
+            pool = replica.ReplicaPool(2, root=os.path.join(root, "procs"),
+                                       mode="process", telemetry_dir=tdir,
+                                       env=env)
+        finally:
+            del os.environ["NMFX_REPLICA_WORKER_STDERR"]
+        spawned = {}
+        while len(spawned) < 2:
+            beats = pool.heartbeats()
+            for rep in pool.all():
+                hb = beats.get(rep.replica_id)
+                if hb is not None and hb.get("pid") == rep.pid \
+                        and rep.replica_id not in spawned:
+                    spawned[rep.replica_id] = time.perf_counter() - t0
+            dead = [rep.process.returncode for rep in pool.all()
+                    if not rep.alive()]
+            if dead or time.perf_counter() - t0 > FLEET_SPAWN_TIMEOUT_S:
+                pool.close()
+                raise AssertionError(f"fleet 11c: heartbeats {spawned}, "
+                                     f"exited workers' codes {dead}")
+            time.sleep(0.05)
+        cfg = router_mod.RouterConfig(stickiness_slack=8)
+        t0 = time.perf_counter()
+        with router_mod.NMFXRouter(pool, cfg) as router:
+            futs = [router.submit(bundled, seed=s, solver_cfg=pallas, **kw)
+                    for s in FLEET_KILL_SEEDS]
+            victim = futs[0].stats.replica
+            on_victim = [f.stats.replica == victim for f in futs]
+            pool.get(victim).kill()
+            res_c = [f.result(timeout=FLEET_TIMEOUT_S) for f in futs]
+            stats_c = router.stats()
+        wall_c = time.perf_counter() - t0
+        bcache = nmfx_torch.ExecCache()
+        refs, wall_ref = counted("c in-process", lambda: [
+            nmfx_torch.nmfconsensus(bundled, seed=s, solver_cfg=pallas,
+                                    exec_cache=bcache, **kw)
+            for s in FLEET_KILL_SEEDS])
+        same_c = [results_byte_equal(r, ref, KRESULT_FIELDS)
+                  for r, ref in zip(res_c, refs)]
+        print(f"fleet 11c process replicas (2, on the card): spawn to first "
+              f"heartbeat {[round(x, 3) for x in spawned.values()]} s; 3 mu "
+              f"requests of the bundled design on {victim} (all there "
+              f"{all(on_victim)}), SIGKILLed after the submits; wall "
+              f"{wall_c:.3f} s, served by "
+              f"{[f.stats.replica for f in futs]}, retried "
+              f"{[f.stats.retried for f in futs]}; router recovered "
+              f"{stats_c['recovered']} readmitted {stats_c['readmitted']} "
+              f"completed {stats_c['completed']} failed "
+              f"{stats_c['failed']}; each byte-equal to the in-process "
+              f"kernel run {same_c} (those runs {wall_ref:.3f} s, row 3 "
+              f"launches {launches['c in-process'].get(row3, 0)})",
+              flush=True)
+        if not all(same_c) or not all(on_victim) \
+                or not launches["c in-process"].get(row3) \
+                or stats_c["recovered"] != 1 \
+                or stats_c["readmitted"] < 1 \
+                or stats_c["completed"] != len(FLEET_KILL_SEEDS) \
+                or stats_c["failed"] != 0:
+            raise AssertionError(f"fleet 11c: byte-equal {same_c}, "
+                                 f"stats {stats_c}")
+
+        # d. nmfx-top over c's telemetry
+        proc = subprocess.run(
+            [sys.executable, "-m", "nmfx_torch.obs.top", tdir, "--once",
+             "--stale-after", "600"], env=env, capture_output=True,
+            text=True, timeout=120)
+        roles = [line for line in proc.stdout.splitlines()
+                 if line.startswith("roles:")]
+        print(f"fleet 11d nmfx-top --once over {len(os.listdir(tdir))} "
+              f"snapshots: {roles}", flush=True)
+        for line in proc.stdout.splitlines()[2:5]:
+            print(f"fleet 11d   {line}", flush=True)
+        if proc.returncode != 0 or not roles or "replica" not in roles[0]:
+            raise AssertionError(f"fleet 11d: {proc.stdout[-1000:]}"
+                                 f"{proc.stderr[-1000:]}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -3221,6 +3519,20 @@ def main(argv=None) -> int:
     from nmfx_torch.ops import fused_mu as fm
 
     resolve_device(None)  # TF32 off for every plain product below
+    start = clock = time.perf_counter()
+    spent = {}
+
+    def done(label):
+        """Book the phase that just ended. Its line goes to standard error
+        as well, so a run stopped at its time limit shows how far it got
+        and where the time went."""
+        nonlocal clock
+        now = time.perf_counter()
+        spent[label] = round(now - clock, 3)
+        clock = now
+        print(f"chip_smoke: {label} {spent[label]:.1f} s, "
+              f"{now - start:.1f} s in", file=sys.stderr, flush=True)
+
     card = smi()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}", flush=True)
@@ -3238,17 +3550,21 @@ def main(argv=None) -> int:
           f"{os.path.relpath(host_lib, HERE)}", flush=True)
     print_resources(_build, "block_mu")
     print_resources(_build, "hals_block")
+    done("1 build")
 
     ns_err = phase_parity(torch, fm)
     ns_err.update(phase_block_parity(torch, fm))
     phase_pair_equality(torch, fm)
     ns_err["hals_block_iterations"] = phase_hals_parity(torch, fm)
+    done("2 parity")
     ns_err.update(phase_option_parity(torch, fm))
+    done("2 option parity")
     if not args.quick:
         rates = peaks(kind)
         timing = phase_timing(torch, fm, rates)[NORTH_STAR[3]]
         timing.update(phase_block_timing(torch, fm, rates))
         timing.update(phase_option_timing(torch, fm, rates))
+        done("3 timing")
         # byte-equal to the unaliased launch (phase_option_parity), so
         # its error against the plain version is the default launch's
         ns_err["fused_block_iterations[alias_io]"] = ns_err[
@@ -3264,27 +3580,39 @@ def main(argv=None) -> int:
             launches[name] = per_rank[name]
         hals_n, hals_res, hals_wall = phase_hals_path(torch, fm)
         launches["hals_block_iterations"] = hals_n["hals_block_iterations"]
+        done("4a-d main paths")
         launches.update(phase_option_paths(
             torch, fm, {"grid": (phased, phased_wall),
                         "per_k": (per_rank_res, per_rank_wall),
                         "hals": (hals_res, hals_wall)}))
+        done("4f option paths")
         phase_host_tail(torch, fm)
+        done("4e host tail")
         phase_checks(torch, fm)
+        done("5 agreement")
         phase_profile(torch)
+        done("6 profiles")
         phase_solvers(torch, fm)
-        t0 = time.perf_counter()
+        done("7 solvers")
         durable = phase_durability(torch, fm, phased, per_rank_res,
                                    hals_res)
-        print(f"durability phase {time.perf_counter() - t0:.3f} s; "
+        done("8 durability")
+        print(f"durability phase {spent['8 durability']:.3f} s; "
               f"launches by run {durable}", flush=True)
-        t0 = time.perf_counter()
         observed = phase_obs(torch, fm, grid)
-        print(f"observability phase {time.perf_counter() - t0:.3f} s; "
+        done("9 observability")
+        print(f"observability phase {spent['9 observability']:.3f} s; "
               f"launches by run {observed}", flush=True)
-        t0 = time.perf_counter()
         serving = phase_serve(torch, fm)
-        print(f"serving phase {time.perf_counter() - t0:.3f} s; launches "
+        done("10 serving")
+        print(f"serving phase {spent['10 serving']:.3f} s; launches "
               f"by run {serving}", flush=True)
+        fleet = phase_fleet(torch, fm)
+        done("11 fleet")
+        print(f"fleet phase {spent['11 fleet']:.3f} s; launches "
+              f"by run {fleet}", flush=True)
+        print(f"phase seconds {json.dumps(spent)}; "
+              f"{time.perf_counter() - start:.3f} s in all", flush=True)
         kernels = []
         for name, source, line in (
                 ("fused_h_update", "block_mu.cu", 147),

@@ -41,6 +41,9 @@ ROADMAP_SCALE = "ROADMAP §1 item 10, scale engines"
 ROADMAP_TOOLING = "ROADMAP §1 item 11, tooling"
 ROADMAP_WARM = "ROADMAP §1 item 6, warm path remnants"
 
+#: the package version (the reference's; the command line's --version)
+VERSION = "0.1.0"
+
 
 @dataclasses.dataclass(frozen=True)
 class ExperimentalConfig:

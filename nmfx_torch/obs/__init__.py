@@ -25,23 +25,30 @@ called), so a collector or a signal handler can load them cheaply.
   multi-window burn rates over registry-snapshot deltas (the serving
   tier's ``stats_snapshot()["slo"]``; flight dumps carry the last
   status).
+* :mod:`nmfx_torch.obs.aggregate` — the fleet collector: merges N
+  instances' telemetry snapshots (either package's) into one
+  registry-shaped fleet view.
+* :mod:`nmfx_torch.obs.top` — the ``nmfx-top`` dashboard (text frames,
+  ``--html``) over the collector and the SLO engine; not imported here,
+  it is a command (``python -m nmfx_torch.obs.top``).
 
-Not ported yet (ROADMAP §1 item 11): ``aggregate`` (the fleet
-collector), ``top`` (the live dashboard) and ``regress`` (the
-bench-trajectory judge), and the cost model's XLA cross-check and
-communication halves.
+Not ported yet (ROADMAP §1 item 11): ``regress`` (the bench-trajectory
+judge), and the cost model's XLA cross-check and communication halves.
 """
 
 from __future__ import annotations
 
-from nmfx_torch.obs import costmodel, export, flight, metrics, slo, trace
+from nmfx_torch.obs import (aggregate, costmodel, export, flight, metrics,
+                            slo, trace)
+from nmfx_torch.obs.aggregate import FleetCollector
 from nmfx_torch.obs.export import TelemetryPublisher, serve_metrics
 from nmfx_torch.obs.flight import FlightRecorder
 from nmfx_torch.obs.metrics import MetricsRegistry, registry
 from nmfx_torch.obs.slo import Objective, SLOEngine, WindowPair
 from nmfx_torch.obs.trace import Tracer, default_tracer, merge_traces, traced
 
-__all__ = ["FlightRecorder", "MetricsRegistry", "Objective", "SLOEngine",
-           "TelemetryPublisher", "Tracer", "WindowPair", "costmodel",
-           "default_tracer", "export", "flight", "merge_traces", "metrics",
-           "registry", "serve_metrics", "slo", "trace", "traced"]
+__all__ = ["FleetCollector", "FlightRecorder", "MetricsRegistry",
+           "Objective", "SLOEngine", "TelemetryPublisher", "Tracer",
+           "WindowPair", "aggregate", "costmodel", "default_tracer",
+           "export", "flight", "merge_traces", "metrics", "registry",
+           "serve_metrics", "slo", "trace", "traced"]

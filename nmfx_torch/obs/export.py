@@ -3,10 +3,10 @@
 
 Each process can periodically write an atomic JSON snapshot of its
 metrics registry plus its instance identity into a shared
-``telemetry_dir``; a collector (the reference's ``nmfx.obs.aggregate``,
-not ported yet: ROADMAP §1 item 11) merges N such snapshots into one
-fleet view. The snapshot format is the reference's, so its collector
-reads the port's files.
+``telemetry_dir``; a collector (``nmfx_torch.obs.aggregate``) merges N
+such snapshots into one fleet view. The snapshot format is the
+reference's, so either package's collector reads either package's
+files.
 
 Design rules:
 

@@ -14,6 +14,7 @@ import nmfx_torch
 import nmfx_torch.agreement as tagree
 from nmfx.datasets import two_group_matrix
 from nmfx_torch.convert import solver_config_from_dict
+from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
 
 LABELINGS = {
     "random": lambda rng: (rng.integers(0, 4, 30), rng.integers(0, 3, 30)),

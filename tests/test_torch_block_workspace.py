@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 from nmfx_torch.ops import _build, fused_mu
+from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
 
 CSRC = Path(fused_mu.__file__).resolve().parent.parent / "csrc"
 

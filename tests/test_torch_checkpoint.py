@@ -30,6 +30,7 @@ from nmfx_torch.config import (CheckpointConfig, ConsensusConfig,
                                InitConfig, SolverConfig)
 from nmfx_torch.datasets import two_group_matrix
 from nmfx_torch.solvers.base import StopReason
+from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
 
 KW = dict(ks=(2, 3), restarts=4, seed=5)
 MU = dict(algorithm="mu", max_iter=30)

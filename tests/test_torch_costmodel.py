@@ -19,6 +19,7 @@ from nmfx_torch.convert import solver_config_from_dict
 from nmfx_torch.datasets import two_group_matrix
 from nmfx_torch.obs import costmodel as cm
 from nmfx_torch.obs import metrics
+from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
 
 M, N, K = 48, 24, 3
 SHAPES = ((48, 24, 3), (200, 30, 7), (5000, 500, 10), (1237, 77, 2))

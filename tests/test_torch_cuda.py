@@ -18,6 +18,19 @@ from nmfx_torch.ops import fused_mu
 from nmfx_torch.ops.packed_mu import bd_select, block_diag_mask, mu_packed
 from nmfx_torch.solvers.base import StopReason
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the host side of these cases (the same
+    pin as ``test_torch_solvers._one_torch_thread``, defined here because
+    this file runs on the card with ``--noconftest``, where the other
+    test modules' reference imports are not available)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 pytestmark = pytest.mark.cuda
 
 # (m, n, restarts, k, planted zeros, zero_threshold)

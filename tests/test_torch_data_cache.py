@@ -17,6 +17,7 @@ import nmfx_torch
 from nmfx_torch import data_cache
 from nmfx_torch.config import SolverConfig
 from nmfx_torch.data_cache import DataCache, DataKey, data_key_fields
+from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
 
 SCFG = SolverConfig()
 CPU = torch.device("cpu")

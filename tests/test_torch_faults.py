@@ -30,6 +30,7 @@ from nmfx_torch import faults
 from nmfx_torch.datasets import two_group_matrix
 from nmfx_torch.ops import sched_mu as tsched
 from nmfx_torch.solvers.base import StopReason
+from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
 
 KS = (2, 3)
 RESTARTS = 4

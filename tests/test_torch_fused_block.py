@@ -32,6 +32,7 @@ from nmfx_torch.convert import solver_config_from_dict
 from nmfx_torch.ops import fused_mu
 from nmfx_torch.ops.sched_mu import mu_sched
 from nmfx_torch.solvers.base import StopReason
+from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
 
 KS = (4, 3, 2)
 R = 5

@@ -21,6 +21,7 @@ from nmfx.ops.packed_mu import block_diag_mask as j_block_diag_mask
 from nmfx_torch.ops import fused_mu
 from nmfx_torch.ops.packed_mu import (bd_select, block_diag_mask,
                                       padded_rows)
+from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
 
 RTOL, ATOL = 1e-5, 1e-6
 

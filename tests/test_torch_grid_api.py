@@ -24,6 +24,7 @@ from nmfx_torch import random as _random
 from nmfx_torch import sweep as tsweep
 from nmfx_torch.consensus import connectivity
 from nmfx_torch.convert import solver_config_from_dict
+from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
 
 KS = (2, 3)
 RESTARTS = 4

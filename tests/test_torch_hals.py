@@ -22,6 +22,7 @@ Both start from the same numpy factors. Tolerances:
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import textwrap
@@ -48,6 +49,7 @@ from nmfx_torch.ops import fused_mu, grid_mu
 from nmfx_torch.ops.packed_mu import mu_packed
 from nmfx_torch.ops.sched_mu import mu_sched
 from nmfx_torch.solvers.base import StopReason, solve
+from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
 
 KS = (4, 3, 2)  # rank-descending, as the sweep dispatches
 R = 5
@@ -257,7 +259,8 @@ def reference_float64(tmp_path_factory):
         np.savez({str(out)!r}, **res)
     """)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=300)
+                          text=True, timeout=300,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert proc.returncode == 0, proc.stderr[-2000:]
     return np.load(out), (a.astype(np.float64), w0.astype(np.float64),
                           h0.astype(np.float64))

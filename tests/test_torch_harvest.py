@@ -19,6 +19,7 @@ from nmfx_torch.datasets import two_group_matrix
 from nmfx_torch.harvest import HarvestPipeline, start_host_fetch
 from nmfx_torch.profiling import Profiler
 from nmfx_torch.sweep import KSweepOutput
+from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
 
 KS = (2, 3)
 RESTARTS = 2

@@ -10,6 +10,7 @@ from nmfx.datasets import two_group_matrix as j_two_group
 from nmfx_torch import cophenetic as tcoph
 from nmfx_torch import io as tio
 from nmfx_torch.datasets import two_group_matrix
+from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
 
 
 def _matrix():

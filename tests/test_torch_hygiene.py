@@ -11,6 +11,7 @@ import torch
 
 import nmfx_torch
 from nmfx_torch.datasets import two_group_matrix
+from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "nmfx")
@@ -47,12 +48,25 @@ def test_import_leaves_jax_unloaded():
             "nmfx_torch.obs.flight, nmfx_torch.obs.export, "
             "nmfx_torch.obs.costmodel, nmfx_torch.obs.slo, "
             "nmfx_torch.exec_cache, nmfx_torch.result_cache, "
-            "nmfx_torch.serve; "
+            "nmfx_torch.serve, nmfx_torch.replica, nmfx_torch.router, "
+            "nmfx_torch.cli, nmfx_torch.obs.aggregate, nmfx_torch.obs.top; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'nmfx')); print(bad); sys.exit(bool(bad))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    # the command line's help, run as python -m nmfx_torch: jax stays
+    # out of sys.modules all the way through
+    code = ("import runpy, sys; sys.argv = ['nmfx_torch', '--help']\n"
+            "try:\n    runpy.run_module('nmfx_torch', run_name='__main__')\n"
+            "except SystemExit as e:\n    assert e.code == 0, e.code\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'nmfx')); print(bad); sys.exit(bool(bad))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "usage: nmfx-torch" in proc.stdout and "--device" in proc.stdout
 
 
 def test_entry_point_without_device_raises_when_no_cuda():

@@ -44,6 +44,7 @@ from nmfx_torch.ops.sched_mu import (_pallas_block_geometry, _ragged_layout,
 from nmfx_torch.solvers.base import solve
 
 from test_torch_sched import JOB_KS, jobs  # noqa: F401  (the fixture)
+from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
 
 BF16 = "bfloat16"
 

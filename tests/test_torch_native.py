@@ -15,6 +15,7 @@ from nmfx import cophenetic as jcoph
 from nmfx_torch import cophenetic as tcoph
 from nmfx_torch import io as tio
 from nmfx_torch import native
+from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
 
 
 def _random_dist(n, seed):

@@ -31,6 +31,7 @@ from nmfx_torch.obs import costmodel as cm
 from nmfx_torch.obs import export, flight, metrics, trace
 from nmfx_torch.obs import slo as pslo
 from nmfx_torch.obs.trace import Tracer
+from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)

@@ -22,6 +22,7 @@ from nmfx_torch.convert import factors_from_numpy, solver_config_from_dict
 from nmfx_torch.ops.packed_mu import (flip_budget, mu_packed, pack,
                                       padded_rows, unpack_w)
 from nmfx_torch.solvers.base import StopReason
+from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
 
 CONFIGS = {
     "default": dict(max_iter=300),

@@ -12,6 +12,7 @@ import torch
 import nmfx_torch
 from nmfx_torch.datasets import two_group_matrix
 from nmfx_torch.profiling import NullProfiler, Profiler, _cuda_devices
+from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -16,6 +16,7 @@ from nmfx.init import initialize, nndsvd_init as j_nndsvd
 from nmfx_torch import random as R
 from nmfx_torch.config import InitConfig
 from nmfx_torch.init import nndsvd_init, random_init, restart_inits
+from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
 
 
 def _bits(x):

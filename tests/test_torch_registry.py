@@ -16,6 +16,7 @@ from nmfx_torch.config import InitConfig, SolverConfig
 from nmfx_torch.datasets import two_group_matrix
 from nmfx_torch.registry import (SweepRegistry, _fingerprint,
                                  fingerprint_solver_fields)
+from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
 
 KW = dict(restarts=3, seed=2, max_iter=40, device="cpu")
 

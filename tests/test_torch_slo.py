@@ -12,6 +12,7 @@ from nmfx.obs import slo as nslo
 from nmfx_torch.obs import flight
 from nmfx_torch.obs import metrics as pmetrics
 from nmfx_torch.obs import slo as pslo
+from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
 
 PKGS = ((pmetrics, pslo), (nmetrics, nslo))
 

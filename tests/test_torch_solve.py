@@ -25,6 +25,7 @@ from nmfx.solvers.base import solve as j_solve
 from nmfx_torch.convert import (consensus_config_from_dict,
                                 solver_config_from_dict)
 from nmfx_torch.solvers.base import solve
+from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
 
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "golden_ref", "reference_mu_fixture.npz")

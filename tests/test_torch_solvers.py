@@ -15,6 +15,7 @@ restart at a time, against nmfx.
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import textwrap
@@ -108,7 +109,8 @@ def reference_float64(tmp_path_factory):
         np.savez({str(out)!r}, **res)
     """)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=600)
+                          text=True, timeout=600,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert proc.returncode == 0, proc.stderr[-2000:]
     return np.load(out)
 

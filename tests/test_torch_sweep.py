@@ -18,6 +18,7 @@ import nmfx
 import nmfx_torch
 from nmfx.datasets import two_group_matrix
 from nmfx_torch.convert import solver_config_from_dict
+from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
 
 KS = (2, 3)
 RESTARTS = 4
