@@ -4,6 +4,7 @@ versions.
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --quick    # build + kernel parity only
+    python3 chip_smoke.py --tiles    # build + kernel parity + phase 12
 
 Phases (any failure exits non-zero; nothing is caught):
   1. card and build: nvidia-smi's name and power limit, the nvcc build
@@ -192,7 +193,35 @@ Phases (any failure exits non-zero; nothing is caught):
         part from the kernels, so byte-equality is the proof), the
         router recovered 1, readmitted >= 1, completed 3, failed 0;
      d. python -m nmfx_torch.obs.top --once over c's telemetry
-        directory: its roles line names the replicas.
+        directory: its roles line names the replicas;
+ 12. scale: the out-of-core tile pipeline and sparse ingestion
+     (phase_tiles), each run with the launch counts set to 0 just before
+     it and read just after (every kernel 0: the slice runs plain
+     products), each streamed run's wall, solve, passes, H2D bytes,
+     staging and wait seconds, overlap ratio 1 - wait/solve and stop
+     reasons printed, beside the pinned copy rate of one pass's bytes:
+     a. the north star in 8 tiles of 625 rows (tile_rows "auto" under a
+        budget of two tiles), mu at ks (2, 3), 50 restarts, max_iter
+        500, against the in-core run of the same sweep: min ARI >= 0.9,
+        max rho gap <= 0.1 (the JAX package's tiled-against-dense
+        gate), and the H2D bytes exactly passes x 10,000,000;
+     b. make_sparse_design(20000, 5000, k=4, density=0.05, seed=11),
+        about 5.0 M stored nonzeros, mu at ks 2..5, 10 restarts (cut
+        from 20), 4 tiles of 5,000 rows, against its densified twin in
+        core: the same
+        gate and the same best k (whether it is the planted 4 printed);
+     c. a at ks (2,) and b at ks (4,) with prefetch off, byte-equal to
+        the prefetch-on runs;
+     d. a's matrix in one tile (tile_rows 5000) at ks (2,), byte-equal
+        to the in-core run, no pass streamed;
+     e. a's plan at ks (2,), 10 restarts in ledger chunks of 5,
+        max_iter 200, killed by proc.preempt at the 50th check of the
+        first chunk and resumed from its partial: byte-equal to an
+        uninterrupted checkpointed run, one partial resume;
+     f. make_sparse_design(2000, 500, k=3, density=0.05) written as
+        .csr.npz and .mtx reads back to one fingerprint, and python -m
+        nmfx_torch on the bundle (--ks 2-3 --tile-rows 500, max_iter cut
+        to 200) writes the files of the in-process run, byte-equal.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -3498,10 +3527,346 @@ def phase_fleet(torch, fm):
     return launches
 
 
+# --- phase 12: scale, the out-of-core tiles and sparse ingestion ----------
+
+#: 12a: the north star streamed in 8 tiles of 625 rows (two 625x500
+#: float32 tiles fill the budget), mu at ks (2, 3), 50 restarts, max_iter
+#: 500 (the JAX package's bench caps its atlas rung there)
+TILE_KS, TILE_RESTARTS, TILE_MAX_ITER = (2, 3), 50, 500
+TILE_BUDGET = 2 * 625 * 500 * 4
+TILE_PASS_BYTES = 5000 * 500 * 4
+#: 12b: a sparse atlas of 20,000 genes x 5,000 cells at 5 % density
+#: (about 5.0 M stored nonzeros), a planted k = 4, mu at ks 2..5, 10
+#: restarts (the reference's default; cut from 20 to keep the script
+#: near its time budget), 4 tiles of 5,000 rows
+ATLAS = dict(m=20000, n=5000, k=4, density=0.05, seed=11)
+ATLAS_KS, ATLAS_RESTARTS, ATLAS_TILE_ROWS = (2, 3, 4, 5), 10, 5000
+#: the JAX package's gates of a tiled (or sparse) sweep against its
+#: in-core (or densified) twin (tests/test_tiles.py, tests/test_sparse.py)
+TILE_MIN_ARI, TILE_MAX_RHO_GAP = 0.9, 0.1
+#: 12e: 10 restarts in ledger chunks of 5 at max_iter 200 (cut from 20 in
+#: chunks of 10 at 500: a partial record lands at every check, so its
+#: cost is the passes); proc.preempt fires at this many fire calls, the
+#: 50th check of the first chunk (step 100)
+TILE_CKPT_RESTARTS, TILE_CKPT_CHUNK, TILE_PREEMPT_AT = 10, 5, 50
+TILE_CKPT_MAX_ITER = 200
+#: 12f: the file design and the command line's depth (the reference's
+#: default max_iter of 10000 is cut to 200 to keep the phase in its
+#: budget)
+FILES = dict(m=2000, n=500, k=3, density=0.05, seed=0)
+FILES_TILE_ROWS, FILES_MAX_ITER = 500, 200
+KR_FIELDS = ("consensus", "rho", "membership", "order", "iterations",
+             "dnorms", "stop_reasons", "best_w", "best_h")
+
+
+def ranks_byte_equal(x, y, ks) -> bool:
+    """The named ranks' results of two runs equal byte for byte."""
+    return all(same_bytes(getattr(x.per_k[k], f), getattr(y.per_k[k], f))
+               for k in ks for f in KR_FIELDS)
+
+
+def pinned_copy_rate(torch, nbytes: int, reps: int = 20) -> float:
+    """Bytes/s of one pinned host-to-device copy of ``nbytes`` (CUDA
+    events around ``reps`` copies after a warm-up)."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    dev.copy_(host, non_blocking=True)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        dev.copy_(host, non_blocking=True)
+    end.record()
+    end.synchronize()
+    return nbytes * reps / (start.elapsed_time(end) / 1e3)
+
+
+def write_mtx(sp, path: str) -> None:
+    """A SparseMatrix as a MatrixMarket coordinate file (1-indexed,
+    shortest round-trip values)."""
+    rows = np.repeat(np.arange(sp.shape[0]), np.diff(sp.indptr)) + 1
+    with open(path, "w") as f:
+        f.write("%%MatrixMarket matrix coordinate real general\n")
+        f.write(f"{sp.shape[0]} {sp.shape[1]} {sp.nnz}\n")
+        for r, c, v in zip(rows.tolist(), (sp.indices + 1).tolist(),
+                           sp.data.tolist()):
+            f.write(f"{r} {c} {v!r}\n")
+
+
+def phase_tiles(torch, fm):
+    """Phase 12, scale: the out-of-core tile pipeline and sparse
+    ingestion. a. the north star streamed in 8 tiles (mu, ks (2, 3), 50
+    restarts, max_iter 500) against the in-core run of the same sweep
+    (the JAX package's tiled-against-dense gate) and its bytes (passes x
+    10,000,000 exactly); b. the 20,000 x 5,000 sparse atlas (5 %
+    density) in 4 tiles at ks 2..5 against its densified twin in core
+    (the same gate, the same best k); c. a at ks (2,) and b at ks (4,)
+    with prefetch off, byte-equal to the prefetch-on runs; d. a's matrix
+    in one tile, byte-equal to the in-core run; e. a's plan at ks (2,),
+    10 restarts in ledger chunks of 5 (max_iter 200), killed by
+    proc.preempt at a
+    check of the first chunk and resumed mid-matrix: byte-equal to an
+    uninterrupted checkpointed run, one partial resume; f. a design
+    written as .csr.npz and .mtx reads back to one fingerprint, and
+    python -m nmfx_torch on the bundle writes the in-process run's
+    files. Every kernel launches 0 times in the phase. Returns the
+    launches by run."""
+    import tempfile
+
+    import nmfx_torch
+    from nmfx_torch import faults, tiles
+    from nmfx_torch import checkpoint as ckpt
+    from nmfx_torch.agreement import consensus_agreement
+    from nmfx_torch.datasets import make_sparse_design
+    from nmfx_torch.io import read_csr_npz, read_mtx, write_csr_npz
+    from nmfx_torch.profiling import Profiler
+
+    a = north_star_matrix()
+    m, n = a.shape
+    launches = {}
+    mu = dict(algorithm="mu", max_iter=TILE_MAX_ITER)
+
+    def counted(label, fn):
+        fm.reset_launch_counts()
+        passes0 = tiles._tile_passes_total.total()
+        bytes0 = tiles._tile_h2d_bytes_total.total()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[label] = {k: v for k, v in fm.LAUNCHES.items() if v}
+        return res, {"wall": wall,
+                     "passes": int(tiles._tile_passes_total.total()
+                                   - passes0),
+                     "bytes": int(tiles._tile_h2d_bytes_total.total()
+                                  - bytes0)}
+
+    def streamed(label, data, ks, restarts, scfg, **kw):
+        prof = Profiler()
+
+        def run():
+            with prof:
+                return nmfx_torch.nmfconsensus(
+                    data, ks=ks, restarts=restarts, solver_cfg=scfg,
+                    profiler=prof, **kw)
+
+        res, st = counted(label, run)
+        solve = phase_seconds(prof, "solve.k=")
+        wait, xfer = (prof.phases[name].seconds if name in prof.phases
+                      else 0.0 for name in (tiles.TILE_WAIT_PHASE,
+                                            tiles.TILE_XFER_PHASE))
+        st.update(solve=solve, wait=wait, xfer=xfer,
+                  overlap=1.0 - wait / solve)
+        stops = {k: stop_counts(res.per_k[k]) for k in ks}
+        iters = {k: round(float(res.per_k[k].iterations.mean()), 1)
+                 for k in ks}
+        print(f"tiles {label}: wall {st['wall']:.3f} s, solve "
+              f"{solve:.3f} s, passes {st['passes']}, H2D bytes "
+              f"{st['bytes']} ({st['bytes'] / max(st['passes'], 1):.0f} "
+              f"a pass), staging and dispatch {xfer:.3f} s, waits "
+              f"{wait:.3f} s, overlap 1 - wait/solve "
+              f"{st['overlap']:.4f}, mean iters {iters}, stop reasons "
+              f"{stops}, best k {res.best_k}", flush=True)
+        return res, st
+
+    rate = pinned_copy_rate(torch, TILE_PASS_BYTES)
+    print(f"tiles pinned host-to-device copy of {TILE_PASS_BYTES} bytes: "
+          f"{rate / 1e9:.2f} GB/s", flush=True)
+
+    # a. the north star in 8 tiles against the in-core sweep
+    tiles.set_tile_budget_bytes(TILE_BUDGET)
+    try:
+        tiled_cfg = nmfx_torch.SolverConfig(tile_rows="auto", **mu)
+        plan = tiles.plan_for(a, tiled_cfg)
+        if plan.n_tiles != 8 or plan.tile_rows != TILE_BUDGET // (8 * n):
+            raise AssertionError(f"tiles 12a: plan {plan.as_meta()}")
+        res_a, st_a = streamed("12a north star, 8 tiles", a, TILE_KS,
+                               TILE_RESTARTS, tiled_cfg)
+        dense_a, st_dense = counted("12a in-core", lambda: (
+            nmfx_torch.nmfconsensus(a, ks=TILE_KS, restarts=TILE_RESTARTS,
+                                    solver_cfg=nmfx_torch.SolverConfig(
+                                        **mu))))
+        rep = consensus_agreement(res_a, dense_a)
+        print(f"tiles 12a against the in-core sweep ({st_dense['wall']:.3f}"
+              f" s): min ARI {rep['min_ari']:.4f}, max rho gap "
+              f"{rep['max_rho_gap']:.4f}, per k {rep['per_k']}",
+              flush=True)
+        check_finite(res_a, "tiles 12a", n)
+        if rep["min_ari"] < TILE_MIN_ARI or \
+                rep["max_rho_gap"] > TILE_MAX_RHO_GAP:
+            raise AssertionError(f"tiles 12a: agreement {rep}")
+        if st_a["bytes"] != st_a["passes"] * TILE_PASS_BYTES:
+            raise AssertionError(
+                f"tiles 12a: {st_a['bytes']} H2D bytes for "
+                f"{st_a['passes']} passes of {TILE_PASS_BYTES}")
+
+        # b. the sparse atlas against its densified twin
+        t0 = time.perf_counter()
+        atlas = make_sparse_design(ATLAS["m"], ATLAS["n"], k=ATLAS["k"],
+                                   density=ATLAS["density"],
+                                   seed=ATLAS["seed"])
+        print(f"tiles 12b atlas {atlas.shape}, {atlas.nnz} stored "
+              f"nonzeros, density {atlas.density:.4f}, made in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        atlas_cfg = nmfx_torch.SolverConfig(tile_rows=ATLAS_TILE_ROWS, **mu)
+        res_b, st_b = streamed("12b sparse atlas, 4 tiles", atlas,
+                               ATLAS_KS, ATLAS_RESTARTS, atlas_cfg)
+        twin = atlas.toarray(np.float32)
+        dense_b, st_twin = counted("12b densified twin", lambda: (
+            nmfx_torch.nmfconsensus(twin, ks=ATLAS_KS,
+                                    restarts=ATLAS_RESTARTS,
+                                    solver_cfg=nmfx_torch.SolverConfig(
+                                        **mu))))
+        del twin
+        rep = consensus_agreement(res_b, dense_b)
+        print(f"tiles 12b against the densified twin in core "
+              f"({st_twin['wall']:.3f} s): min ARI {rep['min_ari']:.4f}, "
+              f"max rho gap {rep['max_rho_gap']:.4f}, best k "
+              f"{res_b.best_k} / {dense_b.best_k} (the planted "
+              f"{ATLAS['k']}: {res_b.best_k == ATLAS['k']}), per k "
+              f"{rep['per_k']}", flush=True)
+        check_finite(res_b, "tiles 12b", ATLAS["n"])
+        if rep["min_ari"] < TILE_MIN_ARI or \
+                rep["max_rho_gap"] > TILE_MAX_RHO_GAP or \
+                res_b.best_k != dense_b.best_k:
+            raise AssertionError(f"tiles 12b: agreement {rep}, best k "
+                                 f"{res_b.best_k} / {dense_b.best_k}")
+
+        # c. prefetch off: byte-equal
+        tiles.set_tile_prefetch(False)
+        try:
+            off_a, st_ca = streamed("12c north star, prefetch off", a,
+                                    (2,), TILE_RESTARTS, tiled_cfg)
+            off_b, st_cb = streamed("12c sparse atlas, prefetch off",
+                                    atlas, (4,), ATLAS_RESTARTS, atlas_cfg)
+        finally:
+            tiles.set_tile_prefetch(True)
+        same_a = ranks_byte_equal(off_a, res_a, (2,))
+        same_b = ranks_byte_equal(off_b, res_b, (4,))
+        print(f"tiles 12c prefetch off == on: north star k=2 {same_a} "
+              f"(solve {st_ca['solve']:.3f} s), atlas k=4 {same_b} "
+              f"(solve {st_cb['solve']:.3f} s)", flush=True)
+        if not (same_a and same_b):
+            raise AssertionError(f"tiles 12c: byte-equal {same_a}, "
+                                 f"{same_b}")
+
+        # d. one tile hands the sweep to the in-core path
+        one_cfg = nmfx_torch.SolverConfig(tile_rows=m, **mu)
+        one, st_d = counted("12d one tile", lambda: nmfx_torch.nmfconsensus(
+            a, ks=(2,), restarts=TILE_RESTARTS, solver_cfg=one_cfg))
+        incore, _ = counted("12d in-core", lambda: nmfx_torch.nmfconsensus(
+            a, ks=(2,), restarts=TILE_RESTARTS,
+            solver_cfg=nmfx_torch.SolverConfig(**mu)))
+        same_d = ranks_byte_equal(one, incore, (2,))
+        print(f"tiles 12d one tile ({st_d['wall']:.3f} s, {st_d['passes']}"
+              f" passes) == in-core: {same_d}", flush=True)
+        if not same_d or st_d["passes"] != 0:
+            raise AssertionError(f"tiles 12d: byte-equal {same_d}, "
+                                 f"passes {st_d['passes']}")
+
+        # e. killed mid-matrix, resumed from the partial
+        with tempfile.TemporaryDirectory(prefix=".tiles_smoke_",
+                                         dir=HERE) as root:
+            def ledger(name):
+                return nmfx_torch.CheckpointConfig(
+                    os.path.join(root, name),
+                    every_n_restarts=TILE_CKPT_CHUNK)
+
+            ckpt_cfg = nmfx_torch.SolverConfig(
+                tile_rows="auto", max_iter=TILE_CKPT_MAX_ITER)
+
+            def durable(name):
+                return nmfx_torch.nmfconsensus(
+                    a, ks=(2,), restarts=TILE_CKPT_RESTARTS,
+                    solver_cfg=ckpt_cfg, checkpoint=ledger(name))
+
+            whole, st_e = counted("12e uninterrupted",
+                                  lambda: durable("whole"))
+            resumes0 = tiles._tile_partial_resumes_total.total()
+            faults.arm("proc.preempt", every=TILE_PREEMPT_AT, max_fires=1)
+            try:
+                killed, _ = counted("12e killed", lambda: expect_preempted(
+                    lambda: durable("killed"), ckpt))
+            finally:
+                faults.disarm("proc.preempt")
+            left = sorted(os.listdir(os.path.join(root, "killed")))
+            resumed, st_r = counted("12e resumed",
+                                    lambda: durable("killed"))
+            n_resumed = tiles._tile_partial_resumes_total.total() - resumes0
+            same_e = ranks_byte_equal(resumed, whole, (2,))
+            print(f"tiles 12e uninterrupted {st_e['wall']:.3f} s "
+                  f"({st_e['passes']} passes); killed at the "
+                  f"{TILE_PREEMPT_AT}th check of chunk 1, left {left}; "
+                  f"resumed {st_r['wall']:.3f} s ({st_r['passes']} passes)"
+                  f", partial resumes {n_resumed:.0f}, byte-equal {same_e}",
+                  flush=True)
+            if not same_e or n_resumed != 1:
+                raise AssertionError(f"tiles 12e: byte-equal {same_e}, "
+                                     f"partial resumes {n_resumed}")
+    finally:
+        tiles.set_tile_budget_bytes(None)
+
+    # f. files and the command line
+    design = make_sparse_design(FILES["m"], FILES["n"], k=FILES["k"],
+                                density=FILES["density"],
+                                seed=FILES["seed"])
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    with tempfile.TemporaryDirectory(prefix=".tiles_files_",
+                                     dir=HERE) as root:
+        npz = os.path.join(root, "design.csr.npz")
+        mtx = os.path.join(root, "design.mtx")
+        write_csr_npz(design, npz)
+        write_mtx(design, mtx)
+        prints = {design.fingerprint(), read_csr_npz(npz).fingerprint(),
+                  read_mtx(mtx).fingerprint()}
+        cli_dir, lib_dir = (os.path.join(root, d) for d in ("cli", "lib"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "nmfx_torch", npz, "--ks", "2-3",
+             "--tile-rows", str(FILES_TILE_ROWS), "--maxiter",
+             str(FILES_MAX_ITER), "--outdir", cli_dir], env=env,
+            capture_output=True, text=True, timeout=300)
+        cli_wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"tiles 12f: the command line failed "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+
+        def in_process():
+            res = nmfx_torch.nmfconsensus(
+                npz, ks=(2, 3), solver_cfg=nmfx_torch.SolverConfig(
+                    tile_rows=FILES_TILE_ROWS, max_iter=FILES_MAX_ITER))
+            nmfx_torch.save_results(
+                res, nmfx_torch.OutputConfig(directory=lib_dir))
+            return res
+
+        lib, st_f = counted("12f in-process", in_process)
+        names = sorted(os.listdir(lib_dir))
+        same_f = same_files(cli_dir, lib_dir, names)
+        print(f"tiles 12f {design.shape} design, {design.nnz} nonzeros: "
+              f".csr.npz and .mtx read back to {len(prints)} fingerprint; "
+              f"command line {cli_wall:.3f} s, in-process "
+              f"{st_f['wall']:.3f} s ({st_f['passes']} passes), best k "
+              f"{lib.best_k}, files byte-equal "
+              f"{all(same_f.values())} ({len(names)} files)", flush=True)
+        if len(prints) != 1 or sorted(os.listdir(cli_dir)) != names \
+                or not all(same_f.values()):
+            raise AssertionError(f"tiles 12f: fingerprints {len(prints)}, "
+                                 f"files {same_f}")
+
+    launched = {label: n for label, n in launches.items() if n}
+    if launched:
+        raise AssertionError(f"tiles: kernels launched in phase 12: "
+                             f"{launched}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="build and kernel parity only")
+    ap.add_argument("--tiles", action="store_true",
+                    help="build, kernel parity and phase 12 (tiles and "
+                         "sparse inputs) only")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "nmfx_torch")):
         print("chip_smoke: the nmfx_torch package is not beside this "
@@ -3559,7 +3924,12 @@ def main(argv=None) -> int:
     done("2 parity")
     ns_err.update(phase_option_parity(torch, fm))
     done("2 option parity")
-    if not args.quick:
+    if args.tiles:
+        tiled = phase_tiles(torch, fm)
+        done("12 tiles")
+        print(f"tiles phase {spent['12 tiles']:.3f} s; launches by run "
+              f"{tiled}", flush=True)
+    elif not args.quick:
         rates = peaks(kind)
         timing = phase_timing(torch, fm, rates)[NORTH_STAR[3]]
         timing.update(phase_block_timing(torch, fm, rates))
@@ -3611,6 +3981,10 @@ def main(argv=None) -> int:
         done("11 fleet")
         print(f"fleet phase {spent['11 fleet']:.3f} s; launches "
               f"by run {fleet}", flush=True)
+        tiled = phase_tiles(torch, fm)
+        done("12 tiles")
+        print(f"tiles phase {spent['12 tiles']:.3f} s; launches by run "
+              f"{tiled}", flush=True)
         print(f"phase seconds {json.dumps(spent)}; "
               f"{time.perf_counter() - start:.3f} s in all", flush=True)
         kernels = []

@@ -192,11 +192,17 @@ def run_example(outdir: "str | None" = "./nmfx_out", **kwargs):
     return nmfconsensus(a, **defaults)
 
 
-def _as_matrix(data) -> tuple[np.ndarray, list[str]]:
+def _as_matrix(data) -> tuple:
+    from nmfx_torch.sparse import SparseMatrix
+
     if isinstance(data, str):
         data = read_dataset(data)
     if isinstance(data, Dataset):
         return np.asarray(data.values), list(data.col_names)
+    if isinstance(data, SparseMatrix):
+        # stays sparse end to end: sweep() streams it through the
+        # out-of-core tile pipeline without densifying
+        return data, [str(i + 1) for i in range(data.shape[1])]
     arr = np.asarray(data)
     return arr, [str(i + 1) for i in range(arr.shape[1])]
 
@@ -369,6 +375,16 @@ def nmfconsensus(
       ``solver_cfg.restart_chunk`` chunks. pg and alspg refuse
       ``backend="packed"``, as the reference does.
 
+    Out of core (``nmfx_torch/tiles.py``): ``data`` may be a
+    ``nmfx_torch.sparse.SparseMatrix`` or a ``.mtx`` / ``.csr.npz`` path
+    (it stays sparse), and ``solver_cfg.tile_rows`` (an int or "auto")
+    streams a dense host matrix. A stays on the host and its row blocks
+    stream to the device on every pass while W, H and the restart pool
+    stay resident there; every sparse input and every multi-tile plan
+    runs this way (mu and hals, random init), rank by rank. A dense plan
+    of one tile runs the routes above, byte-equal to the same call
+    without ``tile_rows``.
+
     Other settings raise ``NotImplementedError`` naming the ROADMAP item.
 
     ``device``: None means CUDA and raises if no CUDA device is present
@@ -435,10 +451,16 @@ def nmfconsensus(
     if harvest not in ("streamed", "sequential"):
         raise ValueError("harvest must be 'streamed' or 'sequential', got "
                          f"{harvest!r}")
+    from nmfx_torch.sparse import SparseMatrix
+
     arr, col_names = _as_matrix(data)
-    if not np.isfinite(arr).all():
+    sparse_input = isinstance(arr, SparseMatrix)
+    # a sparse input validates its stored nonzeros (the implicit zeros
+    # are finite and non-negative)
+    vals = arr.data if sparse_input else arr
+    if not np.isfinite(vals).all():
         raise ValueError("input matrix contains non-finite values")
-    if (arr < 0).any():
+    if (vals < 0).any():
         raise ValueError("input matrix must be non-negative")
     ks = tuple(ks)
     if not ks:
@@ -468,7 +490,7 @@ def nmfconsensus(
             # registry runs it (a checkpoint refuses exec_cache)
             route = (exec_cache.route(arr.shape, ccfg, scfg)
                      if exec_cache is not None and checkpoint_dir is None
-                     else None)
+                     and not sparse_input else None)
             rkey = key_for_array(arr, scfg, ccfg, icfg,
                                  request_quality(scfg), device=device,
                                  route=route)
@@ -494,6 +516,11 @@ def nmfconsensus(
     if checkpoint_dir is not None:
         from nmfx_torch.registry import SweepRegistry
 
+        if sparse_input or scfg.tile_rows is not None:
+            raise ValueError(
+                "checkpoint_dir (the legacy per-rank registry) does not "
+                "support sparse/tiled inputs; pass checkpoint= (the "
+                "durable chunked ledger) for out-of-core resume")
         registry = SweepRegistry.open(checkpoint_dir, arr, scfg, icfg,
                                       restarts, seed, label_rule,
                                       keep_factors)

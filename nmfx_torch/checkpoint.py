@@ -37,9 +37,20 @@ when the run reused records while solving new ones).
 A checkpointed run is byte-equal to every other checkpointed run of the
 same (data, config, plan), interrupted or not; against the
 non-checkpointed sweep it agrees to float tolerance (the device sums the
-consensus in float32 there). Left out, with ROADMAP §1 item 10: the
-out-of-core chunks (tiles, sparse inputs), their mid-chunk partials, and
-the shard heartbeats of the elastic runner.
+consensus in float32 there).
+
+Out-of-core chunks (``tile_rows`` set, or a
+``nmfx_torch.sparse.SparseMatrix`` input) run the streamed engine
+(``nmfx_torch/tiles.py``) from the host matrix, under the engine family
+"tiled"; the manifest also hashes the resolved tile plan (and a sparse
+input's triplet fingerprint), so another plan cold-starts. At every
+convergence check such a chunk writes a mid-matrix partial record
+(``k<k>_r<r0>-<r1>.part.npz``: the pool's state and carried Grams) and
+then passes ``proc.preempt``, so a rehearsed kill lands mid-matrix and
+the re-run resumes from the last partial, byte-equal to an
+uninterrupted run; the partial goes once the chunk's record is
+committed. Left out, with ROADMAP §1 item 10: the shard heartbeats of
+the elastic runner (``nmfx/distributed.py``).
 """
 
 from __future__ import annotations
@@ -131,12 +142,18 @@ def _note(solved: int = 0, loaded: int = 0) -> None:
 
 def engine_family(solver_cfg: SolverConfig) -> str:
     """The engine the chunk executor runs (``sweep._build_chunk_sweep_fn``),
-    in the reference's words: "pallas" and "packed" for mu's packed
-    solve (kernels or plain products), "vmap" for the batched restart
-    route of everything else. Hashed into the manifest, so a ledger never
-    resumes under another engine."""
+    in the reference's words: "tiled" under ``tile_rows`` (the streamed
+    engine), "pallas" and "packed" for mu's packed solve (kernels or
+    plain products), "vmap" for the batched restart route of everything
+    else. Hashed into the manifest, so a ledger never resumes under
+    another engine."""
     from nmfx_torch.sweep import _use_packed
 
+    if solver_cfg.tile_rows is not None:
+        # the streamed engine; a one-tile config that sweep() hands to
+        # the in-core path says "tiled" too (sweep() strips tile_rows
+        # before the ledger sees it), which only splits identities
+        return "tiled"
     if solver_cfg.backend == "pallas":
         return "pallas"
     return "packed" if _use_packed(solver_cfg) else "vmap"
@@ -166,11 +183,16 @@ def _env_info(device) -> dict:
             "device_kind": kind}
 
 
-def _fingerprint(a: np.ndarray, ccfg: ConsensusConfig, scfg: SolverConfig,
+def _fingerprint(a, ccfg: ConsensusConfig, scfg: SolverConfig,
                  icfg: InitConfig) -> str:
     """sha256 over everything that decides a record's numbers: the
-    input's content key, the covered solver/consensus fields (backend as
-    the engine family), the init config and the format version."""
+    input's content key (a sparse input's triplet fingerprint), the
+    covered solver/consensus fields (backend as the engine family), the
+    init config and the format version; an out-of-core run also hashes
+    its resolved tile plan, whose reduction order its floats follow."""
+    from nmfx_torch.sparse import SparseMatrix
+
+    sparse_input = isinstance(a, SparseMatrix)
     dkey = default_cache().key_for(a, scfg.dtype)
     covered = manifest_key_fields()
     solver = {name: getattr(scfg, name) for name in sorted(covered["solver"])}
@@ -186,6 +208,12 @@ def _fingerprint(a: np.ndarray, ccfg: ConsensusConfig, scfg: SolverConfig,
         "init": dataclasses.asdict(icfg),
         "format": _FORMAT_VERSION,
     }
+    if sparse_input:
+        payload["data"]["sparse"] = True
+    if scfg.tile_rows is not None or sparse_input:
+        from nmfx_torch import tiles as _tiles
+
+        payload["tile_plan"] = _tiles.plan_for(a, scfg).as_meta()
     return hashlib.sha256(json.dumps(payload, sort_keys=True,
                                      default=str).encode()).hexdigest()
 
@@ -303,7 +331,9 @@ class SweepCheckpoint:
     def open(cls, a, ccfg: ConsensusConfig, scfg: SolverConfig,
              icfg: InitConfig, cp_cfg: CheckpointConfig,
              device="cpu") -> "SweepCheckpoint":
-        arr = np.asarray(a)
+        from nmfx_torch.sparse import SparseMatrix
+
+        arr = a if isinstance(a, SparseMatrix) else np.asarray(a)
         return cls(cp_cfg.directory, _fingerprint(arr, ccfg, scfg, icfg),
                    _env_info(device),
                    plan_chunks(ccfg.restarts, cp_cfg.every_n_restarts),
@@ -418,6 +448,64 @@ class SweepCheckpoint:
         return rec
 
 
+    # -- mid-chunk partials (out-of-core solves) ----------------------------
+    def _partial_path(self, k: int, r0: int, r1: int) -> str:
+        return os.path.join(self.directory, f"k{k}_r{r0}-{r1}.part.npz")
+
+    def save_partial(self, k: int, r0: int, r1: int, payload) -> None:
+        """Write a tiled solve's mid-chunk state
+        (``tiles.partial_payload``) at a check, atomic and stamped with
+        the fingerprint like a record. A failed write warns once; only
+        the mid-matrix resume is lost."""
+        arrays = dict(payload)
+        arrays["record_fingerprint"] = np.asarray(self.fingerprint)
+        try:
+            with _trace.default_tracer().span(
+                    "ckpt.partial", cat="ckpt",
+                    args={"k": k, "r0": r0, "r1": r1}):
+                atomic_save_npz(self._partial_path(k, r0, r1), arrays)
+        except Exception as e:
+            faults.warn_once(
+                "ckpt-partial-write-failed",
+                f"failed to persist partial checkpoint k={k} "
+                f"r=[{r0},{r1}) ({e!r}); the solve continues — a "
+                "preemption before the next partial restarts this chunk "
+                "from its last durable snapshot")
+
+    def try_load_partial(self, k: int, r0: int, r1: int):
+        """A chunk's partial as the ``resume=`` payload of
+        ``tiles.run_tiled_pool``, or None for a missing, torn or foreign
+        one (one warning; the chunk starts from iteration zero). Passes
+        the ``ckpt.load`` site."""
+        path = self._partial_path(k, r0, r1)
+        if not os.path.exists(path):
+            return None
+        try:
+            faults.inject("ckpt.load")
+            with np.load(path, allow_pickle=False) as z:
+                if str(z["record_fingerprint"]) != self.fingerprint:
+                    raise ValueError("partial fingerprint does not match "
+                                     "the manifest")
+                payload = {name: z[name] for name in z.files
+                           if name != "record_fingerprint"}
+        except Exception as e:
+            faults.warn_once(
+                "ckpt-partial-corrupt",
+                f"partial checkpoint {path!r} is torn/corrupt/foreign "
+                f"({e!r}); discarding it and re-running the chunk from "
+                "iteration zero — results are unaffected")
+            return None
+        return payload
+
+    def clear_partial(self, k: int, r0: int, r1: int) -> None:
+        """Drop a chunk's partial once its record is committed (partials
+        are scaffolding, never results)."""
+        try:
+            os.unlink(self._partial_path(k, r0, r1))
+        except FileNotFoundError:
+            pass
+
+
 def _preempt_check(k: int, r0: int, r1: int) -> None:
     if faults.fire("proc.preempt"):
         raise Preempted(
@@ -426,15 +514,23 @@ def _preempt_check(k: int, r0: int, r1: int) -> None:
             "lost; every committed record survives for resume")
 
 
-def solve_chunk_host(a_dev: torch.Tensor, k: int, r0: int, r1: int,
+def solve_chunk_host(a_dev, k: int, r0: int, r1: int,
                      ccfg: ConsensusConfig, scfg: SolverConfig,
-                     icfg: InitConfig, keys=None):
+                     icfg: InitConfig, keys=None, ck=None, device=None):
     """Solve restarts ``[r0, r1)`` of rank ``k`` on A's device and bring
     the chunk's record to the host. ``keys`` is the rank's whole key
     array ``split(fold_in(key(seed), k), restarts)`` (computed here when
     absent), so a chunk's draws do not depend on which run solves it.
     The ``proc.preempt`` site fires after the solve, before the caller
-    can commit: the in-flight chunk is lost."""
+    can commit: the in-flight chunk is lost.
+
+    Out-of-core chunks (``scfg.tile_rows`` set, or a sparse ``a_dev``)
+    take the host matrix as ``a_dev`` and stream it to ``device``
+    through the tiled engine; with a ledger ``ck`` they resume from the
+    chunk's partial, write a partial at every check and pass
+    ``proc.preempt`` there, after the partial landed, so a rehearsed
+    kill lands mid-matrix."""
+    from nmfx_torch.sparse import SparseMatrix
     from nmfx_torch.sweep import _build_chunk_sweep_fn
 
     if scfg.backend == "sketched":
@@ -448,6 +544,29 @@ def solve_chunk_host(a_dev: torch.Tensor, k: int, r0: int, r1: int,
                              ccfg.restarts)
     poison = tuple(r - r0 for r in faults.poison_restarts(k, ccfg.restarts)
                    if r0 <= r < r1)
+    if scfg.tile_rows is not None or isinstance(a_dev, SparseMatrix):
+        from nmfx_torch import tiles
+
+        resume = ck.try_load_partial(k, r0, r1) if ck is not None else None
+        on_check = None
+        if ck is not None:
+            def on_check(step, state, carry):
+                ck.save_partial(k, r0, r1,
+                                tiles.partial_payload(state, carry, step))
+                # after the partial landed: a rehearsed kill here resumes
+                # from this very check
+                if faults.fire("proc.preempt"):
+                    raise Preempted(
+                        f"injected preemption mid-matrix at step {step} "
+                        f"of chunk k={k} r=[{r0},{r1}) — the partial "
+                        "snapshot just saved survives for resume")
+        out = tiles.solve_chunk_tiled(
+            a_dev, keys[r0:r1], k, scfg, icfg, ccfg.label_rule,
+            poison=poison, resume=resume, on_check=on_check, device=device)
+        host = type(out)(*(x.cpu().numpy() for x in out))
+        _note(solved=1)
+        _preempt_check(k, r0, r1)
+        return host
     fn = _build_chunk_sweep_fn(k, r1 - r0, scfg, icfg, ccfg.label_rule,
                                poison)
     out = fn(a_dev, keys[r0:r1])
@@ -531,8 +650,11 @@ def run_checkpointed_sweep(a, cfg: ConsensusConfig, solver_cfg: SolverConfig,
             "whole-pool and statistical) — drop the checkpoint or use "
             "an exact unscreened engine")
     check_ported(solver_cfg)
+    from nmfx_torch.sparse import SparseMatrix
+
     dev = resolve_device(device)
-    arr = np.asarray(a)
+    tiled = solver_cfg.tile_rows is not None or isinstance(a, SparseMatrix)
+    arr = a if isinstance(a, SparseMatrix) else np.asarray(a)
     ck = SweepCheckpoint.open(arr, cfg, solver_cfg, init_cfg, cp_cfg, dev)
     restore = install_signal_flush(ck)
     a_dev = None
@@ -553,8 +675,9 @@ def run_checkpointed_sweep(a, cfg: ConsensusConfig, solver_cfg: SolverConfig,
             solved_total += len(missing)
             if missing:
                 if a_dev is None:  # a fully resumed sweep copies nothing
-                    a_dev = place_resilient(arr, solver_cfg, dev,
-                                            profiler=profiler)
+                    # out-of-core chunks stream A from the host matrix
+                    a_dev = arr if tiled else place_resilient(
+                        arr, solver_cfg, dev, profiler=profiler)
                 keys = _random.split(
                     _random.fold_in(_random.key(cfg.seed), k), cfg.restarts)
                 for r0, r1 in missing:
@@ -562,12 +685,14 @@ def run_checkpointed_sweep(a, cfg: ConsensusConfig, solver_cfg: SolverConfig,
                         try:
                             rec = solve_chunk_host(a_dev, k, r0, r1, cfg,
                                                    solver_cfg, init_cfg,
-                                                   keys=keys)
+                                                   keys=keys, ck=ck,
+                                                   device=dev)
                         except Preempted:
                             ck.flush()  # committed work must survive
                             raise
                     with profiler.phase("checkpoint"):
                         ck.save(k, r0, r1, rec)
+                        ck.clear_partial(k, r0, r1)
                     recs[(r0, r1)] = rec
             with profiler.phase("ckpt.finalize"):
                 out[k] = _finalize_rank(k, recs, cfg, arr.shape)

@@ -18,15 +18,20 @@ reference's everywhere else.
 Refused, each with a usage error (exit 2) that names its ROADMAP item:
 
 * the scale engines (``ROADMAP_SCALE``): ``--backend sketched``,
-  ``--sketch-dim``, ``--screen``, ``--screen-keep``, ``--tile-rows``,
-  ``--tile-budget-bytes``, sparse ``.mtx``/``.csr.npz`` inputs,
+  ``--sketch-dim``, ``--screen``, ``--screen-keep``,
   ``--feature-shards``/``--sample-shards``/``--restart-shards`` above
-  1, and a mesh entry in ``--replica-mesh``;
+  1 (with or without tiles), and a mesh entry in ``--replica-mesh``;
 * serialized XLA executables (``ROADMAP_WARM``): ``--cache-dir`` and an
   explicit ``--compile-cache DIR``. The default ``--compile-cache``
   value and ``--no-compile-cache`` are accepted and do nothing: the
   kernels' libraries are cached by source hash already;
 * ``--autotune`` (``ROADMAP_TOOLING``).
+
+Out of core: ``--tile-rows N|auto`` (and ``--tile-budget-bytes``)
+streams a dense input through the tile pipeline, and a sparse ``.mtx`` /
+``.csr.npz`` dataset always streams; what does not compose with that
+(another algorithm, the kernels, the executable cache, the serving smoke
+run, ``--grid-exec grid``) is a usage error with the reference's words.
 
 Plots: the reference writes none when matplotlib is absent, and the
 port's ``save_results`` writes none; ``--no-plots`` is accepted.
@@ -145,8 +150,9 @@ def build_parser() -> argparse.ArgumentParser:
                     "kernels for NVIDIA Hopper (capabilities of "
                     "mschubert/NMFconsensus).")
     p.add_argument("dataset",
-                   help="input .gct or .res file (dense); sparse .mtx / "
-                        f".csr.npz inputs are not ported ({ROADMAP_SCALE})")
+                   help="input .gct or .res file (dense), or a sparse "
+                        ".mtx / .csr.npz file (streamed through the "
+                        "out-of-core tile pipeline)")
     p.add_argument("--ks", default="2-5", type=parse_ks,
                    help="ranks to sweep, e.g. '2-5' or '2,4,8' (default 2-5)")
     p.add_argument("--restarts", type=int, default=10,
@@ -182,12 +188,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "kl's m*n intermediates; results are identical)")
     p.add_argument("--tile-rows", default=None, type=_tile_rows_arg,
                    metavar="N|auto",
-                   help="out-of-core tile pipeline (not ported, "
-                        f"{ROADMAP_SCALE})")
+                   help="out-of-core tile pipeline "
+                        "(SolverConfig.tile_rows): stream A from the host "
+                        "in N-row feature blocks instead of keeping it on "
+                        "the device. 'auto' sizes tiles to the device "
+                        "budget (--tile-budget-bytes). mu/hals; where A "
+                        "fits in one tile the sweep is byte-equal to the "
+                        "dense one. Sparse .mtx/.csr.npz inputs stream "
+                        "regardless of this flag")
     p.add_argument("--tile-budget-bytes", type=int, default=None,
                    metavar="BYTES",
-                   help="device budget of the tile pipeline (not "
-                        f"ported, {ROADMAP_SCALE})")
+                   help="device-memory budget the 'auto' tile size is "
+                        "derived from (default: NMFX_TILE_BUDGET_BYTES "
+                        "env or 256 MiB; two tile buffers live at once "
+                        "— current + prefetched)")
     p.add_argument("--check-block", default="auto", type=_check_block_arg,
                    help="check blocks batched per scheduler trip "
                         "(SolverConfig.check_block): 'auto' (default) = "
@@ -374,28 +388,28 @@ def _resolve_device(parser, device):
 
 def main(argv: list[str] | None = None) -> int:
     """CLI entry. Wraps the run so the process-wide structured tracer
-    can never outlive this invocation's ``--trace-out``."""
+    and tile budget never outlive this invocation's ``--trace-out`` and
+    ``--tile-budget-bytes``."""
+    from nmfx_torch import tiles
     from nmfx_torch.obs import trace as obs_trace
 
     enabled_before = obs_trace.default_tracer().enabled
+    budget_before = tiles._budget_override
     try:
         return _run_cli(argv)
     finally:
         obs_trace.default_tracer().enabled = enabled_before
+        tiles._budget_override = budget_before
 
 
 def _refuse_unported(parser, args) -> None:
     """The usage errors of the options the port has not got, each
     naming its ROADMAP item."""
-    sparse_input = args.dataset.lower().endswith((".mtx", ".csr.npz"))
     for bad, what in (
             (args.backend == "sketched", "--backend sketched"),
             (args.sketch_dim is not None, "--sketch-dim"),
             (args.screen, "--screen"),
-            (args.screen_keep is not None, "--screen-keep"),
-            (args.tile_rows is not None, "--tile-rows"),
-            (args.tile_budget_bytes is not None, "--tile-budget-bytes"),
-            (sparse_input, "sparse inputs (.mtx / .csr.npz)")):
+            (args.screen_keep is not None, "--screen-keep")):
         if bad:
             parser.error(f"{what}: the scale engines are not ported yet "
                          f"({ROADMAP_SCALE})")
@@ -410,6 +424,57 @@ def _refuse_unported(parser, args) -> None:
             and not args.no_compile_cache):
         parser.error("--compile-cache: the port compiles no XLA program "
                      f"({ROADMAP_WARM}); drop the option")
+
+
+def _check_tiles(parser, args) -> None:
+    """The reference's usage errors for what does not compose with the
+    out-of-core tile pipeline, then ``--tile-budget-bytes`` applied."""
+    sparse_input = args.dataset.lower().endswith((".mtx", ".csr.npz"))
+    if args.tile_rows is not None or sparse_input:
+        from nmfx_torch.config import TILED_ALGORITHMS
+
+        what = ("--tile-rows" if args.tile_rows is not None
+                else "sparse inputs")
+        if args.algorithm not in TILED_ALGORITHMS:
+            parser.error(f"{what} require(s) the Gram-accumulating "
+                         f"update family: --algorithm "
+                         f"{'/'.join(TILED_ALGORITHMS)}")
+        if args.backend in ("pallas", "sketched") or args.screen:
+            parser.error(f"{what} stream(s) A tile-by-tile through the "
+                         "out-of-core engine; --backend pallas/sketched "
+                         "and --screen need the whole matrix device-"
+                         "resident — use --backend auto")
+        if args.feature_shards > 1 or args.sample_shards > 1 \
+                or args.restart_shards is not None:
+            parser.error(f"{what} do(es) not compose with --restart-"
+                         "shards/--feature-shards/--sample-shards (the "
+                         "tile stream owns one device; sharding across "
+                         "processes is not ported yet, "
+                         f"{ROADMAP_SCALE})")
+        if args.exec_cache or args.warm_shapes or args.cache_dir \
+                or args.pipeline_ranks:
+            parser.error(f"{what} do(es) not compose with --exec-cache/"
+                         "--warm-shapes/--cache-dir/--pipeline-ranks "
+                         "(the bucketed executable cache dispatches "
+                         "whole-matrix device solves)")
+        if args.serve_smoke:
+            parser.error(f"{what} do(es) not compose with --serve-smoke "
+                         "(served requests dispatch through the "
+                         "executable cache)")
+        if args.grid_exec == "grid":
+            parser.error(f"{what} solve(s) per rank over the tile "
+                         "stream; --grid-exec grid demands the whole-"
+                         "grid scheduler — use auto")
+    elif args.tile_budget_bytes is not None:
+        parser.error("--tile-budget-bytes requires --tile-rows (or a "
+                     "sparse .mtx/.csr.npz input)")
+    if args.tile_budget_bytes is not None:
+        from nmfx_torch import tiles
+
+        try:
+            tiles.set_tile_budget_bytes(args.tile_budget_bytes)
+        except ValueError as e:
+            parser.error(str(e))
 
 
 def _run_cli(argv: list[str] | None = None) -> int:
@@ -480,6 +545,7 @@ def _run_cli(argv: list[str] | None = None) -> int:
     meshed = args.restart_shards is not None
     if meshed and args.no_mesh:
         parser.error("--restart-shards conflicts with --no-mesh")
+    _check_tiles(parser, args)
     from nmfx_torch.config import ExperimentalConfig
 
     run_scfg = SolverConfig(algorithm=args.algorithm,
@@ -488,6 +554,7 @@ def _run_cli(argv: list[str] | None = None) -> int:
                             backend=args.backend,
                             restart_chunk=args.restart_chunk,
                             check_block=args.check_block,
+                            tile_rows=args.tile_rows,
                             experimental=ExperimentalConfig())
     ckpt_cfg = None
     if args.checkpoint_every is not None and args.checkpoint_every < 1:

@@ -2,9 +2,12 @@
 ``SolverConfig`` / ``ExperimentalConfig`` / ``InitConfig`` /
 ``ConsensusConfig`` that the port's routes read, with the reference's
 defaults and validation (``nmfx/config.py``). Fields of engines the port
-does not have yet (the sketched engine, screening, out-of-core tiles) are
-left out; ``nmfx_torch.convert`` refuses a reference configuration that
-sets one of them to a non-inert value.
+does not have yet (the sketched engine, screening) are left out;
+``nmfx_torch.convert`` refuses a reference configuration that sets one
+of them to a non-inert value. ``SolverConfig.tile_rows`` is the
+reference's: a set value routes mu and hals through the out-of-core tile
+pipeline (``nmfx_torch/tiles.py``), which streams A from the host to the
+card block by block.
 
 What the port runs is narrower than what validates: ``check_ported``
 raises ``NotImplementedError`` for a solver setting the port has no
@@ -29,6 +32,10 @@ LINKAGE_METHODS = ("average", "complete", "single")
 #: algorithms with a dense-batched block (``ops.grid_mu.BLOCKS``), the
 #: only ones ``backend="packed"`` accepts (reference ``PACKED_ALGORITHMS``)
 PACKED_ALGORITHMS = ("mu", "hals", "neals", "als", "snmf", "kl")
+#: algorithms with a Gram-accumulation form the out-of-core tile pipeline
+#: (``nmfx_torch/tiles.py``) can stream: each tile's contribution reduces
+#: into k×k / k×n Gram terms (reference ``TILED_ALGORITHMS``)
+TILED_ALGORITHMS = ("mu", "hals")
 #: backends with a route in the port: "pallas" runs the hand-written
 #: kernels; "auto", "vmap" and "packed" plain PyTorch products (the packed
 #: per-rank solve, the batched restart route or the dense slot-scheduler
@@ -155,6 +162,15 @@ class SolverConfig:
     #: chunks of this many (bounds kl's (chunk, m, n) quotients); None =
     #: all at once. Results do not depend on it
     restart_chunk: "int | None" = None
+    #: the out-of-core tile pipeline (``nmfx_torch/tiles.py``): A stays on
+    #: the host and streams to the device in feature-axis (row) blocks of
+    #: at most this many rows while W, H and the restart pool stay
+    #: resident. "auto" sizes the blocks to the tile budget
+    #: (``tiles.tile_budget_bytes``). A dense plan of one tile runs the
+    #: in-core engines unchanged (byte-equal); a multi-tile plan, and
+    #: every sparse input, runs the streamed engine family "tiled". mu
+    #: and hals only; random init only
+    tile_rows: "int | str | None" = None
 
     def __post_init__(self):
         if self.backend not in ("auto", "vmap", "packed", "pallas",
@@ -192,6 +208,22 @@ class SolverConfig:
                 f"'highest', got {self.matmul_precision!r}")
         if self.restart_chunk is not None and self.restart_chunk < 1:
             raise ValueError("restart_chunk must be >= 1 or None")
+        tr = self.tile_rows
+        if not (tr is None or tr == "auto"
+                or (isinstance(tr, int) and not isinstance(tr, bool)
+                    and tr >= 1)):
+            raise ValueError(
+                f"tile_rows must be None, 'auto' or an int >= 1, got {tr!r}")
+        if tr is not None and self.algorithm not in TILED_ALGORITHMS:
+            raise ValueError(
+                "tile_rows is only implemented for the Gram-accumulation "
+                f"algorithms {TILED_ALGORITHMS}, got "
+                f"algorithm={self.algorithm!r}")
+        if tr is not None and self.backend in ("pallas", "sketched"):
+            raise ValueError(
+                "tile_rows streams A through the tile pipeline's Gram "
+                "engines; it "
+                f"cannot combine with backend={self.backend!r}")
         if not 0.0 <= self.class_flip_tol < 1.0:
             raise ValueError(
                 f"class_flip_tol must be in [0, 1), got {self.class_flip_tol}")

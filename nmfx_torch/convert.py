@@ -19,8 +19,7 @@ from nmfx_torch.config import (ROADMAP_SCALE, CheckpointConfig,
 #: reference SolverConfig fields the port has no counterpart for, with
 #: the value under which each is inert on the port's routes (None =
 #: inert at any value: it configures an engine these routes never run)
-_INERT = {"sketch": None, "screen": False, "screen_keep": None,
-          "tile_rows": None}
+_INERT = {"sketch": None, "screen": False, "screen_keep": None}
 
 
 def _own_fields(cls, d: dict, inert: dict) -> dict:
@@ -35,7 +34,7 @@ def solver_config_from_dict(d: dict) -> SolverConfig:
     """The port's SolverConfig from ``dataclasses.asdict`` of a reference
     ``SolverConfig``, its nested ``experimental`` dict included. Raises
     ``NotImplementedError`` when the dict turns on something the port has
-    not got (screening, out-of-core tiles, an unported experimental knob)
+    not got (screening, an unported experimental knob)
     and ``ValueError`` on an unknown field."""
     kw = _own_fields(SolverConfig, d, _INERT)
     for name, inert in _INERT.items():

@@ -143,10 +143,20 @@ class DataCache:
 
     def key_for(self, a, dtype: str, device="cpu",
                 pad_shape: "tuple | None" = None) -> DataKey:
-        arr = np.ascontiguousarray(a)
-        digest = hashlib.sha256(arr.view(np.uint8).reshape(-1)).hexdigest()
-        return DataKey(fingerprint=digest, src_dtype=arr.dtype.str,
-                       shape=tuple(arr.shape), dtype=str(dtype),
+        from nmfx_torch.sparse import SparseMatrix
+
+        if isinstance(a, SparseMatrix):
+            # the canonical triplets' digest (it covers the shape and
+            # the value dtype too), never a densified copy
+            digest, src_dtype = a.fingerprint(), a.data.dtype.str
+            shape = a.shape
+        else:
+            arr = np.ascontiguousarray(a)
+            digest = hashlib.sha256(
+                arr.view(np.uint8).reshape(-1)).hexdigest()
+            src_dtype, shape = arr.dtype.str, arr.shape
+        return DataKey(fingerprint=digest, src_dtype=src_dtype,
+                       shape=tuple(shape), dtype=str(dtype),
                        pad_shape=None if pad_shape is None
                        else tuple(pad_shape),
                        device=_device_name(device))

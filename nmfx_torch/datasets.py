@@ -1,5 +1,6 @@
 """Synthetic dataset generators (copies of ``nmfx/datasets.py``'s
-``two_group_matrix`` and ``grouped_matrix``; same seed, same bits)."""
+``two_group_matrix``, ``grouped_matrix`` and ``make_sparse_design``;
+same seed, same bits)."""
 
 from __future__ import annotations
 
@@ -54,3 +55,37 @@ def grouped_matrix(
         col += size
     a = (a - a.min() + rng.uniform(0, 1)) / 10.0
     return np.ascontiguousarray(a)
+
+
+def make_sparse_design(
+    m: int,
+    n: int,
+    k: int,
+    density: float = 0.05,
+    seed: int = 0,
+):
+    """Planted sparse factorizable matrix: a non-negative rank-``k``
+    product W·H with block-structured factors, thinned by an independent
+    Bernoulli(``density``) mask — the shape of an scRNA-seq count matrix
+    (more than 90 % exact zeros, with a planted k-group structure a
+    consensus solve should recover). Returns a
+    ``nmfx_torch.sparse.SparseMatrix``; ``.toarray()`` densifies it.
+
+    The realized nnz is Binomial(m·n, density), so ``.density`` tracks
+    the requested density up to sampling noise."""
+    from nmfx_torch.sparse import SparseMatrix
+
+    if not 0.0 <= density <= 1.0:
+        raise ValueError(f"density must be in [0, 1], got {density!r}")
+    rng = np.random.default_rng(seed)
+    # each of the k components owns a row block (features) and a column
+    # block (samples), over a dense low-level background
+    w = rng.uniform(0.05, 0.3, size=(m, k))
+    h = rng.uniform(0.05, 0.3, size=(k, n))
+    for j in range(k):
+        w[(m * j) // k:(m * (j + 1)) // k, j] += rng.uniform(
+            2.0, 4.0, size=(m * (j + 1)) // k - (m * j) // k)
+        h[j, (n * j) // k:(n * (j + 1)) // k] += rng.uniform(
+            2.0, 4.0, size=(n * (j + 1)) // k - (n * j) // k)
+    mask = rng.random((m, n)) < density
+    return SparseMatrix.from_dense((w @ h) * mask)

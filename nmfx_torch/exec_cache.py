@@ -67,7 +67,8 @@ from nmfx_torch.sweep import (KSweepOutput, _attribute_dispatch,
                               bucketed_lane_init_fn, grid_exec_ok)
 
 __all__ = ["ExecCache", "PlacedMatrix", "WarmTask", "bucket_dim",
-           "compile_count", "start_host_fetch"]
+           "compile_count", "persist_key_fields", "solver_key_fields",
+           "start_host_fetch"]
 
 #: builds of cold bucket entries (the reference's count of
 #: ``.lower().compile()`` calls); :func:`compile_count` reads it
@@ -86,6 +87,27 @@ def compile_count() -> int:
     serving layer (cold entries only; a warm bucket builds nothing).
     Reads the registry counter ``nmfx_exec_compile_total``."""
     return int(_compile_total.total())
+
+
+def solver_key_fields() -> frozenset:
+    """The SolverConfig fields an entry's key covers. The key holds the
+    frozen SolverConfig value itself, whose ``__eq__`` / ``__hash__``
+    compare every field declared with ``compare=True``; a field left out
+    of the comparison would let two configs with different numbers (a
+    tiled and an in-core one, say) share a built sweep, and shows up
+    here."""
+    return frozenset(f.name for f in dataclasses.fields(SolverConfig)
+                     if f.compare)
+
+
+def persist_key_fields() -> frozenset:
+    """The SolverConfig fields the reference's persistent (disk) key
+    covers: that key is the ``repr`` of the in-memory one, which renders
+    the fields declared with ``repr=True``. The port keeps no disk tier
+    (``ExecCacheConfig.cache_dir`` is refused); the hook keeps the
+    reference's contract checkable."""
+    return frozenset(f.name for f in dataclasses.fields(SolverConfig)
+                     if f.repr)
 
 
 def bucket_dim(x: int, quantum: int, growth_steps: int = 8) -> int:

@@ -8,8 +8,11 @@ block is parsed and formatted by the port's C++ host library
 are written exactly as the reference package writes them (shortest
 round-trip digits, ``std::to_chars`` notation), so either package reads
 the other's files to the bit. ``gct_body_text`` is the Python formatter
-the native one is held to. The sparse formats (``.mtx``, ``.csr.npz``)
-are not ported yet.
+the native one is held to. The sparse formats (MatrixMarket ``.mtx``
+and the ``.csr.npz`` CSR bundle, :func:`read_mtx`, :func:`read_csr_npz`,
+:func:`write_csr_npz`) load as ``nmfx_torch.sparse.SparseMatrix``, the
+form the out-of-core tile pipeline streams without densifying; either
+package reads the other's files.
 """
 
 from __future__ import annotations
@@ -21,7 +24,6 @@ from typing import NamedTuple, Sequence
 import numpy as np
 
 from nmfx_torch import native
-from nmfx_torch.config import ROADMAP_SCALE
 
 
 class Dataset(NamedTuple):
@@ -36,18 +38,21 @@ class Dataset(NamedTuple):
         return self.values.shape
 
 
-def read_dataset(path: str) -> Dataset:
+def read_dataset(path: str):
     """Dispatch on file extension (reference ``read.dataset``,
-    nmf.r:261-269)."""
+    nmf.r:261-269, extended as ``nmfx`` extends it): GCT/RES load as a
+    :class:`Dataset`; ``.mtx`` and ``.csr.npz`` as a
+    ``nmfx_torch.sparse.SparseMatrix``."""
     lower = path.lower()
     if lower.endswith(".gct"):
         return read_gct(path)
     if lower.endswith(".res"):
         return read_res(path)
-    if lower.endswith((".mtx", ".csr.npz")):
-        raise NotImplementedError(
-            f"{path}: sparse inputs are not ported yet ({ROADMAP_SCALE})")
-    raise ValueError(f"Input is not a res/gct file: {path}")
+    if lower.endswith(".mtx"):
+        return read_mtx(path)
+    if lower.endswith(".csr.npz"):
+        return read_csr_npz(path)
+    raise ValueError(f"Input is not a res/gct/mtx/csr.npz file: {path}")
 
 
 #: rows per streamed parse batch (read_gct)
@@ -150,6 +155,82 @@ def read_res(path: str) -> Dataset:
             f"{path}: {values.shape[1]} value columns vs {len(col_names)} "
             "names")
     return Dataset(values, row_names, col_names)
+
+
+def read_mtx(path: str):
+    """Read a MatrixMarket coordinate file as a
+    ``nmfx_torch.sparse.SparseMatrix`` (numpy only). Supports the
+    ``matrix coordinate real|integer|pattern general`` header;
+    ``pattern`` entries load as 1.0. The file is 1-indexed and may
+    repeat an entry: repeats sum (``SparseMatrix.from_coo``)."""
+    from nmfx_torch.sparse import SparseMatrix
+
+    with open(path, "rb") as f:
+        banner = f.readline().decode().strip().lower().split()
+        if (len(banner) < 4 or banner[0] != "%%matrixmarket"
+                or banner[1] != "matrix" or banner[2] != "coordinate"):
+            raise ValueError(
+                f"{path}: expected a MatrixMarket 'matrix coordinate' "
+                f"banner, got {' '.join(banner)!r}")
+        field = banner[3]
+        if field not in ("real", "integer", "pattern"):
+            raise ValueError(
+                f"{path}: unsupported MatrixMarket field {field!r} "
+                "(real/integer/pattern)")
+        if len(banner) > 4 and banner[4] != "general":
+            raise ValueError(
+                f"{path}: only 'general' symmetry is supported, got "
+                f"{banner[4]!r}")
+        line = f.readline()
+        while line.startswith(b"%") or (line and not line.strip()):
+            line = f.readline()
+        dims = line.split()
+        if len(dims) != 3:
+            raise ValueError(f"{path}: malformed MatrixMarket size line")
+        m, n, nnz = int(dims[0]), int(dims[1]), int(dims[2])
+        ncols = 2 if field == "pattern" else 3
+        try:
+            trip = np.loadtxt(f, dtype=np.float64, comments="%",
+                              usecols=range(ncols), ndmin=2)
+        except ValueError as e:
+            raise ValueError(
+                f"{path}: malformed MatrixMarket entry ({e})") from e
+        if trip.shape[0] != nnz:
+            raise ValueError(
+                f"{path}: found {trip.shape[0]} entries, size line said "
+                f"{nnz}")
+    rows = trip[:, 0].astype(np.int64) - 1  # 1-indexed on disk
+    cols = trip[:, 1].astype(np.int64) - 1
+    vals = (np.ones(nnz, np.float64) if field == "pattern"
+            else trip[:, 2])
+    return SparseMatrix.from_coo(rows, cols, vals, (m, n))
+
+
+def read_csr_npz(path: str):
+    """Read the CSR bundle :func:`write_csr_npz` writes (an ``npz`` of
+    ``indptr``/``indices``/``data``/``shape``: no text parse, no
+    densify)."""
+    from nmfx_torch.sparse import SparseMatrix
+
+    with np.load(path, allow_pickle=False) as z:
+        try:
+            return SparseMatrix(indptr=z["indptr"], indices=z["indices"],
+                                data=z["data"],
+                                shape=tuple(int(x) for x in z["shape"]))
+        except (KeyError, ValueError) as e:
+            raise ValueError(
+                f"{path}: not a valid CSR bundle "
+                f"(indptr/indices/data/shape): {e}") from e
+
+
+def write_csr_npz(sp, path: str) -> None:
+    """Write a ``nmfx_torch.sparse.SparseMatrix`` as the ``.csr.npz``
+    bundle :func:`read_csr_npz` reads."""
+    parent = os.path.dirname(path)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+    np.savez(path, indptr=sp.indptr, indices=sp.indices, data=sp.data,
+             shape=np.asarray(sp.shape, np.int64))
 
 
 def _to_chars_double(v: float) -> str:

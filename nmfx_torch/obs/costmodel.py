@@ -28,9 +28,12 @@ The peak is the one of the device the dispatch ran on (the device A was
 placed on), never a process-wide default: a CPU device has no row and
 its verdict reads "unknown device peak".
 
-Left out, with the reason: the families of engines the port does not
-run yet (sketched and tiled: ROADMAP §1 item 10) and their sparse
-density hint; the XLA cross-check (``xla_iteration_cost`` and its
+The out-of-core family "tiled" (``nmfx_torch/tiles.py``) scales its
+data-sized terms by the stored-nonzero density of the sparse input the
+sweep routed (:func:`set_sparse_density`, 1.0 for a dense input).
+
+Left out, with the reason: the sketched engine's family, which the port
+does not run yet (ROADMAP §1 item 10); the XLA cross-check (``xla_iteration_cost`` and its
 ``_compile_*`` helpers), which differences XLA's compiled cost analysis
 and has no PyTorch counterpart; and the communication model
 (``comm_model``, ``xla_comm_cost``) and the multi-device weighting of
@@ -53,6 +56,7 @@ __all__ = [
     "enable_attribution", "engine_universe", "iteration_bytes",
     "iteration_flops", "perf_report", "perf_summary",
     "recent_attributions", "reset_perf", "set_device_peak",
+    "set_sparse_density", "sparse_density",
 ]
 
 #: algorithms deliberately WITHOUT a cost model: pg/alspg spend
@@ -115,6 +119,39 @@ def _als_flops(m, n, k, cfg=None):
     twin), plus the (m, k)/(n, k) SVD itself with a LAPACK constant of
     8 — 4mnk + 10k²(m+n)."""
     return 4.0 * m * n * k + 10.0 * k * k * (m + n)
+
+
+#: stored-nonzero density of the sparse input the tiled dispatches
+#: contract (1.0 = dense input). A module-level hint, because the
+#: attribution call sites carry only (m, n, iteration counts): the sweep
+#: stamps it when it routes an input to the tiled engine
+#: (``sweep._sweep_tiled``)
+_sparse_density = 1.0
+
+
+def set_sparse_density(density: float) -> None:
+    """Record the stored-nonzero density of the input the next tiled
+    dispatches contract: the tiled models scale their data-sized FLOP
+    and byte terms by it (sparse NMF pays for nnz, not m·n)."""
+    global _sparse_density
+    d = float(density)
+    if not 0.0 <= d <= 1.0:
+        raise ValueError(f"density must be in [0, 1], got {density!r}")
+    _sparse_density = d
+
+
+def sparse_density() -> float:
+    """The current sparse-density hint the tiled models apply."""
+    return _sparse_density
+
+
+def _tiled_flops(m, n, k, cfg=None):
+    """Out-of-core tiled mu/hals iteration: the in-core leading-order
+    math — two data-sized contractions and the k²-sized Gram products —
+    with the data terms over stored nonzeros only, scaled by the
+    density hint: 4·d·mnk + 4k²(m + n)."""
+    return (4.0 * _sparse_density * m * n * k
+            + 4.0 * k * k * (m + n))
 
 
 # --------------------------------------------------------------------------
@@ -228,6 +265,30 @@ def _pallas_hals_bytes(m, n, k, cfg=None, family="pallas"):
     return _pallas_block_bytes(m, n, k, cfg, "hals")
 
 
+def _tiled_bytes_common(m, n, k, cfg, factor_passes):
+    """The tiled byte model (the reference's): one pass over A an
+    iteration — m×n values for a dense source, or the stored payload
+    d·mn·(itemsize + 8) for a sparse one (a value and a (row, col) int32
+    pair per nonzero) — plus the factor-sized passes."""
+    s = _itemsize(cfg)
+    d = _sparse_density
+    if d < 1.0:
+        a_bytes = d * m * n * (s + 8.0)
+    else:
+        a_bytes = m * n * s
+    return a_bytes + factor_passes * (m * k + k * n) * s
+
+
+def _tiled_mu_bytes(m, n, k, cfg=None, family="tiled"):
+    return _tiled_bytes_common(m, n, k, cfg, 8.0)
+
+
+def _tiled_hals_bytes(m, n, k, cfg=None, family="tiled"):
+    # the k coordinate passes re-touch the updating factor, as in the
+    # in-core hals model
+    return _tiled_bytes_common(m, n, k, cfg, 8.0 + 5.0 * k)
+
+
 #: THE coverage declaration: one literal entry per routed (algorithm,
 #: engine-family) pair. Spelled out rather than generated from the
 #: routing tables — a generated table would vacuously "cover" any new
@@ -236,9 +297,11 @@ _FLOPS = {
     ("mu", "vmap"): _mu_flops,
     ("mu", "packed"): _mu_flops,
     ("mu", "pallas"): _mu_flops,
+    ("mu", "tiled"): _tiled_flops,
     ("hals", "vmap"): _hals_flops,
     ("hals", "packed"): _hals_flops,
     ("hals", "pallas"): _hals_flops,
+    ("hals", "tiled"): _tiled_flops,
     ("kl", "vmap"): _kl_flops,
     ("kl", "packed"): _kl_flops,
     ("als", "vmap"): _als_flops,
@@ -253,9 +316,11 @@ _BYTES = {
     ("mu", "vmap"): _mu_bytes,
     ("mu", "packed"): _mu_bytes,
     ("mu", "pallas"): _pallas_mu_bytes,
+    ("mu", "tiled"): _tiled_mu_bytes,
     ("hals", "vmap"): _hals_bytes,
     ("hals", "packed"): _hals_bytes,
     ("hals", "pallas"): _pallas_hals_bytes,
+    ("hals", "tiled"): _tiled_hals_bytes,
     ("kl", "vmap"): _kl_bytes,
     ("kl", "packed"): _kl_bytes,
     ("als", "vmap"): _als_bytes,
@@ -281,8 +346,9 @@ def engine_universe() -> "frozenset[tuple[str, str]]":
     registry (``nmfx_torch.solvers.SOLVERS``), the packed algorithm
     tuple (``config.PACKED_ALGORITHMS``) and the slot-scheduler backend
     table (``sweep._GRID_EXEC_BACKENDS``, whose 'pallas' entries mark
-    the kernel-capable algorithms) — minus :data:`COSTMODEL_EXEMPT`."""
-    from nmfx_torch.config import PACKED_ALGORITHMS
+    the kernel-capable algorithms) and the tiled algorithm tuple
+    (``config.TILED_ALGORITHMS``) — minus :data:`COSTMODEL_EXEMPT`."""
+    from nmfx_torch.config import PACKED_ALGORITHMS, TILED_ALGORITHMS
     from nmfx_torch.solvers import SOLVERS
     from nmfx_torch.sweep import _GRID_EXEC_BACKENDS
 
@@ -295,6 +361,8 @@ def engine_universe() -> "frozenset[tuple[str, str]]":
             pairs.add((algo, "packed"))
         if "pallas" in _GRID_EXEC_BACKENDS.get(algo, ()):
             pairs.add((algo, "pallas"))
+        if algo in TILED_ALGORITHMS:
+            pairs.add((algo, "tiled"))
     return frozenset(pairs)
 
 

@@ -26,8 +26,9 @@ seed) is served its finished result instead of solving again:
   the card (``serve.dispatch_count``, ``data_cache.transfer_count`` and
   ``h2d_bytes`` stay put).
 
-Sparse inputs are not ported (ROADMAP §1 item 10): :func:`key_for_array`
-hashes dense host arrays.
+:func:`key_for_array` hashes a dense host array's bytes, or a
+``nmfx_torch.sparse.SparseMatrix``'s canonical triplets (never a
+densified copy).
 """
 
 from __future__ import annotations
@@ -189,8 +190,15 @@ def key_for_array(a, scfg: SolverConfig = SolverConfig(),
                   icfg: InitConfig = InitConfig(),
                   quality: str = "exact", *, device=None,
                   route: "dict | None" = None) -> str:
-    """Content-hash a dense host matrix (one sha256 pass over its bytes)
-    and key it (:func:`result_key`)."""
+    """Content-hash a host matrix (one sha256 pass over a dense array's
+    bytes, or a sparse matrix's triplet fingerprint) and key it
+    (:func:`result_key`)."""
+    from nmfx_torch.sparse import SparseMatrix
+
+    if isinstance(a, SparseMatrix):
+        return result_key(a.fingerprint(), tuple(a.shape),
+                          a.data.dtype.str, scfg, ccfg, icfg, quality,
+                          device=device, route=route)
     arr = np.ascontiguousarray(a)
     digest = hashlib.sha256(arr.view(np.uint8).reshape(-1)).hexdigest()
     return result_key(digest, tuple(arr.shape), arr.dtype.str, scfg, ccfg,

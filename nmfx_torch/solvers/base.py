@@ -156,7 +156,7 @@ def class_labels(h: torch.Tensor) -> torch.Tensor:
 def clamp(x: torch.Tensor, zero_threshold: float) -> torch.Tensor:
     """Zero out negatives and sub-threshold values (reference
     ZERO_THRESHOLD clamp)."""
-    return torch.where(x <= zero_threshold, torch.zeros_like(x), x)
+    return torch.where(x <= zero_threshold, 0.0, x)
 
 
 def solve_gram_reg(gram: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -347,6 +347,13 @@ def solve(a, w0, h0, cfg=None, *, device=None) -> SolverResult:
         raise NotImplementedError(
             "matmul_precision='bfloat16' on the single-restart route, which "
             f"reaches no kernel, is not ported yet ({ROADMAP_DTYPES})")
+    if cfg.tile_rows is not None:
+        # this signature takes the whole A; the out-of-core streaming
+        # loop lives at the sweep layer
+        raise ValueError(
+            "tile_rows streams A from host through nmfx_torch.tiles; "
+            "solve() is the in-core single-restart engine (sweep() routes "
+            "tiled configs automatically)")
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"dtype must be one of {tuple(_DTYPES)}, got "
                          f"{cfg.dtype!r}")

@@ -26,8 +26,7 @@ def _mu_update(prev: torch.Tensor, numer: torch.Tensor,
                denom: torch.Tensor, div_eps: float,
                zero_threshold: float) -> torch.Tensor:
     ratio = prev * (numer / (denom + div_eps))
-    ratio = torch.where((prev == 0) | (numer == 0),
-                        torch.zeros_like(ratio), ratio)
+    ratio = torch.where((prev == 0) | (numer == 0), 0.0, ratio)
     return clamp(ratio, zero_threshold)
 
 

@@ -52,6 +52,13 @@ Under a real ``Profiler`` each solve dispatch (``"sweep.grid"``, and
 (``nmfx_torch.obs.costmodel``: model FLOPs and bytes, MFU and the
 roofline verdict against the peak of A's device).
 
+Out-of-core inputs (``nmfx_torch/tiles.py``): a ``SolverConfig.tile_rows``
+or a ``nmfx_torch.sparse.SparseMatrix`` input is routed before anything
+else. A dense input whose plan is one tile runs the in-core routes with
+``tile_rows`` stripped (byte-equal to the dense sweep); a multi-tile
+dense plan and every sparse input run the streamed engine rank by rank
+(:func:`_sweep_tiled`), A staying on the host.
+
 The job-grid API (:class:`RestartResult`, :func:`grid_cells`,
 :func:`reduce_grid`, :func:`consensus_from_cells`; the reference's
 ``reduceGridBy``) reduces a ``keep_factors=True`` sweep on the host.
@@ -59,6 +66,7 @@ The job-grid API (:class:`RestartResult`, :func:`grid_cells`,
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import NamedTuple, Sequence
 
@@ -139,10 +147,15 @@ def _use_packed(solver_cfg: SolverConfig) -> bool:
 
 def resolve_engine_family(solver_cfg: SolverConfig) -> str:
     """The engine family a configuration runs, in the reference's words:
+    "tiled" (the out-of-core tile pipeline: ``tile_rows`` is set; a
+    one-tile config that ``sweep`` hands to the in-core path says
+    "tiled" here too, which only splits identities of equal programs),
     "pallas" (the hand-written kernels), "packed" (mu's packed solve or
     the dense slot scheduler) or "vmap" (the batched restart route).
     Families sum products in other orders, so a registry never crosses
     them."""
+    if solver_cfg.tile_rows is not None:
+        return "tiled"
     if solver_cfg.backend == "pallas":
         return "pallas"
     if _use_packed(solver_cfg) or grid_exec_ok(solver_cfg):
@@ -593,8 +606,18 @@ def sweep_one_k(a: torch.Tensor, key: np.ndarray, k: int, restarts: int,
     through the slot scheduler at this one rank (``grid_slots`` wide,
     with the ``grid_tail_slots`` cascade); everything else on the
     batched restart route. The parameters are the reference's, in its
-    order; ``mesh`` must be None."""
+    order; ``mesh`` must be None. ``tile_rows`` is refused: ``sweep``
+    routes it."""
     _refuse_mesh(mesh)
+    if solver_cfg.tile_rows is not None:
+        # sweep() owns the out-of-core routing (one-tile delegation
+        # included), because it runs before A is placed on the device
+        raise ValueError(
+            "tile_rows is routed by sweep() (which delegates one-tile "
+            "dense configs to this in-core path and streams the rest "
+            "through nmfx_torch.tiles); call sweep(), or "
+            "nmfx_torch.tiles.sweep_one_k_tiled for the streaming engine "
+            "directly")
     if _use_packed(solver_cfg):
         fn = _build_packed_sweep_fn(k, restarts, solver_cfg, init_cfg,
                                     label_rule, keep_factors)
@@ -612,7 +635,11 @@ def sweep_one_k(a: torch.Tensor, key: np.ndarray, k: int, restarts: int,
 def grid_exec_ok(solver_cfg: SolverConfig) -> bool:
     """Whether the whole-grid slot scheduler can run this configuration:
     an algorithm with a dense-batched block under a backend that routes
-    it there (``_GRID_EXEC_BACKENDS``)."""
+    it there (``_GRID_EXEC_BACKENDS``), with A on the device (not under
+    ``tile_rows``; the executable cache's serving contract reads this
+    too)."""
+    if solver_cfg.tile_rows is not None:
+        return False
     return solver_cfg.backend in _GRID_EXEC_BACKENDS.get(
         solver_cfg.algorithm, ())
 
@@ -700,9 +727,30 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
     (``CheckpointConfig``): run through the durable ledger
     (``nmfx_torch.checkpoint.run_checkpointed_sweep``); not with
     ``registry``.
+
+    Out-of-core routing comes first: with ``solver_cfg.tile_rows`` set
+    or a ``nmfx_torch.sparse.SparseMatrix`` input, a dense plan of one
+    tile runs on with ``tile_rows`` stripped (byte-equal to the dense
+    sweep, under the dense identity in every key downstream); a
+    multi-tile plan and every sparse input run the streamed engine
+    (:func:`_sweep_tiled`).
     """
     if profiler is None:
         profiler = NullProfiler()
+    from nmfx_torch.sparse import SparseMatrix
+
+    sparse_input = isinstance(a, SparseMatrix)
+    if solver_cfg.tile_rows is not None or sparse_input:
+        from nmfx_torch import tiles as _tiles
+
+        plan = _tiles.plan_for(a, solver_cfg)
+        if plan.n_tiles == 1 and not sparse_input:
+            solver_cfg = dataclasses.replace(solver_cfg, tile_rows=None)
+        else:
+            return _sweep_tiled(a, plan, cfg, solver_cfg, init_cfg,
+                                device=device, registry=registry,
+                                profiler=profiler, on_rank=on_rank,
+                                checkpoint=checkpoint)
     if checkpoint is not None:
         if registry is not None:
             raise ValueError(
@@ -796,9 +844,69 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
     return {k: out[k] for k in cfg.ks}
 
 
+def _sweep_tiled(a, plan, cfg: ConsensusConfig, solver_cfg: SolverConfig,
+                 init_cfg: InitConfig, *, device=None, registry=None,
+                 profiler=None, on_rank=None,
+                 checkpoint=None) -> dict[int, KSweepOutput]:
+    """The out-of-core arm of :func:`sweep` (the reference's
+    ``_sweep_tiled``): ranks one after another through the streamed
+    engine (``nmfx_torch/tiles.py``), with the canonical per-rank key
+    ``fold_in(key(seed), k)``, each rank's host copies started at its
+    ``on_rank`` site as on the per-rank route. A stays on the host (the
+    stream owns every transfer), so the input cache, the whole grid and
+    the executable cache do not apply. The legacy registry and
+    ``grid_exec="grid"`` are refused; ``checkpoint`` runs the durable
+    ledger, with partials at every check."""
+    from nmfx_torch import tiles as _tiles
+    from nmfx_torch.sparse import SparseMatrix
+
+    if registry is not None:
+        raise ValueError(
+            "out-of-core sweeps checkpoint mid-matrix through the "
+            "durable chunk ledger (pass checkpoint=CheckpointConfig()); "
+            "the legacy per-rank registry has no partial-pass records")
+    if cfg.grid_exec == "grid":
+        raise ValueError(
+            "grid_exec='grid' is the in-core whole-grid solve; "
+            "tiled/sparse sweeps run the streaming engine per rank "
+            "(use grid_exec='auto')")
+    check_ported(solver_cfg)
+    if checkpoint is not None:
+        from nmfx_torch.checkpoint import run_checkpointed_sweep
+
+        return run_checkpointed_sweep(a, cfg, solver_cfg, init_cfg,
+                                      checkpoint, device=device,
+                                      profiler=profiler, on_rank=on_rank)
+    costmodel.set_sparse_density(
+        a.density if isinstance(a, SparseMatrix) else 1.0)
+    dev = resolve_device(device)
+    # the cost model's family is the engine's, "tiled", also for a
+    # sparse input without tile_rows (one whole-matrix tile)
+    model_cfg = dataclasses.replace(solver_cfg, tile_rows=plan.tile_rows)
+    root = _random.key(cfg.seed)
+    out: dict[int, KSweepOutput] = {}
+    for k in cfg.ks:
+        t0 = time.perf_counter()
+        with profiler.phase(f"solve.k={k}") as sync:
+            res = sync(_tiles.sweep_one_k_tiled(
+                a, _random.fold_in(root, k), k, cfg.restarts, solver_cfg,
+                init_cfg, cfg.label_rule, cfg.keep_factors, profiler,
+                faults.poison_restarts(k, cfg.restarts), plan=plan,
+                device=dev))
+        with profiler.phase("xfer.overlap"):
+            out[k] = res._replace(fetch=start_host_fetch(res))
+        if on_rank is not None:
+            on_rank(k, out[k])
+        _attribute_dispatch("sweep.k", model_cfg, None, {k: out[k]},
+                            time.perf_counter() - t0, profiler,
+                            shape=(plan.m, plan.n), device=dev)
+    return {k: out[k] for k in cfg.ks}
+
+
 def _attribute_dispatch(kind: str, solver_cfg: SolverConfig,
                         a_dev: torch.Tensor, outs: dict, wall_s: float,
-                        profiler, shape: "tuple | None" = None) -> None:
+                        profiler, shape: "tuple | None" = None,
+                        device=None) -> None:
     """Per-dispatch roofline attribution (``nmfx_torch.obs.costmodel``):
     annotate a just-measured solve dispatch with its model FLOPs/bytes
     against the peak of A's device. Only under a real ``Profiler``,
@@ -813,7 +921,8 @@ def _attribute_dispatch(kind: str, solver_cfg: SolverConfig,
     iters = {k: fetch_host(v).iterations for k, v in outs.items()}
     m, n = a_dev.shape if shape is None else shape
     costmodel.attribute_dispatch(kind, solver_cfg, m, n, iters, wall_s,
-                                 device=a_dev.device)
+                                 device=a_dev.device if device is None
+                                 else device)
 
 
 class RestartResult(NamedTuple):

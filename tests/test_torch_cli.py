@@ -162,8 +162,11 @@ def test_router_main_usage_errors_match_reference(gct, tmp_path, capsys):
     (["--sketch-dim", "4"], "item 10"),
     (["--screen", "--screen-keep", "2"], "item 10"),
     (["--screen-keep", "2"], "item 10"),
-    (["--tile-rows", "16"], "item 10"),
-    (["--tile-budget-bytes", "1024"], "item 10"),
+    # tiles run since the tile pipeline was ported; on a mesh they
+    # stay refused
+    (["--tile-rows", "16", "--feature-shards", "2"], "item 10"),
+    (["--tile-budget-bytes", "1024", "--tile-rows", "auto",
+      "--restart-shards", "2"], "item 10"),
     (["--feature-shards", "2"], "item 10"),
     (["--sample-shards", "2"], "item 10"),
     (["--restart-shards", "2"], "item 10"),
@@ -184,7 +187,10 @@ def test_unported_options_refused_naming_roadmap(gct, tmp_path, capsys,
 def test_unported_inputs_and_router_cache_refused(tmp_path, capsys):
     mtx = tmp_path / "a.mtx"
     mtx.write_text("%%MatrixMarket matrix coordinate real general\n")
-    code, msg = _usage_error(pcli.main, [str(mtx), *CPU], capsys)
+    # sparse inputs stream since the tile pipeline was ported; on a mesh
+    # they stay refused
+    code, msg = _usage_error(pcli.main, [str(mtx), "--feature-shards", "2",
+                                         *CPU], capsys)
     assert code == 2 and "ROADMAP §1 item 10" in msg
     code, msg = _usage_error(
         pcli.router_main, [str(mtx), "--cache-dir", str(tmp_path), *CPU],

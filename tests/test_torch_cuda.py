@@ -545,3 +545,41 @@ def test_sched_options_on_card_match_cpu(card, option):
     assert torch.equal(got.iterations.cpu(), want.iterations)
     assert torch.equal(got.stop_reason.cpu(), want.stop_reason)
     assert torch.equal(got.h.cpu().argmax(dim=1), want.h.argmax(dim=1))
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+def test_tiled_sweep_streams_on_card(card, sparse):
+    """The out-of-core tile stream on the card (pinned staging buffers,
+    the copy stream, its events): prefetch on and off byte-equal, every
+    pass's bytes counted, and the card's run at the agreement tier with
+    the CPU's (min ARI >= 0.9, max rho gap <= 0.1, the JAX package's
+    tiled-against-dense gate)."""
+    import nmfx_torch
+    from nmfx_torch import tiles
+    from nmfx_torch.agreement import consensus_agreement
+    from nmfx_torch.datasets import make_sparse_design, two_group_matrix
+
+    data = (make_sparse_design(300, 60, k=3, density=0.1, seed=4) if sparse
+            else two_group_matrix(300, 30, seed=4))
+    scfg = SolverConfig(max_iter=120, tile_rows=70)
+    kw = dict(ks=(2, 3), restarts=6, seed=3, solver_cfg=scfg)
+    bytes0 = tiles._tile_h2d_bytes_total.total()
+    passes0 = tiles._tile_passes_total.total()
+    on = nmfx_torch.nmfconsensus(data, **kw)
+    sent = tiles._tile_h2d_bytes_total.total() - bytes0
+    passes = tiles._tile_passes_total.total() - passes0
+    if not sparse:
+        assert sent == passes * data.size * 4
+    tiles.set_tile_prefetch(False)
+    try:
+        off = nmfx_torch.nmfconsensus(data, **kw)
+    finally:
+        tiles.set_tile_prefetch(True)
+    cpu = nmfx_torch.nmfconsensus(data, device="cpu", **kw)
+    for k in (2, 3):
+        for field in ("consensus", "iterations", "dnorms", "stop_reasons",
+                      "best_w", "best_h"):
+            assert (np.asarray(getattr(on.per_k[k], field)).tobytes()
+                    == np.asarray(getattr(off.per_k[k], field)).tobytes())
+    rep = consensus_agreement(on, cpu)
+    assert rep["min_ari"] >= 0.9 and rep["max_rho_gap"] <= 0.1

@@ -58,8 +58,19 @@ def test_res_and_dataset_readers_match_reference(tmp_path):
     assert got.row_names == want.row_names and got.col_names == want.col_names
     got2 = tio.read_dataset(str(path))
     np.testing.assert_array_equal(got2.values, want.values)
-    with pytest.raises(NotImplementedError):
-        tio.read_dataset(str(tmp_path / "x.mtx"))
+    # the sparse formats dispatch as the reference's do since the tile
+    # pipeline was ported (tests/test_torch_sparse.py holds the readers)
+    mtx = tmp_path / "x.mtx"
+    mtx.write_text("%%MatrixMarket matrix coordinate real general\n"
+                   "2 3 2\n1 2 0.5\n2 3 4\n")
+    assert (tio.read_dataset(str(mtx)).fingerprint()
+            == jio.read_dataset(str(mtx)).fingerprint())
+    for bad in (tmp_path / "x.txt", tmp_path / "x.npz"):
+        with pytest.raises(ValueError) as got_err:
+            tio.read_dataset(str(bad))
+        with pytest.raises(ValueError) as want_err:
+            jio.read_dataset(str(bad))
+        assert str(got_err.value) == str(want_err.value)
 
 
 @pytest.mark.parametrize("args", [(200, 12, 3), (1000, 20, 123)])
