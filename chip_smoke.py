@@ -3,14 +3,16 @@
 versions.
 
     python3 chip_smoke.py            # every phase, one card
-    python3 chip_smoke.py --quick    # build + kernel parity only
+    python3 chip_smoke.py --quick    # build + kernel parity + split
     python3 chip_smoke.py --tiles    # build + kernel parity + phase 12
 
 Phases (any failure exits non-zero; nothing is caught):
   1. card and build: nvidia-smi's name and power limit, the nvcc build
      (one nvcc per source, all started together) and the host library's
-     g++ build, and each block kernel function's registers, shared
-     memory and spills (ptxas -v);
+     g++ build, each block kernel function's registers, shared memory
+     and spills (ptxas -v), and each instantiation of the kernels that
+     run the product tiles with its HGMMA count from cuobjdump -sass
+     (every bf16 one must issue wgmma, no float32 one may);
   2. kernel parity: each kernel against its plain PyTorch version at the
      north-star shape, a ragged shape and with planted exact zeros (the
      block kernels also with frozen lanes, budgets that run out
@@ -33,7 +35,9 @@ Phases (any failure exits non-zero; nothing is caught):
   3. kernel timing (CUDA events, median of 25 after warm-up) beside the
      plain version, a torch.matmul composite and the card's bound, also
      for the option variants the option paths run (a bf16 variant's
-     bound counts A at 2 bytes and the bf16 tensor-core peak);
+     bound counts A at 2 bytes and the bf16 tensor-core peak; beside the
+     float32 composite, the same composite on bf16 tensors) and for the
+     join-the-updates block kernel under bf16 operands (row 4);
   4. the main paths, each with every kernel's launch count set to 0 just
      before it and read just after, on the 5000x500 two-group matrix,
      ks 2..10, 50 restarts:
@@ -288,6 +292,60 @@ def print_resources(build, lib: str) -> None:
               f"registers, {r['smem']} bytes static shared memory, "
               f"{r['stack']} bytes stack, spill stores {r['spill_stores']} "
               f"/ loads {r['spill_loads']} bytes", flush=True)
+
+
+#: the kernels that run block_gemm.cuh's product tiles, each with the
+#: position and value of the template argument that makes an
+#: instantiation bf16: those must issue HGMMA (wgmma) in their SASS, the
+#: float32 ones must not (their fmaf chains stay)
+TILE_KERNELS = {"h_numer_split": (2, "unsigned short"),
+                "h_numer_gram": (2, "unsigned short"),
+                "w_block_update": (1, "true"), "wh_pass": (1, "true"),
+                "w_sweep_tile": (1, "true"), "w_numer_store": (1, "true")}
+
+
+def print_hgmma(build, lib: str) -> None:
+    """One line per instantiation of a TILE_KERNELS kernel in the built
+    csrc/<lib>.cu library: its HGMMA count in the SASS (cuobjdump -sass),
+    beside whether it is a bf16 one. Fails if a bf16 instantiation has
+    none or a float32 one has any."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build.library_path(lib))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        hit = re.match(r"\s*Function : (\S+)", line)
+        if hit:
+            name = hit.group(1)
+            counts[name] = 0
+        elif name is not None and "HGMMA" in line:
+            counts[name] += 1
+    names = subprocess.run(["c++filt"], input="\n".join(counts),
+                           capture_output=True, text=True, check=True,
+                           timeout=60).stdout.splitlines()
+    seen = 0
+    for pretty, count in sorted(zip(names, counts.values())):
+        pretty = pretty.replace("(anonymous namespace)::", "")
+        pretty = pretty.removeprefix("void ").split("(")[0]
+        base, _, args = pretty.partition("<")
+        if base not in TILE_KERNELS:
+            continue
+        pos, value = TILE_KERNELS[base]
+        bf16 = [x.strip() for x in args.rstrip(">").split(",")][pos] == value
+        seen += 1
+        print(f"sass {lib} {pretty}: {count} HGMMA "
+              f"({'bf16' if bf16 else 'float32'} instantiation)", flush=True)
+        if bf16 != (count > 0):
+            raise AssertionError(f"{lib} {pretty}: {count} HGMMA in a "
+                                 f"{'bf16' if bf16 else 'float32'} "
+                                 "instantiation")
+    if not seen:
+        raise AssertionError(f"no product-tile kernel found in {lib}'s SASS")
 
 
 def peaks(name: str) -> tuple[float, float]:
@@ -1645,10 +1703,10 @@ BF16_RTOL = 2e-3
 #: the neighbouring bf16 value, one ulp (at most 2^-7 of it) away, so
 #: check_exact allows one ulp at the output's largest magnitude
 POOL_ULP = 2.0 ** -7
-#: the tolerated bf16 bound's peak: dense bf16 tensor-core FLOP/s of an
-#: H100 SXM (NVIDIA's data sheet, without sparsity); the bf16 variants run
-#: on the CUDA cores in float32, so this is the least time the card could
-#: take for the work, not what these kernels aim at
+#: the bf16 bound's peak: dense bf16 tensor-core FLOP/s of an H100 SXM
+#: (NVIDIA's data sheet, without sparsity); the bf16 variants' numerator
+#: products run on the tensor cores (wgmma), their Grams, denominators
+#: and epilogues on the CUDA cores in float32
 BF16_PEAK = 989e12
 
 
@@ -2188,23 +2246,106 @@ def library_masked(torch, a, wp, hp, mask, iters, nck):
     return w, h
 
 
+#: kernels whose launch computes numerator products: how many (wh_pass
+#: sums a W and an H product)
+NUMERATORS = {"h_numer_split": 1, "w_block_update": 1, "wh_pass": 2,
+              "h_numer_gram": 1, "w_sweep_tile": 1}
+
+
+def phase_kernel_split(torch, fm, calls: int = 20):
+    """With --quick: rows 1-5 and their bf16-operand variants 1b-5b at
+    phase 3's north-star pools, `calls` calls each after a warm-up, timed
+    by CUDA events and then under torch.profiler: a call's time, its
+    device time (the kernels' sum) and its kernels by device time, each
+    numerator kernel with its rate (2 m n rk FLOP a product)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    m, n, r, k = NORTH_STAR
+    a, wp, hp = operands(torch, m, n, r, k, seed=2)
+    gh = fm.lane_gram_ref(hp, k=k)
+    ab, wb, hb, frz, budget = block_operands(torch, m, n, SLOTS, k, seed=4)
+    mp, rk = ab.shape[0], SLOTS * k
+    blk = dict(k=k, iters=CHECK_EVERY, check_block=CHECK_BLOCK,
+               budget_cols=budget)
+    rows = []
+    for prec, tag in (("default", ""), (BF16, "b")):
+        bf = dict(matmul_precision=prec)
+        a1 = a.to(torch.bfloat16) if tag else a
+        a3 = ab.to(torch.bfloat16) if tag else ab
+        rows += [
+            (f"{1}{tag}", m * r * k, lambda bf=bf, a1=a1: fm.fused_h_update(
+                a1, wp, hp, k=k, **bf)),
+            (f"{2}{tag}", m * r * k, lambda bf=bf, a1=a1: fm.fused_w_update(
+                a1, wp, hp, gh, k=k, **bf)),
+            (f"{3}{tag}", mp * rk, lambda bf=bf, a3=a3:
+                fm.fused_block_iterations(a3, wb, hb, frz, **blk, **bf)),
+            (f"{4}{tag}", mp * rk, lambda bf=bf, a3=a3:
+                fm.fused_block_iterations(a3, wb, hb, frz, fused=True,
+                                          **blk, **bf)),
+            (f"{5}{tag}", mp * rk, lambda bf=bf, a3=a3:
+                fm.hals_block_iterations(a3, wb, hb, frz, k=k, slots=SLOTS,
+                                         iters=CHECK_EVERY, check_block=1,
+                                         **bf))]
+    for name, mrk, fn in rows:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        event_ms = start.elapsed_time(end) / calls
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = sorted(((e.key, e.device_time_total / 1e3 / calls,
+                           e.count / calls) for e in prof.key_averages()
+                          if e.device_time_total > 0), key=lambda x: -x[1])
+        parts = []
+        for key, ms, per_call in kernels[:8]:
+            short = key.removeprefix("void ").replace(
+                "(anonymous namespace)::", "").split("(")[0]
+            products = NUMERATORS.get(short.split("<")[0], 0)
+            rate = ""
+            if products:
+                flop = 2.0 * mrk * n * products * per_call
+                rate = f", {flop / (ms * 1e-3) / 1e12:.1f} TFLOP/s"
+            parts.append(f"{short} {ms:.4f} ms x{per_call:g}{rate}")
+        print(f"split row {name}: {event_ms:.4f} ms a call (events), device "
+              f"{sum(x[1] for x in kernels):.4f} ms; " + "; ".join(parts),
+              flush=True)
+
+
 def phase_option_timing(torch, fm, rates):
     """The variants the option paths run, at the north-star shapes (CUDA
     events, median of 25): kernel, plain version, a torch.matmul composite
     of the same function on the same (bf16-rounded) inputs, and the bound
     (bf16 operands: A at 2 bytes and the bf16 tensor-core peak; bf16 W: W
-    at 2 bytes; the ragged pool: its own columns and segment widths).
-    Returns {variant: (ms, plain, library, bound, by)}."""
+    at 2 bytes; the ragged pool: its own columns and segment widths). A
+    bf16-operand variant also gets its composite on bf16 tensors (the
+    same products on the tensor cores, a yardstick the port never calls),
+    and the join-the-updates block kernel under bf16 operands (row 4) its
+    own line. Returns {variant: (ms, plain, library, bound, by)}."""
     table = {}
 
-    def row(name, label, kernel, plain, lib, bound):
+    def row(name, label, kernel, plain, lib, bound, lib16=None):
         ms = time_ms(torch, kernel)
         pl = time_ms(torch, plain)
         lb = time_ms(torch, lib)
         table[name] = (ms, pl, lb, *bound)
+        extra = ""
+        if lib16 is not None:
+            extra = f", library bf16 {time_ms(torch, lib16):.4f} ms"
         print(f"timing {name} {label}: kernel {ms:.4f} ms, plain {pl:.4f} "
-              f"ms, library {lb:.4f} ms, bound {bound[0]:.4f} ms "
+              f"ms, library {lb:.4f} ms{extra}, bound {bound[0]:.4f} ms "
               f"({bound[1]})", flush=True)
+
+    def bf(*xs):
+        return tuple(x.to(torch.bfloat16) for x in xs)
 
     m, n, r, k = NORTH_STAR
     a, wp, hp = operands(torch, m, n, r, k, seed=2)
@@ -2221,14 +2362,16 @@ def phase_option_timing(torch, fm, rates):
         lambda: fm.fused_h_update_ref(a, wp, hp, k=k, matmul_precision=BF16),
         lambda: library_h(torch, ar, wr, hr, k),
         bound_of(4 * (m * n + m * r * k + 2 * r * k * n) - half, h_ops,
-                 bf16_rates(rates)))
+                 bf16_rates(rates)),
+        lambda: library_h(torch, *bf(ar, wr, hr), k))
     row("fused_w_update[bf16]", f"m={m} n={n} R={r} k={k}",
         lambda: fm.fused_w_update(ab, wp, hp, gh, k=k, matmul_precision=BF16),
         lambda: fm.fused_w_update_ref(a, wp, hp, gh, k=k,
                                       matmul_precision=BF16),
         lambda: library_w(torch, ar, wr, hr, fm.round_bf16(gh), k),
         bound_of(4 * (m * n + 2 * m * r * k + r * k * n + r * k * k) - half,
-                 w_ops, bf16_rates(rates)))
+                 w_ops, bf16_rates(rates)),
+        lambda: library_w(torch, *bf(ar, wr, hr, gh), k))
 
     a, wp, hp, frz, budget = block_operands(torch, m, n, SLOTS, k, seed=4)
     mp, rk = a.shape[0], SLOTS * k
@@ -2238,15 +2381,20 @@ def phase_option_timing(torch, fm, rates):
               budget_cols=budget)
     label = f"m={mp} n={n} slots={SLOTS} k={k} (8 iterations)"
     ops8 = block_ops(mp, n, rk, rk * k, CHECK_EVERY, CHECK_BLOCK)
-    row("fused_block_iterations[bf16]", label,
-        lambda: fm.fused_block_iterations(ab, wp, hp, frz,
-                                          matmul_precision=BF16, **kw),
-        lambda: fm.fused_block_iterations_ref(a, wp, hp, frz,
-                                              matmul_precision=BF16, **kw),
-        lambda: library_block(torch, ar, wr, hr, k, CHECK_EVERY,
-                              CHECK_BLOCK),
-        bound_of(block_bytes(mp, n, rk, CHECK_BLOCK, a_bytes=2), ops8,
-                 bf16_rates(rates)))
+    for name, fused in (("fused_block_iterations[bf16]", False),
+                        ("fused_block_iterations_fused[bf16]", True)):
+        row(name, label,
+            lambda fused=fused: fm.fused_block_iterations(
+                ab, wp, hp, frz, fused=fused, matmul_precision=BF16, **kw),
+            lambda: fm.fused_block_iterations_ref(a, wp, hp, frz,
+                                                  matmul_precision=BF16,
+                                                  **kw),
+            lambda: library_block(torch, ar, wr, hr, k, CHECK_EVERY,
+                                  CHECK_BLOCK),
+            bound_of(block_bytes(mp, n, rk, CHECK_BLOCK, a_bytes=2), ops8,
+                     bf16_rates(rates)),
+            lambda: library_block(torch, *bf(ar, wr, hr), k, CHECK_EVERY,
+                                  CHECK_BLOCK))
     wq = wp.to(torch.bfloat16)
     row("fused_block_iterations[bfloat16_w]", label,
         lambda: fm.fused_block_iterations(a, wq, hp, frz, **kw),
@@ -2272,7 +2420,8 @@ def phase_option_timing(torch, fm, rates):
                                              matmul_precision=BF16, **hkw),
         lambda: library_hals(torch, ar, wr, hr, k, CHECK_EVERY, 1),
         bound_of(block_bytes(mp, n, rk, 1, a_bytes=2),
-                 hals_ops(mp, n, rk, k, CHECK_EVERY, 1), bf16_rates(rates)))
+                 hals_ops(mp, n, rk, k, CHECK_EVERY, 1), bf16_rates(rates)),
+        lambda: library_hals(torch, *bf(ar, wr, hr), k, CHECK_EVERY, 1))
     # the ragged pool: the ragged path's launch (2 iterations, check-per-
     # trip) over the north star's class-major columns
     label_r, m_r, n_r, job_ks, budget_cols = RAGGED_CASES[0]
@@ -3863,7 +4012,8 @@ def phase_tiles(torch, fm):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
-                    help="build and kernel parity only")
+                    help="build, kernel parity and the block rows' device "
+                         "time by kernel only")
     ap.add_argument("--tiles", action="store_true",
                     help="build, kernel parity and phase 12 (tiles and "
                          "sparse inputs) only")
@@ -3915,6 +4065,8 @@ def main(argv=None) -> int:
           f"{os.path.relpath(host_lib, HERE)}", flush=True)
     print_resources(_build, "block_mu")
     print_resources(_build, "hals_block")
+    print_hgmma(_build, "block_mu")
+    print_hgmma(_build, "hals_block")
     done("1 build")
 
     ns_err = phase_parity(torch, fm)
@@ -3924,6 +4076,9 @@ def main(argv=None) -> int:
     done("2 parity")
     ns_err.update(phase_option_parity(torch, fm))
     done("2 option parity")
+    if args.quick:
+        phase_kernel_split(torch, fm)
+        done("3 kernel split")
     if args.tiles:
         tiled = phase_tiles(torch, fm)
         done("12 tiles")

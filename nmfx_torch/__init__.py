@@ -6,6 +6,8 @@ This package imports ``torch`` and numpy, never ``jax`` nor anything of
 ``device="cpu"``; on the CPU the kernels' plain PyTorch versions run.
 """
 
+from nmfx_torch.agreement import (adjusted_rand_index, consensus_agreement,
+                                  cophenetic_gap, membership_agreement)
 from nmfx_torch.api import (ConsensusResult, InsufficientRestarts, KResult,
                             nmf, nmfconsensus, restart_factors, run_example,
                             save_results)
@@ -14,6 +16,7 @@ from nmfx_torch.config import (CheckpointConfig, ConsensusConfig,
                                InitConfig, OutputConfig, ResultCacheConfig,
                                SolverConfig)
 from nmfx_torch.exec_cache import ExecCache
+from nmfx_torch.io import read_dataset, read_gct, read_res, write_gct
 from nmfx_torch.solvers.base import SolverResult, StopReason
 from nmfx_torch.sweep import (RestartResult, consensus_from_cells,
                               grid_cells, reduce_grid)
@@ -24,7 +27,11 @@ __all__ = ["ConsensusResult", "InsufficientRestarts", "KResult", "nmf",
            "reduce_grid",
            "CheckpointConfig", "ConsensusConfig", "ExecCache",
            "ExecCacheConfig", "ExperimentalConfig", "InitConfig",
-           "OutputConfig", "ResultCacheConfig", "SolverConfig", "SolverResult", "StopReason",
+           "OutputConfig", "ResultCacheConfig", "SolverConfig", "SolverResult",
+           "StopReason",
+           "adjusted_rand_index", "consensus_agreement", "cophenetic_gap",
+           "membership_agreement",
+           "read_dataset", "read_gct", "read_res", "write_gct",
            "kernels_available"]
 
 

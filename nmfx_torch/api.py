@@ -29,7 +29,7 @@ from nmfx_torch.io import Dataset, read_dataset, write_gct
 from nmfx_torch.ops.hclust import rank_selection_torch
 from nmfx_torch.profiling import NullProfiler
 from nmfx_torch.solvers.base import SolverResult, StopReason, solve
-from nmfx_torch.sweep import sweep
+from nmfx_torch.sweep import _refuse_mesh, sweep
 
 
 @dataclasses.dataclass(frozen=True)
@@ -333,6 +333,8 @@ def nmfconsensus(
     linkage: str = "average",
     solver_cfg: SolverConfig | None = None,
     init_cfg: InitConfig | None = None,
+    mesh=None,
+    use_mesh: bool = True,
     keep_factors: bool = False,
     grid_exec: str = "auto",
     grid_slots: int = 48,
@@ -385,7 +387,10 @@ def nmfconsensus(
     of one tile runs the routes above, byte-equal to the same call
     without ``tile_rows``.
 
-    Other settings raise ``NotImplementedError`` naming the ROADMAP item.
+    Other settings raise ``NotImplementedError`` naming the ROADMAP item:
+    a ``mesh`` other than None among them (the meshed routes, ROADMAP §1
+    item 10c). ``use_mesh`` is taken as the reference takes it and
+    changes nothing on the port's one device.
 
     ``device``: None means CUDA and raises if no CUDA device is present
     (pass ``device="cpu"`` for the plain PyTorch versions on the CPU). On
@@ -445,6 +450,7 @@ def nmfconsensus(
     is returned without solving, and a solved one is stored
     (``keep_factors`` requests solve through).
     """
+    _refuse_mesh(mesh)
     if rank_selection not in ("host", "device"):
         raise ValueError("rank_selection must be 'host' or 'device', got "
                          f"{rank_selection!r}")
@@ -585,8 +591,8 @@ def save_results(result: ConsensusResult, out: OutputConfig) -> list[str]:
     membership GCTs, the all-k membership matrix, ``cophenetic.txt``,
     per-k consensus-matrix GCTs, per-k metagene GCTs and
     ``rank_metrics.txt``, for results of every route (checkpointed and
-    registry-loaded sweeps included). Plots (``nmfx/plots.py``) are not
-    ported: they need matplotlib."""
+    registry-loaded sweeps included); with ``out.write_plots`` the plot
+    set of ``nmfx_torch/plots.py``, skipped where matplotlib is missing."""
     os.makedirs(out.directory, exist_ok=True)
     doc = out.doc_string
     prefix = os.path.join(out.directory, f"{doc}." if doc else "")
@@ -631,4 +637,11 @@ def save_results(result: ConsensusResult, out: OutputConfig) -> list[str]:
             f.write(f"{k}\t{r.rho}\t{r.dispersion:.6f}"
                     f"\t{r.iterations.mean():.1f}\t{r.dnorms.mean():.6g}\n")
     written.append(path)
+
+    if out.write_plots:
+        try:
+            from nmfx_torch import plots
+        except ImportError:  # matplotlib absent: GCT outputs still complete
+            return written
+        written += plots.save_all(result, prefix)
     return written

@@ -33,8 +33,9 @@ streams a dense input through the tile pipeline, and a sparse ``.mtx`` /
 (another algorithm, the kernels, the executable cache, the serving smoke
 run, ``--grid-exec grid``) is a usage error with the reference's words.
 
-Plots: the reference writes none when matplotlib is absent, and the
-port's ``save_results`` writes none; ``--no-plots`` is accepted.
+Plots: the reference's plot set (``nmfx_torch/plots.py``), written as
+the reference writes it, none where matplotlib is absent; ``--no-plots``
+writes none.
 """
 
 from __future__ import annotations
@@ -231,7 +232,7 @@ def build_parser() -> argparse.ArgumentParser:
                    version="%(prog)s " + VERSION)
     p.add_argument("--outdir", default="./nmfx_out")
     p.add_argument("--no-plots", action="store_true",
-                   help="accepted; the port writes no plots")
+                   help="write no plot files")
     p.add_argument("--no-files", action="store_true",
                    help="print the summary only, write nothing")
     p.add_argument("--no-mesh", action="store_true",
@@ -510,7 +511,8 @@ def _run_cli(argv: list[str] | None = None) -> int:
 
     output = None
     if not args.no_files:
-        output = OutputConfig(directory=args.outdir)
+        output = OutputConfig(directory=args.outdir,
+                              write_plots=not args.no_plots)
     # --perf-report needs the profiled (phase-synced) run: attribution
     # only annotates dispatches whose walls a real Profiler measured
     profiler = (Profiler(trace_dir=args.trace_dir)

@@ -337,11 +337,12 @@ class ConsensusConfig:
 
 @dataclasses.dataclass(frozen=True)
 class OutputConfig:
-    """File outputs (reference ``nmfx.OutputConfig``; plots not ported)."""
+    """File outputs (reference ``nmfx.OutputConfig``)."""
 
     directory: str = "./nmfx_out"
     doc_string: str = ""
     write_gcts: bool = True
+    write_plots: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

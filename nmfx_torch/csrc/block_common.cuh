@@ -15,10 +15,12 @@
 //
 // bf16 operands (matmul_precision="bfloat16", template flag BF): every
 // operand of a product is rounded to bf16 (round to nearest even) before
-// it enters its fmaf chain; A arrives as bf16 (bf16_t, its bits) and is
-// loaded at 2 bytes. A product of two bf16 values is exact in float32,
-// so each chain keeps its order and its only roundings are the fmaf
-// sums'. Accumulators, epilogues and sweeps stay float32.
+// it enters its sum; A arrives as bf16 (bf16_t, its bits) and is loaded
+// at 2 bytes. A product of two bf16 values is exact in float32. The two
+// numerator products are wgmma sums on the tensor cores
+// (block_gemm.cuh); the Grams and denominators keep their fmaf chains,
+// whose only roundings are the fmaf sums'. Accumulators, epilogues and
+// sweeps stay float32.
 //
 // Everything sits in an anonymous namespace: each source that includes
 // this header compiles its own copy.
@@ -71,29 +73,13 @@ __device__ __forceinline__ float to_f(bf16_t x) {
   return __uint_as_float((unsigned)x << 16);
 }
 
-// 4 consecutive elements (16 bytes of float, 8 of bf16; aligned)
+// 4 consecutive floats (16 bytes, aligned)
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 bf16x4(uint2 u) {
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
-}
-__device__ __forceinline__ float4 ld4(const bf16_t* p) {
-  return bf16x4(*reinterpret_cast<const uint2*>(p));
 }
 // the same through the read-only cache, from global memory
 __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 ldg4(const bf16_t* p) {
-  return bf16x4(__ldg(reinterpret_cast<const uint2*>(p)));
-}
-__device__ __forceinline__ float ldg1(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ldg1(const bf16_t* p) {
-  return to_f(__ldg(p));
 }
 
 // The segments of a pool's columns: the uniform pool's (start == null)

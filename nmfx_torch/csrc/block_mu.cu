@@ -76,7 +76,10 @@
 // on block_gemm.cuh's register-tiled, pipelined tiles (W: 128 rows x 64
 // lane columns, 8 x 4 outputs a thread; H: 64 lane columns x 128 columns
 // of A, 8 x 8 a thread), whose every output is one in-order fmaf chain,
-// so the results do not depend on the tiling.
+// so the results do not depend on the tiling. Under bf16 operands the
+// same tiles are m64n64k16 wgmma products on the tensor cores, summed in
+// the same K steps in every caller, whose outputs do not depend on the
+// tiling either (block_gemm.cuh).
 //
 // What the design does about the TPU kernel's structure: the Pallas
 // kernel holds all of Wp (9.8 MB here) and Hp in one core's VMEM for the
@@ -207,8 +210,9 @@ h_block_epilogue(const float* __restrict__ hp, const float* __restrict__ part,
 //                               * opnd(gh[st+q, c - st])), round_w)
 // over the w columns of c's segment from st, or Wp[i, c] on a frozen
 // column (float4 stores with vec_out). `keep` (may be null) gets
-// opnd(out), the H product's operand, row-major with leading dimension
-// WBN from row i0, and zeros outside the matrix. With `stats`, the
+// opnd(out), the H product's operand, from row i0 and zeros outside the
+// matrix: row-major with leading dimension WBN, or under BF as bf16 in
+// the wgmma layout mn_core<WBN>. With `stats`, the
 // tile's column maxima of |update - Wp| (before the storage rounding)
 // and |Wp| go to row `trow` of wdp / wmp. When the tile's rows of Wp
 // over the segments its columns touch fit `stage` (`stage_floats`
@@ -223,7 +227,7 @@ __device__ __forceinline__ void w_tile_epilogue(
     const float (&acc)[WTM][WTN], const float* __restrict__ wp,
     const float* __restrict__ gh, const float* __restrict__ frozen,
     const float* __restrict__ budget, float* __restrict__ out,
-    float* __restrict__ keep, float* __restrict__ wdp,
+    a_t<BF>* __restrict__ keep, float* __restrict__ wdp,
     float* __restrict__ wmp, float* stage, int stage_floats, int vec_out,
     int trow, int m, int rk, const Segs& sg, int i0, int c0, int it,
     int stats, int round_w, float eps, float zero_threshold) {
@@ -334,10 +338,18 @@ __device__ __forceinline__ void w_tile_epilogue(
     }
     if (keep != nullptr)
 #pragma unroll
-      for (int h = 0; h < WTN / 4; ++h)
-        *reinterpret_cast<float4*>(keep + w_row(u) * WBN + w_col(4 * h)) =
-            make_float4(opnd<BF>(wn[4 * h]), opnd<BF>(wn[4 * h + 1]),
-                        opnd<BF>(wn[4 * h + 2]), opnd<BF>(wn[4 * h + 3]));
+      for (int h = 0; h < WTN / 4; ++h) {
+        if constexpr (BF)
+          *reinterpret_cast<uint2*>(keep +
+                                    mn_core<WBN>(w_row(u), w_col(4 * h))) =
+              make_uint2(bf16_bits(wn[4 * h]) | bf16_bits(wn[4 * h + 1]) << 16,
+                         bf16_bits(wn[4 * h + 2]) |
+                             bf16_bits(wn[4 * h + 3]) << 16);
+        else
+          *reinterpret_cast<float4*>(keep + w_row(u) * WBN + w_col(4 * h)) =
+              make_float4(wn[4 * h], wn[4 * h + 1], wn[4 * h + 2],
+                          wn[4 * h + 3]);
+      }
   }
   if (!stats) return;  // the same for every thread of the block
   __syncthreads();     // the stage's last reads are done
@@ -411,6 +423,13 @@ static_assert(FCV % 4 == 0 && FTCN * FTJN == W_THREADS,
 constexpr int FH_STAGE = GBK * HBN;
 constexpr size_t STRIP_BYTES = sizeof(float) * SPLIT_ROWS * WBN;
 constexpr size_t FH_RING_BYTES = sizeof(float) * GSTAGES * FH_STAGE;
+// under bf16 operands the ring holds FB_NS stages of A (mn_core<HBN>) in
+// the same bytes, each summed by two warpgroups, a 64-column half each
+constexpr int FB_STAGE = GBK * HBN;  // bf16 per stage
+constexpr int FB_NS = (int)(FH_RING_BYTES / (sizeof(bf16_t) * FB_STAGE));
+static_assert(FB_NS >= 2 && W_THREADS == 2 * WG_THREADS && HBN == 128,
+              "two warpgroups on the halves of a ring of two stages at "
+              "least");
 static_assert(2 * (W_THREADS / (WBN / WTN)) * WBN * sizeof(float) <=
                   W_RING_BYTES,
               "the W stats reduction reuses the ring");
@@ -427,7 +446,10 @@ static_assert(2 * (W_THREADS / (WBN / WTN)) * WBN * sizeof(float) <=
 // do_h, each CTA completes the strip from its peers' shared memory and
 // computes the chunk's H-numerator partial part[s, c, j] = sum over the
 // chunk's rows of W[row, c] * A[row, j] for the column tiles j0 = (r +
-// PAIR t) * HBN, summed exactly as h_numer_split sums it.
+// PAIR t) * HBN, summed exactly as h_numer_split sums it: the float32
+// chains, or under BF the same m64n64k16 wgmma steps over the strip
+// (bf16, mn_core<WBN>: the strides of an H stage's W operand), each of
+// the two warpgroups one 64-column half of the tile.
 template <bool VEC, bool BF, bool UNIFORM>
 __global__ void __cluster_dims__(1, PAIR, 1)
     __launch_bounds__(W_THREADS, 2)
@@ -439,16 +461,20 @@ wh_pass(const a_t<BF>* __restrict__ a, const float* __restrict__ wp,
         int rk, Segs sg, int it, int do_w, int do_h, int stats,
         int stage_floats, int vec_out, int round_w, float eps,
         float zero_threshold) {
+  using S = a_t<BF>;  // the strip's element
   extern __shared__ __align__(16) float pass_smem[];
-  float* strip = pass_smem;  // [SPLIT_ROWS][WBN]: the chunk's W rows
+  // [SPLIT_ROWS][WBN] (float32) or mn_core<WBN> (bf16): the chunk's W rows
+  S* strip = reinterpret_cast<S*>(pass_smem);
   float* ring = pass_smem + SPLIT_ROWS * WBN;
-  a_t<BF>* aring = reinterpret_cast<a_t<BF>*>(ring);
+  S* aring = reinterpret_cast<S*>(ring);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int c0 = blockIdx.x * WBN, s = blockIdx.y / PAIR;
   const int mb = s * SPLIT_ROWS, me = min(m, mb + SPLIT_ROWS);
   const int i0 = mb + rank * WBM;
-  float* mine = strip + rank * WBM * WBN;
+  // rank r's rows in either layout (mn_core<WBN>(r * WBM, 0) = r * WBM *
+  // WBN)
+  S* mine = strip + rank * WBM * WBN;
   if (do_w) {
     if (i0 < m) {  // the same for every thread of the block
       float acc[WTM][WTN];
@@ -458,59 +484,96 @@ wh_pass(const a_t<BF>* __restrict__ a, const float* __restrict__ wp,
                           stage_floats, vec_out, i0 / WBM, m, rk, sg, i0, c0,
                           it, stats, round_w, eps, zero_threshold);
     } else if (do_h) {
-      for (int e = threadIdx.x; e < WBM * WBN; e += W_THREADS) mine[e] = 0.f;
+      for (int e = threadIdx.x; e < WBM * WBN; e += W_THREADS) mine[e] = S(0);
     }
     if (!do_h) return;  // the same for every CTA of the cluster
     cluster.sync();     // every CTA's rows of the strip are written
+    constexpr int QUADS = WBM * WBN * sizeof(S) / sizeof(float4);
     for (int peer = 0; peer < PAIR; ++peer) {
       if (peer == rank) continue;
       const float4* src = reinterpret_cast<const float4*>(
           cluster.map_shared_rank(strip + peer * WBM * WBN, peer));
       float4* dst = reinterpret_cast<float4*>(strip + peer * WBM * WBN);
-      for (int e = threadIdx.x; e < WBM * WBN / 4; e += W_THREADS)
-        dst[e] = src[e];
+      for (int e = threadIdx.x; e < QUADS; e += W_THREADS) dst[e] = src[e];
     }
     cluster.sync();  // no CTA leaves while a peer still reads its rows
   } else {
     if (!do_h) return;
     for (int e = threadIdx.x; e < SPLIT_ROWS * WBN; e += W_THREADS) {
-      const int row = mb + e / WBN, c = c0 + e % WBN;
-      strip[e] = (row < me && c < rk) ? opnd<BF>(wp[(size_t)row * rk + c])
-                                      : 0.f;
+      const int t = e / WBN, cl = e % WBN;
+      const int row = mb + t, c = c0 + cl;
+      const float x =
+          (row < me && c < rk) ? opnd<BF>(wp[(size_t)row * rk + c]) : 0.f;
+      if constexpr (BF)
+        strip[mn_core<WBN>(t, cl)] = (bf16_t)bf16_bits(x);
+      else
+        strip[e] = x;
     }
     __syncthreads();
   }
-  const int tj = threadIdx.x % FTJN, tc = threadIdx.x / FTJN;
   const int stages = (me - mb + GBK - 1) / GBK;
-  for (int j0 = rank * HBN; j0 < n; j0 += PAIR * HBN) {
-    float acc[FCV][8];
+  if constexpr (BF) {
+    // warpgroup g sums the columns 64 g .. 64 g + 63 of each column tile
+    const int wg = threadIdx.x / WG_THREADS, tid = threadIdx.x % WG_THREADS;
+    for (int j0 = rank * HBN; j0 < n; j0 += PAIR * HBN) {
+      auto load = [&](int kt) {
+        load_mn<HBN, W_THREADS, VEC>(aring + (kt % FB_NS) * FB_STAGE, a, n,
+                                     mb + kt * GBK, me, j0, threadIdx.x);
+      };
 #pragma unroll
-    for (int u = 0; u < FCV; ++u)
+      for (int kt = 0; kt < FB_NS - 1; ++kt) {
+        if (kt < stages) load(kt);
+        cp_async_commit();
+      }
+      float sum[32], d[32];
 #pragma unroll
-      for (int v = 0; v < 8; ++v) acc[u][v] = 0.f;
-    auto load = [&](int kt) {
-      load_cols<HBN, W_THREADS, VEC>(aring + (kt % GSTAGES) * FH_STAGE, a, n,
-                                     mb + kt * GBK, me, j0);
-    };
-#pragma unroll
-    for (int kt = 0; kt < GSTAGES - 1; ++kt) {
-      if (kt < stages) load(kt);
-      cp_async_commit();
+      for (int i = 0; i < 32; ++i) sum[i] = d[i] = 0.f;
+      for (int kt = 0; kt < stages; ++kt) {
+        cp_async_wait<FB_NS - 2>();
+        fence_async_smem();
+        __syncthreads();
+        wg_step<1>(sum, d, h_w_desc(strip + mn_core<WBN>(kt * GBK, 0)),
+                   h_a_desc(aring + (kt % FB_NS) * FB_STAGE, wg), [&] {
+                     if (kt + FB_NS - 1 < stages) load(kt + FB_NS - 1);
+                     cp_async_commit();
+                   });
+      }
+      cp_async_wait<0>();
+      __syncthreads();  // the ring is refilled by the next column tile
+      h_store_frag<VEC>(sum, part, s, n, rk, rk, c0, j0 + 64 * wg, tid);
     }
-    for (int kt = 0; kt < stages; ++kt) {
-      cp_async_wait<GSTAGES - 2>();
-      __syncthreads();
-      if (kt + GSTAGES - 1 < stages) load(kt + GSTAGES - 1);
-      cp_async_commit();
-      const a_t<BF>* as = aring + (kt % GSTAGES) * FH_STAGE;
+  } else {
+    const int tj = threadIdx.x % FTJN, tc = threadIdx.x / FTJN;
+    for (int j0 = rank * HBN; j0 < n; j0 += PAIR * HBN) {
+      float acc[FCV][8];
 #pragma unroll
-      for (int kk = 0; kk < GBK; ++kk)
-        h_step<FCV, FTCN, FTJN>(strip + (kt * GBK + kk) * WBN,
-                                as + kk * HBN, tc, tj, acc);
+      for (int u = 0; u < FCV; ++u)
+#pragma unroll
+        for (int v = 0; v < 8; ++v) acc[u][v] = 0.f;
+      auto load = [&](int kt) {
+        load_cols<HBN, W_THREADS, VEC>(aring + (kt % GSTAGES) * FH_STAGE, a,
+                                       n, mb + kt * GBK, me, j0);
+      };
+#pragma unroll
+      for (int kt = 0; kt < GSTAGES - 1; ++kt) {
+        if (kt < stages) load(kt);
+        cp_async_commit();
+      }
+      for (int kt = 0; kt < stages; ++kt) {
+        cp_async_wait<GSTAGES - 2>();
+        __syncthreads();
+        if (kt + GSTAGES - 1 < stages) load(kt + GSTAGES - 1);
+        cp_async_commit();
+        const float* as = aring + (kt % GSTAGES) * FH_STAGE;
+#pragma unroll
+        for (int kk = 0; kk < GBK; ++kk)
+          h_step<FCV, FTCN, FTJN>(strip + (kt * GBK + kk) * WBN,
+                                  as + kk * HBN, tc, tj, acc);
+      }
+      cp_async_wait<0>();
+      __syncthreads();  // the ring is refilled by the next column tile
+      h_store<FCV, FTCN, FTJN, VEC>(acc, part, s, n, rk, rk, c0, j0, tc, tj);
     }
-    cp_async_wait<0>();
-    __syncthreads();  // the ring is refilled by the next column tile
-    h_store<FCV, FTCN, FTJN, VEC>(acc, part, s, n, rk, rk, c0, j0, tc, tj);
   }
 }
 

@@ -37,7 +37,10 @@
 // products (4*m*n*rk FLOP an iteration) on the CUDA cores, f32 FMA (the
 // tensor cores' TF32 would change every chain); the sweeps add
 // O((m + n)*rk*k) operations. Both products run on block_gemm.cuh's
-// register-tiled, pipelined tiles, whose chains are those above.
+// register-tiled, pipelined tiles, whose chains are those above; under
+// bf16 operands on its wgmma tiles (block_gemm.cuh's contract: the same
+// K order in every caller), which return the W numerators in the same
+// per-thread layout and hand the H tile's hook each stage's rows.
 //
 // What the design does about the TPU kernel's structure: the Pallas
 // kernel conjugates the Grams with a permutation matrix (_perm_matrix)
@@ -136,12 +139,11 @@ h_numer_gram(const T* __restrict__ a, const T* __restrict__ wp,
   }
   auto gram_stage = [&](const T* ws) {
     for (int i = threadIdx.x; i < mine; i += H_THREADS) {
-      const T* wpc = ws + (gcol[i] & 0xffff);
-      const T* wqc = ws + (gcol[i] >> 16);
+      const int cp = gcol[i] & 0xffff, cq = gcol[i] >> 16;
       float g = gacc[i];
 #pragma unroll
       for (int kk = 0; kk < GBK; ++kk)
-        g = fmaf(to_f(wpc[kk * HBC]), to_f(wqc[kk * HBC]), g);
+        g = fmaf(to_f(ws[h_wst<T>(kk, cp)]), to_f(ws[h_wst<T>(kk, cq)]), g);
       gacc[i] = g;
     }
   };

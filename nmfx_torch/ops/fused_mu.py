@@ -116,6 +116,65 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(_work(x).dtype)
 
 
+def _exponent(x: torch.Tensor) -> torch.Tensor:
+    """floor(log2 |x|) of nonzero x (float64), as int64."""
+    return torch.frexp(x).exponent.to(torch.int64) - 1
+
+
+def _toward_zero_f32(x: torch.Tensor) -> torch.Tensor:
+    """float64 x rounded toward zero to float32."""
+    y = x.to(torch.float32)
+    over = y.to(torch.float64).abs() > x.abs()
+    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def tensor_core_products(x: torch.Tensor, y: torch.Tensor,
+                         split: "int | None" = None,
+                         rows: int = 512) -> torch.Tensor:
+    """x (M, K) @ y (K, N) of bf16 values, summed as the card's bf16
+    product tiles sum them (``csrc/block_gemm.cuh``), in float32: each
+    output a sum from +0 over K steps of 16 in order, each step added with
+    one float32 add. A step aligns its 16 exact products to the largest
+    exponent among them (a product's is the sum of its operands'),
+    truncates each to a multiple of 2^(emax - 25), adds them exactly and
+    truncates the sum to float32. ``split``: the sum restarts every
+    ``split`` of K and the partials are added in float32 in order (the H
+    numerator's SPLIT_ROWS chunks). ``rows``: rows of x a pass."""
+    xd, yd = x.to(torch.float64), y.to(torch.float64)
+    kdim = xd.shape[1]
+    split = split or max(kdim, 1)
+    ey = _exponent(yd)
+    out = torch.zeros((xd.shape[0], yd.shape[1]), dtype=torch.float32,
+                      device=xd.device)
+    for r0 in range(0, xd.shape[0], rows):
+        xr = xd[r0:r0 + rows]
+        ex = _exponent(xr)
+        total = torch.zeros_like(out[r0:r0 + rows])
+        for s0 in range(0, kdim, split):
+            acc = torch.zeros_like(total)
+            for k0 in range(s0, min(s0 + split, kdim), 16):
+                k1 = min(k0 + 16, s0 + split, kdim)
+                p = xr[:, k0:k1, None] * yd[None, k0:k1]
+                e = torch.where(p != 0, ex[:, k0:k1, None] + ey[None, k0:k1],
+                                -2000)
+                q = torch.exp2((e.amax(dim=1) - 25).clamp(min=-1000).to(
+                    torch.float64))
+                acc = acc + _toward_zero_f32(
+                    torch.trunc(p / q[:, None]).sum(dim=1) * q)
+            total = total + acc
+        out[r0:r0 + rows] = total
+    return out
+
+
+def _numer_product(x: torch.Tensor, y: torch.Tensor,
+                   split: "int | None" = None) -> torch.Tensor:
+    """The mu plain versions' numerator products, Wpᵀ·A (``split``: the
+    kernels' SPLIT_ROWS) and A·Hpᵀ: a matmul in the operands' dtype. A
+    check that holds a card's bf16 trajectory bit for bit sets this to
+    :func:`tensor_core_products`, the tiles' own sum."""
+    return x @ y
+
+
 def _operand(matmul_precision: str):
     """The plain versions' operand cast: the working dtype, rounded to
     bf16 under ``matmul_precision="bfloat16"`` (the reference's
@@ -148,8 +207,8 @@ def fused_h_update_ref(a, wp, hp, *, k: int, eps: float = 1e-9,
     wc = op(wp)
     gram = torch.where(_lane_mask(wp.shape[1], k, wp.device), wc.T @ wc,
                        torch.zeros((), dtype=wc.dtype, device=wp.device))
-    return _mu_update(hp, wc.T @ op(a), op(gram) @ op(hp), eps,
-                      zero_threshold)
+    return _mu_update(hp, _numer_product(wc.T, op(a), SPLIT_ROWS),
+                      op(gram) @ op(hp), eps, zero_threshold)
 
 
 def _lane_blocks(g: torch.Tensor, k: int) -> torch.Tensor:
@@ -177,8 +236,8 @@ def fused_w_update_ref(a, wp, hp, gh, *, k: int, eps: float = 1e-9,
     if gh.dim() == 3:
         gh = torch.block_diag(*gh)
     op = _operand(matmul_precision)
-    return _mu_update(wp, op(a) @ op(hp).T, op(wp) @ op(gh), eps,
-                      zero_threshold)
+    return _mu_update(wp, _numer_product(op(a), op(hp).T),
+                      op(wp) @ op(gh), eps, zero_threshold)
 
 
 def _check_operands(name: str, k: int, dtypes=None, **shapes) -> None:
@@ -409,12 +468,13 @@ def fused_block_iterations_ref(a, wp, hp, frozen_cols, *, k: int,
     def update(w, h, fr, store_h):
         wc = op(w)
         gram = torch.where(bd, wc.T @ wc, zero)
-        hn = _mu_update(h, wc.T @ ac, op(gram) @ op(h), eps, zero_threshold)
+        hn = _mu_update(h, _numer_product(wc.T, ac, SPLIT_ROWS),
+                        op(gram) @ op(h), eps, zero_threshold)
         hn = torch.where(fr[:, None], h, hn)
         hc = op(hn)
         gh = torch.where(bd, hc @ hc.T, zero)
-        wn = _mu_update(w, ac @ op(store_h(hn)).T, op(w) @ op(gh), eps,
-                        zero_threshold)
+        wn = _mu_update(w, _numer_product(ac, op(store_h(hn)).T),
+                        op(w) @ op(gh), eps, zero_threshold)
         return torch.where(fr[None, :], w, wn), hn
 
     return _block_ref(update, a, wp, hp, frozen_cols, iters=iters,

@@ -587,8 +587,8 @@ def _refuse_mesh(mesh) -> None:
     """The meshed route is not ported: only ``mesh=None`` runs."""
     if mesh is not None:
         raise NotImplementedError(
-            f"meshes are not ported yet ({ROADMAP_SCALE}); pass "
-            "mesh=None")
+            f"meshes are not ported yet ({ROADMAP_SCALE}: item 10c, the "
+            "meshed routes); pass mesh=None")
 
 
 def sweep_one_k(a: torch.Tensor, key: np.ndarray, k: int, restarts: int,

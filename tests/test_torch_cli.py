@@ -7,7 +7,8 @@ reference's checks gives the same message and exit code 2 from both;
 the options the port has not got are usage errors naming their ROADMAP
 item; without ``--device cpu`` (no card here) every entry point exits
 with a usage error. On a 60×20 GCT the port's ``main`` and
-``nmfx.cli.main`` write the same set of output files (plots aside) and
+``nmfx.cli.main`` write the same set of output files (``--no-plots``
+on both: no PDF; test_torch_surface.py compares the plot files) and
 an equal rank table at the whole-grid tier — best k, memberships and
 mean iterations equal, consensus within 1e-6 — for mu under ``auto``
 and ``pallas`` (the reference runs ``pallas`` in interpret mode off the
@@ -19,6 +20,7 @@ table."""
 import argparse
 import os
 import re
+import signal
 import subprocess
 import sys
 
@@ -222,8 +224,7 @@ def test_entry_points_need_the_card_or_device_cpu(gct, tmp_path, capsys):
 
 
 def _outputs(d):
-    return {p for p in os.listdir(d)
-            if not p.endswith((".pdf", ".png", ".svg"))}
+    return set(os.listdir(d))
 
 
 def _rank_table(path):
@@ -341,7 +342,13 @@ def test_cli_outputs_flags(gct, tmp_path, capsys):
             "--metrics-out", str(tmp_path / "m.prom"), "--perf-report",
             "--no-compile-cache", "--flight-dir", str(tmp_path / "f"),
             *CPU]
-    assert pcli.main(argv) == 0
+    # --flight-dir hooks SIGTERM in this process; put the previous handler
+    # back so later tests in the same worker see the disposition they set
+    previous = signal.getsignal(signal.SIGTERM)
+    try:
+        assert pcli.main(argv) == 0
+    finally:
+        signal.signal(signal.SIGTERM, previous)
     cap = capsys.readouterr()
     assert "best k" in cap.out
     assert ConsensusResult.load(str(tmp_path / "r.npz")).ks == (2,)

@@ -516,9 +516,13 @@ def test_bf16_pair_byte_equal_to_one_block_iteration(card, pool):
 
 @pytest.mark.parametrize("option", ["bf16", "ragged", "alias_io",
                                     "block_m", "bfloat16_w"])
-def test_sched_options_on_card_match_cpu(card, option):
+def test_sched_options_on_card_match_cpu(card, option, monkeypatch):
     """The whole grid under each option on the card and on the CPU: the
-    same iterations, stop reasons and labels."""
+    same iterations, stop reasons and labels. Under bf16 operands the CPU
+    sums the numerators as the card's tensor cores do
+    (tensor_core_products): this k = 3 job of a two-group design parts at
+    one float32 rounding, so no other order keeps its labels (exact sums
+    part 3 of its 144 from the sequential sums'; PERF.md)."""
     from nmfx_torch.config import ExperimentalConfig
     from nmfx_torch.datasets import two_group_matrix
     from nmfx_torch.ops.sched_mu import mu_sched
@@ -541,6 +545,8 @@ def test_sched_options_on_card_match_cpu(card, option):
         kw["check_block"] = 1
     cfg = SolverConfig(experimental=ExperimentalConfig(**exp), **kw)
     got = mu_sched(a, w0, h0, cfg, slots=4, job_ks=ks, device=card)
+    if option == "bf16":
+        monkeypatch.setattr(fused_mu, "_numer_product", _tensor_core)
     want = mu_sched(a, w0, h0, cfg, slots=4, job_ks=ks, device="cpu")
     assert torch.equal(got.iterations.cpu(), want.iterations)
     assert torch.equal(got.stop_reason.cpu(), want.stop_reason)
@@ -583,3 +589,202 @@ def test_tiled_sweep_streams_on_card(card, sparse):
                     == np.asarray(getattr(off.per_k[k], field)).tobytes())
     rep = consensus_agreement(on, cpu)
     assert rep["min_ari"] >= 0.9 and rep["max_rho_gap"] <= 0.1
+
+
+# --- the bf16 product tiles on the tensor cores --------------------------
+
+#: pools of the bf16 wgmma tiles (m, n, slots, k): rk = 21 is not a
+#: multiple of a 64-column tile and n = 77 and rk are off 4-element
+#: alignment (2-byte copies); the north star's whole-grid pool is m = 5000
+#: padded with zero rows to 5120, 48 slots of k = 10 (8-byte copies)
+BF16_POOLS = {"1237x77_rk21": (1237, 77, 3, 7, 1237),
+              "north_star": (5120, 500, 48, 10, 5000)}
+BF16 = dict(matmul_precision="bfloat16")
+
+
+def _bf16_pool(pool, card):
+    """A pool with lane 1 frozen, lane 2's budget running out mid-launch
+    (3 of 2 x 4 iterations), lane 0's last component zero-padded and the
+    rows past the matrix zero (the scheduler's m_pad)."""
+    m, n, slots, k, rows = BF16_POOLS[pool]
+    a, wp, hp = _operands(m, n, slots, k, False, card)
+    a[rows:] = 0.0
+    wp[rows:] = 0.0
+    wp[:, k - 1] = 0.0
+    hp[k - 1] = 0.0
+    frozen = torch.zeros((1, slots * k), device=card)
+    frozen[0, k:2 * k] = 1.0
+    budget = torch.full((1, slots * k), 100.0, device=card)
+    budget[0, 2 * k:3 * k] = 3.0
+    return k, a, wp, hp, frozen, budget
+
+
+def _tensor_core(x, y, split=None):
+    """The plain versions' numerators summed as the card's tensor cores
+    sum them."""
+    return fused_mu.tensor_core_products(x, y, split)
+
+
+def _bits(t):
+    return t.detach().cpu().contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("pool", sorted(BF16_POOLS))
+def test_bf16_tiles_match_plain_versions(card, pool, monkeypatch):
+    """The H tile (fused_h_update) and the W tile (fused_w_update) under
+    bf16 operands: on the pool's operands within 1e-5 of their plain
+    versions (sequential float32 numerators); and bit-equal to the plain
+    versions that sum the numerators as the tensor cores do
+    (tensor_core_products) where nothing else can part them: for H, Wp in
+    quarters (every Gram sum exact in any order) and Hp = 1 (each
+    denominator a sum of a lane's bf16 Gram entries, exact too); for W,
+    Wp = 1, a zero H-Gram and eps = 1, so the output is the numerator
+    itself."""
+    k, a, wp, hp, _, _ = _bf16_pool(pool, card)
+    ab = a.to(torch.bfloat16)
+    fused_mu.reset_launch_counts()
+    h = fused_mu.fused_h_update(ab, wp, hp, k=k, **BF16)
+    want_h = fused_mu.fused_h_update_ref(a, wp, hp, k=k, **BF16)
+    gh = fused_mu.lane_gram_ref(want_h, k=k, **BF16)
+    w = fused_mu.fused_w_update(ab, wp, want_h, gh, k=k, **BF16)
+    want_w = fused_mu.fused_w_update_ref(a, wp, want_h, gh, k=k, **BF16)
+    torch.cuda.synchronize()
+    for got, want in ((h, want_h), (w, want_w)):
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-6 * want.abs().max().item())
+    assert fused_mu.LAUNCHES["fused_h_update[bf16]"] == 1
+    assert fused_mu.LAUNCHES["fused_w_update[bf16]"] == 1
+    wq, ones = torch.round(wp * 4) / 4, torch.ones_like(hp)
+    w1, g0 = torch.ones_like(wp), torch.zeros_like(gh)
+    h = fused_mu.fused_h_update(ab, wq, ones, k=k, **BF16)
+    w = fused_mu.fused_w_update(ab, w1, hp, g0, k=k, eps=1.0, **BF16)
+    monkeypatch.setattr(fused_mu, "_numer_product", _tensor_core)
+    a, wq, ones, w1, hp, g0 = (t.cpu() for t in (a, wq, ones, w1, hp, g0))
+    assert torch.equal(_bits(h), _bits(fused_mu.fused_h_update_ref(
+        a, wq, ones, k=k, **BF16)))
+    assert torch.equal(_bits(w), _bits(fused_mu.fused_w_update_ref(
+        a, w1, hp, g0, k=k, eps=1.0, **BF16)))
+
+
+@pytest.mark.parametrize("pool", sorted(BF16_POOLS))
+def test_bf16_fused_byte_equal_to_phased(card, pool):
+    """Row 4 under bf16 operands (the join-the-updates pass, whose H
+    product sums the new W strip from shared memory) byte-equal to row 3
+    (the phased kernel) in every output: the same wgmma K steps."""
+    k, a, wp, hp, frozen, budget = _bf16_pool(pool, card)
+    kw = dict(k=k, iters=2, check_block=4, budget_cols=budget, **BF16)
+    ab = a.to(torch.bfloat16)
+    phased = fused_mu.fused_block_iterations(ab, wp, hp, frozen, **kw)
+    fused = fused_mu.fused_block_iterations(ab, wp, hp, frozen, fused=True,
+                                            **kw)
+    torch.cuda.synchronize()
+    assert len(fused) == len(phased) == 7
+    for f, p in zip(fused, phased):
+        assert torch.equal(f.view(torch.int32), p.view(torch.int32))
+    # frozen lanes and the zero rows bit-equal
+    rows = BF16_POOLS[pool][4]
+    assert torch.equal(phased[0][:, k:2 * k], wp[:, k:2 * k])
+    assert torch.equal(phased[1][k:2 * k], hp[k:2 * k])
+    assert (phased[0][rows:] == 0).all()
+
+
+@pytest.mark.parametrize("pool", sorted(BF16_POOLS))
+def test_bf16_pair_byte_equal_on_tile_pools(card, pool):
+    """The bf16 pair (rows 1b, 2b) byte-equal to one bf16 block iteration
+    at the tile pools."""
+    k, a, wp, hp, _, _ = _bf16_pool(pool, card)
+    ab = a.to(torch.bfloat16)
+    h = fused_mu.fused_h_update(ab, wp, hp, k=k, **BF16)
+    w = fused_mu.fused_w_update(ab, wp, h, fused_mu.lane_gram(h, k=k, **BF16),
+                                k=k, **BF16)
+    want = fused_mu.fused_block_iterations(
+        ab, wp, hp, torch.zeros((1, wp.shape[1]), device=card), k=k,
+        iters=1, **BF16)
+    torch.cuda.synchronize()
+    assert torch.equal(h.view(torch.int32), want[1].view(torch.int32))
+    assert torch.equal(w.view(torch.int32), want[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("pool", sorted(BF16_POOLS))
+def test_bf16_hals_against_float64(card, pool):
+    """Row 5b held to its float64 plain version (bf16 rounding kept) as
+    close as its float32 plain version is: 4x (HALS_FACTOR) its error +
+    1e-6 max|exact|."""
+    k, a, wp, hp, frozen, budget = _bf16_pool(pool, card)
+    kw = dict(k=k, slots=wp.shape[1] // k, iters=2, check_block=4, **BF16)
+    got = fused_mu.hals_block_iterations(a.to(torch.bfloat16), wp, hp, frozen,
+                                         budget_cols=budget, **kw)
+    plain = fused_mu.hals_block_iterations_ref(a, wp, hp, frozen,
+                                               budget_cols=budget, **kw)
+    exact = fused_mu.hals_block_iterations_ref(
+        a.double(), wp.double(), hp.double(), frozen.double(),
+        budget_cols=budget.double(), **kw)
+    torch.cuda.synchronize()
+    for g, p, x in zip(got, plain, exact):
+        assert torch.isfinite(g).all()
+        _exact_close(g, p, x)
+
+
+@pytest.mark.parametrize("pool", sorted(BF16_POOLS))
+def test_bf16_block_against_float64(card, pool, monkeypatch):
+    """Row 3b held to its float64 plain version (bf16 rounding kept) as
+    close as its plain version summing the numerators as the tensor cores
+    do is: 4x that one's error + 1e-6 max|exact|."""
+    k, a, wp, hp, frozen, budget = _bf16_pool(pool, card)
+    kw = dict(k=k, iters=2, check_block=4, **BF16)
+    got = fused_mu.fused_block_iterations(a.to(torch.bfloat16), wp, hp,
+                                          frozen, budget_cols=budget, **kw)
+    exact = fused_mu.fused_block_iterations_ref(
+        a.double(), wp.double(), hp.double(), frozen.double(),
+        budget_cols=budget.double(), **kw)
+    monkeypatch.setattr(fused_mu, "_numer_product", _tensor_core)
+    plain = fused_mu.fused_block_iterations_ref(
+        *(t.cpu() for t in (a, wp, hp, frozen)), budget_cols=budget.cpu(),
+        **kw)
+    torch.cuda.synchronize()
+    for g, p, x in zip(got, plain, exact):
+        assert torch.isfinite(g).all()
+        _exact_close(g.cpu(), p, x.cpu())
+
+
+#: sha256 (first 16 hex digits) of the float32 kernels' outputs on
+#: _block_pool's stored inputs, as the block kernels' float32 chains gave
+#: them on an H100 before the bf16 products moved to the tensor cores:
+#: those chains must not move
+F32_DIGESTS = {"fused 1100x300": "e34b7adf4b3f2423",
+               "fused 1237x77_rk35": "97dfdbd8bae8fb68",
+               "hals 1100x300": "416a6d3557f664b5",
+               "hals 1237x77_rk35": "2803cd6afe5d6792",
+               "pair 1100x300": "2b682374f4b1f721",
+               "pair 1237x77_rk35": "c4f16d519015e084",
+               "phased 1100x300": "e34b7adf4b3f2423",
+               "phased 1237x77_rk35": "97dfdbd8bae8fb68"}
+
+
+def _float32_digests(card):
+    import hashlib
+
+    digests = {}
+    for pool in ("1100x300", "1237x77_rk35"):
+        k, a, wp, hp, frozen, budget = _block_pool(pool, card)
+        kw = dict(k=k, iters=2, check_block=4, budget_cols=budget)
+        h = fused_mu.fused_h_update(a, wp, hp, k=k)
+        gh = fused_mu.lane_gram(h, k=k)
+        runs = {
+            "phased": fused_mu.fused_block_iterations(a, wp, hp, frozen,
+                                                      **kw),
+            "fused": fused_mu.fused_block_iterations(a, wp, hp, frozen,
+                                                     fused=True, **kw),
+            "hals": fused_mu.hals_block_iterations(
+                a, wp, hp, frozen, slots=wp.shape[1] // k, **kw),
+            "pair": (h, gh, fused_mu.fused_w_update(a, wp, h, gh, k=k))}
+        for name, outs in runs.items():
+            blob = b"".join(t.cpu().numpy().tobytes() for t in outs)
+            digests[f"{name} {pool}"] = hashlib.sha256(blob).hexdigest()[:16]
+    return digests
+
+
+def test_float32_kernels_byte_equal_to_parent(card):
+    """Rows 1-5 in float32 keep their fmaf chains: every output byte-equal
+    to the stored digests."""
+    assert _float32_digests(card) == F32_DIGESTS
