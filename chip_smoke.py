@@ -5,6 +5,7 @@ versions.
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --quick    # build + kernel parity + split
     python3 chip_smoke.py --tiles    # build + kernel parity + phase 12
+    python3 chip_smoke.py --scale    # build + parity + 4a, 4d + phase 13
 
 Phases (any failure exits non-zero; nothing is caught):
   1. card and build: nvidia-smi's name and power limit, the nvcc build
@@ -61,7 +62,7 @@ Phases (any failure exits non-zero; nothing is caught):
         on the run's n = 500 consensus matrices, byte-equal, both timed;
      f. the options (phase_option_paths), each beside the float32 run of
         its route: the whole grid (at ks 2..6), the per-rank route (at ks
-        2..5) and hals under matmul_precision "bfloat16", the grid with
+        2..3) and hals under matmul_precision "bfloat16", the grid with
         factor_dtype "bfloat16_w", the ragged class-blocked pool (its per-job
         iterations and stops equal to a uniform check_block = 1 run's)
         and alias_io with block_m 256 (byte-equal to a); then the 200x24
@@ -83,8 +84,8 @@ Phases (any failure exits non-zero; nothing is caught):
   7. other solvers: kl, neals, als, snmf, pg (max_iter 100) and alspg
      (max_iter 20, sub_max_iter 100) through nmfconsensus at the north
      star with every other default (backend "auto": the batched restart
-     route, plain products; kl, als and alspg at ks 2..4 and pg at ks
-     2..3, their depth cut to keep the script inside its time limit),
+     route, plain products; kl, als, pg and alspg at k = 2, their depth
+     cut to keep the script inside its time limit),
      then kl and neals on the packed whole grid
      (backend "packed", 48 slots), each with the kernels' launch counts
      set to 0 just before it (0 expected: no kernel lies on these
@@ -226,6 +227,38 @@ Phases (any failure exits non-zero; nothing is caught):
         .csr.npz and .mtx reads back to one fingerprint, and python -m
         nmfx_torch on the bundle (--ks 2-3 --tile-rows 500, max_iter cut
         to 200) writes the files of the in-process run, byte-equal.
+ 13. the scale engines (phase_scale_engines), each run with the launch
+     counts set to 0 just before it and read just after (every kernel
+     0: no kernel lies on these routes):
+     a. the sketch operators of every rank's 50 restarts drawn on the
+        card alone, timed; then mu and hals with backend "sketched"
+        (SketchConfig defaults) at the north star, 50 restarts, ks 2..3
+        and max_iter 2000 (the depth cut to keep the phase near its
+        budget: at ks 2..10 and max_iter 10000 mu took 107 s and hals
+        253 s): wall, per-k iterations and stop reasons, the cost
+        model's FLOPs beside the exact pallas family's; gates: quality
+        "sketched", best k 2, the k = 2 memberships' ARI against phase
+        4's exact result of the same algorithm (4a, 4d) >= 0.9 and
+        |d rho| <= 0.12 (the JAX package's agreement gate);
+     b. the screened north star at ks (2, 5) (mu, screen_keep 10 of
+        50; the ranks cut from 2..10 for the same budget): exactly 10
+        survivors and 40 SCREENED a rank, best k 2, the first survivor
+        at k = 2 and k = 5 against restart_factors (byte-equal if the
+        card gives it, else rtol 1e-5 with equal iterations and labels;
+        printed which), beside the unscreened batched route's wall;
+     c. an NMFXServer(quality_elastic=True) on the bundled 1000x40
+        design (k = 2, max_iter 2000): a request under deadline
+        pressure (120 s at an estimated 1 iteration/s) served sketched,
+        tagged, counted once in nmfx_serve_quality_degraded_total, with
+        one serve.quality_degraded flight event; the same request
+        without quality_elastic exact with a clamped budget;
+     d. Lanczos NNDSVD at k = 2, 5, 10 on the north star against the
+        dense SVD's factors (the JAX package's 5e-3 band) and values,
+        both timed: float32 at the default ncv (gated at k = 2, within
+        the band and rtol 1e-3; past it the noise components lie below
+        float32's resolution on the Gram operator) and float64 at ncv
+        250 (every k within the band and rtol 1e-6); the card's normal
+        draws against the CPU's: words bit-equal, values within 1e-6.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -918,11 +951,14 @@ def north_star_matrix():
 
 
 def check_finite(res, label, n):
-    """Finite consensus and residuals of the right shape at every rank."""
+    """Finite consensus and residuals of the right shape at every rank
+    (a screened-out restart's residual is +inf by design: only the
+    others are read)."""
     for k in res.ks:
         kr = res.per_k[k]
+        solved = kr.stop_reasons != 6  # StopReason.SCREENED
         if not (np.isfinite(kr.consensus).all()
-                and np.isfinite(kr.dnorms).all()):
+                and np.isfinite(kr.dnorms[solved]).all()):
             raise AssertionError(f"{label} k={k}: non-finite output")
         if kr.consensus.shape != (n, n):
             raise AssertionError(f"{label} k={k}: consensus shape "
@@ -1539,13 +1575,14 @@ OTHER_SOLVERS = {"kl": {}, "neals": {}, "als": {}, "snmf": {},
                  "alspg": dict(max_iter=20, sub_max_iter=100)}
 #: ... and on the packed whole grid (backend "packed")
 PACKED_SOLVERS = ("kl", "neals")
-#: the slowest four at ks 2..4 (pg, whose ranks cost the same, at ks
-#: 2..3), their depth cut to keep the script inside its time limit (kl
-#: batched ran 111-116 s and pg 72-89 s at ks 2..10 on one H100; at ks
-#: 2..6 kl 43 s, pg 57 s; at ks 2..10 als 36 s, alspg 21 s; at ks 2..4
-#: pg 43.6 s)
-SOLVER_KS = dict({alg: KS[:3] for alg in ("kl", "als", "alspg")},
-                 pg=KS[:2])
+#: the slowest four at k = 2 only, their depth cut to keep the script
+#: inside its time limit (kl batched ran 111-116 s and pg 72-89 s at ks
+#: 2..10 on one H100; at ks 2..6 kl 43 s, pg 57 s; at ks 2..10 als 36 s,
+#: alspg 21 s; at ks 2..4 pg 43.6 s). The cut from ks 2..4 (pg 2..3)
+#: frees the seconds of phase 13: at ks 2..4 (pg 2..3) one H100 spent
+#: 17.1, 10.6, 13.7 and 28.1 s on kl, als, alspg and pg batched and 6.9 s
+#: on kl packed
+SOLVER_KS = {alg: KS[:1] for alg in ("kl", "als", "pg", "alspg")}
 #: each solver's best k on the bundled 1000x40 design (ks 2..5, 10
 #: restarts, seed 123) at those budgets, as the JAX package gives it
 #: (nmfconsensus on its CPU backend): neals and als stop on TolFun after
@@ -2055,12 +2092,13 @@ OPTION_PATHS = (
         backend="pallas", experimental=dict(alias_io=True, block_m=256)),
      "auto", "fused_block_iterations[alias_io]"),
 )
-#: the per-rank route under bf16 at ks 2..5 and the whole grid under
+#: the per-rank route under bf16 at ks 2..3 and the whole grid under
 #: bf16 at ks 2..6, their depth cut to keep the script inside its time
-#: limit (69 s and 29 s at ks 2..10 on one H100); a job's iterations do
-#: not depend on the others in its pool, so each rank meets the float32
-#: run's same rank
-OPTION_KS = {"per-rank bf16": KS[:4], "grid bf16": KS[:5]}
+#: limit (69 s and 29 s at ks 2..10 on one H100; the per-rank route cut
+#: from ks 2..5, 23.319 s on one H100, with phase 7 to free phase
+#: 13's seconds); a job's iterations do not depend on the others in its
+#: pool, so each rank meets the float32 run's same rank
+OPTION_KS = {"per-rank bf16": KS[:2], "grid bf16": KS[:5]}
 
 
 def solver_cfg(nmfx_torch, kw):
@@ -2556,7 +2594,11 @@ def phase_durability(torch, fm, grid, per_rank, hals, *, a=None, ks=KS,
               f"{phase_seconds(prof, 'solve.ckpt'):.3f} s, ckpt.load "
               f"{phase_seconds(prof, 'ckpt.load'):.4f} s, checkpoint "
               f"{phase_seconds(prof, 'checkpoint'):.4f} s, ckpt.finalize "
-              f"{phase_seconds(prof, 'ckpt.finalize'):.4f} s, "
+              f"{phase_seconds(prof, 'ckpt.finalize'):.4f} s for "
+              f"{len(ckpt_ks)} ranks, "
+              f"{phase_seconds(prof, 'ckpt.finalize') / len(ckpt_ks):.4f} "
+              "s a rank (an int64 einsum took 1.1307 s for 9 ranks, "
+              "0.1256 s a rank), "
               f"post.rank_selection "
               f"{phase_seconds(prof, 'post.rank_selection'):.4f} s "
               f"overlapped], chunks solved {solved}, loaded {loaded}, "
@@ -4009,6 +4051,328 @@ def phase_tiles(torch, fm):
     return launches
 
 
+
+# --- phase 13: the scale engines (the sketched engine, restart
+# screening, quality-elastic serving, Lanczos NNDSVD) ------------------
+
+#: the JAX package's agreement gate (tests/test_sketched.py): ARI of the
+#: k = 2 memberships against the exact engine, and the rho gap
+SKETCH_MIN_ARI, SKETCH_MAX_RHO_GAP = 0.9, 0.12
+#: 13a's depth, cut to keep the phase near its 60 s budget: ks 2..3 and
+#: max_iter 2000 (from 10000). At full depth (ks 2..10, max_iter 10000;
+#: measured on one NVIDIA H100 80GB HBM3 at 700.00 W) mu took
+#: 107.165 s and hals 252.830 s: a rank's batch runs until its slowest
+#: lane stops, every rank from k = 4 up has a lane at max_iter, and an
+#: iteration costs ≈ 1.3 ms (mu) to 3.4 ms (hals) of host dispatch
+SKETCH_KS, SKETCH_MAX_ITER = (2, 3), 2000
+#: 13b: survivors of the screening pass per rank (of the 50 restarts),
+#: the ranks swept (cut from 2..10 for the same budget; 30.266 s and the
+#: unscreened route's 39.008 s at ks 2..10 on that H100), and the ranks whose
+#: first survivor is held to restart_factors
+SCREEN_KEEP, SCREEN_KS, SCREEN_CHECK_KS = 10, (2, 5), (2, 5)
+#: 13c: the served request's ranks and budget (the deadline degrades it
+#: to the sketched engine, which runs the full budget)
+ELASTIC_KS, ELASTIC_MAX_ITER = (2,), 2000
+#: 13d: the Lanczos NNDSVD ranks; the factors' band against the dense
+#: SVD's is the JAX package's (tests/test_init.py). The north star's
+#: σ1/σk ≈ 1077/4.6 past k = 2 (noise components 0.1 % apart): on the Gram
+#: operator float32 resolves σ_k only to ≈ eps·(σ1/σk)² (the JAX
+#: package's Lanczos misses by 1.4 % at k = 5 and 12 % at k = 10, as the
+#: port does at its default ncv, both on the CPU), so float32 at the
+#: default ncv is gated at k = 2, and every k in float64 at ncv 250 (half
+#: the operator's dimension: 20 steps leave the crowded noise values
+#: unconverged in float64 too)
+LANCZOS_KS, LANCZOS_BAND, LANCZOS_NCV64 = (2, 5, 10), 5e-3, 250
+
+
+def no_launch(label, launches):
+    if any(launches.values()):
+        raise AssertionError(f"{label}: a kernel launched on a route "
+                             f"without kernels: {launches}")
+
+
+def phase_scale_engines(torch, fm, exact):
+    """Phase 13: a. mu and hals on the sketched engine at the north star
+    (SketchConfig defaults; ``SKETCH_KS``, ``SKETCH_MAX_ITER``), each
+    against phase 4's exact result of the
+    same algorithm (``exact``: {"mu": 4a, "hals": 4d}): quality tag, best
+    k 2, k = 2 ARI >= 0.9 and |d rho| <= 0.12; the sketch draw on the
+    card timed alone; the cost model's FLOPs beside the exact family's;
+    b. the screened north star (mu, ``SCREEN_KS``, 10 of 50 survivors a
+    rank): 10
+    survivors and 40 SCREENED a rank, best k 2, a survivor at k = 2 and
+    k = 5 against restart_factors (byte-equal if the card gives it, else
+    rtol 1e-5 with equal iterations and labels), beside the unscreened
+    batched route's wall; c. one NMFXServer(quality_elastic=True) on the
+    bundled 1000x40 design: a deadline-pressured request degraded,
+    tagged, counted once, with its flight event; the same request on a
+    server without quality_elastic exact and clamped; d. Lanczos NNDSVD
+    at k = 2, 5, 10 against the dense SVD's factors and values (float32
+    at the default ncv gated at k = 2, float64 at ``LANCZOS_NCV64`` at
+    every k), and the card's normal draws against the CPU's (words bit-equal, values
+    within 1e-6). Every run has the launch counts set to 0 just before
+    it and read just after: no kernel lies on these routes. Returns the
+    launches by run."""
+    import nmfx_torch
+    from nmfx_torch import random as R
+    from nmfx_torch.agreement import adjusted_rand_index
+    from nmfx_torch.datasets import two_group_matrix
+    from nmfx_torch.init import nndsvd_init
+    from nmfx_torch.obs import costmodel, flight, metrics
+    from nmfx_torch.ops.lanczos_svd import truncated_svd
+    from nmfx_torch.profiling import Profiler
+    from nmfx_torch.serve import NMFXServer, ServeConfig
+    from nmfx_torch.solvers import sketched as sk
+    from nmfx_torch.solvers.base import StopReason
+
+    m, n, r, _ = NORTH_STAR
+    a = north_star_matrix()
+    launches = {}
+    dev = torch.device("cuda")
+    seed = 123
+
+    def counted(label, fn):
+        fm.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[label] = {k: v for k, v in fm.LAUNCHES.items() if v}
+        return res, wall
+
+    # 13a: the draw alone, every (k, restart) of the north star
+    def draw_all():
+        out = []
+        for k in KS:
+            keys = R.split(R.fold_in(R.key(seed), k), r)
+            rk = sk.resolve_dim(nmfx_torch.SolverConfig(backend="sketched"),
+                                m, n, k)
+            out.append(sk.sketch_operators(keys, m, n, rk, torch.float32,
+                                           dev))
+        return out
+
+    draws, draw_s = counted("13a-draw", draw_all)
+    n_normals = sum(x.numel() + y.numel() for x, y in draws)
+    on_card = all(x.device.type == y.device.type == "cuda"
+                  for x, y in draws)
+    del draws
+    print(f"scale 13a sketch draw: {n_normals} normals (every rank's 50 "
+          f"restarts' L and R) on the card in {draw_s:.4f} s, on the card "
+          f"{on_card}, launches {launches['13a-draw']}", flush=True)
+    if not on_card:
+        raise AssertionError("13a: the sketch operators left the card")
+    no_launch("13a draw", launches["13a-draw"])
+    for alg in ("mu", "hals"):
+        cfg = nmfx_torch.SolverConfig(algorithm=alg, backend="sketched",
+                                      max_iter=SKETCH_MAX_ITER)
+        prof = Profiler()
+
+        def run():
+            with prof:
+                return nmfx_torch.nmfconsensus(a, ks=SKETCH_KS, restarts=r,
+                                               seed=seed, solver_cfg=cfg,
+                                               profiler=prof)
+
+        res, wall = counted(f"13a-{alg}", run)
+        check_finite(res, f"13a {alg}", n)
+        ref = exact[alg]
+        ari = adjusted_rand_index(res.per_k[2].membership,
+                                  ref.per_k[2].membership)
+        gap = abs(res.per_k[2].rho - ref.per_k[2].rho)
+        flops = sum(costmodel.iteration_flops(alg, "sketched", m, n, k, cfg)
+                    * float(res.per_k[k].iterations.sum())
+                    for k in SKETCH_KS)
+        pallas = nmfx_torch.SolverConfig(algorithm=alg, backend="pallas")
+        exact_flops = sum(costmodel.iteration_flops(alg, "pallas", m, n, k,
+                                                    pallas)
+                          * float(ref.per_k[k].iterations.sum())
+                          for k in SKETCH_KS)
+        solve = phase_seconds(prof, "solve.")
+        print(f"scale 13a {alg} sketched (ks {SKETCH_KS}, max_iter "
+              f"{SKETCH_MAX_ITER}): wall {wall:.3f} s (solve "
+              f"{solve:.3f} s), quality {res.quality}, best k "
+              f"{res.best_k} (exact {ref.best_k}), k=2 ARI against phase "
+              f"4 {ari:.4f}, |d rho| {gap:.4f}, model FLOPs {flops:.4g} "
+              f"against the exact pallas run's {exact_flops:.4g} "
+              f"({exact_flops / flops:.2f}x), launches "
+              f"{launches[f'13a-{alg}']}", flush=True)
+        for k in SKETCH_KS:
+            kr = res.per_k[k]
+            rk = sk.resolve_dim(cfg, m, n, k)
+            fl_sk = costmodel.iteration_flops(alg, "sketched", m, n, k, cfg)
+            fl_ex = costmodel.iteration_flops(alg, "pallas", m, n, k, pallas)
+            print(f"scale 13a {alg} k={k}: r {rk}, mean iters "
+                  f"{kr.iterations.mean():.1f} (exact "
+                  f"{ref.per_k[k].iterations.mean():.1f}), max iters "
+                  f"{int(kr.iterations.max())}, stop reasons "
+                  f"{stop_counts(kr)}, rho {kr.rho:.4f} (exact "
+                  f"{ref.per_k[k].rho:.4f}), per-iteration FLOPs "
+                  f"{fl_sk:.4g} against {fl_ex:.4g}", flush=True)
+        no_launch(f"13a {alg}", launches[f"13a-{alg}"])
+        if (res.quality != "sketched" or res.best_k != 2
+                or ari < SKETCH_MIN_ARI or gap > SKETCH_MAX_RHO_GAP):
+            raise AssertionError(
+                f"13a {alg}: quality {res.quality}, best k {res.best_k}, "
+                f"ARI {ari:.4f} (>= {SKETCH_MIN_ARI}), |d rho| {gap:.4f} "
+                f"(<= {SKETCH_MAX_RHO_GAP})")
+
+    # 13b: the screened north star
+    scfg = nmfx_torch.SolverConfig(algorithm="mu", screen=True,
+                                   screen_keep=SCREEN_KEEP)
+    outs = {}
+    res, wall = counted("13b-screened", lambda: nmfx_torch.nmfconsensus(
+        a, ks=SCREEN_KS, restarts=r, seed=seed, solver_cfg=scfg,
+        on_rank=lambda k, out: outs.setdefault(k, out)))
+    check_sweep(res, "13b screened", n)
+    counts = {k: (int((res.per_k[k].stop_reasons
+                       != int(StopReason.SCREENED)).sum()),
+                  int((res.per_k[k].stop_reasons
+                       == int(StopReason.SCREENED)).sum())) for k in SCREEN_KS}
+    vmap, vwall = counted("13b-batched", lambda: nmfx_torch.nmfconsensus(
+        a, ks=SCREEN_KS, restarts=r, seed=seed,
+        solver_cfg=nmfx_torch.SolverConfig(algorithm="mu", backend="vmap")))
+    check_sweep(vmap, "13b unscreened batched", n)
+    print(f"scale 13b screened (mu, ks {SCREEN_KS}, keep {SCREEN_KEEP} of "
+          f"{r}): wall "
+          f"{wall:.3f} s beside the unscreened batched route's "
+          f"{vwall:.3f} s, best k {res.best_k} (unscreened "
+          f"{vmap.best_k}), survivors and SCREENED per k {counts}, mean "
+          "survivor iters per k "
+          + str({k: round(float(res.per_k[k].iterations[
+              res.per_k[k].stop_reasons != int(StopReason.SCREENED)]
+              .mean()), 1) for k in SCREEN_KS})
+          + f", launches {launches['13b-screened']} / "
+          f"{launches['13b-batched']}", flush=True)
+    no_launch("13b screened", launches["13b-screened"])
+    no_launch("13b batched", launches["13b-batched"])
+    bad = {k: c for k, c in counts.items() if c != (SCREEN_KEEP,
+                                                   r - SCREEN_KEEP)}
+    if bad:
+        raise AssertionError(f"13b: survivors / SCREENED per k {bad}")
+    for k in SCREEN_CHECK_KS:
+        stops = res.per_k[k].stop_reasons
+        i = int(np.nonzero(stops != int(StopReason.SCREENED))[0][0])
+        rf, rf_wall = counted(f"13b-restart_factors-k{k}",
+                              lambda: nmfx_torch.restart_factors(
+                                  a, k, i, restarts=r, seed=seed,
+                                  solver_cfg=scfg))
+        lanes_out = outs[k]
+        got_d = float(res.per_k[k].dnorms[i])
+        labels_equal = bool(torch.equal(
+            torch.argmax(rf.h, dim=0).to(torch.int32),
+            lanes_out.labels[i].to(rf.h.device)))
+        iters_equal = rf.iterations == int(res.per_k[k].iterations[i])
+        byte = (np.float32(rf.dnorm.item()).tobytes()
+                == np.float32(got_d).tobytes())
+        close = abs(rf.dnorm.item() - got_d) <= 1e-5 * abs(got_d)
+        print(f"scale 13b survivor k={k} restart {i} against "
+              f"restart_factors ({rf_wall:.3f} s): dnorm byte-equal "
+              f"{byte} ({got_d!r} / {rf.dnorm.item()!r}), iterations "
+              f"equal {iters_equal}, labels equal {labels_equal}; held "
+              + ("byte-equal" if byte else "at rtol 1e-5"), flush=True)
+        no_launch(f"13b restart_factors k={k}",
+                  launches[f"13b-restart_factors-k{k}"])
+        if not (iters_equal and labels_equal and (byte or close)):
+            raise AssertionError(f"13b: survivor {i} at k={k} differs from "
+                                 "restart_factors")
+
+    # 13c: quality-elastic serving on the bundled design
+    bundled = two_group_matrix(n_genes=1000, n_per_group=20, seed=123)
+    req = dict(ks=ELASTIC_KS, restarts=10, seed=seed,
+               solver_cfg=nmfx_torch.SolverConfig(
+                   backend="pallas", max_iter=ELASTIC_MAX_ITER))
+    counter = metrics.registry().get("nmfx_serve_quality_degraded_total")
+    before = counter.value(cause="deadline")
+
+    def served(elastic):
+        cfg = ServeConfig(quality_elastic=elastic, iter_rate_estimate=1.0)
+        with NMFXServer(cfg) as srv:
+            fut = srv.submit(bundled, timeout=120, **req)
+            out = fut.result(timeout=600)
+            return out, fut.stats, srv.stats()
+
+    (deg, deg_stats, deg_books), deg_wall = counted("13c-elastic",
+                                                    lambda: served(True))
+    (ex, ex_stats, ex_books), ex_wall = counted("13c-plain",
+                                                lambda: served(False))
+    counted_once = counter.value(cause="deadline") - before
+    # no earlier phase degrades a request: every such event is 13c's
+    events = [e for e in flight.default_recorder().events(
+        "serve.quality_degraded") if e.get("cause") == "deadline"]
+    print(f"scale 13c quality-elastic server (bundled 1000x40, deadline "
+          f"120 s at an estimated 1 iteration/s): {deg_wall:.3f} s, "
+          f"quality {deg.quality}, degraded_cause "
+          f"{deg_stats.degraded_cause}, budget_iters "
+          f"{deg_stats.budget_iters}, books quality_degraded "
+          f"{deg_books['quality_degraded']}, counter +{counted_once:g}, "
+          f"flight events {len(events)}, best k {deg.best_k}, launches "
+          f"{launches['13c-elastic']}; without quality_elastic "
+          f"{ex_wall:.3f} s, quality {ex.quality}, budget_iters "
+          f"{ex_stats.budget_iters}, best k {ex.best_k}, launches "
+          f"{launches['13c-plain']}", flush=True)
+    no_launch("13c elastic", launches["13c-elastic"])
+    if not (deg.quality == deg_stats.quality == "sketched"
+            and deg_stats.degraded_cause == "deadline"
+            and deg_books["quality_degraded"] == 1 and counted_once == 1
+            and len(events) == 1 and ex.quality == "exact"
+            and ex_stats.degraded_cause is None
+            and ex_stats.budget_iters is not None):
+        raise AssertionError("13c: the degraded request is not tagged and "
+                             "counted once, or the plain one not exact")
+
+    # 13d: Lanczos NNDSVD and the card's draws against the CPU's
+    a32 = torch.as_tensor(a, dtype=torch.float32, device=dev)
+    a64 = a32.double()
+    s_dense = {x.dtype: torch.linalg.svd(x, full_matrices=False).S
+               for x in (a32, a64)}
+    for k in LANCZOS_KS:
+        row = {}
+        for x, ncv in ((a32, None), (a64, LANCZOS_NCV64)):
+            name = f"13d-{str(x.dtype)[6:]}-k{k}"
+            (wl, hl), l_wall = counted(name, lambda: nndsvd_init(
+                x, k, svd_method="lanczos", ncv=ncv))
+            (wd, hd), d_wall = counted(name + "-dense", lambda: nndsvd_init(
+                x, k, svd_method="dense"))
+            s_l = truncated_svd(x, k, ncv)[1]
+            s_d = s_dense[x.dtype][:k]
+            past = float(max(
+                ((wl - wd).abs() - LANCZOS_BAND * wd.abs()).max(),
+                ((hl - hd).abs() - LANCZOS_BAND * hd.abs()).max()))
+            row[x.dtype] = (float(((s_l - s_d).abs() / s_d).max()),
+                            past <= LANCZOS_BAND, l_wall, d_wall)
+            no_launch(name, launches[name])
+        (e32, ok32, l32, d32), (e64, ok64, l64, d64) = row.values()
+        print(f"scale 13d Lanczos NNDSVD k={k}: float32, default ncv "
+              f"{l32:.4f} s against the dense SVD's {d32:.4f} s, max rel "
+              f"sigma error {e32:.3g}, factors within the band (rtol = "
+              f"atol = {LANCZOS_BAND}) {ok32}; float64, ncv "
+              f"{LANCZOS_NCV64} {l64:.4f} s against {d64:.4f} s, error "
+              f"{e64:.3g}, within the band {ok64}", flush=True)
+        if not (ok64 and e64 <= 1e-6) or (k == 2 and not (ok32
+                                                           and e32 <= 1e-3)):
+            raise AssertionError(f"13d: Lanczos NNDSVD at k={k} off the "
+                                 "dense one")
+    keys = np.stack([R.fold_in(kk, sk._FOLD_L)
+                     for kk in R.split(R.fold_in(R.key(seed), 10), r)[:8]])
+    rk = sk.resolve_dim(nmfx_torch.SolverConfig(backend="sketched"), m, n,
+                        10)
+    words = R.random_bits_device(keys, (rk, m), dev, 32).cpu().numpy()
+    words_equal = all(np.array_equal(words[b].astype(np.uint32),
+                                     R.random_bits(keys[b], (rk, m)))
+                      for b in range(len(keys)))
+    card = R.normal_device(keys, (rk, m), torch.float32, dev).cpu().numpy()
+    host = R.normal_device(keys, (rk, m), torch.float32, "cpu").numpy()
+    dmax = float(np.abs(card - host).max())
+    print(f"scale 13d normal draws ({len(keys)} of k = 10's sketch keys x "
+          f"{rk}x{m}): card words "
+          f"bit-equal to the host's {words_equal}, max |card - CPU| "
+          f"{dmax:.3g}, values byte-equal "
+          f"{card.tobytes() == host.tobytes()}", flush=True)
+    if not words_equal or dmax > 1e-6:
+        raise AssertionError("13d: the card's draws differ from the CPU's")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -4017,6 +4381,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tiles", action="store_true",
                     help="build, kernel parity and phase 12 (tiles and "
                          "sparse inputs) only")
+    ap.add_argument("--scale", action="store_true",
+                    help="build, kernel parity, the exact grids of 4a "
+                         "and 4d and phase 13 (the scale engines) only")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "nmfx_torch")):
         print("chip_smoke: the nmfx_torch package is not beside this "
@@ -4084,7 +4451,16 @@ def main(argv=None) -> int:
         done("12 tiles")
         print(f"tiles phase {spent['12 tiles']:.3f} s; launches by run "
               f"{tiled}", flush=True)
-    elif not args.quick:
+    if args.scale:
+        _, phased, _ = phase_grid_path(torch, fm)
+        _, hals_res, _ = phase_hals_path(torch, fm)
+        done("4a,d main paths")
+        scaled = phase_scale_engines(torch, fm, {"mu": phased,
+                                                 "hals": hals_res})
+        done("13 scale engines")
+        print(f"scale phase {spent['13 scale engines']:.3f} s; launches "
+              f"by run {scaled}", flush=True)
+    elif not args.quick and not args.tiles:
         rates = peaks(kind)
         timing = phase_timing(torch, fm, rates)[NORTH_STAR[3]]
         timing.update(phase_block_timing(torch, fm, rates))
@@ -4140,6 +4516,11 @@ def main(argv=None) -> int:
         done("12 tiles")
         print(f"tiles phase {spent['12 tiles']:.3f} s; launches by run "
               f"{tiled}", flush=True)
+        scaled = phase_scale_engines(torch, fm, {"mu": phased,
+                                                 "hals": hals_res})
+        done("13 scale engines")
+        print(f"scale phase {spent['13 scale engines']:.3f} s; launches "
+              f"by run {scaled}", flush=True)
         print(f"phase seconds {json.dumps(spent)}; "
               f"{time.perf_counter() - start:.3f} s in all", flush=True)
         kernels = []

@@ -14,7 +14,7 @@ from nmfx_torch.api import (ConsensusResult, InsufficientRestarts, KResult,
 from nmfx_torch.config import (CheckpointConfig, ConsensusConfig,
                                ExecCacheConfig, ExperimentalConfig,
                                InitConfig, OutputConfig, ResultCacheConfig,
-                               SolverConfig)
+                               SketchConfig, SolverConfig)
 from nmfx_torch.exec_cache import ExecCache
 from nmfx_torch.io import read_dataset, read_gct, read_res, write_gct
 from nmfx_torch.solvers.base import SolverResult, StopReason
@@ -27,7 +27,8 @@ __all__ = ["ConsensusResult", "InsufficientRestarts", "KResult", "nmf",
            "reduce_grid",
            "CheckpointConfig", "ConsensusConfig", "ExecCache",
            "ExecCacheConfig", "ExperimentalConfig", "InitConfig",
-           "OutputConfig", "ResultCacheConfig", "SolverConfig", "SolverResult",
+           "OutputConfig", "ResultCacheConfig", "SketchConfig",
+           "SolverConfig", "SolverResult",
            "StopReason",
            "adjusted_rand_index", "consensus_agreement", "cophenetic_gap",
            "membership_agreement",

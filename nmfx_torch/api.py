@@ -18,9 +18,9 @@ import torch
 
 from nmfx_torch import cophenetic as coph
 from nmfx_torch import random as _random
-from nmfx_torch.config import (ROADMAP_SCALE, CheckpointConfig,
-                               ConsensusConfig, InitConfig, OutputConfig,
-                               SolverConfig)
+from nmfx_torch.config import (CheckpointConfig, ConsensusConfig,
+                               InitConfig, OutputConfig, SolverConfig,
+                               check_ported)
 from nmfx_torch.device import resolve_device
 from nmfx_torch.faults import InsufficientRestarts
 from nmfx_torch.harvest import HarvestPipeline, fetch_host, start_host_fetch
@@ -65,7 +65,10 @@ class ConsensusResult:
     ks: tuple[int, ...]
     per_k: Mapping[int, KResult]
     col_names: tuple[str, ...]
-    #: solver-quality tag; the port's engines are all exact
+    #: solver-quality tag: "exact" for the exact engines, "sketched" when
+    #: the factorizations ran the compressed engine (``backend=
+    #: "sketched"``, a serve request degraded there by quality-elastic
+    #: scheduling included)
     quality: str = "exact"
 
     @property
@@ -91,6 +94,9 @@ class ConsensusResult:
             lines.append(f"{k}\t{r.rho:.4f}\t{r.dispersion:.4f}"
                          f"\t{r.iterations.mean():.1f}")
         lines.append(f"best k = {self.best_k}")
+        if self.quality != "exact":
+            lines.append(f"quality = {self.quality} (approximate engine; "
+                         "statistical accuracy contract)")
         return "\n".join(lines)
 
     def save(self, path: str) -> None:
@@ -154,11 +160,16 @@ def _build_k_result(k: int, out, linkage: str, selection=None,
     survivors = int((~masked).sum())
     if survivors < min_restarts:
         n_fault = int((stops == int(StopReason.NUMERIC_FAULT)).sum())
+        n_screen = int((stops == int(StopReason.SCREENED)).sum())
         raise InsufficientRestarts(
             f"rank k={k}: only {survivors} of {stops.size} restarts "
-            f"survived the numeric quarantine (NUMERIC_FAULT on "
-            f"{n_fault}), below the configured floor "
-            f"min_restarts={min_restarts}")
+            "survived the numeric quarantine / screening cut "
+            f"(NUMERIC_FAULT on {n_fault}, SCREENED on {n_screen}), "
+            f"below the configured floor min_restarts={min_restarts} — "
+            "the consensus for this rank is not trustworthy. Inspect "
+            "the input conditioning / solver settings (or raise "
+            "screen_keep), or lower min_restarts to accept thinner "
+            "consensus")
     cons = np.asarray(out.consensus, dtype=np.float64)
     if selection is None:
         selection = coph.rank_selection(cons, k, linkage)
@@ -236,9 +247,11 @@ def nmf(a, k: int, *, seed: int = 0, algorithm: str | None = None,
         init_cfg: InitConfig | None = None, w0=None, h0=None,
         device=None) -> SolverResult:
     """One non-negative factorization A ≈ W·H at rank k (reference
-    ``nmf``, without its sketched engine), by any of the eight
-    ``algorithm``s: "mu" (the default), "als", "neals", "pg", "alspg",
-    "kl", "snmf" or "hals", in float32 or float64 (``solver_cfg.dtype``).
+    ``nmf``), by any of the eight ``algorithm``s: "mu" (the default),
+    "als", "neals", "pg", "alspg", "kl", "snmf" or "hals", in float32 or
+    float64 (``solver_cfg.dtype``); mu and hals also on the compressed
+    engine (``backend="sketched"``, its projections drawn from
+    ``key(seed)``, the key the init draws from).
 
     ``w0``/``h0``: explicit initial factors (both or neither); otherwise
     they come from ``init``/``init_cfg`` with the key ``key(seed)``, the
@@ -259,7 +272,8 @@ def nmf(a, k: int, *, seed: int = 0, algorithm: str | None = None,
         if icfg.method == "nndsvd":
             dtype = torch.float64 if scfg.dtype == "float64" else torch.float32
             w0, h0 = nndsvd_init(torch.as_tensor(
-                arr, dtype=dtype, device=resolve_device(device)), k)
+                arr, dtype=dtype, device=resolve_device(device)), k,
+                svd_method=icfg.svd_method, ncv=icfg.ncv)
         else:
             w0, h0 = random_init(_random.key(seed), m, n, k, icfg,
                                  _NP_DTYPES[scfg.dtype])
@@ -276,7 +290,28 @@ def nmf(a, k: int, *, seed: int = 0, algorithm: str | None = None,
             raise ValueError("initial factors contain non-finite values")
         if (w0 < 0).any() or (h0 < 0).any():
             raise ValueError("initial factors must be non-negative")
+    if scfg.screen:
+        raise ValueError(
+            "screen=True is a sweep-pool concept (it ranks RESTARTS); "
+            "a single factorization has no pool to screen")
+    if scfg.backend == "sketched":
+        return _solve_sketched(arr, w0, h0, _random.key(seed), scfg,
+                               device)
     return solve(arr, w0, h0, scfg, device=device)
+
+
+def _solve_sketched(arr, w0, h0, key: np.ndarray, scfg: SolverConfig,
+                    device) -> SolverResult:
+    """One compressed factorization on ``device`` from ``key`` (the
+    restart's key, which its projections fold off)."""
+    from nmfx_torch.device import to_device
+    from nmfx_torch.solvers.sketched import solve_sketched
+
+    check_ported(scfg)
+    dev = resolve_device(device)
+    dtype = torch.float64 if scfg.dtype == "float64" else torch.float32
+    a, w0, h0 = (to_device(x, dtype, dev) for x in (arr, w0, h0))
+    return solve_sketched(a, w0, h0, key, scfg)
 
 
 def restart_factors(a, k: int, restart: int, *, restarts: int,
@@ -292,24 +327,58 @@ def restart_factors(a, k: int, restart: int, *, restarts: int,
     without the sweep having kept its factors (``keep_factors``; a
     checkpointed sweep refuses that and names this instead). It runs the
     exact single-restart ``solve``; the sweep's packed or batched route
-    sums in other orders, so the factors agree to float tolerance."""
+    sums in other orders, so the factors agree to float tolerance.
+
+    A sketched configuration runs the compressed engine from the same
+    key, whose projections the sweep's lane folds off it too (the same
+    draws and trajectory, at float tolerance). A screened one runs what
+    a survivor lane's exact phase ran: the screening fields stripped, on
+    the batched restart route at that phase's width (``screen_keep``
+    copies of this restart, the first one returned), so the products
+    have the survivors' shapes and a survivor recomputes byte-equal
+    wherever equal shapes take equal kernels (cuBLAS may choose another
+    algorithm for another batch count); a screened-out lane gets its
+    would-have-been exact result."""
     if not 0 <= restart < restarts:
         raise ValueError(
             f"restart index {restart} outside [0, {restarts})")
     arr, _ = _as_matrix(a)
     scfg, icfg = _resolve_cfgs(algorithm, max_iter, init, solver_cfg,
                                init_cfg)
-    if scfg.backend == "sketched":
-        raise NotImplementedError(
-            "restart_factors of a sketched sweep: the sketched engine is "
-            f"not ported yet ({ROADMAP_SCALE})")
     dev = resolve_device(device)
     kk = _random.split(_random.fold_in(_random.key(seed), k),
                        restarts)[restart:restart + 1]
     dtype = torch.float64 if scfg.dtype == "float64" else torch.float32
     w0, h0 = restart_inits(torch.as_tensor(arr, dtype=dtype, device=dev),
                            kk, k, icfg)
+    if scfg.backend == "sketched":
+        return _solve_sketched(arr, w0[0], h0[0], kk[0], scfg, dev)
+    if scfg.screen:
+        width = scfg.screen_keep
+        scfg = dataclasses.replace(scfg, screen=False, screen_keep=None)
+        return _solve_lane(w0, h0, torch.as_tensor(arr, dtype=dtype,
+                                                   device=dev), scfg, width)
     return solve(arr, w0[0], h0[0], scfg, device=dev)
+
+
+def _solve_lane(w0: torch.Tensor, h0: torch.Tensor, a: torch.Tensor,
+                scfg: SolverConfig, width: int) -> SolverResult:
+    """One restart, (1, m, k) / (1, k, n), on the batched restart route
+    (a screened sweep's exact phase) as ``width`` identical lanes,
+    returned as a single solve's result."""
+    from nmfx_torch.solvers import SOLVERS
+    from nmfx_torch.solvers.base import run_loop_batched
+
+    check_ported(scfg)
+    mod = SOLVERS[scfg.algorithm]
+    w0 = w0.expand(width, -1, -1).contiguous()
+    h0 = h0.expand(width, -1, -1).contiguous()
+    res = run_loop_batched(a, w0, h0, scfg, mod.step,
+                           mod.init_aux(a, w0, h0, scfg))
+    return res._replace(w=res.w[0], h=res.h[0],
+                        iterations=int(res.iterations[0]),
+                        dnorm=res.dnorm[0],
+                        stop_reason=int(res.stop_reason[0]))
 
 
 class _Selection(NamedTuple):
@@ -574,7 +643,10 @@ def nmfconsensus(
                     k, host[k], ccfg.linkage, selection=sel.get(k),
                     min_restarts=ccfg.min_restarts)
     result = ConsensusResult(ks=ccfg.ks, per_k=per_k,
-                             col_names=tuple(col_names))
+                             col_names=tuple(col_names),
+                             quality=("sketched"
+                                      if scfg.backend == "sketched"
+                                      else "exact"))
     if rcache is not None and rkey is not None:
         try:
             rcache.put(rkey, result, ccfg=ccfg)

@@ -533,7 +533,7 @@ def solve_chunk_host(a_dev, k: int, r0: int, r1: int,
     from nmfx_torch.sparse import SparseMatrix
     from nmfx_torch.sweep import _build_chunk_sweep_fn
 
-    if scfg.backend == "sketched":
+    if scfg.backend == "sketched" or scfg.screen:
         raise ValueError(
             "durable chunk execution does not support "
             "backend='sketched' or screen=True (bit-identical replay "
@@ -579,9 +579,10 @@ def solve_chunk_host(a_dev, k: int, r0: int, r1: int,
 def _finalize_rank(k: int, recs: dict, ccfg: ConsensusConfig,
                    shape: tuple):
     """Rank ``k``'s host ``KSweepOutput`` from its chunk records, in
-    restart order: int64 connectivity counts, one float64 division by
-    the survivor count, and the global first-minimum ``argmin`` of the
-    dnorms (quarantined lanes +inf) for the best restart."""
+    restart order: the connectivity counts (exact integers, by one
+    float64 GEMM), one float64 division by the survivor count, and the
+    global first-minimum ``argmin`` of the dnorms (quarantined lanes
+    +inf) for the best restart."""
     from nmfx_torch.solvers.base import StopReason
     from nmfx_torch.sweep import KSweepOutput
 
@@ -599,9 +600,14 @@ def _finalize_rank(k: int, recs: dict, ccfg: ConsensusConfig,
         stops[r0:r1] = rec.stop_reasons
     faulted = ((stops == int(StopReason.NUMERIC_FAULT))
                | (stops == int(StopReason.SCREENED)))
+    # co-membership counts as one float64 GEMM of the (n, R·k) one-hots:
+    # every product is 0 or 1 and every sum an integer of at most
+    # R < 2^53, so it is exact in any summation order (numpy's int64
+    # einsum was the slowest step of the finalize)
     onehot = (labels[~faulted][:, :, None]
-              == np.arange(k)[None, None, :]).astype(np.int64)
-    counts = np.einsum("rik,rjk->ij", onehot, onehot)
+              == np.arange(k)[None, None, :]).astype(np.float64)
+    flat = np.ascontiguousarray(onehot.transpose(1, 0, 2)).reshape(n, -1)
+    counts = flat @ flat.T
     n_fault = int(faulted.sum())
     div = max(restarts - n_fault, 1) if n_fault else restarts
     cons = counts / np.float64(div)
@@ -642,7 +648,7 @@ def run_checkpointed_sweep(a, cfg: ConsensusConfig, solver_cfg: SolverConfig,
             "ledger persists per-restart stats and best candidates, not "
             "every factor stack); recompute any restart exactly with "
             "nmfx_torch.restart_factors")
-    if solver_cfg.backend == "sketched":
+    if solver_cfg.backend == "sketched" or solver_cfg.screen:
         raise ValueError(
             "checkpointed sweeps do not support backend='sketched' or "
             "screen=True (the durable ledger replays per-(k, chunk) "

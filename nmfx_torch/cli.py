@@ -17,8 +17,7 @@ reference's everywhere else.
 
 Refused, each with a usage error (exit 2) that names its ROADMAP item:
 
-* the scale engines (``ROADMAP_SCALE``): ``--backend sketched``,
-  ``--sketch-dim``, ``--screen``, ``--screen-keep``,
+* the meshes (``ROADMAP_SCALE``):
   ``--feature-shards``/``--sample-shards``/``--restart-shards`` above
   1 (with or without tiles), and a mesh entry in ``--replica-mesh``;
 * serialized XLA executables (``ROADMAP_WARM``): ``--cache-dir`` and an
@@ -32,6 +31,11 @@ streams a dense input through the tile pipeline, and a sparse ``.mtx`` /
 ``.csr.npz`` dataset always streams; what does not compose with that
 (another algorithm, the kernels, the executable cache, the serving smoke
 run, ``--grid-exec grid``) is a usage error with the reference's words.
+
+The compressed paths: ``--backend sketched`` (the sketched engine,
+result tagged ``quality = sketched``), ``--screen --screen-keep K``
+(restart screening) and ``--sketch-dim R``, with the reference's
+meanings and its usage errors for what does not compose with them.
 
 Plots: the reference's plot set (``nmfx_torch/plots.py``), written as
 the reference writes it, none where matplotlib is absent; ``--no-plots``
@@ -173,16 +177,29 @@ def build_parser() -> argparse.ArgumentParser:
                    help="restart-batch execution strategy (auto = the "
                         "whole-grid scheduler for mu/hals, the batched "
                         "restart route otherwise; 'pallas' = the "
-                        "hand-written CUDA kernels; 'sketched' is not "
-                        f"ported, {ROADMAP_SCALE})")
+                        "hand-written CUDA kernels; 'sketched' = the "
+                        "random-projection compressed engine — "
+                        "approximate, statistical accuracy contract at "
+                        "the consensus level, result tagged "
+                        "quality='sketched'; mu/hals only)")
     p.add_argument("--sketch-dim", type=int, default=None, metavar="R",
-                   help="sketch dimension of the compressed engine "
-                        f"(not ported, {ROADMAP_SCALE})")
+                   help="sketch dimension of the compressed engine / "
+                        "screening pass (SketchConfig.dim; default "
+                        "'auto' = 4k+8 per rank, clamped to the matrix "
+                        "dims). Requires --backend sketched or --screen")
     p.add_argument("--screen", action="store_true",
-                   help=f"restart screening (not ported, {ROADMAP_SCALE})")
+                   help="restart screening (SolverConfig.screen): a "
+                        "cheap sketched pass scores the full restart "
+                        "pool and only the --screen-keep best lanes "
+                        "get exact iterations; screened-out lanes are "
+                        "masked from the consensus like pad lanes (the "
+                        "min_restarts floor counts them as "
+                        "non-survivors). mu/hals with --backend "
+                        "auto/vmap")
     p.add_argument("--screen-keep", type=int, default=None, metavar="K",
-                   help="survivors of the screening pass per rank (not "
-                        f"ported, {ROADMAP_SCALE})")
+                   help="survivors of the screening pass per rank "
+                        "(required with --screen; must be <= "
+                        "--restarts)")
     p.add_argument("--restart-chunk", type=int, default=None,
                    help="cap on restarts solved concurrently on the "
                         "batched restart route (bounds peak memory for "
@@ -406,14 +423,6 @@ def main(argv: list[str] | None = None) -> int:
 def _refuse_unported(parser, args) -> None:
     """The usage errors of the options the port has not got, each
     naming its ROADMAP item."""
-    for bad, what in (
-            (args.backend == "sketched", "--backend sketched"),
-            (args.sketch_dim is not None, "--sketch-dim"),
-            (args.screen, "--screen"),
-            (args.screen_keep is not None, "--screen-keep")):
-        if bad:
-            parser.error(f"{what}: the scale engines are not ported yet "
-                         f"({ROADMAP_SCALE})")
     if args.autotune:
         parser.error("--autotune: the kernel autotuner is not ported yet "
                      f"({ROADMAP_TOOLING})")
@@ -425,6 +434,81 @@ def _refuse_unported(parser, args) -> None:
             and not args.no_compile_cache):
         parser.error("--compile-cache: the port compiles no XLA program "
                      f"({ROADMAP_WARM}); drop the option")
+
+
+def _check_sketched(parser, args) -> None:
+    """The reference's usage errors of ``--backend sketched``,
+    ``--screen``, ``--screen-keep`` and ``--sketch-dim``."""
+    from nmfx_torch.config import SKETCHED_ALGORITHMS
+
+    if (args.backend == "sketched"
+            and args.algorithm not in SKETCHED_ALGORITHMS):
+        parser.error("--backend sketched is only implemented for "
+                     f"--algorithm {'/'.join(SKETCHED_ALGORITHMS)} "
+                     "(the Gram-family updates the projections "
+                     "compress)")
+    if args.screen:
+        if args.algorithm not in SKETCHED_ALGORITHMS:
+            parser.error("--screen needs a sketched screening pass, "
+                         "which only --algorithm "
+                         f"{'/'.join(SKETCHED_ALGORITHMS)} has")
+        if args.backend not in ("auto", "vmap"):
+            parser.error("--screen runs its exact phase through the "
+                         "vmapped driver (the survivor bit-identity "
+                         "contract); use --backend auto or vmap")
+        if args.screen_keep is None:
+            parser.error("--screen requires --screen-keep (how many "
+                         "survivors get exact iterations)")
+        if not 1 <= args.screen_keep <= args.restarts:
+            parser.error(f"--screen-keep must be in [1, --restarts="
+                         f"{args.restarts}], got {args.screen_keep}")
+        if args.keep_factors:
+            parser.error("--screen does not compose with "
+                         "--keep-factors (screened-out lanes never "
+                         "receive exact iterations, so there is no "
+                         "full factor grid to keep)")
+    elif args.screen_keep is not None:
+        parser.error("--screen-keep requires --screen")
+    if args.sketch_dim is not None:
+        if args.sketch_dim < 1:
+            parser.error("--sketch-dim must be >= 1")
+        if args.backend != "sketched" and not args.screen:
+            parser.error("--sketch-dim only applies to the compressed "
+                         "paths; pass --backend sketched or --screen")
+
+
+def _check_sketched_compose(parser, args) -> None:
+    """The reference's compose guards of the statistical-contract
+    paths: every surface whose contract is bit-exact (or whose resume
+    replays exact records) refuses them."""
+    if not (args.backend == "sketched" or args.screen):
+        return
+    if args.rank_selection == "device":
+        parser.error("--backend sketched/--screen carry a "
+                     "STATISTICAL accuracy contract; "
+                     "--rank-selection device exists for bit-exact "
+                     "pipelines — use the host path")
+    if args.checkpoint_dir is not None:
+        parser.error("--backend sketched/--screen do not compose "
+                     "with --checkpoint-dir (the durable ledger "
+                     "replays per-chunk records bit-identically; "
+                     "the sketched/screened paths are whole-pool "
+                     "and statistical)")
+    if args.serve_smoke:
+        parser.error("--serve-smoke gates served results "
+                     "bit-identical to the direct path; the "
+                     "sketched/screened engines are statistical — "
+                     "drop --backend sketched/--screen")
+    if (args.exec_cache or args.warm_shapes or args.cache_dir
+            or args.pipeline_ranks):
+        parser.error("--backend sketched/--screen are not exec-"
+                     "cacheable (no slot-scheduled form; see "
+                     "ExecCache.cacheable) — drop --exec-cache/"
+                     "--warm-shapes/--cache-dir/--pipeline-ranks")
+    if args.grid_exec == "grid":
+        parser.error("--grid-exec grid demands the whole-grid slot "
+                     "scheduler, which has no sketched/screened "
+                     "form; use auto (falls back per-k)")
 
 
 def _check_tiles(parser, args) -> None:
@@ -499,6 +583,7 @@ def _run_cli(argv: list[str] | None = None) -> int:
         parser.error("--backend packed is only implemented for "
                      f"--algorithm {'/'.join(PACKED_ALGORITHMS)} "
                      "(use auto)")
+    _check_sketched(parser, args)
     _refuse_unported(parser, args)
     if args.verbose:
         import logging
@@ -548,7 +633,8 @@ def _run_cli(argv: list[str] | None = None) -> int:
     if meshed and args.no_mesh:
         parser.error("--restart-shards conflicts with --no-mesh")
     _check_tiles(parser, args)
-    from nmfx_torch.config import ExperimentalConfig
+    _check_sketched_compose(parser, args)
+    from nmfx_torch.config import ExperimentalConfig, SketchConfig
 
     run_scfg = SolverConfig(algorithm=args.algorithm,
                             max_iter=args.maxiter,
@@ -556,6 +642,11 @@ def _run_cli(argv: list[str] | None = None) -> int:
                             backend=args.backend,
                             restart_chunk=args.restart_chunk,
                             check_block=args.check_block,
+                            sketch=(SketchConfig(dim=args.sketch_dim)
+                                    if args.sketch_dim is not None
+                                    else SketchConfig()),
+                            screen=args.screen,
+                            screen_keep=args.screen_keep,
                             tile_rows=args.tile_rows,
                             experimental=ExperimentalConfig())
     ckpt_cfg = None

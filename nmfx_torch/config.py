@@ -1,18 +1,16 @@
 """Typed configuration for the port: the fields of the reference's
 ``SolverConfig`` / ``ExperimentalConfig`` / ``InitConfig`` /
 ``ConsensusConfig`` that the port's routes read, with the reference's
-defaults and validation (``nmfx/config.py``). Fields of engines the port
-does not have yet (the sketched engine, screening) are left out;
-``nmfx_torch.convert`` refuses a reference configuration that sets one
-of them to a non-inert value. ``SolverConfig.tile_rows`` is the
+defaults and validation (``nmfx/config.py``), ``SketchConfig`` and the
+screening fields included. ``SolverConfig.tile_rows`` is the
 reference's: a set value routes mu and hals through the out-of-core tile
 pipeline (``nmfx_torch/tiles.py``), which streams A from the host to the
 card block by block.
 
 What the port runs is narrower than what validates: ``check_ported``
 raises ``NotImplementedError`` for a solver setting the port has no
-route for yet (the sketched engine, bf16 operands off the kernel routes,
-float64 on the hand-written kernels), and so does ``ExperimentalConfig``
+route for yet (bf16 operands off the kernel routes, float64 on the
+hand-written kernels), and so does ``ExperimentalConfig``
 for
 an experimental knob the port has not got (the autotuner); each message
 names the ROADMAP section and item that brings it. The scheduler's own
@@ -36,11 +34,11 @@ PACKED_ALGORITHMS = ("mu", "hals", "neals", "als", "snmf", "kl")
 #: (``nmfx_torch/tiles.py``) can stream: each tile's contribution reduces
 #: into k×k / k×n Gram terms (reference ``TILED_ALGORITHMS``)
 TILED_ALGORITHMS = ("mu", "hals")
-#: backends with a route in the port: "pallas" runs the hand-written
-#: kernels; "auto", "vmap" and "packed" plain PyTorch products (the packed
-#: per-rank solve, the batched restart route or the dense slot-scheduler
-#: layout, chosen per algorithm as in ``nmfx_torch.sweep``)
-PORTED_BACKENDS = ("auto", "vmap", "packed", "pallas")
+#: algorithms with a compressed (sketched) update formulation:
+#: backend="sketched" and SolverConfig.screen take only these (their
+#: updates are Gram-family product chains the projections contract;
+#: reference ``SKETCHED_ALGORITHMS``)
+SKETCHED_ALGORITHMS = ("mu", "hals")
 
 #: where the ROADMAP brings each refused setting ("Open items")
 ROADMAP_DTYPES = "ROADMAP §1 item 4, config and dtype remnants"
@@ -111,6 +109,46 @@ class ExperimentalConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SketchConfig:
+    """Random-projection compression of the solver updates (reference
+    ``nmfx.SketchConfig``; ``nmfx_torch/solvers/sketched.py``), with its
+    fields, defaults and validation.
+
+    Both factors stay full size; per restart two Gaussian projections
+    L (r × m) and R (n × r) are drawn from the restart's key, and the
+    Gram-family terms of the mu/hals updates contract against L·A and
+    A·R instead of A. Labels and the final residual come from the full
+    factors, so the accuracy contract is statistical at the consensus
+    level (``nmfx_torch.agreement``), never bit-exact. The same pass
+    powers restart screening (``SolverConfig.screen``) and
+    quality-elastic serving (``ServeConfig.quality_elastic``)."""
+
+    #: sketch dimension r of both projections: "auto" is
+    #: ``max(4k + 8, 40)`` per rank, an int pins it; either is clamped
+    #: into [k + 1, min(m, n)] (``sketched.resolve_dim``)
+    dim: "int | str" = "auto"
+    #: Nesterov momentum on the factor iterates (updates evaluate at
+    #: ``max(X + beta_t (X - X_prev), 0)`` with the standard t-sequence)
+    momentum: bool = True
+    #: compressed iterations of the screening pass (``screen``)
+    screen_iters: int = 40
+    #: exact update iterations after the compressed loop stops, before
+    #: the labels and the residual are read
+    polish_iters: int = 3
+
+    def __post_init__(self):
+        d = self.dim
+        if not (d == "auto" or (isinstance(d, int)
+                                and not isinstance(d, bool) and d >= 1)):
+            raise ValueError(
+                f"sketch.dim must be 'auto' or an int >= 1, got {d!r}")
+        if self.screen_iters < 1:
+            raise ValueError("sketch.screen_iters must be >= 1")
+        if self.polish_iters < 0:
+            raise ValueError("sketch.polish_iters must be >= 0")
+
+
+@dataclasses.dataclass(frozen=True)
 class SolverConfig:
     """Per-factorization solver settings (reference ``nmfx.SolverConfig``).
 
@@ -152,6 +190,20 @@ class SolverConfig:
     dtype: str = "float32"
     matmul_precision: str = "default"
     backend: str = "auto"
+    #: the sketched engine's and the screening pass's knobs; inert on
+    #: the exact engines
+    sketch: SketchConfig = SketchConfig()
+    #: restart screening: a cheap sketched pass (``sketch.screen_iters``
+    #: compressed iterations) scores every restart of a rank, and only
+    #: the ``screen_keep`` best receive exact iterations, on the batched
+    #: restart route; the others stop ``StopReason.SCREENED`` and are
+    #: masked from the consensus like pad lanes. mu and hals, backend
+    #: "auto" or "vmap"
+    screen: bool = False
+    #: survivors of the screening pass per rank (required with
+    #: ``screen=True``; at most the sweep's restart count, checked where
+    #: that count is known)
+    screen_keep: "int | None" = None
     experimental: ExperimentalConfig = ExperimentalConfig()
     #: snmf: the L1 weight on H's columns, and the ridge on W (None =
     #: max(A)², Kim & Park's choice)
@@ -183,6 +235,30 @@ class SolverConfig:
             raise ValueError(
                 "backend='pallas' is only implemented for algorithm='mu' "
                 "and 'hals'; use 'auto' to fall back per algorithm")
+        if (self.backend == "sketched"
+                and self.algorithm not in SKETCHED_ALGORITHMS):
+            raise ValueError(
+                "backend='sketched' is only implemented for the Gram-"
+                f"family algorithms {SKETCHED_ALGORITHMS}; use 'auto' "
+                "for an exact engine")
+        if self.screen:
+            if self.algorithm not in SKETCHED_ALGORITHMS:
+                raise ValueError(
+                    "screen=True needs a sketched screening pass, which "
+                    f"only the algorithms {SKETCHED_ALGORITHMS} have")
+            if self.backend not in ("auto", "vmap"):
+                raise ValueError(
+                    "screen=True runs its exact phase through the "
+                    "vmapped generic driver (the lane-independent "
+                    "engine the survivor bit-identity contract rests "
+                    "on); use backend 'auto' or 'vmap', got "
+                    f"{self.backend!r}")
+            if self.screen_keep is None:
+                raise ValueError(
+                    "screen=True requires screen_keep (how many "
+                    "survivors get exact iterations)")
+        if self.screen_keep is not None and self.screen_keep < 1:
+            raise ValueError("screen_keep must be >= 1 or None")
         if (self.backend == "packed"
                 and self.algorithm not in PACKED_ALGORITHMS):
             raise ValueError(
@@ -224,6 +300,10 @@ class SolverConfig:
                 "tile_rows streams A through the tile pipeline's Gram "
                 "engines; it "
                 f"cannot combine with backend={self.backend!r}")
+        if tr is not None and self.screen:
+            raise ValueError(
+                "tile_rows cannot combine with screen=True (the "
+                "screening pass needs in-core A)")
         if not 0.0 <= self.class_flip_tol < 1.0:
             raise ValueError(
                 f"class_flip_tol must be in [0, 1), got {self.class_flip_tol}")
@@ -236,11 +316,6 @@ class SolverConfig:
 def check_ported(cfg: SolverConfig) -> None:
     """Raise ``NotImplementedError`` for a valid setting the port cannot
     run yet (ROADMAP "Open items")."""
-    if cfg.backend not in PORTED_BACKENDS:
-        raise NotImplementedError(
-            f"backend={cfg.backend!r} is not ported yet: the sketched "
-            f"engine is {ROADMAP_SCALE}; pass backend='auto', 'vmap', "
-            "'packed' or 'pallas' (the hand-written kernels)")
     if cfg.matmul_precision == "bfloat16" and cfg.backend != "pallas":
         raise NotImplementedError(
             "matmul_precision='bfloat16' (bf16 operands, f32 accumulation) "
@@ -259,23 +334,28 @@ def check_ported(cfg: SolverConfig) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class InitConfig:
-    """W0/H0 initialization (reference ``nmfx.InitConfig``; the port has
-    the dense SVD only)."""
+    """W0/H0 initialization (reference ``nmfx.InitConfig``).
+
+    ``svd_method`` says how NNDSVD gets its rank-k SVD: "dense"
+    (``torch.linalg.svd``) or "lanczos" (``nmfx_torch.ops.lanczos_svd``,
+    Lanczos on the smaller Gram operator with ``ncv`` steps; None = 2k+1
+    with a floor of 20, capped to the operator's dimension)."""
 
     method: str = "random"
     minval: float = 0.0
     maxval: float = 1.0
     svd_method: str = "dense"
+    ncv: "int | None" = None
 
     def __post_init__(self):
         if self.method not in INIT_METHODS:
             raise ValueError(
                 f"init method must be one of {INIT_METHODS}, got "
                 f"{self.method!r}")
-        if self.svd_method != "dense":
-            raise NotImplementedError(
-                f"svd_method='lanczos' is not ported yet ({ROADMAP_SCALE}); "
-                "use 'dense'")
+        if self.svd_method not in ("dense", "lanczos"):
+            raise ValueError(
+                f"svd_method must be 'dense' or 'lanczos', got "
+                f"{self.svd_method!r}")
 
 
 @dataclasses.dataclass(frozen=True)

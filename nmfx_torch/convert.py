@@ -12,14 +12,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from nmfx_torch.config import (ROADMAP_SCALE, CheckpointConfig,
-                               ConsensusConfig, ExperimentalConfig,
-                               InitConfig, SolverConfig)
-
-#: reference SolverConfig fields the port has no counterpart for, with
-#: the value under which each is inert on the port's routes (None =
-#: inert at any value: it configures an engine these routes never run)
-_INERT = {"sketch": None, "screen": False, "screen_keep": None}
+from nmfx_torch.config import (CheckpointConfig, ConsensusConfig,
+                               ExperimentalConfig, InitConfig, SketchConfig,
+                               SolverConfig)
 
 
 def _own_fields(cls, d: dict, inert: dict) -> dict:
@@ -32,20 +27,19 @@ def _own_fields(cls, d: dict, inert: dict) -> dict:
 
 def solver_config_from_dict(d: dict) -> SolverConfig:
     """The port's SolverConfig from ``dataclasses.asdict`` of a reference
-    ``SolverConfig``, its nested ``experimental`` dict included. Raises
-    ``NotImplementedError`` when the dict turns on something the port has
-    not got (screening, an unported experimental knob)
-    and ``ValueError`` on an unknown field."""
-    kw = _own_fields(SolverConfig, d, _INERT)
-    for name, inert in _INERT.items():
-        if inert is not None and d.get(name, inert) != inert:
-            raise NotImplementedError(
-                f"SolverConfig.{name}={d[name]!r} has no counterpart in "
-                f"the port yet ({ROADMAP_SCALE})")
+    ``SolverConfig``, its nested ``experimental`` and ``sketch`` dicts
+    included (a dict without ``sketch``, as older records are, takes the
+    default). Raises ``NotImplementedError`` when the dict turns on an
+    experimental knob the port has not got, and ``ValueError`` on an
+    unknown field."""
+    kw = _own_fields(SolverConfig, d, {})
     exp = kw.get("experimental")
     if isinstance(exp, dict):
         kw["experimental"] = ExperimentalConfig(
             **_own_fields(ExperimentalConfig, exp, {}))
+    sk = kw.get("sketch")
+    if isinstance(sk, dict):
+        kw["sketch"] = SketchConfig(**_own_fields(SketchConfig, sk, {}))
     return SolverConfig(**kw)
 
 
@@ -59,15 +53,10 @@ def consensus_config_from_dict(d: dict) -> ConsensusConfig:
     return ConsensusConfig(**kw)
 
 
-#: reference InitConfig fields the port has not got, inert at any value
-#: (``ncv`` sizes the Lanczos SVD, which the port refuses)
-_INIT_INERT = {"ncv": None}
-
-
 def init_config_from_dict(d: dict) -> InitConfig:
     """The port's InitConfig from ``dataclasses.asdict`` of a reference
     ``InitConfig``; ``ValueError`` on an unknown field."""
-    return InitConfig(**_own_fields(InitConfig, d, _INIT_INERT))
+    return InitConfig(**_own_fields(InitConfig, d, {}))
 
 
 def checkpoint_config_from_dict(d: dict) -> CheckpointConfig:

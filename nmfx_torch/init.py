@@ -5,7 +5,9 @@
   threefry key chain (``nmfx_torch.random``), so a key gives the same
   W0/H0 bits as the reference package.
 * ``nndsvd``: Boutsidis & Gallopoulos NNDSVD (reference
-  ``generatematrix.c:145-247``) through a dense ``torch.linalg.svd``.
+  ``generatematrix.c:145-247``) through a dense ``torch.linalg.svd`` or,
+  under ``svd_method="lanczos"``, the truncated Lanczos SVD
+  (``nmfx_torch/ops/lanczos_svd.py``).
 """
 
 from __future__ import annotations
@@ -28,12 +30,22 @@ def random_init(key: np.ndarray, m: int, n: int, k: int,
             _random.uniform(kh, (k, n), cfg.minval, cfg.maxval, dtype))
 
 
-def nndsvd_init(a: torch.Tensor, k: int, zero_threshold: float = 0.0
+def nndsvd_init(a: torch.Tensor, k: int, zero_threshold: float = 0.0,
+                svd_method: str = "dense", ncv: "int | None" = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """NNDSVD initialization (deterministic in A), in A's dtype and on
-    A's device."""
-    u, s, vt = torch.linalg.svd(a, full_matrices=False)
-    u, s, vt = u[:, :k], s[:k], vt[:k, :]
+    A's device; its rank-k SVD dense or by Lanczos (``svd_method``,
+    ``ncv``)."""
+    if svd_method == "lanczos":
+        from nmfx_torch.ops.lanczos_svd import truncated_svd
+
+        u, s, vt = truncated_svd(a, k, ncv)
+    elif svd_method == "dense":
+        u, s, vt = torch.linalg.svd(a, full_matrices=False)
+        u, s, vt = u[:, :k], s[:k], vt[:k, :]
+    else:
+        raise ValueError(
+            f"svd_method must be 'dense' or 'lanczos', got {svd_method!r}")
 
     # leading pair: W[:,0] = sqrt(s0)*|u0|, H[0,:] = sqrt(s0)*|v0|
     w0 = torch.sqrt(s[0]) * torch.abs(u[:, :1])
@@ -76,7 +88,7 @@ def restart_inits(a: torch.Tensor, keys: np.ndarray, k: int,
     m, n = a.shape
     r = keys.shape[0]
     if cfg.method == "nndsvd":
-        w0, h0 = nndsvd_init(a, k)
+        w0, h0 = nndsvd_init(a, k, svd_method=cfg.svd_method, ncv=cfg.ncv)
         return (w0.expand(r, m, k).contiguous(),
                 h0.expand(r, k, n).contiguous())
     dtype = np.float64 if a.dtype == torch.float64 else np.float32

@@ -32,8 +32,11 @@ The out-of-core family "tiled" (``nmfx_torch/tiles.py``) scales its
 data-sized terms by the stored-nonzero density of the sparse input the
 sweep routed (:func:`set_sparse_density`, 1.0 for a dense input).
 
-Left out, with the reason: the sketched engine's family, which the port
-does not run yet (ROADMAP §1 item 10); the XLA cross-check (``xla_iteration_cost`` and its
+The sketched family ("sketched", ``nmfx_torch/solvers/sketched.py``)
+counts one compressed iteration: no m × n term, the r-sized sketches
+and the factor passes.
+
+Left out, with the reason: the XLA cross-check (``xla_iteration_cost`` and its
 ``_compile_*`` helpers), which differences XLA's compiled cost analysis
 and has no PyTorch counterpart; and the communication model
 (``comm_model``, ``xla_comm_cost``) and the multi-device weighting of
@@ -152,6 +155,28 @@ def _tiled_flops(m, n, k, cfg=None):
     density hint: 4·d·mnk + 4k²(m + n)."""
     return (4.0 * _sparse_density * m * n * k
             + 4.0 * k * k * (m + n))
+
+
+def _sketched_flops(m, n, k, cfg=None):
+    """Compressed mu/hals iteration: the engine's own shape-derived
+    count (``sketched.sketched_model_flops``: 4rk(m+n) + 4rk² +
+    2k²(m+n)). The once-per-restart L·A / A·R sketches and the trailing
+    ``polish_iters`` exact iterations amortize over the compressed loop
+    and are left out, as the exact models leave out their fixed
+    terms."""
+    from nmfx_torch.solvers.sketched import resolve_dim, sketched_model_flops
+
+    cfg = _resolve_cfg(cfg)
+    r = resolve_dim(cfg, int(m), int(n), int(k))
+    return sketched_model_flops(m, n, k, r)
+
+
+def _resolve_cfg(cfg):
+    if cfg is not None:
+        return cfg
+    from nmfx_torch.config import SolverConfig
+
+    return SolverConfig()
 
 
 # --------------------------------------------------------------------------
@@ -289,6 +314,19 @@ def _tiled_hals_bytes(m, n, k, cfg=None, family="tiled"):
     return _tiled_bytes_common(m, n, k, cfg, 8.0 + 5.0 * k)
 
 
+def _sketched_bytes(m, n, k, cfg=None, family="sketched"):
+    """Per compressed iteration: L·A (r×n), A·R (m×r) and the
+    projections L (r×m), R (n×r) read once each (no m × n traffic),
+    plus ~10 factor-sized passes (the Nesterov extrapolation reads the
+    current and the previous accepted iterates)."""
+    from nmfx_torch.solvers.sketched import resolve_dim
+
+    cfg = _resolve_cfg(cfg)
+    r = resolve_dim(cfg, int(m), int(n), int(k))
+    s = _itemsize(cfg)
+    return (2.0 * r * (m + n) * s + 10.0 * (m * k + k * n) * s)
+
+
 #: THE coverage declaration: one literal entry per routed (algorithm,
 #: engine-family) pair. Spelled out rather than generated from the
 #: routing tables — a generated table would vacuously "cover" any new
@@ -297,10 +335,12 @@ _FLOPS = {
     ("mu", "vmap"): _mu_flops,
     ("mu", "packed"): _mu_flops,
     ("mu", "pallas"): _mu_flops,
+    ("mu", "sketched"): _sketched_flops,
     ("mu", "tiled"): _tiled_flops,
     ("hals", "vmap"): _hals_flops,
     ("hals", "packed"): _hals_flops,
     ("hals", "pallas"): _hals_flops,
+    ("hals", "sketched"): _sketched_flops,
     ("hals", "tiled"): _tiled_flops,
     ("kl", "vmap"): _kl_flops,
     ("kl", "packed"): _kl_flops,
@@ -316,10 +356,12 @@ _BYTES = {
     ("mu", "vmap"): _mu_bytes,
     ("mu", "packed"): _mu_bytes,
     ("mu", "pallas"): _pallas_mu_bytes,
+    ("mu", "sketched"): _sketched_bytes,
     ("mu", "tiled"): _tiled_mu_bytes,
     ("hals", "vmap"): _hals_bytes,
     ("hals", "packed"): _hals_bytes,
     ("hals", "pallas"): _pallas_hals_bytes,
+    ("hals", "sketched"): _sketched_bytes,
     ("hals", "tiled"): _tiled_hals_bytes,
     ("kl", "vmap"): _kl_bytes,
     ("kl", "packed"): _kl_bytes,
@@ -343,12 +385,14 @@ def covered_engines() -> "frozenset[tuple[str, str]]":
 def engine_universe() -> "frozenset[tuple[str, str]]":
     """Every (algorithm, engine-family) pair a SolverConfig can execute
     on the port, derived from its routing declarations — the solver
-    registry (``nmfx_torch.solvers.SOLVERS``), the packed algorithm
-    tuple (``config.PACKED_ALGORITHMS``) and the slot-scheduler backend
-    table (``sweep._GRID_EXEC_BACKENDS``, whose 'pallas' entries mark
-    the kernel-capable algorithms) and the tiled algorithm tuple
-    (``config.TILED_ALGORITHMS``) — minus :data:`COSTMODEL_EXEMPT`."""
-    from nmfx_torch.config import PACKED_ALGORITHMS, TILED_ALGORITHMS
+    registry (``nmfx_torch.solvers.SOLVERS``), the packed, sketched
+    and tiled algorithm tuples (``config.PACKED_ALGORITHMS``,
+    ``SKETCHED_ALGORITHMS``, ``TILED_ALGORITHMS``) and the
+    slot-scheduler backend table (``sweep._GRID_EXEC_BACKENDS``, whose
+    'pallas' entries mark the kernel-capable algorithms) — minus
+    :data:`COSTMODEL_EXEMPT`."""
+    from nmfx_torch.config import (PACKED_ALGORITHMS, SKETCHED_ALGORITHMS,
+                                   TILED_ALGORITHMS)
     from nmfx_torch.solvers import SOLVERS
     from nmfx_torch.sweep import _GRID_EXEC_BACKENDS
 
@@ -361,6 +405,8 @@ def engine_universe() -> "frozenset[tuple[str, str]]":
             pairs.add((algo, "packed"))
         if "pallas" in _GRID_EXEC_BACKENDS.get(algo, ()):
             pairs.add((algo, "pallas"))
+        if algo in SKETCHED_ALGORITHMS:
+            pairs.add((algo, "sketched"))
         if algo in TILED_ALGORITHMS:
             pairs.add((algo, "tiled"))
     return frozenset(pairs)

@@ -51,9 +51,10 @@ via spill-migration, and overload sheds at the ROUTER on the SLO
 burn-rate signal (``RouterConfig.shed_on_burn``) instead of per-replica
 queue depth alone.
 
-Not ported: ``RouterConfig(quality_elastic=True)`` (degrading a
-burn-shed request to the sketched engine) raises
-``NotImplementedError`` naming ``ROADMAP_SCALE``. The router-level
+With ``RouterConfig(quality_elastic=True)`` a burn-shed request whose
+algorithm has a sketched form is degraded to the sketched engine
+(``RouterStats.degraded_cause == "slo_burn"``, the result tagged
+``quality == "sketched"``) instead of being shed. The router-level
 result cache keys its entries with the pool's device type and a router
 route, so they never answer a server's or a plain sweep's lookup (the
 port's keys record the route a result was computed on).
@@ -72,7 +73,6 @@ from concurrent.futures import Future
 
 import numpy as np
 
-from nmfx_torch.config import ROADMAP_SCALE
 from nmfx_torch.guards import guarded_by
 from nmfx_torch.obs import flight as _flight
 from nmfx_torch.obs import metrics as _metrics
@@ -211,8 +211,7 @@ class RouterConfig:
     #: objectives whose fast burn triggers shedding
     shed_objectives: "tuple[str, ...]" = ("availability", "latency_p99")
     #: degrade burn-shed requests to the sketched engine (tagged,
-    #: never silent) instead of rejecting them — not ported: True
-    #: raises ``NotImplementedError`` naming ROADMAP_SCALE
+    #: never silent) instead of rejecting them
     quality_elastic: bool = False
     #: SLO evaluation cadence inside the maintenance loop
     slo_interval_s: float = 1.0
@@ -304,11 +303,6 @@ class RouterConfig:
             raise ValueError("drain_kill_after_s must be positive")
         if self.atlas_floor_bytes < 1:
             raise ValueError("atlas_floor_bytes must be >= 1")
-        if self.quality_elastic:
-            raise NotImplementedError(
-                "RouterConfig.quality_elastic: degrading to the sketched "
-                f"engine is not ported yet ({ROADMAP_SCALE}); pass "
-                "quality_elastic=False")
 
 
 @dataclasses.dataclass
@@ -515,7 +509,7 @@ class NMFXRouter:
         deadline is discarded by request-id dedup)."""
         from nmfx_torch.api import _as_matrix
         from nmfx_torch.config import InitConfig, SolverConfig
-        from nmfx_torch.serve import spill_meta
+        from nmfx_torch.serve import NMFXServer, spill_meta
 
         with self._lock:
             if self._closed:
@@ -531,14 +525,21 @@ class NMFXRouter:
         icfg = init_cfg if init_cfg is not None else InitConfig()
         degraded_cause = None
         if burning and self.cfg.shed_on_burn:
-            # quality_elastic (degrade instead of shed) is refused by
-            # RouterConfig, so a burn always sheds
-            self._note_shed("shed", "slo_burn")
-            raise RouterOverloaded(
-                "SLO fast burn on "
-                f"{'/'.join(burning)} — the router is shedding "
-                "load until the burn clears "
-                "(RouterConfig.shed_on_burn)")
+            if self.cfg.quality_elastic \
+                    and NMFXServer._sketch_eligible(scfg):
+                # burn-pressure quality elasticity: serve the cheaper
+                # engine instead of shedding — tagged end to end
+                # (ConsensusResult.quality == "sketched"), never silent
+                scfg = dataclasses.replace(scfg, backend="sketched")
+                degraded_cause = "slo_burn"
+                self._note_shed("degraded", "slo_burn")
+            else:
+                self._note_shed("shed", "slo_burn")
+                raise RouterOverloaded(
+                    "SLO fast burn on "
+                    f"{'/'.join(burning)} — the router is shedding "
+                    "load until the burn clears "
+                    "(RouterConfig.shed_on_burn)")
         if deadline is not None and timeout is not None:
             raise ValueError("pass either deadline or timeout, not both")
         if timeout is not None:

@@ -62,10 +62,19 @@ to build or launch resolves its request with a typed
 :class:`RequestFailed` chaining the error, never with a plain-version
 result.
 
+Quality elasticity (``ServeConfig.quality_elastic``): a deadline that
+would clamp an eligible request's iteration budget, or a queue depth
+over its bound (up to twice it), degrades the request to the sketched
+engine instead (``backend="sketched"``, solo, never packed). Such a
+result is always tagged: ``ConsensusResult.quality == "sketched"``,
+``RequestStats.quality`` / ``degraded_cause``, the
+``nmfx_serve_quality_degraded_total{cause}`` counter and a
+``serve.quality_degraded`` flight event. A request that asked for the
+sketched backend is tagged, not counted as degraded.
+
 Not ported (ROADMAP_SCALE): ``ServeConfig.mesh_spec`` (the reference's
-``MeshEngine`` needs ``distributed.py``) and ``quality_elastic`` (the
-sketched engine); set, either raises ``NotImplementedError``. Every
-result the port serves is ``quality="exact"``.
+``MeshEngine`` needs ``distributed.py``); set, it raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -81,8 +90,9 @@ from typing import TYPE_CHECKING, Mapping, Protocol, Sequence
 
 import numpy as np
 
-from nmfx_torch.config import (ROADMAP_SCALE, ConsensusConfig, InitConfig,
-                               SolverConfig, check_ported)
+from nmfx_torch.config import (ROADMAP_SCALE, SKETCHED_ALGORITHMS,
+                               ConsensusConfig, InitConfig, SolverConfig,
+                               check_ported)
 from nmfx_torch.guards import guarded_by
 from nmfx_torch.obs import costmodel as _costmodel
 from nmfx_torch.obs import flight as _flight
@@ -135,9 +145,10 @@ _solve_hist = _metrics.histogram(
 _e2e_hist = _metrics.histogram(
     "nmfx_serve_e2e_seconds",
     "submit-to-resolution request latency", labelnames=("outcome",))
-#: quality-elastic degradations: the reference's series, declared so
-#: the exposition lists the same names; it stays at 0 in the port,
-#: which refuses ServeConfig.quality_elastic (the sketched engine)
+#: quality-elastic degradations: requests the scheduler served through
+#: the sketched engine instead of expiring or rejecting them (cause
+#: "deadline" | "overload"); every increment has a tagged result and a
+#: serve.quality_degraded flight event
 _quality_degraded_total = _metrics.counter(
     "nmfx_serve_quality_degraded_total",
     "requests degraded to the sketched engine by quality-elastic "
@@ -571,9 +582,7 @@ class ServeConfig:
     #: scheduler's liveness/heartbeat (bounds crash-to-resolution
     #: latency)
     watchdog_interval_s: float = 0.25
-    #: quality-elastic scheduling (not ported: True raises
-    #: ``NotImplementedError`` naming ROADMAP_SCALE; the reference's
-    #: meaning follows): let the scheduler DEGRADE a request to the
+    #: quality-elastic scheduling: let the scheduler DEGRADE a request to the
     #: sketched engine (``backend="sketched"`` — the random-projection
     #: compressed solver, statistical accuracy contract) instead of
     #: failing it, in two situations: (a) a deadline that would clamp
@@ -698,11 +707,6 @@ class ServeConfig:
                 "ServeConfig.mesh_spec: the mesh tier (the reference's "
                 "MeshEngine over distributed.py) is not ported yet "
                 f"({ROADMAP_SCALE}); pass mesh_spec=None")
-        if self.quality_elastic:
-            raise NotImplementedError(
-                "ServeConfig.quality_elastic: degrading to the sketched "
-                f"engine is not ported yet ({ROADMAP_SCALE}); pass "
-                "quality_elastic=False")
 
 
 def serve_key_fields() -> frozenset:
@@ -791,6 +795,10 @@ class _Request:
     submitted: float = 0.0
     #: numeric-quarantine survivor floor (ConsensusConfig.min_restarts)
     min_restarts: int = 1
+    #: quality-elastic degradation verdict ("deadline" | "overload"),
+    #: set at soft admission or at dispatch; whenever it is set,
+    #: ``quality`` below is "sketched"
+    degrade_cause: "str | None" = None
     #: the quality the request will actually be served at
     quality: str = "exact"
     #: content-addressed result-cache key; None when the
@@ -1379,7 +1387,7 @@ class NMFXServer:
         (``ConsensusConfig.min_restarts``): a rank with fewer surviving
         restarts resolves the future to a typed
         ``nmfx_torch.faults.InsufficientRestarts``. A setting the port
-        has no route for (``check_ported``: the sketched backend, ...)
+        has no route for (``check_ported``: bf16 operands off the kernels, ...)
         raises ``NotImplementedError`` here, before admission.
         """
         from nmfx_torch.api import _as_matrix
@@ -1426,6 +1434,12 @@ class NMFXServer:
                        future=_ServeFuture(stats), stats=stats,
                        compat=None, submitted=time.monotonic(),
                        min_restarts=min_restarts)
+        if scfg.backend == "sketched":
+            # the caller asked for the compressed engine: the result is
+            # sketched-quality by request, tagged but not a degradation
+            req.quality = "sketched"
+            stats.quality = "sketched"
+        degradable = self._sketch_eligible(scfg)
         # request economics: key the request content-
         # addressed and try the finished-result cache BEFORE admission
         # — a warm hit resolves without queueing, dispatching, or
@@ -1457,7 +1471,7 @@ class NMFXServer:
         # overload QueueFull is the hot path, and rejecting must stay
         # cheap; the authoritative (race-free) check re-runs at enqueue
         with self._cond:
-            self._admit_locked(arr.nbytes)
+            self._admit_locked(arr.nbytes, degradable=degradable)
         # the compatibility fingerprint (one sha256 pass over the host
         # bytes) is computed HERE on the caller's thread, keeping the
         # scheduler thread's pop-to-dispatch path hash-free
@@ -1488,7 +1502,7 @@ class NMFXServer:
                                    leader=leader.seq,
                                    key=req.cache_key[:12])
                     return req.future
-            self._admit_locked(arr.nbytes)
+            cause = self._admit_locked(arr.nbytes, degradable=degradable)
             if coalescing:
                 # admitted: register as the key's leader — strictly
                 # AFTER admission, so a QueueFull raise can never
@@ -1503,6 +1517,14 @@ class NMFXServer:
                 req.future.add_done_callback(
                     lambda _f, key=req.cache_key, lead=req:
                         self._coalesce_fanout(key, lead))
+            if cause is not None:
+                # quality-elastic soft admission: the request admission
+                # control would have shed is served degraded instead —
+                # solo (a degraded request must not share lanes with
+                # exact mates), tagged at dispatch
+                req.degrade_cause = cause
+                req.quality = "sketched"
+                req.compat = None
             heapq.heappush(self._queue, (req.order_key(), req))
             self._queued += 1
             self._pending_bytes += arr.nbytes
@@ -1666,26 +1688,47 @@ class NMFXServer:
         _queue_depth_gauge.set(self._queued)
         _inflight_gauge.set(self._inflight)
 
-    def _admit_locked(self, nbytes: int) -> None:
+    @staticmethod
+    def _sketch_eligible(scfg: SolverConfig) -> bool:
+        """Whether quality-elastic scheduling can degrade a request with
+        this config to the sketched engine: the algorithm needs a
+        compressed form, a screening config already owns its sketched
+        pass, and a request that asked for sketched has nothing to
+        degrade to."""
+        return (scfg.algorithm in SKETCHED_ALGORITHMS
+                and not scfg.screen and scfg.backend != "sketched")
+
+    def _admit_locked(self, nbytes: int,
+                      degradable: bool = False) -> "str | None":
         """Admission control (caller holds the lock): typed rejection
-        when the queue is over its depth or pending-byte bound. (The
-        reference's quality-elastic soft admission is not ported.)"""
+        when the queue is over its depth or pending-byte bound. Under
+        ``ServeConfig.quality_elastic``, a depth overrun on a
+        ``degradable`` request soft-admits instead (returns "overload",
+        the degradation cause) while the depth stays under twice the
+        bound; the pending-bytes bound stays hard (it protects host
+        memory, not latency)."""
         if self._closed:
             raise ServerClosed("server is closed")
         if self._down is not None:
             raise ServerCrashed(
                 "the scheduler crashed and ServeConfig.restart_scheduler "
                 "is False — the server is down") from self._down
+        cause = None
         if self._queued >= self.cfg.max_queue_depth:
-            self.counters["rejected"] += 1
-            raise QueueFull(
-                f"queue depth {self._queued} at the configured bound "
-                f"({self.cfg.max_queue_depth})")
+            if (self.cfg.quality_elastic and degradable
+                    and self._queued < 2 * self.cfg.max_queue_depth):
+                cause = "overload"
+            else:
+                self.counters["rejected"] += 1
+                raise QueueFull(
+                    f"queue depth {self._queued} at the configured bound "
+                    f"({self.cfg.max_queue_depth})")
         if self._pending_bytes + nbytes > self.cfg.max_pending_bytes:
             self.counters["rejected"] += 1
             raise QueueFull(
                 f"pending input bytes would exceed the "
                 f"{self.cfg.max_pending_bytes}-byte admission bound")
+        return cause
 
     # -- introspection -----------------------------------------------------
     def stats(self) -> dict:
@@ -2119,7 +2162,28 @@ class NMFXServer:
         for req in live:
             scfg = req.scfg
             budget = self._budget_iters(req)
-            if budget is not None and budget < scfg.max_iter:
+            cause = req.degrade_cause
+            if (cause is None and budget is not None
+                    and budget < scfg.max_iter
+                    and self.cfg.quality_elastic
+                    and self._sketch_eligible(scfg)):
+                # quality elasticity, cause "deadline": the deadline
+                # would clamp the exact solve's iteration budget —
+                # serve the cheaper engine at its full budget instead
+                # of a truncated exact solve
+                cause = "deadline"
+            if cause is not None:
+                req.degrade_cause = cause
+                req.quality = "sketched"
+                scfg = dataclasses.replace(req.scfg, backend="sketched")
+                req.stats.quality = "sketched"
+                req.stats.degraded_cause = cause
+                _quality_degraded_total.inc(cause=cause)
+                _flight.record("serve.quality_degraded",
+                               request_id=req.seq, cause=cause)
+                with self._lock:
+                    self.counters["quality_degraded"] += 1
+            elif budget is not None and budget < scfg.max_iter:
                 scfg = dataclasses.replace(scfg, max_iter=budget)
                 req.stats.budget_iters = budget
                 with self._lock:
@@ -2155,7 +2219,12 @@ class NMFXServer:
             if attempt:
                 time.sleep(self.cfg.retry_backoff_s * 2 ** (attempt - 1))
             try:
-                placed = self.engine.place(req)
+                # a quality-degraded dispatch runs the sketched engine,
+                # which the executable cache cannot serve: placing the
+                # exact config would pad and copy a buffer the dispatch
+                # then ignores
+                placed = (None if scfg.backend == "sketched"
+                          else self.engine.place(req))
                 return self.engine.dispatch_solo(req, placed, scfg)
             except BaseException as e:  # retried; typed RequestFailed
                 last = e                # below when exhausted
@@ -2277,8 +2346,11 @@ class NMFXServer:
                 # reads as request-level throughput — the dispatch-level
                 # kernel MFU lives under the exec.* / sweep.* kinds
                 if _costmodel.attribution_enabled():
+                    scfg_served = (
+                        dataclasses.replace(req.scfg, backend="sketched")
+                        if req.quality == "sketched" else req.scfg)
                     _costmodel.attribute_dispatch(
-                        "serve", req.scfg, req.a.shape[0],
+                        "serve", scfg_served, req.a.shape[0],
                         req.a.shape[1],
                         {k: np.asarray(r.iterations)
                          for k, r in per_k.items()},
@@ -2288,8 +2360,9 @@ class NMFXServer:
                 if req.deadline is not None and now >= req.deadline:
                     self._resolve_expired(req, mid_solve=True)
                 else:
-                    # req.quality is the one quality funnel ("exact" on
-                    # every route the port serves)
+                    # req.quality is the one quality funnel: "sketched"
+                    # whenever the compressed engine served the request
+                    # (by its own config, or degraded there)
                     result = ConsensusResult(ks=req.ks, per_k=per_k,
                                              col_names=req.col_names,
                                              quality=req.quality)

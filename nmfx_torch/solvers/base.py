@@ -36,7 +36,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from nmfx_torch.config import ROADMAP_DTYPES, ROADMAP_SCALE, SolverConfig
+from nmfx_torch.config import ROADMAP_DTYPES, SolverConfig
 from nmfx_torch.device import resolve_device, to_device
 
 
@@ -340,9 +340,15 @@ def solve(a, w0, h0, cfg=None, *, device=None) -> SolverResult:
     from nmfx_torch.solvers import SOLVERS  # imports this module
 
     cfg = SolverConfig() if cfg is None else cfg
-    if cfg.backend == "sketched":
-        raise NotImplementedError(
-            f"backend='sketched' is not ported yet ({ROADMAP_SCALE})")
+    if cfg.backend == "sketched" or cfg.screen:
+        # the compressed engine draws per-restart projections from a key
+        # this signature does not carry, and screening ranks a pool
+        raise ValueError(
+            "solve() runs the exact engines; backend='sketched' needs "
+            "a per-restart key (use nmfx_torch.solvers.sketched."
+            "solve_sketched — nmf()/restart_factors() route there "
+            "automatically) and screen=True only exists at the sweep "
+            "layer")
     if cfg.matmul_precision == "bfloat16":
         raise NotImplementedError(
             "matmul_precision='bfloat16' on the single-restart route, which "

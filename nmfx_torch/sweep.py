@@ -20,7 +20,12 @@ chooses them (``_build_sweep_fn``, ``_GRID_EXEC_BACKENDS``):
   as on the whole grid; everything else (pg and alspg, the Gram family
   and kl under "auto", and every algorithm under "vmap") takes the
   batched restart route: the rank's restarts as lanes of one
-  ``solvers.base.run_loop_batched`` solve, in ``restart_chunk`` chunks.
+  ``solvers.base.run_loop_batched`` solve, in ``restart_chunk`` chunks;
+* ``backend="sketched"`` and ``screen=True`` take neither the packed
+  family nor the whole grid: rank by rank, the compressed engine
+  (``solvers/sketched.py``) over the rank's restarts as lanes, or the
+  screening pass over all of them and then the batched restart route on
+  the ``screen_keep`` survivors (:func:`_build_screened_sweep_fn`).
 
 Either way each rank's batch reduces to a consensus matrix on the
 device. At each rank's ``on_rank`` site the sweep starts the rank's
@@ -140,8 +145,9 @@ class ChunkSweepOutput(NamedTuple):
 
 def _use_packed(solver_cfg: SolverConfig) -> bool:
     """Whether mu's restart-packed solve (``mu_packed``) is the rank's
-    engine: mu under "auto", "packed" or "pallas"."""
-    return (solver_cfg.algorithm == "mu"
+    engine: mu under "auto", "packed" or "pallas", unscreened (a
+    screened config's exact phase runs the batched restart route)."""
+    return (solver_cfg.algorithm == "mu" and not solver_cfg.screen
             and solver_cfg.backend in ("auto", "packed", "pallas"))
 
 
@@ -150,12 +156,17 @@ def resolve_engine_family(solver_cfg: SolverConfig) -> str:
     "tiled" (the out-of-core tile pipeline: ``tile_rows`` is set; a
     one-tile config that ``sweep`` hands to the in-core path says
     "tiled" here too, which only splits identities of equal programs),
-    "pallas" (the hand-written kernels), "packed" (mu's packed solve or
-    the dense slot scheduler) or "vmap" (the batched restart route).
-    Families sum products in other orders, so a registry never crosses
-    them."""
+    "sketched" (the compressed engine), "pallas" (the hand-written
+    kernels), "packed" (mu's packed solve or the dense slot scheduler)
+    or "vmap" (the batched restart route, which a screened config's
+    exact phase runs). Families sum products in other orders, so a
+    registry never crosses them."""
     if solver_cfg.tile_rows is not None:
         return "tiled"
+    if solver_cfg.backend == "sketched":
+        return "sketched"
+    if solver_cfg.screen:
+        return "vmap"
     if solver_cfg.backend == "pallas":
         return "pallas"
     if _use_packed(solver_cfg) or grid_exec_ok(solver_cfg):
@@ -286,6 +297,112 @@ def _build_vmap_sweep_fn(k: int, restarts: int, solver_cfg: SolverConfig,
         extra = (ws, hs) if keep_factors else (None, None)
         return KSweepOutput(cons, iters, dnorm, stops, labels, ws[best],
                             hs[best], *extra, host_syncs=syncs)
+
+    return impl
+
+
+def _build_sketched_sweep_fn(k: int, restarts: int,
+                             solver_cfg: SolverConfig,
+                             init_cfg: InitConfig, label_rule: str,
+                             keep_factors: bool = False):
+    """The rank-k sweep of ``backend="sketched"`` (the reference's
+    ``_build_sketched_sweep_fn``): the rank's restarts as lanes of one
+    compressed solve (``solvers.sketched.sweep_lanes``), each lane's
+    projections drawn on A's device from its own restart key, so a given
+    (seed, k, restart) starts from the same factors and projections in
+    every batch; the epilogue is the batched restart route's."""
+    from nmfx_torch.solvers import sketched as sk
+
+    poison = faults.poison_restarts(k, restarts)
+
+    def impl(a: torch.Tensor, key: np.ndarray) -> KSweepOutput:
+        keys = _random.split(key, restarts)
+        w0s, h0s = restart_inits(a, keys, k, init_cfg)
+        w0s = _poison_restart_lanes(w0s, poison)
+        res = sk.sweep_lanes(a, w0s, h0s, keys, solver_cfg)
+        labels = labels_from_h(res.h, label_rule)
+        labels, masked, faulted = _quarantine_lanes(labels, res.dnorm,
+                                                    res.stop_reason)
+        cons = _quarantined_consensus(labels, k, restarts, faulted)
+        best = torch.argmin(masked)
+        extra = (res.w, res.h) if keep_factors else (None, None)
+        return KSweepOutput(cons, res.iterations, res.dnorm,
+                            res.stop_reason, labels, res.w[best],
+                            res.h[best], *extra, host_syncs=res.host_syncs)
+
+    return impl
+
+
+def _build_screened_sweep_fn(k: int, restarts: int,
+                             solver_cfg: SolverConfig,
+                             init_cfg: InitConfig, label_rule: str,
+                             keep_factors: bool = False):
+    """The rank-k sweep of restart screening (the reference's
+    ``_build_screened_sweep_fn``): the screening pass
+    (``solvers.sketched.screen_pass``) scores every restart by its
+    compressed objective; the ``screen_keep`` lowest (ties to the lower
+    index: a stable sort), re-sorted ascending, receive exact iterations
+    on the batched restart route from their canonical keys, under the
+    configuration with the screening fields stripped (what
+    ``restart_factors`` runs for one of them).
+
+    Screened-out lanes read as pad lanes: labels -1, ``StopReason.
+    SCREENED``, dnorm +inf, iterations ``sketch.screen_iters``; they
+    count as non-survivors under ``min_restarts``. ``keep_factors`` and
+    an armed ``solve.nonfinite`` are refused, as in the reference."""
+    from nmfx_torch.solvers import sketched as sk
+
+    keep = solver_cfg.screen_keep
+    if keep is None or not 1 <= keep <= restarts:
+        raise ValueError(
+            f"screen_keep must be in [1, restarts={restarts}], got "
+            f"{keep!r}")
+    if keep_factors:
+        raise ValueError(
+            "keep_factors does not compose with screening: screened-out "
+            "lanes never receive exact iterations, so there is no full "
+            "factor grid to keep (use nmfx_torch.restart_factors on "
+            "survivor lanes instead)")
+    if faults.poison_restarts(k, restarts):
+        raise ValueError(
+            "solve.nonfinite fault injection does not compose with "
+            "screening (the screening pass reorders which lanes the "
+            "exact engine sees); disarm the site for screened sweeps")
+    exact_cfg = dataclasses.replace(solver_cfg, screen=False,
+                                    screen_keep=None)
+    mod = SOLVERS[solver_cfg.algorithm]
+
+    def impl(a: torch.Tensor, key: np.ndarray) -> KSweepOutput:
+        n = a.shape[1]
+        keys = _random.split(key, restarts)
+        w0s, h0s = restart_inits(a, keys, k, init_cfg)
+        scores = sk.screen_pass(a, w0s, h0s, keys, solver_cfg)
+        surv = torch.sort(torch.argsort(scores, stable=True)[:keep]).values
+        ws0, hs0 = w0s[surv], h0s[surv]
+        res = run_loop_batched(a, ws0, hs0, exact_cfg, mod.step,
+                               mod.init_aux(a, ws0, hs0, exact_cfg))
+        labels = torch.full((restarts, n), -1, dtype=torch.int32,
+                            device=a.device)
+        labels[surv] = labels_from_h(res.h, label_rule)
+        iters = torch.full((restarts,), solver_cfg.sketch.screen_iters,
+                           dtype=torch.int32, device=a.device)
+        iters[surv] = res.iterations
+        dnorms = torch.full((restarts,), torch.inf, dtype=res.dnorm.dtype,
+                            device=a.device)
+        dnorms[surv] = res.dnorm
+        stops = torch.full((restarts,), int(StopReason.SCREENED),
+                           dtype=torch.int32, device=a.device)
+        stops[surv] = res.stop_reason
+        labels, _, faulted = _quarantine_lanes(labels, dnorms, stops)
+        cons = _quarantined_consensus(labels, k, restarts, faulted)
+        # the best restart among the survivors (their own numeric faults
+        # masked), indexed in the survivor batch, where factors exist
+        surv_masked = torch.where(
+            res.stop_reason == int(StopReason.NUMERIC_FAULT), torch.inf,
+            res.dnorm)
+        bi = torch.argmin(surv_masked)
+        return KSweepOutput(cons, iters, dnorms, stops, labels, res.w[bi],
+                            res.h[bi], host_syncs=res.host_syncs)
 
     return impl
 
@@ -618,6 +735,14 @@ def sweep_one_k(a: torch.Tensor, key: np.ndarray, k: int, restarts: int,
             "through nmfx_torch.tiles); call sweep(), or "
             "nmfx_torch.tiles.sweep_one_k_tiled for the streaming engine "
             "directly")
+    if solver_cfg.backend == "sketched":
+        fn = _build_sketched_sweep_fn(k, restarts, solver_cfg, init_cfg,
+                                      label_rule, keep_factors)
+        return fn(a, key)
+    if solver_cfg.screen:
+        fn = _build_screened_sweep_fn(k, restarts, solver_cfg, init_cfg,
+                                      label_rule, keep_factors)
+        return fn(a, key)
     if _use_packed(solver_cfg):
         fn = _build_packed_sweep_fn(k, restarts, solver_cfg, init_cfg,
                                     label_rule, keep_factors)
@@ -636,8 +761,11 @@ def grid_exec_ok(solver_cfg: SolverConfig) -> bool:
     """Whether the whole-grid slot scheduler can run this configuration:
     an algorithm with a dense-batched block under a backend that routes
     it there (``_GRID_EXEC_BACKENDS``), with A on the device (not under
-    ``tile_rows``; the executable cache's serving contract reads this
-    too)."""
+    ``tile_rows``), exact and unscreened (the compressed engine and the
+    screening two-phase dispatch have no slot-scheduled form). The
+    executable cache's serving contract reads this too."""
+    if solver_cfg.backend == "sketched" or solver_cfg.screen:
+        return False
     if solver_cfg.tile_rows is not None:
         return False
     return solver_cfg.backend in _GRID_EXEC_BACKENDS.get(

@@ -160,10 +160,6 @@ def test_router_main_usage_errors_match_reference(gct, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--backend", "sketched"], "item 10"),
-    (["--sketch-dim", "4"], "item 10"),
-    (["--screen", "--screen-keep", "2"], "item 10"),
-    (["--screen-keep", "2"], "item 10"),
     # tiles run since the tile pipeline was ported; on a mesh they
     # stay refused
     (["--tile-rows", "16", "--feature-shards", "2"], "item 10"),

@@ -29,7 +29,7 @@ def _pair_cfgs(algorithm: str, family: str):
     """(nmfx cfg, port cfg) pairs exercising every setting the models
     read on ``family``."""
     backend = {"vmap": "vmap", "packed": "packed", "pallas": "pallas",
-               "tiled": "auto"}[family]
+               "tiled": "auto", "sketched": "sketched"}[family]
     tiled = dict(tile_rows=64) if family == "tiled" else {}
     if algorithm in ("mu", "hals") and family == "packed":
         backend = "auto"
@@ -42,6 +42,10 @@ def _pair_cfgs(algorithm: str, family: str):
                 fused_updates="fused")))
     else:
         variants.append(dict(dtype="float64"))
+    if family == "sketched":
+        # the models read the sketch dimension
+        variants += [dict(sketch=nmfx.SketchConfig(dim=12)),
+                     dict(sketch=nmfx.SketchConfig(dim=2000))]
     if family == "packed" and algorithm != "kl":
         variants.append(dict(matmul_precision="bfloat16"))
     out = []
@@ -106,10 +110,9 @@ def test_universe_matches_coverage_both_ways():
         cm.engine_universe(), cm.covered_engines(), cm.COSTMODEL_EXEMPT,
         frozenset(SOLVERS))
     assert live == []
-    # the port's universe is the reference's without the family it
-    # does not run yet
-    assert cm.engine_universe() == frozenset(
-        p for p in ncm.engine_universe() if p[1] != "sketched")
+    # the port's universe is the reference's, the sketched family
+    # included
+    assert cm.engine_universe() == ncm.engine_universe()
 
 
 def test_coverage_check_flags_each_drift():

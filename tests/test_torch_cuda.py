@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from nmfx_torch.config import SolverConfig
+from nmfx_torch.config import InitConfig, SolverConfig
 from nmfx_torch.ops import fused_mu
 from nmfx_torch.ops.packed_mu import bd_select, block_diag_mask, mu_packed
 from nmfx_torch.solvers.base import StopReason
@@ -788,3 +788,91 @@ def test_float32_kernels_byte_equal_to_parent(card):
     """Rows 1-5 in float32 keep their fmaf chains: every output byte-equal
     to the stored digests."""
     assert _float32_digests(card) == F32_DIGESTS
+
+
+# --- the scale engines: the device draw, sketched and screened sweeps ----
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_device_draws_on_card_equal_cpu(card, dtype):
+    """The device threefry on the card: its words equal the CPU's (and
+    the numpy host's) bit for bit, the uniform too; the normal values
+    within 1e-6 (the card's log1p and sqrt may part in the last bit)."""
+    from nmfx_torch import random as R
+
+    keys = R.split(R.fold_in(R.key(123), 10), 50)
+    for bits in (32, 52):
+        got = R.random_bits_device(keys, (48, 500), card, bits).cpu()
+        want = R.random_bits_device(keys, (48, 500), "cpu", bits)
+        assert torch.equal(got, want)
+    assert np.array_equal(got[7].numpy().astype(np.uint64),
+                          R.random_bits(keys[7], (48, 500), 64)
+                          >> np.uint64(12))
+    u = R.uniform_device(keys, (48, 500), -1.0, 1.0, dtype, card).cpu()
+    assert torch.equal(u, R.uniform_device(keys, (48, 500), -1.0, 1.0,
+                                           dtype, "cpu"))
+    n = R.normal_device(keys, (48, 500), dtype, card).cpu()
+    host = R.normal_device(keys, (48, 500), dtype, "cpu")
+    assert n.dtype == dtype
+    assert (n - host).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(algorithm="mu", backend="sketched"),
+    dict(algorithm="mu", screen=True, screen_keep=3),
+    dict(algorithm="hals", screen=True, screen_keep=3)],
+    ids=["mu-sketched", "mu-screened", "hals-screened"])
+def test_scale_engines_on_card_match_cpu(card, cfg):
+    """A 200×24 sketched or screened sweep on the card against the CPU at
+    the agreement tier: the same best k and k = 2 memberships, the
+    quality tag, screened-out lanes masked alike in count, finite
+    everywhere else. Sketched hals has no agreement tier at such a toy
+    size (its consensus saturates at rho 1.0 past k = 2 on both devices,
+    so best k falls to a last-bit dispersion tie; the JAX package leaves
+    it ungated there too): it is held step by step below, and at the
+    north star by chip_smoke.py's phase 13a."""
+    import nmfx_torch
+    from nmfx_torch.datasets import two_group_matrix
+
+    a = two_group_matrix(n_genes=200, n_per_group=12, seed=3)
+    kw = dict(ks=(2, 3, 4), restarts=6, seed=5,
+              solver_cfg=SolverConfig(max_iter=500, **cfg))
+    got = nmfx_torch.nmfconsensus(a, device=card, **kw)
+    want = nmfx_torch.nmfconsensus(a, device="cpu", **kw)
+    assert got.quality == want.quality
+    assert got.best_k == want.best_k
+    np.testing.assert_array_equal(got.per_k[2].membership,
+                                  want.per_k[2].membership)
+    for k in kw["ks"]:
+        screened = got.per_k[k].stop_reasons == int(StopReason.SCREENED)
+        assert screened.sum() == (6 - 3 if "screen" in cfg else 0)
+        assert np.isfinite(got.per_k[k].consensus).all()
+        assert np.isfinite(got.per_k[k].dnorms[~screened]).all()
+
+
+@pytest.mark.parametrize("algorithm", ["mu", "hals"])
+def test_sketched_short_solve_on_card_matches_cpu(card, algorithm):
+    """20 sketched iterations (and the 3 exact polish steps) of six
+    restarts at 1000×40 on the card against the CPU from the same keys:
+    equal iterations and stop reasons, factors within rtol 1e-4 of their
+    largest entry (the card's projections part from the CPU's by at most
+    1e-6, and its float32 products sum in another order)."""
+    from nmfx_torch import random as R
+    from nmfx_torch.datasets import two_group_matrix
+    from nmfx_torch.init import restart_inits
+    from nmfx_torch.solvers import sketched as sk
+
+    a = torch.as_tensor(two_group_matrix(1000, 20, seed=123),
+                        dtype=torch.float32)
+    keys = R.split(R.fold_in(R.key(123), 2), 6)
+    cfg = SolverConfig(algorithm=algorithm, backend="sketched", max_iter=20)
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        ad = a.to(dev)
+        w0, h0 = restart_inits(ad, keys, 2, InitConfig())
+        out[dev.type] = sk.solve_sketched(ad, w0, h0, keys, cfg)
+    got, want = out["cuda"], out["cpu"]
+    assert torch.equal(got.iterations.cpu(), want.iterations)
+    assert torch.equal(got.stop_reason.cpu(), want.stop_reason)
+    for x, y in ((got.w, want.w), (got.h, want.h)):
+        torch.testing.assert_close(x.cpu(), y, rtol=0,
+                                   atol=1e-4 * y.abs().max().item())

@@ -512,12 +512,9 @@ def test_slo_burn_sheds(pkg, tmp_path):
 
 
 def test_quality_elastic_refused_naming_roadmap(pkg):
-    if pkg.name == "nmfx":
-        assert pkg.router.RouterConfig(quality_elastic=True) \
-            .quality_elastic
-        return
-    with pytest.raises(NotImplementedError, match=SCALE):
-        pkg.router.RouterConfig(quality_elastic=True)
+    # both packages take it since the port has the sketched engine
+    assert pkg.router.RouterConfig(quality_elastic=True).quality_elastic
+    assert not pkg.router.RouterConfig().quality_elastic
 
 
 # ---------------------------------------------------------------------

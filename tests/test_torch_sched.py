@@ -266,9 +266,14 @@ def test_sched_validates(jobs):
     with pytest.raises(ValueError, match="slot scheduler implements"):
         mu_sched(a, w0, h0, nmfx_torch.SolverConfig(algorithm="pg"),
                  device="cpu")
-    with pytest.raises(NotImplementedError, match="§1 item 10"):
-        mu_sched(a, w0, h0, nmfx_torch.SolverConfig(backend="sketched"),
-                 device="cpu")
+    # the scheduler has no sketched form: as in the reference, a sketched
+    # config runs its exact dense layout (the sweep never routes it here)
+    got = mu_sched(a, w0, h0, nmfx_torch.SolverConfig(backend="sketched",
+                                                      max_iter=6),
+                   slots=4, job_ks=JOB_KS, device="cpu")
+    want = mu_sched(a, w0, h0, nmfx_torch.SolverConfig(max_iter=6),
+                    slots=4, job_ks=JOB_KS, device="cpu")
+    assert torch.equal(got.w, want.w) and torch.equal(got.h, want.h)
     assert _pallas_block_geometry(5000) == (10, 512, 5120)
     assert _pallas_block_geometry(200) == (1, 208, 208)
 

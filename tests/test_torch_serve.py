@@ -642,20 +642,25 @@ def test_serve_key_fields_equal_reference():
                 for f in dataclasses.fields(nserve.ServeConfig)})
 
 
-@pytest.mark.parametrize("kw", [dict(mesh_spec="2x2"),
-                                dict(quality_elastic=True)])
+@pytest.mark.parametrize("kw", [dict(mesh_spec="2x2")])
 def test_unported_settings_name_roadmap(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
         pserve.ServeConfig(**kw)
 
 
+def test_quality_elastic_is_taken():
+    assert pserve.ServeConfig(quality_elastic=True).quality_elastic
+    assert not pserve.ServeConfig().quality_elastic
+
+
 def test_unported_backend_refused_at_submit():
+    # bf16 operands off the kernel routes are the setting left unported
     srv = pserve.NMFXServer(engine=FakeEngine(psweep.KSweepOutput),
                             start=False)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
             srv.submit(_mat(), ks=(2,), restarts=2,
-                       solver_cfg=SolverConfig(backend="sketched"))
+                       solver_cfg=SolverConfig(matmul_precision="bfloat16"))
     finally:
         srv.close()
 

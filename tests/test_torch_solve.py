@@ -122,9 +122,9 @@ def test_nmf_validates_its_inputs():
         nmfx_torch.nmf(a, 2, w0=np.ones((30, 2)), device="cpu")
     with pytest.raises(ValueError, match="non-negative"):
         nmfx_torch.nmf(-a, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="§1 item 10"):
+    with pytest.raises(ValueError, match="no pool"):
         nmfx_torch.nmf(a, 2, solver_cfg=nmfx_torch.SolverConfig(
-            backend="sketched"), device="cpu")
+            screen=True, screen_keep=2), device="cpu")
     # float64 draws from the key chain are ported: a seed runs in float64
     res = nmfx_torch.nmf(a, 2, solver_cfg=nmfx_torch.SolverConfig(
         dtype="float64", max_iter=20), device="cpu")

@@ -1,10 +1,10 @@
 """The port's top-level surface against the reference's (ROADMAP §3 F3-F5)
 on the CPU: ``nmfx_torch.__all__`` holds ``nmfx.__all__`` less the names
-of unported engines (``SketchConfig``, item 10a; the mesh builders, item
-10c); ``nmfconsensus`` takes the reference's ``mesh`` and ``use_mesh``
-keywords, refusing a mesh by its ROADMAP item; ``save_results`` and the
-command line write the reference's plot files (``nmfx/plots.py``) under
-its names, and none with ``write_plots=False`` / ``--no-plots``."""
+of unported engines (the mesh builders, item 10c); ``nmfconsensus`` takes
+the reference's ``mesh`` and ``use_mesh`` keywords, refusing a mesh by its
+ROADMAP item; ``save_results`` and the command line write the
+reference's plot files (``nmfx/plots.py``) under its names, and none with
+``write_plots=False`` / ``--no-plots``."""
 
 import os
 
@@ -20,8 +20,8 @@ from nmfx.datasets import two_group_matrix
 from nmfx_torch.io import write_gct
 from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
 
-#: the reference's names the port leaves to ROADMAP §1 items 10a and 10c
-UNPORTED = {"SketchConfig", "default_mesh", "feature_mesh", "grid_mesh"}
+#: the reference's names the port leaves to ROADMAP §1 item 10c
+UNPORTED = {"default_mesh", "feature_mesh", "grid_mesh"}
 RUN = dict(ks=(2, 3), restarts=4, seed=5, max_iter=200)
 
 

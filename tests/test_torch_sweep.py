@@ -100,15 +100,18 @@ def test_labels_and_consensus_match_reference(rule):
 def test_solver_config_round_trips_from_reference_dict():
     for jcfg in (nmfx.SolverConfig(),
                  nmfx.SolverConfig(backend="pallas", max_iter=77,
-                                   class_flip_tol=0.1, check_block=3)):
+                                   class_flip_tol=0.1, check_block=3),
+                 nmfx.SolverConfig(screen=True, screen_keep=2,
+                                   sketch=nmfx.SketchConfig(dim=12)),
+                 nmfx.SolverConfig(backend="sketched", algorithm="hals")):
         d = dataclasses.asdict(jcfg)
         cfg = solver_config_from_dict(d)
         got = dataclasses.asdict(cfg)
         for f in dataclasses.fields(cfg):
             assert got[f.name] == d[f.name], f.name
     with pytest.raises(NotImplementedError):
-        solver_config_from_dict(dataclasses.asdict(
-            nmfx.SolverConfig(screen=True, screen_keep=2)))
+        solver_config_from_dict(dataclasses.asdict(nmfx.SolverConfig(
+            experimental=nmfx.ExperimentalConfig(autotune="on"))))
     with pytest.raises(ValueError):
         solver_config_from_dict({"no_such_field": 1})
 
