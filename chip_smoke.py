@@ -6,6 +6,7 @@ versions.
     python3 chip_smoke.py --quick    # build + kernel parity + split
     python3 chip_smoke.py --tiles    # build + kernel parity + phase 12
     python3 chip_smoke.py --scale    # build + parity + 4a, 4d + phase 13
+    python3 chip_smoke.py --mesh     # build + parity + 4a, 4d + phase 14
 
 Phases (any failure exits non-zero; nothing is caught):
   1. card and build: nvidia-smi's name and power limit, the nvcc build
@@ -93,19 +94,19 @@ Phases (any failure exits non-zero; nothing is caught):
      iterations, stop reasons and host syncs, best k, the grid's
      pool_trips, and packed beside batched (per-k mean iterations,
      max|dC|); then the gates: each solver's best k on the bundled
-     1000x40 design on the card, on the CPU and as the JAX package gives
-     it, all equal; a small input on the card and on the CPU, the same
+     1000x40 design (ks 2..5; kl and alspg at ks 2..3 since PR 18) on
+     the card, on the CPU and as the JAX package gives it, all equal; a small input on the card and on the CPU, the same
      best k and k = 2 memberships; als on the packed grid at ks (2, 5)
      (a zero-padded lane in every pool) finite;
   8. durability (phase_durability), each run with the launch counts set
      to 0 just before it and read just after:
-     a. the north-star sweep of 4c (backend "pallas") at ks 2..4
-        through the checkpoint ledger, 10 restarts a record (15 chunks
+     a. the north-star sweep of 4c (backend "pallas") at ks 2..3
+        through the checkpoint ledger, 10 restarts a record (10 chunks
         on the kernel pair; the depth cut to keep the script inside its
         time limit), the wall split by the profiler's phases;
      b. the same in a fresh directory, killed by proc.preempt at the
-        8th chunk (7 records on disk), then resumed: 8 chunks solved,
-        7 loaded, byte-equal to a;
+        5th chunk (4 records on disk), then resumed: 6 chunks solved,
+        4 loaded, byte-equal to a;
      c. a's warm re-run: 0 chunks solved, 0 launches, 0 bytes copied;
      d. a against 4c at the same ranks: the same best k and k = 2
         memberships (the ranks whose memberships are equal listed),
@@ -117,8 +118,8 @@ Phases (any failure exits non-zero; nothing is caught):
      f. sched.stale_reload on the bundled design's pallas grid (8
         slots): the restarts that differ from the clean run are the
         hashed set; disarmed, the run is byte-equal to the clean one;
-     g. the bundled design in float64 on the batched restart route: its
-        wall, best k as the JAX package gives it;
+     g. the bundled design in float64 on the batched restart route (ks
+        2..3 since PR 18): its wall, best k as the JAX package gives it;
   9. observability and the job grid (phase_obs), each run with the
      launch counts set to 0 just before it and read just after:
      a. the north-star whole grid (backend "pallas") with the tracer on
@@ -211,8 +212,9 @@ Phases (any failure exits non-zero; nothing is caught):
         max rho gap <= 0.1 (the JAX package's tiled-against-dense
         gate), and the H2D bytes exactly passes x 10,000,000;
      b. make_sparse_design(20000, 5000, k=4, density=0.05, seed=11),
-        about 5.0 M stored nonzeros, mu at ks 2..5, 10 restarts (cut
-        from 20), 4 tiles of 5,000 rows, against its densified twin in
+        about 5.0 M stored nonzeros, mu at ks 2..4, 10 restarts (cut
+        from ks 2..5 and 20 restarts), 4 tiles of 5,000 rows, against
+        its densified twin in
         core: the same
         gate and the same best k (whether it is the planted 4 printed);
      c. a at ks (2,) and b at ks (4,) with prefetch off, byte-equal to
@@ -259,6 +261,39 @@ Phases (any failure exits non-zero; nothing is caught):
         float32's resolution on the Gram operator) and float64 at ncv
         250 (every k within the band and rtol 1e-6); the card's normal
         draws against the CPU's: words bit-equal, values within 1e-6.
+
+14. the restart mesh and bf16 operands off the kernels (phase_mesh),
+    each run with the launch counts set to 0 just before it and read
+    just after:
+     a. matmul_precision "bfloat16" on routes that reach no kernel (every
+        plain product's operands rounded to bf16, float32 sums): the north
+        star's whole grid with every other default at ks 2..4, solve() at
+        k = 2 from one random start, and kl on the batched restart route
+        at k = 2 (10 restarts, max_iter 100), each beside its float32 run
+        (4a's grid): best k and the k = 2 labels equal, per-k iterations
+        and stop reasons printed, 0 launches;
+     b. grid_mesh(2, devices=[cuda:0, cuda:0]), two restart shards on the
+        one card: mu's whole grid (row 3) at 4a's full depth, byte-equal
+        per rank to 4a; hals' (row 5), byte-equal to 4d, every restart's
+        factors too; three shards over 50 restarts at ks 2..4 (one pad
+        lane, nmfx_mesh_pad_lanes_total +1), byte-equal to the unmeshed
+        grid at ks 2..4 (a pool's lanes are padded to its largest rank,
+        so 4a's ranks are another geometry);
+        the per-rank pallas route (rows 1-2) at ks 2..3, byte-equal to
+        4c's ranks (in --mesh mode to its own unmeshed run); neals on the
+        batched restart route (cuBLAS) at ks 2..4 beside its unmeshed
+        run, the tier met printed (byte-equal, else the agreement tier
+        gated); each shard's launches;
+     c. two processes on the one card (nmfx_torch.distributed over a
+        gloo group on localhost): distributed.consensus on the bundled
+        1000x40 design, ks 2..5, 10 restarts, backend "pallas": both
+        print the same summary, byte-equal to the one-process run; only
+        the coordinator's directory holds the output files;
+     d. elastic_consensus on the bundled design at ks 2..3 over
+        [cuda:0, cuda:0] (ledger chunks of 5, proc.preempt armed to kill
+        one shard):
+        byte-equal to a single-device checkpointed run, every record
+        committed, both shard_<i>.json heartbeats present (one dead).
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -1590,6 +1625,11 @@ SOLVER_KS = {alg: KS[:1] for alg in ("kl", "als", "pg", "alspg")}
 #: 0.74-0.76, so neither family recovers the two groups there
 BUNDLED_BEST_K = {"kl": 2, "neals": 4, "als": 4, "snmf": 2, "pg": 3,
                   "alspg": 2}
+#: the bundled design's ranks a solver's gate runs at: ks 2..5, but kl and
+#: alspg at ks 2..3 to pay for phase 14 (their bundled gates took 27.5 and
+#: 32.8 s, card and CPU, at ks 2..5 on one H100 in PR 18's run MM); the
+#: JAX package's best k over 2..5 is 2 for both, so over 2..3 too
+SOLVER_BUNDLED_KS = {"kl": (2, 3), "alspg": (2, 3)}
 
 
 def solver_sweep(torch, fm, a, scfg, label, ks=KS):
@@ -1676,13 +1716,15 @@ def phase_solvers(torch, fm):
     for alg, kw in OTHER_SOLVERS.items():
         scfg = nmfx_torch.SolverConfig(algorithm=alg, **kw)
         t0 = time.perf_counter()
-        card = nmfx_torch.nmfconsensus(bundled, ks=(2, 3, 4, 5),
-                                       restarts=10, seed=123, solver_cfg=scfg)
+        bks = SOLVER_BUNDLED_KS.get(alg, (2, 3, 4, 5))
+        card = nmfx_torch.nmfconsensus(bundled, ks=bks, restarts=10,
+                                       seed=123, solver_cfg=scfg)
         card_s = time.perf_counter() - t0
-        cpu = nmfx_torch.nmfconsensus(bundled, ks=(2, 3, 4, 5), restarts=10,
+        cpu = nmfx_torch.nmfconsensus(bundled, ks=bks, restarts=10,
                                       seed=123, solver_cfg=scfg, device="cpu")
         cpu_s = time.perf_counter() - t0 - card_s
-        print(f"solvers bundled 1000x40 {alg}: card {card_s:.3f} s, CPU "
+        print(f"solvers bundled 1000x40 {alg} (ks {bks}): card "
+              f"{card_s:.3f} s, CPU "
               f"{cpu_s:.3f} s, best k "
               f"{card.best_k} (CPU {cpu.best_k}, the JAX package "
               f"{BUNDLED_BEST_K[alg]}), rho {card.rhos.tolist()} (CPU "
@@ -2484,13 +2526,17 @@ def phase_option_timing(torch, fm, rates):
 
 
 #: phase 8: restarts a ledger record holds (45 records at the north star);
-#: the kill-and-resume run's ranks (its depth cut to ks 2..4, 15 chunks,
+#: the kill-and-resume run's ranks (its depth cut to ks 2..3, 10 chunks,
 #: to keep the script inside its time limit) and the chunk solve the
 #: rehearsed preemption lands on
-CKPT_CHUNK, KILL_KS, KILL_AT = 10, tuple(range(2, 5)), 8
-#: phase 8a/c/d: the checkpointed north star's ranks, cut to ks 2..4
-#: (15 chunks): at ks 2..10 8a took 155 s, at ks 2..6 44.5 s
-CKPT_KS = tuple(range(2, 5))
+CKPT_CHUNK, KILL_KS, KILL_AT = 10, tuple(range(2, 4)), 5
+#: phase 8a/c/d: the checkpointed north star's ranks, cut to ks 2..3
+#: (10 chunks) to pay for phase 14: at ks 2..10 8a took 155 s, at ks
+#: 2..6 44.5 s, at ks 2..4 20.952 s (one H100, PR 18's run MM)
+CKPT_KS = tuple(range(2, 4))
+#: phase 8g: the float64 bundled sweep's ranks, cut from 2..5 to pay for
+#: phase 14 (the JAX package's best k over 2..5 is 2, so over 2..3 too)
+F64_KS = (2, 3)
 #: phase 8e: the share of restarts poisoned (one NaN in W0)
 POISON_RATE = 0.05
 #: phase 8f: the stale reloads' rate and the pool that makes slots reload
@@ -2762,11 +2808,11 @@ def phase_durability(torch, fm, grid, per_rank, hals, *, a=None, ks=KS,
     # g. float64 on the batched restart route
     res_g, wall_g, _, _, _ = counted(
         "g", lambda: nmfx_torch.nmfconsensus(
-            bundled, ks=bks, restarts=br, seed=123, device=device,
+            bundled, ks=F64_KS, restarts=br, seed=123, device=device,
             solver_cfg=nmfx_torch.SolverConfig(backend="vmap",
                                                dtype="float64")))
     iters_g = {k: round(float(res_g.per_k[k].iterations.mean()), 1)
-               for k in bks}
+               for k in F64_KS}
     print(f"durability g (float64, batched restart route, bundled "
           f"1000x40): wall {wall_g:.3f} s, best k {res_g.best_k} (the JAX "
           f"package: {FLOAT64_BEST_K}), mean iters per k {iters_g}, "
@@ -3727,11 +3773,12 @@ TILE_KS, TILE_RESTARTS, TILE_MAX_ITER = (2, 3), 50, 500
 TILE_BUDGET = 2 * 625 * 500 * 4
 TILE_PASS_BYTES = 5000 * 500 * 4
 #: 12b: a sparse atlas of 20,000 genes x 5,000 cells at 5 % density
-#: (about 5.0 M stored nonzeros), a planted k = 4, mu at ks 2..5, 10
-#: restarts (the reference's default; cut from 20 to keep the script
-#: near its time budget), 4 tiles of 5,000 rows
+#: (about 5.0 M stored nonzeros), a planted k = 4, mu at ks 2..4 (cut
+#: from 2..5 to pay for phase 14: k = 5 ran every lane to the
+#: 500-iteration cap), 10 restarts (the reference's default; cut from 20
+#: to keep the script near its time budget), 4 tiles of 5,000 rows
 ATLAS = dict(m=20000, n=5000, k=4, density=0.05, seed=11)
-ATLAS_KS, ATLAS_RESTARTS, ATLAS_TILE_ROWS = (2, 3, 4, 5), 10, 5000
+ATLAS_KS, ATLAS_RESTARTS, ATLAS_TILE_ROWS = (2, 3, 4), 10, 5000
 #: the JAX package's gates of a tiled (or sparse) sweep against its
 #: in-core (or densified) twin (tests/test_tiles.py, tests/test_sparse.py)
 TILE_MIN_ARI, TILE_MAX_RHO_GAP = 0.9, 0.1
@@ -4373,6 +4420,413 @@ def phase_scale_engines(torch, fm, exact):
     return launches
 
 
+# --- phase 14: bf16 operands off the kernels, the restart mesh on one
+# card, two processes on one card, elastic shards --------------------------
+
+#: 14a's ranks of the bf16 whole grid (against 4a's float32 ranks)
+MESH_BF16_KS = (2, 3, 4)
+#: 14a's kl on the batched route: k = 2, restarts and iterations cut to
+#: phase 7's kl budget (max_iter 100) at a fifth of its restarts
+MESH_KL_RESTARTS, MESH_KL_MAX_ITER = 10, 100
+#: 14b: three shards over 50 restarts (one padded lane) at ks 2..4, the
+#: per-rank pallas route at ks 2..3 against 4c's ranks, neals at ks 2..4
+MESH_THREE_KS, MESH_PER_RANK_KS, MESH_NEALS_KS = (2, 3, 4), (2, 3), (2, 3, 4)
+#: 14c / 14d: the bundled design's sweep (14d's elastic ranks cut to
+#: 2..3: at 2..5 it and its single-device reference took 31.6 s)
+MESH_BUNDLED_KS, MESH_BUNDLED_RESTARTS = (2, 3, 4, 5), 10
+MESH_ELASTIC_KS = (2, 3)
+#: 14c: each process's and the rendezvous' limit
+MESH_PROC_TIMEOUT_S = 300.0
+
+_MESH_WORKER = r"""
+import hashlib, json, os, sys
+sys.path.insert(0, sys.argv[5])
+import numpy as np
+import torch
+coord, pid, outdir, timeout = (sys.argv[1], int(sys.argv[2]), sys.argv[3],
+                               float(sys.argv[4]))
+import nmfx_torch
+import nmfx_torch.distributed as dist
+from nmfx_torch.datasets import two_group_matrix
+from nmfx_torch.ops import fused_mu as fm
+dist.initialize(coordinator_address=coord, num_processes=2,
+                process_id=pid, timeout_s=timeout)
+a = two_group_matrix(n_genes=1000, n_per_group=20, seed=123)
+fm.reset_launch_counts()
+res = dist.consensus(
+    a, ks=(2, 3, 4, 5), restarts=10, seed=123, devices=["cuda:0"],
+    solver_cfg=nmfx_torch.SolverConfig(backend="pallas"),
+    output=nmfx_torch.OutputConfig(
+        directory=os.path.join(outdir, f"files{pid}"), write_plots=False))
+torch.cuda.synchronize()
+digest = {str(k): hashlib.sha256(b"".join(
+    np.ascontiguousarray(np.asarray(getattr(res.per_k[k], f))).tobytes()
+    for f in ("consensus", "rho", "dispersion", "membership", "order",
+              "iterations", "dnorms", "stop_reasons", "best_w",
+              "best_h"))).hexdigest()
+    for k in res.ks}
+with open(os.path.join(outdir, f"proc{pid}.json"), "w") as f:
+    json.dump({"summary": res.summary(), "digest": digest,
+               "launches": dict(fm.LAUNCHES),
+               "scoped": fm.SCOPED_LAUNCHES}, f)
+dist.shutdown()
+"""
+
+
+def kresult_digest(res) -> dict:
+    import hashlib
+
+    return {str(k): hashlib.sha256(b"".join(
+        np.ascontiguousarray(np.asarray(getattr(res.per_k[k], f))).tobytes()
+        for f in KRESULT_FIELDS)).hexdigest() for k in res.ks}
+
+
+def byte_equal_ranks(got, want, ks, fields=KRESULT_FIELDS) -> dict:
+    """``{k: [field, ...]}`` of the ranks of ``ks`` whose ``fields``
+    differ between two results (empty: byte-equal)."""
+    out = {k: [f for f in fields if not same_bytes(
+        getattr(got.per_k[k], f), getattr(want.per_k[k], f))] for k in ks}
+    return {k: v for k, v in out.items() if v}
+
+
+def shard_launches(fm, name) -> dict:
+    return {scope: counts.get(name, 0)
+            for scope, counts in sorted(fm.SCOPED_LAUNCHES.items())}
+
+
+def phase_mesh(torch, fm, grid, hals, per_rank=None):
+    """Phase 14 (see the module docstring): 14a bf16 operands off the
+    kernels, 14b the restart mesh on one card, 14c two processes on one
+    card, 14d elastic shards. ``grid`` / ``hals`` are phase 4a's and 4d's
+    results; ``per_rank`` is 4c's (None: its ranks 2..3 run here)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix=".mesh_smoke_",
+                                     dir=HERE) as scratch:
+        return _phase_mesh(torch, fm, grid, hals, per_rank, scratch)
+
+
+def _phase_mesh(torch, fm, grid, hals, per_rank, scratch):
+    import nmfx_torch
+    from nmfx_torch import distributed as dist
+    from nmfx_torch import faults
+    from nmfx_torch import sweep as psweep
+    from nmfx_torch.datasets import two_group_matrix
+    from nmfx_torch.solvers.base import solve
+
+    m, n, r, _ = NORTH_STAR
+    a = north_star_matrix()
+    bundled = two_group_matrix(n_genes=1000, n_per_group=20, seed=123)
+    launched = {}
+    card0 = torch.device("cuda", 0)
+
+    # -- 14a: bf16 operands off the kernels ------------------------------
+    bf = nmfx_torch.SolverConfig(matmul_precision=BF16)
+    fm.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = nmfx_torch.nmfconsensus(a, ks=MESH_BF16_KS, restarts=r,
+                                  solver_cfg=bf)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched["14a bf16 grid"] = sum(fm.LAUNCHES.values())
+    check_sweep(res, "bf16 dense grid", n)
+    f32_best = MESH_BF16_KS[int(np.argmax(
+        [grid.per_k[k].rho for k in MESH_BF16_KS]))]
+    same2 = np.array_equal(res.per_k[2].membership, grid.per_k[2].membership)
+    print(f"mesh 14a bf16 dense grid (backend auto, ks {MESH_BF16_KS}, "
+          f"{r} restarts): wall {wall:.3f} s, launches "
+          f"{launched['14a bf16 grid']}, best k {res.best_k} (4a's float32 "
+          f"grid at these ks {f32_best}), k = 2 memberships equal {same2}",
+          flush=True)
+    for k in MESH_BF16_KS:
+        b, g = res.per_k[k], grid.per_k[k]
+        print(f"mesh 14a bf16 dense grid k={k}: mean iters "
+              f"{b.iterations.mean():.1f} (float32 "
+              f"{g.iterations.mean():.1f}), stop reasons {stop_counts(b)} "
+              f"(float32 {stop_counts(g)}), rho {b.rho:.4f} (float32 "
+              f"{g.rho:.4f})", flush=True)
+    if res.best_k != f32_best or not same2:
+        raise AssertionError("14a: the bf16 grid departs from 4a's float32 "
+                             "grid (best k or k = 2 memberships)")
+    if launched["14a bf16 grid"]:
+        raise AssertionError("14a: a kernel launched on backend auto")
+
+    rng = np.random.default_rng(0)
+    w0 = rng.uniform(0.0, 1.0, (m, 2)).astype(np.float32)
+    h0 = rng.uniform(0.0, 1.0, (2, n)).astype(np.float32)
+    t0 = time.perf_counter()
+    s32 = solve(a, w0, h0, nmfx_torch.SolverConfig())
+    s16 = solve(a, w0, h0, bf)
+    torch.cuda.synchronize()
+    lab32 = s32.h.argmax(dim=0).cpu().numpy()
+    lab16 = s16.h.argmax(dim=0).cpu().numpy()
+    print(f"mesh 14a bf16 solve k=2: {time.perf_counter() - t0:.3f} s for "
+          f"both; iterations {s16.iterations} (float32 {s32.iterations}), "
+          f"stop reason {s16.stop_reason} (float32 {s32.stop_reason}), "
+          f"dnorm {float(s16.dnorm):.6g} (float32 {float(s32.dnorm):.6g}), "
+          f"labels equal {np.array_equal(lab16, lab32)}", flush=True)
+    if not np.array_equal(lab16, lab32):
+        raise AssertionError("14a: solve() at k = 2 under bf16 labels the "
+                             "samples otherwise than float32")
+
+    kl = {}
+    for prec in ("default", BF16):
+        t0 = time.perf_counter()
+        kl[prec] = nmfx_torch.nmfconsensus(
+            a, ks=(2,), restarts=MESH_KL_RESTARTS,
+            solver_cfg=nmfx_torch.SolverConfig(
+                algorithm="kl", max_iter=MESH_KL_MAX_ITER,
+                matmul_precision=prec))
+        torch.cuda.synchronize()
+        kl[prec + "_s"] = time.perf_counter() - t0
+    k16, k32 = kl[BF16].per_k[2], kl["default"].per_k[2]
+    same_kl = np.array_equal(k16.membership, k32.membership)
+    print(f"mesh 14a bf16 kl batched k=2 ({MESH_KL_RESTARTS} restarts, "
+          f"max_iter {MESH_KL_MAX_ITER}): {kl[BF16 + '_s']:.3f} s (float32 "
+          f"{kl['default_s']:.3f} s), mean iters {k16.iterations.mean():.1f}"
+          f" (float32 {k32.iterations.mean():.1f}), stop reasons "
+          f"{stop_counts(k16)} (float32 {stop_counts(k32)}), memberships "
+          f"equal {same_kl}", flush=True)
+    if not same_kl:
+        raise AssertionError("14a: kl under bf16 departs from float32 at "
+                             "k = 2")
+
+    # -- 14b: the restart mesh, two shards on the one card ---------------
+    mesh2 = psweep.grid_mesh(2, devices=[card0, card0])
+    routes = {}
+    fm.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = nmfx_torch.nmfconsensus(
+        a, ks=KS, restarts=r, mesh=mesh2,
+        solver_cfg=nmfx_torch.SolverConfig(backend="pallas"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    row3 = shard_launches(fm, "fused_block_iterations")
+    launched["14b mu grid"] = fm.LAUNCHES["fused_block_iterations"]
+    bad = byte_equal_ranks(res, grid, KS)
+    routes["mu grid (row 3)"] = not bad
+    print(f"mesh 14b mu whole grid on 2 shards of one card (pallas, ks "
+          f"2..10, {r} restarts): wall {wall:.3f} s, row-3 launches "
+          f"{launched['14b mu grid']} by shard {row3}, best k {res.best_k}; "
+          f"byte-equal to 4a per rank: {not bad} (ranks that differ: "
+          f"{bad})", flush=True)
+    if bad or len(row3) != 2 or min(row3.values()) < 1:
+        raise AssertionError("14b: the meshed mu grid is not 4a's, or a "
+                             "shard launched no row-3 kernel")
+
+    fm.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = nmfx_torch.nmfconsensus(
+        a, ks=KS, restarts=r, mesh=mesh2, keep_factors=True,
+        solver_cfg=nmfx_torch.SolverConfig(algorithm="hals",
+                                           backend="pallas"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    row5 = shard_launches(fm, "hals_block_iterations")
+    launched["14b hals grid"] = fm.LAUNCHES["hals_block_iterations"]
+    bad = byte_equal_ranks(res, hals, KS, KRESULT_FIELDS + ("all_w", "all_h"))
+    routes["hals grid (row 5)"] = not bad
+    print(f"mesh 14b hals whole grid on 2 shards (pallas): wall "
+          f"{wall:.3f} s, row-5 launches {launched['14b hals grid']} by "
+          f"shard {row5}, best k {res.best_k}; byte-equal to 4d per rank, "
+          f"every restart's factors too: {not bad} (differ: {bad})",
+          flush=True)
+    if bad or len(row5) != 2 or min(row5.values()) < 1:
+        raise AssertionError("14b: the meshed hals grid is not 4d's, or a "
+                             "shard launched no row-5 kernel")
+
+    # the reference at these ranks: the pool's lanes are padded to the
+    # largest rank, so ks 2..4 is its own pool geometry, not 4a's
+    three_ref = nmfx_torch.nmfconsensus(
+        a, ks=MESH_THREE_KS, restarts=r,
+        solver_cfg=nmfx_torch.SolverConfig(backend="pallas"))
+    mesh3 = psweep.grid_mesh(3, devices=[card0] * 3)
+    pads = psweep._pad_lanes_total.value()
+    fm.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = nmfx_torch.nmfconsensus(
+        a, ks=MESH_THREE_KS, restarts=r, mesh=mesh3,
+        solver_cfg=nmfx_torch.SolverConfig(backend="pallas"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pads = psweep._pad_lanes_total.value() - pads
+    row3 = shard_launches(fm, "fused_block_iterations")
+    bad = byte_equal_ranks(res, three_ref, MESH_THREE_KS)
+    routes["mu grid, 3 shards, padded"] = not bad
+    print(f"mesh 14b mu whole grid on 3 shards (ks {MESH_THREE_KS}, {r} "
+          f"restarts as 3 x {-(-r // 3)}): wall {wall:.3f} s, "
+          f"nmfx_mesh_pad_lanes_total +{pads:g}, row-3 launches by shard "
+          f"{row3}; byte-equal to the unmeshed grid at these ks: "
+          f"{not bad} (differ: {bad})", flush=True)
+    if bad or pads != 1 or len(row3) != 3:
+        raise AssertionError("14b: three shards: not byte-equal to the "
+                             f"unmeshed grid, or {pads} pad lanes booked "
+                             "(1 expected)")
+
+    if per_rank is None:
+        per_rank = nmfx_torch.nmfconsensus(
+            a, ks=MESH_PER_RANK_KS, restarts=r, grid_exec="per_k",
+            solver_cfg=nmfx_torch.SolverConfig(backend="pallas"))
+        ref_name = "its unmeshed run"
+    else:
+        ref_name = "4c's ranks"
+    fm.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = nmfx_torch.nmfconsensus(
+        a, ks=MESH_PER_RANK_KS, restarts=r, mesh=mesh2, grid_exec="per_k",
+        solver_cfg=nmfx_torch.SolverConfig(backend="pallas"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows12 = {name: shard_launches(fm, name)
+              for name in ("fused_h_update", "fused_w_update")}
+    launched["14b per-rank"] = fm.LAUNCHES["fused_h_update"]
+    bad = byte_equal_ranks(res, per_rank, MESH_PER_RANK_KS)
+    routes["per-rank pallas (rows 1-2)"] = not bad
+    print(f"mesh 14b per-rank pallas route on 2 shards (ks "
+          f"{MESH_PER_RANK_KS}): wall {wall:.3f} s, launches by shard "
+          f"{rows12}; byte-equal to {ref_name}: {not bad} (differ: {bad})",
+          flush=True)
+    if bad or min(rows12["fused_h_update"].values(), default=0) < 1:
+        raise AssertionError("14b: the meshed per-rank route is not the "
+                             "unmeshed one's, or a shard launched no pair")
+
+    neals = {}
+    for name, mesh in (("unmeshed", None), ("2 shards", mesh2)):
+        fm.reset_launch_counts()
+        t0 = time.perf_counter()
+        neals[name] = nmfx_torch.nmfconsensus(
+            a, ks=MESH_NEALS_KS, restarts=r, mesh=mesh,
+            solver_cfg=nmfx_torch.SolverConfig(algorithm="neals"))
+        torch.cuda.synchronize()
+        neals[name + "_s"] = time.perf_counter() - t0
+        if sum(fm.LAUNCHES.values()):
+            raise AssertionError("14b: a kernel launched on neals' batched "
+                                 "route")
+    got, want = neals["2 shards"], neals["unmeshed"]
+    bad = byte_equal_ranks(got, want, MESH_NEALS_KS)
+    same2 = np.array_equal(got.per_k[2].membership, want.per_k[2].membership)
+    dc = max(float(np.abs(got.per_k[k].consensus
+                          - want.per_k[k].consensus).max())
+             for k in MESH_NEALS_KS)
+    tier = "byte-equal" if not bad else (
+        "agreement" if got.best_k == want.best_k and same2 else "none")
+    routes["neals batched (cuBLAS)"] = tier
+    print(f"mesh 14b neals batched on 2 shards (ks {MESH_NEALS_KS}): "
+          f"{neals['2 shards_s']:.3f} s (unmeshed "
+          f"{neals['unmeshed_s']:.3f} s), tier met: {tier} (ranks not "
+          f"byte-equal {bad}, best k {got.best_k} / {want.best_k}, k = 2 "
+          f"memberships equal {same2}, max|dC| {dc:.3g})", flush=True)
+    if tier == "none":
+        raise AssertionError("14b: meshed neals departs from unmeshed")
+    print(f"mesh 14b routes byte-equal: {routes}", flush=True)
+
+    # -- 14c: two processes on the one card over gloo --------------------
+    with __import__("socket").socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    outdir = os.path.join(scratch, "procs")
+    os.makedirs(outdir)
+    env = dict(os.environ)
+    for var in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(var, None)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _MESH_WORKER, coord, str(i), outdir,
+         str(MESH_PROC_TIMEOUT_S / 2), HERE], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(2)]
+    errs = []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=MESH_PROC_TIMEOUT_S)
+            if p.returncode != 0:
+                errs.append(err[-3000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    procs_s = time.perf_counter() - t0
+    if errs:
+        raise AssertionError(f"14c: a process failed: {errs}")
+    r0, r1 = (json.load(open(os.path.join(outdir, f"proc{i}.json")))
+              for i in range(2))
+    t0 = time.perf_counter()
+    single = nmfx_torch.nmfconsensus(
+        bundled, ks=MESH_BUNDLED_KS, restarts=MESH_BUNDLED_RESTARTS,
+        seed=123, solver_cfg=nmfx_torch.SolverConfig(backend="pallas"))
+    single_s = time.perf_counter() - t0
+    want = kresult_digest(single)
+    files0 = sorted(os.listdir(os.path.join(outdir, "files0")))
+    files1 = os.path.exists(os.path.join(outdir, "files1"))
+    same_procs = r0["summary"] == r1["summary"] and \
+        r0["digest"] == r1["digest"]
+    same_single = r0["digest"] == want and \
+        r0["summary"] == single.summary()
+    print(f"mesh 14c two processes on one card (gloo, the bundled "
+          f"{bundled.shape[0]}x{bundled.shape[1]} design, ks "
+          f"{MESH_BUNDLED_KS}, {MESH_BUNDLED_RESTARTS} restarts, pallas): "
+          f"{procs_s:.3f} s with the interpreters (one process "
+          f"{single_s:.3f} s); row-3 launches by process "
+          f"{[p['launches']['fused_block_iterations'] for p in (r0, r1)]}"
+          f", by shard {[p['scoped'] for p in (r0, r1)]}; the processes' "
+          f"results equal {same_procs}, byte-equal to the one-process "
+          f"run {same_single}; coordinator's files {len(files0)} "
+          f"({'cophenetic.txt' in files0}), process 1 wrote none "
+          f"{not files1}", flush=True)
+    print(r0["summary"], flush=True)
+    if not (same_procs and same_single and "cophenetic.txt" in files0
+            and not files1) or min(
+                p["launches"]["fused_block_iterations"] for p in (r0, r1)
+    ) < 1:
+        raise AssertionError("14c: the two processes' results are not one "
+                             "result, or a process wrote or launched wrong")
+
+    # -- 14d: elastic shards on the one card -----------------------------
+    scfg = nmfx_torch.SolverConfig(backend="pallas")
+    kw = dict(ks=MESH_ELASTIC_KS, restarts=MESH_BUNDLED_RESTARTS, seed=123,
+              solver_cfg=scfg)
+    t0 = time.perf_counter()
+    ref = nmfx_torch.nmfconsensus(
+        bundled, checkpoint=nmfx_torch.CheckpointConfig(
+            os.path.join(scratch, "ref"), every_n_restarts=5), **kw)
+    ref_s = time.perf_counter() - t0
+    el_dir = os.path.join(scratch, "elastic")
+    faults.arm("proc.preempt", every=3, max_fires=1)
+    fm.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        res = dist.elastic_consensus(
+            bundled, checkpoint=nmfx_torch.CheckpointConfig(
+                el_dir, every_n_restarts=5), devices=[card0, card0], **kw)
+    finally:
+        faults.disarm("proc.preempt")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched["14d elastic"] = fm.LAUNCHES["fused_h_update"]
+    bad = byte_equal_ranks(res, ref, MESH_ELASTIC_KS)
+    beats = sorted(f for f in os.listdir(el_dir) if f.startswith("shard_"))
+    from nmfx_torch.obs.export import HeartbeatLedger
+
+    status = HeartbeatLedger(el_dir, prefix="shard_").status()
+    alive = sorted(bool(v.get("alive")) for v in status.values())
+    records = len([f for f in os.listdir(el_dir)
+                   if f.startswith("k") and f.endswith(".npz")])
+    print(f"mesh 14d elastic shards [cuda:0, cuda:0] (the bundled design, "
+          f"ks {MESH_ELASTIC_KS}, chunks of 5, proc.preempt at the 3rd "
+          f"unit): {wall:.3f} s "
+          f"(single-device checkpointed run {ref_s:.3f} s), pair launches "
+          f"{launched['14d elastic']}, {records} records of "
+          f"{2 * len(MESH_ELASTIC_KS)}, heartbeats {beats} alive {alive}; "
+          f"byte-equal to the single-device checkpointed run: {not bad} "
+          f"(differ: {bad})", flush=True)
+    if bad or beats != ["shard_0.json", "shard_1.json"] or \
+            alive != [False, True] or records != 2 * len(MESH_ELASTIC_KS):
+        raise AssertionError("14d: the elastic run is not the single-device"
+                             " run's, or the ledger is incomplete")
+    return launched
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -4384,6 +4838,11 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", action="store_true",
                     help="build, kernel parity, the exact grids of 4a "
                          "and 4d and phase 13 (the scale engines) only")
+    ap.add_argument("--mesh", action="store_true",
+                    help="build, kernel parity, the exact grids of 4a "
+                         "and 4d and phase 14 (bf16 off the kernels, the "
+                         "restart mesh, two processes, elastic shards) "
+                         "only")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "nmfx_torch")):
         print("chip_smoke: the nmfx_torch package is not beside this "
@@ -4460,6 +4919,14 @@ def main(argv=None) -> int:
         done("13 scale engines")
         print(f"scale phase {spent['13 scale engines']:.3f} s; launches "
               f"by run {scaled}", flush=True)
+    elif args.mesh:
+        _, phased, _ = phase_grid_path(torch, fm)
+        _, hals_res, _ = phase_hals_path(torch, fm)
+        done("4a,d main paths")
+        meshed = phase_mesh(torch, fm, phased, hals_res)
+        done("14 mesh")
+        print(f"mesh phase {spent['14 mesh']:.3f} s; launches by run "
+              f"{meshed}", flush=True)
     elif not args.quick and not args.tiles:
         rates = peaks(kind)
         timing = phase_timing(torch, fm, rates)[NORTH_STAR[3]]
@@ -4521,6 +4988,10 @@ def main(argv=None) -> int:
         done("13 scale engines")
         print(f"scale phase {spent['13 scale engines']:.3f} s; launches "
               f"by run {scaled}", flush=True)
+        meshed = phase_mesh(torch, fm, phased, hals_res, per_rank_res)
+        done("14 mesh")
+        print(f"mesh phase {spent['14 mesh']:.3f} s; launches by run "
+              f"{meshed}", flush=True)
         print(f"phase seconds {json.dumps(spent)}; "
               f"{time.perf_counter() - start:.3f} s in all", flush=True)
         kernels = []

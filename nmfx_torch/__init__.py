@@ -19,12 +19,13 @@ from nmfx_torch.exec_cache import ExecCache
 from nmfx_torch.io import read_dataset, read_gct, read_res, write_gct
 from nmfx_torch.solvers.base import SolverResult, StopReason
 from nmfx_torch.sweep import (RestartResult, consensus_from_cells,
-                              grid_cells, reduce_grid)
+                              default_mesh, feature_mesh, grid_cells,
+                              grid_mesh, reduce_grid)
 
 __all__ = ["ConsensusResult", "InsufficientRestarts", "KResult", "nmf",
            "nmfconsensus", "restart_factors", "run_example", "save_results",
            "RestartResult", "consensus_from_cells", "grid_cells",
-           "reduce_grid",
+           "reduce_grid", "default_mesh", "feature_mesh", "grid_mesh",
            "CheckpointConfig", "ConsensusConfig", "ExecCache",
            "ExecCacheConfig", "ExperimentalConfig", "InitConfig",
            "OutputConfig", "ResultCacheConfig", "SketchConfig",

@@ -29,7 +29,7 @@ from nmfx_torch.io import Dataset, read_dataset, write_gct
 from nmfx_torch.ops.hclust import rank_selection_torch
 from nmfx_torch.profiling import NullProfiler
 from nmfx_torch.solvers.base import SolverResult, StopReason, solve
-from nmfx_torch.sweep import _refuse_mesh, sweep
+from nmfx_torch.sweep import default_mesh, mesh_home, sweep
 
 
 @dataclasses.dataclass(frozen=True)
@@ -456,10 +456,14 @@ def nmfconsensus(
     of one tile runs the routes above, byte-equal to the same call
     without ``tile_rows``.
 
-    Other settings raise ``NotImplementedError`` naming the ROADMAP item:
-    a ``mesh`` other than None among them (the meshed routes, ROADMAP §1
-    item 10c). ``use_mesh`` is taken as the reference takes it and
-    changes nothing on the port's one device.
+    ``mesh`` (``grid_mesh(R)``, restart axis only): every route runs
+    restart-sharded, each shard on its own device (a device may be named
+    more than once); on the CPU the result is byte-equal to the unmeshed
+    run. Feature or sample axes raise ``NotImplementedError`` naming
+    ROADMAP §1 item 10c-ii. ``use_mesh`` (the default) takes
+    ``default_mesh()`` when ``device`` is None and no ``mesh`` is given:
+    a restart mesh over this process's cards, None with one card. An
+    explicit mesh with ``checkpoint`` is refused, as in the reference.
 
     ``device``: None means CUDA and raises if no CUDA device is present
     (pass ``device="cpu"`` for the plain PyTorch versions on the CPU). On
@@ -512,14 +516,14 @@ def nmfconsensus(
     drawn at the true shape, one pool padded to ``grid_slots``; the
     results are the serving tier's (``NMFXServer``), and agree with the
     plain sweep at the agreement tier. The sweep runs on the cache's
-    device. Not with ``checkpoint``.
+    device. Not with ``checkpoint``; a mesh is refused there (the
+    mesh-aware serving tier, ROADMAP §1 item 10c-ii).
 
     ``result_cache`` (a ``result_cache.ResultCache`` or a directory):
     a finished result stored under this request's content-addressed key
     is returned without solving, and a solved one is stored
     (``keep_factors`` requests solve through).
     """
-    _refuse_mesh(mesh)
     if rank_selection not in ("host", "device"):
         raise ValueError("rank_selection must be 'host' or 'device', got "
                          f"{rank_selection!r}")
@@ -581,12 +585,22 @@ def nmfconsensus(
             raise ValueError(
                 "pass either checkpoint (the durable chunked ledger) or "
                 "checkpoint_dir (the legacy per-rank registry), not both")
+        if mesh is not None:
+            raise ValueError(
+                "checkpoint does not compose with an explicit mesh: the "
+                "chunk executor owns its per-(k, restart-chunk) "
+                "execution plan on the default device (use "
+                "nmfx_torch.distributed's elastic shard runner for "
+                "multi-device durable sweeps)")
         if exec_cache is not None:
             raise ValueError(
                 "checkpoint does not compose with exec_cache: "
                 "checkpointed sweeps dispatch per (rank, restart-chunk) "
                 "through the durable ledger, which bypasses the "
                 "bucketed executable cache")
+        use_mesh = False  # the chunk plan is the parallelism unit
+    if mesh is None and use_mesh and device is None:
+        mesh = default_mesh()
     registry = None
     if checkpoint_dir is not None:
         from nmfx_torch.registry import SweepRegistry
@@ -598,11 +612,12 @@ def nmfconsensus(
                 "durable chunked ledger) for out-of-core resume")
         registry = SweepRegistry.open(checkpoint_dir, arr, scfg, icfg,
                                       restarts, seed, label_rule,
-                                      keep_factors)
+                                      keep_factors, mesh)
     if profiler is None:
         profiler = NullProfiler()
-    run = dict(device=device, profiler=profiler, registry=registry,
-               checkpoint=checkpoint, exec_cache=exec_cache)
+    run = dict(device=device, mesh=mesh, profiler=profiler,
+               registry=registry, checkpoint=checkpoint,
+               exec_cache=exec_cache)
 
     if harvest == "streamed" and rank_selection == "host":
         pipeline = HarvestPipeline(linkage=ccfg.linkage, profiler=profiler,
@@ -626,7 +641,8 @@ def nmfconsensus(
             # dispatched for every rank before anything is read on the
             # host, so the clustering queues behind the copies (a
             # registry's or ledger's host consensus moves there first)
-            dev = resolve_device(device)
+            dev = (resolve_device(device) if mesh is None
+                   else mesh_home(mesh))
             with profiler.phase("rank_selection_dispatch"):
                 sel = {k: start_host_fetch(_Selection(*rank_selection_torch(
                     torch.as_tensor(out.consensus, device=dev), k,

@@ -49,8 +49,13 @@ convergence check such a chunk writes a mid-matrix partial record
 then passes ``proc.preempt``, so a rehearsed kill lands mid-matrix and
 the re-run resumes from the last partial, byte-equal to an
 uninterrupted run; the partial goes once the chunk's record is
-committed. Left out, with ROADMAP §1 item 10: the shard heartbeats of
-the elastic runner (``nmfx/distributed.py``).
+committed.
+
+Shards: the elastic runner (``nmfx_torch.distributed``) beats one
+``shard_<i>.json`` heartbeat a committed unit into the ledger's
+directory (:meth:`SweepCheckpoint.heartbeat`, read back by
+:meth:`SweepCheckpoint.shard_status`), and :func:`solve_chunk_host`
+takes a restart-only sub-mesh for a shard that owns several devices.
 """
 
 from __future__ import annotations
@@ -343,6 +348,34 @@ class SweepCheckpoint:
     def _path(self, k: int, r0: int, r1: int) -> str:
         return os.path.join(self.directory, f"k{k}_r{r0}-{r1}.npz")
 
+    # -- the shard heartbeats (elastic recovery) ---------------------------
+    @property
+    def heartbeat_ledger(self):
+        """The :class:`nmfx_torch.obs.export.HeartbeatLedger` the shard
+        heartbeats write through (``shard_<i>.json`` in the ledger's
+        directory), the liveness idiom the replica pool uses too."""
+        if getattr(self, "_hb_ledger", None) is None:
+            from nmfx_torch.obs.export import HeartbeatLedger
+
+            self._hb_ledger = HeartbeatLedger(self.directory,
+                                              prefix="shard_")
+        return self._hb_ledger
+
+    def heartbeat(self, shard: int, **info) -> None:
+        """Record a shard's liveness and progress (``shard_<i>.json``,
+        atomic, best-effort). The elastic runner writes one a committed
+        unit and a final ``alive=False`` when a shard dies; the payload
+        carries the writer's pid and the caller's fields (the runner's
+        ``trace_id``). Completion records stay the ground truth."""
+        self.heartbeat_ledger.beat(str(shard), shard=shard, **info)
+
+    def shard_status(self, stale_after_s: "float | None" = None) -> dict:
+        """``{shard: heartbeat_payload}``; with ``stale_after_s`` each
+        payload gains ``stale`` and ``age_s`` from its write time."""
+        status = self.heartbeat_ledger.status(stale_after_s)
+        return {payload.get("shard"): payload
+                for payload in status.values()}
+
     def has(self, k: int, r0: int, r1: int) -> bool:
         return os.path.exists(self._path(k, r0, r1))
 
@@ -516,7 +549,8 @@ def _preempt_check(k: int, r0: int, r1: int) -> None:
 
 def solve_chunk_host(a_dev, k: int, r0: int, r1: int,
                      ccfg: ConsensusConfig, scfg: SolverConfig,
-                     icfg: InitConfig, keys=None, ck=None, device=None):
+                     icfg: InitConfig, keys=None, ck=None, device=None,
+                     mesh=None):
     """Solve restarts ``[r0, r1)`` of rank ``k`` on A's device and bring
     the chunk's record to the host. ``keys`` is the rank's whole key
     array ``split(fold_in(key(seed), k), restarts)`` (computed here when
@@ -529,9 +563,16 @@ def solve_chunk_host(a_dev, k: int, r0: int, r1: int,
     through the tiled engine; with a ledger ``ck`` they resume from the
     chunk's partial, write a partial at every check and pass
     ``proc.preempt`` there, after the partial landed, so a rehearsed
-    kill lands mid-matrix."""
+    kill lands mid-matrix.
+
+    ``mesh``: a restart-only sub-mesh the chunk's lanes split over (the
+    elastic runner's shard that owns several devices); ``a_dev`` is then
+    A's per-device copies (``sweep.place_input``). Each lane computes
+    what it computes unmeshed, so the record is the unmeshed executor's;
+    the streamed engines refuse a mesh."""
     from nmfx_torch.sparse import SparseMatrix
-    from nmfx_torch.sweep import _build_chunk_sweep_fn
+    from nmfx_torch.sweep import (_build_chunk_sweep_fn,
+                                  _build_meshed_chunk_sweep_fn)
 
     if scfg.backend == "sketched" or scfg.screen:
         raise ValueError(
@@ -544,6 +585,12 @@ def solve_chunk_host(a_dev, k: int, r0: int, r1: int,
                              ccfg.restarts)
     poison = tuple(r - r0 for r in faults.poison_restarts(k, ccfg.restarts)
                    if r0 <= r < r1)
+    if mesh is not None and (scfg.tile_rows is not None
+                             or isinstance(a_dev, SparseMatrix)):
+        raise ValueError(
+            "meshed chunk execution does not compose with the tiled/"
+            "sparse streaming engines (single-device tile pipelines); "
+            "drop the mesh or the tile/sparse input")
     if scfg.tile_rows is not None or isinstance(a_dev, SparseMatrix):
         from nmfx_torch import tiles
 
@@ -567,8 +614,12 @@ def solve_chunk_host(a_dev, k: int, r0: int, r1: int,
         _note(solved=1)
         _preempt_check(k, r0, r1)
         return host
-    fn = _build_chunk_sweep_fn(k, r1 - r0, scfg, icfg, ccfg.label_rule,
-                               poison)
+    if mesh is not None:
+        fn = _build_meshed_chunk_sweep_fn(k, r1 - r0, scfg, icfg,
+                                          ccfg.label_rule, poison, mesh)
+    else:
+        fn = _build_chunk_sweep_fn(k, r1 - r0, scfg, icfg, ccfg.label_rule,
+                                   poison)
     out = fn(a_dev, keys[r0:r1])
     host = type(out)(*(x.cpu().numpy() for x in out))
     _note(solved=1)

@@ -17,9 +17,10 @@ reference's everywhere else.
 
 Refused, each with a usage error (exit 2) that names its ROADMAP item:
 
-* the meshes (``ROADMAP_SCALE``):
-  ``--feature-shards``/``--sample-shards``/``--restart-shards`` above
-  1 (with or without tiles), and a mesh entry in ``--replica-mesh``;
+* the grid mesh axes and mesh replicas (``ROADMAP_GRID_MESH``):
+  ``--feature-shards``/``--sample-shards`` above 1 and a mesh entry in
+  ``--replica-mesh``. ``--restart-shards N`` runs: a restart mesh over N
+  cards (``--device cpu``: the CPU named N times);
 * serialized XLA executables (``ROADMAP_WARM``): ``--cache-dir`` and an
   explicit ``--compile-cache DIR``. The default ``--compile-cache``
   value and ``--no-compile-cache`` are accepted and do nothing: the
@@ -49,7 +50,7 @@ import os
 import sys
 
 from nmfx_torch.config import (ALGORITHMS, INIT_METHODS, LINKAGE_METHODS,
-                               PACKED_ALGORITHMS, ROADMAP_SCALE,
+                               PACKED_ALGORITHMS, ROADMAP_GRID_MESH,
                                ROADMAP_TOOLING, ROADMAP_WARM, VERSION)
 
 #: the reference's default persistent XLA compilation-cache location;
@@ -169,8 +170,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--precision", default="default",
                    choices=("default", "bfloat16", "highest"),
                    help="product precision: 'default' and 'highest' are "
-                        "full float32; 'bfloat16' rounds the kernels' "
-                        "operands to bf16 (--backend pallas)")
+                        "full float32; 'bfloat16' rounds every product's "
+                        "operands to bf16 on the card (the kernels' and "
+                        "the plain products'; the CPU ignores it)")
     p.add_argument("--backend", default="auto",
                    choices=("auto", "vmap", "packed", "pallas",
                             "sketched"),
@@ -253,17 +255,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-files", action="store_true",
                    help="print the summary only, write nothing")
     p.add_argument("--no-mesh", action="store_true",
-                   help="accepted; the port runs on one device")
+                   help="disable sharding over the local device mesh")
     p.add_argument("--feature-shards", type=int, default=1,
                    help="feature-sharded grid mesh (above 1 not ported, "
-                        f"{ROADMAP_SCALE})")
+                        f"{ROADMAP_GRID_MESH})")
     p.add_argument("--sample-shards", type=int, default=1,
                    help="sample-sharded grid mesh (above 1 not ported, "
-                        f"{ROADMAP_SCALE})")
+                        f"{ROADMAP_GRID_MESH})")
     p.add_argument("--restart-shards", type=int, default=None,
                    metavar="N",
-                   help="restart-sharded mesh over N devices (above 1 not "
-                        f"ported, {ROADMAP_SCALE})")
+                   help="restart-sharded mesh over N devices (with "
+                        "--device cpu, the CPU named N times)")
     p.add_argument("--checkpoint-dir", default=None,
                    help="durable sweep ledger: persist per-(rank, "
                         "restart-chunk) completion records here — a "
@@ -343,7 +345,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--replica-mesh", default=None, metavar="SPECS",
                    help="with --replicas: per-replica mesh specs, '-' for "
                         "a plain 1-device replica (mesh entries not "
-                        f"ported, {ROADMAP_SCALE})")
+                        f"ported, {ROADMAP_GRID_MESH})")
     p.add_argument("--compile-cache", default=_DEFAULT_COMPILE_CACHE,
                    metavar="DIR",
                    help="the reference's persistent XLA compilation "
@@ -533,9 +535,9 @@ def _check_tiles(parser, args) -> None:
                 or args.restart_shards is not None:
             parser.error(f"{what} do(es) not compose with --restart-"
                          "shards/--feature-shards/--sample-shards (the "
-                         "tile stream owns one device; sharding across "
-                         "processes is not ported yet, "
-                         f"{ROADMAP_SCALE})")
+                         "tile stream owns one device; shard across "
+                         "processes with nmfx_torch.distributed "
+                         "instead)")
         if args.exec_cache or args.warm_shapes or args.cache_dir \
                 or args.pipeline_ranks:
             parser.error(f"{what} do(es) not compose with --exec-cache/"
@@ -621,17 +623,25 @@ def _run_cli(argv: list[str] | None = None) -> int:
         parser.error("--feature-shards/--sample-shards must be >= 1")
     if args.restart_shards is not None and args.restart_shards < 1:
         parser.error("--restart-shards must be >= 1")
-    if args.feature_shards > 1 or args.sample_shards > 1 \
-            or (args.restart_shards or 1) > 1:
-        parser.error("--restart-shards/--feature-shards/--sample-shards "
-                     "above 1: the grid mesh is not ported yet "
-                     f"({ROADMAP_SCALE})")
-    # --restart-shards 1 is the reference's one-device restart mesh: the
-    # port runs it as the plain one-device sweep, and it keeps the
-    # reference's compose errors below
+    if args.feature_shards > 1 or args.sample_shards > 1:
+        parser.error("--feature-shards/--sample-shards above 1: the grid "
+                     "mesh axes are not ported yet "
+                     f"({ROADMAP_GRID_MESH})")
+    mesh = None
     meshed = args.restart_shards is not None
-    if meshed and args.no_mesh:
-        parser.error("--restart-shards conflicts with --no-mesh")
+    if meshed:
+        # restart-only mesh over exactly N devices (the reference's
+        # reproducible-placement knob); the CPU is named N times
+        if args.no_mesh:
+            parser.error("--restart-shards conflicts with --no-mesh")
+        from nmfx_torch.sweep import grid_mesh
+
+        try:
+            mesh = grid_mesh(args.restart_shards, 1, 1, devices=(
+                ["cpu"] * args.restart_shards if args.device == "cpu"
+                else None))
+        except (ValueError, RuntimeError) as e:
+            parser.error(str(e))
     _check_tiles(parser, args)
     _check_sketched_compose(parser, args)
     from nmfx_torch.config import ExperimentalConfig, SketchConfig
@@ -723,7 +733,7 @@ def _run_cli(argv: list[str] | None = None) -> int:
                              "1-device)")
             if any(spec not in ("-", "") for spec in specs):
                 parser.error("--replica-mesh: mesh replicas are not "
-                             f"ported yet ({ROADMAP_SCALE}); use '-' "
+                             f"ported yet ({ROADMAP_GRID_MESH}); use '-' "
                              "(a plain 1-device replica) for each entry")
     elif args.router_spill_dir is not None:
         parser.error("--router-spill-dir configures the replica "
@@ -832,6 +842,8 @@ def _run_cli(argv: list[str] | None = None) -> int:
                 grid_tail_slots=args.grid_tail_slots,
                 output=output,
                 device=device,
+                mesh=mesh,
+                use_mesh=not args.no_mesh,
                 checkpoint=ckpt_cfg,
                 profiler=profiler,
                 exec_cache=exec_cache,

@@ -45,6 +45,8 @@ ROADMAP_DTYPES = "ROADMAP §1 item 4, config and dtype remnants"
 ROADMAP_SCALE = "ROADMAP §1 item 10, scale engines"
 ROADMAP_TOOLING = "ROADMAP §1 item 11, tooling"
 ROADMAP_WARM = "ROADMAP §1 item 6, warm path remnants"
+ROADMAP_GRID_MESH = ("ROADMAP §1 item 10c-ii, the feature and sample mesh "
+                     "axes and the mesh-aware serving tier")
 
 #: the package version (the reference's; the command line's --version)
 VERSION = "0.1.0"
@@ -61,8 +63,9 @@ class ExperimentalConfig:
     (bf16 pool factors), ``alias_io`` (the block kernels update the pool
     in place) and ``block_m`` (the row tiling, which sets the padded row
     count); ``autotune="on"`` raises ``NotImplementedError`` naming the
-    ROADMAP item that brings it. ``kl_bf16_quotient`` configures kl only
-    and is inert here."""
+    ROADMAP item that brings it. ``kl_bf16_quotient`` (kl on the whole
+    grid under ``matmul_precision="bfloat16"`` on CUDA: the quotient reads
+    A rounded to bf16 too) configures kl only."""
 
     ragged: bool = False
     ragged_iters_est: "tuple[tuple[int, float], ...] | None" = None
@@ -316,12 +319,6 @@ class SolverConfig:
 def check_ported(cfg: SolverConfig) -> None:
     """Raise ``NotImplementedError`` for a valid setting the port cannot
     run yet (ROADMAP "Open items")."""
-    if cfg.matmul_precision == "bfloat16" and cfg.backend != "pallas":
-        raise NotImplementedError(
-            "matmul_precision='bfloat16' (bf16 operands, f32 accumulation) "
-            "runs on the hand-written kernels, backend='pallas'; on the "
-            f"routes that reach no kernel it is not ported yet "
-            f"({ROADMAP_DTYPES})")
     if cfg.dtype not in ("float32", "float64"):
         raise ValueError(
             f"dtype must be 'float32' or 'float64', got {cfg.dtype!r}")

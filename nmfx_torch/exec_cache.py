@@ -37,8 +37,9 @@ reference's layout and contracts:
 Not ported: the reference's disk store of serialized executables
 (``ExecCacheConfig.cache_dir`` raises ``NotImplementedError`` naming
 ROADMAP §1 item 6; a built torch sweep has no serialized form, so the
-``persist.deserialize`` fault site stays unfired) and the mesh
-(``ROADMAP_SCALE``).
+``persist.deserialize`` fault site stays unfired) and the mesh: the
+bucketed sweeps refuse one (the mesh-aware serving tier,
+``ROADMAP_GRID_MESH``).
 """
 
 from __future__ import annotations
@@ -201,11 +202,18 @@ class ExecCache:
 
     def cacheable(self, ccfg: ConsensusConfig, scfg: SolverConfig,
                   mesh=None) -> bool:
-        """Whether this configuration can serve through the bucketed
-        sweeps: the whole-grid slot scheduler runs it (``grid_exec_ok``)
-        under a grid-capable ``grid_exec``, with no mesh."""
-        return (mesh is None and grid_exec_ok(scfg)
-                and ccfg.grid_exec in ("auto", "grid"))
+        """Whether this (config, mesh) can serve through the bucketed
+        sweeps, the reference's predicate: the whole-grid slot scheduler
+        runs it (``grid_exec_ok``) under a grid-capable ``grid_exec``, on
+        no feature or sample axes, in a single-process job. A restart
+        mesh passes, as in the reference; the bucketed sweeps then refuse
+        it (the mesh-aware serving tier, ``ROADMAP_GRID_MESH``)."""
+        from nmfx_torch.device import process_count
+        from nmfx_torch.sweep import grid_axes_active
+
+        return (grid_exec_ok(scfg, mesh)
+                and ccfg.grid_exec in ("auto", "grid")
+                and not grid_axes_active(mesh) and process_count() == 1)
 
     def route(self, shape: tuple, ccfg: ConsensusConfig,
               scfg: SolverConfig) -> "dict | None":

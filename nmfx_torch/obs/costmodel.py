@@ -466,16 +466,17 @@ def iteration_bytes(algorithm: str, family: str, m: int, n: int, k: int,
 
 
 def dispatch_cost(scfg, m: int, n: int,
-                  iters_by_k: dict) -> "dict | None":
+                  iters_by_k: dict, mesh=None) -> "dict | None":
     """Total model FLOPs/bytes of one dispatch: Σ_k Σ_lane iterations ×
     per-iteration model, under the engine family ``scfg`` resolves to
     (``sweep.resolve_engine_family``). ``iters_by_k`` maps rank ->
     per-lane iteration counts (host ints/arrays). Returns
     ``{"flops", "bytes", "family", "arithmetic_intensity"}`` or None for
-    unmodeled engines."""
+    unmodeled engines. A restart ``mesh`` keeps the family (grid axes are
+    refused by ``resolve_engine_family``)."""
     from nmfx_torch.sweep import resolve_engine_family
 
-    family = resolve_engine_family(scfg)
+    family = resolve_engine_family(scfg, mesh)
     flops = bytes_ = 0.0
     for k, iters in iters_by_k.items():
         fi = iteration_flops(scfg.algorithm, family, m, n, k, scfg)
@@ -613,7 +614,7 @@ def reset_perf() -> None:
 
 def attribute_dispatch(kind: str, scfg, m: int, n: int,
                        iters_by_k: dict, solve_s: float,
-                       device=None) -> "dict | None":
+                       device=None, mesh=None) -> "dict | None":
     """Attribute ONE dispatch: model FLOPs/bytes from the per-lane
     iteration counts, achieved FLOP/s over the measured ``solve_s``, MFU
     and bandwidth fraction against the peak of ``device`` (the device A
@@ -624,11 +625,13 @@ def attribute_dispatch(kind: str, scfg, m: int, n: int,
 
     Call sites pass a wall that covers the device solve they measured
     and iteration counts that are already host-resident — attribution
-    itself never forces a device sync."""
+    itself never forces a device sync. Over a ``mesh`` the peak is
+    scaled by the mesh's DISTINCT devices of this process: two restart
+    shards on one card are priced as that one card."""
     global _last_device_kind
     if not _attrib_enabled or solve_s is None or solve_s <= 0.0:
         return None
-    cost = dispatch_cost(scfg, m, n, iters_by_k)
+    cost = dispatch_cost(scfg, m, n, iters_by_k, mesh)
     if cost is None:
         return None
     achieved = cost["flops"] / solve_s
@@ -636,9 +639,11 @@ def attribute_dispatch(kind: str, scfg, m: int, n: int,
     dev_kind = None if device is None else device_kind(device)
     peak = device_peak(dev_kind)
     mfu = bw_frac = ridge = None
+    devices = 1 if mesh is None else len(mesh.distinct_devices())
     if peak is not None:
-        mfu = achieved / peak["flops"]
-        bw_frac = cost["bytes"] / solve_s / peak["hbm_bytes_per_s"]
+        mfu = achieved / (peak["flops"] * devices)
+        bw_frac = (cost["bytes"] / solve_s
+                   / (peak["hbm_bytes_per_s"] * devices))
         ridge = peak["flops"] / peak["hbm_bytes_per_s"]
     rec = {
         "kind": kind,
@@ -769,3 +774,110 @@ def perf_report() -> str:
             f"{rec['flops'] / 1e9:>13.2f}{rec['bytes'] / 1e9:>10.2f}"
             f"{ai:>7}{ach:>9}{mfu:>7}  {rec['verdict']}")
     return "\n".join(lines)
+
+
+# --------------------------------------------------------------------------
+# communication model (the reference's ``comm_model``, pure arithmetic)
+# --------------------------------------------------------------------------
+
+#: per-algorithm collective schedule of the grid-sharded update program:
+#: allreduces per tiled axis per iteration, their payload in elements
+#: (k, the other axis' local extent d, local lanes r), and the numeric
+#: guard's i32 lane flags where the update has one
+_COMM = {
+    "kl": dict(ops_per_axis=2,
+               payload=lambda k, d, r: r * (k * d + k),
+               guard=None),
+    "neals": dict(ops_per_axis=2,
+                  payload=lambda k, d, r: r * (k * d + k * k),
+                  guard=None),
+    "snmf": dict(ops_per_axis=2,
+                 payload=lambda k, d, r: r * (k * d + k * k),
+                 guard=None),
+    "hals": dict(ops_per_axis=2,
+                 payload=lambda k, d, r: r * (k * d + k * k),
+                 guard=None),
+    "mu": dict(ops_per_axis=3,
+               payload=lambda k, d, r: r * k * d + (r * k) ** 2,
+               guard=lambda r: r),
+}
+
+
+def comm_covered_algorithms() -> frozenset:
+    """Algorithms with a communication model (the grid-sharded driver's);
+    every other algorithm is restart-parallel only."""
+    return frozenset(_COMM)
+
+
+def _ring_wire_bytes(payload_bytes: float, p: int) -> float:
+    """Bytes a p-participant ring allreduce moves per participant:
+    2(p-1)/p × payload."""
+    if p <= 1:
+        return 0.0
+    return 2.0 * (p - 1) / p * payload_bytes
+
+
+def comm_model(algorithm: str, m: int, n: int, k: int, *,
+               restart_shards: int = 1, feature_shards: int = 1,
+               sample_shards: int = 1, restarts: "int | None" = None,
+               itemsize: int = 4) -> dict:
+    """Per-iteration collective schedule of one meshed factorization, as
+    the reference models it: ``collectives_per_iter`` (0 on a
+    restart-only mesh: no lane talks to another while it iterates),
+    ``payload_bytes_per_iter``, ``wire_bytes_per_iter`` (ring
+    convention), a ``per_axis`` breakdown and the ``epilogue`` (the
+    per-rank consensus reduction over the restart axis, once a solve).
+    The grid axes' terms describe the reference's grid-sharded program,
+    which the port does not run yet (``ROADMAP_GRID_MESH``); the port's
+    restart axis gathers each shard's per-restart outputs instead of
+    reducing a consensus matrix, which this model does not price."""
+    if algorithm not in _COMM:
+        raise ValueError(
+            f"no communication model for algorithm {algorithm!r} — the "
+            "grid-sharded driver accepts "
+            f"{sorted(_COMM)} (everything else is restart-parallel "
+            "only); add a _COMM entry with the new schedule")
+    for name, v in (("restart_shards", restart_shards),
+                    ("feature_shards", feature_shards),
+                    ("sample_shards", sample_shards)):
+        if v < 1:
+            raise ValueError(f"{name} must be >= 1, got {v}")
+    ent = _COMM[algorithm]
+    r_total = restart_shards if restarts is None else restarts
+    r_loc = -(-r_total // restart_shards)
+    m_loc = -(-m // feature_shards)
+    n_loc = -(-n // sample_shards)
+    per_axis = {}
+    total_ops = 0
+    total_payload = 0.0
+    total_wire = 0.0
+    for axis, p, dim_loc in (("features", feature_shards, n_loc),
+                             ("samples", sample_shards, m_loc)):
+        if p <= 1:
+            continue
+        payload = ent["payload"](k, dim_loc, r_loc) * itemsize
+        ops = ent["ops_per_axis"]
+        if ent["guard"] is not None:
+            payload += ent["guard"](r_loc) * 4  # i32 lane flags
+        wire = _ring_wire_bytes(payload, p)
+        per_axis[axis] = dict(collectives=ops, payload_bytes=payload,
+                              wire_bytes=wire, participants=p)
+        total_ops += ops
+        total_payload += payload
+        total_wire += wire
+    n_pad = n_loc * sample_shards
+    epi_payload = (float(n_pad) * n_pad + 1) * itemsize \
+        if restart_shards > 1 else 0.0
+    epilogue = dict(
+        collectives=2 if restart_shards > 1 else 0,
+        payload_bytes=epi_payload,
+        wire_bytes=_ring_wire_bytes(epi_payload, restart_shards))
+    return dict(algorithm=algorithm,
+                mesh_shape=(restart_shards, feature_shards,
+                            sample_shards),
+                r_loc=r_loc,
+                collectives_per_iter=total_ops,
+                payload_bytes_per_iter=total_payload,
+                wire_bytes_per_iter=total_wire,
+                per_axis=per_axis,
+                epilogue=epilogue)

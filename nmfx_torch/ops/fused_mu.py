@@ -53,6 +53,9 @@ count apart.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import numpy as np
 import torch
 
@@ -65,25 +68,55 @@ LAUNCHES = {"fused_h_update": 0, "lane_gram": 0, "fused_w_update": 0,
             "hals_block_iterations": 0}
 
 
+#: launches made inside each :func:`launch_scope` (a meshed sweep's
+#: restart shards, "shard<i>"): scope → kernel → count
+SCOPED_LAUNCHES: dict = {}
+_count_lock = threading.Lock()
+_scope = threading.local()
+
+
 def reset_launch_counts() -> None:
     """Every kernel's count to 0; the option variants' counts
-    (``name[tag]``) go until a variant launches again."""
-    for name in list(LAUNCHES):
-        if "[" in name:
-            del LAUNCHES[name]
-        else:
-            LAUNCHES[name] = 0
+    (``name[tag]``) and the scoped counts go until a launch adds them
+    again."""
+    with _count_lock:
+        for name in list(LAUNCHES):
+            if "[" in name:
+                del LAUNCHES[name]
+            else:
+                LAUNCHES[name] = 0
+        SCOPED_LAUNCHES.clear()
+
+
+@contextlib.contextmanager
+def launch_scope(name: str):
+    """Count this thread's launches under ``name`` too, while the block
+    runs (a restart shard's launches in a meshed sweep, whose shards run
+    on several threads)."""
+    prev = getattr(_scope, "name", None)
+    _scope.name = name
+    try:
+        yield
+    finally:
+        _scope.name = prev
 
 
 def _count(name: str, *tags) -> None:
     """One launch of kernel ``name``, and of each option variant it ran
     (``name[tag]`` for each tag that is not None: "bf16" operands, the
-    pool's "bfloat16" / "bfloat16_w" factors, "seg_ids", "alias_io")."""
-    LAUNCHES[name] += 1
-    for tag in tags:
-        if tag is not None:
-            key = f"{name}[{tag}]"
-            LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
+    pool's "bfloat16" / "bfloat16_w" factors, "seg_ids", "alias_io");
+    under a :func:`launch_scope`, in that scope's counts as well. Shards
+    count from several threads, so under a lock."""
+    scope = getattr(_scope, "name", None)
+    with _count_lock:
+        LAUNCHES[name] += 1
+        for tag in tags:
+            if tag is not None:
+                key = f"{name}[{tag}]"
+                LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
+        if scope is not None:
+            counts = SCOPED_LAUNCHES.setdefault(scope, {})
+            counts[name] = counts.get(name, 0) + 1
 
 
 def _pool_tag(wp, hp):

@@ -19,9 +19,10 @@ import functools
 
 import torch
 
-from nmfx_torch.ops.packed_mu import residual_norms_direct
 from nmfx_torch.solvers.als import lstsq_min_norm
-from nmfx_torch.solvers.base import StopReason, clamp, solve_gram_reg
+from nmfx_torch.solvers.base import (StopReason, bf16_products, clamp,
+                                     einsum, mm, residual_norms,
+                                     solve_gram_reg)
 from nmfx_torch.solvers.hals import hals_h_sweep, hals_w_sweep
 from nmfx_torch.solvers.mu import _mu_update
 
@@ -36,14 +37,16 @@ def mu_block(a, wp, hp, done_mask, cfg):
     """ONE dense-batched MU iteration (the reference's f32 branch):
     batched einsums over the lane axis, with lanes under ``done_mask``
     frozen. Plain PyTorch products, as the reference leaves these to
-    XLA."""
-    numerh = torch.einsum("bmk,mn->bkn", wp, a)
-    gw = torch.einsum("bmk,bml->bkl", wp, wp)
-    h = _mu_update(hp, numerh, torch.bmm(gw, hp), cfg.div_eps,
+    XLA (every one through ``base.mm``'s operand rounding, as in every
+    block here)."""
+    bf = bf16_products(cfg, a.device)
+    numerh = einsum("bmk,mn->bkn", wp, a, bf)
+    gw = einsum("bmk,bml->bkl", wp, wp, bf)
+    h = _mu_update(hp, numerh, mm(gw, hp, bf), cfg.div_eps,
                    cfg.zero_threshold)
-    gh = torch.einsum("bkn,bln->bkl", h, h)
-    numerw = torch.einsum("mn,bkn->bmk", a, h)
-    w = _mu_update(wp, numerw, torch.bmm(wp, gh), cfg.div_eps,
+    gh = einsum("bkn,bln->bkl", h, h, bf)
+    numerw = einsum("mn,bkn->bmk", a, h, bf)
+    w = _mu_update(wp, numerw, mm(wp, gh, bf), cfg.div_eps,
                    cfg.zero_threshold)
     return _frozen(done_mask, wp, hp, w, h)
 
@@ -57,8 +60,9 @@ def hals_block(a, wp, hp, done_mask, cfg):
     diagonal keeps the division finite, and their Gram cross-terms with
     real components are zero."""
     eps, zt = cfg.div_eps, cfg.zero_threshold
-    h = hals_h_sweep(a, wp, hp, eps, zt)
-    w = hals_w_sweep(a, wp, h, eps, zt)
+    bf = bf16_products(cfg, a.device)
+    h = hals_h_sweep(a, wp, hp, eps, zt, bf)
+    w = hals_w_sweep(a, wp, h, eps, zt, bf)
     return _frozen(done_mask, wp, hp, w, h)
 
 
@@ -69,11 +73,12 @@ def neals_block(a, wp, hp, done_mask, cfg):
     jitter's trace/k uses k_max here, a 10·eps-scale difference from the
     true-rank lane). hp feeds only the frozen lanes: ALS re-derives H
     from W alone."""
-    gw = torch.einsum("bmk,bml->bkl", wp, wp)
-    wta = torch.einsum("bmk,mn->bkn", wp, a)
+    bf = bf16_products(cfg, a.device)
+    gw = einsum("bmk,bml->bkl", wp, wp, bf)
+    wta = einsum("bmk,mn->bkn", wp, a, bf)
     h = clamp(solve_gram_reg(gw, wta), cfg.zero_threshold)
-    gh = torch.einsum("bkn,bln->bkl", h, h)
-    hat = torch.einsum("bkn,mn->bkm", h, a)
+    gh = einsum("bkn,bln->bkl", h, h, bf)
+    hat = einsum("bkn,mn->bkm", h, a, bf)
     w = clamp(solve_gram_reg(gh, hat).mT, cfg.zero_threshold)
     return _frozen(done_mask, wp, hp, w, h)
 
@@ -83,8 +88,9 @@ def als_block(a, wp, hp, done_mask, cfg):
     half-step the per-lane minimum-norm least-squares solve, batched, then
     the clamp. A zero-padded component is a zero singular direction, which
     the minimum-norm solution leaves at exact zero."""
-    h = clamp(lstsq_min_norm(wp, a), cfg.zero_threshold)
-    w = clamp(lstsq_min_norm(h.mT, a.T).mT, cfg.zero_threshold)
+    bf = bf16_products(cfg, a.device)
+    h = clamp(lstsq_min_norm(wp, a, bf), cfg.zero_threshold)
+    w = clamp(lstsq_min_norm(h.mT, a.T, bf).mT, cfg.zero_threshold)
     return _frozen(done_mask, wp, hp, w, h)
 
 
@@ -102,12 +108,13 @@ def snmf_block(a, wp, hp, done_mask, cfg, eta=None, pad_live=None):
                          "padding masks)")
     f32 = wp.dtype
     ones_mask = (pad_live[:, :, None] & pad_live[:, None, :]).to(f32)
-    gw = torch.einsum("bmk,bml->bkl", wp, wp)
-    wta = torch.einsum("bmk,mn->bkn", wp, a)
+    bf = bf16_products(cfg, a.device)
+    gw = einsum("bmk,bml->bkl", wp, wp, bf)
+    wta = einsum("bmk,mn->bkn", wp, a, bf)
     h = clamp(solve_gram_reg(gw + cfg.sparsity_beta * ones_mask, wta),
               cfg.zero_threshold)
-    gh = torch.einsum("bkn,bln->bkl", h, h)
-    hat = torch.einsum("bkn,mn->bkm", h, a)
+    gh = einsum("bkn,bln->bkl", h, h, bf)
+    hat = einsum("bkn,mn->bkm", h, a, bf)
     eye = torch.eye(wp.shape[2], dtype=f32, device=wp.device)
     w = clamp(solve_gram_reg(gh + eta * eye, hat).mT, cfg.zero_threshold)
     return _frozen(done_mask, wp, hp, w, h)
@@ -117,15 +124,18 @@ def kl_block(a, wp, hp, done_mask, cfg):
     """ONE dense-batched KL-divergence iteration (Brunet rule, see
     ``solvers.kl``): each lane holds its m×n quotient, so the block's
     working set is (B, m, n) and the slot count bounds it
-    (``sched_mu._kl_slot_clamp``)."""
+    (``sched_mu._kl_slot_clamp``). Under bf16 products the quotient
+    reads the A it is given: full precision unless the scheduler rounded
+    it (``experimental.kl_bf16_quotient``)."""
     eps = cfg.div_eps
-    q = a[None] / (torch.bmm(wp, hp) + eps)
-    numer = torch.einsum("bmk,bmn->bkn", wp, q)
+    bf = bf16_products(cfg, a.device)
+    q = a[None] / (mm(wp, hp, bf) + eps)
+    numer = einsum("bmk,bmn->bkn", wp, q, bf)
     h = clamp(hp * numer / (wp.sum(dim=1)[:, :, None] + eps),
               cfg.zero_threshold)
     del q
-    q = a[None] / (torch.bmm(wp, h) + eps)
-    numer = torch.einsum("bmn,bkn->bmk", q, h)
+    q = a[None] / (mm(wp, h, bf) + eps)
+    numer = einsum("bmn,bkn->bmk", q, h, bf)
     w = clamp(wp * numer / (h.sum(dim=2)[:, None, :] + eps),
               cfg.zero_threshold)
     return _frozen(done_mask, wp, hp, w, h)
@@ -180,17 +190,18 @@ def make_block(cfg, a_full):
     return BLOCKS[cfg.algorithm]
 
 
-def tolfun_update(a, w, h, it, cfg, *, dnorm, done, done_in, stop_reason):
+def tolfun_update(a, w, h, it, cfg, *, dnorm, done, done_in, stop_reason,
+                  bf16: bool = False):
     """The TolFun test of the batched solves (the rule of
     ``base.check_convergence``: relative residual decrease against the
     previous check, after the class and TolX tests of the same check).
     ``it`` is the (B,) per-lane iteration count; the residual is the
     direct form (the Gram-trace identity's cancellation noise would fire
-    the decrease test near convergence). Returns (dnorm, done,
-    stop_reason)."""
+    the decrease test near convergence; ``bf16``: its product's operands
+    rounded). Returns (dnorm, done, stop_reason)."""
     is_check = (it > 1) & (it % cfg.check_every == 0)
     active = is_check & ~done_in
-    new_dnorm = residual_norms_direct(a, w, h)
+    new_dnorm = residual_norms(a, w, h, bf16)
     hit = (active & torch.isfinite(dnorm)
            & (dnorm - new_dnorm <= cfg.tol_fun * dnorm) & ~done)
     dnorm = torch.where(active, new_dnorm, dnorm)

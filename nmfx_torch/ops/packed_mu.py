@@ -32,7 +32,8 @@ from nmfx_torch.device import resolve_device
 from nmfx_torch.ops.fused_mu import (fused_h_update, fused_h_update_ref,
                                      fused_w_update, fused_w_update_ref,
                                      lane_gram)
-from nmfx_torch.solvers.base import StopReason
+from nmfx_torch.solvers.base import (StopReason, bf16_products, mm,
+                                     residual_norms)
 
 
 @dataclasses.dataclass
@@ -104,24 +105,6 @@ def _lanes_finite(x: torch.Tensor, dims: tuple[int, ...]) -> torch.Tensor:
     return torch.isfinite(x).all(dim=dims)
 
 
-def residual_norms_direct(a: torch.Tensor, w: torch.Tensor,
-                          h: torch.Tensor, chunk: int | None = None
-                          ) -> torch.Tensor:
-    """Per-lane RMS residual ‖A − WᵦHᵦ‖_F/√(mn) from (B, m, k) / (B, k, n)
-    factor stacks, the direct way: one reconstruction per lane, at most
-    ``chunk`` of them live at once (default: ~80 MB of them, capped at 8)."""
-    b, m, _ = w.shape
-    n = h.shape[2]
-    if chunk is None:
-        budget = 80 * 2**20  # bytes of live (chunk, m, n) reconstruction
-        chunk = max(1, min(8, budget // (m * n * a.element_size())))
-    sq = torch.cat([
-        ((a[None] - torch.bmm(w[i:i + chunk], h[i:i + chunk])) ** 2
-         ).sum(dim=(1, 2))
-        for i in range(0, b, chunk)])
-    return torch.sqrt(sq.clamp(min=0.0) / (m * n))
-
-
 def _labels(hp: torch.Tensor, r: int) -> torch.Tensor:
     """(R·k, n) → per-restart argmax labels (R, n)."""
     return torch.argmax(hp.reshape(r, -1, hp.shape[1]), dim=1).to(
@@ -190,18 +173,24 @@ def batch_convergence(cfg: SolverConfig, it, *, new_classes, delta,
 
 def _step(a, bd, state: PackedState, cfg: SolverConfig, r: int,
           check: bool, use_kernels: bool) -> None:
-    """One packed mu iteration, updating ``state`` in place."""
+    """One packed mu iteration, updating ``state`` in place. Off the
+    kernels the plain versions take bf16 operands only where
+    ``bf16_products`` holds (on CUDA), as every plain product does."""
     k = state.hp.shape[0] // r
     wp0, hp0 = state.wp, state.hp
-    kw = dict(k=k, eps=cfg.div_eps, zero_threshold=cfg.zero_threshold,
-              matmul_precision=cfg.matmul_precision)
     if use_kernels:
+        kw = dict(k=k, eps=cfg.div_eps, zero_threshold=cfg.zero_threshold,
+                  matmul_precision=cfg.matmul_precision)
         hp = fused_h_update(a, wp0, hp0, **kw)
         wp = fused_w_update(a, wp0, hp, lane_gram(
             hp, k=k, matmul_precision=cfg.matmul_precision), **kw)
     else:
+        bf = bf16_products(cfg, a.device)
+        kw = dict(k=k, eps=cfg.div_eps, zero_threshold=cfg.zero_threshold,
+                  matmul_precision="bfloat16" if bf else "default")
         hp = fused_h_update_ref(a, wp0, hp0, **kw)
-        gh = bd_select(hp @ hp.T, bd)  # small; plain product, as in nmfx
+        # small; plain product, as in nmfx
+        gh = bd_select(mm(hp, hp.T, bf), bd)
         wp = fused_w_update_ref(a, wp0, hp, gh, **kw)
 
     # numeric quarantine: a lane whose new factors are non-finite is
@@ -338,8 +327,9 @@ def mu_packed(a, w0s, h0s, cfg: SolverConfig = SolverConfig(), *,
     wp_final = state.wp[:m]  # drop the tile-padding rows, if any
     # final residuals the direct way (reference calculateNorm): exact at
     # tight convergence, once per solve
-    dnorm = residual_norms_direct(a_true, unpack_w(wp_final, r),
-                                  state.hp.reshape(r, k, n))
+    dnorm = residual_norms(
+        a_true, unpack_w(wp_final, r), state.hp.reshape(r, k, n),
+        bf16=not use_kernels and bf16_products(cfg, dev))
     return PackedMUResult(wp=wp_final, hp=state.hp,
                           iterations=iterations.to(torch.int32),
                           dnorm=dnorm, stop_reason=state.stop_reason,

@@ -89,9 +89,9 @@ from nmfx_torch.ops.fused_mu import (fused_block_iterations, fused_h_update,
                                      lane_gram)
 from nmfx_torch.ops.grid_mu import (BLOCKS, USES_TOLFUN, conv_cfg,
                                     make_block, pad_live_mask, tolfun_update)
-from nmfx_torch.ops.packed_mu import (batch_convergence,
-                                      residual_norms_direct)
-from nmfx_torch.solvers.base import StopReason
+from nmfx_torch.ops.packed_mu import batch_convergence
+from nmfx_torch.solvers.base import (StopReason, bf16_products,
+                                     residual_norms)
 
 #: measured on the reference's hardware as the best single tail stage
 #: (a narrower pool for the stragglers once the queue drains)
@@ -474,6 +474,10 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
     sqrteps = torch.sqrt(torch.tensor(torch.finfo(f32).eps, device=dev))
     kern_kw = dict(eps=cfg.div_eps, zero_threshold=cfg.zero_threshold,
                    matmul_precision=cfg.matmul_precision)
+    # bf16 operands of the plain products off the kernel route (the
+    # kernels round their own, and the kernel route's residuals stay
+    # float32)
+    bf_plain = not use_pallas and bf16_products(cfg, dev)
     # bf16 pool factors: W, and H under "bfloat16" (the reference's
     # to_pool_w / to_pool_h); the result buffers stay float32
     w_pool = torch.bfloat16 if exp.factor_dtype else f32
@@ -615,7 +619,14 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
                     m_pad, -1).contiguous(),
                     hp.reshape(-1, k_max, n)[order].reshape(-1, n))
     else:
-        block = make_block(cfg, a)
+        a_blk = a
+        if bf_plain and (cfg.algorithm != "kl"
+                         or exp.kl_bf16_quotient):
+            # A in the bf16 form every product reads it in, once a solve
+            # (nmfx's _streams_bf16_a): the same products, and kl's
+            # quotient too only under kl_bf16_quotient
+            a_blk = a.to(torch.bfloat16).to(f32)
+        block = make_block(cfg, a_blk)
         if cfg.algorithm == "snmf":
             # per-job true-rank masks; row j (an empty slot's job) is
             # all-False, and its lane is frozen
@@ -624,11 +635,11 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
                                               device=dev)])
 
             def step_fn(wp, hp, frozen, slot_job):
-                return block(a, wp, hp, frozen, cfg,
+                return block(a_blk, wp, hp, frozen, cfg,
                              pad_live=pad_jobs[slot_job])
         else:
             def step_fn(wp, hp, frozen, slot_job):
-                return block(a, wp, hp, frozen, cfg)
+                return block(a_blk, wp, hp, frozen, cfg)
 
         def dense_deltas(wp, hp, wprev, hprev):
             def _d(cur, prev):
@@ -690,7 +701,8 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
         if tolfun:
             dnorm, conv, reason = tolfun_update(
                 a, *layout.dense_views(wp, hp), it_new, cfg, dnorm=dnorm,
-                done=conv, done_in=~pool.active, stop_reason=reason)
+                done=conv, done_in=~pool.active, stop_reason=reason,
+                bf16=bf_plain)
         finished = pool.active & (conv | (it_new >= cfg.max_iter))
         idx = torch.where(finished, pool.slot_job, drop)
         out_iters[idx] = it_new
@@ -959,7 +971,7 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
     trips = np.diff([0] + [t for t, _ in marks])
     lanes = np.diff([0] + [ln for _, ln in marks])
     # exact final residuals, once, from the retained per-job factors
-    dnorm = residual_norms_direct(a, out_w, out_h)
+    dnorm = residual_norms(a, out_w, out_h, bf_plain)
     return SchedMUResult(
         w=out_w, h=out_h, iterations=out_iters[:j], dnorm=dnorm,
         stop_reason=out_stop[:j], pool_widths=tuple(widths),

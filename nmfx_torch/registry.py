@@ -46,10 +46,13 @@ def fingerprint_solver_fields() -> frozenset:
 
 def _fingerprint(a: np.ndarray, solver_cfg, init_cfg, restarts: int,
                  seed: int, label_rule: str,
-                 keep_factors: bool = False) -> str:
+                 keep_factors: bool = False, mesh=None) -> str:
     """sha256 of the data (shape, dtype, bytes) and of every config value
     that affects the sweep's numbers; ``backend`` hashed as its engine
-    family, so "auto" and the explicit equivalent share a registry."""
+    family, so "auto" and the explicit equivalent share a registry. The
+    mesh enters only through that family (the reference's rule): a
+    restart mesh solves every lane as the unmeshed route does, so a
+    meshed and an unmeshed run share a registry."""
     from nmfx_torch.sweep import resolve_engine_family
 
     h = hashlib.sha256()
@@ -60,7 +63,7 @@ def _fingerprint(a: np.ndarray, solver_cfg, init_cfg, restarts: int,
     solver = dataclasses.asdict(solver_cfg)
     for name in FINGERPRINT_SOLVER_EXCLUDED:
         solver.pop(name, None)
-    solver["backend"] = resolve_engine_family(solver_cfg)
+    solver["backend"] = resolve_engine_family(solver_cfg, mesh)
     payload = {"solver": solver, "init": dataclasses.asdict(init_cfg),
                "restarts": restarts, "seed": seed,
                "label_rule": label_rule, "keep_factors": keep_factors,
@@ -103,10 +106,11 @@ class SweepRegistry:
 
     @classmethod
     def open(cls, directory: str, a, solver_cfg, init_cfg, restarts: int,
-             seed: int, label_rule: str,
-             keep_factors: bool = False) -> "SweepRegistry":
+             seed: int, label_rule: str, keep_factors: bool = False,
+             mesh=None) -> "SweepRegistry":
         return cls(directory, _fingerprint(a, solver_cfg, init_cfg, restarts,
-                                           seed, label_rule, keep_factors))
+                                           seed, label_rule, keep_factors,
+                                           mesh))
 
     def _path(self, k: int) -> str:
         return os.path.join(self.directory, f"k{k}.npz")

@@ -53,7 +53,7 @@ Directory layout of one pool root::
                                  here for the router to claim)
 
 Not ported: heterogeneous mesh replicas (``mesh_specs``, the worker's
-``--mesh-spec``; ``ROADMAP_SCALE``) and the disk executable cache the
+``--mesh-spec``; ``ROADMAP_GRID_MESH``) and the disk executable cache the
 reference's workers start against (``cache_dir``, the worker's
 ``--cache-dir``; ``ROADMAP_WARM``). Each raises ``NotImplementedError``
 (or, on the worker's command line, a usage error) naming its item.
@@ -72,7 +72,7 @@ from concurrent.futures import Future
 
 import numpy as np
 
-from nmfx_torch.config import ROADMAP_SCALE, ROADMAP_WARM
+from nmfx_torch.config import ROADMAP_GRID_MESH, ROADMAP_WARM
 from nmfx_torch.guards import guarded_by
 from nmfx_torch.obs import flight as _flight
 from nmfx_torch.obs import metrics as _metrics
@@ -106,7 +106,7 @@ class SpawnFailed(ReplicaError):
 def _refuse_mesh(what: str) -> None:
     raise NotImplementedError(
         f"{what}: mesh replicas (the reference's MeshEngine over "
-        f"distributed.py) are not ported yet ({ROADMAP_SCALE}); every "
+        f"distributed.py) are not ported yet ({ROADMAP_GRID_MESH}); every "
         "replica of the port owns one device")
 
 
@@ -569,7 +569,7 @@ class ReplicaPool:
         """Scale-up: one new replica. Passes the ``replica.spawn`` chaos
         site; a failure raises :class:`SpawnFailed` — the caller (the
         router's autoscaler) degrades warn-once and keeps the current
-        fleet. ``mesh_spec`` is refused (``ROADMAP_SCALE``)."""
+        fleet. ``mesh_spec`` is refused (``ROADMAP_GRID_MESH``)."""
         from nmfx_torch import faults
 
         if mesh_spec is not None:
@@ -718,7 +718,7 @@ def worker_main(argv: "list[str] | None" = None) -> int:
     args = p.parse_args(argv)
     if args.mesh_spec is not None:
         p.error("--mesh-spec: mesh replicas are not ported yet "
-                f"({ROADMAP_SCALE})")
+                f"({ROADMAP_GRID_MESH})")
     if args.cache_dir is not None:
         p.error("--cache-dir: serialized XLA executables have no torch "
                 f"counterpart ({ROADMAP_WARM})")

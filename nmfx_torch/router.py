@@ -702,7 +702,7 @@ class NMFXRouter:
         own one device each, so a fleet has one class and the filter
         keeps every candidate; the per-iteration communication bytes of
         a meshed class stay None (``costmodel.comm_model`` comes with
-        the mesh, ``ROADMAP_SCALE``)."""
+        the mesh, ``ROADMAP_GRID_MESH``)."""
         classes = sorted({self._capability_class(rep)
                           for rep in candidates})
         atlas = int(pending.a.nbytes) >= self.cfg.atlas_floor_bytes

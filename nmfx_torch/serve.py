@@ -72,8 +72,8 @@ result is always tagged: ``ConsensusResult.quality == "sketched"``,
 ``serve.quality_degraded`` flight event. A request that asked for the
 sketched backend is tagged, not counted as degraded.
 
-Not ported (ROADMAP_SCALE): ``ServeConfig.mesh_spec`` (the reference's
-``MeshEngine`` needs ``distributed.py``); set, it raises
+Not ported (ROADMAP_GRID_MESH): ``ServeConfig.mesh_spec`` (the reference's
+``MeshEngine``, the mesh-aware serving tier); set, it raises
 ``NotImplementedError``.
 """
 
@@ -90,7 +90,7 @@ from typing import TYPE_CHECKING, Mapping, Protocol, Sequence
 
 import numpy as np
 
-from nmfx_torch.config import (ROADMAP_SCALE, SKETCHED_ALGORITHMS,
+from nmfx_torch.config import (ROADMAP_GRID_MESH, SKETCHED_ALGORITHMS,
                                ConsensusConfig, InitConfig, SolverConfig,
                                check_ported)
 from nmfx_torch.guards import guarded_by
@@ -657,7 +657,7 @@ class ServeConfig:
     #: ``NMFXServer.metrics_port``). None = no endpoint.
     metrics_port: "int | None" = None
     #: mesh tier (not ported: a spec raises ``NotImplementedError``
-    #: naming ROADMAP_SCALE; the reference's meaning follows): the device
+    #: naming ROADMAP_GRID_MESH; the reference's meaning follows): the device
     #: mesh this server solves over, as a ``distributed.parse_mesh_spec``
     #: string — "R" (restart-only), "RxF", or "RxFxS". None = the
     #: single-device engine stack (exec-cache, packing — today's
@@ -705,8 +705,8 @@ class ServeConfig:
         if self.mesh_spec is not None:
             raise NotImplementedError(
                 "ServeConfig.mesh_spec: the mesh tier (the reference's "
-                "MeshEngine over distributed.py) is not ported yet "
-                f"({ROADMAP_SCALE}); pass mesh_spec=None")
+                "MeshEngine) is not ported yet "
+                f"({ROADMAP_GRID_MESH}); pass mesh_spec=None")
 
 
 def serve_key_fields() -> frozenset:

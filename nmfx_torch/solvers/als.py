@@ -28,14 +28,16 @@ def init_aux(a, w0, h0, cfg):
     return ()
 
 
-def lstsq_min_norm(f: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def lstsq_min_norm(f: torch.Tensor, b: torch.Tensor,
+                   bf16: bool = False) -> torch.Tensor:
     """min_X ‖f·X − b‖_F, minimum-norm for a rank-deficient f, batched
     over f's leading axes: the SVD form of JAX's ``jnp.linalg.lstsq``
     (``jax/_src/numpy/linalg.py::_lstsq``): singular values below
     ``eps·max(m, k)·s[0]`` (or zero) count as zero. ``torch.linalg.svd``
     raises on a non-finite matrix where JAX's returns NaN, so such a lane
     is factored as zeros and its solution set to NaN, for the numeric
-    quarantine to stop it."""
+    quarantine to stop it. ``bf16``: the two products through
+    ``base.mm``'s bf16 operands (the SVD itself runs in float32)."""
     m, k = f.shape[-2:]
     bad = lane_scalar(~torch.isfinite(f).all(dim=-1).all(dim=-1))
     u, s, vt = torch.linalg.svd(torch.where(bad, 0.0, f),
@@ -44,13 +46,16 @@ def lstsq_min_norm(f: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     mask = (s > 0) & (s >= rcond * s[..., :1])
     safe_s = torch.where(mask, s, torch.ones_like(s))
     s_inv = torch.where(mask, 1 / safe_s, torch.zeros_like(s))[..., None]
-    return torch.where(bad, torch.nan, vt.mT @ (s_inv * (u.mT @ b)))
+    mm = base.mm
+    return torch.where(bad, torch.nan,
+                       mm(vt.mT, s_inv * mm(u.mT, b, bf16), bf16))
 
 
 def step(a, state: base.State, cfg, check: bool = True) -> base.State:
-    h = base.clamp(lstsq_min_norm(state.w, a), cfg.zero_threshold)
+    bf = base.bf16_products(cfg, a.device)
+    h = base.clamp(lstsq_min_norm(state.w, a, bf), cfg.zero_threshold)
     # W: min ||Hᵀ X - Aᵀ|| for X = Wᵀ
-    w = base.clamp(lstsq_min_norm(h.mT, a.T).mT, cfg.zero_threshold)
+    w = base.clamp(lstsq_min_norm(h.mT, a.T, bf).mT, cfg.zero_threshold)
     state = dataclasses.replace(state, w=w, h=h)
     if not check:
         return state

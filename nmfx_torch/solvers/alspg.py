@@ -18,7 +18,7 @@ import torch
 
 from nmfx_torch.solvers import base
 from nmfx_torch.solvers.base import lane_scalar, lane_sum
-from nmfx_torch.solvers.pg import _live
+from nmfx_torch.solvers.pg import _grads, _live
 from nmfx_torch.solvers.pg_common import projgrad_norm_sq, solve_subproblem
 
 
@@ -32,8 +32,7 @@ class Aux(NamedTuple):
 
 def init_aux(a, w0, h0, cfg):
     # the initial gradients of 1/2||A - WH||^2 (nmf_alspg.c:155-179)
-    gradw = w0 @ (h0 @ h0.mT) - a @ h0.mT
-    gradh = (w0.mT @ w0) @ h0 - w0.mT @ a
+    gradw, gradh = _grads(a, w0, h0, base.bf16_products(cfg, a.device))
     initgrad = torch.sqrt(lane_sum(gradw * gradw) + lane_sum(gradh * gradh))
     tol0 = torch.clamp(torch.tensor(cfg.tol_pg, dtype=w0.dtype,
                                     device=w0.device), min=0.001) * initgrad
@@ -50,15 +49,16 @@ def step(a, state: base.State, cfg, check: bool = True) -> base.State:
                           + projgrad_norm_sq(aux.gradh, h))
     hit = projnorm < cfg.tol_pg * aux.initgrad
     live = _live(state) & ~hit
+    bf, mm = base.bf16_products(cfg, a.device), base.mm
 
     # the W subproblem on X = Wᵀ: gram = HHᵀ, cross = HAᵀ
-    res_w = solve_subproblem(h @ h.mT, h @ a.T, w.mT, aux.tolw, cfg, live,
-                             state.reads)
+    res_w = solve_subproblem(mm(h, h.mT, bf), mm(h, a.T, bf), w.mT,
+                             aux.tolw, cfg, live, state.reads)
     w_new = res_w.x.mT
     tolw = torch.where(res_w.iterations == 1, cfg.ls_beta * aux.tolw,
                        aux.tolw)
-    res_h = solve_subproblem(w_new.mT @ w_new, w_new.mT @ a, h, aux.tolh,
-                             cfg, live, state.reads)
+    res_h = solve_subproblem(mm(w_new.mT, w_new, bf), mm(w_new.mT, a, bf),
+                             h, aux.tolh, cfg, live, state.reads)
     tolh = torch.where(res_h.iterations == 1, cfg.ls_beta * aux.tolh,
                        aux.tolh)
     keep = lane_scalar(hit)

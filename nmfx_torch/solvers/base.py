@@ -36,7 +36,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from nmfx_torch.config import ROADMAP_DTYPES, SolverConfig
+from nmfx_torch.config import SolverConfig
 from nmfx_torch.device import resolve_device, to_device
 
 
@@ -115,6 +115,46 @@ class SolverResult(NamedTuple):
     host_syncs: int = 0
 
 
+def bf16_products(cfg, device) -> bool:
+    """Whether the plain products of a solve under ``cfg`` round their
+    operands to bf16: ``matmul_precision="bfloat16"`` as ``nmfx`` applies
+    it (``jax.default_matmul_precision``, ``nmfx/solvers/base.py:33-40``),
+    the way the TPU applies it, one-pass bf16 operands with float32
+    sums. On CUDA only: the CPU ignores the setting, as XLA's CPU backend
+    ignores the hint. Float32 only: a float64 solve keeps its operands,
+    as ``nmfx``'s own bf16 casts are float32-only
+    (``nmfx/ops/sched_mu.py:176-180``, ``packed_mu.py:597-598``)."""
+    return (cfg.matmul_precision == "bfloat16" and cfg.dtype == "float32"
+            and torch.device(device).type == "cuda")
+
+
+def bf16_operand(x: torch.Tensor) -> torch.Tensor:
+    """A float32 operand rounded to bf16 (round to nearest even) and
+    back; any other dtype as it is."""
+    if x.dtype != torch.float32:
+        return x
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def mm(x: torch.Tensor, y: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """``x @ y``, the one helper every plain product under
+    ``matmul_precision`` goes through: with ``bf16`` (see
+    :func:`bf16_products`) each float32 operand is rounded to bf16 first
+    and the product runs in float32 (TF32 stays off,
+    ``device.resolve_device``)."""
+    if bf16:
+        x, y = bf16_operand(x), bf16_operand(y)
+    return x @ y
+
+
+def einsum(eq: str, x: torch.Tensor, y: torch.Tensor,
+           bf16: bool = False) -> torch.Tensor:
+    """``torch.einsum(eq, x, y)`` with :func:`mm`'s operand rounding."""
+    if bf16:
+        x, y = bf16_operand(x), bf16_operand(y)
+    return torch.einsum(eq, x, y)
+
+
 def lane_sum(x: torch.Tensor) -> torch.Tensor:
     """Per-lane sum over the last two axes (the reference's ``jnp.sum``
     of a matrix, or ``jnp.vdot`` of two, under vmap)."""
@@ -128,11 +168,39 @@ def lane_scalar(x: torch.Tensor) -> torch.Tensor:
 
 
 def residual_norm(a: torch.Tensor, w: torch.Tensor,
-                  h: torch.Tensor) -> torch.Tensor:
-    """Per-lane RMS residual ||A - W H||_F / sqrt(m n)."""
+                  h: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """Per-lane RMS residual ||A - W H||_F / sqrt(m n) (W H through
+    :func:`mm`)."""
     m, n = a.shape
-    d = a - w @ h
+    d = a - mm(w, h, bf16)
     return torch.sqrt(lane_sum(d * d) / (m * n))
+
+
+def residual_norms(a: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
+                   bf16: bool = False,
+                   chunk: "int | None" = None) -> torch.Tensor:
+    """Per-lane RMS residual ‖A − WᵦHᵦ‖_F/√(mn) from (B, m, k) / (B, k, n)
+    factor stacks, the direct way: one reconstruction per lane, at most
+    ``chunk`` of them live at once (default: ~80 MB of them, capped at 8);
+    ``bf16``: the reconstruction through :func:`mm`'s bf16 operands. The
+    last chunk is zero-padded to a full one, so every lane's product and
+    sum run at one batch shape whatever the stack's size: on the card a
+    batched product or reduction of another batch size may take another
+    algorithm, and a restart shard's stack is smaller than the whole."""
+    b, m, _ = w.shape
+    n = h.shape[2]
+    if chunk is None:
+        budget = 80 * 2**20  # bytes of live (chunk, m, n) reconstruction
+        chunk = max(1, min(8, budget // (m * n * a.element_size())))
+    pad = -b % chunk
+    if pad:
+        w = torch.cat([w, w.new_zeros((pad,) + tuple(w.shape[1:]))])
+        h = torch.cat([h, h.new_zeros((pad,) + tuple(h.shape[1:]))])
+    sq = torch.cat([
+        ((a[None] - mm(w[i:i + chunk], h[i:i + chunk], bf16)) ** 2
+         ).sum(dim=(1, 2))
+        for i in range(0, b + pad, chunk)])[:b]
+    return torch.sqrt(sq.clamp(min=0.0) / (m * n))
 
 
 def _sqrteps(dtype, device) -> torch.Tensor:
@@ -224,7 +292,8 @@ def check_convergence(state: State, cfg, *, a=None,
 
     dnorm = state.dnorm
     if use_tolfun and cfg.use_tol_checks:
-        new_dnorm = residual_norm(a, state.w, state.h)
+        new_dnorm = residual_norm(a, state.w, state.h,
+                                  bf16_products(cfg, a.device))
         hit = (is_check & torch.isfinite(state.dnorm)
                & (state.dnorm - new_dnorm <= cfg.tol_fun * state.dnorm)
                & ~done)
@@ -312,8 +381,13 @@ def run_loop_batched(a, w0, h0, cfg, step_fn, aux) -> SolverResult:
     while n_live and state.iteration < cfg.max_iter:
         state, iters = run_block(state, 1, n_live)
         n_live = reads.sum(~state.done)
+    bf16 = bf16_products(cfg, a.device)
+    # the final residuals at one batch shape whatever the lane count (a
+    # restart shard's lanes are fewer than the whole batch's)
+    dnorm = (residual_norms(a, state.w, state.h, bf16) if state.w.dim() == 3
+             else residual_norm(a, state.w, state.h, bf16))
     return SolverResult(w=state.w, h=state.h, iterations=iters,
-                        dnorm=residual_norm(a, state.w, state.h),
+                        dnorm=dnorm,
                         stop_reason=state.stop_reason,
                         host_syncs=reads.count)
 
@@ -334,7 +408,9 @@ def solve(a, w0, h0, cfg=None, *, device=None) -> SolverResult:
     (reference ``solve``): any of the eight update rules.
 
     Plain PyTorch products on ``device`` (None = CUDA, raising if there is
-    none; TF32 off there), in ``cfg.dtype``: "float32" or "float64".
+    none; TF32 off there), in ``cfg.dtype``: "float32" or "float64";
+    under ``matmul_precision="bfloat16"`` through :func:`mm`'s bf16
+    operands on CUDA.
     ``a``, ``w0``, ``h0`` are numpy arrays or tensors.
     """
     from nmfx_torch.solvers import SOLVERS  # imports this module
@@ -349,10 +425,6 @@ def solve(a, w0, h0, cfg=None, *, device=None) -> SolverResult:
             "solve_sketched — nmf()/restart_factors() route there "
             "automatically) and screen=True only exists at the sweep "
             "layer")
-    if cfg.matmul_precision == "bfloat16":
-        raise NotImplementedError(
-            "matmul_precision='bfloat16' on the single-restart route, which "
-            f"reaches no kernel, is not ported yet ({ROADMAP_DTYPES})")
     if cfg.tile_rows is not None:
         # this signature takes the whole A; the out-of-core streaming
         # loop lives at the sweep layer

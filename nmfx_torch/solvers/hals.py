@@ -33,40 +33,47 @@ from nmfx_torch.solvers import base
 from nmfx_torch.solvers.base import clamp
 
 
-def hals_h_sweep(a, w, h, eps: float, zero_threshold: float):
+def hals_h_sweep(a, w, h, eps: float, zero_threshold: float,
+                 bf16: bool = False):
     """The H half: the shared products once, then the k coordinate
     updates in order, each against the rows already updated
-    (Gauss–Seidel). ``w`` (B, m, k), ``h`` (B, k, n); returns a new H."""
-    return hals_h_sweep_from(torch.einsum("bmk,mn->bkn", w, a),
-                             torch.einsum("bmk,bml->bkl", w, w), h, eps,
-                             zero_threshold)
+    (Gauss–Seidel). ``w`` (B, m, k), ``h`` (B, k, n); returns a new H.
+    ``bf16``: every product's operands rounded (``base.mm``)."""
+    return hals_h_sweep_from(base.einsum("bmk,mn->bkn", w, a, bf16),
+                             base.einsum("bmk,bml->bkl", w, w, bf16), h,
+                             eps, zero_threshold, bf16)
 
 
-def hals_h_sweep_from(wta, wtw, h, eps: float, zero_threshold: float):
+def hals_h_sweep_from(wta, wtw, h, eps: float, zero_threshold: float,
+                      bf16: bool = False):
     """The H half's sweep from its products WᵀA (B, k, n) and WᵀW
     (B, k, k)."""
     h = h.clone()
     for jj in range(h.shape[1]):
-        num = wta[:, jj, :] - torch.einsum("bl,bln->bn", wtw[:, jj, :], h)
+        num = wta[:, jj, :] - base.einsum("bl,bln->bn", wtw[:, jj, :], h,
+                                          bf16)
         hj = h[:, jj, :] + num / (wtw[:, jj, jj, None] + eps)
         h[:, jj, :] = clamp(hj, zero_threshold)
     return h
 
 
-def hals_w_sweep(a, w, h, eps: float, zero_threshold: float):
+def hals_w_sweep(a, w, h, eps: float, zero_threshold: float,
+                 bf16: bool = False):
     """The W half against the fresh H, in the same component order;
     returns a new W."""
-    return hals_w_sweep_from(torch.einsum("mn,bkn->bmk", a, h),
-                             torch.einsum("bkn,bln->bkl", h, h), w, eps,
-                             zero_threshold)
+    return hals_w_sweep_from(base.einsum("mn,bkn->bmk", a, h, bf16),
+                             base.einsum("bkn,bln->bkl", h, h, bf16), w,
+                             eps, zero_threshold, bf16)
 
 
-def hals_w_sweep_from(aht, hht, w, eps: float, zero_threshold: float):
+def hals_w_sweep_from(aht, hht, w, eps: float, zero_threshold: float,
+                      bf16: bool = False):
     """The W half's sweep from its products AHᵀ (B, m, k) and HHᵀ
     (B, k, k)."""
     w = w.clone()
     for jj in range(w.shape[2]):
-        num = aht[:, :, jj] - torch.einsum("bmk,bk->bm", w, hht[:, :, jj])
+        num = aht[:, :, jj] - base.einsum("bmk,bk->bm", w, hht[:, :, jj],
+                                          bf16)
         wj = w[:, :, jj] + num / (hht[:, jj, jj, None] + eps)
         w[:, :, jj] = clamp(wj, zero_threshold)
     return w
@@ -80,8 +87,9 @@ def step(a, state: base.State, cfg, check: bool = True) -> base.State:
     eps, zt = cfg.div_eps, cfg.zero_threshold
     one = state.w.dim() == 2  # one restart: a lane axis of 1
     w0, h0 = (state.w[None], state.h[None]) if one else (state.w, state.h)
-    h = hals_h_sweep(a, w0, h0, eps, zt)
-    w = hals_w_sweep(a, w0, h, eps, zt)
+    bf = base.bf16_products(cfg, a.device)
+    h = hals_h_sweep(a, w0, h0, eps, zt, bf)
+    w = hals_w_sweep(a, w0, h, eps, zt, bf)
     state = dataclasses.replace(state, w=w[0] if one else w,
                                 h=h[0] if one else h)
     if not check:

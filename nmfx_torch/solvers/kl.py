@@ -37,12 +37,15 @@ def kl_divergence(a, w, h, eps: float = 1e-9):
 def step(a, state: base.State, cfg, check: bool = True) -> base.State:
     w0, h0 = state.w, state.h
     eps = cfg.div_eps
-    q = a / (w0 @ h0 + eps)
-    h = h0 * (w0.mT @ q) / (w0.sum(dim=-2)[..., :, None] + eps)
+    # under bf16 products the quotient keeps the full-precision A
+    # (nmfx/ops/grid_mu.py:321-331); only the products round
+    bf, mm = base.bf16_products(cfg, a.device), base.mm
+    q = a / (mm(w0, h0, bf) + eps)
+    h = h0 * mm(w0.mT, q, bf) / (w0.sum(dim=-2)[..., :, None] + eps)
     h = base.clamp(h, cfg.zero_threshold)
     del q  # one quotient live at a time
-    q = a / (w0 @ h + eps)
-    w = w0 * (q @ h.mT) / (h.sum(dim=-1)[..., None, :] + eps)
+    q = a / (mm(w0, h, bf) + eps)
+    w = w0 * mm(q, h.mT, bf) / (h.sum(dim=-1)[..., None, :] + eps)
     w = base.clamp(w, cfg.zero_threshold)
     state = dataclasses.replace(state, w=w, h=h)
     if not check:

@@ -36,10 +36,11 @@ def init_aux(a, w0, h0, cfg):
 
 def step(a, state: base.State, cfg, check: bool = True) -> base.State:
     w0, h0 = state.w, state.h  # one restart's, or (B, ·, ·) lanes
-    h = _mu_update(h0, w0.mT @ a, (w0.mT @ w0) @ h0, cfg.div_eps,
-                   cfg.zero_threshold)
-    w = _mu_update(w0, a @ h.mT, w0 @ (h @ h.mT), cfg.div_eps,
-                   cfg.zero_threshold)
+    bf, mm = base.bf16_products(cfg, a.device), base.mm
+    h = _mu_update(h0, mm(w0.mT, a, bf), mm(mm(w0.mT, w0, bf), h0, bf),
+                   cfg.div_eps, cfg.zero_threshold)
+    w = _mu_update(w0, mm(a, h.mT, bf), mm(w0, mm(h, h.mT, bf), bf),
+                   cfg.div_eps, cfg.zero_threshold)
     state = dataclasses.replace(state, w=w, h=h)
     if not check:
         return state

@@ -24,9 +24,10 @@ def init_aux(a, w0, h0, cfg):
 
 def step(a, state: base.State, cfg, check: bool = True) -> base.State:
     w0 = state.w
-    h = base.clamp(base.solve_gram_reg(w0.mT @ w0, w0.mT @ a),
+    bf, mm = base.bf16_products(cfg, a.device), base.mm
+    h = base.clamp(base.solve_gram_reg(mm(w0.mT, w0, bf), mm(w0.mT, a, bf)),
                    cfg.zero_threshold)
-    wt = base.solve_gram_reg(h @ h.mT, h @ a.T)
+    wt = base.solve_gram_reg(mm(h, h.mT, bf), mm(h, a.T, bf))
     w = base.clamp(wt.mT, cfg.zero_threshold)
     state = dataclasses.replace(state, w=w, h=h)
     if not check:

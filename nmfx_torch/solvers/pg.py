@@ -41,14 +41,15 @@ def init_aux(a, w0, h0, cfg):
                torch.ones(**lanes))
 
 
-def _grads(a, w, h):
-    gradw = w @ (h @ h.mT) - a @ h.mT
-    gradh = (w.mT @ w) @ h - w.mT @ a
+def _grads(a, w, h, bf16: bool = False):
+    mm = base.mm
+    gradw = mm(w, mm(h, h.mT, bf16), bf16) - mm(a, h.mT, bf16)
+    gradh = mm(mm(w.mT, w, bf16), h, bf16) - mm(w.mT, a, bf16)
     return gradw, gradh
 
 
-def _objective(a, w, h):
-    d = a - w @ h
+def _objective(a, w, h, bf16: bool = False):
+    d = a - base.mm(w, h, bf16)
     return 0.5 * lane_sum(d * d)
 
 
@@ -63,11 +64,12 @@ def _joint_search(a, w, h, gradw, gradh, obj, alpha0, cfg, live,
     """Adaptive-step projected line search on the joint (W, H) move, per
     lane; returns (W, H, objective, alpha)."""
     sigma, beta, zt = cfg.ls_sigma, cfg.ls_beta, cfg.zero_threshold
+    bf = base.bf16_products(cfg, a.device)
 
     def trial(alpha):
         wn = base.clamp(w - lane_scalar(alpha) * gradw, zt)
         hn = base.clamp(h - lane_scalar(alpha) * gradh, zt)
-        newobj = _objective(a, wn, hn)
+        newobj = _objective(a, wn, hn, bf)
         compval = lane_sum(gradw * (wn - w)) + lane_sum(gradh * (hn - h))
         return wn, hn, newobj, (newobj - obj) > sigma * compval
 
@@ -109,13 +111,14 @@ def step(a, state: base.State, cfg, check: bool = True) -> base.State:
     del check
     aux: Aux = state.aux
     w, h = state.w, state.h
-    gradw, gradh = _grads(a, w, h)
+    bf = base.bf16_products(cfg, a.device)
+    gradw, gradh = _grads(a, w, h, bf)
     if state.iteration == 1:
         initgrad = torch.sqrt(lane_sum(gradw * gradw)
                               + lane_sum(gradh * gradh))
-        res = solve_subproblem(w.mT @ w, w.mT @ a, h, 0.001, cfg,
-                               _live(state), state.reads)
-        obj = _objective(a, w, res.x)
+        res = solve_subproblem(base.mm(w.mT, w, bf), base.mm(w.mT, a, bf),
+                               h, 0.001, cfg, _live(state), state.reads)
+        obj = _objective(a, w, res.x, bf)
         return dataclasses.replace(state, h=res.x,
                                    aux=Aux(initgrad, obj, aux.alpha))
     projnorm = torch.sqrt(projgrad_norm_sq(gradw, w)

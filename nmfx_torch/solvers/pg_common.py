@@ -27,8 +27,8 @@ from typing import NamedTuple
 
 import torch
 
-from nmfx_torch.solvers.base import (HostReads, clamp, keep_lanes,
-                                     lane_scalar, lane_sum)
+from nmfx_torch.solvers.base import (HostReads, bf16_products, clamp,
+                                     keep_lanes, lane_scalar, lane_sum, mm)
 
 
 class SubprobResult(NamedTuple):
@@ -47,6 +47,7 @@ def projgrad_norm_sq(grad: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def _line_search(x, grad, gram, alpha0, cfg, live, reads: HostReads):
     """One inner search per lane: returns (new x, new alpha)."""
     zt, sigma, beta = cfg.zero_threshold, cfg.ls_sigma, cfg.ls_beta
+    bf = bf16_products(cfg, x.device)
     alpha, xp, xres = alpha0, x, x
     finished = torch.zeros_like(live)
     decrease = torch.zeros_like(live)
@@ -57,7 +58,7 @@ def _line_search(x, grad, gram, alpha0, cfg, live, reads: HostReads):
         xn = clamp(x - lane_scalar(alpha) * grad, zt)
         d = xn - x
         suff = ((1.0 - sigma) * lane_sum(grad * d)
-                + 0.5 * lane_sum((gram @ d) * d)) < 0
+                + 0.5 * lane_sum(mm(gram, d, bf) * d)) < 0
         if trial == 1:
             dec, xp_t = ~suff, x
         else:
@@ -83,6 +84,7 @@ def solve_subproblem(gram, ctc, x0, tol, cfg, live,
     the absolute tolerance ``tol`` (a number or per-lane) on the
     projected-gradient norm, or ``cfg.sub_max_iter`` outer iterations."""
     x = x0
+    bf = bf16_products(cfg, x0.device)
     alpha = torch.ones(live.shape, dtype=x0.dtype, device=x0.device)
     its = torch.zeros(live.shape, dtype=torch.int32, device=x0.device)
     done = torch.zeros_like(live)
@@ -90,7 +92,7 @@ def solve_subproblem(gram, ctc, x0, tol, cfg, live,
         running = live & ~done
         if not reads.any(running):
             break
-        grad = gram @ x - ctc
+        grad = mm(gram, x, bf) - ctc
         hit = torch.sqrt(projgrad_norm_sq(grad, x)) < tol
         x_new, alpha_new = _line_search(x, grad, gram, alpha, cfg,
                                         running & ~hit, reads)
@@ -99,4 +101,4 @@ def solve_subproblem(gram, ctc, x0, tol, cfg, live,
         x, alpha, done = keep_lanes(running, (x_t, alpha_t, hit),
                                     (x, alpha, done))
         its = torch.where(running, it + 1, its)
-    return SubprobResult(x, gram @ x - ctc, its)
+    return SubprobResult(x, mm(gram, x, bf) - ctc, its)

@@ -98,19 +98,22 @@ def sketch_operators(keys: np.ndarray, m: int, n: int, r: int,
     return left, right
 
 
-def _h_gram_terms(w, la, left):
-    lw = left @ w  # (B, r, k)
-    return lw.mT @ la, lw.mT @ lw  # (B, k, n), (B, k, k)
+def _h_gram_terms(w, la, left, bf=False):
+    mm = base.mm
+    lw = mm(left, w, bf)  # (B, r, k)
+    return mm(lw.mT, la, bf), mm(lw.mT, lw, bf)  # (B, k, n), (B, k, k)
 
 
-def _w_gram_terms(h, ar, right):
-    hr = h @ right  # (B, k, r)
-    return ar @ hr.mT, hr @ hr.mT  # (B, m, k), (B, k, k)
+def _w_gram_terms(h, ar, right, bf=False):
+    mm = base.mm
+    hr = mm(h, right, bf)  # (B, k, r)
+    return mm(ar, hr.mT, bf), mm(hr, hr.mT, bf)  # (B, m, k), (B, k, k)
 
 
-def _objective(lar, left, right, w, h) -> torch.Tensor:
+def _objective(lar, left, right, w, h, bf=False) -> torch.Tensor:
     """Each lane's ‖(LA)R − (LW)(HR)‖²_F from its (LA)R."""
-    d = lar - (left @ w) @ (h @ right)
+    mm = base.mm
+    d = lar - mm(mm(left, w, bf), mm(h, right, bf), bf)
     return base.lane_sum(d * d)
 
 
@@ -126,12 +129,15 @@ def _apply_mu(w, h, la, ar, left, right, cfg):
     ``max(X − ∇/L̂, 0)`` with ``L̂ = ‖Gram‖_F + ε`` (an upper bound of the
     Lipschitz constant) is always stable."""
     zt = cfg.zero_threshold
-    wta, wtw = _h_gram_terms(w, la, left)
+    bf, mm = base.bf16_products(cfg, w.device), base.mm
+    wta, wtw = _h_gram_terms(w, la, left, bf)
     lh = _frobenius(wtw) + cfg.div_eps
-    h = base.clamp(torch.clamp_min(h - (wtw @ h - wta) / lh, 0.0), zt)
-    aht, hht = _w_gram_terms(h, ar, right)
+    h = base.clamp(torch.clamp_min(h - (mm(wtw, h, bf) - wta) / lh, 0.0),
+                   zt)
+    aht, hht = _w_gram_terms(h, ar, right, bf)
     lw = _frobenius(hht) + cfg.div_eps
-    w = base.clamp(torch.clamp_min(w - (w @ hht - aht) / lw, 0.0), zt)
+    w = base.clamp(torch.clamp_min(w - (mm(w, hht, bf) - aht) / lw, 0.0),
+                   zt)
     return w, h
 
 
@@ -139,10 +145,11 @@ def _apply_hals(w, h, la, ar, left, right, cfg):
     """Compressed HALS: the coordinate sweeps of ``solvers/hals.py`` on
     the sketched Gram terms (the sweeps themselves never touch A)."""
     eps, zt = cfg.div_eps, cfg.zero_threshold
-    wta, wtw = _h_gram_terms(w, la, left)
-    h = hals_h_sweep_from(wta, wtw, h, eps, zt)
-    aht, hht = _w_gram_terms(h, ar, right)
-    w = hals_w_sweep_from(aht, hht, w, eps, zt)
+    bf = base.bf16_products(cfg, w.device)
+    wta, wtw = _h_gram_terms(w, la, left, bf)
+    h = hals_h_sweep_from(wta, wtw, h, eps, zt, bf)
+    aht, hht = _w_gram_terms(h, ar, right, bf)
+    w = hals_w_sweep_from(aht, hht, w, eps, zt, bf)
     return w, h
 
 
@@ -174,8 +181,9 @@ def init_aux(a, w0, h0, cfg: SolverConfig, keys: np.ndarray):
     r = resolve_dim(cfg, m, n, k)
     left, right = sketch_operators(_lane_keys(keys), m, n, r, a.dtype,
                                    a.device)
-    la = left @ a  # (B, r, n), once per restart
-    ar = a @ right  # (B, m, r), once per restart
+    bf = base.bf16_products(cfg, a.device)
+    la = base.mm(left, a, bf)  # (B, r, n), once per restart
+    ar = base.mm(a, right, bf)  # (B, m, r), once per restart
     t = torch.ones(w0.shape[:-2], dtype=a.dtype, device=a.device)
     return (la, ar, left, right, w0, h0, t)
 
@@ -233,7 +241,9 @@ def solve_sketched(a: torch.Tensor, w0: torch.Tensor, h0: torch.Tensor,
             state = mod.step(a, state, cfg, check=False)
         res = res._replace(w=state.w, h=state.h,
                            iterations=res.iterations + polish,
-                           dnorm=base.residual_norm(a, state.w, state.h))
+                           dnorm=base.residual_norm(
+                               a, state.w, state.h,
+                               base.bf16_products(cfg, a.device)))
     if one:
         res = res._replace(w=res.w[0], h=res.h[0],
                            iterations=int(res.iterations[0]),
@@ -267,7 +277,8 @@ def screen_pass(a: torch.Tensor, w0: torch.Tensor, h0: torch.Tensor,
         w2, h2, t = _momentum_step(apply_fn, w, h, w_acc, h_acc, t, la, ar,
                                    left, right, cfg)
         w_acc, h_acc, w, h = w, h, w2, h2
-    return _objective(la @ right, left, right, w, h)
+    bf = base.bf16_products(cfg, a.device)
+    return _objective(base.mm(la, right, bf), left, right, w, h, bf)
 
 
 def sweep_lanes(a: torch.Tensor, w0s: torch.Tensor, h0s: torch.Tensor,

@@ -36,11 +36,12 @@ def step(a, state: base.State, cfg, check: bool = True) -> base.State:
     k = w0.shape[-1]
     ones = torch.ones((k, k), dtype=w0.dtype, device=w0.device)
     eye = torch.eye(k, dtype=w0.dtype, device=w0.device)
+    bf, mm = base.bf16_products(cfg, a.device), base.mm
     h = base.clamp(
-        base.solve_gram_reg(w0.mT @ w0 + cfg.sparsity_beta * ones,
-                            w0.mT @ a),
+        base.solve_gram_reg(mm(w0.mT, w0, bf) + cfg.sparsity_beta * ones,
+                            mm(w0.mT, a, bf)),
         cfg.zero_threshold)
-    wt = base.solve_gram_reg(h @ h.mT + eta * eye, h @ a.T)
+    wt = base.solve_gram_reg(mm(h, h.mT, bf) + eta * eye, mm(h, a.T, bf))
     w = base.clamp(wt.mT, cfg.zero_threshold)
     state = dataclasses.replace(state, w=w, h=h)
     if not check:

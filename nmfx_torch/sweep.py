@@ -40,7 +40,9 @@ per-(rank, restart-chunk) ledger instead (``nmfx_torch.checkpoint``,
 through the chunk executor :func:`_build_chunk_sweep_fn`). The armed
 ``solve.nonfinite`` fault poisons W0 at every place a route draws it.
 Float64 runs on every route of plain products (the kernels are
-float32). Meshes are not ported yet.
+float32). A restart mesh (:func:`grid_mesh`) runs every route
+restart-sharded, each shard on its device (:func:`_run_shards`); feature
+and sample axes are not ported yet (``ROADMAP_GRID_MESH``).
 
 The serving tier's build functions (:func:`_build_bucketed_sweep_fn`, solo, and
 :func:`_build_packed_serve_fn`, lanes from several requests) run the
@@ -71,7 +73,9 @@ The job-grid API (:class:`RestartResult`, :func:`grid_cells`,
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import time
 from typing import NamedTuple, Sequence
 
@@ -80,18 +84,34 @@ import torch
 
 from nmfx_torch import faults
 from nmfx_torch import random as _random
-from nmfx_torch.config import (ROADMAP_SCALE, ConsensusConfig, InitConfig,
-                               SolverConfig, check_ported)
+from nmfx_torch.config import (ROADMAP_GRID_MESH, ConsensusConfig,
+                               InitConfig, SolverConfig, check_ported)
 from nmfx_torch.consensus import labels_from_h, one_hot
-from nmfx_torch.device import explicit_device, resolve_device
+from nmfx_torch.device import (Mesh, _process_index, explicit_device,
+                               process_count, resolve_device)
 from nmfx_torch.harvest import fetch_host, start_host_fetch
 from nmfx_torch.init import random_init, restart_inits
 from nmfx_torch.obs import costmodel
+from nmfx_torch.obs import metrics as _metrics
+from nmfx_torch.ops.fused_mu import launch_scope
 from nmfx_torch.ops.packed_mu import mu_packed, unpack_w
 from nmfx_torch.ops.sched_mu import mu_sched
 from nmfx_torch.profiling import NullProfiler
 from nmfx_torch.solvers import SOLVERS
 from nmfx_torch.solvers.base import StopReason, run_loop_batched
+
+#: surplus restart lanes padded onto meshed sweeps so the restarts split
+#: evenly over the restart axis: computed and discarded
+_pad_lanes_total = _metrics.counter(
+    "nmfx_mesh_pad_lanes_total",
+    "surplus restart lanes padded onto meshed sweeps (computed and "
+    "discarded; subtract from restarts/s)")
+
+#: mesh axis names, the reference's: the restart batch, the rows of A
+#: and W, the columns of A and H
+RESTART_AXIS = "restarts"
+FEATURE_AXIS = "features"
+SAMPLE_AXIS = "samples"
 
 #: backends that route each algorithm into the slot scheduler (the
 #: reference's table): mu and hals by default; neals, als, snmf and kl
@@ -151,7 +171,7 @@ def _use_packed(solver_cfg: SolverConfig) -> bool:
             and solver_cfg.backend in ("auto", "packed", "pallas"))
 
 
-def resolve_engine_family(solver_cfg: SolverConfig) -> str:
+def resolve_engine_family(solver_cfg: SolverConfig, mesh=None) -> str:
     """The engine family a configuration runs, in the reference's words:
     "tiled" (the out-of-core tile pipeline: ``tile_rows`` is set; a
     one-tile config that ``sweep`` hands to the in-core path says
@@ -160,7 +180,10 @@ def resolve_engine_family(solver_cfg: SolverConfig) -> str:
     kernels), "packed" (mu's packed solve or the dense slot scheduler)
     or "vmap" (the batched restart route, which a screened config's
     exact phase runs). Families sum products in other orders, so a
-    registry never crosses them."""
+    registry never crosses them. A restart-only ``mesh`` does not change
+    the family (each shard runs the unmeshed engine on its lanes); grid
+    axes are refused (``ROADMAP_GRID_MESH``)."""
+    _refuse_grid_axes(mesh)
     if solver_cfg.tile_rows is not None:
         return "tiled"
     if solver_cfg.backend == "sketched":
@@ -228,37 +251,70 @@ def _quarantined_consensus(labels, k: int, restarts: int, faulted):
     return torch.where(n_fault > 0, raw / survivors, raw / restarts)
 
 
+def _packed_lanes(a, keys, k: int, solver_cfg: SolverConfig,
+                  init_cfg: InitConfig, label_rule: str,
+                  poison: tuple = ()) -> "_Lanes":
+    """One packed solve (``mu_packed``) of the restarts ``keys`` at rank k
+    on A's device: every lane's factors, labels and stops."""
+    r = len(keys)
+    w0s, h0s = restart_inits(a, keys, k, init_cfg)
+    w0s = _poison_restart_lanes(w0s, poison)
+    res = mu_packed(a, w0s, h0s, solver_cfg, device=a.device)
+    hs = res.hp.reshape(r, k, -1)
+    return _Lanes(unpack_w(res.wp, r), hs, labels_from_h(hs, label_rule),
+                  res.iterations, res.dnorm, res.stop_reason,
+                  res.host_syncs)
+
+
 def _build_packed_sweep_fn(k: int, restarts: int, solver_cfg: SolverConfig,
                            init_cfg: InitConfig, label_rule: str,
-                           keep_factors: bool = False):
+                           keep_factors: bool = False, mesh=None):
     """The rank-k solve: init + packed solve + labels + consensus, as a
-    function of (A on its device, the rank's key)."""
+    function of (A on its device, the rank's key). With a restart
+    ``mesh`` each shard packs and solves only its restarts, on its device
+    (under ``backend="pallas"`` on its own launches of rows 1–2): A is
+    then the per-device copies of :func:`place_input`."""
 
     poison = faults.poison_restarts(k, restarts)
+    if mesh is not None:
+        _refuse_sharded_poison(poison, mesh)
+        return _meshed_rank_fn(k, restarts, mesh, keep_factors, lambda a, ks:
+                               _packed_lanes(a, ks, k, solver_cfg, init_cfg,
+                                             label_rule))
 
     def impl(a: torch.Tensor, key: np.ndarray) -> KSweepOutput:
-        keys = _random.split(key, restarts)
-        w0s, h0s = restart_inits(a, keys, k, init_cfg)
-        w0s = _poison_restart_lanes(w0s, poison)
-        res = mu_packed(a, w0s, h0s, solver_cfg, device=a.device)
-        hs = res.hp.reshape(restarts, k, -1)
-        labels = labels_from_h(hs, label_rule)
-        labels, masked, faulted = _quarantine_lanes(
-            labels, res.dnorm, res.stop_reason)
-        cons = _quarantined_consensus(labels, k, restarts, faulted)
-        ws = unpack_w(res.wp, restarts)
-        best = torch.argmin(masked)
-        extra = ((ws.contiguous(), hs) if keep_factors else (None, None))
-        return KSweepOutput(cons, res.iterations, res.dnorm,
-                            res.stop_reason, labels, ws[best], hs[best],
-                            *extra, host_syncs=res.host_syncs)
+        lanes = _packed_lanes(a, _random.split(key, restarts), k,
+                              solver_cfg, init_cfg, label_rule, poison)
+        return _rank_output(k, lanes, restarts, keep_factors)
 
     return impl
 
 
+def _vmap_lanes(a, keys, k: int, solver_cfg: SolverConfig,
+                init_cfg: InitConfig, label_rule: str, chunk: int,
+                poison: tuple = ()) -> "_Lanes":
+    """The batched restart route over the restarts ``keys`` at rank k on
+    A's device, ``chunk`` lanes a solve: every lane's results. ``poison``
+    (lane indices) only with one chunk."""
+    mod = SOLVERS[solver_cfg.algorithm]
+    parts, syncs = [], 0
+    for c in range(0, len(keys), chunk):
+        w0s, h0s = restart_inits(a, keys[c:c + chunk], k, init_cfg)
+        w0s = _poison_restart_lanes(w0s, poison)
+        res = run_loop_batched(a, w0s, h0s, solver_cfg, mod.step,
+                               mod.init_aux(a, w0s, h0s, solver_cfg))
+        syncs += res.host_syncs
+        parts.append(res)
+    ws, hs, iters, dnorm, stops = (
+        torch.cat([getattr(p, f) for p in parts])
+        for f in ("w", "h", "iterations", "dnorm", "stop_reason"))
+    return _Lanes(ws, hs, labels_from_h(hs, label_rule), iters, dnorm,
+                  stops, syncs)
+
+
 def _build_vmap_sweep_fn(k: int, restarts: int, solver_cfg: SolverConfig,
                          init_cfg: InitConfig, label_rule: str,
-                         keep_factors: bool = False):
+                         keep_factors: bool = False, mesh=None):
     """The batched restart route at rank k (the reference's
     ``jax.vmap`` of its generic ``solve``): the rank's restarts as lanes
     of one ``run_loop_batched`` solve of ``solver_cfg.algorithm``, then
@@ -267,8 +323,10 @@ def _build_vmap_sweep_fn(k: int, restarts: int, solver_cfg: SolverConfig,
     ``restart_chunk`` the restarts run in sequential chunks of that many
     (the last one smaller), which bounds the lanes' (chunk, m, n)
     intermediates; only the per-restart outputs are concatenated, so the
-    results do not depend on the chunking."""
-    mod = SOLVERS[solver_cfg.algorithm]
+    results do not depend on the chunking. With a restart ``mesh`` each
+    shard runs its restarts, ``restart_chunk`` rounded up to a multiple
+    of the shard count and split over the shards (the reference's
+    per-device concurrency)."""
     chunk = solver_cfg.restart_chunk or restarts
     poison = faults.poison_restarts(k, restarts)
     if poison and chunk < restarts:
@@ -276,27 +334,20 @@ def _build_vmap_sweep_fn(k: int, restarts: int, solver_cfg: SolverConfig,
             "solve.nonfinite fault injection does not compose with "
             "restart_chunk (chunked batches lose the global lane index); "
             "disarm the site or drop restart_chunk for the chaos run")
+    if mesh is not None:
+        _refuse_sharded_poison(poison, mesh)
+        size = _restart_size(mesh)
+        loc_chunk = (-(-solver_cfg.restart_chunk // size)
+                     if solver_cfg.restart_chunk
+                     else _pad_count(restarts, mesh, count=False) // size)
+        return _meshed_rank_fn(k, restarts, mesh, keep_factors, lambda a, ks:
+                               _vmap_lanes(a, ks, k, solver_cfg, init_cfg,
+                                           label_rule, loc_chunk))
 
     def impl(a: torch.Tensor, key: np.ndarray) -> KSweepOutput:
-        keys = _random.split(key, restarts)
-        parts, syncs = [], 0
-        for c in range(0, restarts, chunk):
-            w0s, h0s = restart_inits(a, keys[c:c + chunk], k, init_cfg)
-            w0s = _poison_restart_lanes(w0s, poison)
-            res = run_loop_batched(a, w0s, h0s, solver_cfg, mod.step,
-                                   mod.init_aux(a, w0s, h0s, solver_cfg))
-            syncs += res.host_syncs
-            parts.append(res)
-        ws, hs, iters, dnorm, stops = (
-            torch.cat([getattr(p, f) for p in parts])
-            for f in ("w", "h", "iterations", "dnorm", "stop_reason"))
-        labels = labels_from_h(hs, label_rule)
-        labels, masked, faulted = _quarantine_lanes(labels, dnorm, stops)
-        cons = _quarantined_consensus(labels, k, restarts, faulted)
-        best = torch.argmin(masked)
-        extra = (ws, hs) if keep_factors else (None, None)
-        return KSweepOutput(cons, iters, dnorm, stops, labels, ws[best],
-                            hs[best], *extra, host_syncs=syncs)
+        lanes = _vmap_lanes(a, _random.split(key, restarts), k, solver_cfg,
+                            init_cfg, label_rule, chunk, poison)
+        return _rank_output(k, lanes, restarts, keep_factors)
 
     return impl
 
@@ -701,11 +752,423 @@ def _build_packed_serve_fn(layout: tuple, solver_cfg: SolverConfig,
 
 
 def _refuse_mesh(mesh) -> None:
-    """The meshed route is not ported: only ``mesh=None`` runs."""
+    """The serving tier's meshes (the reference's ``MeshEngine``) are not
+    ported: its build functions take only ``mesh=None``."""
     if mesh is not None:
         raise NotImplementedError(
-            f"meshes are not ported yet ({ROADMAP_SCALE}: item 10c, the "
-            "meshed routes); pass mesh=None")
+            f"meshes on the serving tier are not ported yet "
+            f"({ROADMAP_GRID_MESH}); pass mesh=None")
+
+
+# -- the restart mesh -------------------------------------------------------
+def local_devices() -> list:
+    """This process's cards, as ``jax.local_devices()`` lists a host's
+    chips: one CUDA device per card ([] without one)."""
+    if not torch.cuda.is_available():
+        return []
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def grid_mesh(restart_shards: "int | None" = None, feature_shards: int = 1,
+              sample_shards: int = 1, devices=None) -> Mesh:
+    """A mesh over ``devices`` (default: :func:`local_devices`) with the
+    reference's three axes, restarts × features × samples; its shapes and
+    errors are the reference's. ``restart_shards=None`` takes every
+    device left after the other two axes. A device may be named more than
+    once (two restart shards on one card). Only the restart axis runs
+    here: a sweep refuses feature or sample axes above 1
+    (``ROADMAP_GRID_MESH``)."""
+    if feature_shards < 1 or sample_shards < 1:
+        raise ValueError(
+            f"shard counts must be >= 1, got features={feature_shards}, "
+            f"samples={sample_shards}")
+    devices = list(local_devices() if devices is None else devices)
+    auto = restart_shards is None
+    if auto:
+        restart_shards = len(devices) // (feature_shards * sample_shards)
+    n = restart_shards * feature_shards * sample_shards
+    if restart_shards < 1:
+        why = (f"features×samples={feature_shards * sample_shards} exceeds "
+               f"the {len(devices)} available devices" if auto
+               else "restart_shards must be >= 1")
+        raise ValueError(
+            f"mesh {restart_shards}x{feature_shards}x{sample_shards}: {why}")
+    if n > len(devices):
+        raise ValueError(
+            f"mesh {restart_shards}x{feature_shards}x{sample_shards} needs "
+            f"{n} devices, have {len(devices)}")
+    arr = np.empty(n, dtype=object)
+    arr[:] = devices[:n]
+    return Mesh(arr.reshape(restart_shards, feature_shards, sample_shards),
+                (RESTART_AXIS, FEATURE_AXIS, SAMPLE_AXIS))
+
+
+def feature_mesh(restart_shards: "int | None" = None,
+                 feature_shards: int = 1, devices=None) -> Mesh:
+    """A 2-D restarts × features mesh: :func:`grid_mesh` without a sample
+    axis."""
+    if restart_shards is None:
+        n = len(local_devices() if devices is None else list(devices))
+        restart_shards = n // feature_shards
+    mesh = grid_mesh(restart_shards, feature_shards, 1, devices=devices)
+    return Mesh(mesh.devices.reshape(restart_shards, feature_shards),
+                (RESTART_AXIS, FEATURE_AXIS))
+
+
+def default_mesh() -> "Mesh | None":
+    """A 1-D restart mesh over this process's cards; None with one card
+    or none (one device is already the unmeshed route)."""
+    devices = local_devices()
+    if len(devices) <= 1:
+        return None
+    arr = np.empty(len(devices), dtype=object)
+    arr[:] = devices
+    return Mesh(arr, (RESTART_AXIS,))
+
+
+def grid_axes_active(mesh) -> bool:
+    """Whether the mesh shards single factorizations over the feature or
+    sample axis (against a restart-only or absent mesh)."""
+    return (mesh is not None
+            and any(mesh.shape.get(ax, 1) > 1
+                    for ax in (FEATURE_AXIS, SAMPLE_AXIS)))
+
+
+def _refuse_grid_axes(mesh) -> None:
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(
+            f"mesh must be a nmfx_torch Mesh (grid_mesh(R), "
+            f"default_mesh()), got {type(mesh).__name__}")
+    if grid_axes_active(mesh):
+        raise NotImplementedError(
+            f"feature and sample mesh axes are not ported yet "
+            f"({ROADMAP_GRID_MESH}); got mesh axes {mesh.shape}, use a "
+            "restart-only mesh (grid_mesh(R))")
+
+
+def _restart_size(mesh) -> int:
+    return 1 if mesh is None else mesh.shape.get(RESTART_AXIS, 1)
+
+
+def _pad_count(restarts: int, mesh, count: bool = True) -> int:
+    """``restarts`` rounded up to a multiple of the mesh's restart-axis
+    size, so the lanes split evenly; the surplus lanes draw the keys past
+    ``restarts`` (``random.split`` is prefix-stable, so the first
+    ``restarts`` are the unmeshed ones) and are discarded. ``count``
+    books the surplus in ``nmfx_mesh_pad_lanes_total``."""
+    size = _restart_size(mesh)
+    padded = -(-restarts // size) * size
+    if count and padded > restarts:
+        _pad_lanes_total.inc(padded - restarts)
+    return padded
+
+
+def _refuse_sharded_poison(poison, mesh) -> None:
+    if poison and _restart_size(mesh) > 1:
+        raise ValueError(
+            "solve.nonfinite fault injection is not supported on a "
+            "restart-sharded mesh (per-shard lane indices); disarm the "
+            "site or run unmeshed for the chaos run")
+
+
+def _shard_entries(mesh) -> list:
+    """``[(device, process)]`` of each restart shard, in shard order (a
+    restart-only mesh's other axes are of size 1)."""
+    axis = (mesh.axis_names.index(RESTART_AXIS)
+            if RESTART_AXIS in mesh.axis_names else None)
+    devs = mesh.devices
+    procs = (np.zeros(devs.shape, dtype=np.int64) if mesh.processes is None
+             else mesh.processes)
+    if axis is None:
+        return [(devs.flat[0], int(procs.flat[0]))]
+    devs = np.moveaxis(devs, axis, 0).reshape(devs.shape[axis], -1)
+    procs = np.moveaxis(procs, axis, 0).reshape(devs.shape[0], -1)
+    return [(devs[i, 0], int(procs[i, 0])) for i in range(devs.shape[0])]
+
+
+def mesh_home(mesh) -> torch.device:
+    """Where a meshed sweep's outputs live: this process's first shard's
+    device."""
+    rank = _process_index()
+    for dev, proc in _shard_entries(mesh):
+        if proc == rank:
+            return dev
+    raise ValueError(f"the mesh holds no device of process {rank}: {mesh}")
+
+
+def place_input(a, solver_cfg: SolverConfig, mesh=None, device=None):
+    """A in the solver dtype on its devices: with ``mesh=None`` one tensor
+    on ``device`` (None = CUDA); with a mesh ``{device: tensor}``, A
+    replicated to each distinct device of this process (a card named
+    twice holds one copy), each copy through the input cache
+    (``data_cache.place_resilient``), so a repeat sweep copies nothing."""
+    from nmfx_torch.data_cache import place_resilient
+
+    if mesh is None:
+        return place_resilient(a, solver_cfg, resolve_device(device))
+    return {d: place_resilient(a, solver_cfg, d)
+            for d in mesh.distinct_devices()}
+
+
+class _Lanes(NamedTuple):
+    """A batch of restart lanes' results on one device."""
+
+    w: torch.Tensor  # (r, m, k)
+    h: torch.Tensor  # (r, k, n)
+    labels: torch.Tensor  # (r, n), before the quarantine
+    iterations: torch.Tensor
+    dnorm: torch.Tensor
+    stop_reason: torch.Tensor
+    host_syncs: int = 0
+    pool_widths: tuple = ()
+    pool_trips: tuple = ()
+    pool_lanes: tuple = ()
+
+
+class _ShardOut(NamedTuple):
+    """What a restart shard hands the gather: its lanes' per-restart
+    outputs and its best-restart candidate (every lane's factors only
+    under ``keep_factors``). On a mesh of several processes it crosses
+    the gloo group on the host."""
+
+    labels: torch.Tensor
+    iterations: torch.Tensor
+    dnorm: torch.Tensor
+    stop_reason: torch.Tensor
+    best_dnorm: torch.Tensor  # () the candidate's masked residual
+    best_w: torch.Tensor
+    best_h: torch.Tensor
+    all_w: "torch.Tensor | None"
+    all_h: "torch.Tensor | None"
+    host_syncs: int = 0
+    pool_widths: tuple = ()
+    pool_trips: tuple = ()
+    pool_lanes: tuple = ()
+
+
+def _rank_output(k: int, lanes: _Lanes, restarts: int,
+                 keep_factors: bool) -> KSweepOutput:
+    """One rank's output from all of its lanes on one device: labels
+    quarantined, the consensus over the survivors, the best restart the
+    first minimum of the masked residuals."""
+    labels, masked, faulted = _quarantine_lanes(lanes.labels, lanes.dnorm,
+                                                lanes.stop_reason)
+    cons = _quarantined_consensus(labels, k, restarts, faulted)
+    best = torch.argmin(masked)
+    extra = ((lanes.w.contiguous(), lanes.h) if keep_factors
+             else (None, None))
+    return KSweepOutput(cons, lanes.iterations, lanes.dnorm,
+                        lanes.stop_reason, labels, lanes.w[best],
+                        lanes.h[best], *extra, host_syncs=lanes.host_syncs,
+                        pool_widths=lanes.pool_widths,
+                        pool_trips=lanes.pool_trips,
+                        pool_lanes=lanes.pool_lanes)
+
+
+def _shard_out(lanes: _Lanes, lo: int, restarts: int,
+               keep_factors: bool) -> _ShardOut:
+    """A shard's lanes, global restarts ``[lo, lo + r)``, reduced to what
+    the gather needs: the candidate is the first minimum of the shard's
+    quarantine-masked residuals with its pad lanes masked too, so the
+    first minimum over the candidates in shard order is the unmeshed
+    first-minimum ``argmin``."""
+    r = lanes.labels.shape[0]
+    valid = torch.arange(lo, lo + r, device=lanes.dnorm.device) < restarts
+    _, masked, _ = _quarantine_lanes(lanes.labels, lanes.dnorm,
+                                     lanes.stop_reason)
+    masked = torch.where(valid, masked, torch.inf)
+    b = torch.argmin(masked)
+    extra = (lanes.w, lanes.h) if keep_factors else (None, None)
+    return _ShardOut(lanes.labels, lanes.iterations, lanes.dnorm,
+                     lanes.stop_reason, masked[b], lanes.w[b], lanes.h[b],
+                     *extra, lanes.host_syncs, lanes.pool_widths,
+                     lanes.pool_trips, lanes.pool_lanes)
+
+
+def _gathered_rank_output(k: int, outs: list, restarts: int,
+                          keep_factors: bool,
+                          home: torch.device) -> KSweepOutput:
+    """One rank's output from its shards' parts in shard order, on
+    ``home``: the unmeshed epilogue (quarantine, consensus) over the
+    concatenated lanes with the pad lanes sliced off, and the best
+    restart the first minimum over the shards' candidates."""
+
+    def cat(f):
+        return torch.cat([getattr(o, f).to(home) for o in outs])[:restarts]
+
+    labels, iters, dnorm, stops = (cat(f) for f in (
+        "labels", "iterations", "dnorm", "stop_reason"))
+    labels, _, faulted = _quarantine_lanes(labels, dnorm, stops)
+    cons = _quarantined_consensus(labels, k, restarts, faulted)
+    g = torch.argmin(torch.stack([o.best_dnorm.to(home) for o in outs]))
+    best_w = torch.stack([o.best_w.to(home) for o in outs])[g]
+    best_h = torch.stack([o.best_h.to(home) for o in outs])[g]
+    extra = ((cat("all_w"), cat("all_h")) if keep_factors
+             else (None, None))
+    return KSweepOutput(cons, iters, dnorm, stops, labels, best_w, best_h,
+                        *extra, host_syncs=sum(o.host_syncs for o in outs),
+                        pool_widths=outs[0].pool_widths,
+                        pool_trips=outs[0].pool_trips,
+                        pool_lanes=outs[0].pool_lanes)
+
+
+def _meshed_rank_fn(k: int, restarts: int, mesh, keep_factors: bool,
+                    lanes_fn):
+    """A per-rank route over a restart mesh: ``fn(copies, key)`` with A's
+    per-device copies (:func:`place_input`) and the rank's folded key;
+    shard ``i`` runs ``lanes_fn(A, keys[i·r:(i+1)·r])`` on its device."""
+    padded = _pad_count(restarts, mesh, count=False)
+    r_loc = padded // _restart_size(mesh)
+
+    def impl(copies, key: np.ndarray) -> KSweepOutput:
+        _pad_count(restarts, mesh)
+        keys = _random.split(key, padded)
+
+        def work(i, a_s):
+            lo = i * r_loc
+            return _shard_out(lanes_fn(a_s, keys[lo:lo + r_loc]), lo,
+                              restarts, keep_factors)
+
+        parts = _run_shards(mesh, copies, work)
+        return _gathered_rank_output(k, parts, restarts, keep_factors,
+                                     mesh_home(mesh))
+
+    return impl
+
+
+def _to_host(x):
+    """A shard's result with every tensor on the host (for the gloo
+    gather)."""
+    if torch.is_tensor(x):
+        return x.detach().cpu()
+    if isinstance(x, dict):
+        return {key: _to_host(v) for key, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_to_host(v) for v in x))
+    return x
+
+
+def _run_shards(mesh, copies: dict, work) -> list:
+    """``work(i, A on shard i's device)`` for every restart shard of the
+    mesh, results in shard order. One thread serves each distinct device
+    of this process, its shards one after another (each under its own
+    ``fused_mu.launch_scope("shard<i>")``); with a single device the
+    calling thread serves it. A shard's exception is raised here, the
+    first in shard order. When the mesh spans several processes, each
+    runs its own shards and the results are gathered on the host over
+    the default ``torch.distributed`` (gloo) group, so every process
+    returns every shard's results."""
+    entries = _shard_entries(mesh)
+    rank = _process_index()
+    by_dev: dict = {}
+    for i, (dev, proc) in enumerate(entries):
+        if proc == rank:
+            by_dev.setdefault(dev, []).append(i)
+    results: dict = {}
+    errors: dict = {}
+
+    def serve(dev, idxs):
+        ctx = (torch.cuda.device(dev) if dev.type == "cuda"
+               else contextlib.nullcontext())
+        with ctx:
+            for i in idxs:
+                try:
+                    with launch_scope(f"shard{i}"):
+                        results[i] = work(i, copies[dev])
+                except BaseException as e:  # raised by the caller
+                    errors[i] = e
+                    return
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    if len(by_dev) <= 1:
+        for dev, idxs in by_dev.items():
+            serve(dev, idxs)
+    else:
+        threads = [threading.Thread(target=serve, args=(dev, idxs),
+                                    name=f"nmfx-shard-{dev}", daemon=True)
+                   for dev, idxs in by_dev.items()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    if errors:
+        raise errors[min(errors)]
+    if any(proc != rank for _, proc in entries):
+        import torch.distributed as dist
+
+        mine = {i: _to_host(results[i]) for i in results}
+        gathered = [None] * dist.get_world_size()
+        dist.all_gather_object(gathered, mine)
+        results = {}
+        for part in gathered:
+            results.update(part)
+    return [results[i] for i in range(len(entries))]
+
+
+def _build_meshed_chunk_sweep_fn(k: int, n_chunk: int,
+                                 solver_cfg: SolverConfig,
+                                 init_cfg: InitConfig, label_rule: str,
+                                 poison: tuple, mesh):
+    """The durable chunk executor over a restart-only sub-mesh (the
+    reference's ``_build_meshed_chunk_sweep_fn``: the elastic runner's
+    shard that owns a device set). The chunk's lanes split over the
+    shards, padded by repeating the chunk's own keys; each shard runs the
+    batched restart route on its lanes, and the record's best restart is
+    the first minimum over the chunk's masked residuals. So the record
+    equals the unmeshed executor's. The packed family is refused, as in
+    the reference: its pool is one packed solve of the whole chunk."""
+    if grid_axes_active(mesh) or RESTART_AXIS not in mesh.axis_names:
+        raise ValueError(
+            "meshed chunk execution shards the restart axis only; got "
+            f"mesh axes {mesh.shape}")
+    if _use_packed(solver_cfg):
+        raise ValueError(
+            "meshed chunk execution supports the batched restart route "
+            "only (the packed family's pool geometry is composition-"
+            "dependent; ledger records must stay bit-identical to the "
+            "unmeshed chunk executor)")
+    size = _restart_size(mesh)
+    r_loc = -(-n_chunk // size)
+    n_pad = r_loc * size
+
+    def impl(copies, keys: np.ndarray) -> ChunkSweepOutput:
+        if n_pad != n_chunk:
+            keys = np.concatenate([keys] * -(-n_pad // n_chunk))[:n_pad]
+
+        def work(i, a_s):
+            lo = i * r_loc
+            w0s, h0s = restart_inits(a_s, keys[lo:lo + r_loc], k, init_cfg)
+            local = tuple(p - lo for p in poison if lo <= p < lo + r_loc)
+            w0s = _poison_restart_lanes(w0s, local)
+            mod = SOLVERS[solver_cfg.algorithm]
+            res = run_loop_batched(a_s, w0s, h0s, solver_cfg, mod.step,
+                                   mod.init_aux(a_s, w0s, h0s, solver_cfg))
+            lanes = _Lanes(res.w, res.h, labels_from_h(res.h, label_rule),
+                           res.iterations, res.dnorm, res.stop_reason)
+            return _shard_out(lanes, lo, n_chunk, False)
+
+        parts = _run_shards(mesh, copies, work)
+        home = mesh_home(mesh)
+
+        def cat(f):
+            return torch.cat([getattr(o, f).to(home) for o in parts])
+
+        labels, iters, dnorm, stops = (cat(f) for f in (
+            "labels", "iterations", "dnorm", "stop_reason"))
+        labels, masked, _ = _quarantine_lanes(labels, dnorm, stops)
+        masked = torch.where(torch.arange(n_pad, device=home) < n_chunk,
+                             masked, torch.inf)
+        best = torch.argmin(masked)
+        g = torch.argmin(torch.stack([o.best_dnorm.to(home)
+                                      for o in parts]))
+        return ChunkSweepOutput(
+            labels[:n_chunk], iters[:n_chunk], dnorm[:n_chunk],
+            stops[:n_chunk], best.to(torch.int32),
+            torch.stack([o.best_w.to(home) for o in parts])[g],
+            torch.stack([o.best_h.to(home) for o in parts])[g])
+
+    return impl
 
 
 def sweep_one_k(a: torch.Tensor, key: np.ndarray, k: int, restarts: int,
@@ -723,9 +1186,13 @@ def sweep_one_k(a: torch.Tensor, key: np.ndarray, k: int, restarts: int,
     through the slot scheduler at this one rank (``grid_slots`` wide,
     with the ``grid_tail_slots`` cascade); everything else on the
     batched restart route. The parameters are the reference's, in its
-    order; ``mesh`` must be None. ``tile_rows`` is refused: ``sweep``
-    routes it."""
-    _refuse_mesh(mesh)
+    order. With a restart ``mesh`` (:func:`grid_mesh`) each route runs
+    restart-sharded, ``a`` a tensor or the per-device copies of
+    :func:`place_input`, and the outputs land on :func:`mesh_home`; the
+    sketched and screened engines ignore a restart mesh, as the
+    reference's do, and run on the home device. ``tile_rows`` is refused:
+    ``sweep`` routes it."""
+    _refuse_grid_axes(mesh)
     if solver_cfg.tile_rows is not None:
         # sweep() owns the out-of-core routing (one-tile delegation
         # included), because it runs before A is placed on the device
@@ -735,6 +1202,14 @@ def sweep_one_k(a: torch.Tensor, key: np.ndarray, k: int, restarts: int,
             "through nmfx_torch.tiles); call sweep(), or "
             "nmfx_torch.tiles.sweep_one_k_tiled for the streaming engine "
             "directly")
+    if mesh is not None:
+        if not isinstance(a, dict):
+            dt = torch.float64 if solver_cfg.dtype == "float64" else \
+                torch.float32
+            a = {d: torch.as_tensor(a).to(device=d, dtype=dt)
+                 for d in mesh.distinct_devices()}
+        if solver_cfg.backend == "sketched" or solver_cfg.screen:
+            a, mesh = a[mesh_home(mesh)], None
     if solver_cfg.backend == "sketched":
         fn = _build_sketched_sweep_fn(k, restarts, solver_cfg, init_cfg,
                                       label_rule, keep_factors)
@@ -745,87 +1220,128 @@ def sweep_one_k(a: torch.Tensor, key: np.ndarray, k: int, restarts: int,
         return fn(a, key)
     if _use_packed(solver_cfg):
         fn = _build_packed_sweep_fn(k, restarts, solver_cfg, init_cfg,
-                                    label_rule, keep_factors)
+                                    label_rule, keep_factors, mesh)
         return fn(a, key)
-    if grid_exec_ok(solver_cfg):
+    if grid_exec_ok(solver_cfg, mesh):
         fn = _build_grid_exec_sweep_fn((k,), restarts, solver_cfg, init_cfg,
                                        label_rule, keep_factors, grid_slots,
-                                       grid_tail_slots, fold_keys=False)
+                                       grid_tail_slots, fold_keys=False,
+                                       mesh=mesh)
         return fn(a, key)[k]
     fn = _build_vmap_sweep_fn(k, restarts, solver_cfg, init_cfg, label_rule,
-                              keep_factors)
+                              keep_factors, mesh)
     return fn(a, key)
 
 
-def grid_exec_ok(solver_cfg: SolverConfig) -> bool:
+def grid_exec_ok(solver_cfg: SolverConfig, mesh=None) -> bool:
     """Whether the whole-grid slot scheduler can run this configuration:
     an algorithm with a dense-batched block under a backend that routes
     it there (``_GRID_EXEC_BACKENDS``), with A on the device (not under
     ``tile_rows``), exact and unscreened (the compressed engine and the
-    screening two-phase dispatch have no slot-scheduled form). The
-    executable cache's serving contract reads this too."""
+    screening two-phase dispatch have no slot-scheduled form), on no
+    feature or sample mesh axes (the grid composes with the restart axis
+    only). The executable cache's serving contract reads this too."""
     if solver_cfg.backend == "sketched" or solver_cfg.screen:
         return False
     if solver_cfg.tile_rows is not None:
         return False
-    return solver_cfg.backend in _GRID_EXEC_BACKENDS.get(
-        solver_cfg.algorithm, ())
+    if solver_cfg.backend not in _GRID_EXEC_BACKENDS.get(
+            solver_cfg.algorithm, ()):
+        return False
+    return not grid_axes_active(mesh)
+
+
+def _grid_lanes(a, rank_keys, solver_cfg: SolverConfig,
+                init_cfg: InitConfig, label_rule: str, slots: int,
+                tail_slots, poison: tuple = ()) -> "dict[int, _Lanes]":
+    """One ``mu_sched`` solve of ``rank_keys`` (``[(k, keys), ...]``,
+    rank-descending) on A's device, lanes rank-major and zero-padded to
+    the largest rank: each rank's lanes' results (the pool diagnostics and
+    host reads on every rank)."""
+    k_max = max(k for k, _ in rank_keys)
+    w0l, h0l = [], []
+    for k, keys in rank_keys:
+        w0s, h0s = restart_inits(a, keys, k, init_cfg)
+        w0l.append(torch.nn.functional.pad(w0s, (0, k_max - k)))
+        h0l.append(torch.nn.functional.pad(h0s, (0, 0, 0, k_max - k)))
+    res = mu_sched(a, _poison_restart_lanes(torch.cat(w0l), poison),
+                   torch.cat(h0l), solver_cfg, slots=slots,
+                   tail_slots=tail_slots,
+                   job_ks=tuple(k for k, keys in rank_keys
+                                for _ in range(len(keys))),
+                   device=a.device)
+    out, start = {}, 0
+    for k, keys in rank_keys:
+        sl = slice(start, start + len(keys))
+        start += len(keys)
+        hk = res.h[sl, :k, :]  # true rows only: right under both rules
+        out[k] = _Lanes(res.w[sl, :, :k], hk, labels_from_h(hk, label_rule),
+                        res.iterations[sl], res.dnorm[sl],
+                        res.stop_reason[sl], res.host_syncs,
+                        res.pool_widths, res.pool_trips, res.pool_lanes)
+    return out
 
 
 def _build_grid_exec_sweep_fn(ks: tuple[int, ...], restarts: int,
                               solver_cfg: SolverConfig,
                               init_cfg: InitConfig, label_rule: str,
                               keep_factors: bool = False, slots: int = 48,
-                              tail_slots="auto", fold_keys: bool = True):
+                              tail_slots="auto", fold_keys: bool = True,
+                              mesh=None):
     """The whole-grid sweep as a function of (A on its device, the root
     key): every (k, restart) job through one ``mu_sched`` solve, jobs
     rank-descending (longest expected first), lanes rank-major and
     zero-padded to the largest rank; per-rank labels, quarantine,
     consensus and best restart from static slices of the per-job
     results. ``fold_keys=False`` is the single-rank mode whose key is
-    already folded with its k."""
+    already folded with its k. With a restart ``mesh`` each shard
+    schedules its own restarts of every rank through its own ``mu_sched``
+    on its device (rows 3 or 5 under ``backend="pallas"``), and the
+    caller gathers each rank's lanes in shard order; A is then the
+    per-device copies of :func:`place_input`."""
     if not fold_keys and len(ks) != 1:
         raise ValueError("fold_keys=False is the single-rank (pre-folded "
                          "key) mode; got several ks")
     ks = tuple(sorted(ks, reverse=True))  # LPT dispatch order
-    k_max = max(ks)
     # the global lane of each poisoned (k, restart) in the rank-major stack
     poison = tuple(g * restarts + r for g, k in enumerate(ks)
                    for r in faults.poison_restarts(k, restarts))
+    if mesh is not None:
+        _refuse_sharded_poison(poison, mesh)
+        padded = _pad_count(restarts, mesh, count=False)
+        r_loc = padded // _restart_size(mesh)
+
+        def meshed(copies, root_key: np.ndarray) -> dict[int, KSweepOutput]:
+            _pad_count(restarts, mesh)
+            keys = {k: _random.split(_random.fold_in(root_key, k)
+                                     if fold_keys else root_key, padded)
+                    for k in ks}
+
+            def work(i, a_s):
+                lo = i * r_loc
+                lanes = _grid_lanes(
+                    a_s, [(k, keys[k][lo:lo + r_loc]) for k in ks],
+                    solver_cfg, init_cfg, label_rule, slots, tail_slots)
+                return {k: _shard_out(lanes[k], lo, restarts, keep_factors)
+                        for k in ks}
+
+            parts = _run_shards(mesh, copies, work)
+            home = mesh_home(mesh)
+            return {k: _gathered_rank_output(k, [p[k] for p in parts],
+                                             restarts, keep_factors, home)
+                    for k in ks}
+
+        return meshed
 
     def impl(a: torch.Tensor, root_key: np.ndarray
              ) -> dict[int, KSweepOutput]:
-        w0l, h0l = [], []
-        for k in ks:
-            keys = _random.split(_random.fold_in(root_key, k) if fold_keys
-                                 else root_key, restarts)
-            w0s, h0s = restart_inits(a, keys, k, init_cfg)
-            w0l.append(torch.nn.functional.pad(w0s, (0, k_max - k)))
-            h0l.append(torch.nn.functional.pad(h0s, (0, 0, 0, k_max - k)))
-        res = mu_sched(a, _poison_restart_lanes(torch.cat(w0l), poison),
-                       torch.cat(h0l), solver_cfg,
-                       slots=slots, tail_slots=tail_slots,
-                       job_ks=tuple(k for k in ks for _ in range(restarts)),
-                       device=a.device)
-        out: dict[int, KSweepOutput] = {}
-        for g, k in enumerate(ks):
-            sl = slice(g * restarts, (g + 1) * restarts)
-            hk = res.h[sl, :k, :]  # true rows only: right under both rules
-            wk = res.w[sl, :, :k]
-            labels = labels_from_h(hk, label_rule)
-            labels, masked, faulted = _quarantine_lanes(
-                labels, res.dnorm[sl], res.stop_reason[sl])
-            cons = _quarantined_consensus(labels, k, restarts, faulted)
-            best = torch.argmin(masked)
-            extra = (wk, hk) if keep_factors else (None, None)
-            out[k] = KSweepOutput(cons, res.iterations[sl], res.dnorm[sl],
-                                  res.stop_reason[sl], labels, wk[best],
-                                  hk[best], *extra,
-                                  host_syncs=res.host_syncs,
-                                  pool_widths=res.pool_widths,
-                                  pool_trips=res.pool_trips,
-                                  pool_lanes=res.pool_lanes)
-        return out
+        rank_keys = [(k, _random.split(_random.fold_in(root_key, k)
+                                       if fold_keys else root_key,
+                                       restarts)) for k in ks]
+        lanes = _grid_lanes(a, rank_keys, solver_cfg, init_cfg, label_rule,
+                            slots, tail_slots, poison)
+        return {k: _rank_output(k, lanes[k], restarts, keep_factors)
+                for k in ks}
 
     return impl
 
@@ -833,7 +1349,7 @@ def _build_grid_exec_sweep_fn(ks: tuple[int, ...], restarts: int,
 def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
           solver_cfg: SolverConfig = SolverConfig(),
           init_cfg: InitConfig = InitConfig(), *, device=None,
-          on_rank=None, profiler=None, registry=None,
+          mesh=None, on_rank=None, profiler=None, registry=None,
           checkpoint=None, exec_cache=None) -> dict[int, KSweepOutput]:
     """The (k × restart) grid: one slot-scheduled solve of every rank, or
     one rank at a time (see the module docstring for the routing).
@@ -862,9 +1378,20 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
     sweep, under the dense identity in every key downstream); a
     multi-tile plan and every sparse input run the streamed engine
     (:func:`_sweep_tiled`).
+
+    ``mesh`` (:func:`grid_mesh`, restart axis only): every route runs
+    restart-sharded, each shard on its device, A replicated to each
+    distinct device (``device`` is then unused) and the outputs on
+    :func:`mesh_home`; on the CPU each lane computes what it computes
+    unmeshed, so the result is byte-equal to the unmeshed sweep.
+    Checkpoints, tiles and the executable cache refuse a sharded mesh,
+    as the reference's do.
     """
     if profiler is None:
         profiler = NullProfiler()
+    _refuse_grid_axes(mesh)
+    sharded = mesh is not None and any(
+        v > 1 for v in mesh.shape.values())
     from nmfx_torch.sparse import SparseMatrix
 
     sparse_input = isinstance(a, SparseMatrix)
@@ -875,6 +1402,12 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
         if plan.n_tiles == 1 and not sparse_input:
             solver_cfg = dataclasses.replace(solver_cfg, tile_rows=None)
         else:
+            if sharded:
+                raise ValueError(
+                    "out-of-core (tiled/sparse) sweeps stream tiles "
+                    "through the default device; drop the mesh (the tile "
+                    "budget, not the device count, bounds the working "
+                    "set)")
             return _sweep_tiled(a, plan, cfg, solver_cfg, init_cfg,
                                 device=device, registry=registry,
                                 profiler=profiler, on_rank=on_rank,
@@ -884,20 +1417,29 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
             raise ValueError(
                 "pass either checkpoint (the durable chunked ledger) or "
                 "registry (the legacy per-rank SweepRegistry), not both")
+        if sharded:
+            raise ValueError(
+                "checkpointed sweeps execute per-(k, restart-chunk) on "
+                "the default device (the chunk plan is the durability "
+                "unit); drop the mesh, or use nmfx_torch.distributed's "
+                "elastic shard runner for multi-device durable sweeps")
         from nmfx_torch.checkpoint import run_checkpointed_sweep
 
         return run_checkpointed_sweep(a, cfg, solver_cfg, init_cfg,
                                       checkpoint, device=device,
                                       profiler=profiler, on_rank=on_rank)
     if (exec_cache is not None and registry is None
-            and exec_cache.cacheable(cfg, solver_cfg)):
-        if explicit_device(resolve_device(device)) != exec_cache.device:
+            and exec_cache.cacheable(cfg, solver_cfg, mesh)):
+        if mesh is None and explicit_device(
+                resolve_device(device)) != exec_cache.device:
             raise ValueError(
                 f"the sweep's device ({resolve_device(device)}) is not the "
                 f"executable cache's ({exec_cache.device})")
-        return exec_cache.run_sweep(a, cfg, solver_cfg, init_cfg,
+        # a restart mesh passes the reference's predicate and is refused
+        # there (the mesh-aware serving tier)
+        return exec_cache.run_sweep(a, cfg, solver_cfg, init_cfg, mesh,
                                     profiler=profiler, on_rank=on_rank)
-    eligible = grid_exec_ok(solver_cfg)
+    eligible = grid_exec_ok(solver_cfg, mesh)
     if cfg.grid_exec == "grid" and not eligible:
         raise ValueError(
             "grid_exec='grid' needs an algorithm/backend pair that routes "
@@ -907,11 +1449,22 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
             f"backend={solver_cfg.backend!r} (use grid_exec='auto' to "
             "fall back per configuration)")
     check_ported(solver_cfg)
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh_home(mesh)
     out: dict[int, KSweepOutput] = {}
     needed: list[int] = []
+    # several processes must take the same solve-or-load branch for
+    # each rank, or the shards' gathers would not meet: the coordinator
+    # (the one process expected to hold a registry) decides, and a loaded
+    # rank travels to the others
+    multi = mesh is not None and process_count() > 1
     for k in cfg.ks:
         loaded = registry.try_load(k) if registry is not None else None
+        if multi:
+            import torch.distributed as dist
+
+            box = [_to_host(loaded) if _process_index() == 0 else None]
+            dist.broadcast_object_list(box, src=0)
+            loaded = box[0]
         if loaded is None:
             needed.append(k)
             continue
@@ -924,16 +1477,25 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
                              or (cfg.grid_exec == "auto" and len(needed) > 1))
     from nmfx_torch.data_cache import place_resilient
 
-    a_dev = place_resilient(a, solver_cfg, dev, profiler=profiler)
+    if mesh is None:
+        a_dev = a_in = place_resilient(a, solver_cfg, dev, profiler=profiler)
+    else:
+        # replicated to each distinct device of the mesh, each copy
+        # through the input cache
+        a_in = {d: place_resilient(a, solver_cfg, d, profiler=profiler)
+                for d in mesh.distinct_devices()}
+        a_dev = a_in[dev]
+        if solver_cfg.backend == "sketched" or solver_cfg.screen:
+            a_in, mesh = a_dev, None  # a restart mesh is ignored here
     root = _random.key(cfg.seed)
     if use_grid:
         fn = _build_grid_exec_sweep_fn(
             tuple(needed), cfg.restarts, solver_cfg, init_cfg,
             cfg.label_rule, cfg.keep_factors, cfg.grid_slots,
-            cfg.grid_tail_slots)
+            cfg.grid_tail_slots, mesh=mesh)
         t0 = time.perf_counter()
         with profiler.phase("solve.grid") as sync:
-            solved = sync(fn(a_dev, root))
+            solved = sync(fn(a_in, root))
         with profiler.phase("xfer.overlap"):
             # one executable produced every rank, but each rank's copies
             # land (and harvest) independently
@@ -944,7 +1506,7 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
             if on_rank is not None:
                 on_rank(k, solved[k])
         _attribute_dispatch("sweep.grid", solver_cfg, a_dev, solved,
-                            time.perf_counter() - t0, profiler)
+                            time.perf_counter() - t0, profiler, mesh=mesh)
         if registry is not None:
             with profiler.phase("checkpoint"):
                 for k in needed:
@@ -955,9 +1517,9 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
         # factorizations whatever the sweep's composition
         t0 = time.perf_counter()
         with profiler.phase(f"solve.k={k}") as sync:
-            res = sync(sweep_one_k(a_dev, _random.fold_in(root, k), k,
+            res = sync(sweep_one_k(a_in, _random.fold_in(root, k), k,
                                    cfg.restarts, solver_cfg, init_cfg,
-                                   cfg.label_rule, None, cfg.keep_factors,
+                                   cfg.label_rule, mesh, cfg.keep_factors,
                                    cfg.grid_slots, cfg.grid_tail_slots))
         with profiler.phase("xfer.overlap"):
             # rank k's results stream to the host while rank k+1 solves
@@ -965,7 +1527,7 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
         if on_rank is not None:
             on_rank(k, out[k])
         _attribute_dispatch("sweep.k", solver_cfg, a_dev, {k: out[k]},
-                            time.perf_counter() - t0, profiler)
+                            time.perf_counter() - t0, profiler, mesh=mesh)
         if registry is not None:
             with profiler.phase("checkpoint"):
                 registry.save(k, out[k])
@@ -1034,7 +1596,7 @@ def _sweep_tiled(a, plan, cfg: ConsensusConfig, solver_cfg: SolverConfig,
 def _attribute_dispatch(kind: str, solver_cfg: SolverConfig,
                         a_dev: torch.Tensor, outs: dict, wall_s: float,
                         profiler, shape: "tuple | None" = None,
-                        device=None) -> None:
+                        device=None, mesh=None) -> None:
     """Per-dispatch roofline attribution (``nmfx_torch.obs.costmodel``):
     annotate a just-measured solve dispatch with its model FLOPs/bytes
     against the peak of A's device. Only under a real ``Profiler``,
@@ -1042,7 +1604,8 @@ def _attribute_dispatch(kind: str, solver_cfg: SolverConfig,
     the iteration counts come through the host copies the sweep already
     started. A ``NullProfiler`` run attributes nothing and gains no
     read. ``shape`` overrides A's (the true shape of a bucket-padded
-    matrix)."""
+    matrix). A ``mesh``'s peak counts its distinct devices, so two
+    shards on one card are priced as that one card."""
     if (isinstance(profiler, NullProfiler)
             or not costmodel.attribution_enabled() or not outs):
         return
@@ -1050,7 +1613,7 @@ def _attribute_dispatch(kind: str, solver_cfg: SolverConfig,
     m, n = a_dev.shape if shape is None else shape
     costmodel.attribute_dispatch(kind, solver_cfg, m, n, iters, wall_s,
                                  device=a_dev.device if device is None
-                                 else device)
+                                 else device, mesh=mesh)
 
 
 class RestartResult(NamedTuple):

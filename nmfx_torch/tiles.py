@@ -75,8 +75,9 @@ from nmfx_torch.device import resolve_device
 from nmfx_torch.init import random_init
 from nmfx_torch.obs import metrics as _metrics
 from nmfx_torch.profiling import NullProfiler
-from nmfx_torch.solvers.base import (StopReason, class_labels, clamp,
-                                     maxchange)
+from nmfx_torch.solvers.base import (StopReason, bf16_operand,
+                                     bf16_products, class_labels, clamp,
+                                     maxchange, mm)
 from nmfx_torch.solvers.mu import _mu_update
 from nmfx_torch.sparse import SparseMatrix, note_sparse_tile
 
@@ -546,26 +547,36 @@ def _segment_product(values: torch.Tensor, gather: torch.Tensor,
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
-def _contract_ah(a_t, hs: torch.Tensor, r: int, k: int) -> torch.Tensor:
+def _round_operands(bf: bool, *xs):
+    """The operands as ``base.mm`` takes them: rounded to bf16 under
+    ``bf`` (``base.bf16_products``)."""
+    return xs if not bf else tuple(bf16_operand(x) for x in xs)
+
+
+def _contract_ah(a_t, hs: torch.Tensor, r: int, k: int,
+                 bf: bool = False) -> torch.Tensor:
     """(A_t)·Hᵀ over the lane stack: (mt, n) × (n, R·k) → (R, mt, k).
-    A sparse tile contracts its stored nonzeros row by row."""
+    A sparse tile contracts its stored nonzeros row by row (its values
+    and the dense operand rounded under ``bf``, as a dense product's)."""
     if isinstance(a_t, _SparseBlock):
-        out = _segment_product(a_t.values, a_t.cols, a_t.offsets, hs)
+        values, hs = _round_operands(bf, a_t.values, hs)
+        out = _segment_product(values, a_t.cols, a_t.offsets, hs)
     else:
-        out = a_t @ hs  # (mt, R·k)
+        out = mm(a_t, hs, bf)  # (mt, R·k)
     return out.reshape(-1, r, k).permute(1, 0, 2)
 
 
-def _contract_wa(a_t, w_t: torch.Tensor) -> torch.Tensor:
+def _contract_wa(a_t, w_t: torch.Tensor, bf: bool = False) -> torch.Tensor:
     """(W_t)ᵀ·A_t over the lane stack: (R, mt, k) × (mt, n) → (R, k, n),
     the tile's part of the carried numerator WᵀA. A sparse tile contracts
     column by column over its column-sorted entries."""
     r, mt, k = w_t.shape
     ws = w_t.permute(1, 0, 2).reshape(mt, r * k)
     if isinstance(a_t, _SparseBlock):
-        out = _segment_product(a_t.values_t, a_t.rows_t, a_t.offsets_t, ws)
+        values, ws = _round_operands(bf, a_t.values_t, ws)
+        out = _segment_product(values, a_t.rows_t, a_t.offsets_t, ws)
         return out.reshape(-1, r, k).permute(1, 2, 0)
-    return (ws.mT @ a_t).reshape(r, k, -1)
+    return mm(ws.mT, a_t, bf).reshape(r, k, -1)
 
 
 def _zero_carry(algorithm: str, r: int, k: int, n: int, device):
@@ -597,29 +608,30 @@ def _head_update(state: TiledState, carry, cfg: SolverConfig):
     iteration = state.iteration + active.to(torch.int32)
     h0 = state.h
     dtype = h0.dtype
+    bf = bf16_products(cfg, h0.device)
     if cfg.algorithm == "mu":
         # H ← H ∘ (WᵀA) / ((WᵀW)H + ε), numerator from the carry
-        gram = state.w.mT @ state.w
-        h = _mu_update(h0, carry[0].to(dtype), gram @ h0, cfg.div_eps,
-                       cfg.zero_threshold)
+        gram = mm(state.w.mT, state.w, bf)
+        h = _mu_update(h0, carry[0].to(dtype), mm(gram, h0, bf),
+                       cfg.div_eps, cfg.zero_threshold)
     else:  # hals: k coordinate updates against the carried Grams
         wta = carry[0].to(dtype)
         wtw = carry[1].to(dtype)
         h = h0.clone()
         for j in range(h0.shape[1]):
             hj = h[:, j, :] + (
-                wta[:, j, :] - (wtw[:, j, None, :] @ h)[:, 0, :]
+                wta[:, j, :] - mm(wtw[:, j, None, :], h, bf)[:, 0, :]
             ) / (wtw[:, j, j][:, None] + cfg.div_eps)
             h[:, j, :] = clamp(hj, cfg.zero_threshold)
     h = torch.where(mask, h, h0)
-    hht = h @ h.mT
+    hht = mm(h, h.mT, bf)
     state = state._replace(w=state.w.clone(), h=h, w_prev=w_prev,
                            h_prev=h_prev, iteration=iteration)
     return state, hht
 
 
 def _accumulate(carry, inner, cw, h, w_t, algorithm: str,
-                need_inner: bool = True):
+                need_inner: bool = True, bf: bool = False):
     """Add one tile's WᵀA (and, for hals, WᵀW) to the float32 carry and,
     when a check or the final residual will read it, its ⟨WᵀA, H⟩ to
     ``inner``."""
@@ -628,7 +640,7 @@ def _accumulate(carry, inner, cw, h, w_t, algorithm: str,
             dim=(1, 2))
     if algorithm == "mu":
         return (carry[0] + cw.to(torch.float32),), inner
-    wtw_t = w_t.mT @ w_t
+    wtw_t = mm(w_t.mT, w_t, bf)
     return (carry[0] + cw.to(torch.float32),
             carry[1] + wtw_t.to(torch.float32)), inner
 
@@ -645,21 +657,22 @@ def _tile_update(state: TiledState, hht, hs, carry, inner, a_t, r0: int,
     mt = a_t.shape[0]
     mask = _lanes(~state.done)
     w_t = state.w[:, r0:r0 + mt, :]
-    aht = _contract_ah(a_t, hs, r, k)  # (R, mt, k), H is fresh
+    bf = bf16_products(cfg, w_t.device)
+    aht = _contract_ah(a_t, hs, r, k, bf)  # (R, mt, k), H is fresh
     if cfg.algorithm == "mu":
-        w_new = _mu_update(w_t, aht, w_t @ hht, cfg.div_eps,
+        w_new = _mu_update(w_t, aht, mm(w_t, hht, bf), cfg.div_eps,
                            cfg.zero_threshold)
     else:  # hals: coordinate updates are row-local, hence tile-local
         w_new = w_t.clone()
         for j in range(k):
             wj = w_new[:, :, j] + (
-                aht[:, :, j] - (w_new @ hht[:, j, :, None])[:, :, 0]
+                aht[:, :, j] - mm(w_new, hht[:, j, :, None], bf)[:, :, 0]
             ) / (hht[:, j, j][:, None] + cfg.div_eps)
             w_new[:, :, j] = clamp(wj, cfg.zero_threshold)
     w_new = torch.where(mask, w_new, w_t)
-    cw = _contract_wa(a_t, w_new)  # (R, k, n)
+    cw = _contract_wa(a_t, w_new, bf)  # (R, k, n)
     carry, inner = _accumulate(carry, inner, cw, state.h, w_new,
-                               cfg.algorithm, need_inner)
+                               cfg.algorithm, need_inner, bf)
     state.w[:, r0:r0 + mt, :] = w_new
     return carry, inner
 
@@ -671,19 +684,21 @@ def _tile_accumulate(state: TiledState, carry, inner, a_t, r0: int,
     final residual pass."""
     mt = a_t.shape[0]
     w_t = state.w[:, r0:r0 + mt, :]
-    cw = _contract_wa(a_t, w_t)
+    bf = bf16_products(cfg, w_t.device)
+    cw = _contract_wa(a_t, w_t, bf)
     return _accumulate(carry, inner, cw, state.h, w_t, cfg.algorithm,
-                       need_inner)
+                       need_inner, bf)
 
 
-def _gram_dnorm(state: TiledState, inner, nrm_a_sq) -> torch.Tensor:
+def _gram_dnorm(state: TiledState, inner, nrm_a_sq,
+                bf: bool = False) -> torch.Tensor:
     """RMS residual from Gram terms only (no pass over A):
     ‖A − WH‖² = ‖A‖² − 2⟨WᵀA, H⟩ + ⟨WᵀW, HHᵀ⟩, clamped at 0 against
     float32 cancellation near convergence."""
     m = state.w.shape[1]
     n = state.h.shape[2]
-    gram = state.w.mT @ state.w
-    hht = state.h @ state.h.mT
+    gram = mm(state.w.mT, state.w, bf)
+    hht = mm(state.h, state.h.mT, bf)
     cross = (gram.to(torch.float32) * hht.to(torch.float32)).sum(dim=(1, 2))
     sq = torch.clamp(nrm_a_sq - 2.0 * inner + cross, min=0.0)
     return torch.sqrt(sq / (m * n)).to(state.dnorm.dtype)
@@ -732,7 +747,8 @@ def _tiled_check(state: TiledState, inner, nrm_a_sq,
 
     dnorm = state.dnorm
     if cfg.algorithm == "hals" and cfg.use_tol_checks:
-        new_dnorm = _gram_dnorm(state, inner, nrm_a_sq)
+        new_dnorm = _gram_dnorm(state, inner, nrm_a_sq,
+                                bf16_products(cfg, state.w.device))
         hit = (is_check & torch.isfinite(state.dnorm)
                & (state.dnorm - new_dnorm <= cfg.tol_fun * state.dnorm)
                & ~done)
@@ -899,7 +915,8 @@ def run_tiled_pool(source, keys, k: int, solver_cfg: SolverConfig,
     for _, r0, _r1, a_t in stream.tiles():
         carry_f, inner_f = _tile_accumulate(state, carry_f, inner_f, a_t,
                                             r0, solver_cfg)
-    dnorm = _gram_dnorm(state, inner_f, nrm_a_sq)
+    dnorm = _gram_dnorm(state, inner_f, nrm_a_sq,
+                        bf16_products(solver_cfg, state.w.device))
     return TiledPoolResult(w=state.w, h=state.h,
                            iterations=state.iteration, dnorm=dnorm,
                            stop_reason=state.stop_reason, host_syncs=syncs)

@@ -160,16 +160,17 @@ def test_router_main_usage_errors_match_reference(gct, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv, item", [
-    # tiles run since the tile pipeline was ported; on a mesh they
+    # tiles run since the tile pipeline was ported, and a restart mesh
+    # runs since the restart axis was; the grid axes and mesh replicas
     # stay refused
-    (["--tile-rows", "16", "--feature-shards", "2"], "item 10"),
+    (["--tile-rows", "16", "--feature-shards", "2"], "item 10c-ii"),
     (["--tile-budget-bytes", "1024", "--tile-rows", "auto",
-      "--restart-shards", "2"], "item 10"),
-    (["--feature-shards", "2"], "item 10"),
-    (["--sample-shards", "2"], "item 10"),
-    (["--restart-shards", "2"], "item 10"),
+      "--sample-shards", "2"], "item 10c-ii"),
+    (["--feature-shards", "2"], "item 10c-ii"),
+    (["--sample-shards", "2"], "item 10c-ii"),
+    (["--restart-shards", "2", "--feature-shards", "2"], "item 10c-ii"),
     (["--serve-smoke", "--replicas", "2", "--replica-mesh=-,4"],
-     "item 10"),
+     "item 10c-ii"),
     (["--autotune"], "item 11"),
     (["--cache-dir", "CACHE"], "item 6"),
     (["--compile-cache", "CACHE"], "item 6"),
@@ -180,6 +181,31 @@ def test_unported_options_refused_naming_roadmap(gct, tmp_path, capsys,
     code, msg = _usage_error(pcli.main,
                              [gct, "--no-files", *argv, *CPU], capsys)
     assert code == 2 and f"ROADMAP §1 {item}" in msg, msg
+
+
+def test_restart_shards_run_byte_equal_to_unmeshed(gct, tmp_path, capsys):
+    """``--restart-shards N`` runs (the CPU named N times): the same
+    summary and output files as the unmeshed run; with tiles it is the
+    reference's compose error."""
+    argv = [gct, *RUN, "--no-plots", *CPU]
+    assert pcli.main(argv + ["--outdir", str(tmp_path / "a")]) == 0
+    plain = capsys.readouterr().out
+    assert pcli.main(argv + ["--outdir", str(tmp_path / "b"),
+                             "--restart-shards", "3"]) == 0
+    meshed = capsys.readouterr().out
+    assert meshed == plain
+    for name in sorted(os.listdir(tmp_path / "a")):
+        assert (open(tmp_path / "a" / name, "rb").read()
+                == open(tmp_path / "b" / name, "rb").read()), name
+    ref = _usage_error(ncli.main, [gct, "--tile-rows", "16",
+                                   "--restart-shards", "2", "--no-files"],
+                       capsys)
+    got = _usage_error(pcli.main, [gct, "--tile-rows", "16",
+                                   "--restart-shards", "2", "--no-files",
+                                   *CPU], capsys)
+    assert got[0] == ref[0] == 2
+    assert got[1] == ref[1].replace("nmfx.distributed",
+                                    "nmfx_torch.distributed")
 
 
 def test_unported_inputs_and_router_cache_refused(tmp_path, capsys):

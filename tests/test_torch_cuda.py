@@ -876,3 +876,54 @@ def test_sketched_short_solve_on_card_matches_cpu(card, algorithm):
     for x, y in ((got.w, want.w), (got.h, want.h)):
         torch.testing.assert_close(x.cpu(), y, rtol=0,
                                    atol=1e-4 * y.abs().max().item())
+
+
+@pytest.mark.parametrize("algorithm", ["mu", "hals"])
+def test_two_shards_on_one_card_byte_equal_to_one(card, algorithm):
+    """A restart mesh naming the one card twice: the whole grid on its
+    block kernel (row 3 for mu, row 5 for hals), each shard launching,
+    byte-equal per rank to the unmeshed run (the kernels' lanes do not
+    depend on the pool's other lanes)."""
+    from nmfx_torch import nmfconsensus
+    from nmfx_torch.datasets import two_group_matrix
+    from nmfx_torch.sweep import grid_mesh
+
+    a = two_group_matrix(300, 20, seed=7)
+    cfg = SolverConfig(algorithm=algorithm, backend="pallas", max_iter=400)
+    kw = dict(ks=(2, 3, 4), restarts=9, seed=3, solver_cfg=cfg)
+    one = nmfconsensus(a, **kw)
+    card0 = torch.device("cuda", 0)
+    fused_mu.reset_launch_counts()
+    two = nmfconsensus(a, mesh=grid_mesh(2, devices=[card0, card0]), **kw)
+    name = ("fused_block_iterations" if algorithm == "mu"
+            else "hals_block_iterations")
+    shards = {s: c.get(name, 0)
+              for s, c in fused_mu.SCOPED_LAUNCHES.items()}
+    assert sorted(shards) == ["shard0", "shard1"]
+    assert min(shards.values()) >= 1
+    for k in kw["ks"]:
+        for f in ("consensus", "iterations", "dnorms", "stop_reasons",
+                  "membership", "best_w", "best_h"):
+            x = np.asarray(getattr(one.per_k[k], f))
+            y = np.asarray(getattr(two.per_k[k], f))
+            assert x.tobytes() == y.tobytes(), (k, f)
+
+
+def test_bf16_batched_route_on_card_at_the_agreement_tier(card):
+    """``matmul_precision="bfloat16"`` off the kernels: every product's
+    operands rounded to bf16 on the card. The batched restart route
+    (neals) against its float32 run: the same best k and k = 2
+    memberships; the factors differ (the rounding is real)."""
+    from nmfx_torch import nmfconsensus
+    from nmfx_torch.datasets import two_group_matrix
+
+    a = two_group_matrix(300, 20, seed=7)
+    kw = dict(ks=(2, 3), restarts=8, seed=3)
+    f32 = nmfconsensus(a, solver_cfg=SolverConfig(algorithm="neals",
+                                                  max_iter=100), **kw)
+    bf16 = nmfconsensus(a, solver_cfg=SolverConfig(
+        algorithm="neals", max_iter=100, matmul_precision="bfloat16"), **kw)
+    assert bf16.best_k == f32.best_k == 2
+    np.testing.assert_array_equal(bf16.per_k[2].membership,
+                                  f32.per_k[2].membership)
+    assert not np.array_equal(bf16.per_k[2].best_w, f32.per_k[2].best_w)

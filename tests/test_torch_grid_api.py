@@ -212,12 +212,20 @@ def test_sweep_one_k_takes_the_references_call(algorithm, form):
 
 
 def test_sweep_one_k_refuses_a_mesh_naming_the_roadmap():
+    """A restart mesh runs; feature and sample axes name item 10c-ii,
+    by keyword and in the reference's positional slot."""
     import torch
 
     a = torch.as_tensor(two_group_matrix(40, 6, seed=1))
     key = _random.fold_in(_random.key(SEED), 2)
+    features = nmfx_torch.grid_mesh(1, 2, devices=["cpu"] * 2)
+    samples = nmfx_torch.grid_mesh(1, 1, 2, devices=["cpu"] * 2)
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
-        tsweep.sweep_one_k(a, key, 2, 2, mesh="restarts")
-    with pytest.raises(NotImplementedError, match="scale engines"):
+        tsweep.sweep_one_k(a, key, 2, 2, mesh=features)
+    with pytest.raises(NotImplementedError, match="item 10c-ii"):
         tsweep.sweep_one_k(a, key, 2, 2, nmfx_torch.SolverConfig(),
-                           nmfx_torch.InitConfig(), "argmax", object())
+                           nmfx_torch.InitConfig(), "argmax", samples)
+    meshed = tsweep.sweep_one_k(a, key, 2, 2, mesh=nmfx_torch.grid_mesh(
+        2, devices=["cpu"] * 2))
+    assert torch.equal(meshed.consensus,
+                       tsweep.sweep_one_k(a, key, 2, 2).consensus)

@@ -50,7 +50,8 @@ def test_import_leaves_jax_unloaded():
             "nmfx_torch.exec_cache, nmfx_torch.result_cache, "
             "nmfx_torch.serve, nmfx_torch.replica, nmfx_torch.router, "
             "nmfx_torch.cli, nmfx_torch.obs.aggregate, nmfx_torch.obs.top, "
-            "nmfx_torch.solvers.sketched, nmfx_torch.ops.lanczos_svd; "
+            "nmfx_torch.solvers.sketched, nmfx_torch.ops.lanczos_svd, "
+            "nmfx_torch.distributed; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'nmfx')); print(bad); sys.exit(bool(bad))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

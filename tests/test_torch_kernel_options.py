@@ -516,20 +516,23 @@ def test_sched_preconditions_raise_as_the_reference(jobs, case):
 STILL_REFUSED = {
     "autotune": (lambda: nmfx_torch.ExperimentalConfig(autotune="on"),
                  "§1 item 11"),
+    # bf16 operands run on every route now; on the kernels float64 stays
+    # refused under them too
     "bf16-dense-grid": (lambda: nmfx_torch.nmfconsensus(
         two_group_matrix(40, 6, seed=0), ks=(2, 3), restarts=2,
-        solver_cfg=nmfx_torch.SolverConfig(matmul_precision=BF16),
-        device="cpu"), "§1 item 4"),
-    "bf16-batched": (lambda: nmfx_torch.nmfconsensus(
-        two_group_matrix(40, 6, seed=0), ks=(2,), restarts=2,
         solver_cfg=nmfx_torch.SolverConfig(matmul_precision=BF16,
-                                           algorithm="als"),
+                                           backend="pallas",
+                                           dtype="float64"),
         device="cpu"), "§1 item 4"),
-    "bf16-solve": (lambda: solve(
-        np.ones((6, 4), np.float32), np.ones((6, 2), np.float32),
-        np.ones((2, 4), np.float32),
-        nmfx_torch.SolverConfig(matmul_precision=BF16), device="cpu"),
-        "§1 item 4"),
+    # the restart mesh runs; the grid axes and serving meshes do not
+    "grid-axes-mesh": (lambda: nmfx_torch.nmfconsensus(
+        two_group_matrix(40, 6, seed=0), ks=(2,), restarts=2,
+        mesh=nmfx_torch.grid_mesh(1, 2, devices=["cpu"] * 2)),
+        "§1 item 10c-ii"),
+    "serving-mesh": (lambda: nmfx_torch.ExecCache(device="cpu").executable(
+        (40, 12), nmfx_torch.ConsensusConfig(ks=(2,), restarts=2),
+        nmfx_torch.SolverConfig(), mesh=nmfx_torch.grid_mesh(
+            2, devices=["cpu"] * 2)), "§1 item 10c-ii"),
     # float64 runs on every plain-product route now; the kernels refuse
     "float64-batched": (lambda: nmfx_torch.nmfconsensus(
         two_group_matrix(40, 6, seed=0), ks=(2,), restarts=2,

@@ -654,13 +654,15 @@ def test_quality_elastic_is_taken():
 
 
 def test_unported_backend_refused_at_submit():
-    # bf16 operands off the kernel routes are the setting left unported
+    # bf16 operands run on every route now; float64 on the kernels is the
+    # setting left unported
     srv = pserve.NMFXServer(engine=FakeEngine(psweep.KSweepOutput),
                             start=False)
     try:
         with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
             srv.submit(_mat(), ks=(2,), restarts=2,
-                       solver_cfg=SolverConfig(matmul_precision="bfloat16"))
+                       solver_cfg=SolverConfig(dtype="float64",
+                                               backend="pallas"))
     finally:
         srv.close()
 

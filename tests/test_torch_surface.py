@@ -20,8 +20,9 @@ from nmfx.datasets import two_group_matrix
 from nmfx_torch.io import write_gct
 from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
 
-#: the reference's names the port leaves to ROADMAP §1 item 10c
-UNPORTED = {"default_mesh", "feature_mesh", "grid_mesh"}
+#: the reference's names the port leaves to a later ROADMAP item (none:
+#: the mesh builders came with item 10c's restart axis)
+UNPORTED: set = set()
 RUN = dict(ks=(2, 3), restarts=4, seed=5, max_iter=200)
 
 
@@ -46,11 +47,23 @@ def test_nmfconsensus_use_mesh_false_matches_the_reference():
                                       np.asarray(want.per_k[k].membership))
 
 
+@pytest.mark.parametrize("shape", [(1, 2, 1), (1, 1, 2)],
+                         ids=["object", "name"])
+def test_nmfconsensus_refuses_a_mesh_naming_item_10c(shape):
+    """A restart mesh runs; a mesh with a feature or sample axis (ids kept
+    from when every mesh was refused) names item 10c-ii."""
+    a = two_group_matrix(40, 6, seed=1)
+    mesh = nmfx_torch.grid_mesh(*shape, devices=["cpu"] * 2)
+    with pytest.raises(NotImplementedError, match="item 10c-ii"):
+        nmfx_torch.nmfconsensus(a, ks=(2,), restarts=2, mesh=mesh,
+                                device="cpu")
+
+
 @pytest.mark.parametrize("mesh", [object(), "restarts"],
                          ids=["object", "name"])
-def test_nmfconsensus_refuses_a_mesh_naming_item_10c(mesh):
+def test_nmfconsensus_refuses_a_mesh_that_is_not_one(mesh):
     a = two_group_matrix(40, 6, seed=1)
-    with pytest.raises(NotImplementedError, match="item 10c"):
+    with pytest.raises(TypeError, match="grid_mesh"):
         nmfx_torch.nmfconsensus(a, ks=(2,), restarts=2, mesh=mesh,
                                 device="cpu")
 

@@ -126,9 +126,9 @@ def test_solver_config_round_trips_from_reference_dict():
     (lambda: dict(solver_cfg=nmfx_torch.SolverConfig(dtype="float64",
                                                      backend="pallas")),
      "§1 item 4"),
-    # bf16 operands on a route that reaches no kernel
-    (lambda: dict(solver_cfg=nmfx_torch.SolverConfig(
-        backend="packed", matmul_precision="bfloat16")), "§1 item 4"),
+    # the restart mesh runs; a feature axis does not
+    (lambda: dict(mesh=nmfx_torch.grid_mesh(1, 2, devices=["cpu"] * 2)),
+     "§1 item 10c-ii"),
 ])
 def test_unported_routes_name_their_roadmap_item(kw, item):
     a = two_group_matrix(40, 6, seed=0)
