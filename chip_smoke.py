@@ -7,6 +7,7 @@ versions.
     python3 chip_smoke.py --tiles    # build + kernel parity + phase 12
     python3 chip_smoke.py --scale    # build + parity + 4a, 4d + phase 13
     python3 chip_smoke.py --mesh     # build + parity + 4a, 4d + phase 14
+    python3 chip_smoke.py --grid-mesh  # build + parity + phase 15
 
 Phases (any failure exits non-zero; nothing is caught):
   1. card and build: nvidia-smi's name and power limit, the nvcc build
@@ -50,8 +51,8 @@ Phases (any failure exits non-zero; nothing is caught):
      b. the same whole grid on the join-the-updates kernel
         (fused_updates "fused"), byte-equal to a;
      c. the per-rank route (backend "pallas", grid_exec "per_k") on the
-        per-iteration kernel pair, each rank's mean iterations beside
-        the whole grid's from a;
+        per-iteration kernel pair at ks 2..5, each rank's mean iterations
+        beside the whole grid's from a;
      d. hals on the whole grid (backend "pallas": the slot scheduler on
         the HALS block kernel), beside the same sweep on the dense layout
         (backend "auto"), held to the reference's agreement band;
@@ -62,10 +63,11 @@ Phases (any failure exits non-zero; nothing is caught):
         memberships; then the native linkage and cutree against numpy's
         on the run's n = 500 consensus matrices, byte-equal, both timed;
      f. the options (phase_option_paths), each beside the float32 run of
-        its route: the whole grid (at ks 2..6), the per-rank route (at ks
+        its route: the whole grid (at ks 2..5), the per-rank route (at ks
         2..3) and hals under matmul_precision "bfloat16", the grid with
-        factor_dtype "bfloat16_w", the ragged class-blocked pool (its per-job
-        iterations and stops equal to a uniform check_block = 1 run's)
+        factor_dtype "bfloat16_w", the ragged class-blocked pool at ks
+        2..6 (its per-job iterations and stops equal to a uniform
+        check_block = 1 run's at those ks)
         and alias_io with block_m 256 (byte-equal to a); then the 200x24
         input under each option (and factor_dtype "bfloat16") on the
         card and on the CPU: the same iterations, stops and memberships;
@@ -135,9 +137,9 @@ Phases (any failure exits non-zero; nothing is caught):
         (0, 1.05], the per-lane bandwidth fraction finite and above 0
         (printed, no upper gate); each perf_summary() record and
         perf_report();
-     c. the bundled design through the ledger (8 chunks of 5 restarts,
-        tracer on): the registry's chunk counter, its read shim, the
-        ckpt.commit flight events and spans all 8; the Prometheus text
+     c. the bundled design at ks 2..3 through the ledger (4 chunks of 5
+        restarts, tracer on): the registry's chunk counter, its read
+        shim, the ckpt.commit flight events and spans all 4; the Prometheus text
         names the checkpoint and input-cache series; solve.nonfinite
         armed leaves a fire event and a NUMERIC_FAULT restart, and a
         configured flight dump lists the armed site;
@@ -157,7 +159,7 @@ Phases (any failure exits non-zero; nothing is caught):
         per-k mean iterations side by side;
      b. two hals requests packed on row 5, each byte-equal to its solo
         run;
-     c. eight requests at once (seeds 11-18) to a packing server and to
+     c. six requests at once (seeds 11-16) to a packing server and to
         a pack=False one: wall, requests/s, e2e p50/p95, mean queue
         wait, dispatches, packing efficiency, row 3 launches; every
         packed result byte-equal to its pack=False twin;
@@ -267,7 +269,7 @@ Phases (any failure exits non-zero; nothing is caught):
     just after:
      a. matmul_precision "bfloat16" on routes that reach no kernel (every
         plain product's operands rounded to bf16, float32 sums): the north
-        star's whole grid with every other default at ks 2..4, solve() at
+        star's whole grid with every other default at ks 2..3, solve() at
         k = 2 from one random start, and kl on the batched restart route
         at k = 2 (10 restarts, max_iter 100), each beside its float32 run
         (4a's grid): best k and the k = 2 labels equal, per-k iterations
@@ -275,13 +277,13 @@ Phases (any failure exits non-zero; nothing is caught):
      b. grid_mesh(2, devices=[cuda:0, cuda:0]), two restart shards on the
         one card: mu's whole grid (row 3) at 4a's full depth, byte-equal
         per rank to 4a; hals' (row 5), byte-equal to 4d, every restart's
-        factors too; three shards over 50 restarts at ks 2..4 (one pad
+        factors too; three shards over 50 restarts at ks 2..3 (one pad
         lane, nmfx_mesh_pad_lanes_total +1), byte-equal to the unmeshed
-        grid at ks 2..4 (a pool's lanes are padded to its largest rank,
+        grid at ks 2..3 (a pool's lanes are padded to its largest rank,
         so 4a's ranks are another geometry);
         the per-rank pallas route (rows 1-2) at ks 2..3, byte-equal to
         4c's ranks (in --mesh mode to its own unmeshed run); neals on the
-        batched restart route (cuBLAS) at ks 2..4 beside its unmeshed
+        batched restart route (cuBLAS) at ks 2..3 beside its unmeshed
         run, the tier met printed (byte-equal, else the agreement tier
         gated); each shard's launches;
      c. two processes on the one card (nmfx_torch.distributed over a
@@ -294,6 +296,36 @@ Phases (any failure exits non-zero; nothing is caught):
         one shard):
         byte-equal to a single-device checkpointed run, every record
         committed, both shard_<i>.json heartbeats present (one dead).
+
+15. the feature and sample mesh axes (phase_grid_mesh; every mesh names
+    the one card several times, so its shards share it), each run with
+    the launch counts set to 0 just before it and read just after (0
+    everywhere: nmfx refuses the kernels on grid axes):
+     a. mu (backend "packed") at the north star, ks 2..3, every restart,
+        max_iter 600, on the grid meshes 1x2x1, 1x1x2 and 1x2x2 beside
+        the unmeshed
+        per-rank packed run: best k equal, every rank's consensus within
+        nmfx's grid-mesh agreement bound (atol 0.35); max|dC|, membership
+        mismatches and iteration differences printed per rank;
+     b. kl on 1x2x1 at k = 2 (10 restarts, restart_chunk 5, max_iter 100)
+        beside the unmeshed batched kl: memberships equal;
+     c. hals, neals and snmf on 1x1x2 over the bundled 1000x40 design at
+        ks 2..3 (10 restarts) beside their unmeshed runs, at the Gram
+        family's tier: best k and the k = 2 memberships equal, every
+        rank's consensus within the agreement bound, iterations within
+        max(25 checks, half the unmeshed count);
+     d. mu on 1x2x1 in two processes over gloo, one shard of the card
+        each (distributed.consensus(feature_shards=2)), on the bundled
+        design at ks 2..3 (max_iter 300; the interpreters start with the
+        phase and run beside 15a-c): byte-equal to the same mesh in one
+        process;
+     e. a ServeConfig(mesh_spec="1x2") server answering two north-star
+        requests (ks 2..3, 10 restarts, max_iter 300), each byte-equal to
+        sweep() on its mesh; a router over ReplicaPool(mesh_specs=(None, "1x2"))
+        placing a 20000x1000 two-group request (80 MB, k = 2, 4
+        restarts, max_iter 200) on the mesh replica, its comm_model bytes
+        an iteration printed, and a bundled-design request on the plain
+        replica.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -1330,10 +1362,17 @@ def phase_host_tail(torch, fm):
                                  f" at k={k}")
 
 
+#: 4c's ranks: the per-rank route through the kernel pair at ks 2..5 (cut
+#: from 2..10, whose ranks 6..10 took 26.7 s of its 37.9 s on one H100, to
+#: pay for phase 15); its dependants read ranks 2..3
+PER_RANK_KS = KS[:4]
+
+
 def phase_per_rank_path(torch, fm, grid):
     """nmfconsensus at the north-star width, one rank at a time, through
-    the per-iteration kernel pair; each rank's iterations beside those of
-    the whole grid's run ``grid`` (recorded, not a gate)."""
+    the per-iteration kernel pair (ranks ``PER_RANK_KS``); each rank's
+    iterations beside those of the whole grid's run ``grid`` (recorded,
+    not a gate)."""
     import nmfx_torch
 
     m, n, r, _ = NORTH_STAR
@@ -1350,12 +1389,12 @@ def phase_per_rank_path(torch, fm, grid):
     fm.reset_launch_counts()
     clock[0] = time.perf_counter()
     res = nmfx_torch.nmfconsensus(
-        a, ks=KS, restarts=r, solver_cfg=nmfx_torch.SolverConfig(
+        a, ks=PER_RANK_KS, restarts=r, solver_cfg=nmfx_torch.SolverConfig(
             backend="pallas"), grid_exec="per_k", on_rank=on_rank)
     launches = dict(fm.LAUNCHES)
     need = 0
     same = []
-    for k in KS:
+    for k in PER_RANK_KS:
         kr, gr = res.per_k[k], grid.per_k[k]
         wall, syncs = ranks[k]
         jobs = np.array_equal(kr.iterations, gr.iterations)
@@ -1369,7 +1408,7 @@ def phase_per_rank_path(torch, fm, grid):
               f"host syncs {syncs}", flush=True)
         need += int(kr.iterations.max())
     print(f"main per-rank vs whole grid: per-job iterations equal at ks "
-          f"{same} of {list(KS)}", flush=True)
+          f"{same} of {list(PER_RANK_KS)}", flush=True)
     check_sweep(res, "per-rank route", n)
     for name in ("fused_h_update", "lane_gram", "fused_w_update"):
         if launches[name] < need:
@@ -2135,12 +2174,17 @@ OPTION_PATHS = (
      "auto", "fused_block_iterations[alias_io]"),
 )
 #: the per-rank route under bf16 at ks 2..3 and the whole grid under
-#: bf16 at ks 2..6, their depth cut to keep the script inside its time
+#: bf16 at ks 2..5, their depth cut to keep the script inside its time
 #: limit (69 s and 29 s at ks 2..10 on one H100; the per-rank route cut
 #: from ks 2..5, 23.319 s on one H100, with phase 7 to free phase
-#: 13's seconds); a job's iterations do not depend on the others in its
-#: pool, so each rank meets the float32 run's same rank
-OPTION_KS = {"per-rank bf16": KS[:2], "grid bf16": KS[:5]}
+#: 13's seconds; the grid from ks 2..6, 13.124 s on one H100, to
+#: pay for phase 15); a job's iterations do not depend on the others in
+#: its pool, so each rank meets the float32 run's same rank. The ragged
+#: pool and its uniform check_block = 1 twin at ks 2..6 (17.460 and
+#: 18.334 s at ks 2..10 on one H100, cut to pay for phase 15): per-job
+#: iterations and stop reasons of one pool geometry, both at those ks
+OPTION_KS = {"per-rank bf16": KS[:2], "grid bf16": KS[:4],
+             "grid ragged": KS[:5], "uniform cb1": KS[:5]}
 
 
 def solver_cfg(nmfx_torch, kw):
@@ -2201,7 +2245,8 @@ def phase_option_paths(torch, fm, base):
     base = dict(base)
     t0 = time.perf_counter()
     base["uniform cb1"] = (nmfx_torch.nmfconsensus(
-        a, ks=KS, restarts=r, solver_cfg=nmfx_torch.SolverConfig(
+        a, ks=OPTION_KS["uniform cb1"], restarts=r,
+        solver_cfg=nmfx_torch.SolverConfig(
             backend="pallas", check_block=1)), None)
     torch.cuda.synchronize()
     base["uniform cb1"] = (base["uniform cb1"][0], time.perf_counter() - t0)
@@ -2831,8 +2876,9 @@ def phase_durability(torch, fm, grid, per_rank, hals, *, a=None, ks=KS,
 #: near its budget)
 OBS_PER_K_KS = (2, 3, 4)
 #: phase 9c/9d: the bundled design's ranks and restarts, and 9c's ledger
-#: records of 5 restarts (8 chunks)
-BUNDLED_KS, BUNDLED_RESTARTS, OBS_CHUNK = (2, 3, 4, 5), 10, 5
+#: records of 5 restarts (4 chunks; the ranks cut from 2..5, 8 chunks and
+#: 16.042 s on one H100, to pay for phase 15)
+BUNDLED_KS, BUNDLED_RESTARTS, OBS_CHUNK = (2, 3), 10, 5
 #: the peak-table row the card's attributions must use
 OBS_PEAK_KIND = "NVIDIA H100 80GB HBM3"
 #: MFU's ceiling: the model's FLOPs are work every lane really does, so
@@ -3152,7 +3198,9 @@ def phase_obs(torch, fm, grid, *, a=None, ks=KS, restarts=None,
 #: phase 10: nmfx's submit defaults (ks 2..5, 10 restarts), the packed
 #: requests' seeds (10a), the traffic burst's (10c), the hals pair's (10b)
 SERVE_KS, SERVE_RESTARTS = (2, 3, 4, 5), 10
-SERVE_SEEDS, TRAFFIC_SEEDS, HALS_SEEDS = (1, 2, 3, 4), tuple(range(11, 19)), \
+#: (the burst cut from 8 requests to 6 to pay for phase 15: pack=False
+#: served 8 in 25.136 s on one H100)
+SERVE_SEEDS, TRAFFIC_SEEDS, HALS_SEEDS = (1, 2, 3, 4), tuple(range(11, 17)), \
     (5, 6)
 #: phase 10d: the deadline clamp's rate estimate (iterations a second)
 #: and timeout: 4 x 600 s rounds up to a budget of 4096 < 10000
@@ -3224,7 +3272,7 @@ def phase_serve(torch, fm, *, a=None, bundled=None, ks=SERVE_KS,
     mu requests packed into one dispatch on row 3, each byte-equal to
     its solo nmfconsensus(exec_cache=) run, one held to the plain
     nmfconsensus at the agreement tier; b. two hals requests packed on
-    row 5, each byte-equal to its solo run; c. a burst of eight requests
+    row 5, each byte-equal to its solo run; c. a burst of six requests
     to a packing server and to a pack=False one (walls, requests/s, e2e
     p50/p95, queue wait, dispatches, packing efficiency, launches),
     every packed result byte-equal to its pack=False twin; d. the
@@ -4423,14 +4471,17 @@ def phase_scale_engines(torch, fm, exact):
 # --- phase 14: bf16 operands off the kernels, the restart mesh on one
 # card, two processes on one card, elastic shards --------------------------
 
-#: 14a's ranks of the bf16 whole grid (against 4a's float32 ranks)
-MESH_BF16_KS = (2, 3, 4)
+#: 14a's ranks of the bf16 whole grid (against 4a's float32 ranks; cut
+#: from 2..4 to pay for phase 15: MM's grid took 18.3-27.2 s there, k = 4
+#: its longest jobs)
+MESH_BF16_KS = (2, 3)
 #: 14a's kl on the batched route: k = 2, restarts and iterations cut to
 #: phase 7's kl budget (max_iter 100) at a fifth of its restarts
 MESH_KL_RESTARTS, MESH_KL_MAX_ITER = 10, 100
-#: 14b: three shards over 50 restarts (one padded lane) at ks 2..4, the
-#: per-rank pallas route at ks 2..3 against 4c's ranks, neals at ks 2..4
-MESH_THREE_KS, MESH_PER_RANK_KS, MESH_NEALS_KS = (2, 3, 4), (2, 3), (2, 3, 4)
+#: 14b: three shards over 50 restarts (one padded lane), the per-rank
+#: pallas route against 4c's ranks and neals, all at ks 2..3 (three
+#: shards and neals cut from 2..4 to pay for phase 15)
+MESH_THREE_KS, MESH_PER_RANK_KS, MESH_NEALS_KS = (2, 3), (2, 3), (2, 3)
 #: 14c / 14d: the bundled design's sweep (14d's elastic ranks cut to
 #: 2..3: at 2..5 it and its single-device reference took 31.6 s)
 MESH_BUNDLED_KS, MESH_BUNDLED_RESTARTS = (2, 3, 4, 5), 10
@@ -4636,7 +4687,7 @@ def _phase_mesh(torch, fm, grid, hals, per_rank, scratch):
                              "shard launched no row-5 kernel")
 
     # the reference at these ranks: the pool's lanes are padded to the
-    # largest rank, so ks 2..4 is its own pool geometry, not 4a's
+    # largest rank, so ks 2..3 is its own pool geometry, not 4a's
     three_ref = nmfx_torch.nmfconsensus(
         a, ks=MESH_THREE_KS, restarts=r,
         solver_cfg=nmfx_torch.SolverConfig(backend="pallas"))
@@ -4827,6 +4878,351 @@ def _phase_mesh(torch, fm, grid, hals, per_rank, scratch):
     return launched
 
 
+# --- phase 15: the feature and sample mesh axes on one card, two
+# processes on one card over gloo, mesh serving and priced placement --------
+
+#: 15a: mu at the north star, ks 2..3, every restart, on these grid meshes,
+#: to max_iter 600 (from the default 10000: k = 2's slowest lane ran 436
+#: iterations and k = 3's 1738; each lane's stop is compared at one budget)
+GRID_KS, GRID_MAX_ITER = (2, 3), 600
+GRID_SHAPES = ((1, 2, 1), (1, 1, 2), (1, 2, 2))
+#: nmfx's grid-mesh agreement bound (tests/test_mesh_parity.py:52-60)
+GRID_AGREEMENT_ATOL = 0.35
+#: 15b: kl on 1x2x1 at k = 2
+GRID_KL_RESTARTS, GRID_KL_CHUNK, GRID_KL_MAX_ITER = 10, 5, 100
+#: 15c: the Gram family on 1x1x2 over the bundled design
+GRID_GRAM = ("hals", "neals", "snmf")
+GRID_BUNDLED_RESTARTS = 10
+#: 15e: the served north-star requests (max_iter cut from the default
+#: 10000: the byte-equality to sweep() does not depend on convergence)
+#: and the atlas request
+GRID_SERVE_RESTARTS, GRID_SERVE_MAX_ITER = 10, 300
+GRID_ATLAS = (20000, 500, 4, 200)  # genes, samples per group, restarts, iters
+GRID_PROC_TIMEOUT_S = 300.0
+#: 15d: the two processes' depth (the byte-equality does not depend on
+#: convergence; at the default 10000 every iteration's exchanges over
+#: gloo took the phase to 32.5 s on one H100)
+GRID_PROC_MAX_ITER = 300
+
+_GRID_WORKER = r"""
+import hashlib, json, os, sys
+sys.path.insert(0, sys.argv[5])
+import numpy as np
+import torch
+coord, pid, outdir, timeout = (sys.argv[1], int(sys.argv[2]), sys.argv[3],
+                               float(sys.argv[4]))
+import nmfx_torch
+import nmfx_torch.distributed as dist
+from nmfx_torch.datasets import two_group_matrix
+from nmfx_torch.ops import fused_mu as fm
+dist.initialize(coordinator_address=coord, num_processes=2,
+                process_id=pid, timeout_s=timeout)
+a = two_group_matrix(n_genes=1000, n_per_group=20, seed=123)
+fm.reset_launch_counts()
+res = dist.consensus(a, ks=(2, 3), restarts=10, seed=123, feature_shards=2,
+                     devices=["cuda:0"], solver_cfg=nmfx_torch.SolverConfig(
+                         max_iter=int(sys.argv[6])))
+torch.cuda.synchronize()
+digest = {str(k): hashlib.sha256(b"".join(
+    np.ascontiguousarray(np.asarray(getattr(res.per_k[k], f))).tobytes()
+    for f in ("consensus", "rho", "dispersion", "membership", "order",
+              "iterations", "dnorms", "stop_reasons", "best_w",
+              "best_h"))).hexdigest()
+    for k in res.ks}
+with open(os.path.join(outdir, f"grid{pid}.json"), "w") as f:
+    json.dump({"summary": res.summary(), "digest": digest,
+               "launches": sum(fm.LAUNCHES.values())}, f)
+dist.shutdown()
+"""
+
+
+def _grid_mesh(psweep, card, shape):
+    r, f, s = shape
+    return psweep.grid_mesh(r, f, s, devices=[card] * (r * f * s))
+
+
+def _dc(got, want, ks) -> float:
+    return max(float(np.abs(got.per_k[k].consensus
+                            - want.per_k[k].consensus).max()) for k in ks)
+
+
+def phase_grid_mesh(torch, fm):
+    """Phase 15 (see the module docstring): the feature and sample axes
+    on one card (every mesh names the card several times, so its shards
+    share it), two processes over gloo, mesh serving and priced
+    placement. Returns each run's kernel launches (0: nmfx refuses the
+    kernels on grid axes)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix=".grid_smoke_",
+                                     dir=HERE) as scratch:
+        return _phase_grid_mesh(torch, fm, scratch)
+
+
+def _phase_grid_mesh(torch, fm, scratch):
+    from nmfx_torch.datasets import two_group_matrix
+
+    a = north_star_matrix()
+    bundled = two_group_matrix(n_genes=1000, n_per_group=20, seed=123)
+    card0 = torch.device("cuda", 0)
+    launched = {}
+
+    # 15d's two interpreters start first: they reach the card and meet
+    # over gloo while 15a-c run (their runs share the card with them)
+    with __import__("socket").socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{sock.getsockname()[1]}"
+    outdir = os.path.join(scratch, "procs")
+    os.makedirs(outdir)
+    env = dict(os.environ)
+    for var in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(var, None)
+    t_procs = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _GRID_WORKER, coord, str(i), outdir,
+         str(GRID_PROC_TIMEOUT_S / 2), HERE, str(GRID_PROC_MAX_ITER)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(2)]
+    try:
+        return _grid_parts(torch, fm, a, bundled, card0, launched, procs,
+                           t_procs, outdir, scratch)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _grid_parts(torch, fm, a, bundled, card0, launched, procs, t_procs,
+                outdir, scratch):
+    import nmfx_torch
+    from nmfx_torch import collectives
+    from nmfx_torch import sweep as psweep
+    from nmfx_torch.datasets import two_group_matrix
+
+    m, n, r, _ = NORTH_STAR
+
+    def timed(label, fn):
+        fm.reset_launch_counts()
+        collectives.reset_calls()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        launched[label] = sum(fm.LAUNCHES.values())
+        if launched[label]:
+            raise AssertionError(f"{label}: a kernel launched on a grid "
+                                 "mesh (nmfx refuses the kernels there)")
+        return out, time.perf_counter() - t0, sum(collectives.CALLS.values())
+
+    # -- 15a: mu at the north star on three grid meshes ------------------
+    packed = nmfx_torch.SolverConfig(backend="packed",
+                                     max_iter=GRID_MAX_ITER)
+    ref, ref_s, _ = timed("15a unmeshed", lambda: nmfx_torch.nmfconsensus(
+        a, ks=GRID_KS, restarts=r, grid_exec="per_k", solver_cfg=packed))
+    check_sweep(ref, "15a unmeshed", n)
+    print(f"grid 15a unmeshed packed per-rank mu (ks {GRID_KS}, {r} "
+          f"restarts, max_iter {GRID_MAX_ITER}): {ref_s:.3f} s, mean iters "
+          f"{[round(float(ref.per_k[k].iterations.mean()), 1) for k in GRID_KS]}",
+          flush=True)
+    for shape in GRID_SHAPES:
+        mesh = _grid_mesh(psweep, card0, shape)
+        label = "15a " + "x".join(map(str, shape))
+        got, s, calls = timed(label, lambda: nmfx_torch.nmfconsensus(
+            a, ks=GRID_KS, restarts=r, mesh=mesh, solver_cfg=packed))
+        check_finite(got, label, n)
+        for k in GRID_KS:
+            g, w = got.per_k[k], ref.per_k[k]
+            dc = float(np.abs(g.consensus - w.consensus).max())
+            mism = int((g.membership != w.membership).sum())
+            dit = int(np.abs(g.iterations.astype(np.int64)
+                             - w.iterations.astype(np.int64)).max())
+            print(f"grid {label} k={k}: max|dC| {dc:.3g}, membership "
+                  f"mismatches {mism}, max |d iterations| {dit}, mean "
+                  f"iters {g.iterations.mean():.1f}", flush=True)
+            if dc > GRID_AGREEMENT_ATOL:
+                raise AssertionError(f"{label} k={k}: max|dC| {dc} beyond "
+                                     f"{GRID_AGREEMENT_ATOL}")
+        print(f"grid {label} mu (ks {GRID_KS}, {r} restarts): {s:.3f} s "
+              f"({s / ref_s:.2f}x the unmeshed run), {calls} collectives "
+              f"of shard (0, 0), launches {launched[label]}, best k "
+              f"{got.best_k} (unmeshed {ref.best_k})", flush=True)
+        if got.best_k != ref.best_k:
+            raise AssertionError(f"{label}: best k {got.best_k} != "
+                                 f"{ref.best_k}")
+
+    # -- 15b: kl on 1x2x1 ------------------------------------------------
+    kl_kw = dict(ks=(2,), restarts=GRID_KL_RESTARTS)
+    kl_ref, kl_ref_s, _ = timed("15b unmeshed", lambda: nmfx_torch.nmfconsensus(
+        a, solver_cfg=nmfx_torch.SolverConfig(
+            algorithm="kl", max_iter=GRID_KL_MAX_ITER), **kl_kw))
+    mesh = _grid_mesh(psweep, card0, (1, 2, 1))
+    kl, kl_s, calls = timed("15b 1x2x1", lambda: nmfx_torch.nmfconsensus(
+        a, mesh=mesh, solver_cfg=nmfx_torch.SolverConfig(
+            algorithm="kl", max_iter=GRID_KL_MAX_ITER,
+            restart_chunk=GRID_KL_CHUNK), **kl_kw))
+    same = np.array_equal(kl.per_k[2].membership, kl_ref.per_k[2].membership)
+    print(f"grid 15b kl on 1x2x1 (k = 2, {GRID_KL_RESTARTS} restarts, "
+          f"restart_chunk {GRID_KL_CHUNK}, max_iter {GRID_KL_MAX_ITER}): "
+          f"{kl_s:.3f} s (unmeshed batched {kl_ref_s:.3f} s), {calls} "
+          f"collectives, memberships equal {same}, max|dC| "
+          f"{_dc(kl, kl_ref, (2,)):.3g}", flush=True)
+    if not same:
+        raise AssertionError("15b: kl's memberships on 1x2x1 differ")
+
+    # -- 15c: hals, neals and snmf on 1x1x2 over the bundled design --------
+    mesh = _grid_mesh(psweep, card0, (1, 1, 2))
+    for alg in GRID_GRAM:
+        cfg = nmfx_torch.SolverConfig(algorithm=alg)
+        kw = dict(ks=GRID_KS, restarts=GRID_BUNDLED_RESTARTS, seed=123,
+                  solver_cfg=cfg)
+        want, want_s, _ = timed(f"15c {alg} unmeshed",
+                                lambda: nmfx_torch.nmfconsensus(bundled,
+                                                                **kw))
+        got, s, calls = timed(f"15c {alg}", lambda: nmfx_torch.nmfconsensus(
+            bundled, mesh=mesh, **kw))
+        check_finite(got, f"15c {alg}", bundled.shape[1])
+        for k in GRID_KS:
+            g, w = got.per_k[k], want.per_k[k]
+            same = np.array_equal(g.membership, w.membership)
+            it_w = w.iterations.astype(np.int64)
+            drift = np.abs(g.iterations.astype(np.int64) - it_w)
+            bound = np.maximum(25 * cfg.check_every, it_w // 2)
+            dc = _dc(got, want, (k,))
+            print(f"grid 15c {alg} on 1x1x2 k={k}: memberships equal "
+                  f"{same}, max|dC| {dc:.3g}, max |d iterations| "
+                  f"{int(drift.max())} (bound {int(bound.min())}+), "
+                  f"{s:.3f} s (unmeshed {want_s:.3f} s), {calls} "
+                  f"collectives", flush=True)
+            # the Gram family's tier: iterations only bounded; memberships
+            # equal at the design's true rank (k = 2); at k = 3, which
+            # splits a group, a TolFun/TolX crossing moved by the sums'
+            # order may move a restart's labels (ROADMAP §3): held there
+            # to nmfx's grid-mesh agreement bound
+            if (drift > bound).any() or dc > GRID_AGREEMENT_ATOL or (
+                    k == 2 and not same):
+                raise AssertionError(f"15c {alg} k={k}: beyond the Gram "
+                                     "family's tier")
+        if got.best_k != want.best_k:
+            raise AssertionError(f"15c {alg}: best k {got.best_k} != "
+                                 f"{want.best_k}")
+
+    # -- 15d: two processes, one shard each of the one card --------------
+    # (started with the phase) and the one-process run of the same mesh
+    one, one_s, _ = timed("15d one process", lambda: nmfx_torch.nmfconsensus(
+        bundled, ks=GRID_KS, restarts=GRID_BUNDLED_RESTARTS, seed=123,
+        mesh=_grid_mesh(psweep, card0, (1, 2, 1)),
+        solver_cfg=nmfx_torch.SolverConfig(max_iter=GRID_PROC_MAX_ITER)))
+    t0 = time.perf_counter()
+    errs = []
+    for p in procs:
+        _, err = p.communicate(timeout=GRID_PROC_TIMEOUT_S)
+        if p.returncode != 0:
+            errs.append(err[-3000:])
+    procs_s = time.perf_counter() - t_procs
+    waited = time.perf_counter() - t0
+    if errs:
+        raise AssertionError(f"15d: a process failed: {errs}")
+    r0, r1 = (json.load(open(os.path.join(outdir, f"grid{i}.json")))
+              for i in range(2))
+    want = kresult_digest(one)
+    byte_equal = r0["digest"] == r1["digest"] == want
+    print(f"grid 15d mu on 1x2x1 in two processes over gloo (one shard of "
+          f"the card each; the bundled design, ks {GRID_KS}, "
+          f"{GRID_BUNDLED_RESTARTS} restarts, max_iter {GRID_PROC_MAX_ITER})"
+          f": {procs_s:.3f} s with the "
+          f"interpreters from the phase's start, {waited:.3f} s of it "
+          f"waited for after 15a-c and the one-process run (one process "
+          f"{one_s:.3f} s), launches "
+          f"{[p['launches'] for p in (r0, r1)]}; byte-equal to the "
+          f"one-process run: {byte_equal}", flush=True)
+    print(r0["summary"], flush=True)
+    if not byte_equal or r0["summary"] != one.summary() or \
+            r0["launches"] or r1["launches"]:
+        raise AssertionError("15d: two processes are not byte-equal to "
+                             "one, or a kernel launched")
+
+    # -- 15e: mesh serving and priced placement ------------------------------
+    from nmfx_torch.config import ConsensusConfig
+    from nmfx_torch.obs import costmodel
+    from nmfx_torch.replica import ReplicaPool
+    from nmfx_torch.router import NMFXRouter, RouterConfig
+    from nmfx_torch.serve import NMFXServer, ServeConfig
+
+    served_ok = True
+    t0 = time.perf_counter()
+    fm.reset_launch_counts()
+    with NMFXServer(ServeConfig(mesh_spec="1x2"), device=card0) as srv:
+        futs = [srv.submit(a, ks=GRID_KS, restarts=GRID_SERVE_RESTARTS,
+                           seed=s, solver_cfg=nmfx_torch.SolverConfig(
+                               max_iter=GRID_SERVE_MAX_ITER))
+                for s in (1, 2)]
+        answers = [f.result(timeout=GRID_PROC_TIMEOUT_S) for f in futs]
+        srv_mesh = srv.engine.mesh
+    serve_s = time.perf_counter() - t0
+    launched["15e served"] = sum(fm.LAUNCHES.values())
+    for seed, ans in zip((1, 2), answers):
+        direct = psweep.sweep(a, ConsensusConfig(
+            ks=GRID_KS, restarts=GRID_SERVE_RESTARTS, seed=seed),
+            nmfx_torch.SolverConfig(max_iter=GRID_SERVE_MAX_ITER),
+            mesh=srv_mesh)
+        for k in GRID_KS:
+            for f in ("consensus", "iterations", "dnorms", "stop_reasons",
+                      "best_w", "best_h"):
+                want = getattr(direct[k], f).cpu().numpy()
+                got = np.asarray(getattr(ans.per_k[k], f)).astype(want.dtype)
+                served_ok &= got.tobytes() == want.tobytes()
+    print(f"grid 15e ServeConfig(mesh_spec='1x2') server: two north-star "
+          f"requests (ks {GRID_KS}, {GRID_SERVE_RESTARTS} restarts, "
+          f"max_iter {GRID_SERVE_MAX_ITER}) in "
+          f"{serve_s:.3f} s, launches {launched['15e served']}; each "
+          f"byte-equal to sweep() on the same mesh: {served_ok}", flush=True)
+    if not served_ok or launched["15e served"]:
+        raise AssertionError("15e: a served answer is not sweep()'s on its "
+                             "mesh")
+
+    genes, per_group, a_restarts, a_iters = GRID_ATLAS
+    atlas = two_group_matrix(n_genes=genes, n_per_group=per_group, seed=7)
+    atlas = atlas.astype(np.float32)
+    pool = ReplicaPool(2, root=os.path.join(scratch, "pool"), mode="thread",
+                       mesh_specs=(None, "1x2"), device=card0,
+                       mesh_devices=[card0, card0])
+    try:
+        mesh_rep = [rep for rep in pool.routable() if rep.n_devices == 2][0]
+        t0 = time.perf_counter()
+        fm.reset_launch_counts()
+        with NMFXRouter(pool, RouterConfig()) as router:
+            fa = router.submit(atlas, ks=(2,), restarts=a_restarts, seed=3,
+                               solver_cfg=nmfx_torch.SolverConfig(
+                                   max_iter=a_iters))
+            fb = router.submit(bundled, ks=GRID_KS,
+                               restarts=GRID_BUNDLED_RESTARTS, seed=123)
+            ra = fa.result(timeout=GRID_PROC_TIMEOUT_S)
+            fb.result(timeout=GRID_PROC_TIMEOUT_S)
+        route_s = time.perf_counter() - t0
+    finally:
+        pool.close()
+    cm = costmodel.comm_model("mu", genes, 2 * per_group, 2,
+                              feature_shards=2, restarts=a_restarts)
+    inputs = fa.stats.placement_inputs
+    print(f"grid 15e router over ReplicaPool(mesh_specs=(None, '1x2')): "
+          f"the {genes}x{2 * per_group} request ({atlas.nbytes / 1e6:.1f} "
+          f"MB, k = 2, {a_restarts} restarts, max_iter {a_iters}) on "
+          f"{fa.stats.replica} (class {fa.stats.placement_class}, the mesh "
+          f"replica {fa.stats.replica == mesh_rep.replica_id}), comm_model "
+          f"{inputs['comm_bytes_per_iter']} bytes an iteration "
+          f"({cm['collectives_per_iter']} collectives, model "
+          f"{cm['wire_bytes_per_iter']}), best k {ra.best_k}; the bundled "
+          f"request on class {fb.stats.placement_class}; {route_s:.3f} s, "
+          f"launches {sum(fm.LAUNCHES.values())} (the plain replica's "
+          f"whole grid)", flush=True)
+    if fa.stats.replica != mesh_rep.replica_id or \
+            fb.stats.placement_class != 1 or \
+            inputs["comm_bytes_per_iter"] != cm["wire_bytes_per_iter"]:
+        raise AssertionError("15e: the atlas request is not on the mesh "
+                             "replica, or the bundled one not on the plain")
+    return launched
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -4838,6 +5234,9 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", action="store_true",
                     help="build, kernel parity, the exact grids of 4a "
                          "and 4d and phase 13 (the scale engines) only")
+    ap.add_argument("--grid-mesh", action="store_true",
+                    help="build, kernel parity and phase 15 (the feature "
+                         "and sample mesh axes, mesh serving) only")
     ap.add_argument("--mesh", action="store_true",
                     help="build, kernel parity, the exact grids of 4a "
                          "and 4d and phase 14 (bf16 off the kernels, the "
@@ -4919,6 +5318,11 @@ def main(argv=None) -> int:
         done("13 scale engines")
         print(f"scale phase {spent['13 scale engines']:.3f} s; launches "
               f"by run {scaled}", flush=True)
+    elif args.grid_mesh:
+        gridded = phase_grid_mesh(torch, fm)
+        done("15 grid mesh")
+        print(f"grid mesh phase {spent['15 grid mesh']:.3f} s; launches "
+              f"by run {gridded}", flush=True)
     elif args.mesh:
         _, phased, _ = phase_grid_path(torch, fm)
         _, hals_res, _ = phase_hals_path(torch, fm)
@@ -4992,6 +5396,10 @@ def main(argv=None) -> int:
         done("14 mesh")
         print(f"mesh phase {spent['14 mesh']:.3f} s; launches by run "
               f"{meshed}", flush=True)
+        gridded = phase_grid_mesh(torch, fm)
+        done("15 grid mesh")
+        print(f"grid mesh phase {spent['15 grid mesh']:.3f} s; launches "
+              f"by run {gridded}", flush=True)
         print(f"phase seconds {json.dumps(spent)}; "
               f"{time.perf_counter() - start:.3f} s in all", flush=True)
         kernels = []

@@ -456,11 +456,14 @@ def nmfconsensus(
     of one tile runs the routes above, byte-equal to the same call
     without ``tile_rows``.
 
-    ``mesh`` (``grid_mesh(R)``, restart axis only): every route runs
+    ``mesh`` (``grid_mesh(R, F, S)``): on a restart mesh every route runs
     restart-sharded, each shard on its own device (a device may be named
     more than once); on the CPU the result is byte-equal to the unmeshed
-    run. Feature or sample axes raise ``NotImplementedError`` naming
-    ROADMAP §1 item 10c-ii. ``use_mesh`` (the default) takes
+    run. With feature or sample axes each factorization is split over
+    the genes and the samples (mu on its plain packed products, kl,
+    neals, snmf or hals; the reference's refusals otherwise, and
+    ``keep_factors`` is refused: ``restart_factors`` recomputes any
+    restart from its key). ``use_mesh`` (the default) takes
     ``default_mesh()`` when ``device`` is None and no ``mesh`` is given:
     a restart mesh over this process's cards, None with one card. An
     explicit mesh with ``checkpoint`` is refused, as in the reference.
@@ -516,8 +519,8 @@ def nmfconsensus(
     drawn at the true shape, one pool padded to ``grid_slots``; the
     results are the serving tier's (``NMFXServer``), and agree with the
     plain sweep at the agreement tier. The sweep runs on the cache's
-    device. Not with ``checkpoint``; a mesh is refused there (the
-    mesh-aware serving tier, ROADMAP §1 item 10c-ii).
+    device, or on a restart ``mesh`` restart-sharded; grid axes are not
+    cacheable (the plain sweep runs). Not with ``checkpoint``.
 
     ``result_cache`` (a ``result_cache.ResultCache`` or a directory):
     a finished result stored under this request's content-addressed key

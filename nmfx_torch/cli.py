@@ -15,12 +15,14 @@ point here (``main``, ``router_main``) exits with a usage error; it
 never moves to the CPU by itself. Messages and exit codes are the
 reference's everywhere else.
 
+Meshes: ``--restart-shards N`` and ``--feature-shards`` /
+``--sample-shards`` build the reference's N × F × S grid mesh (with
+``--device cpu`` the CPU named once an entry); ``--replicas N
+--replica-mesh SPECS`` gives the serving smoke run's replicas their
+meshes.
+
 Refused, each with a usage error (exit 2) that names its ROADMAP item:
 
-* the grid mesh axes and mesh replicas (``ROADMAP_GRID_MESH``):
-  ``--feature-shards``/``--sample-shards`` above 1 and a mesh entry in
-  ``--replica-mesh``. ``--restart-shards N`` runs: a restart mesh over N
-  cards (``--device cpu``: the CPU named N times);
 * serialized XLA executables (``ROADMAP_WARM``): ``--cache-dir`` and an
   explicit ``--compile-cache DIR``. The default ``--compile-cache``
   value and ``--no-compile-cache`` are accepted and do nothing: the
@@ -50,7 +52,7 @@ import os
 import sys
 
 from nmfx_torch.config import (ALGORITHMS, INIT_METHODS, LINKAGE_METHODS,
-                               PACKED_ALGORITHMS, ROADMAP_GRID_MESH,
+                               PACKED_ALGORITHMS,
                                ROADMAP_TOOLING, ROADMAP_WARM, VERSION)
 
 #: the reference's default persistent XLA compilation-cache location;
@@ -257,15 +259,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-mesh", action="store_true",
                    help="disable sharding over the local device mesh")
     p.add_argument("--feature-shards", type=int, default=1,
-                   help="feature-sharded grid mesh (above 1 not ported, "
-                        f"{ROADMAP_GRID_MESH})")
+                   help="tile each factorization's rows (A, W) across this "
+                        "many devices (default 1 = off; with --device cpu "
+                        "the CPU is named that many times)")
     p.add_argument("--sample-shards", type=int, default=1,
-                   help="sample-sharded grid mesh (above 1 not ported, "
-                        f"{ROADMAP_GRID_MESH})")
+                   help="tile each factorization's columns (A, H) across "
+                        "this many devices (default 1 = off)")
     p.add_argument("--restart-shards", type=int, default=None,
                    metavar="N",
                    help="restart-sharded mesh over N devices (with "
-                        "--device cpu, the CPU named N times)")
+                        "--device cpu, the CPU named N times); composes "
+                        "with --feature-shards/--sample-shards into an "
+                        "N x F x S grid mesh")
     p.add_argument("--checkpoint-dir", default=None,
                    help="durable sweep ledger: persist per-(rank, "
                         "restart-chunk) completion records here — a "
@@ -343,9 +348,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "pool's spill/heartbeat ledger (default: a "
                         "temporary directory)")
     p.add_argument("--replica-mesh", default=None, metavar="SPECS",
-                   help="with --replicas: per-replica mesh specs, '-' for "
-                        "a plain 1-device replica (mesh entries not "
-                        f"ported, {ROADMAP_GRID_MESH})")
+                   help="with --replicas: comma-separated per-replica "
+                        "mesh specs making the fleet heterogeneous; each "
+                        "entry is R, RxF, or RxFxS (that replica owns a "
+                        "carved block of r*f*s entries of the pool's "
+                        "devices) or '-' for a plain 1-device replica, "
+                        "e.g. --replicas 2 --replica-mesh -,1x2. The "
+                        "router prices placement across the classes")
     p.add_argument("--compile-cache", default=_DEFAULT_COMPILE_CACHE,
                    metavar="DIR",
                    help="the reference's persistent XLA compilation "
@@ -511,6 +520,10 @@ def _check_sketched_compose(parser, args) -> None:
         parser.error("--grid-exec grid demands the whole-grid slot "
                      "scheduler, which has no sketched/screened "
                      "form; use auto (falls back per-k)")
+    if args.feature_shards > 1 or args.sample_shards > 1:
+        parser.error("--backend sketched/--screen are restart-"
+                     "parallel only (per-restart projections have "
+                     "no feature/sample-sharded formulation)")
 
 
 def _check_tiles(parser, args) -> None:
@@ -623,13 +636,39 @@ def _run_cli(argv: list[str] | None = None) -> int:
         parser.error("--feature-shards/--sample-shards must be >= 1")
     if args.restart_shards is not None and args.restart_shards < 1:
         parser.error("--restart-shards must be >= 1")
-    if args.feature_shards > 1 or args.sample_shards > 1:
-        parser.error("--feature-shards/--sample-shards above 1: the grid "
-                     "mesh axes are not ported yet "
-                     f"({ROADMAP_GRID_MESH})")
     mesh = None
-    meshed = args.restart_shards is not None
-    if meshed:
+    grid = args.feature_shards > 1 or args.sample_shards > 1
+    meshed = grid or args.restart_shards is not None
+    if grid:
+        if args.no_mesh:
+            parser.error("--feature-shards/--sample-shards conflict with "
+                         "--no-mesh")
+        from nmfx_torch.sweep import GRID_SOLVERS, grid_mesh
+
+        grid_ok = (args.algorithm == "mu"
+                   and args.backend in ("auto", "packed")) \
+            or args.algorithm in GRID_SOLVERS
+        if not grid_ok:
+            parser.error("--feature-shards/--sample-shards require "
+                         "--algorithm mu with --backend auto or packed, "
+                         f"or one of {'/'.join(GRID_SOLVERS)}")
+        if args.keep_factors:
+            parser.error("--keep-factors is not supported with grid shards "
+                         "(gathering every restart's full factors would "
+                         "defeat the memory bound; use nmfx.restart_factors "
+                         "to recompute single restarts)")
+        # the CPU is named once an entry; on the card the local cards
+        # (the reference's jax.devices())
+        n = ((args.restart_shards or 1) * args.feature_shards
+             * args.sample_shards)
+        try:
+            mesh = grid_mesh(args.restart_shards, args.feature_shards,
+                             args.sample_shards, devices=(
+                                 ["cpu"] * n if args.device == "cpu"
+                                 else None))
+        except (ValueError, RuntimeError) as e:
+            parser.error(str(e))
+    elif args.restart_shards is not None:
         # restart-only mesh over exactly N devices (the reference's
         # reproducible-placement knob); the CPU is named N times
         if args.no_mesh:
@@ -731,10 +770,20 @@ def _run_cli(argv: list[str] | None = None) -> int:
                              f"spec(s) for --replicas {args.replicas} "
                              "— one entry per replica ('-' = plain "
                              "1-device)")
-            if any(spec not in ("-", "") for spec in specs):
-                parser.error("--replica-mesh: mesh replicas are not "
-                             f"ported yet ({ROADMAP_GRID_MESH}); use '-' "
-                             "(a plain 1-device replica) for each entry")
+            from nmfx_torch.distributed import (MeshSpecError,
+                                                parse_mesh_spec)
+
+            for spec in specs:
+                if spec in ("-", ""):
+                    continue
+                try:
+                    parse_mesh_spec(spec)
+                except MeshSpecError as e:
+                    parser.error(f"--replica-mesh: {e}")
+            args.replica_mesh_specs = tuple(
+                None if s in ("-", "") else s for s in specs)
+        else:
+            args.replica_mesh_specs = None
     elif args.router_spill_dir is not None:
         parser.error("--router-spill-dir configures the replica "
                      "pool's ledger; pass --replicas")
@@ -971,7 +1020,8 @@ def _serve_smoke_router(args, run_scfg, exec_cache, output, profiler):
     pool = ReplicaPool(
         args.replicas, root=root, mode="thread",
         serve_cfg=ServeConfig(),
-        exec_cache=exec_cache, telemetry_dir=args.telemetry_dir)
+        exec_cache=exec_cache, telemetry_dir=args.telemetry_dir,
+        mesh_specs=getattr(args, "replica_mesh_specs", None))
     try:
         with NMFXRouter(pool, RouterConfig(
                 result_cache_dir=args.result_cache_dir)) as router:

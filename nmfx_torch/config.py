@@ -45,8 +45,6 @@ ROADMAP_DTYPES = "ROADMAP §1 item 4, config and dtype remnants"
 ROADMAP_SCALE = "ROADMAP §1 item 10, scale engines"
 ROADMAP_TOOLING = "ROADMAP §1 item 11, tooling"
 ROADMAP_WARM = "ROADMAP §1 item 6, warm path remnants"
-ROADMAP_GRID_MESH = ("ROADMAP §1 item 10c-ii, the feature and sample mesh "
-                     "axes and the mesh-aware serving tier")
 
 #: the package version (the reference's; the command line's --version)
 VERSION = "0.1.0"

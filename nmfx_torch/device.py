@@ -115,8 +115,10 @@ class Mesh:
         return int(self.devices.size)
 
     def process_of(self, idx) -> int:
-        """The process that owns entry ``idx`` (0 for a local mesh)."""
-        return 0 if self.processes is None else int(self.processes[idx])
+        """The process that owns entry ``idx`` (this process for a local
+        mesh)."""
+        return (_process_index() if self.processes is None
+                else int(self.processes[idx]))
 
     def distinct_devices(self) -> list:
         """This process's devices, each once, in first-seen order (the

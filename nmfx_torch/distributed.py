@@ -1,5 +1,4 @@
-"""Several processes, one sweep (counterpart of ``nmfx/distributed.py``,
-the restart axis).
+"""Several processes, one sweep (counterpart of ``nmfx/distributed.py``).
 
 Every process runs the same script. The restart axis spans a *global*
 mesh of every process's devices: each process solves the restart shards
@@ -13,8 +12,10 @@ same ``ConsensusResult``. Only the coordinator writes files::
     result = dist.consensus(data, ks=range(2, 11), restarts=400)
 
 Gloo and not NCCL: the restart axis moves only those small per-restart
-outputs, and NCCL refuses a card that two processes name, which is how
-two processes share one card. Initialization and every gather carry the
+outputs, the grid axes' partial sums are host-gathered and added in
+shard order (so the bytes do not depend on the process layout), and
+NCCL refuses a card that two processes name, which is how two processes
+share one card. Initialization and every gather carry the
 group's timeout, so a lost peer raises instead of hanging; the group is
 torn down at exit.
 
@@ -27,8 +28,11 @@ one process, each shard a thread; a shard that dies hands its unit back
 and the survivors finish it, byte-equal to a single-device checkpointed
 run of the same plan.
 
-Feature and sample axes (``global_mesh(feature_shards=...)``) are not
-ported yet (ROADMAP §1 item 10c-ii).
+With ``feature_shards`` / ``sample_shards`` (``global_mesh``,
+``consensus``) each factorization is split over the genes and the
+samples: a grid group's shards advance in lockstep, and a group that
+spans processes exchanges its partial sums over a gloo subgroup of them
+every iteration (``nmfx_torch/collectives.py``).
 """
 
 from __future__ import annotations
@@ -44,11 +48,11 @@ import threading
 import numpy as np
 import torch
 
-from nmfx_torch.config import ROADMAP_GRID_MESH
 from nmfx_torch.device import Mesh, _process_index
 from nmfx_torch.obs import metrics as _metrics
 from nmfx_torch.obs import trace as _trace
-from nmfx_torch.sweep import RESTART_AXIS, local_devices
+from nmfx_torch.sweep import (FEATURE_AXIS, RESTART_AXIS, SAMPLE_AXIS,
+                              local_devices)
 
 #: the elastic runner's instruments: per-shard progress (the fleet view
 #: sums the shards) and the live shards of this process's runner
@@ -238,23 +242,21 @@ def _process_devices(devices) -> list:
 
 def global_mesh(feature_shards: int = 1, sample_shards: int = 1,
                 devices=None) -> Mesh:
-    """A restart mesh over every process's devices, in process order:
-    the processes' device lists are learned with one host all-gather
-    over the group (none without one). ``devices`` is this process's
-    list (default: its cards); two processes may name the same card.
-    Feature and sample axes above 1 are not ported yet
-    (``ROADMAP_GRID_MESH``)."""
+    """A mesh over every process's devices, in process order: the
+    processes' device lists are learned with one host all-gather over the
+    group (none without one). ``devices`` is this process's list
+    (default: its cards); two processes may name the same card. With
+    ``feature_shards`` or ``sample_shards`` above 1 it is the 3-D
+    restarts × features × samples mesh (the reference's
+    ``global_mesh``): the grid axes innermost, so a grid group's shards
+    lie in as few processes as the layout allows, and its errors are the
+    reference's."""
     import torch.distributed as dist
 
     if feature_shards < 1 or sample_shards < 1:
         raise MeshSpecError(
             "feature_shards/sample_shards must be >= 1, got "
             f"{feature_shards}×{sample_shards}")
-    if feature_shards > 1 or sample_shards > 1:
-        raise NotImplementedError(
-            f"global_mesh({feature_shards}, {sample_shards}): feature "
-            f"and sample axes are not ported yet ({ROADMAP_GRID_MESH}); "
-            "the global mesh is restart-only")
     mine = [str(d) for d in _process_devices(devices)]
     if dist.is_available() and dist.is_initialized():
         every = [None] * dist.get_world_size()
@@ -264,7 +266,22 @@ def global_mesh(feature_shards: int = 1, sample_shards: int = 1,
     flat = [(d, p) for p, devs in enumerate(every) for d in devs]
     arr = np.empty(len(flat), dtype=object)
     arr[:] = [d for d, _ in flat]
-    return Mesh(arr, (RESTART_AXIS,), processes=[p for _, p in flat])
+    procs = np.array([p for _, p in flat], dtype=np.int64)
+    if feature_shards == 1 and sample_shards == 1:
+        return Mesh(arr, (RESTART_AXIS,), processes=procs)
+    grid = feature_shards * sample_shards
+    if grid > len(flat):
+        raise MeshSpecError(
+            f"features×samples={feature_shards}×{sample_shards} needs "
+            f"{grid} devices; this job has {len(flat)}")
+    if len(flat) % grid:
+        raise MeshSpecError(
+            f"{len(flat)} devices don't divide into "
+            f"features×samples={feature_shards}×{sample_shards} "
+            f"(= {grid}); the restart axis would be ragged")
+    shape = (len(flat) // grid, feature_shards, sample_shards)
+    return Mesh(arr.reshape(shape), (RESTART_AXIS, FEATURE_AXIS, SAMPLE_AXIS),
+                processes=procs.reshape(shape))
 
 
 def consensus(data, ks=(2, 3, 4, 5), restarts: int = 10,

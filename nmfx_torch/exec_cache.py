@@ -37,9 +37,13 @@ reference's layout and contracts:
 Not ported: the reference's disk store of serialized executables
 (``ExecCacheConfig.cache_dir`` raises ``NotImplementedError`` naming
 ROADMAP §1 item 6; a built torch sweep has no serialized form, so the
-``persist.deserialize`` fault site stays unfired) and the mesh: the
-bucketed sweeps refuse one (the mesh-aware serving tier,
-``ROADMAP_GRID_MESH``).
+``persist.deserialize`` fault site stays unfired).
+
+A restart mesh serves through the meshed bucketed sweeps (each shard its
+lanes of every rank, on its device; :meth:`ExecCache.prefetch` places
+the padded matrix on each distinct device of the mesh). Feature and
+sample axes are not cacheable, as in the reference: those sweeps run the
+plain grid-sharded sweep.
 """
 
 from __future__ import annotations
@@ -64,8 +68,9 @@ from nmfx_torch.obs import flight as _flight
 from nmfx_torch.obs import metrics as _metrics
 from nmfx_torch.profiling import NullProfiler
 from nmfx_torch.sweep import (KSweepOutput, _attribute_dispatch,
-                              _build_bucketed_sweep_fn, _refuse_mesh,
-                              bucketed_lane_init_fn, grid_exec_ok)
+                              _build_bucketed_sweep_fn, _pad_count,
+                              bucketed_lane_init_fn, grid_exec_ok,
+                              mesh_home)
 
 __all__ = ["ExecCache", "PlacedMatrix", "WarmTask", "bucket_dim",
            "compile_count", "persist_key_fields", "solver_key_fields",
@@ -125,10 +130,11 @@ def bucket_dim(x: int, quantum: int, growth_steps: int = 8) -> int:
 
 
 class PlacedMatrix(NamedTuple):
-    """A dataset padded to its bucket and placed on the cache's device
-    (the copy may still be in flight on the device's stream)."""
+    """A dataset padded to its bucket and placed on the cache's device,
+    or on each distinct device of a restart mesh (the copy may still be
+    in flight on the device's stream)."""
 
-    a_pad: torch.Tensor  # (m_pad, n_pad), zero-padded
+    a_pad: "torch.Tensor | dict"  # (m_pad, n_pad), zero-padded
     true_shape: tuple
     bucket: tuple
 
@@ -206,8 +212,7 @@ class ExecCache:
         sweeps, the reference's predicate: the whole-grid slot scheduler
         runs it (``grid_exec_ok``) under a grid-capable ``grid_exec``, on
         no feature or sample axes, in a single-process job. A restart
-        mesh passes, as in the reference; the bucketed sweeps then refuse
-        it (the mesh-aware serving tier, ``ROADMAP_GRID_MESH``)."""
+        mesh passes, as in the reference, and serves restart-sharded."""
         from nmfx_torch.device import process_count
         from nmfx_torch.sweep import grid_axes_active
 
@@ -261,7 +266,6 @@ class ExecCache:
         """``(entry, was_hit)`` for a request of TRUE shape ``shape``:
         from memory, from another thread's build in flight, or built now
         (``was_hit`` False only when this call built it)."""
-        _refuse_mesh(mesh)
         prof = profiler if profiler is not None else NullProfiler()
         bucket = self.bucket_shape(*shape)
         key = self._key(bucket, ccfg, scfg, icfg, mesh)
@@ -294,7 +298,7 @@ class ExecCache:
             prof.mark("compile.cache_hit")
             return entry, True
         try:
-            entry = self._compile(bucket, ccfg, scfg, icfg, prof)
+            entry = self._compile(bucket, ccfg, scfg, icfg, prof, mesh)
             with self._lock:
                 self._entries[key] = entry
                 while len(self._entries) > self._entries_cap:
@@ -312,7 +316,8 @@ class ExecCache:
             fut.set_exception(e)
             raise
 
-    def _compile(self, bucket, ccfg, scfg, icfg, prof) -> _Entry:
+    def _compile(self, bucket, ccfg, scfg, icfg, prof,
+                 mesh=None) -> _Entry:
         # fault site: the build, fired before any counter moves
         faults.inject("compile.build")
         with self._lock:
@@ -327,7 +332,7 @@ class ExecCache:
                     if isinstance(ccfg.grid_tail_slots, list)
                     else ccfg.grid_tail_slots)
             fn = _build_bucketed_sweep_fn(
-                tuple(ccfg.ks), ccfg.restarts, scfg, ccfg.label_rule, None,
+                tuple(ccfg.ks), ccfg.restarts, scfg, ccfg.label_rule, mesh,
                 ccfg.keep_factors, ccfg.grid_slots, tail, bucket,
                 init_cfg=icfg if icfg.method == "random" else None)
             compile_s = time.perf_counter() - t0
@@ -404,16 +409,21 @@ class ExecCache:
         re-uses the padded device buffer (zero bytes copied)."""
         from nmfx_torch.data_cache import place_resilient
 
-        _refuse_mesh(mesh)
         prof = profiler if profiler is not None else NullProfiler()
         m, n = a.shape
         bucket = self.bucket_shape(m, n)
+        if mesh is not None:
+            return PlacedMatrix(
+                {d: place_resilient(a, scfg, d, pad_shape=bucket,
+                                    profiler=prof)
+                 for d in mesh.distinct_devices()}, (m, n), bucket)
         a_pad = place_resilient(a, scfg, self.device, pad_shape=bucket,
                                 profiler=prof)
         return PlacedMatrix(a_pad, (m, n), bucket)
 
     def _solve_args(self, placed: PlacedMatrix, ccfg: ConsensusConfig,
-                    scfg: SolverConfig, icfg: InitConfig, prof) -> tuple:
+                    scfg: SolverConfig, icfg: InitConfig, prof,
+                    mesh=None) -> tuple:
         """The built sweep's arguments for one request: the padded
         matrix, the init route's inputs (the root key, or the NNDSVD lane
         batch built at the true shape) and the true-dimension scalars."""
@@ -426,9 +436,10 @@ class ExecCache:
             return (placed.a_pad, root, m_true, n_true, flip)
         with prof.phase("exec_cache.init") as sync:
             init_fn = bucketed_lane_init_fn(
-                placed.true_shape, tuple(ccfg.ks), ccfg.restarts, icfg,
+                placed.true_shape, tuple(ccfg.ks),
+                _pad_count(ccfg.restarts, mesh, count=False), icfg,
                 scfg.dtype, placed.bucket)
-            a_true = placed.a_pad[:m_true, :n_true]
+            a_true = _home(placed, mesh)[:m_true, :n_true]
             w0, h0 = sync(init_fn(a_true, root))
         return (placed.a_pad, w0, h0, m_true, n_true, flip)
 
@@ -441,22 +452,22 @@ class ExecCache:
         (true-shape per-rank ``KSweepOutput``, host copies started in
         ``fetch``). ``a`` is a host matrix or a :class:`PlacedMatrix`
         from :meth:`prefetch`. ``on_rank(k, out)`` runs per rank once
-        its copies are started."""
-        _refuse_mesh(mesh)
+        its copies are started. A restart ``mesh`` runs the meshed
+        bucketed sweeps, the outputs on its first device."""
         prof = profiler if profiler is not None else NullProfiler()
         if not self.cacheable(ccfg, scfg, mesh):
             raise ValueError(
                 "configuration is not cacheable (see ExecCache.cacheable)"
                 " — route it through nmfx_torch.sweep.sweep instead")
         placed = (a if isinstance(a, PlacedMatrix)
-                  else self.prefetch(a, scfg, profiler=prof))
+                  else self.prefetch(a, scfg, mesh, profiler=prof))
         if self.cfg.pipeline_ranks and len(ccfg.ks) > 1:
             return self._run_sweep_ranks(placed, ccfg, scfg, icfg, prof,
-                                         on_rank)
+                                         on_rank, mesh)
         m_true, n_true = placed.true_shape
         entry, _ = self.executable(placed.true_shape, ccfg, scfg, icfg,
-                                   None, prof)
-        args = self._solve_args(placed, ccfg, scfg, icfg, prof)
+                                   mesh, prof)
+        args = self._solve_args(placed, ccfg, scfg, icfg, prof, mesh)
         t0 = time.perf_counter()
         with prof.phase("solve.grid") as sync:
             raw = sync(entry.fn(*args))
@@ -469,13 +480,14 @@ class ExecCache:
         for k in ccfg.ks:
             if on_rank is not None:
                 on_rank(k, out[k])
-        _attribute_dispatch("exec.grid", scfg, placed.a_pad, out,
-                            solve_wall, prof, shape=placed.true_shape)
+        _attribute_dispatch("exec.grid", scfg, _home(placed, mesh), out,
+                            solve_wall, prof, shape=placed.true_shape,
+                            mesh=mesh)
         return {k: out[k] for k in ccfg.ks}
 
     def _run_sweep_ranks(self, placed: PlacedMatrix, ccfg: ConsensusConfig,
                          scfg: SolverConfig, icfg: InitConfig, prof,
-                         on_rank) -> "dict[int, KSweepOutput]":
+                         on_rank, mesh=None) -> "dict[int, KSweepOutput]":
         """Per-rank serving (``ExecCacheConfig.pipeline_ranks``): one
         bucketed sweep a rank, dispatched ascending; each rank's results
         are exactly a single-rank grid sweep's (``ks=(k,)``), which
@@ -488,8 +500,8 @@ class ExecCache:
         for k in ks:
             ck = dataclasses.replace(ccfg, ks=(k,))
             entry, _ = self.executable(placed.true_shape, ck, scfg, icfg,
-                                       None, prof)
-            args = self._solve_args(placed, ck, scfg, icfg, prof)
+                                       mesh, prof)
+            args = self._solve_args(placed, ck, scfg, icfg, prof, mesh)
             t0 = time.perf_counter()
             with prof.phase(f"solve.k={k}") as sync:
                 raw = sync(entry.fn(*args))
@@ -499,9 +511,17 @@ class ExecCache:
                 out[k] = v._replace(fetch=start_host_fetch(v))
             if on_rank is not None:
                 on_rank(k, out[k])
-            _attribute_dispatch("exec.k", scfg, placed.a_pad, {k: out[k]},
-                                solve_wall, prof, shape=placed.true_shape)
+            _attribute_dispatch("exec.k", scfg, _home(placed, mesh),
+                                {k: out[k]}, solve_wall, prof,
+                                shape=placed.true_shape, mesh=mesh)
         return {k: out[k] for k in ccfg.ks}
+
+
+def _home(placed: PlacedMatrix, mesh) -> torch.Tensor:
+    """The placed matrix on the device a sweep's outputs land on."""
+    if isinstance(placed.a_pad, dict):
+        return placed.a_pad[mesh_home(mesh)]
+    return placed.a_pad
 
 
 def _unpad(out_k: KSweepOutput, m: int, n: int) -> KSweepOutput:

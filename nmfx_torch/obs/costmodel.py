@@ -827,10 +827,19 @@ def comm_model(algorithm: str, m: int, n: int, k: int, *,
     ``payload_bytes_per_iter``, ``wire_bytes_per_iter`` (ring
     convention), a ``per_axis`` breakdown and the ``epilogue`` (the
     per-rank consensus reduction over the restart axis, once a solve).
-    The grid axes' terms describe the reference's grid-sharded program,
-    which the port does not run yet (``ROADMAP_GRID_MESH``); the port's
-    restart axis gathers each shard's per-restart outputs instead of
-    reducing a consensus matrix, which this model does not price."""
+    The grid axes' terms describe the port's own grid-sharded program
+    (``sweep._build_grid_sharded_sweep_fn`` on
+    ``nmfx_torch/collectives.py``): in one iteration off a check, kl,
+    neals, snmf and hals sum two products over each tiled axis, and mu
+    sums two and ors the numeric guard's lane flags (the collective
+    layer's count is held to ``collectives_per_iter``). The port's
+    collectives gather every shard's part to each shard and add them in
+    shard order, so the ring convention's wire bytes are a model of the
+    payload, not of the bytes gloo moves; check iterations add the
+    label-mismatch sum and the max-change maxima, which this model does
+    not price. The port's restart axis gathers each shard's per-restart
+    outputs instead of reducing a consensus matrix, which it does not
+    price either."""
     if algorithm not in _COMM:
         raise ValueError(
             f"no communication model for algorithm {algorithm!r} — the "

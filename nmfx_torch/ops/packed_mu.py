@@ -1,5 +1,5 @@
 """Restart-packed multiplicative-update solver (counterpart of
-``nmfx/ops/packed_mu.py``, per-rank route without mesh axes).
+``nmfx/ops/packed_mu.py``).
 
 The restart batch is laid out as one pair of packed factor matrices
 
@@ -17,6 +17,14 @@ numeric quarantine) stays on the device. The reference's
 Python int; the host reads the lanes' done flags once per loop trip (one
 trip = ``check_block`` check blocks of ``check_every`` iterations), never
 once per iteration, and counts those reads in ``host_syncs``.
+
+Under ``shard`` (one shard of a grid group, ``solvers.base.ShardInfo``)
+A and Wp are row blocks over the feature axis and A and Hp column
+blocks over the sample axis: the H update's m-contracted WpᵀA and WpᵀWp
+sum over the features, the W update's n-contracted HpHpᵀ and AHpᵀ over
+the samples (SUMMA-style), on the plain products only: the kernels have
+no collective stage, so ``backend="pallas"`` is refused there, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -32,8 +40,9 @@ from nmfx_torch.device import resolve_device
 from nmfx_torch.ops.fused_mu import (fused_h_update, fused_h_update_ref,
                                      fused_w_update, fused_w_update_ref,
                                      lane_gram)
-from nmfx_torch.solvers.base import (StopReason, bf16_products, mm,
-                                     residual_norms)
+from nmfx_torch.solvers.base import (ShardInfo, StopReason, bf16_products,
+                                     mm, residual_norms, shard_reducers)
+from nmfx_torch.solvers.mu import _mu_update
 
 
 @dataclasses.dataclass
@@ -100,9 +109,87 @@ def padded_rows(m: int) -> int:
     return tiles * (-(-(-(-m // tiles)) // 8) * 8)
 
 
-def _lanes_finite(x: torch.Tensor, dims: tuple[int, ...]) -> torch.Tensor:
-    """Per-lane all-finite verdict of a lane-stacked factor array."""
-    return torch.isfinite(x).all(dim=dims)
+def _lanes_finite(x: torch.Tensor, dims: tuple[int, ...],
+                  mesh_axis: "str | None" = None, comm=None) -> torch.Tensor:
+    """Per-lane all-finite verdict of a lane-stacked factor array; with
+    ``mesh_axis`` (the factor's grid axis) the verdict is global, so every
+    shard of a lane's group agrees."""
+    ok = torch.isfinite(x).all(dim=dims)
+    if mesh_axis is not None:
+        ok = ~comm.any(~ok, mesh_axis)
+    return ok
+
+
+def _factors_finite(wp, hp, r: int, k: int, f_ax=None, s_ax=None,
+                    comm=None) -> torch.Tensor:
+    """Per-lane all-finite verdict of both packed factors; on a grid
+    group each factor's flags or over its axis, in one exchange."""
+    ok_w = torch.isfinite(wp.reshape(-1, r, k)).all(dim=(0, 2))
+    ok_h = torch.isfinite(hp.reshape(r, k, -1)).all(dim=(1, 2))
+    items = [(op, flag, ax) for op, flag, ax in (("any", ~ok_w, f_ax),
+                                                 ("any", ~ok_h, s_ax))
+             if ax is not None]
+    if items:
+        bad = iter(comm.reduce(items))
+        ok_w = ~next(bad) if f_ax is not None else ok_w
+        ok_h = ~next(bad) if s_ax is not None else ok_h
+    return ok_w & ok_h
+
+
+def _block_sums(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Sum an (R·k, n)-shaped elementwise product per restart block →
+    (R,)."""
+    return x.reshape(r, -1, x.shape[1]).sum(dim=(1, 2))
+
+
+def _diag_blocks(g: torch.Tensor, r: int) -> torch.Tensor:
+    """(R·k, R·k) full Gram → (R, k, k) diagonal blocks."""
+    k = g.shape[0] // r
+    return torch.diagonal(g.reshape(r, k, r, k), dim1=0,
+                          dim2=2).permute(2, 0, 1)
+
+
+def residual_norms_gram(a, wp, hp, r: int,
+                        shard: "ShardInfo | None" = None) -> torch.Tensor:
+    """Per-restart RMS residual from packed Grams, with no m×n
+    reconstruction: ‖A−WH‖² = ‖A‖² − 2⟨WᵀA, H⟩ + ⟨WᵀW, HHᵀ⟩ (reference
+    ``residual_norms``). Under ``shard`` the m-contracted terms sum over
+    the feature axis and the n-contracted ones over the sample axis, and
+    the normalizer takes ``m_total`` / ``n_total`` (a ``ValueError``
+    when missing: the local dims would inflate the RMS by √#shards).
+    The solvers' end-of-solve form is the direct
+    ``solvers.base.residual_norms``, exact at tight convergence."""
+    m, n = a.shape
+    f_ax = shard.feature_axis if shard is not None else None
+    s_ax = shard.sample_axis if shard is not None else None
+    numerh = wp.T @ a
+    gw_full = wp.T @ wp
+    a2 = (a * a).sum()
+    if f_ax is not None:
+        if shard.m_total is None:
+            raise ValueError(
+                "residual_norms with feature_axis needs m_total (the "
+                "unsharded row count); the local shard's row count would "
+                "silently inflate the RMS by sqrt(#shards)")
+        numerh = shard.comm.sum(numerh, f_ax)
+        gw_full = shard.comm.sum(gw_full, f_ax)
+        a2 = shard.comm.sum(a2, f_ax)
+        m = shard.m_total
+    gh_full = hp @ hp.T
+    cross = _block_sums(numerh * hp, r)
+    if s_ax is not None:
+        if shard.n_total is None:
+            raise ValueError(
+                "residual_norms with sample_axis needs n_total (the "
+                "unsharded column count)")
+        gh_full = shard.comm.sum(gh_full, s_ax)
+        cross = shard.comm.sum(cross, s_ax)
+        a2 = shard.comm.sum(a2, s_ax)
+        n = shard.n_total
+    quad = (_diag_blocks(gw_full, r) * _diag_blocks(gh_full, r)).sum(
+        dim=(1, 2))
+    sq = (a2 - 2.0 * cross + quad).clamp(min=0.0)
+    return torch.sqrt(sq / (m * n))
 
 
 def _labels(hp: torch.Tensor, r: int) -> torch.Tensor:
@@ -118,9 +205,15 @@ def flip_budget(class_flip_tol: float, n: int) -> int:
     return int(class_flip_tol * n + 1e-9)
 
 
+def _mismatches(new_classes, classes) -> torch.Tensor:
+    """Per-lane count of labels that differ from the held snapshot."""
+    return (new_classes != classes).sum(dim=1, dtype=torch.int32)
+
+
 def batch_convergence(cfg: SolverConfig, it, *, new_classes, delta,
                       n_glob: int, classes, stable, done, done_iter,
-                      stop_reason, flip_floor=None, nonfinite=None):
+                      stop_reason, flip_floor=None, nonfinite=None,
+                      mism_reduce=None):
     """(B,)-batched convergence bookkeeping: the noise-tolerant
     class-stability snapshot rule plus the TolX test, with per-lane
     freeze flags (reference ``batch_convergence``).
@@ -131,8 +224,10 @@ def batch_convergence(cfg: SolverConfig, it, *, new_classes, delta,
     at different iterations): then the check gate
     ``(it > 1) & (it % check_every == 0)`` is taken per lane.
     ``flip_floor`` overrides the ``floor(class_flip_tol · n_glob)`` flip
-    budget. A ``nonfinite`` lane stops FIRST with NUMERIC_FAULT. Returns
-    the five updated arrays."""
+    budget. A ``nonfinite`` lane stops FIRST with NUMERIC_FAULT.
+    ``mism_reduce`` reduces the per-lane mismatch counts (the sum over the
+    sample axis when labels are column shards). Returns the five updated
+    arrays."""
     if torch.is_tensor(it):
         active = ((it > 1) & (it % cfg.check_every == 0)) & ~done
     elif it > 1 and it % cfg.check_every == 0:
@@ -151,7 +246,9 @@ def batch_convergence(cfg: SolverConfig, it, *, new_classes, delta,
     if cfg.use_class_stop:
         flip_tol = (flip_budget(cfg.class_flip_tol, n_glob)
                     if flip_floor is None else flip_floor)
-        mism = (new_classes != classes).sum(dim=1, dtype=torch.int32)
+        mism = _mismatches(new_classes, classes)
+        if mism_reduce is not None:
+            mism = mism_reduce(mism)
         same = mism <= flip_tol
         stable = torch.where(active, torch.where(same, stable + 1, 0),
                              stable).to(torch.int32)
@@ -172,13 +269,31 @@ def batch_convergence(cfg: SolverConfig, it, *, new_classes, delta,
 
 
 def _step(a, bd, state: PackedState, cfg: SolverConfig, r: int,
-          check: bool, use_kernels: bool) -> None:
+          check: bool, use_kernels: bool,
+          shard: "ShardInfo | None" = None) -> None:
     """One packed mu iteration, updating ``state`` in place. Off the
     kernels the plain versions take bf16 operands only where
-    ``bf16_products`` holds (on CUDA), as every plain product does."""
+    ``bf16_products`` holds (on CUDA), as every plain product does.
+    Under ``shard`` the four products sum over their contracted grid
+    axis (reference ``_step``, ``nmfx/ops/packed_mu.py:350-385``)."""
     k = state.hp.shape[0] // r
     wp0, hp0 = state.wp, state.hp
-    if use_kernels:
+    f_ax = shard.feature_axis if shard is not None else None
+    s_ax = shard.sample_axis if shard is not None else None
+    comm = shard.comm if shard is not None else None
+    if shard is not None:
+        # the plain products, each m- or n-contracted term summed over
+        # its grid axis before the epilogue (A and Wp row blocks, A and
+        # Hp column blocks)
+        fsum, ssum = shard_reducers(shard)
+        bf = bf16_products(cfg, a.device)
+        numerh, gw = fsum(mm(wp0.T, a, bf), mm(wp0.T, wp0, bf))
+        hp = _mu_update(hp0, numerh, mm(bd_select(gw, bd), hp0, bf),
+                        cfg.div_eps, cfg.zero_threshold)
+        gh, numerw = ssum(mm(hp, hp.T, bf), mm(a, hp.T, bf))
+        wp = _mu_update(wp0, numerw, mm(wp0, bd_select(gh, bd), bf),
+                        cfg.div_eps, cfg.zero_threshold)
+    elif use_kernels:
         kw = dict(k=k, eps=cfg.div_eps, zero_threshold=cfg.zero_threshold,
                   matmul_precision=cfg.matmul_precision)
         hp = fused_h_update(a, wp0, hp0, **kw)
@@ -199,8 +314,7 @@ def _step(a, bd, state: PackedState, cfg: SolverConfig, r: int,
     # NUMERIC_FAULT at its next check
     bad = state.nonfinite
     if cfg.nonfinite_guard:
-        new_bad = ~(_lanes_finite(wp.reshape(-1, r, k), (0, 2))
-                    & _lanes_finite(hp.reshape(r, k, -1), (1, 2)))
+        new_bad = ~_factors_finite(wp, hp, r, k, f_ax, s_ax, comm)
         bad = new_bad if bad is None else bad | new_bad
 
     # freeze converged (and quarantined) lanes
@@ -212,38 +326,82 @@ def _step(a, bd, state: PackedState, cfg: SolverConfig, r: int,
     state.iteration += 1
     state.nonfinite = bad
     if check:
-        _check(state, cfg, r)
+        _check(state, cfg, r, shard)
 
 
-def _check(state: PackedState, cfg: SolverConfig, r: int) -> None:
-    """Per-restart convergence tests (class stability first, then TolX)."""
+def _check(state: PackedState, cfg: SolverConfig, r: int,
+           shard: "ShardInfo | None" = None) -> None:
+    """Per-restart convergence tests (class stability first, then TolX).
+    Under ``shard`` the label mismatches sum over the sample axis (the
+    flip budget from ``n_total``) and each factor's max-change is a ratio
+    of maxima over its grid axis (reference ``_check`` and
+    ``_delta_sharded``, ``nmfx/ops/packed_mu.py:445-480``)."""
+    it = state.iteration
+    if not (it > 1 and it % cfg.check_every == 0):
+        return  # no test runs off a check boundary: no collective runs
     k = state.hp.shape[0] // r
+    f_ax = shard.feature_axis if shard is not None else None
+    s_ax = shard.sample_axis if shard is not None else None
     new_classes = _labels(state.hp, r)
+    n_glob = state.hp.shape[1]
+    if s_ax is not None:
+        if shard.n_total is None:
+            raise ValueError(
+                "class-stability check with sample_axis needs n_total "
+                "(the unsharded column count); the local shard width "
+                "would make the flip tolerance ~#shards too strict")
+        n_glob = shard.n_total
+    # the local ingredients first; on a grid group every reduction of the
+    # check runs in one exchange: the labels' mismatch counts sum over
+    # the samples, and a max-change is a ratio of global maxima, both of
+    # its ingredients reduced over the factor's axis
+    m, n = state.wp.shape[0], state.hp.shape[1]
+    maxima = {}
+    if cfg.use_tol_checks:
+        maxima = {
+            "w": ((state.wp - state.wp_prev).abs().reshape(m, r, k)
+                  .amax(dim=(0, 2)),
+                  state.wp_prev.abs().reshape(m, r, k).amax(dim=(0, 2))),
+            "h": ((state.hp - state.hp_prev).abs().reshape(r, k, n)
+                  .amax(dim=(1, 2)),
+                  state.hp_prev.abs().reshape(r, k, n).amax(dim=(1, 2)))}
+    axes = {"w": f_ax, "h": s_ax}
+    items = [("max", x, axes[f]) for f in maxima for x in maxima[f]
+             if axes[f] is not None]
+    sum_mism = s_ax is not None and cfg.use_class_stop
+    if sum_mism:
+        items.append(("sum", _mismatches(new_classes, state.classes), s_ax))
+    got = iter(shard.comm.reduce(items) if items else ())
+    for f in maxima:
+        if axes[f] is not None:
+            maxima[f] = (next(got), next(got))
+    mism_reduce = None
+    if sum_mism:
+        mism_total = next(got)
+
+        def mism_reduce(_):
+            return mism_total
     delta = None
     if cfg.use_tol_checks:
         sqrteps = torch.sqrt(torch.tensor(torch.finfo(state.wp.dtype).eps,
-                                          dtype=state.wp.dtype))
-        m, n = state.wp.shape[0], state.hp.shape[1]
-
-        def _delta(cur, prev, dims, shape):
-            diff = (cur - prev).abs().reshape(shape).amax(dim=dims)
-            ref = prev.abs().reshape(shape).amax(dim=dims)
-            return diff / (sqrteps.to(cur.device) + ref)
-
-        dw = _delta(state.wp, state.wp_prev, (0, 2), (m, r, k))
-        dh = _delta(state.hp, state.hp_prev, (1, 2), (r, k, n))
+                                          dtype=state.wp.dtype,
+                                          device=state.wp.device))
+        dw, dh = (diff / (sqrteps + ref)
+                  for diff, ref in (maxima["w"], maxima["h"]))
         delta = torch.maximum(dw, dh)  # (R,)
 
     (state.classes, state.stable, state.done, state.done_iter,
      state.stop_reason) = batch_convergence(
         cfg, state.iteration, new_classes=new_classes, delta=delta,
-        n_glob=state.hp.shape[1], classes=state.classes,
+        n_glob=n_glob, classes=state.classes,
         stable=state.stable, done=state.done, done_iter=state.done_iter,
-        stop_reason=state.stop_reason, nonfinite=state.nonfinite)
+        stop_reason=state.stop_reason, nonfinite=state.nonfinite,
+        mism_reduce=mism_reduce)
 
 
 def mu_packed(a, w0s, h0s, cfg: SolverConfig = SolverConfig(), *,
-              device=None) -> PackedMUResult:
+              device=None,
+              shard: "ShardInfo | None" = None) -> PackedMUResult:
     """Solve the whole restart batch with packed mu iterations.
 
     Semantically the reference's ``mu_packed``: same update rule, same
@@ -252,12 +410,20 @@ def mu_packed(a, w0s, h0s, cfg: SolverConfig = SolverConfig(), *,
     tensors; they move to ``device`` (None = CUDA, raising if there is
     none; TF32 is switched off there) in ``cfg.dtype`` (float64 only on
     the plain products: ``check_ported`` keeps it off the kernels).
+
+    ``shard``: this call is one shard of a grid group (``a``, ``w0s`` and
+    ``h0s`` its blocks); every shard of the group runs it in lockstep on
+    its own thread (``nmfx_torch.collectives``).
     """
     check_ported(cfg)
     if cfg.algorithm != "mu":
         raise ValueError(
             f"mu_packed runs algorithm='mu', got {cfg.algorithm!r} (hals "
             "runs through the slot scheduler, nmfx_torch.ops.sched_mu)")
+    if shard is not None and cfg.backend == "pallas":
+        raise ValueError("feature/sample-axis sharding is not supported "
+                         "with the pallas backend (the fused kernels have "
+                         "no collective stage); use backend='packed'")
     dev = resolve_device(device)
     dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
     a = torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a,
@@ -285,8 +451,10 @@ def mu_packed(a, w0s, h0s, cfg: SolverConfig = SolverConfig(), *,
         # quarantine base case: a lane whose INITIAL factors are already
         # non-finite is zeroed (zero factors are inert under mu and add
         # exact zeros to the shared Grams) and flagged sticky
-        bad0 = ~(_lanes_finite(wp.reshape(-1, r, k), (0, 2))
-                 & _lanes_finite(hp.reshape(r, k, n), (1, 2)))
+        f_ax = shard.feature_axis if shard is not None else None
+        s_ax = shard.sample_axis if shard is not None else None
+        comm = shard.comm if shard is not None else None
+        bad0 = ~_factors_finite(wp, hp, r, k, f_ax, s_ax, comm)
         zero_col = bad0.repeat_interleave(k)
         wp = torch.where(zero_col[None, :], 0.0, wp)
         hp = torch.where(zero_col[:, None], 0.0, hp)
@@ -317,10 +485,11 @@ def mu_packed(a, w0s, h0s, cfg: SolverConfig = SolverConfig(), *,
         for _ in range(ncheck):
             for i in range(cfg.check_every):
                 _step(a, bd, state, cfg, r, check=i == cfg.check_every - 1,
-                      use_kernels=use_kernels)
+                      use_kernels=use_kernels, shard=shard)
         running = live()
     while running and state.iteration < cfg.max_iter:
-        _step(a, bd, state, cfg, r, check=True, use_kernels=use_kernels)
+        _step(a, bd, state, cfg, r, check=True, use_kernels=use_kernels,
+              shard=shard)
         running = live()
 
     iterations = torch.where(state.done, state.done_iter, state.iteration)
@@ -329,7 +498,7 @@ def mu_packed(a, w0s, h0s, cfg: SolverConfig = SolverConfig(), *,
     # tight convergence, once per solve
     dnorm = residual_norms(
         a_true, unpack_w(wp_final, r), state.hp.reshape(r, k, n),
-        bf16=not use_kernels and bf16_products(cfg, dev))
+        bf16=not use_kernels and bf16_products(cfg, dev), shard=shard)
     return PackedMUResult(wp=wp_final, hp=state.hp,
                           iterations=iterations.to(torch.int32),
                           dnorm=dnorm, stop_reason=state.stop_reason,

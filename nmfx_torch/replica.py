@@ -52,11 +52,18 @@ Directory layout of one pool root::
                                  (thread replicas: drain spills land
                                  here for the router to claim)
 
-Not ported: heterogeneous mesh replicas (``mesh_specs``, the worker's
-``--mesh-spec``; ``ROADMAP_GRID_MESH``) and the disk executable cache the
-reference's workers start against (``cache_dir``, the worker's
-``--cache-dir``; ``ROADMAP_WARM``). Each raises ``NotImplementedError``
-(or, on the worker's command line, a usage error) naming its item.
+Mesh replicas (``mesh_specs``; the worker's ``--mesh-spec``) make the
+fleet heterogeneous: a meshed member serves through
+``serve.MeshEngine`` and its heartbeat carries its spec and device
+count, which the router prices placement by. A thread member's mesh is
+carved from the pool's device list, contiguous blocks in spawn order;
+that list may name a card more than once, as ``device.Mesh`` does, so a
+"1x2" replica and a plain one fit on one card (they then share it).
+
+Not ported: the disk executable cache the reference's workers start
+against (``cache_dir``, the worker's ``--cache-dir``; ``ROADMAP_WARM``).
+It raises ``NotImplementedError`` (or, on the worker's command line, a
+usage error) naming its item.
 """
 
 from __future__ import annotations
@@ -72,7 +79,7 @@ from concurrent.futures import Future
 
 import numpy as np
 
-from nmfx_torch.config import ROADMAP_GRID_MESH, ROADMAP_WARM
+from nmfx_torch.config import ROADMAP_WARM
 from nmfx_torch.guards import guarded_by
 from nmfx_torch.obs import flight as _flight
 from nmfx_torch.obs import metrics as _metrics
@@ -103,11 +110,14 @@ class SpawnFailed(ReplicaError):
     a failed spawn is a degradation, never an outage."""
 
 
-def _refuse_mesh(what: str) -> None:
-    raise NotImplementedError(
-        f"{what}: mesh replicas (the reference's MeshEngine over "
-        f"distributed.py) are not ported yet ({ROADMAP_GRID_MESH}); every "
-        "replica of the port owns one device")
+def _spec_devices(mesh_spec: "str | None") -> int:
+    """The device entries a mesh spec needs (1 for a plain replica)."""
+    if mesh_spec is None:
+        return 1
+    from nmfx_torch.distributed import parse_mesh_spec
+
+    r, f, s = parse_mesh_spec(mesh_spec)
+    return r * f * s
 
 
 def _refuse_cache_dir(what: str) -> None:
@@ -206,21 +216,22 @@ class ThreadReplica:
     plus a heartbeat beater. The router forwards by direct
     ``submit()``. ``device`` is the card the replica's own engine serves
     on (None = CUDA, raising without one; "cpu" for the plain versions);
-    an explicit ``engine`` or ``exec_cache`` owns its device instead."""
+    an explicit ``engine`` or ``exec_cache`` owns its device instead.
+    ``mesh_spec`` (or the ``serve_cfg``'s) makes it a mesh replica,
+    built over ``devices`` (its carved block) when given."""
 
     kind = "thread"
 
     def __init__(self, replica_id: str, root: str, ledger, *,
                  serve_cfg=None, engine=None, exec_cache=None,
                  mesh_spec: "str | None" = None, device=None,
-                 profiler=None, telemetry_dir: "str | None" = None,
+                 devices=None, profiler=None,
+                 telemetry_dir: "str | None" = None,
                  heartbeat_interval_s: float = 0.5):
         import dataclasses
 
-        from nmfx_torch.serve import NMFXServer, ServeConfig
+        from nmfx_torch.serve import MeshEngine, NMFXServer, ServeConfig
 
-        if mesh_spec is not None:
-            _refuse_mesh("ThreadReplica(mesh_spec=...)")
         self.replica_id = replica_id
         self.root = root
         self.spawned_at = time.monotonic()
@@ -228,13 +239,21 @@ class ThreadReplica:
         os.makedirs(self.spill_dir, exist_ok=True)
         self.state = "routable"
         cfg = serve_cfg if serve_cfg is not None else ServeConfig()
-        self.mesh_spec = None
-        self.n_devices = 1
+        if mesh_spec is None:
+            mesh_spec = cfg.mesh_spec
+        self.mesh_spec = mesh_spec
+        self.n_devices = _spec_devices(mesh_spec)
         cfg = dataclasses.replace(
             cfg, role="replica", instance=replica_id,
-            spill_dir=self.spill_dir,
+            spill_dir=self.spill_dir, mesh_spec=mesh_spec,
             telemetry_dir=(telemetry_dir if cfg.telemetry_dir is None
                            else cfg.telemetry_dir))
+        if engine is None and mesh_spec is not None:
+            # the mesh over exactly this replica's entries: its carved
+            # block, else its device named once an entry
+            engine = MeshEngine(mesh_spec, devices=(
+                devices if devices is not None else device),
+                profiler=profiler)
         own_device = engine is None and exec_cache is None
         self.server = NMFXServer(
             cfg, engine=engine,
@@ -310,15 +329,13 @@ class ProcessReplica:
                  poll_interval_s: float = 0.05,
                  worker_args: "tuple[str, ...]" = (),
                  env: "dict | None" = None):
-        if mesh_spec is not None:
-            _refuse_mesh("ProcessReplica(mesh_spec=...)")
         if cache_dir is not None:
             _refuse_cache_dir("ProcessReplica(cache_dir=...)")
         self.replica_id = replica_id
         self.root = root
         self.spawned_at = time.monotonic()
-        self.mesh_spec = None
-        self.n_devices = 1
+        self.mesh_spec = mesh_spec
+        self.n_devices = _spec_devices(mesh_spec)
         self.inbox = os.path.join(root, "inbox")
         self.outbox = os.path.join(root, "outbox")
         #: for a process replica the INBOX is the spill dir the router
@@ -340,6 +357,8 @@ class ProcessReplica:
                "--poll-interval", str(poll_interval_s)]
         if telemetry_dir is not None:
             cmd += ["--telemetry-dir", telemetry_dir]
+        if mesh_spec is not None:
+            cmd += ["--mesh-spec", mesh_spec]
         cmd += list(worker_args)
         self.process = subprocess.Popen(
             cmd, env=env, stdout=subprocess.DEVNULL,
@@ -501,10 +520,15 @@ class ReplicaPool:
     the hook the router tests use to run the whole tier against
     scriptable fakes.
 
-    ``mesh_specs`` (a heterogeneous fleet of mesh replicas) and
-    ``cache_dir`` (the reference's disk executable cache) are refused
-    with ``NotImplementedError`` naming their ROADMAP items; a list of
-    all-None ``mesh_specs`` is a plain fleet and is accepted."""
+    ``mesh_specs`` makes the fleet heterogeneous: one spec per replica
+    (None = a plain 1-device replica). In thread mode each meshed member
+    is carved a contiguous block of ``mesh_devices`` (default: this
+    process's cards; when the pool serves on the CPU, ``device`` or its
+    executable cache's, the CPU named as often as the specs need), which
+    may name a card more than once; in process mode the
+    spec travels to the worker as ``--mesh-spec``. ``cache_dir`` (the
+    reference's disk executable cache) is refused with
+    ``NotImplementedError`` naming its ROADMAP item."""
 
     def __init__(self, replicas: int = 2, *, root: str,
                  mode: str = "thread", serve_cfg=None,
@@ -514,7 +538,8 @@ class ReplicaPool:
                  mesh_specs=None,
                  heartbeat_interval_s: float = 0.5,
                  worker_args: "tuple[str, ...]" = (),
-                 env: "dict | None" = None, device=None):
+                 env: "dict | None" = None, device=None,
+                 mesh_devices=None):
         from nmfx_torch.obs.export import HeartbeatLedger
 
         if mode not in ("thread", "process"):
@@ -530,8 +555,11 @@ class ReplicaPool:
                     f"mesh_specs has {len(mesh_specs)} entries for "
                     f"{replicas} replicas — pass one spec (or None) "
                     "per replica")
-            if any(spec is not None for spec in mesh_specs):
-                _refuse_mesh("ReplicaPool(mesh_specs=...)")
+            from nmfx_torch.distributed import parse_mesh_spec
+
+            for spec in mesh_specs:
+                if spec is not None:
+                    parse_mesh_spec(spec)  # raises MeshSpecError
         if cache_dir is not None:
             _refuse_cache_dir("ReplicaPool(cache_dir=...)")
         if mode == "process" and device is not None:
@@ -549,14 +577,20 @@ class ReplicaPool:
         self.worker_args = tuple(worker_args)
         self.env = env
         self.device = device
+        self.mesh_devices = (None if mesh_devices is None
+                             else list(mesh_devices))
         self.ledger = HeartbeatLedger(root, prefix=HEARTBEAT_PREFIX)
         self._seq = itertools.count()
         self._lock = threading.Lock()
+        #: next unclaimed entry of the device list for thread-mode mesh
+        #: carving (plain replicas never advance it)
+        self._device_cursor = 0
         self.replicas: "dict[str, object]" = {}
         if mode == "process":
             _prebuild()
-        for _ in range(replicas):
-            self.spawn()
+        for i in range(replicas):
+            self.spawn(mesh_spec=None if mesh_specs is None
+                       else mesh_specs[i])
 
     def _sync_gauge(self) -> None:
         states: "dict[str, int]" = {}
@@ -565,15 +599,42 @@ class ReplicaPool:
         for state in ("routable", "draining", "dead"):
             _replicas_gauge.set(states.get(state, 0), state=state)
 
+    def _carve_devices(self, mesh_spec: str) -> list:
+        """Claim the next contiguous block of the pool's device list for
+        one meshed thread replica (the reference carves ``jax.devices()``
+        so no two meshed replicas alias a chip; the port's list may name
+        a card more than once, and then they share it)."""
+        import torch
+
+        need = _spec_devices(mesh_spec)
+        devs = self.mesh_devices
+        home = (self.device if self.device is not None
+                else getattr(self.exec_cache, "device", None))
+        if devs is None:
+            if home is not None and torch.device(home).type == "cpu":
+                devs = ["cpu"] * (self._device_cursor + need)
+            else:
+                from nmfx_torch.sweep import local_devices
+
+                devs = local_devices()
+        with self._lock:
+            lo = self._device_cursor
+            if lo + need > len(devs):
+                raise SpawnFailed(
+                    f"mesh_spec {mesh_spec!r} needs {need} devices but "
+                    f"only {len(devs) - lo} of {len(devs)} remain "
+                    "unclaimed by earlier meshed replicas")
+            self._device_cursor = lo + need
+        return list(devs[lo:lo + need])
+
     def spawn(self, mesh_spec: "str | None" = None):
         """Scale-up: one new replica. Passes the ``replica.spawn`` chaos
         site; a failure raises :class:`SpawnFailed` — the caller (the
         router's autoscaler) degrades warn-once and keeps the current
-        fleet. ``mesh_spec`` is refused (``ROADMAP_GRID_MESH``)."""
+        fleet. ``mesh_spec`` spawns a mesh member (see the class
+        docstring)."""
         from nmfx_torch import faults
 
-        if mesh_spec is not None:
-            _refuse_mesh("ReplicaPool.spawn(mesh_spec=...)")
         rid = f"replica-{os.getpid()}-{next(self._seq)}"
         root = os.path.join(self.root, rid)
         try:
@@ -581,9 +642,15 @@ class ReplicaPool:
             if self.mode == "thread":
                 engine = (self.engine_factory()
                           if self.engine_factory is not None else None)
+                devices = None
+                if mesh_spec is not None and engine is None:
+                    devices = self._carve_devices(mesh_spec)
                 rep = ThreadReplica(
                     rid, root, self.ledger, serve_cfg=self.serve_cfg,
-                    engine=engine, exec_cache=self.exec_cache,
+                    engine=engine,
+                    exec_cache=(None if mesh_spec is not None
+                                else self.exec_cache),
+                    mesh_spec=mesh_spec, devices=devices,
                     device=self.device,
                     telemetry_dir=self.telemetry_dir,
                     heartbeat_interval_s=self.heartbeat_interval_s)
@@ -591,6 +658,7 @@ class ReplicaPool:
                 rep = ProcessReplica(
                     rid, root, self.ledger,
                     telemetry_dir=self.telemetry_dir,
+                    mesh_spec=mesh_spec,
                     heartbeat_interval_s=self.heartbeat_interval_s,
                     worker_args=self.worker_args, env=self.env)
         except faults.FaultInjected as e:
@@ -716,9 +784,6 @@ def worker_main(argv: "list[str] | None" = None) -> int:
                    help="the device this worker serves on: the card "
                         "(default) or 'cpu' for the plain versions")
     args = p.parse_args(argv)
-    if args.mesh_spec is not None:
-        p.error("--mesh-spec: mesh replicas are not ported yet "
-                f"({ROADMAP_GRID_MESH})")
     if args.cache_dir is not None:
         p.error("--cache-dir: serialized XLA executables have no torch "
                 f"counterpart ({ROADMAP_WARM})")
@@ -740,11 +805,26 @@ def worker_main(argv: "list[str] | None" = None) -> int:
     outbox = os.path.join(args.dir, "outbox")
     os.makedirs(inbox, exist_ok=True)
     os.makedirs(outbox, exist_ok=True)
+    n_devices = 1
+    engine = None
+    if args.mesh_spec is not None:
+        from nmfx_torch.distributed import MeshSpecError
+        from nmfx_torch.serve import MeshEngine
+
+        try:
+            n_devices = _spec_devices(args.mesh_spec)
+            # an explicit --device is named once an entry; by default
+            # the mesh takes this process's first cards
+            engine = MeshEngine(args.mesh_spec, devices=(
+                device if args.device is not None else None))
+        except (MeshSpecError, RuntimeError) as e:
+            p.error(f"--mesh-spec: {e}")
     server = NMFXServer(
         ServeConfig(role="replica", instance=args.id,
                     max_queue_depth=args.max_queue_depth,
-                    telemetry_dir=args.telemetry_dir),
-        device=device)
+                    telemetry_dir=args.telemetry_dir,
+                    mesh_spec=args.mesh_spec),
+        engine=engine, device=None if engine is not None else device)
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
     inflight_lock = threading.Lock()
@@ -755,7 +835,7 @@ def worker_main(argv: "list[str] | None" = None) -> int:
         return {"role": "replica", "kind": "process",
                 "state": "draining" if stop.is_set() else "routable",
                 "queue_depth": s["queued"], "inflight": s["inflight"],
-                "mesh": None, "devices": 1}
+                "mesh": args.mesh_spec, "devices": n_devices}
 
     ledger = HeartbeatLedger(args.pool_dir, prefix=HEARTBEAT_PREFIX)
     beater = _Beater(ledger, args.id, status,

@@ -263,8 +263,7 @@ class RouterConfig:
     #: SMALLEST (mesh time is too expensive to burn on work a single
     #: chip serves at equal latency). Content-hash stickiness then
     #: operates WITHIN the chosen class. Default-on is safe: a
-    #: homogeneous fleet — every fleet of the port, whose replicas own
-    #: one device each — has one class, where this is exactly the plain
+    #: homogeneous fleet has one class, where this is exactly the plain
     #: placement.
     price_placement: bool = True
     #: input-matrix bytes at and above which a request is atlas-class
@@ -698,11 +697,11 @@ class NMFXRouter:
         (the hard rule the mesh-tier acceptance test pins: an atlas
         request never lands on a 1-chip replica while a mesh replica
         is routable), the smallest otherwise — and price the request
-        against it from the analytic cost model. The port's replicas
-        own one device each, so a fleet has one class and the filter
-        keeps every candidate; the per-iteration communication bytes of
-        a meshed class stay None (``costmodel.comm_model`` comes with
-        the mesh, ``ROADMAP_GRID_MESH``)."""
+        against it from the analytic cost model: the FLOPs an iteration
+        and, for a meshed class, the wire bytes an iteration of its
+        grid collectives (``costmodel.comm_model`` of the class' mesh
+        spec). A class counts device entries, so a "1x2" replica whose
+        two entries name one card is a class of 2."""
         classes = sorted({self._capability_class(rep)
                           for rep in candidates})
         atlas = int(pending.a.nbytes) >= self.cfg.atlas_floor_bytes
@@ -725,6 +724,21 @@ class NMFXRouter:
             fl = costmodel.iteration_flops(alg, "vmap", m, n, kmax)
             if fl is not None:
                 inputs["flops_per_iter"] = fl * lanes
+            if chosen > 1 and alg in \
+                    costmodel.comm_covered_algorithms():
+                spec = next((rep.mesh_spec for rep in candidates
+                             if getattr(rep, "mesh_spec", None)
+                             is not None), None)
+                if spec is not None:
+                    from nmfx_torch.distributed import parse_mesh_spec
+
+                    r_sh, f_sh, s_sh = parse_mesh_spec(spec)
+                    cm = costmodel.comm_model(
+                        alg, m, n, kmax, restart_shards=r_sh,
+                        feature_shards=f_sh, sample_shards=s_sh,
+                        restarts=int(meta["restarts"]))
+                    inputs["comm_bytes_per_iter"] = \
+                        cm["wire_bytes_per_iter"]
         except Exception:  # pricing is an
             pass           # annotation; a model gap must never make a
         #                    request unroutable

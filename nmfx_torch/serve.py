@@ -72,9 +72,10 @@ result is always tagged: ``ConsensusResult.quality == "sketched"``,
 ``serve.quality_degraded`` flight event. A request that asked for the
 sketched backend is tagged, not counted as degraded.
 
-Not ported (ROADMAP_GRID_MESH): ``ServeConfig.mesh_spec`` (the reference's
-``MeshEngine``, the mesh-aware serving tier); set, it raises
-``NotImplementedError``.
+The mesh tier: ``ServeConfig.mesh_spec`` ("R", "RxF" or "RxFxS",
+validated at construction) makes the server a mesh replica whose
+:class:`MeshEngine` runs every request solo through ``sweep()`` over its
+mesh, the grid-sharded sweep on feature or sample axes.
 """
 
 from __future__ import annotations
@@ -90,7 +91,7 @@ from typing import TYPE_CHECKING, Mapping, Protocol, Sequence
 
 import numpy as np
 
-from nmfx_torch.config import (ROADMAP_GRID_MESH, SKETCHED_ALGORITHMS,
+from nmfx_torch.config import (SKETCHED_ALGORITHMS,
                                ConsensusConfig, InitConfig, SolverConfig,
                                check_ported)
 from nmfx_torch.guards import guarded_by
@@ -656,8 +657,7 @@ class ServeConfig:
     #: scraper-based deployments; 0 = ephemeral port (read it from
     #: ``NMFXServer.metrics_port``). None = no endpoint.
     metrics_port: "int | None" = None
-    #: mesh tier (not ported: a spec raises ``NotImplementedError``
-    #: naming ROADMAP_GRID_MESH; the reference's meaning follows): the device
+    #: mesh tier: the device
     #: mesh this server solves over, as a ``distributed.parse_mesh_spec``
     #: string — "R" (restart-only), "RxF", or "RxFxS". None = the
     #: single-device engine stack (exec-cache, packing — today's
@@ -703,10 +703,9 @@ class ServeConfig:
         if not self.role:
             raise ValueError("role must be non-empty")
         if self.mesh_spec is not None:
-            raise NotImplementedError(
-                "ServeConfig.mesh_spec: the mesh tier (the reference's "
-                "MeshEngine) is not ported yet "
-                f"({ROADMAP_GRID_MESH}); pass mesh_spec=None")
+            from nmfx_torch.distributed import parse_mesh_spec
+
+            parse_mesh_spec(self.mesh_spec)  # raises MeshSpecError
 
 
 def serve_key_fields() -> frozenset:
@@ -989,6 +988,62 @@ class ExecCacheEngine:
             "_heartbeat")
 @guarded_by("_tracked_lock", "_tracked", "_coalesce", "_followers")
 @guarded_by("_harvest_cond", "_harvest_q", "_harvest_owned")
+class MeshEngine:
+    """The mesh-tier :class:`Engine` (the reference's ``MeshEngine``):
+    every dispatch runs ``sweep()`` over one fixed mesh
+    (``ServeConfig.mesh_spec`` → ``distributed.build_replica_mesh``), the
+    grid-sharded sweep where the spec has feature or sample axes. Solo
+    only: cross-request packing composes restarts into one pool whose
+    geometry depends on the batch, which would break the meshed results'
+    exactness; the mesh's parallelism comes from sharding the solve.
+    ``devices``: the entries the mesh is built over (a pool's carved
+    block; a card may be named more than once); None takes this
+    process's cards, ``"cpu"`` the CPU named once an entry."""
+
+    def __init__(self, mesh_spec: str, *, devices=None, profiler=None):
+        from nmfx_torch.distributed import (build_replica_mesh,
+                                            parse_mesh_spec)
+        from nmfx_torch.profiling import NullProfiler
+
+        self.mesh_spec = mesh_spec
+        self.shape = parse_mesh_spec(mesh_spec)
+        if devices == "cpu" or (devices is not None and not isinstance(
+                devices, (list, tuple))):
+            r, f, s = self.shape
+            devices = [devices] * (r * f * s)
+        self.mesh = build_replica_mesh(mesh_spec, devices=devices)
+        from nmfx_torch.sweep import mesh_home
+
+        self.device = mesh_home(self.mesh)
+        self._prof = profiler if profiler is not None else NullProfiler()
+
+    @property
+    def n_devices(self) -> int:
+        return int(self.mesh.devices.size)
+
+    def compatibility_key(self, req: _Request) -> "tuple | None":
+        return None  # solo only (see the class docstring)
+
+    def route(self, req: _Request) -> "dict | None":
+        # the result cache keys the mesh: a grid mesh sums in another
+        # order, so its entry never answers for a plain sweep's
+        return {"mesh_spec": self.mesh_spec}
+
+    def place(self, req: _Request):
+        return None  # sweep() places on the mesh
+
+    def dispatch_solo(self, req: _Request, placed, scfg: SolverConfig):
+        from nmfx_torch.sweep import sweep
+
+        return sweep(req.a, ExecCacheEngine._ccfg(req), scfg, req.icfg,
+                     mesh=self.mesh, profiler=self._prof)
+
+    def dispatch_packed(self, reqs, placed):
+        raise RuntimeError(
+            "MeshEngine is solo-only (compatibility_key is always "
+            "None); a packed dispatch reaching it is a scheduler bug")
+
+
 class NMFXServer:
     """Async multi-tenant consensus-NMF server over one device.
 
@@ -1025,6 +1080,14 @@ class NMFXServer:
         self._prof = profiler if profiler is not None else NullProfiler()
         if engine is not None:
             self.engine: Engine = engine
+        elif serve_cfg.mesh_spec is not None:
+            if exec_cache is not None:
+                raise ValueError(
+                    "mesh_spec selects the MeshEngine, which does not "
+                    "serve through an executable cache — pass either "
+                    "mesh_spec or exec_cache, not both")
+            self.engine = MeshEngine(serve_cfg.mesh_spec, devices=device,
+                                     profiler=self._prof)
         else:
             self.engine = ExecCacheEngine(exec_cache, profiler=self._prof,
                                           device=device)

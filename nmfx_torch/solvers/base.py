@@ -60,6 +60,41 @@ class StopReason(enum.IntEnum):
     SCREENED = 6
 
 
+class ShardInfo(NamedTuple):
+    """Axis names, true dims and collectives of a solver running on one
+    shard of a grid group (reference ``ShardInfo``): A is row-sharded
+    over ``feature_axis`` and column-sharded over ``sample_axis`` (None:
+    that axis is off), W row-sharded, H column-sharded. m-contracted
+    terms sum over the feature axis, n-contracted terms over the sample
+    axis. ``m_total`` / ``n_total`` are the unsharded (unpadded) dims;
+    ``comm`` is the shard's ``nmfx_torch.collectives.ShardComm``."""
+
+    feature_axis: "str | None" = None
+    sample_axis: "str | None" = None
+    m_total: "int | None" = None
+    n_total: "int | None" = None
+    comm: Any = None
+
+
+def shard_reducers(shard: "ShardInfo | None"):
+    """``(fsum, ssum)``: the sums over the feature / sample axis when it
+    is on, else the identity (reference ``shard_reducers``). One
+    definition, so no solver's placement of its sums can drift. Given
+    several tensors, each returns their sums as a tuple, from one
+    exchange of the collective layer."""
+    f_ax = shard.feature_axis if shard is not None else None
+    s_ax = shard.sample_axis if shard is not None else None
+
+    def reducer(axis):
+        def total(*xs):
+            if axis is not None:
+                xs = shard.comm.reduce([("sum", x, axis) for x in xs])
+            return xs[0] if len(xs) == 1 else tuple(xs)
+        return total
+
+    return reducer(f_ax), reducer(s_ax)
+
+
 class HostReads:
     """The device→host reads a solve's host loops make (``host_syncs``)."""
 
@@ -167,6 +202,45 @@ def lane_scalar(x: torch.Tensor) -> torch.Tensor:
     return x[..., None, None]
 
 
+def _sharded_rms(sq: torch.Tensor, m: int, n: int, shard,
+                 what: str) -> torch.Tensor:
+    """sqrt(sq / (m n)) of per-lane square sums: under ``shard`` the local
+    block's sums add over the grid axes (zero-padded rows and columns
+    add exact zeros) and the normalizer takes the unsharded dims."""
+    if shard is not None:
+        m, n = _true_dims(shard, m, n, what)
+        if _sq_axis(shard) is not None:
+            sq = shard.comm.sum(sq, _sq_axis(shard))
+    return torch.sqrt(sq.clamp(min=0.0) / (m * n))
+
+
+def _true_dims(shard: "ShardInfo", m: int, n: int, what: str) -> tuple:
+    """The RMS normalizer's dims on a grid group: the unsharded count of
+    each sharded axis (a ``ValueError`` when it is missing)."""
+    if shard.feature_axis is not None:
+        if shard.m_total is None:
+            raise ValueError(
+                f"{what} with feature_axis needs m_total (the "
+                "unsharded row count)")
+        m = shard.m_total
+    if shard.sample_axis is not None:
+        if shard.n_total is None:
+            raise ValueError(
+                f"{what} with sample_axis needs n_total (the "
+                "unsharded column count)")
+        n = shard.n_total
+    return m, n
+
+
+def _sq_axis(shard: "ShardInfo") -> str:
+    """The axis a square sum reduces over: both when both are on."""
+    from nmfx_torch.collectives import GRID_AXES
+
+    if shard.feature_axis is not None and shard.sample_axis is not None:
+        return GRID_AXES
+    return shard.feature_axis or shard.sample_axis
+
+
 def residual_norm(a: torch.Tensor, w: torch.Tensor,
                   h: torch.Tensor, bf16: bool = False) -> torch.Tensor:
     """Per-lane RMS residual ||A - W H||_F / sqrt(m n) (W H through
@@ -178,7 +252,8 @@ def residual_norm(a: torch.Tensor, w: torch.Tensor,
 
 def residual_norms(a: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
                    bf16: bool = False,
-                   chunk: "int | None" = None) -> torch.Tensor:
+                   chunk: "int | None" = None,
+                   shard: "ShardInfo | None" = None) -> torch.Tensor:
     """Per-lane RMS residual ‖A − WᵦHᵦ‖_F/√(mn) from (B, m, k) / (B, k, n)
     factor stacks, the direct way: one reconstruction per lane, at most
     ``chunk`` of them live at once (default: ~80 MB of them, capped at 8);
@@ -186,7 +261,10 @@ def residual_norms(a: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
     last chunk is zero-padded to a full one, so every lane's product and
     sum run at one batch shape whatever the stack's size: on the card a
     batched product or reduction of another batch size may take another
-    algorithm, and a restart shard's stack is smaller than the whole."""
+    algorithm, and a restart shard's stack is smaller than the whole.
+    Under ``shard`` (reference ``residual_norms_direct`` with
+    ``m_total`` / ``n_total``) the local square sums add over the grid
+    axes and the normalizer takes the unsharded dims."""
     b, m, _ = w.shape
     n = h.shape[2]
     if chunk is None:
@@ -200,6 +278,8 @@ def residual_norms(a: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
         ((a[None] - mm(w[i:i + chunk], h[i:i + chunk], bf16)) ** 2
          ).sum(dim=(1, 2))
         for i in range(0, b + pad, chunk)])[:b]
+    if shard is not None:
+        return _sharded_rms(sq, m, n, shard, "residual_norms_direct")
     return torch.sqrt(sq.clamp(min=0.0) / (m * n))
 
 
@@ -247,22 +327,36 @@ def solve_gram_reg(gram: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
 
 def check_convergence(state: State, cfg, *, a=None,
                       use_class: bool = False, use_tolx: bool = False,
-                      use_tolfun: bool = False) -> State:
+                      use_tolfun: bool = False,
+                      shard: "ShardInfo | None" = None) -> State:
     """The generic convergence tests after a step (reference
-    ``check_convergence`` without mesh axes), per lane. They run at every
+    ``check_convergence``), per lane. They run at every
     ``check_every``-th iteration after the first, on a lane not yet done:
     numeric quarantine first, then class stability, TolX and TolFun. The
-    check gate is the host clock; the rest stays on the device."""
+    check gate is the host clock; the rest stays on the device.
+
+    Under ``shard`` every test reaches the same global decision on each
+    shard of the grid group: the non-finite flags or over each factor's
+    axis, label mismatches sum over the sample axis (the flip budget
+    from ``n_total``), the max-changes reduce over the axis each factor
+    is sharded on, the residual sums over both."""
     it = state.iteration
     if not (it > 1 and it % cfg.check_every == 0):
         return state
     is_check = ~state.done
     done = state.done
     reason = state.stop_reason
+    use_tolx = use_tolx and cfg.use_tol_checks
+    use_tolfun = use_tolfun and cfg.use_tol_checks
+    glob = (_sharded_check_terms(state, cfg, a, use_class, use_tolx,
+                                 use_tolfun, shard)
+            if shard is not None else {})
 
     if cfg.nonfinite_guard:
-        bad = ~(torch.isfinite(state.w).all(dim=-1).all(dim=-1)
-                & torch.isfinite(state.h).all(dim=-1).all(dim=-1))
+        bad = glob.get("bad")
+        if bad is None:
+            bad = ~(torch.isfinite(state.w).all(dim=-1).all(dim=-1)
+                    & torch.isfinite(state.h).all(dim=-1).all(dim=-1))
         faulted = is_check & bad
         done = done | faulted
         is_check = is_check & ~faulted
@@ -272,8 +366,13 @@ def check_convergence(state: State, cfg, *, a=None,
     if use_class:
         # the noise-tolerant snapshot rule (see SolverConfig.class_flip_tol)
         new_classes = class_labels(state.h)
-        flip_tol = int(cfg.class_flip_tol * new_classes.shape[-1] + 1e-9)
-        mism = (new_classes != state.classes).sum(dim=-1, dtype=torch.int32)
+        if "mism" in glob:
+            n_glob, mism = shard.n_total, glob["mism"]
+        else:
+            n_glob = new_classes.shape[-1]
+            mism = (new_classes != state.classes).sum(dim=-1,
+                                                      dtype=torch.int32)
+        flip_tol = int(cfg.class_flip_tol * n_glob + 1e-9)
         same = mism <= flip_tol
         stable = torch.where(is_check, torch.where(same, state.stable + 1, 0),
                              state.stable).to(torch.int32)
@@ -283,17 +382,21 @@ def check_convergence(state: State, cfg, *, a=None,
         done = done | hit
         reason = torch.where(hit, int(StopReason.CLASS_STABLE), reason)
 
-    if use_tolx and cfg.use_tol_checks:
-        delta = torch.maximum(maxchange(state.w, state.w_prev),
-                              maxchange(state.h, state.h_prev))
+    if use_tolx:
+        delta = glob.get("delta")
+        if delta is None:
+            delta = torch.maximum(maxchange(state.w, state.w_prev),
+                                  maxchange(state.h, state.h_prev))
         hit = is_check & (delta < cfg.tol_x) & ~done
         done = done | hit
         reason = torch.where(hit, int(StopReason.TOL_X), reason)
 
     dnorm = state.dnorm
-    if use_tolfun and cfg.use_tol_checks:
-        new_dnorm = residual_norm(a, state.w, state.h,
-                                  bf16_products(cfg, a.device))
+    if use_tolfun:
+        new_dnorm = glob.get("dnorm")
+        if new_dnorm is None:
+            new_dnorm = residual_norm(a, state.w, state.h,
+                                      bf16_products(cfg, a.device))
         hit = (is_check & torch.isfinite(state.dnorm)
                & (state.dnorm - new_dnorm <= cfg.tol_fun * state.dnorm)
                & ~done)
@@ -304,6 +407,65 @@ def check_convergence(state: State, cfg, *, a=None,
     return dataclasses.replace(state, classes=classes, stable=stable,
                                done=done, stop_reason=reason.to(torch.int32),
                                dnorm=dnorm)
+
+
+def _sharded_check_terms(state: State, cfg, a, use_class: bool,
+                         use_tolx: bool, use_tolfun: bool,
+                         shard: "ShardInfo") -> dict:
+    """A grid shard's check terms, global, from one exchange: the
+    non-finite flags or over each factor's axis ("bad"), the label
+    mismatches sum over the samples ("mism"), each factor's max-change
+    a ratio of its global maxima ("delta"), the residual's square sums
+    over both axes ("dnorm")."""
+    f_ax, s_ax = shard.feature_axis, shard.sample_axis
+    items, keys = [], []
+
+    def want(key, op, x, axis):
+        if axis is not None:
+            items.append((op, x, axis))
+            keys.append(key)
+        return x
+
+    local = {}
+    if cfg.nonfinite_guard:
+        local["bad_w"] = want("bad_w", "any", ~torch.isfinite(state.w).all(
+            dim=-1).all(dim=-1), f_ax)
+        local["bad_h"] = want("bad_h", "any", ~torch.isfinite(state.h).all(
+            dim=-1).all(dim=-1), s_ax)
+    if use_class and s_ax is not None:
+        if shard.n_total is None:
+            raise ValueError(
+                "class-stability check with sample_axis needs n_total "
+                "(the unsharded column count); the local shard width "
+                "would make the flip tolerance ~#shards too strict")
+        want("mism", "sum", (class_labels(state.h) != state.classes).sum(
+            dim=-1, dtype=torch.int32), s_ax)
+    if use_tolx:
+        for f, (cur, prev), ax in (("w", (state.w, state.w_prev), f_ax),
+                                   ("h", (state.h, state.h_prev), s_ax)):
+            local["diff_" + f] = want("diff_" + f, "max", (cur - prev).abs()
+                                      .amax(dim=(-2, -1)), ax)
+            local["ref_" + f] = want("ref_" + f, "max",
+                                     prev.abs().amax(dim=(-2, -1)), ax)
+    m, n = a.shape if a is not None else (0, 0)
+    if use_tolfun:
+        d = a - mm(state.w, state.h, bf16_products(cfg, a.device))
+        m, n = _true_dims(shard, m, n, "residual_norm")
+        want("sq", "sum", lane_sum(d * d), _sq_axis(shard))
+    local.update(zip(keys, shard.comm.reduce(items) if items else ()))
+    out = {}
+    if cfg.nonfinite_guard:
+        out["bad"] = local["bad_w"] | local["bad_h"]
+    if "mism" in local:
+        out["mism"] = local["mism"]
+    if use_tolx:
+        sqrteps = _sqrteps(state.w.dtype, state.w.device)
+        out["delta"] = torch.maximum(
+            local["diff_w"] / (sqrteps + local["ref_w"]),
+            local["diff_h"] / (sqrteps + local["ref_h"]))
+    if use_tolfun:
+        out["dnorm"] = torch.sqrt(local["sq"].clamp(min=0.0) / (m * n))
+    return out
 
 
 def init_state(a: torch.Tensor, w0: torch.Tensor, h0: torch.Tensor,
@@ -342,7 +504,8 @@ _LANE_FIELDS = ("w", "h", "w_prev", "h_prev", "dnorm", "classes", "stable",
                 "done", "stop_reason", "aux")
 
 
-def run_loop_batched(a, w0, h0, cfg, step_fn, aux) -> SolverResult:
+def run_loop_batched(a, w0, h0, cfg, step_fn, aux,
+                     shard: "ShardInfo | None" = None) -> SolverResult:
     """Drive ``step_fn`` over a batch of lanes (the counterpart of
     ``jax.vmap(run_loop)``): blocks of ``check_every`` iterations whose
     last one runs the tests, while any lane is running and the block fits
@@ -351,7 +514,10 @@ def run_loop_batched(a, w0, h0, cfg, step_fn, aux) -> SolverResult:
     checked). Each block runs on every lane; a lane done at the block's
     start keeps its state (``keep_lanes``). One read of the running lanes'
     count a block. Factors may be (B, m, k) / (B, k, n) or one restart's
-    (m, k) / (k, n)."""
+    (m, k) / (k, n). ``shard``: the step has the same ShardInfo bound
+    (its collectives make every decision the same on each shard of the
+    grid group, so the host loops stay in lockstep); here it scopes the
+    final residuals of (B, m, k) / (B, k, n) lanes."""
     state = init_state(a, w0, h0, aux)
     reads = state.reads
     iters = torch.zeros(state.done.shape, dtype=torch.int32,
@@ -384,7 +550,8 @@ def run_loop_batched(a, w0, h0, cfg, step_fn, aux) -> SolverResult:
     bf16 = bf16_products(cfg, a.device)
     # the final residuals at one batch shape whatever the lane count (a
     # restart shard's lanes are fewer than the whole batch's)
-    dnorm = (residual_norms(a, state.w, state.h, bf16) if state.w.dim() == 3
+    dnorm = (residual_norms(a, state.w, state.h, bf16, shard=shard)
+             if state.w.dim() == 3
              else residual_norm(a, state.w, state.h, bf16))
     return SolverResult(w=state.w, h=state.h, iterations=iters,
                         dnorm=dnorm,

@@ -79,21 +79,34 @@ def hals_w_sweep_from(aht, hht, w, eps: float, zero_threshold: float,
     return w
 
 
-def init_aux(a, w0, h0, cfg):
+def init_aux(a, w0, h0, cfg, shard=None):
     return ()
 
 
-def step(a, state: base.State, cfg, check: bool = True) -> base.State:
+def step(a, state: base.State, cfg, check: bool = True,
+         shard: "base.ShardInfo | None" = None) -> base.State:
     eps, zt = cfg.div_eps, cfg.zero_threshold
     one = state.w.dim() == 2  # one restart: a lane axis of 1
     w0, h0 = (state.w[None], state.h[None]) if one else (state.w, state.h)
     bf = base.bf16_products(cfg, a.device)
-    h = hals_h_sweep(a, w0, h0, eps, zt, bf)
-    w = hals_w_sweep(a, w0, h, eps, zt, bf)
+    if shard is None:
+        h = hals_h_sweep(a, w0, h0, eps, zt, bf)
+        w = hals_w_sweep(a, w0, h, eps, zt, bf)
+    else:
+        # the shared products sum over their contracted grid axis; the
+        # coordinate sweeps run on the local rows / columns
+        fsum, ssum = base.shard_reducers(shard)
+        h = hals_h_sweep_from(*fsum(base.einsum("bmk,mn->bkn", w0, a, bf),
+                                    base.einsum("bmk,bml->bkl", w0, w0, bf)),
+                              h0, eps, zt, bf)
+        w = hals_w_sweep_from(*ssum(base.einsum("mn,bkn->bmk", a, h, bf),
+                                    base.einsum("bkn,bln->bkl", h, h, bf)),
+                              w0, eps, zt, bf)
     state = dataclasses.replace(state, w=w[0] if one else w,
                                 h=h[0] if one else h)
     if not check:
         return state
     return base.check_convergence(state, cfg, a=a,
                                   use_class=cfg.use_class_stop,
-                                  use_tolx=True, use_tolfun=True)
+                                  use_tolx=True, use_tolfun=True,
+                                  shard=shard)

@@ -23,29 +23,42 @@ import torch
 from nmfx_torch.solvers import base
 
 
-def init_aux(a, w0, h0, cfg):
-    """η, shared by every lane: ``ridge_eta`` or max(A)²."""
+def init_aux(a, w0, h0, cfg, shard=None):
+    """η, shared by every lane: ``ridge_eta`` or max(A)²; under ``shard``
+    the global max over the grid group's blocks (zero padding cannot win:
+    A is non-negative)."""
     if cfg.ridge_eta is None:
-        return a.amax() ** 2
+        amax = a.amax()
+        if shard is not None:
+            for ax in (shard.feature_axis, shard.sample_axis):
+                if ax is not None:
+                    amax = shard.comm.max(amax, ax)
+        return amax ** 2
     return torch.tensor(cfg.ridge_eta, dtype=w0.dtype, device=w0.device)
 
 
-def step(a, state: base.State, cfg, check: bool = True) -> base.State:
+def step(a, state: base.State, cfg, check: bool = True,
+         shard: "base.ShardInfo | None" = None) -> base.State:
     w0 = state.w
+    fsum, ssum = base.shard_reducers(shard)
     eta = state.aux
     k = w0.shape[-1]
     ones = torch.ones((k, k), dtype=w0.dtype, device=w0.device)
     eye = torch.eye(k, dtype=w0.dtype, device=w0.device)
     bf, mm = base.bf16_products(cfg, a.device), base.mm
+    # the regularizers are added after the sums: they are global terms,
+    # not per-shard contributions
+    gram, rhs = fsum(mm(w0.mT, w0, bf), mm(w0.mT, a, bf))
     h = base.clamp(
-        base.solve_gram_reg(mm(w0.mT, w0, bf) + cfg.sparsity_beta * ones,
-                            mm(w0.mT, a, bf)),
+        base.solve_gram_reg(gram + cfg.sparsity_beta * ones, rhs),
         cfg.zero_threshold)
-    wt = base.solve_gram_reg(mm(h, h.mT, bf) + eta * eye, mm(h, a.T, bf))
+    gram, rhs = ssum(mm(h, h.mT, bf), mm(h, a.T, bf))
+    wt = base.solve_gram_reg(gram + eta * eye, rhs)
     w = base.clamp(wt.mT, cfg.zero_threshold)
     state = dataclasses.replace(state, w=w, h=h)
     if not check:
         return state
     return base.check_convergence(state, cfg, a=a,
                                   use_class=cfg.use_class_stop,
-                                  use_tolx=True, use_tolfun=True)
+                                  use_tolx=True, use_tolfun=True,
+                                  shard=shard)

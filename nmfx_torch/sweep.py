@@ -41,8 +41,12 @@ through the chunk executor :func:`_build_chunk_sweep_fn`). The armed
 ``solve.nonfinite`` fault poisons W0 at every place a route draws it.
 Float64 runs on every route of plain products (the kernels are
 float32). A restart mesh (:func:`grid_mesh`) runs every route
-restart-sharded, each shard on its device (:func:`_run_shards`); feature
-and sample axes are not ported yet (``ROADMAP_GRID_MESH``).
+restart-sharded, each shard on its device (:func:`_run_shards`). A mesh
+with feature or sample axes runs the grid-sharded sweep
+(:func:`_build_grid_sharded_sweep_fn`): A tiled over the grid axes, each
+restart shard's F×S shards in lockstep on the collective layer
+(``nmfx_torch/collectives.py``), mu on ``mu_packed``'s plain products or
+one of :data:`GRID_SOLVERS` on the batched restart route.
 
 The serving tier's build functions (:func:`_build_bucketed_sweep_fn`, solo, and
 :func:`_build_packed_serve_fn`, lanes from several requests) run the
@@ -73,8 +77,8 @@ The job-grid API (:class:`RestartResult`, :func:`grid_cells`,
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
+import functools as _functools
 import threading
 import time
 from typing import NamedTuple, Sequence
@@ -82,10 +86,11 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from nmfx_torch import collectives as _coll
 from nmfx_torch import faults
 from nmfx_torch import random as _random
-from nmfx_torch.config import (ROADMAP_GRID_MESH, ConsensusConfig,
-                               InitConfig, SolverConfig, check_ported)
+from nmfx_torch.config import (ConsensusConfig, InitConfig, SolverConfig,
+                               check_ported)
 from nmfx_torch.consensus import labels_from_h, one_hot
 from nmfx_torch.device import (Mesh, _process_index, explicit_device,
                                process_count, resolve_device)
@@ -98,7 +103,8 @@ from nmfx_torch.ops.packed_mu import mu_packed, unpack_w
 from nmfx_torch.ops.sched_mu import mu_sched
 from nmfx_torch.profiling import NullProfiler
 from nmfx_torch.solvers import SOLVERS
-from nmfx_torch.solvers.base import StopReason, run_loop_batched
+from nmfx_torch.solvers.base import (ShardInfo, StopReason,
+                                     run_loop_batched)
 
 #: surplus restart lanes padded onto meshed sweeps so the restarts split
 #: evenly over the restart axis: computed and discarded
@@ -110,8 +116,15 @@ _pad_lanes_total = _metrics.counter(
 #: mesh axis names, the reference's: the restart batch, the rows of A
 #: and W, the columns of A and H
 RESTART_AXIS = "restarts"
-FEATURE_AXIS = "features"
-SAMPLE_AXIS = "samples"
+FEATURE_AXIS = _coll.FEATURE_AXIS
+SAMPLE_AXIS = _coll.SAMPLE_AXIS
+
+#: solvers whose updates shard over the feature/sample axes through the
+#: batched restart route (the reference's ``GRID_SOLVERS``): kl's
+#: quotient contractions, neals' and snmf's normal-equation Grams, hals'
+#: shared products; mu grids through ``mu_packed``; als, pg and alspg
+#: stay restart-parallel only
+GRID_SOLVERS = ("kl", "neals", "snmf", "hals")
 
 #: backends that route each algorithm into the slot scheduler (the
 #: reference's table): mu and hals by default; neals, als, snmf and kl
@@ -181,9 +194,10 @@ def resolve_engine_family(solver_cfg: SolverConfig, mesh=None) -> str:
     or "vmap" (the batched restart route, which a screened config's
     exact phase runs). Families sum products in other orders, so a
     registry never crosses them. A restart-only ``mesh`` does not change
-    the family (each shard runs the unmeshed engine on its lanes); grid
-    axes are refused (``ROADMAP_GRID_MESH``)."""
-    _refuse_grid_axes(mesh)
+    the family (each shard runs the unmeshed engine on its lanes); on
+    grid axes the Gram family and hals resolve to "vmap" (the
+    grid-sharded batched route), mu to "packed", as in the reference."""
+    _check_mesh_type(mesh)
     if solver_cfg.tile_rows is not None:
         return "tiled"
     if solver_cfg.backend == "sketched":
@@ -192,7 +206,7 @@ def resolve_engine_family(solver_cfg: SolverConfig, mesh=None) -> str:
         return "vmap"
     if solver_cfg.backend == "pallas":
         return "pallas"
-    if _use_packed(solver_cfg) or grid_exec_ok(solver_cfg):
+    if _use_packed(solver_cfg) or grid_exec_ok(solver_cfg, mesh):
         return "packed"
     return "vmap"
 
@@ -634,8 +648,19 @@ def _build_bucketed_sweep_fn(ks: tuple, restarts: int,
     matrix on its device; ``flip_floor`` is the true sample count's
     class-stability flip budget. Outputs keep the bucket's extents.
     ``grid_tail_slots`` is accepted and pinned off (the fixed pool
-    geometry). A mesh raises."""
-    _refuse_mesh(mesh)
+    geometry). With a restart ``mesh`` (the reference's meshed branch)
+    ``a_pad`` is the per-device copies (:func:`_bucket_copies`) and each
+    shard schedules its own lanes of every rank through its own
+    ``mu_sched`` (with the ``grid_tail_slots`` cascade, as the
+    reference's shards run it); the ranks gather in shard order."""
+    if mesh is not None and grid_axes_active(mesh):
+        raise ValueError(
+            "the bucketed sweeps shard the restart axis only; got mesh "
+            f"axes {mesh.shape}")
+    if mesh is not None and _restart_size(mesh) > 1:
+        return _build_meshed_bucketed_sweep_fn(
+            ks, restarts, solver_cfg, label_rule, mesh, keep_factors,
+            grid_slots, grid_tail_slots, bucket_shape, init_cfg)
     ks = tuple(sorted(ks, reverse=True))
     k_max = max(ks)
     m_pad, n_pad = bucket_shape
@@ -751,13 +776,109 @@ def _build_packed_serve_fn(layout: tuple, solver_cfg: SolverConfig,
     return impl
 
 
-def _refuse_mesh(mesh) -> None:
-    """The serving tier's meshes (the reference's ``MeshEngine``) are not
-    ported: its build functions take only ``mesh=None``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"meshes on the serving tier are not ported yet "
-            f"({ROADMAP_GRID_MESH}); pass mesh=None")
+def _bucket_copies(a_pad, mesh) -> dict:
+    """A bucket-padded matrix as the per-device copies a meshed bucketed
+    sweep reads (a dict passes through; a tensor is copied to each
+    distinct device of the mesh that it is not already on)."""
+    if isinstance(a_pad, dict):
+        return a_pad
+    return {d: a_pad if a_pad.device == d else a_pad.to(d)
+            for d in mesh.distinct_devices()}
+
+
+def _build_meshed_bucketed_sweep_fn(ks: tuple, restarts: int,
+                                    solver_cfg: SolverConfig,
+                                    label_rule: str, mesh,
+                                    keep_factors: bool, grid_slots: int,
+                                    grid_tail_slots, bucket_shape: tuple,
+                                    init_cfg: "InitConfig | None"):
+    """:func:`_build_bucketed_sweep_fn` over a restart mesh: the rank's
+    restarts padded to a multiple of the shards, shard ``i`` solving
+    lanes ``[i·r, (i+1)·r)`` of every rank in one ``mu_sched`` pool on
+    its device, then each rank's parts gathered in shard order (pad
+    lanes masked) by :func:`_gathered_rank_output`. The signatures are
+    the unmeshed function's, ``a_pad`` a tensor or the per-device
+    copies."""
+    ks = tuple(sorted(ks, reverse=True))
+    k_max = max(ks)
+    m_pad, n_pad = bucket_shape
+    padded = _pad_count(restarts, mesh, count=False)
+    r_loc = padded // _restart_size(mesh)
+    inside_init = init_cfg is not None
+    if inside_init and init_cfg.method != "random":
+        raise ValueError(
+            "inside-executable init is the random-init fast path; NNDSVD "
+            "lane batches are built per true shape (pass init_cfg=None)")
+    dyn_init = (_dyn_lane_init(init_cfg, solver_cfg.dtype, n_pad, m_pad,
+                               k_max) if inside_init else None)
+    job_ks = tuple(k for k in ks for _ in range(r_loc))
+
+    def refuse_poison():
+        if any(faults.poison_restarts(k, restarts) for k in ks):
+            raise ValueError(
+                "solve.nonfinite fault injection on the bucketed sweeps "
+                "needs the random-init unmeshed route (init inside the "
+                "sweep); disarm the site for NNDSVD/meshed runs")
+
+    def run(copies, lanes_of, m_true, n_true, flip_floor):
+        refuse_poison()
+        _pad_count(restarts, mesh)
+        copies = _bucket_copies(copies, mesh)
+
+        def work(i, a_s):
+            lo = i * r_loc
+            w0, h0 = lanes_of(lo, a_s.device)
+            res = mu_sched(a_s, w0, h0, solver_cfg, slots=grid_slots,
+                           tail_slots=grid_tail_slots, job_ks=job_ks,
+                           flip_floor=flip_floor, device=a_s.device)
+            scale = _true_scale(m_pad, n_pad, m_true, n_true,
+                                res.dnorm.dtype, a_s.device)
+            valid = torch.arange(n_pad, device=a_s.device) < n_true
+            out = {}
+            for g, k in enumerate(ks):
+                sl = slice(g * r_loc, (g + 1) * r_loc)
+                hk = res.h[sl, :k, :]
+                labels = torch.where(valid[None, :],
+                                     labels_from_h(hk, label_rule), -1)
+                lanes = _Lanes(res.w[sl, :, :k], hk, labels,
+                               res.iterations[sl], res.dnorm[sl] * scale,
+                               res.stop_reason[sl], res.host_syncs,
+                               res.pool_widths, res.pool_trips,
+                               res.pool_lanes)
+                out[k] = _shard_out(lanes, lo, restarts, keep_factors)
+            return out
+
+        parts = _run_shards(mesh, copies, work)
+        home = mesh_home(mesh)
+        return {k: _gathered_rank_output(k, [p[k] for p in parts],
+                                         restarts, keep_factors, home)
+                for k in ks}
+
+    if inside_init:
+
+        def impl(a_pad, root_key, m_true, n_true, flip_floor):
+            keys = {k: _random.split(_random.fold_in(root_key, k), padded)
+                    for k in ks}
+
+            def lanes_of(lo, dev):
+                return dyn_init([(k, keys[k][lo:lo + r_loc]) for k in ks],
+                                m_true, n_true, dev)
+
+            return run(a_pad, lanes_of, m_true, n_true, flip_floor)
+
+        return impl
+
+    def impl_external(a_pad, w0, h0, m_true, n_true, flip_floor):
+        w0s = w0.reshape(len(ks), padded, m_pad, k_max)
+        h0s = h0.reshape(len(ks), padded, k_max, n_pad)
+
+        def lanes_of(lo, dev):
+            return (w0s[:, lo:lo + r_loc].reshape(-1, m_pad, k_max).to(dev),
+                    h0s[:, lo:lo + r_loc].reshape(-1, k_max, n_pad).to(dev))
+
+        return run(a_pad, lanes_of, m_true, n_true, flip_floor)
+
+    return impl_external
 
 
 # -- the restart mesh -------------------------------------------------------
@@ -775,9 +896,8 @@ def grid_mesh(restart_shards: "int | None" = None, feature_shards: int = 1,
     reference's three axes, restarts × features × samples; its shapes and
     errors are the reference's. ``restart_shards=None`` takes every
     device left after the other two axes. A device may be named more than
-    once (two restart shards on one card). Only the restart axis runs
-    here: a sweep refuses feature or sample axes above 1
-    (``ROADMAP_GRID_MESH``)."""
+    once (two restart shards on one card, or a grid group's shards on
+    one card, which then share it)."""
     if feature_shards < 1 or sample_shards < 1:
         raise ValueError(
             f"shard counts must be >= 1, got features={feature_shards}, "
@@ -834,16 +954,39 @@ def grid_axes_active(mesh) -> bool:
                     for ax in (FEATURE_AXIS, SAMPLE_AXIS)))
 
 
-def _refuse_grid_axes(mesh) -> None:
+def _check_mesh_type(mesh) -> None:
     if mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError(
-            f"mesh must be a nmfx_torch Mesh (grid_mesh(R), "
+            f"mesh must be a nmfx_torch Mesh (grid_mesh(R, F, S), "
             f"default_mesh()), got {type(mesh).__name__}")
-    if grid_axes_active(mesh):
-        raise NotImplementedError(
-            f"feature and sample mesh axes are not ported yet "
-            f"({ROADMAP_GRID_MESH}); got mesh axes {mesh.shape}, use a "
-            "restart-only mesh (grid_mesh(R))")
+
+
+def _grid_route_check(solver_cfg: SolverConfig, keep_factors: bool) -> None:
+    """What the reference refuses on feature/sample axes, with its errors
+    (``nmfx/sweep.py:315-350``): the sketched engine and screening, any
+    engine but mu's plain packed products and :data:`GRID_SOLVERS`, and
+    ``keep_factors``."""
+    if solver_cfg.backend == "sketched" or solver_cfg.screen:
+        raise ValueError(
+            "the sketched engine and restart screening are restart-"
+            "parallel only (their per-restart projections have no "
+            "feature/sample-sharded formulation); drop the grid "
+            "mesh axes")
+    grid_ok = ((_use_packed(solver_cfg) and solver_cfg.backend != "pallas")
+               or solver_cfg.algorithm in GRID_SOLVERS)
+    if not grid_ok:
+        raise ValueError(
+            "feature/sample-axis sharding requires the packed mu "
+            "backend (algorithm='mu', backend='packed'/'auto') or a "
+            f"Gram/quotient-sharded solver {GRID_SOLVERS}; got "
+            f"algorithm={solver_cfg.algorithm!r}, "
+            f"backend={solver_cfg.backend!r}")
+    if keep_factors:
+        raise ValueError(
+            "keep_factors is not supported on feature/sample-sharded "
+            "meshes (it would gather every restart's full factors onto "
+            "each device); use nmfx_torch.restart_factors to recompute "
+            "any restart's factors from its key instead")
 
 
 def _restart_size(mesh) -> int:
@@ -877,8 +1020,8 @@ def _shard_entries(mesh) -> list:
     axis = (mesh.axis_names.index(RESTART_AXIS)
             if RESTART_AXIS in mesh.axis_names else None)
     devs = mesh.devices
-    procs = (np.zeros(devs.shape, dtype=np.int64) if mesh.processes is None
-             else mesh.processes)
+    procs = (np.full(devs.shape, _process_index(), dtype=np.int64)
+             if mesh.processes is None else mesh.processes)
     if axis is None:
         return [(devs.flat[0], int(procs.flat[0]))]
     devs = np.moveaxis(devs, axis, 0).reshape(devs.shape[axis], -1)
@@ -887,25 +1030,98 @@ def _shard_entries(mesh) -> list:
 
 
 def mesh_home(mesh) -> torch.device:
-    """Where a meshed sweep's outputs live: this process's first shard's
-    device."""
+    """Where a meshed sweep's outputs live: this process's first device
+    in the mesh's order (on a restart mesh its first shard's)."""
     rank = _process_index()
-    for dev, proc in _shard_entries(mesh):
-        if proc == rank:
-            return dev
+    for idx in np.ndindex(mesh.devices.shape):
+        if mesh.process_of(idx) == rank:
+            return mesh.devices[idx]
     raise ValueError(f"the mesh holds no device of process {rank}: {mesh}")
+
+
+class GridInput(NamedTuple):
+    """A placed on a mesh with feature or sample axes: each shard's block
+    of the zero-padded A on its device, and the true shape. No device
+    holds A whole; ``source`` is the input as it was given (host memory,
+    or a tensor), which only NNDSVD's one SVD reads."""
+
+    #: {(device, feature index, sample index): (m_loc, n_loc) block}
+    blocks: dict
+    shape: tuple  # (m_true, n_true)
+    block_shape: tuple  # (m_loc, n_loc)
+    source: object
+
+
+def _grid_axes(mesh) -> tuple:
+    """(R, F, S) of a mesh (an absent axis has size 1)."""
+    return tuple(mesh.shape.get(ax, 1)
+                 for ax in (RESTART_AXIS, FEATURE_AXIS, SAMPLE_AXIS))
+
+
+def _grid_devices(mesh) -> tuple:
+    """The mesh's devices and processes as (R, F, S) arrays."""
+    shape = _grid_axes(mesh)
+    names = [ax for ax in (RESTART_AXIS, FEATURE_AXIS, SAMPLE_AXIS)
+             if ax in mesh.axis_names]
+    order = [mesh.axis_names.index(ax) for ax in names]
+    devs = np.transpose(mesh.devices, order).reshape(shape)
+    procs = (np.full(shape, _process_index(), dtype=np.int64)
+             if mesh.processes is None
+             else np.transpose(mesh.processes, order).reshape(shape))
+    return devs, procs
+
+
+def _place_grid_blocks(a, solver_cfg: SolverConfig, mesh,
+                       profiler=None) -> GridInput:
+    """The reference's tiled ``place_input``: A zero-padded to a multiple
+    of the feature and sample shard counts on the host, and each of this
+    process's shards' blocks placed on its device through the input cache
+    (``data_cache.place_resilient``). A block is its own host array, so
+    its content key is its own: a block never answers for the whole
+    matrix, nor the whole for a block."""
+    from nmfx_torch.data_cache import place_resilient
+
+    if isinstance(a, GridInput):
+        return a
+    _, f, s = _grid_axes(mesh)
+    dt = _np_dtype(solver_cfg.dtype)
+    host = (a.detach().cpu().numpy() if torch.is_tensor(a)
+            else np.asarray(a))
+    m, n = host.shape
+    m_loc, n_loc = -(-m // f), -(-n // s)
+    padded = np.zeros((m_loc * f, n_loc * s), dt)
+    padded[:m, :n] = host
+    devs, procs = _grid_devices(mesh)
+    rank = _process_index()
+    blocks: dict = {}
+    for idx in np.ndindex(devs.shape):
+        if int(procs[idx]) != rank:
+            continue
+        _, fi, si = idx
+        key = (devs[idx], fi, si)
+        if key not in blocks:
+            blk = np.ascontiguousarray(
+                padded[fi * m_loc:(fi + 1) * m_loc,
+                       si * n_loc:(si + 1) * n_loc])
+            blocks[key] = place_resilient(blk, solver_cfg, devs[idx],
+                                          profiler=profiler)
+    return GridInput(blocks, (m, n), (m_loc, n_loc), a)
 
 
 def place_input(a, solver_cfg: SolverConfig, mesh=None, device=None):
     """A in the solver dtype on its devices: with ``mesh=None`` one tensor
-    on ``device`` (None = CUDA); with a mesh ``{device: tensor}``, A
-    replicated to each distinct device of this process (a card named
-    twice holds one copy), each copy through the input cache
+    on ``device`` (None = CUDA); with a restart mesh ``{device: tensor}``,
+    A replicated to each distinct device of this process (a card named
+    twice holds one copy); with feature or sample axes a
+    :class:`GridInput`, A *tiled* over them (no device holds it whole).
+    Every copy goes through the input cache
     (``data_cache.place_resilient``), so a repeat sweep copies nothing."""
     from nmfx_torch.data_cache import place_resilient
 
     if mesh is None:
         return place_resilient(a, solver_cfg, resolve_device(device))
+    if grid_axes_active(mesh):
+        return _place_grid_blocks(a, solver_cfg, mesh)
     return {d: place_resilient(a, solver_cfg, d)
             for d in mesh.distinct_devices()}
 
@@ -1068,9 +1284,7 @@ def _run_shards(mesh, copies: dict, work) -> list:
     errors: dict = {}
 
     def serve(dev, idxs):
-        ctx = (torch.cuda.device(dev) if dev.type == "cuda"
-               else contextlib.nullcontext())
-        with ctx:
+        with _coll.device_context(dev):
             for i in idxs:
                 try:
                     with launch_scope(f"shard{i}"):
@@ -1171,6 +1385,167 @@ def _build_meshed_chunk_sweep_fn(k: int, n_chunk: int,
     return impl
 
 
+def _grid_groups(mesh) -> list:
+    """One :class:`~nmfx_torch.collectives.GridGroup` a restart shard of
+    a mesh with grid axes, each with its gloo subgroup when its shards
+    span several processes (made by every process alike)."""
+    devs, procs = _grid_devices(mesh)
+    r, f, s = devs.shape
+    pgs = _coll.group_pgs(mesh, [procs[ri] for ri in range(r)])
+    return [_coll.GridGroup(f, s, procs[ri], pgs[ri]) for ri in range(r)]
+
+
+def _grid_init(source, k: int, keys: np.ndarray, shape: tuple,
+               padded_shape: tuple, init_cfg: InitConfig, dtype: str,
+               home) -> tuple:
+    """Every lane's full W0 / H0, zero-padded to the shard grid, on the
+    host: random draws from each restart's canonical key at the true
+    shape (the same factors on every mesh shape), or NNDSVD once from the
+    full A on ``home`` (deterministic in A: every lane alike). Shards
+    slice their blocks from these."""
+    m, n = shape
+    m_pad, n_pad = padded_shape
+    np_dt = _np_dtype(dtype)
+    r = len(keys)
+    w = np.zeros((r, m_pad, k), np_dt)
+    h = np.zeros((r, k, n_pad), np_dt)
+    if init_cfg.method == "nndsvd":
+        from nmfx_torch.init import nndsvd_init
+
+        t_dt = torch.float64 if dtype == "float64" else torch.float32
+        full = (source.to(device=home, dtype=t_dt) if torch.is_tensor(source)
+                else torch.as_tensor(np.asarray(source, np_dt), device=home))
+        w0, h0 = nndsvd_init(full, k, svd_method=init_cfg.svd_method,
+                             ncv=init_cfg.ncv)
+        w[:, :m] = w0.cpu().numpy()
+        h[:, :, :n] = h0.cpu().numpy()
+        return w, h
+    for i, kk in enumerate(keys):
+        w[i, :m], h[i, :, :n] = random_init(kk, m, n, k, init_cfg, np_dt)
+    return w, h
+
+
+def _build_grid_sharded_sweep_fn(k: int, restarts: int,
+                                 solver_cfg: SolverConfig,
+                                 init_cfg: InitConfig, label_rule: str,
+                                 mesh):
+    """The sweep of a mesh with feature (row) and/or sample (column) axes,
+    composed with the restart axis (the reference's
+    ``_build_grid_sharded_sweep_fn``, ``nmfx/sweep.py:900-1140``):
+    ``fn(grid_input, key)`` with A's blocks (:func:`place_input`).
+
+    Layout: A tiled over (features, samples), W row-sharded, H
+    column-sharded. Each restart shard is one grid group whose F×S shards
+    run on their own threads in lockstep (``nmfx_torch.collectives``):
+    mu through ``mu_packed(shard=)``, a :data:`GRID_SOLVERS` algorithm
+    through the batched restart route with its ``shard`` bound, in
+    ``restart_chunk`` chunks of ``ceil(chunk / R)`` lanes a shard. Init
+    draws every lane's full factors from its canonical key, zero-pads and
+    slices them (NNDSVD once from the full A). Labels come from the local
+    columns and are gathered over the samples; the best restart of a
+    restart shard is the first minimum of its masked residuals (the same
+    scalars on every shard of the group), its factors gathered over the
+    grid axes; the rank's quarantine, consensus and best restart then
+    reduce the restart shards' parts in shard order
+    (:func:`_gathered_rank_output`)."""
+    r_shards, f_shards, s_shards = _grid_axes(mesh)
+    f_ax = FEATURE_AXIS if f_shards > 1 else None
+    s_ax = SAMPLE_AXIS if s_shards > 1 else None
+    padded = _pad_count(restarts, mesh, count=False)
+    r_loc = padded // r_shards
+    grid_mod = (SOLVERS[solver_cfg.algorithm]
+                if solver_cfg.algorithm in GRID_SOLVERS else None)
+    chunk = solver_cfg.restart_chunk
+    c_loc = max(1, -(-chunk // r_shards)) if chunk is not None else r_loc
+    devs, _ = _grid_devices(mesh)
+
+    def impl(grid_in, key: np.ndarray) -> KSweepOutput:
+        if not isinstance(grid_in, GridInput):
+            grid_in = _place_grid_blocks(grid_in, solver_cfg, mesh)
+        _pad_count(restarts, mesh)
+        m_true, n_true = grid_in.shape
+        m_loc, n_loc = grid_in.block_shape
+        home = mesh_home(mesh)
+        keys = _random.split(key, padded)
+        w_all, h_all = _grid_init(grid_in.source, k, keys, grid_in.shape,
+                                  (m_loc * f_shards, n_loc * s_shards),
+                                  init_cfg, solver_cfg.dtype, home)
+        groups = _grid_groups(mesh)
+
+        def work(ri: int, comm) -> _ShardOut:
+            fi, si = comm.fidx, comm.sidx
+            dev = devs[ri, fi, si]
+            with _coll.device_context(dev):
+                a_loc = grid_in.blocks[(dev, fi, si)]
+                lo = ri * r_loc
+                w0s = torch.from_numpy(np.ascontiguousarray(
+                    w_all[lo:lo + r_loc, fi * m_loc:(fi + 1) * m_loc])
+                ).to(device=dev, dtype=a_loc.dtype)
+                h0s = torch.from_numpy(np.ascontiguousarray(
+                    h_all[lo:lo + r_loc, :, si * n_loc:(si + 1) * n_loc])
+                ).to(device=dev, dtype=a_loc.dtype)
+                info = ShardInfo(f_ax, s_ax, m_true, n_true, comm)
+                if grid_mod is None:
+                    res = mu_packed(a_loc, w0s, h0s, solver_cfg,
+                                    device=dev, shard=info)
+                    hs = res.hp.reshape(r_loc, k, -1)
+                    ws = unpack_w(res.wp, r_loc)
+                    parts = [res]
+                else:
+                    step = _functools.partial(grid_mod.step, shard=info)
+                    parts = []
+                    for c in range(0, r_loc, c_loc):
+                        w0c, h0c = w0s[c:c + c_loc], h0s[c:c + c_loc]
+                        parts.append(run_loop_batched(
+                            a_loc, w0c, h0c, solver_cfg, step,
+                            grid_mod.init_aux(a_loc, w0c, h0c, solver_cfg,
+                                              shard=info), info))
+                    ws = torch.cat([p.w for p in parts])
+                    hs = torch.cat([p.h for p in parts])
+                iters, dnorm, stops = (
+                    torch.cat([getattr(p, f) for p in parts])
+                    for f in ("iterations", "dnorm", "stop_reason"))
+                labels = labels_from_h(hs, label_rule)  # (r_loc, n_loc)
+                if s_ax is not None:
+                    labels = comm.all_gather(labels, s_ax, dim=1)
+                labels = labels[:, :n_true]
+                valid = (torch.arange(lo, lo + r_loc, device=dev)
+                         < restarts)
+                _, masked, _ = _quarantine_lanes(labels, dnorm, stops)
+                masked = torch.where(valid, masked, torch.inf)
+                b = torch.argmin(masked)
+                bw, bh = ws[b], hs[b]
+                if f_ax is not None:
+                    bw = comm.all_gather(bw, f_ax, dim=0)
+                if s_ax is not None:
+                    bh = comm.all_gather(bh, s_ax, dim=1)
+                out = _ShardOut(labels, iters, dnorm, stops, masked[b],
+                                bw[:m_true], bh[:, :n_true], None, None,
+                                sum(p.host_syncs for p in parts))
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                return out
+
+        results = _coll.run_groups(groups, work)
+        # shard (0, 0) of each group speaks for it: every shard of a group
+        # holds the same gathered outputs
+        mine = {ri: results[(ri, 0)] for ri in range(r_shards)
+                if (ri, 0) in results}
+        if process_count() > 1 and mesh.processes is not None:
+            import torch.distributed as dist
+
+            every = [None] * dist.get_world_size()
+            dist.all_gather_object(every, {ri: _to_host(o)
+                                           for ri, o in mine.items()})
+            mine = {}
+            for part in every:
+                mine.update(part)
+        return _gathered_rank_output(k, [mine[ri] for ri in range(r_shards)],
+                                     restarts, False, home)
+
+    return impl
+
+
 def sweep_one_k(a: torch.Tensor, key: np.ndarray, k: int, restarts: int,
                 solver_cfg: SolverConfig = SolverConfig(),
                 init_cfg: InitConfig = InitConfig(),
@@ -1190,9 +1565,14 @@ def sweep_one_k(a: torch.Tensor, key: np.ndarray, k: int, restarts: int,
     restart-sharded, ``a`` a tensor or the per-device copies of
     :func:`place_input`, and the outputs land on :func:`mesh_home`; the
     sketched and screened engines ignore a restart mesh, as the
-    reference's do, and run on the home device. ``tile_rows`` is refused:
+    reference's do, and run on the home device. A mesh with feature or
+    sample axes runs :func:`_build_grid_sharded_sweep_fn` (``a`` a
+    tensor, a host array or :func:`place_input`'s :class:`GridInput`),
+    refusing what the reference refuses there. ``tile_rows`` is refused:
     ``sweep`` routes it."""
-    _refuse_grid_axes(mesh)
+    _check_mesh_type(mesh)
+    if grid_axes_active(mesh):
+        _grid_route_check(solver_cfg, keep_factors)
     if solver_cfg.tile_rows is not None:
         # sweep() owns the out-of-core routing (one-tile delegation
         # included), because it runs before A is placed on the device
@@ -1202,6 +1582,10 @@ def sweep_one_k(a: torch.Tensor, key: np.ndarray, k: int, restarts: int,
             "through nmfx_torch.tiles); call sweep(), or "
             "nmfx_torch.tiles.sweep_one_k_tiled for the streaming engine "
             "directly")
+    if grid_axes_active(mesh):
+        fn = _build_grid_sharded_sweep_fn(k, restarts, solver_cfg,
+                                          init_cfg, label_rule, mesh)
+        return fn(a, key)
     if mesh is not None:
         if not isinstance(a, dict):
             dt = torch.float64 if solver_cfg.dtype == "float64" else \
@@ -1379,17 +1763,22 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
     multi-tile plan and every sparse input run the streamed engine
     (:func:`_sweep_tiled`).
 
-    ``mesh`` (:func:`grid_mesh`, restart axis only): every route runs
+    ``mesh`` (:func:`grid_mesh`): on a restart mesh every route runs
     restart-sharded, each shard on its device, A replicated to each
     distinct device (``device`` is then unused) and the outputs on
     :func:`mesh_home`; on the CPU each lane computes what it computes
-    unmeshed, so the result is byte-equal to the unmeshed sweep.
-    Checkpoints, tiles and the executable cache refuse a sharded mesh,
-    as the reference's do.
+    unmeshed, so the result is byte-equal to the unmeshed sweep. With
+    feature or sample axes the ranks run one after another on the
+    grid-sharded sweep, A tiled over the grid axes
+    (:func:`_build_grid_sharded_sweep_fn`). Checkpoints, tiles and the
+    executable cache refuse a sharded mesh, as the reference's do.
     """
     if profiler is None:
         profiler = NullProfiler()
-    _refuse_grid_axes(mesh)
+    _check_mesh_type(mesh)
+    grid_axes = grid_axes_active(mesh)
+    if grid_axes:
+        _grid_route_check(solver_cfg, cfg.keep_factors)
     sharded = mesh is not None and any(
         v > 1 for v in mesh.shape.values())
     from nmfx_torch.sparse import SparseMatrix
@@ -1456,7 +1845,8 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
     # each rank, or the shards' gathers would not meet: the coordinator
     # (the one process expected to hold a registry) decides, and a loaded
     # rank travels to the others
-    multi = mesh is not None and process_count() > 1
+    multi = (mesh is not None and mesh.processes is not None
+             and process_count() > 1)
     for k in cfg.ks:
         loaded = registry.try_load(k) if registry is not None else None
         if multi:
@@ -1477,8 +1867,13 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
                              or (cfg.grid_exec == "auto" and len(needed) > 1))
     from nmfx_torch.data_cache import place_resilient
 
+    shape = None
     if mesh is None:
         a_dev = a_in = place_resilient(a, solver_cfg, dev, profiler=profiler)
+    elif grid_axes:
+        # tiled over the grid axes: no device holds A whole
+        a_in = _place_grid_blocks(a, solver_cfg, mesh, profiler)
+        a_dev, shape = None, a_in.shape
     else:
         # replicated to each distinct device of the mesh, each copy
         # through the input cache
@@ -1527,7 +1922,8 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
         if on_rank is not None:
             on_rank(k, out[k])
         _attribute_dispatch("sweep.k", solver_cfg, a_dev, {k: out[k]},
-                            time.perf_counter() - t0, profiler, mesh=mesh)
+                            time.perf_counter() - t0, profiler, mesh=mesh,
+                            shape=shape, device=dev)
         if registry is not None:
             with profiler.phase("checkpoint"):
                 registry.save(k, out[k])
@@ -1612,7 +2008,7 @@ def _attribute_dispatch(kind: str, solver_cfg: SolverConfig,
     iters = {k: fetch_host(v).iterations for k, v in outs.items()}
     m, n = a_dev.shape if shape is None else shape
     costmodel.attribute_dispatch(kind, solver_cfg, m, n, iters, wall_s,
-                                 device=a_dev.device if device is None
+                                 device=a_dev.device if a_dev is not None
                                  else device, mesh=mesh)
 
 

@@ -5,7 +5,7 @@ nmfx_torch``) against ``nmfx.cli`` on the CPU.
 defaults and choices, plus ``--device``. Each usage error of the
 reference's checks gives the same message and exit code 2 from both;
 the options the port has not got are usage errors naming their ROADMAP
-item; without ``--device cpu`` (no card here) every entry point exits
+item, and the mesh options give the reference's outcome; without ``--device cpu`` (no card here) every entry point exits
 with a usage error. On a 60×20 GCT the port's ``main`` and
 ``nmfx.cli.main`` write the same set of output files (``--no-plots``
 on both: no PDF; test_torch_surface.py compares the plot files) and
@@ -160,17 +160,17 @@ def test_router_main_usage_errors_match_reference(gct, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv, item", [
-    # tiles run since the tile pipeline was ported, and a restart mesh
-    # runs since the restart axis was; the grid axes and mesh replicas
-    # stay refused
-    (["--tile-rows", "16", "--feature-shards", "2"], "item 10c-ii"),
+    # tiles run since the tile pipeline was ported, a restart mesh since
+    # the restart axis was, and the grid axes and mesh replicas since
+    # they were: those cases hold the reference's outcome ("nmfx"), a
+    # compose error or a run with the same best k
+    (["--tile-rows", "16", "--feature-shards", "2"], "nmfx"),
     (["--tile-budget-bytes", "1024", "--tile-rows", "auto",
-      "--sample-shards", "2"], "item 10c-ii"),
-    (["--feature-shards", "2"], "item 10c-ii"),
-    (["--sample-shards", "2"], "item 10c-ii"),
-    (["--restart-shards", "2", "--feature-shards", "2"], "item 10c-ii"),
-    (["--serve-smoke", "--replicas", "2", "--replica-mesh=-,4"],
-     "item 10c-ii"),
+      "--sample-shards", "2"], "nmfx"),
+    (["--feature-shards", "2"], "nmfx"),
+    (["--sample-shards", "2"], "nmfx"),
+    (["--restart-shards", "2", "--feature-shards", "2"], "nmfx"),
+    (["--serve-smoke", "--replicas", "2", "--replica-mesh=-,4"], "nmfx"),
     (["--autotune"], "item 11"),
     (["--cache-dir", "CACHE"], "item 6"),
     (["--compile-cache", "CACHE"], "item 6"),
@@ -178,9 +178,29 @@ def test_router_main_usage_errors_match_reference(gct, tmp_path, capsys):
 def test_unported_options_refused_naming_roadmap(gct, tmp_path, capsys,
                                                  argv, item):
     argv = [a.replace("CACHE", str(tmp_path / "x")) for a in argv]
-    code, msg = _usage_error(pcli.main,
-                             [gct, "--no-files", *argv, *CPU], capsys)
-    assert code == 2 and f"ROADMAP §1 {item}" in msg, msg
+    if item != "nmfx":
+        code, msg = _usage_error(pcli.main,
+                                 [gct, "--no-files", *argv, *CPU], capsys)
+        assert code == 2 and f"ROADMAP §1 {item}" in msg, msg
+        return
+    argv = [gct, "--no-files", *RUN, *argv]
+    try:
+        ncode = ncli.main(argv)
+    except SystemExit as e:
+        ncode = e.code
+    nerr = capsys.readouterr()
+    try:
+        pcode = pcli.main(argv + CPU)
+    except SystemExit as e:
+        pcode = e.code
+    perr = capsys.readouterr()
+    assert pcode == ncode, (perr.err[-2000:], nerr.err[-2000:])
+    if ncode == 2:
+        assert (perr.err.strip().splitlines()[-1].split(" error: ", 1)[1]
+                .replace("nmfx_torch.", "nmfx.")
+                == nerr.err.strip().splitlines()[-1].split(" error: ", 1)[1])
+    else:
+        assert ncode == 0 and _best_k(perr.out) == _best_k(nerr.out)
 
 
 def test_restart_shards_run_byte_equal_to_unmeshed(gct, tmp_path, capsys):
@@ -211,11 +231,12 @@ def test_restart_shards_run_byte_equal_to_unmeshed(gct, tmp_path, capsys):
 def test_unported_inputs_and_router_cache_refused(tmp_path, capsys):
     mtx = tmp_path / "a.mtx"
     mtx.write_text("%%MatrixMarket matrix coordinate real general\n")
-    # sparse inputs stream since the tile pipeline was ported; on a mesh
-    # they stay refused
+    # sparse inputs stream since the tile pipeline was ported; on grid
+    # shards they are the reference's compose error
     code, msg = _usage_error(pcli.main, [str(mtx), "--feature-shards", "2",
                                          *CPU], capsys)
-    assert code == 2 and "ROADMAP §1 item 10" in msg
+    assert code == 2 and ("do(es) not compose with --restart-shards/"
+                          "--feature-shards/--sample-shards") in msg, msg
     code, msg = _usage_error(
         pcli.router_main, [str(mtx), "--cache-dir", str(tmp_path), *CPU],
         capsys)

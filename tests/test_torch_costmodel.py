@@ -59,7 +59,15 @@ def _pair_cfgs(algorithm: str, family: str):
 @pytest.fixture(autouse=True)
 def _attrib_state_isolated():
     was = cm.attribution_enabled()
+    # a sparse sweep run earlier in this process (another test file on the
+    # same worker) leaves its density in both cost models: the dense
+    # models here read 1.0
+    dens = (cm.sparse_density(), ncm.sparse_density())
+    cm.set_sparse_density(1.0)
+    ncm.set_sparse_density(1.0)
     yield
+    cm.set_sparse_density(dens[0])
+    ncm.set_sparse_density(dens[1])
     cm.reset_perf()
     if was:
         cm.enable_attribution()

@@ -85,8 +85,17 @@ def test_global_mesh_covers_this_process():
     assert mesh.shape[RESTART_AXIS] == 4
     assert list(mesh.processes) == [0, 0, 0, 0]
     assert mesh.distinct_devices() == [CPU]
-    with pytest.raises(NotImplementedError, match="item 10c-ii"):
-        dist.global_mesh(feature_shards=2, devices=["cpu"] * 4)
+    # feature and sample axes: the reference's 3-D mesh and errors
+    grid = dist.global_mesh(feature_shards=2, devices=["cpu"] * 8)
+    want = ndist.global_mesh(feature_shards=2)
+    assert grid.axis_names == tuple(want.axis_names)
+    assert grid.shape == dict(want.shape)
+    assert grid.processes.shape == grid.devices.shape
+    with pytest.raises(dist.MeshSpecError) as got:
+        dist.global_mesh(feature_shards=3, devices=["cpu"] * 8)
+    with pytest.raises(ndist.MeshSpecError) as ref:
+        ndist.global_mesh(feature_shards=3)
+    assert str(got.value) == str(ref.value)
     with pytest.raises(dist.MeshSpecError, match=">= 1"):
         dist.global_mesh(sample_shards=0)
 

@@ -295,10 +295,19 @@ def test_refusals():
                                SolverConfig())
     assert not cache.cacheable(ConsensusConfig(),
                                SolverConfig(algorithm="kl"))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
-        cache.run_sweep(np.ones((8, 6), np.float32),
-                        ConsensusConfig(ks=(2,)), SolverConfig(),
-                        mesh=object())
+    # a restart mesh serves, as in the reference (the meshed bucketed
+    # sweeps); its ranks agree with the plain sweep on the same mesh
+    from nmfx_torch.datasets import two_group_matrix
+    from nmfx_torch.sweep import grid_mesh, sweep
+
+    a = two_group_matrix(40, 6, seed=2).astype(np.float32)
+    mesh = grid_mesh(2, devices=["cpu"] * 2)
+    ccfg = ConsensusConfig(ks=(2,), restarts=3)
+    served = cache.run_sweep(a, ccfg, SolverConfig(max_iter=200), mesh=mesh)
+    plain = sweep(a, ccfg, SolverConfig(max_iter=200), mesh=mesh)
+    assert served[2].labels.shape == (3, 12)
+    np.testing.assert_allclose(served[2].consensus.numpy(),
+                               plain[2].consensus.numpy(), atol=1e-6)
     with pytest.raises(ValueError, match="not cacheable"):
         cache.run_sweep(np.ones((8, 6), np.float32),
                         ConsensusConfig(ks=(2,), grid_exec="per_k"),

@@ -212,19 +212,27 @@ def test_sweep_one_k_takes_the_references_call(algorithm, form):
 
 
 def test_sweep_one_k_refuses_a_mesh_naming_the_roadmap():
-    """A restart mesh runs; feature and sample axes name item 10c-ii,
-    by keyword and in the reference's positional slot."""
+    """A restart mesh runs, and so do feature and sample axes (by keyword
+    and in the reference's positional slot), as in the reference: each
+    within nmfx's grid contract of the unmeshed rank (consensus 1e-6,
+    labels equal). The name is kept from when the grid axes were
+    refused."""
     import torch
 
     a = torch.as_tensor(two_group_matrix(40, 6, seed=1))
     key = _random.fold_in(_random.key(SEED), 2)
     features = nmfx_torch.grid_mesh(1, 2, devices=["cpu"] * 2)
     samples = nmfx_torch.grid_mesh(1, 1, 2, devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
-        tsweep.sweep_one_k(a, key, 2, 2, mesh=features)
-    with pytest.raises(NotImplementedError, match="item 10c-ii"):
-        tsweep.sweep_one_k(a, key, 2, 2, nmfx_torch.SolverConfig(),
-                           nmfx_torch.InitConfig(), "argmax", samples)
+    # float32 A: a float64 tensor draws the unmeshed route's W0/H0 in
+    # float64, where the grid draws in the solver dtype
+    a32 = a.float()
+    plain = tsweep.sweep_one_k(a32, key, 2, 2)
+    for got in (tsweep.sweep_one_k(a32, key, 2, 2, mesh=features),
+                tsweep.sweep_one_k(a32, key, 2, 2, nmfx_torch.SolverConfig(),
+                                   nmfx_torch.InitConfig(), "argmax",
+                                   samples)):
+        assert torch.equal(got.labels, plain.labels)
+        assert torch.allclose(got.consensus, plain.consensus, atol=1e-6)
     meshed = tsweep.sweep_one_k(a, key, 2, 2, mesh=nmfx_torch.grid_mesh(
         2, devices=["cpu"] * 2))
     assert torch.equal(meshed.consensus,

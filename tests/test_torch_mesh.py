@@ -3,7 +3,8 @@ one on every route (the batched restart route, mu's per-rank packed
 solve, the whole grid under mu and hals, the kernels' plain versions
 under ``backend="pallas"``, the durable chunk executor) at 2, 3 and 4
 shards with padding; the pad counter; the mesh builders' shapes and
-errors against nmfx's; grid axes refused naming ROADMAP §1 item 10c-ii;
+errors against nmfx's; grid axes running as nmfx's do (the test name
+kept from when they were refused);
 and the port's meshed sweep against nmfx's meshed sweep
 (``grid_mesh(4, 1, 1)`` on the forced CPU devices) at the agreement tier.
 
@@ -196,13 +197,16 @@ def test_grid_axes_refused_naming_10c_ii(data, shape):
     mesh = psweep.grid_mesh(r, f, s, devices=["cpu"] * (r * f * s))
     assert psweep.grid_axes_active(mesh)
     assert not psweep.grid_exec_ok(SolverConfig(), mesh)
-    with pytest.raises(NotImplementedError, match="item 10c-ii"):
-        nmfx_torch.nmfconsensus(data, ks=(2,), restarts=2, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 10c-ii"):
-        psweep.sweep_one_k(torch.as_tensor(data), _random.key(0), 2, 2,
-                           mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 10c-ii"):
-        psweep.resolve_engine_family(SolverConfig(), mesh)
+    got = nmfx_torch.nmfconsensus(data, ks=(2,), restarts=2, mesh=mesh)
+    ref = nmfx_torch.nmfconsensus(data, ks=(2,), restarts=2, device="cpu")
+    np.testing.assert_array_equal(got.per_k[2].membership,
+                                  ref.per_k[2].membership)
+    one = psweep.sweep_one_k(torch.as_tensor(data), _random.key(0), 2, 2,
+                             mesh=mesh)
+    assert one.labels.shape == (2, data.shape[1])
+    assert (psweep.resolve_engine_family(SolverConfig(), mesh)
+            == nsweep.resolve_engine_family(nmfx.SolverConfig(),
+                                            nsweep.grid_mesh(r, f, s)))
 
 
 def test_engine_family_and_grid_exec_follow_reference():

@@ -7,8 +7,8 @@ admission, close, SLO shedding, elasticity, coalescing, the claim
 protocol — run on thread replicas over ONE scriptable fake engine
 (``test_torch_serve.FakeEngine``) and are parametrized over both
 packages' ``ReplicaPool`` / ``NMFXRouter``: each case expects the same
-outcomes and stats from both. The reference's mesh and atlas cases and
-``quality_elastic`` become refusals naming ``ROADMAP_SCALE``.
+outcomes and stats from both. The reference's mesh and atlas cases are
+in ``test_torch_grid_serving.py``.
 
 Three cases drive subprocess workers (``python -m nmfx_torch.replica
 --device cpu``): a served request byte-equal to the port's in-process
@@ -53,7 +53,6 @@ from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
 T = 60  # seconds: every future and join is bounded
 TP = 180  # seconds for a subprocess worker's request
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SCALE = "ROADMAP §1 item 10"
 
 
 def _pkg(name):
@@ -811,28 +810,48 @@ def test_priced_placement_one_class_equal(tmp_path):
 
 
 def test_mesh_and_disk_cache_refused_naming_roadmap(tmp_path):
+    """Mesh replicas run since the mesh tier was ported, as the
+    reference's do (the name is kept): device counts and specs as
+    nmfx's pool gives them; the disk cache stays refused (item 6)."""
+    counts = {}
+    for name in ("nmfx_torch", "nmfx"):
+        pk = _pkg(name)
+        pool = _pool(pk, tmp_path / name, n=2, mesh_specs=(None, "4"))
+        try:
+            counts[name] = [(r.n_devices, r.mesh_spec)
+                            for r in pool.routable()]
+        finally:
+            pool.close()
+    assert counts["nmfx_torch"] == counts["nmfx"] == [(1, None), (4, "4")]
     pkg = _pkg("nmfx_torch")
-    with pytest.raises(NotImplementedError, match=SCALE):
-        _pool(pkg, tmp_path, n=2, mesh_specs=(None, "4"))
     pool = _pool(pkg, tmp_path / "plain", n=2, mesh_specs=(None, None))
     try:
         assert [r.n_devices for r in pool.routable()] == [1, 1]
-        with pytest.raises(NotImplementedError, match=SCALE):
-            pool.spawn(mesh_spec="4")
+        assert pool.spawn(mesh_spec="4").n_devices == 4
     finally:
         pool.close()
-    with pytest.raises(NotImplementedError, match=SCALE):
-        preplica.ThreadReplica("r", str(tmp_path / "r"), pool.ledger,
-                               engine=_eng(pkg), mesh_spec="2")
-    with pytest.raises(NotImplementedError, match=SCALE):
-        preplica.ProcessReplica("r", str(tmp_path / "r"), pool.ledger,
-                                mesh_spec="2")
+    rep = preplica.ThreadReplica("r", str(tmp_path / "r"), pool.ledger,
+                                 engine=_eng(pkg), mesh_spec="2")
+    try:
+        assert (rep.n_devices, rep._status()["mesh"]) == (2, "2")
+    finally:
+        rep.close()
+    proc_rep = preplica.ProcessReplica("r", str(tmp_path / "rp"),
+                                       pool.ledger, mesh_spec="2")
+    try:
+        assert proc_rep.n_devices == 2
+        assert proc_rep.process.args[-2:] == ["--mesh-spec", "2"]
+    finally:
+        proc_rep.kill()
+        proc_rep.process.wait(timeout=T)
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6"):
         _pool(pkg, tmp_path / "c", cache_dir=str(tmp_path / "x"))
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6"):
         preplica.ProcessReplica("r", str(tmp_path / "r"), pool.ledger,
                                 cache_dir=str(tmp_path / "x"))
-    for argv, item in ((["--mesh-spec", "2"], "item 10"),
+    # a bad --mesh-spec is refused with the spec's own error, as the
+    # reference's worker refuses it
+    for argv, item in ((["--mesh-spec", "2x0"], "non-positive axis count"),
                        (["--cache-dir", "x"], "item 6")):
         proc = subprocess.run(
             [sys.executable, "-m", "nmfx_torch.replica", "--dir", "d",

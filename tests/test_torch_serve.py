@@ -644,8 +644,16 @@ def test_serve_key_fields_equal_reference():
 
 @pytest.mark.parametrize("kw", [dict(mesh_spec="2x2")])
 def test_unported_settings_name_roadmap(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
-        pserve.ServeConfig(**kw)
+    """``mesh_spec`` is taken since the mesh tier was ported (the name
+    is kept): validated at construction with the reference's errors."""
+    assert pserve.ServeConfig(**kw).mesh_spec == kw["mesh_spec"]
+    from nmfx_torch.distributed import MeshSpecError
+
+    with pytest.raises(MeshSpecError) as got:
+        pserve.ServeConfig(mesh_spec="2x0")
+    with pytest.raises(Exception) as want:
+        nserve.ServeConfig(mesh_spec="2x0")
+    assert str(got.value) == str(want.value)
 
 
 def test_quality_elastic_is_taken():

@@ -50,13 +50,18 @@ def test_nmfconsensus_use_mesh_false_matches_the_reference():
 @pytest.mark.parametrize("shape", [(1, 2, 1), (1, 1, 2)],
                          ids=["object", "name"])
 def test_nmfconsensus_refuses_a_mesh_naming_item_10c(shape):
-    """A restart mesh runs; a mesh with a feature or sample axis (ids kept
-    from when every mesh was refused) names item 10c-ii."""
+    """A mesh with a feature or sample axis runs, as the reference's does
+    (the name and ids are kept from when every mesh was refused): the
+    same memberships and best k as nmfx on the same mesh shape."""
     a = two_group_matrix(40, 6, seed=1)
     mesh = nmfx_torch.grid_mesh(*shape, devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="item 10c-ii"):
-        nmfx_torch.nmfconsensus(a, ks=(2,), restarts=2, mesh=mesh,
-                                device="cpu")
+    got = nmfx_torch.nmfconsensus(a, ks=(2,), restarts=2, mesh=mesh,
+                                  device="cpu")
+    want = nmfx.nmfconsensus(a, ks=(2,), restarts=2,
+                             mesh=nmfx.sweep.grid_mesh(*shape))
+    assert got.best_k == want.best_k
+    np.testing.assert_array_equal(got.per_k[2].membership,
+                                  np.asarray(want.per_k[2].membership))
 
 
 @pytest.mark.parametrize("mesh", [object(), "restarts"],

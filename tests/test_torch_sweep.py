@@ -126,12 +126,22 @@ def test_solver_config_round_trips_from_reference_dict():
     (lambda: dict(solver_cfg=nmfx_torch.SolverConfig(dtype="float64",
                                                      backend="pallas")),
      "§1 item 4"),
-    # the restart mesh runs; a feature axis does not
+    # a feature axis runs since it was ported (None), as in the
+    # reference: the same best k and memberships as nmfx on it
     (lambda: dict(mesh=nmfx_torch.grid_mesh(1, 2, devices=["cpu"] * 2)),
-     "§1 item 10c-ii"),
+     None),
 ])
 def test_unported_routes_name_their_roadmap_item(kw, item):
     a = two_group_matrix(40, 6, seed=0)
+    if item is None:
+        got = nmfx_torch.nmfconsensus(a, ks=(2,), restarts=2, device="cpu",
+                                      grid_exec="per_k", **kw())
+        want = nmfx.nmfconsensus(a, ks=(2,), restarts=2, grid_exec="per_k",
+                                 mesh=nmfx.sweep.grid_mesh(1, 2))
+        assert got.best_k == want.best_k
+        np.testing.assert_array_equal(got.per_k[2].membership,
+                                      np.asarray(want.per_k[2].membership))
+        return
     with pytest.raises(NotImplementedError, match=item):
         nmfx_torch.nmfconsensus(a, ks=(2,), restarts=2, device="cpu",
                                 **{"grid_exec": "per_k", **kw()})
