@@ -8,6 +8,7 @@ versions.
     python3 chip_smoke.py --scale    # build + parity + 4a, 4d + phase 13
     python3 chip_smoke.py --mesh     # build + parity + 4a, 4d + phase 14
     python3 chip_smoke.py --grid-mesh  # build + parity + phase 15
+    python3 chip_smoke.py --autotune   # build + parity + phase 16
 
 Phases (any failure exits non-zero; nothing is caught):
   1. card and build: nvidia-smi's name and power limit, the nvcc build
@@ -84,7 +85,8 @@ Phases (any failure exits non-zero; nothing is caught):
      the 48-slot scheduler at k=10 for mu (160 iterations, no lane
      stops) and for hals (40 iterations): time per iteration, the
      device's busy share, the kernels by device time;
-  7. other solvers: kl, neals, als, snmf, pg (max_iter 100) and alspg
+  7. other solvers: kl, neals, als, snmf, pg (max_iter 100; 50 at the
+     north star) and alspg
      (max_iter 20, sub_max_iter 100) through nmfconsensus at the north
      star with every other default (backend "auto": the batched restart
      route, plain products; kl, als, pg and alspg at k = 2, their depth
@@ -159,7 +161,7 @@ Phases (any failure exits non-zero; nothing is caught):
         per-k mean iterations side by side;
      b. two hals requests packed on row 5, each byte-equal to its solo
         run;
-     c. six requests at once (seeds 11-16) to a packing server and to
+     c. four requests at once (seeds 11-14) to a packing server and to
         a pack=False one: wall, requests/s, e2e p50/p95, mean queue
         wait, dispatches, packing efficiency, row 3 launches; every
         packed result byte-equal to its pack=False twin;
@@ -210,12 +212,13 @@ Phases (any failure exits non-zero; nothing is caught):
      reasons printed, beside the pinned copy rate of one pass's bytes:
      a. the north star in 8 tiles of 625 rows (tile_rows "auto" under a
         budget of two tiles), mu at ks (2, 3), 50 restarts, max_iter
-        500, against the in-core run of the same sweep: min ARI >= 0.9,
+        250, against the in-core run of the same sweep: min ARI >= 0.9,
         max rho gap <= 0.1 (the JAX package's tiled-against-dense
         gate), and the H2D bytes exactly passes x 10,000,000;
      b. make_sparse_design(20000, 5000, k=4, density=0.05, seed=11),
-        about 5.0 M stored nonzeros, mu at ks 2..4, 10 restarts (cut
-        from ks 2..5 and 20 restarts), 4 tiles of 5,000 rows, against
+        about 5.0 M stored nonzeros, mu at ks 2..4, 10 restarts, a's
+        max_iter (cut from ks 2..5, 20 restarts and 500), 4 tiles of
+        5,000 rows, against
         its densified twin in
         core: the same
         gate and the same best k (whether it is the planted 4 printed);
@@ -326,6 +329,26 @@ Phases (any failure exits non-zero; nothing is caught):
         restarts, max_iter 200) on the mesh replica, its comm_model bytes
         an iteration printed, and a bundled-design request on the plain
         replica.
+
+16. the block-shape autotuner (phase_autotune; nmfx_torch.autotune), its
+    searches' launches of rows 3, 4 and 5 counted by wrapping the
+    candidate timer, each part's launches read as above:
+     a. mu at the north star, ks 2..10, 50 restarts, backend "pallas",
+        experimental.autotune "on", through an ExecCache whose cache_dir
+        (a fresh directory) holds the store: one search; every mu
+        candidate (block_m 256 / 512 x check_block 1 / 4 x phased /
+        fused) launched once to warm and 3 times timed on its row (3 or
+        4), no plain version run; each candidate's ms an iteration and
+        the winner printed; best k 2;
+     b. hals at ks 2..5 the same way: one search, row 5 launched 4 times
+        a candidate (check_block 1, phased: TolFun is armed);
+     c. a fresh interpreter, started with the phase, resolves a's config
+        at the same directory once a is done: 0 searches, >= 1 hit, 0
+        launches, the same resolved config (equal repr);
+     d. the tuned mu sweep at ks 2..5 (whole grid, no executable cache)
+        byte-equal to the same sweep with the resolved values explicit,
+        and best k and memberships equal to the untuned default's; the
+        three walls printed.
 
 The line before the last is a JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -1657,6 +1680,11 @@ PACKED_SOLVERS = ("kl", "neals")
 #: 17.1, 10.6, 13.7 and 28.1 s on kl, als, alspg and pg batched and 6.9 s
 #: on kl packed
 SOLVER_KS = {alg: KS[:1] for alg in ("kl", "als", "pg", "alspg")}
+#: pg's north-star run at a quarter of its budget (max_iter 25 of 100:
+#: 16.4 s at 100 and 10.2 s at 50 on one H100, the largest line of the
+#: phase), cut to pay for phase 16; its bundled-design gate keeps the JAX
+#: package's budget
+NORTH_STAR_BUDGETS = {"pg": dict(max_iter=25)}
 #: each solver's best k on the bundled 1000x40 design (ks 2..5, 10
 #: restarts, seed 123) at those budgets, as the JAX package gives it
 #: (nmfconsensus on its CPU backend): neals and als stop on TolFun after
@@ -1736,7 +1764,8 @@ def phase_solvers(torch, fm):
     batched = {}
     for alg, kw in OTHER_SOLVERS.items():
         batched[alg] = solver_sweep(
-            torch, fm, a, nmfx_torch.SolverConfig(algorithm=alg, **kw),
+            torch, fm, a, nmfx_torch.SolverConfig(
+                algorithm=alg, **NORTH_STAR_BUDGETS.get(alg, kw)),
             f"{alg} batched", SOLVER_KS.get(alg, KS))
     for alg in PACKED_SOLVERS:
         packed = solver_sweep(
@@ -3198,9 +3227,10 @@ def phase_obs(torch, fm, grid, *, a=None, ks=KS, restarts=None,
 #: phase 10: nmfx's submit defaults (ks 2..5, 10 restarts), the packed
 #: requests' seeds (10a), the traffic burst's (10c), the hals pair's (10b)
 SERVE_KS, SERVE_RESTARTS = (2, 3, 4, 5), 10
-#: (the burst cut from 8 requests to 6 to pay for phase 15: pack=False
-#: served 8 in 25.136 s on one H100)
-SERVE_SEEDS, TRAFFIC_SEEDS, HALS_SEEDS = (1, 2, 3, 4), tuple(range(11, 17)), \
+#: (the burst cut from 8 requests to 6 to pay for phase 15, and to 4 to
+#: pay for phase 16: pack=False served 8 in 25.136 s and 6 in 14.753 s on
+#: one H100)
+SERVE_SEEDS, TRAFFIC_SEEDS, HALS_SEEDS = (1, 2, 3, 4), tuple(range(11, 15)), \
     (5, 6)
 #: phase 10d: the deadline clamp's rate estimate (iterations a second)
 #: and timeout: 4 x 600 s rounds up to a budget of 4096 < 10000
@@ -3272,7 +3302,7 @@ def phase_serve(torch, fm, *, a=None, bundled=None, ks=SERVE_KS,
     mu requests packed into one dispatch on row 3, each byte-equal to
     its solo nmfconsensus(exec_cache=) run, one held to the plain
     nmfconsensus at the agreement tier; b. two hals requests packed on
-    row 5, each byte-equal to its solo run; c. a burst of six requests
+    row 5, each byte-equal to its solo run; c. a burst of four requests
     to a packing server and to a pack=False one (walls, requests/s, e2e
     p50/p95, queue wait, dispatches, packing efficiency, launches),
     every packed result byte-equal to its pack=False twin; d. the
@@ -3816,8 +3846,9 @@ def phase_fleet(torch, fm):
 
 #: 12a: the north star streamed in 8 tiles of 625 rows (two 625x500
 #: float32 tiles fill the budget), mu at ks (2, 3), 50 restarts, max_iter
-#: 500 (the JAX package's bench caps its atlas rung there)
-TILE_KS, TILE_RESTARTS, TILE_MAX_ITER = (2, 3), 50, 500
+#: 250 (the JAX package's bench caps its atlas rung at 500; halved to pay
+#: for phase 16: 12a's 940 passes took 9.650 s on one H100)
+TILE_KS, TILE_RESTARTS, TILE_MAX_ITER = (2, 3), 50, 250
 TILE_BUDGET = 2 * 625 * 500 * 4
 TILE_PASS_BYTES = 5000 * 500 * 4
 #: 12b: a sparse atlas of 20,000 genes x 5,000 cells at 5 % density
@@ -3881,7 +3912,7 @@ def write_mtx(sp, path: str) -> None:
 def phase_tiles(torch, fm):
     """Phase 12, scale: the out-of-core tile pipeline and sparse
     ingestion. a. the north star streamed in 8 tiles (mu, ks (2, 3), 50
-    restarts, max_iter 500) against the in-core run of the same sweep
+    restarts, max_iter 250) against the in-core run of the same sweep
     (the JAX package's tiled-against-dense gate) and its bytes (passes x
     10,000,000 exactly); b. the 20,000 x 5,000 sparse atlas (5 %
     density) in 4 tiles at ks 2..5 against its densified twin in core
@@ -5223,6 +5254,302 @@ def _grid_parts(torch, fm, a, bundled, card0, launched, procs, t_procs,
     return launched
 
 
+#: phase 16: the hals search's ranks and 16d's (the tuned sweep against
+#: the explicit and the default ones), cut from ks 2..10 to keep the
+#: phase within its 30 s; the fresh interpreter's time limit
+AUTOTUNE_HALS_KS = KS[:4]
+AUTOTUNE_CHECK_KS = KS[:4]
+AUTOTUNE_PROC_TIMEOUT_S = 180.0
+#: the block rows an autotune search launches
+TUNED_ROWS = ("fused_block_iterations", "fused_block_iterations_fused",
+              "hals_block_iterations")
+
+_AUTOTUNE_WORKER = r"""
+import json, os, sys, time
+here, cache_dir, go, out, limit = sys.argv[1:6]
+sys.path.insert(0, here)
+import torch
+from nmfx_torch import autotune
+from nmfx_torch.config import ExperimentalConfig, SolverConfig
+from nmfx_torch.device import explicit_device, resolve_device
+from nmfx_torch.ops import fused_mu
+card = explicit_device(resolve_device(None))
+torch.zeros(1, device=card)  # reach the card while the parent searches
+deadline = time.monotonic() + float(limit)
+while not os.path.exists(go):
+    if time.monotonic() > deadline:
+        sys.exit("autotune worker: no go file")
+    time.sleep(0.05)
+spec = json.load(open(go))
+cfg = SolverConfig(backend="pallas",
+                   experimental=ExperimentalConfig(autotune="on"))
+fused_mu.reset_launch_counts()
+s0, h0 = autotune.searches_total.total(), autotune.hits_total.total()
+t0 = time.perf_counter()
+got = autotune.resolve(cfg, *spec["shape"], cache_dir=cache_dir,
+                       device=card)
+seconds = time.perf_counter() - t0
+with open(out, "w") as f:
+    json.dump({"repr": repr(got),
+               "searches": autotune.searches_total.total() - s0,
+               "hits": autotune.hits_total.total() - h0,
+               "launches": sum(fused_mu.LAUNCHES.values()),
+               "seconds": seconds}, f)
+"""
+
+
+def phase_autotune(torch, fm):
+    """Phase 16 (see the module docstring): the block-shape autotuner's
+    cold searches on the card (raw launches of rows 3, 4 and 5), a fresh
+    interpreter served from the store, and the tuned sweep against the
+    explicit and the default ones. Returns each part's launches."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix=".autotune_smoke_",
+                                     dir=HERE) as scratch:
+        return _phase_autotune(torch, fm, scratch)
+
+
+def _search_probe(fm, autotune):
+    """Wrap the autotuner's candidate timer and the block rows' plain
+    versions: each search's launches of rows 3, 4 and 5 and any plain
+    version run inside it are counted. Returns (probe, restore)."""
+    probe = {"timed": [], "launches": dict.fromkeys(TUNED_ROWS, 0),
+             "plain": 0, "searching": False}
+    real_time = autotune._time_candidate
+    real_refs = {name: getattr(fm, name) for name in (
+        "fused_block_iterations_ref", "hals_block_iterations_ref")}
+
+    def timed(cfg, cand, *args, **kw):
+        before = {name: fm.LAUNCHES.get(name, 0) for name in TUNED_ROWS}
+        probe["searching"] = True
+        try:
+            t = real_time(cfg, cand, *args, **kw)
+        finally:
+            probe["searching"] = False
+        for name in TUNED_ROWS:
+            probe["launches"][name] += fm.LAUNCHES.get(name, 0) - before[name]
+        probe["timed"].append((dict(cand), t))
+        return t
+
+    def counted(fn):
+        def plain(*args, **kw):
+            if probe["searching"]:
+                probe["plain"] += 1
+            return fn(*args, **kw)
+        return plain
+
+    autotune._time_candidate = timed
+    for name, fn in real_refs.items():
+        setattr(fm, name, counted(fn))
+
+    def restore():
+        autotune._time_candidate = real_time
+        for name, fn in real_refs.items():
+            setattr(fm, name, fn)
+
+    return probe, restore
+
+
+def _check_search(label, probe, before, store_entry, rows):
+    """A cold search's gates: every candidate launched once to warm and
+    three times timed on its row, no other row, no plain version."""
+    timed = probe["timed"][before:]
+    want = dict.fromkeys(TUNED_ROWS, 0)
+    for cand, _ in timed:
+        want[rows(cand)] += 4
+    got = probe["launches"]
+    print(f"autotune {label}: {len(timed)} candidates, search launches "
+          f"{got}, plain versions run {probe['plain']}", flush=True)
+    for cand, t in timed:
+        print(f"autotune {label} candidate bm{cand['block_m']} cb"
+              f"{cand['check_block']} {cand['fused_updates']}: "
+              f"{t * 1e3:.4f} ms/iteration", flush=True)
+    best = store_entry["best"]
+    t_best = min(t for _, t in timed)
+    print(f"autotune {label} winner {best}: {t_best * 1e3:.4f} "
+          "ms/iteration", flush=True)
+    if got != want or probe["plain"]:
+        raise AssertionError(
+            f"autotune {label}: search launches {got} (want {want}: each "
+            f"candidate once to warm and {3} times timed), plain versions "
+            f"run {probe['plain']}")
+    if len(store_entry["timings"]) != len(timed):
+        raise AssertionError(f"autotune {label}: the stored entry holds "
+                             f"{len(store_entry['timings'])} timings for "
+                             f"{len(timed)} candidates")
+
+
+def _phase_autotune(torch, fm, scratch):
+    import nmfx_torch
+    from nmfx_torch import autotune
+    from nmfx_torch.config import (ConsensusConfig, ExecCacheConfig,
+                                   ExperimentalConfig)
+    from nmfx_torch.exec_cache import ExecCache
+    from nmfx_torch.sweep import resolve_autotune
+
+    m, n, r, _ = NORTH_STAR
+    a = north_star_matrix()
+    card0 = torch.device("cuda", 0)
+    cache_dir = os.path.join(scratch, "cache")
+    store = os.path.join(cache_dir, "autotune")
+    go = os.path.join(scratch, "go.json")
+    out = os.path.join(scratch, "resolve.json")
+    # 16c's interpreter starts first: it reaches the card while 16a-b run
+    t_proc = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _AUTOTUNE_WORKER, HERE, store, go, out,
+         str(AUTOTUNE_PROC_TIMEOUT_S)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    probe, restore = _search_probe(fm, autotune)
+    launched = {}
+    try:
+        def counters():
+            return (autotune.searches_total.total(),
+                    autotune.hits_total.total())
+
+        def entries():
+            return {name: json.load(open(os.path.join(store, name)))
+                    for name in sorted(os.listdir(store))
+                    if name.endswith(".json")}
+
+        def tuned(**kw):
+            return nmfx_torch.SolverConfig(
+                backend="pallas",
+                experimental=ExperimentalConfig(autotune="on"), **kw)
+
+        # 16a: mu, cold, the whole grid through an executable cache whose
+        # directory holds the store (the command line's --cache-dir)
+        cache = ExecCache(ExecCacheConfig(cache_dir=cache_dir),
+                          device=card0)
+        cfg = tuned()
+        s0, h0 = counters()
+        fm.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = nmfx_torch.nmfconsensus(a, ks=KS, restarts=r, solver_cfg=cfg,
+                                      exec_cache=cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched["16a"] = dict(fm.LAUNCHES)
+        s1, h1 = counters()
+        check_sweep(res, "autotune 16a", n)
+        (entry,) = entries().values()
+        _check_search("16a mu", probe, 0, entry,
+                      lambda c: ("fused_block_iterations_fused"
+                                 if c["fused_updates"] == "fused"
+                                 else "fused_block_iterations"))
+        if s1 - s0 != 1:
+            raise AssertionError(f"autotune 16a: {s1 - s0} searches, "
+                                 "want 1")
+        resolved = resolve_autotune((m, n), ConsensusConfig(ks=KS,
+                                                            restarts=r),
+                                    cfg, exec_cache=cache)
+        print(f"autotune 16a: wall {wall:.3f} s with the search, best k "
+              f"{res.best_k}, sweep and search launches "
+              f"{launched['16a']}, searches {s1 - s0:.0f}, hits "
+              f"{h1 - h0:.0f}; "
+              f"resolved check_block {resolved.check_block}, block_m "
+              f"{resolved.experimental.block_m}, fused_updates "
+              f"{resolved.experimental.fused_updates}", flush=True)
+        with open(go + ".part", "w") as f:
+            json.dump({"shape": [m, n, max(KS), min(SLOTS, r * len(KS))]},
+                      f)
+        os.replace(go + ".part", go)
+
+        # 16b: hals, cold (TolFun armed: check_block 1, phased only)
+        n_mu = len(probe["timed"])
+        for key in TUNED_ROWS:
+            probe["launches"][key] = 0
+        s0, _ = counters()
+        fm.reset_launch_counts()
+        t0 = time.perf_counter()
+        hres = nmfx_torch.nmfconsensus(
+            a, ks=AUTOTUNE_HALS_KS, restarts=r,
+            solver_cfg=tuned(algorithm="hals"), exec_cache=cache)
+        torch.cuda.synchronize()
+        hwall = time.perf_counter() - t0
+        launched["16b"] = dict(fm.LAUNCHES)
+        s1, _ = counters()
+        check_sweep(hres, "autotune 16b", n)
+        (hals_entry,) = [e for e in entries().values()
+                         if e["key"] != entry["key"]]
+        _check_search("16b hals", probe, n_mu, hals_entry,
+                      lambda c: "hals_block_iterations")
+        if s1 - s0 != 1:
+            raise AssertionError(f"autotune 16b: {s1 - s0} searches, "
+                                 "want 1")
+        print(f"autotune 16b: hals at ks {AUTOTUNE_HALS_KS[0]}.."
+              f"{AUTOTUNE_HALS_KS[-1]}: wall {hwall:.3f} s with the "
+              f"search, best k {hres.best_k}, launches {launched['16b']}",
+              flush=True)
+
+        # 16c: the fresh interpreter resolves 16a's config from the store
+        try:
+            _, err = proc.communicate(timeout=AUTOTUNE_PROC_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            raise AssertionError("autotune 16c: the fresh interpreter did "
+                                 f"not finish in {AUTOTUNE_PROC_TIMEOUT_S}"
+                                 " s")
+        if proc.returncode != 0:
+            raise AssertionError(f"autotune 16c: the fresh interpreter "
+                                 f"exited {proc.returncode}: {err[-2000:]}")
+        warm = json.load(open(out))
+        print(f"autotune 16c: a fresh interpreter resolved in "
+              f"{warm['seconds']:.4f} s ({time.perf_counter() - t_proc:.3f}"
+              f" s from its start): searches {warm['searches']:.0f}, hits "
+              f"{warm['hits']:.0f}, launches {warm['launches']}, same config "
+              f"{warm['repr'] == repr(resolved)}", flush=True)
+        if (warm["searches"] != 0 or warm["hits"] < 1
+                or warm["launches"] != 0 or warm["repr"] != repr(resolved)):
+            raise AssertionError(f"autotune 16c: {warm} against the "
+                                 f"resolved {resolved!r}")
+        launched["16c"] = warm["launches"]
+
+        # 16d: the tuned sweep against the explicit and the default ones
+        ks = AUTOTUNE_CHECK_KS
+        runs = {}
+        for label, scfg in (("tuned", tuned()), ("explicit", None),
+                            ("default", nmfx_torch.SolverConfig(
+                                backend="pallas"))):
+            if scfg is None:
+                scfg = resolve_autotune((m, n), ConsensusConfig(
+                    ks=ks, restarts=r), tuned(), device=card0)
+            fm.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = nmfx_torch.nmfconsensus(a, ks=ks, restarts=r,
+                                          solver_cfg=scfg)
+            torch.cuda.synchronize()
+            runs[label] = (got, time.perf_counter() - t0, scfg)
+            launched[f"16d {label}"] = dict(fm.LAUNCHES)
+            check_sweep(got, f"autotune 16d {label}", n)
+        (t_res, t_wall, _), (e_res, e_wall, e_cfg), (d_res, d_wall, _) = (
+            runs["tuned"], runs["explicit"], runs["default"])
+        parted = byte_equal_ranks(t_res, e_res, ks)
+        parted_default = byte_equal_ranks(t_res, d_res, ks)
+        print(f"autotune 16d: tuned sweep (ks {ks[0]}..{ks[-1]}, "
+              f"check_block {e_cfg.check_block}, block_m "
+              f"{e_cfg.experimental.block_m}, "
+              f"{e_cfg.experimental.fused_updates}) byte-equal to the "
+              f"explicit one: {not parted} {parted}; walls tuned "
+              f"{t_wall:.3f} s (with its search), explicit {e_wall:.3f} s, "
+              f"default {d_wall:.3f} s; byte-equal to the default: "
+              f"{not parted_default}", flush=True)
+        if parted:
+            raise AssertionError(f"autotune 16d: the tuned sweep parts "
+                                 f"from the explicit one at {parted}")
+        if t_res.best_k != d_res.best_k or any(
+                not np.array_equal(t_res.per_k[k].membership,
+                                   d_res.per_k[k].membership) for k in ks):
+            raise AssertionError("autotune 16d: the tuned sweep's best k "
+                                 "or memberships part from the default's")
+    finally:
+        restore()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return launched
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -5237,6 +5564,9 @@ def main(argv=None) -> int:
     ap.add_argument("--grid-mesh", action="store_true",
                     help="build, kernel parity and phase 15 (the feature "
                          "and sample mesh axes, mesh serving) only")
+    ap.add_argument("--autotune", action="store_true",
+                    help="build, kernel parity and phase 16 (the block-"
+                         "shape autotuner) only")
     ap.add_argument("--mesh", action="store_true",
                     help="build, kernel parity, the exact grids of 4a "
                          "and 4d and phase 14 (bf16 off the kernels, the "
@@ -5323,6 +5653,11 @@ def main(argv=None) -> int:
         done("15 grid mesh")
         print(f"grid mesh phase {spent['15 grid mesh']:.3f} s; launches "
               f"by run {gridded}", flush=True)
+    elif args.autotune:
+        tuned = phase_autotune(torch, fm)
+        done("16 autotune")
+        print(f"autotune phase {spent['16 autotune']:.3f} s; launches by "
+              f"run {tuned}", flush=True)
     elif args.mesh:
         _, phased, _ = phase_grid_path(torch, fm)
         _, hals_res, _ = phase_hals_path(torch, fm)
@@ -5400,6 +5735,10 @@ def main(argv=None) -> int:
         done("15 grid mesh")
         print(f"grid mesh phase {spent['15 grid mesh']:.3f} s; launches "
               f"by run {gridded}", flush=True)
+        tuned = phase_autotune(torch, fm)
+        done("16 autotune")
+        print(f"autotune phase {spent['16 autotune']:.3f} s; launches by "
+              f"run {tuned}", flush=True)
         print(f"phase seconds {json.dumps(spent)}; "
               f"{time.perf_counter() - start:.3f} s in all", flush=True)
         kernels = []

@@ -613,6 +613,12 @@ def nmfconsensus(
                 "checkpoint_dir (the legacy per-rank registry) does not "
                 "support sparse/tiled inputs; pass checkpoint= (the "
                 "durable chunked ledger) for out-of-core resume")
+        # the fingerprint sees the autotuner's resolved fields, as the
+        # sweep's other keys do
+        from nmfx_torch.sweep import resolve_autotune
+
+        scfg = resolve_autotune(arr.shape, ccfg, scfg, device=device,
+                                mesh=mesh, exec_cache=exec_cache)
         registry = SweepRegistry.open(checkpoint_dir, arr, scfg, icfg,
                                       restarts, seed, label_rule,
                                       keep_factors, mesh)
@@ -669,8 +675,8 @@ def nmfconsensus(
     if rcache is not None and rkey is not None:
         try:
             rcache.put(rkey, result, ccfg=ccfg)
-        except Exception:  # cache trouble never fails a solved request
-            pass
+        except Exception:  # nmfx: ignore[NMFX006] -- cache trouble
+            pass  # never fails a solved request
     if output is not None:
         with profiler.phase("write_outputs"):
             save_results(result, output)

@@ -21,13 +21,17 @@ Meshes: ``--restart-shards N`` and ``--feature-shards`` /
 --replica-mesh SPECS`` gives the serving smoke run's replicas their
 meshes.
 
-Refused, each with a usage error (exit 2) that names its ROADMAP item:
+``--autotune`` resolves the kernel schedule with the block-shape
+autotuner (``nmfx_torch.autotune``) before the sweep, and ``--cache-dir
+DIR`` holds its store (``DIR/autotune``) as the reference's executable
+cache directory does; the port writes no executable there (a built torch
+sweep has no serialized form).
 
-* serialized XLA executables (``ROADMAP_WARM``): ``--cache-dir`` and an
-  explicit ``--compile-cache DIR``. The default ``--compile-cache``
-  value and ``--no-compile-cache`` are accepted and do nothing: the
-  kernels' libraries are cached by source hash already;
-* ``--autotune`` (``ROADMAP_TOOLING``).
+Refused with a usage error (exit 2) that names its ROADMAP item: an
+explicit ``--compile-cache DIR`` (``ROADMAP_WARM``: the port compiles no
+XLA program). The default ``--compile-cache`` value and
+``--no-compile-cache`` are accepted and do nothing: the kernels'
+libraries are cached by source hash already.
 
 Out of core: ``--tile-rows N|auto`` (and ``--tile-budget-bytes``)
 streams a dense input through the tile pipeline, and a sparse ``.mtx`` /
@@ -52,8 +56,7 @@ import os
 import sys
 
 from nmfx_torch.config import (ALGORITHMS, INIT_METHODS, LINKAGE_METHODS,
-                               PACKED_ALGORITHMS,
-                               ROADMAP_TOOLING, ROADMAP_WARM, VERSION)
+                               PACKED_ALGORITHMS, ROADMAP_WARM, VERSION)
 
 #: the reference's default persistent XLA compilation-cache location;
 #: kept as the default so the option's default equals the reference's.
@@ -229,8 +232,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "(SolverConfig.check_block): 'auto' (default) = "
                         "4 on the block-kernel scheduler, 1 elsewhere")
     p.add_argument("--autotune", action="store_true",
-                   help="kernel-schedule autotuning (not ported, "
-                        f"{ROADMAP_TOOLING})")
+                   help="measure-don't-model kernel scheduling on the "
+                        "pallas backend (ExperimentalConfig.autotune): "
+                        "the first solve at a shape bucket times a small "
+                        "(block_m, check_block, fused-vs-phased) "
+                        "candidate grid of the hand-written kernels on "
+                        "the card and persists the winner under "
+                        "--cache-dir when given, so later processes "
+                        "resolve with zero search; explicit "
+                        "--check-block wins")
     p.add_argument("--rank-selection", default="host",
                    choices=("host", "device"),
                    help="where hclust/cophenetic/cutree run: the host "
@@ -316,8 +326,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "shapes' buckets before the run (e.g. "
                         "'5000x500'); implies --exec-cache")
     p.add_argument("--cache-dir", default=None, metavar="DIR",
-                   help="persistent executable cache (not ported: "
-                        f"serialized XLA executables, {ROADMAP_WARM})")
+                   help="persistent cache directory: holds the "
+                        "autotuner's store (DIR/autotune); implies "
+                        "--exec-cache. The port serializes no "
+                        "executable there")
     p.add_argument("--result-cache-dir", default=None, metavar="DIR",
                    help="content-addressed finished-result cache "
                         "(nmfx_torch.result_cache): a repeat invocation "
@@ -432,15 +444,8 @@ def main(argv: list[str] | None = None) -> int:
 
 
 def _refuse_unported(parser, args) -> None:
-    """The usage errors of the options the port has not got, each
-    naming its ROADMAP item."""
-    if args.autotune:
-        parser.error("--autotune: the kernel autotuner is not ported yet "
-                     f"({ROADMAP_TOOLING})")
-    if args.cache_dir is not None:
-        parser.error("--cache-dir: serialized XLA executables have no "
-                     f"torch counterpart ({ROADMAP_WARM}); the kernels' "
-                     "libraries are cached by source hash already")
+    """The usage error of the option the port has not got, naming its
+    ROADMAP item."""
     if (args.compile_cache != _DEFAULT_COMPILE_CACHE
             and not args.no_compile_cache):
         parser.error("--compile-cache: the port compiles no XLA program "
@@ -697,7 +702,9 @@ def _run_cli(argv: list[str] | None = None) -> int:
                             screen=args.screen,
                             screen_keep=args.screen_keep,
                             tile_rows=args.tile_rows,
-                            experimental=ExperimentalConfig())
+                            experimental=ExperimentalConfig(
+                                autotune=("on" if args.autotune
+                                          else "off")))
     ckpt_cfg = None
     if args.checkpoint_every is not None and args.checkpoint_every < 1:
         parser.error("--checkpoint-every must be >= 1")
@@ -817,7 +824,8 @@ def _run_cli(argv: list[str] | None = None) -> int:
                          "outputs differ by float tolerance, which "
                          "would break the serve exactness contract)")
     use_exec_cache = (args.exec_cache or args.warm_shapes
-                      or args.pipeline_ranks or args.serve_smoke)
+                      or args.cache_dir or args.pipeline_ranks
+                      or args.serve_smoke)
     if use_exec_cache:
         if meshed:
             parser.error("--exec-cache does not compose with "
@@ -842,7 +850,8 @@ def _run_cli(argv: list[str] | None = None) -> int:
         from nmfx_torch.exec_cache import ExecCache
 
         exec_cache = ExecCache(
-            ExecCacheConfig(pipeline_ranks=args.pipeline_ranks),
+            ExecCacheConfig(cache_dir=args.cache_dir,
+                            pipeline_ranks=args.pipeline_ranks),
             device=device)
         if args.warm_shapes:
             # must mirror nmfconsensus' own ConsensusConfig construction
@@ -1093,8 +1102,9 @@ def router_main(argv: "list[str] | None" = None) -> int:
                    help="pool root (spill records + heartbeat ledger; "
                         "default: a temporary directory)")
     p.add_argument("--cache-dir", default=None, metavar="DIR",
-                   help="persistent executable cache (not ported: "
-                        f"serialized XLA executables, {ROADMAP_WARM})")
+                   help="cache directory replicas start against (the "
+                        "autotuner's store; process mode passes it to "
+                        "each worker's --cache-dir)")
     p.add_argument("--telemetry-dir", default=None, metavar="DIR",
                    help="fleet telemetry ledger (watch it with "
                         "python -m nmfx_torch.obs.top DIR)")
@@ -1112,10 +1122,6 @@ def router_main(argv: "list[str] | None" = None) -> int:
         p.error("--replicas must be >= 1")
     if args.requests < 1:
         p.error("--requests must be >= 1")
-    if args.cache_dir is not None:
-        p.error("--cache-dir: serialized XLA executables have no torch "
-                f"counterpart ({ROADMAP_WARM}); the kernels' libraries "
-                "are cached by source hash already")
     device = _resolve_device(p, args.device)
     from nmfx_torch.config import SolverConfig
     from nmfx_torch.replica import ReplicaPool
@@ -1127,9 +1133,16 @@ def router_main(argv: "list[str] | None" = None) -> int:
     if args.mode == "process":
         pool_kw = dict(worker_args=(() if args.device is None
                                     else ("--device", args.device)))
+    elif args.cache_dir is not None:
+        from nmfx_torch.config import ExecCacheConfig
+        from nmfx_torch.exec_cache import ExecCache
+
+        pool_kw = dict(exec_cache=ExecCache(
+            ExecCacheConfig(cache_dir=args.cache_dir), device=device))
     else:
         pool_kw = dict(device=device)
     pool = ReplicaPool(args.replicas, root=root, mode=args.mode,
+                       cache_dir=args.cache_dir,
                        telemetry_dir=args.telemetry_dir, **pool_kw)
     scfg = SolverConfig(algorithm=args.algorithm, max_iter=args.maxiter)
     try:
@@ -1143,8 +1156,9 @@ def router_main(argv: "list[str] | None" = None) -> int:
             for fut in futs:
                 try:
                     result = fut.result()
-                except Exception as e:  # each outcome is REPORTED per
-                    # request; the command's exit code carries the failure
+                except Exception as e:  # nmfx: ignore[NMFX006] -- each
+                    # outcome is REPORTED per request; the command's exit
+                    # code carries the failure
                     failed += 1
                     print(f"nmfx-router: request "
                           f"{fut.stats.request_id} FAILED: {e!r}",

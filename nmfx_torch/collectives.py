@@ -294,7 +294,8 @@ def run_groups(groups: list, work) -> dict:
         try:
             g.start(pos)
             results[(gi, pos)] = work(gi, comm)
-        except BaseException as e:  # raised by the caller
+        except BaseException as e:  # nmfx: ignore[NMFX006] -- re-raised
+            # by the caller
             errors[(gi, pos)] = e
             g.abort()
         else:

@@ -9,11 +9,8 @@ card block by block.
 
 What the port runs is narrower than what validates: ``check_ported``
 raises ``NotImplementedError`` for a solver setting the port has no
-route for yet (bf16 operands off the kernel routes, float64 on the
-hand-written kernels), and so does ``ExperimentalConfig``
-for
-an experimental knob the port has not got (the autotuner); each message
-names the ROADMAP section and item that brings it. The scheduler's own
+route for yet (float64 on the hand-written kernels); each message names
+the ROADMAP section and item that brings it. The scheduler's own
 preconditions on the options it runs (ragged, factor_dtype, alias_io,
 block_m) raise ``ValueError`` in ``nmfx_torch.ops.sched_mu.mu_sched``,
 with the reference's words.
@@ -22,7 +19,7 @@ with the reference's words.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import ClassVar, Sequence
 
 ALGORITHMS = ("mu", "als", "neals", "pg", "alspg", "kl", "snmf", "hals")
 INIT_METHODS = ("random", "nndsvd")
@@ -43,7 +40,6 @@ SKETCHED_ALGORITHMS = ("mu", "hals")
 #: where the ROADMAP brings each refused setting ("Open items")
 ROADMAP_DTYPES = "ROADMAP §1 item 4, config and dtype remnants"
 ROADMAP_SCALE = "ROADMAP §1 item 10, scale engines"
-ROADMAP_TOOLING = "ROADMAP §1 item 11, tooling"
 ROADMAP_WARM = "ROADMAP §1 item 6, warm path remnants"
 
 #: the package version (the reference's; the command line's --version)
@@ -59,9 +55,11 @@ class ExperimentalConfig:
     mu block kernel; "fused": the join-the-updates one), ``ragged`` (the
     class-blocked slot pool, with ``ragged_iters_est``), ``factor_dtype``
     (bf16 pool factors), ``alias_io`` (the block kernels update the pool
-    in place) and ``block_m`` (the row tiling, which sets the padded row
-    count); ``autotune="on"`` raises ``NotImplementedError`` naming the
-    ROADMAP item that brings it. ``kl_bf16_quotient`` (kl on the whole
+    in place), ``block_m`` (the row tiling, which sets the padded row
+    count) and ``autotune`` ("on": ``nmfx_torch.autotune`` times the
+    kernel-schedule candidates at the sweep's shape bucket once and
+    resolves ``block_m``, ``check_block`` and ``fused_updates`` before
+    the sweep builds anything). ``kl_bf16_quotient`` (kl on the whole
     grid under ``matmul_precision="bfloat16"`` on CUDA: the quotient reads
     A rounded to bf16 too) configures kl only."""
 
@@ -103,10 +101,6 @@ class ExperimentalConfig:
                     "experimental.ragged_iters_est iteration estimates "
                     "must be positive")
             object.__setattr__(self, "ragged_iters_est", est)
-        if self.autotune != "off":
-            raise NotImplementedError(
-                "experimental.autotune='on' is not ported yet "
-                f"({ROADMAP_TOOLING})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,6 +154,13 @@ class SolverConfig:
     to bf16 (float32 sums) and runs where the solve reaches them,
     ``backend="pallas"``; elsewhere it is not ported yet.
     """
+
+    #: the fields declared execution-strategy-only (the reference's
+    #: declaration): the registry fingerprint, the checkpoint manifest
+    #: and the result-cache key may leave out these and no other
+    #: (the linter's NMFX001 / 007 / 011). ``restart_chunk``: chunked and
+    #: unchunked sweeps are byte-equal
+    NON_NUMERICS_FIELDS: ClassVar[tuple] = ("restart_chunk",)
 
     algorithm: str = "mu"
     max_iter: int = 10000
@@ -357,6 +358,17 @@ class InitConfig:
 class ConsensusConfig:
     """Consensus sweep settings (reference ``nmfx.ConsensusConfig``)."""
 
+    #: the fields the checkpoint manifest may leave out (the ranks, which
+    #: each record names, finalize-only settings and the execution
+    #: strategy the chunk plan replaces; ``restarts``: a wider budget
+    #: extends a ledger), and the fields the finished-result cache key
+    #: may leave out (none: every field shapes the finished result). The
+    #: linter's NMFX007 and NMFX011 hold the live keys to them
+    CHECKPOINT_EXEMPT_FIELDS: ClassVar[tuple] = (
+        "ks", "linkage", "min_restarts", "keep_factors", "grid_exec",
+        "grid_slots", "grid_tail_slots", "restarts")
+    RESULT_CACHE_EXEMPT_FIELDS: ClassVar[tuple] = ()
+
     ks: Sequence[int] = (2, 3, 4, 5)
     restarts: int = 10
     seed: int = 123
@@ -462,10 +474,11 @@ class ExecCacheConfig:
     exceeds ``growth_steps`` steps; the defaults land 5000×500 on
     5120×512) and one built sweep serves every shape in its bucket.
     ``max_entries`` bounds the live entries (LRU; ``pipeline_ranks``
-    raises the bound to a request's rank count). ``cache_dir`` must stay
-    None: the reference serializes compiled XLA executables there, and a
-    built torch sweep has no serialized form, so a directory raises
-    ``NotImplementedError`` naming the ROADMAP item. ``max_disk_bytes``,
+    raises the bound to a request's rank count). ``cache_dir`` holds the
+    kernel-schedule autotuner's store (``<cache_dir>/autotune``); the
+    reference also serializes compiled XLA executables there, and a built
+    torch sweep has no serialized form, so no executable is written
+    (ROADMAP §1 item 6). ``max_disk_bytes``,
     ``donate_inits`` and ``compile_workers`` validate as in the
     reference; nothing in the port reads them (no disk store, no
     donation, builds are host closures)."""
@@ -491,11 +504,6 @@ class ExecCacheConfig:
             raise ValueError("max_disk_bytes must be >= 1")
         if self.compile_workers < 0:
             raise ValueError("compile_workers must be >= 0")
-        if self.cache_dir is not None:
-            raise NotImplementedError(
-                "ExecCacheConfig.cache_dir: the reference persists "
-                "serialized XLA executables there, which have no torch "
-                f"counterpart ({ROADMAP_WARM}); pass cache_dir=None")
 
 
 @dataclasses.dataclass(frozen=True)

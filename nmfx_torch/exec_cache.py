@@ -34,10 +34,11 @@ reference's layout and contracts:
   host→device copy; :func:`start_host_fetch` starts a finished rank's
   device→host copies (``nmfx_torch.harvest.start_host_fetch``).
 
-Not ported: the reference's disk store of serialized executables
-(``ExecCacheConfig.cache_dir`` raises ``NotImplementedError`` naming
-ROADMAP §1 item 6; a built torch sweep has no serialized form, so the
+Not ported: the reference's disk store of serialized executables (a
+built torch sweep has no serialized form, ROADMAP §1 item 6, so the
 ``persist.deserialize`` fault site stays unfired).
+``ExecCacheConfig.cache_dir`` holds the kernel-schedule autotuner's
+store instead (``<cache_dir>/autotune``, ``nmfx_torch.autotune``).
 
 A restart mesh serves through the meshed bucketed sweeps (each shard its
 lanes of every rank, on its device; :meth:`ExecCache.prefetch` places
@@ -109,9 +110,9 @@ def solver_key_fields() -> frozenset:
 def persist_key_fields() -> frozenset:
     """The SolverConfig fields the reference's persistent (disk) key
     covers: that key is the ``repr`` of the in-memory one, which renders
-    the fields declared with ``repr=True``. The port keeps no disk tier
-    (``ExecCacheConfig.cache_dir`` is refused); the hook keeps the
-    reference's contract checkable."""
+    the fields declared with ``repr=True``. The port serializes no
+    executable (its ``cache_dir`` holds the autotuner's store, keyed by
+    the same repr); the hook keeps the reference's contract checkable."""
     return frozenset(f.name for f in dataclasses.fields(SolverConfig)
                      if f.repr)
 
@@ -357,7 +358,8 @@ class ExecCache:
                     box["report"] = self.warm(
                         shapes, ccfg, scfg, icfg, mesh, profiler=None,
                         background=False, _record_failures=True)
-                except BaseException as e:  # WarmTask.result re-raises
+                except BaseException as e:  # nmfx: ignore[NMFX006] -- the
+                    # WarmTask re-raises
                     box["error"] = e
 
             thread = threading.Thread(target=work, daemon=True,

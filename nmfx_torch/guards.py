@@ -3,10 +3,10 @@
 
 A class decorated ``@guarded_by("_lock", "_queue", ...)`` promises that
 every access to ``self._queue`` happens while ``self._lock`` is held.
-The reference's linter reads these declarations syntactically; the port
-has no linter yet (ROADMAP §1 item 11), so here they document the
-discipline of the metrics registry and the flight recorder in a form a
-tool can read.
+The port's linter (``python -m nmfx_torch.analysis``, rule NMFX012) reads
+these declarations syntactically: an access to a declared attribute
+outside a ``with self._lock`` scope is a finding; NMFX013 and the runtime
+witness (``nmfx_torch/analysis/witness.py``) hold the lock order.
 
 Usage::
 

@@ -32,8 +32,10 @@ called), so a collector or a signal handler can load them cheaply.
   ``--html``) over the collector and the SLO engine; not imported here,
   it is a command (``python -m nmfx_torch.obs.top``).
 
-Not ported yet (ROADMAP §1 item 11): ``regress`` (the bench-trajectory
-judge), and the cost model's XLA cross-check and communication halves.
+Not ported: ``regress`` (the bench-trajectory judge; ROADMAP §1 item 11,
+queued behind the port's own benchmark) and the cost model's XLA
+cross-check (no torch counterpart). The communication half is
+``costmodel.comm_model``.
 """
 
 from __future__ import annotations

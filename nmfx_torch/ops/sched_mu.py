@@ -66,10 +66,12 @@ array a trip (its host sync). Once the queues drain and at most the
 tail width's jobs survive, they move into a uniform k_max-padded pool
 for the straggler tail.
 
-Not ported: the autotuner, meshes (``varying_axes``) and the
-fault-injection hooks. The reference's slot clamp (``_pallas_slot_clamp``)
-fits a TPU core's VMEM; here the factors stay in device memory, so the
-pool is bounded by device memory only.
+The block-shape autotuner (``nmfx_torch.autotune``) resolves ``block_m``,
+``check_block`` and ``fused_updates`` before a sweep reaches here. The
+reference's ``varying_axes`` (``shard_map`` typing) have no counterpart:
+on a restart mesh each shard's scheduler runs alone. The reference's slot
+clamp (``_pallas_slot_clamp``) fits a TPU core's VMEM; here the factors
+stay in device memory, so the pool is bounded by device memory only.
 """
 
 from __future__ import annotations

@@ -28,6 +28,11 @@ _FORMAT_VERSION = 1
 #: changes how the batched restart route groups lanes, not the numbers
 FINGERPRINT_SOLVER_EXCLUDED = ("restart_chunk",)
 
+#: SolverConfig fields hashed by a resolved value instead of their raw
+#: one (still covered): ``backend`` hashes as its engine family, so
+#: "auto" and the explicit equivalent share a registry
+FINGERPRINT_SOLVER_RESOLVED = ("backend",)
+
 #: the KSweepOutput fields a record holds (all_w / all_h only under
 #: keep_factors)
 _RECORD_FIELDS = ("consensus", "iterations", "dnorms", "stop_reasons",
@@ -164,7 +169,8 @@ class SweepRegistry:
             return None
         try:
             return self.load(k)
-        except Exception as e:
+        except Exception as e:  # nmfx: ignore[NMFX006] -- logged; heals
+            # by recompute
             logging.getLogger("nmfx_torch").warning(
                 "checkpoint for k=%d at %s is unreadable (%s); recomputing",
                 k, self._path(k), e)

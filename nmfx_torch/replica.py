@@ -60,10 +60,11 @@ carved from the pool's device list, contiguous blocks in spawn order;
 that list may name a card more than once, as ``device.Mesh`` does, so a
 "1x2" replica and a plain one fit on one card (they then share it).
 
-Not ported: the disk executable cache the reference's workers start
-against (``cache_dir``, the worker's ``--cache-dir``; ``ROADMAP_WARM``).
-It raises ``NotImplementedError`` (or, on the worker's command line, a
-usage error) naming its item.
+``cache_dir`` (the worker's ``--cache-dir``) is the directory the
+reference's workers start their executable cache against; here it holds
+the kernel-schedule autotuner's store (``ExecCacheConfig.cache_dir``),
+and no executable is serialized there (a built torch sweep has no
+serialized form; ROADMAP §1 item 6).
 """
 
 from __future__ import annotations
@@ -79,7 +80,6 @@ from concurrent.futures import Future
 
 import numpy as np
 
-from nmfx_torch.config import ROADMAP_WARM
 from nmfx_torch.guards import guarded_by
 from nmfx_torch.obs import flight as _flight
 from nmfx_torch.obs import metrics as _metrics
@@ -118,14 +118,6 @@ def _spec_devices(mesh_spec: "str | None") -> int:
 
     r, f, s = parse_mesh_spec(mesh_spec)
     return r * f * s
-
-
-def _refuse_cache_dir(what: str) -> None:
-    raise NotImplementedError(
-        f"{what}: the reference's workers start against serialized XLA "
-        f"executables there, which have no torch counterpart "
-        f"({ROADMAP_WARM}); the kernels' libraries are already cached by "
-        "source hash — pass no cache directory")
 
 
 def _prebuild() -> None:
@@ -329,8 +321,6 @@ class ProcessReplica:
                  poll_interval_s: float = 0.05,
                  worker_args: "tuple[str, ...]" = (),
                  env: "dict | None" = None):
-        if cache_dir is not None:
-            _refuse_cache_dir("ProcessReplica(cache_dir=...)")
         self.replica_id = replica_id
         self.root = root
         self.spawned_at = time.monotonic()
@@ -355,6 +345,8 @@ class ProcessReplica:
                "--pool-dir", ledger.directory,
                "--heartbeat-interval", str(heartbeat_interval_s),
                "--poll-interval", str(poll_interval_s)]
+        if cache_dir is not None:
+            cmd += ["--cache-dir", cache_dir]
         if telemetry_dir is not None:
             cmd += ["--telemetry-dir", telemetry_dir]
         if mesh_spec is not None:
@@ -526,9 +518,9 @@ class ReplicaPool:
     process's cards; when the pool serves on the CPU, ``device`` or its
     executable cache's, the CPU named as often as the specs need), which
     may name a card more than once; in process mode the
-    spec travels to the worker as ``--mesh-spec``. ``cache_dir`` (the
-    reference's disk executable cache) is refused with
-    ``NotImplementedError`` naming its ROADMAP item."""
+    spec travels to the worker as ``--mesh-spec``. ``cache_dir`` travels
+    to process workers as ``--cache-dir`` (their executable cache's
+    directory: the autotuner's store)."""
 
     def __init__(self, replicas: int = 2, *, root: str,
                  mode: str = "thread", serve_cfg=None,
@@ -560,8 +552,6 @@ class ReplicaPool:
             for spec in mesh_specs:
                 if spec is not None:
                     parse_mesh_spec(spec)  # raises MeshSpecError
-        if cache_dir is not None:
-            _refuse_cache_dir("ReplicaPool(cache_dir=...)")
         if mode == "process" and device is not None:
             raise ValueError(
                 "a process replica's device is its worker's --device "
@@ -571,6 +561,7 @@ class ReplicaPool:
         self.mode = mode
         self.serve_cfg = serve_cfg
         self.exec_cache = exec_cache
+        self.cache_dir = cache_dir
         self.engine_factory = engine_factory
         self.telemetry_dir = telemetry_dir
         self.heartbeat_interval_s = heartbeat_interval_s
@@ -656,7 +647,7 @@ class ReplicaPool:
                     heartbeat_interval_s=self.heartbeat_interval_s)
             else:
                 rep = ProcessReplica(
-                    rid, root, self.ledger,
+                    rid, root, self.ledger, cache_dir=self.cache_dir,
                     telemetry_dir=self.telemetry_dir,
                     mesh_spec=mesh_spec,
                     heartbeat_interval_s=self.heartbeat_interval_s,
@@ -729,8 +720,8 @@ def _typed_error(payload: dict):
         if isinstance(cls, type) and issubclass(cls, BaseException):
             try:
                 return cls(msg)
-            except Exception:  # falls through to the generic
-                break          # wrapper below
+            except Exception:  # nmfx: ignore[NMFX006] -- falls through
+                break  # to the generic wrapper below
     return ReplicaError(f"{name or 'error'}: {msg}")
 
 
@@ -784,9 +775,6 @@ def worker_main(argv: "list[str] | None" = None) -> int:
                    help="the device this worker serves on: the card "
                         "(default) or 'cpu' for the plain versions")
     args = p.parse_args(argv)
-    if args.cache_dir is not None:
-        p.error("--cache-dir: serialized XLA executables have no torch "
-                f"counterpart ({ROADMAP_WARM})")
 
     from nmfx_torch.device import explicit_device, resolve_device
     from nmfx_torch.faults import warn_once
@@ -806,7 +794,13 @@ def worker_main(argv: "list[str] | None" = None) -> int:
     os.makedirs(inbox, exist_ok=True)
     os.makedirs(outbox, exist_ok=True)
     n_devices = 1
-    engine = None
+    engine = exec_cache = None
+    if args.cache_dir is not None and args.mesh_spec is None:
+        from nmfx_torch.config import ExecCacheConfig
+        from nmfx_torch.exec_cache import ExecCache
+
+        exec_cache = ExecCache(ExecCacheConfig(cache_dir=args.cache_dir),
+                               device=device)
     if args.mesh_spec is not None:
         from nmfx_torch.distributed import MeshSpecError
         from nmfx_torch.serve import MeshEngine
@@ -824,7 +818,8 @@ def worker_main(argv: "list[str] | None" = None) -> int:
                     max_queue_depth=args.max_queue_depth,
                     telemetry_dir=args.telemetry_dir,
                     mesh_spec=args.mesh_spec),
-        engine=engine, device=None if engine is not None else device)
+        engine=engine, exec_cache=exec_cache,
+        device=None if engine is not None else device)
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
     inflight_lock = threading.Lock()

@@ -61,10 +61,6 @@ __all__ = ["ResultCache", "cache_key_fields", "cacheable", "result_key",
 _DISK_FORMAT = 1
 #: the port's engine tag in every key payload
 _ENGINE = "nmfx_torch"
-#: ConsensusConfig fields the key may leave out: none, since every
-#: field shapes the finished result (the reference's
-#: ``RESULT_CACHE_EXEMPT_FIELDS``)
-RESULT_CACHE_EXEMPT_FIELDS: tuple = ()
 #: suffix of persisted result entries (the eviction scan and tests key
 #: on it; atomic-write temp files use ``.part`` so a crashed writer's
 #: leftovers are never mistaken for entries)
@@ -107,13 +103,14 @@ def cache_key_fields() -> "dict[str, frozenset]":
     covers: the solver side is the checkpoint manifest's solver coverage
     (every field but the execution-only ones, which change scheduling,
     never numbers); the consensus side is every ``ConsensusConfig``
-    field minus :data:`RESULT_CACHE_EXEMPT_FIELDS` (empty: this cache
-    stores FINISHED results, which every consensus field shapes)."""
+    field minus ``ConsensusConfig.RESULT_CACHE_EXEMPT_FIELDS`` (empty:
+    this cache stores FINISHED results, which every consensus field
+    shapes)."""
     from nmfx_torch.checkpoint import manifest_key_fields
 
     consensus = frozenset(
         f.name for f in dataclasses.fields(ConsensusConfig)
-    ) - frozenset(RESULT_CACHE_EXEMPT_FIELDS)
+    ) - frozenset(ConsensusConfig.RESULT_CACHE_EXEMPT_FIELDS)
     return {"solver": manifest_key_fields()["solver"],
             "consensus": consensus}
 
@@ -338,8 +335,8 @@ class ResultCache:
             self._warn_once("disk-read",
                             f"could not read cache entry ({e}); solving")
             return None
-        except Exception:  # truncated or corrupt zip: fall through to
-            meta = None    # the drop-and-re-solve path
+        except Exception:  # nmfx: ignore[NMFX006] -- truncated or
+            meta = None  # corrupt zip: the drop-and-re-solve path
         try:
             if not (isinstance(meta, dict)
                     and meta.get("format") == _DISK_FORMAT

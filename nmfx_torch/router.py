@@ -739,7 +739,7 @@ class NMFXRouter:
                         restarts=int(meta["restarts"]))
                     inputs["comm_bytes_per_iter"] = \
                         cm["wire_bytes_per_iter"]
-        except Exception:  # pricing is an
+        except Exception:  # nmfx: ignore[NMFX006] -- pricing is an
             pass           # annotation; a model gap must never make a
         #                    request unroutable
         return candidates, routable, inputs
@@ -809,7 +809,7 @@ class NMFXRouter:
         try:
             faults.inject("router.forward")
             inner = rep.forward(pending.rid, pending.a, pending.meta)
-        except BaseException as e:  # routed
+        except BaseException as e:  # nmfx: ignore[NMFX006] -- routed
             # to _schedule_retry, which re-forwards on another replica
             # or resolves the Future with a typed ForwardFailed
             self._schedule_retry(pending, e,
@@ -957,7 +957,7 @@ class NMFXRouter:
                     key = self._key(chash, shape, dt, scfg, ccfg, icfg,
                                     result.quality)
                 self.result_cache.put(key, result)
-            except Exception:  # cache trouble
+            except Exception:  # nmfx: ignore[NMFX006] -- cache trouble
                 # must never fail a solved request
                 pass
         pending.future.stats.latency_s = now - pending.submitted

@@ -983,11 +983,6 @@ class ExecCacheEngine:
         return [per_req[r.seq] for r in reqs]
 
 
-@guarded_by("_lock", "_queue", "_queued", "_pending_bytes", "_closed",
-            "_paused", "_inflight", "_crash", "_sched_clean", "_down",
-            "_heartbeat")
-@guarded_by("_tracked_lock", "_tracked", "_coalesce", "_followers")
-@guarded_by("_harvest_cond", "_harvest_q", "_harvest_owned")
 class MeshEngine:
     """The mesh-tier :class:`Engine` (the reference's ``MeshEngine``):
     every dispatch runs ``sweep()`` over one fixed mesh
@@ -1044,6 +1039,11 @@ class MeshEngine:
             "None); a packed dispatch reaching it is a scheduler bug")
 
 
+@guarded_by("_lock", "_queue", "_queued", "_pending_bytes", "_closed",
+            "_paused", "_inflight", "_crash", "_sched_clean", "_down",
+            "_heartbeat")
+@guarded_by("_tracked_lock", "_tracked", "_coalesce", "_followers")
+@guarded_by("_harvest_cond", "_harvest_q", "_harvest_owned")
 class NMFXServer:
     """Async multi-tenant consensus-NMF server over one device.
 
@@ -1671,7 +1671,7 @@ class NMFXServer:
                     _e2e_hist.observe(f.stats.latency_s,
                                       outcome="completed")
                 resolved += 1
-            except Exception:  # lost a
+            except Exception:  # nmfx: ignore[NMFX006] -- lost a
                 # resolution race: the follower's Future is already
                 # resolved (cancel/close), nothing is swallowed
                 continue
@@ -1725,7 +1725,7 @@ class NMFXServer:
                 if not f.future.done():
                     try:
                         f.future.set_exception(err)
-                    except Exception:  # lost
+                    except Exception:  # nmfx: ignore[NMFX006] -- lost
                         # a resolution race: the Future resolved
                         # concurrently (cancel/close), nothing swallowed
                         continue
@@ -1953,7 +1953,8 @@ class NMFXServer:
             self._run_scheduler()
             with self._cond:
                 self._sched_clean = True
-        except BaseException as e:  # watchdog resolves strays
+        except BaseException as e:  # nmfx: ignore[NMFX006] -- the
+            # watchdog resolves strays
             with self._cond:
                 self._crash = e
                 self._cond.notify_all()
@@ -2438,9 +2439,9 @@ class NMFXServer:
                                                       result.quality))
                         try:
                             self.result_cache.put(pkey, result)
-                        except Exception:  # best-effort admission:
-                            # cache trouble (disk full, perms) never
-                            # fails the solve
+                        except Exception:  # nmfx: ignore[NMFX006] -- best-
+                            # effort admission: cache trouble (disk
+                            # full, perms) never fails the solve
                             pass
                     req.future.set_result(result)
                     _e2e_hist.observe(req.stats.latency_s,

@@ -1289,7 +1289,8 @@ def _run_shards(mesh, copies: dict, work) -> list:
                 try:
                     with launch_scope(f"shard{i}"):
                         results[i] = work(i, copies[dev])
-                except BaseException as e:  # raised by the caller
+                except BaseException as e:  # nmfx: ignore[NMFX006] -- the
+                    # caller re-raises
                     errors[i] = e
                     return
             if dev.type == "cuda":
@@ -1730,6 +1731,35 @@ def _build_grid_exec_sweep_fn(ks: tuple[int, ...], restarts: int,
     return impl
 
 
+def resolve_autotune(shape, cfg: ConsensusConfig, solver_cfg: SolverConfig,
+                     *, device=None, mesh=None, exec_cache=None
+                     ) -> SolverConfig:
+    """``solver_cfg`` with ``experimental.autotune="on"`` resolved by the
+    block-shape autotuner (``nmfx_torch.autotune.resolve``) at A's shape
+    ``(m, n)``, the sweep's largest rank and the slot count the scheduler
+    takes for the grid (``grid_slots``, at most the job count); any other
+    config comes back as it is. The store lives under the executable
+    cache's ``cache_dir`` (``<cache_dir>/autotune``); the search runs on
+    the sweep's device (a mesh's first device of this process)."""
+    if solver_cfg.experimental.autotune != "on":
+        return solver_cfg
+    import os
+
+    from nmfx_torch import autotune
+
+    m, n = shape
+    slots = min(int(cfg.grid_slots), int(cfg.restarts) * len(cfg.ks))
+    at_dir = None
+    if exec_cache is not None and exec_cache.cfg.cache_dir:
+        at_dir = os.path.join(exec_cache.cfg.cache_dir, "autotune")
+    if mesh is not None:
+        device = mesh_home(mesh)
+    elif exec_cache is not None and device is None:
+        device = exec_cache.device
+    return autotune.resolve(solver_cfg, m, n, int(max(cfg.ks)), slots,
+                            cache_dir=at_dir, device=device)
+
+
 def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
           solver_cfg: SolverConfig = SolverConfig(),
           init_cfg: InitConfig = InitConfig(), *, device=None,
@@ -1755,6 +1785,9 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
     (``CheckpointConfig``): run through the durable ledger
     (``nmfx_torch.checkpoint.run_checkpointed_sweep``); not with
     ``registry``.
+
+    ``experimental.autotune="on"`` resolves the kernel schedule first
+    (:func:`resolve_autotune`, after the out-of-core routing).
 
     Out-of-core routing comes first: with ``solver_cfg.tile_rows`` set
     or a ``nmfx_torch.sparse.SparseMatrix`` input, a dense plan of one
@@ -1801,6 +1834,13 @@ def sweep(a, cfg: ConsensusConfig = ConsensusConfig(),
                                 device=device, registry=registry,
                                 profiler=profiler, on_rank=on_rank,
                                 checkpoint=checkpoint)
+    # the block-shape autotuner resolves here, before the checkpoint,
+    # executable-cache and registry branches, so every key downstream
+    # (fingerprint, bucket key, ledger manifest) sees the resolved
+    # kernel schedule, and a warm process resolves to the same config
+    solver_cfg = resolve_autotune(tuple(a.shape), cfg, solver_cfg,
+                                  device=device, mesh=mesh,
+                                  exec_cache=exec_cache)
     if checkpoint is not None:
         if registry is not None:
             raise ValueError(

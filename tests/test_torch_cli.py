@@ -171,8 +171,10 @@ def test_router_main_usage_errors_match_reference(gct, tmp_path, capsys):
     (["--sample-shards", "2"], "nmfx"),
     (["--restart-shards", "2", "--feature-shards", "2"], "nmfx"),
     (["--serve-smoke", "--replicas", "2", "--replica-mesh=-,4"], "nmfx"),
-    (["--autotune"], "item 11"),
-    (["--cache-dir", "CACHE"], "item 6"),
+    # the autotuner and a cache directory run since the autotuner was
+    # ported, as in the reference
+    (["--autotune"], "nmfx"),
+    (["--cache-dir", "CACHE"], "nmfx"),
     (["--compile-cache", "CACHE"], "item 6"),
 ])
 def test_unported_options_refused_naming_roadmap(gct, tmp_path, capsys,
@@ -228,7 +230,7 @@ def test_restart_shards_run_byte_equal_to_unmeshed(gct, tmp_path, capsys):
                                     "nmfx_torch.distributed")
 
 
-def test_unported_inputs_and_router_cache_refused(tmp_path, capsys):
+def test_unported_inputs_and_router_cache_refused(gct, tmp_path, capsys):
     mtx = tmp_path / "a.mtx"
     mtx.write_text("%%MatrixMarket matrix coordinate real general\n")
     # sparse inputs stream since the tile pipeline was ported; on grid
@@ -237,10 +239,19 @@ def test_unported_inputs_and_router_cache_refused(tmp_path, capsys):
                                          *CPU], capsys)
     assert code == 2 and ("do(es) not compose with --restart-shards/"
                           "--feature-shards/--sample-shards") in msg, msg
-    code, msg = _usage_error(
-        pcli.router_main, [str(mtx), "--cache-dir", str(tmp_path), *CPU],
-        capsys)
-    assert code == 2 and "ROADMAP §1 item 6" in msg
+    # the router's --cache-dir runs since the autotuner was ported (its
+    # store's directory), as the reference's does: the request completes
+    # with a direct run's rank table
+    assert pcli.router_main([gct, "--replicas", "1", "--requests", "1",
+                             *RUN, "--cache-dir", str(tmp_path / "c"),
+                             "--spill-root", str(tmp_path / "root"),
+                             *CPU]) == 0
+    cap = capsys.readouterr()
+    assert "submitted=1 completed=1 failed=0" in cap.err
+    assert pcli.main([gct, *RUN, "--no-files", *CPU]) == 0
+    direct = capsys.readouterr().out
+    assert (cap.out.split("best k")[0].strip()
+            == direct.split("best k")[0].strip())
 
 
 def test_entry_points_need_the_card_or_device_cpu(gct, tmp_path, capsys):

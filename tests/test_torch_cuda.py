@@ -927,3 +927,49 @@ def test_bf16_batched_route_on_card_at_the_agreement_tier(card):
     np.testing.assert_array_equal(bf16.per_k[2].membership,
                                   f32.per_k[2].membership)
     assert not np.array_equal(bf16.per_k[2].best_w, f32.per_k[2].best_w)
+
+
+def test_autotune_cold_search_on_card(card, tmp_path, monkeypatch):
+    """The block-shape autotuner on the card: a cold search launches the
+    hand-written block kernel of each candidate's row (once to warm,
+    ``_TIME_REPS`` times timed) and no plain version; the tuned sweep is
+    byte-equal to the sweep with the resolved values explicit."""
+    from nmfx_torch import autotune, nmfconsensus
+    from nmfx_torch.config import ExperimentalConfig
+    from nmfx_torch.datasets import two_group_matrix
+
+    plain = []
+    for name in ("fused_block_iterations_ref", "hals_block_iterations_ref"):
+        real = getattr(fused_mu, name)
+        monkeypatch.setattr(fused_mu, name,
+                            lambda *a, _f=real, **k: (plain.append(1),
+                                                      _f(*a, **k))[1])
+    with autotune._lock:
+        autotune._memo.clear()
+    cfg = SolverConfig(backend="pallas", max_iter=400,
+                       experimental=ExperimentalConfig(autotune="on"))
+    m, n, k_max, slots = 300, 40, 4, 9
+    s0 = autotune.searches_total.total()
+    fused_mu.reset_launch_counts()
+    tuned_cfg = autotune.resolve(cfg, m, n, k_max, slots,
+                                 cache_dir=str(tmp_path))
+    m_b, n_b = autotune.shape_bucket(m, n, k_max, slots)[:2]
+    cands = autotune._candidates(cfg, m_b, n_b, k_max, slots)
+    reps = 1 + autotune._TIME_REPS
+    phased = sum(c["fused_updates"] == "phased" for c in cands)
+    assert autotune.searches_total.total() - s0 == 1
+    assert fused_mu.LAUNCHES["fused_block_iterations"] == phased * reps
+    assert (fused_mu.LAUNCHES["fused_block_iterations_fused"]
+            == (len(cands) - phased) * reps)
+    assert plain == []
+    a = two_group_matrix(300, 20, seed=7)
+    kw = dict(ks=(2, 3, 4), restarts=3, seed=3)
+    tuned = nmfconsensus(a, solver_cfg=cfg, **kw)
+    # the sweep resolves at this key (slots = min(48, 3 · 3) = 9): a hit
+    explicit = nmfconsensus(a, solver_cfg=tuned_cfg, **kw)
+    for k in kw["ks"]:
+        for f in ("consensus", "iterations", "dnorms", "stop_reasons",
+                  "membership", "best_w", "best_h"):
+            x = np.asarray(getattr(tuned.per_k[k], f))
+            y = np.asarray(getattr(explicit.per_k[k], f))
+            assert x.tobytes() == y.tobytes(), (k, f)

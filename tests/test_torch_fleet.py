@@ -28,7 +28,19 @@ import nmfx_torch.obs.export as pexport
 import nmfx_torch.obs.metrics as pmetrics
 import nmfx_torch.obs.slo as pslo
 import nmfx_torch.obs.top as ptop
+from nmfx_torch.analysis import witness as _witness
 from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
+
+
+@pytest.fixture(autouse=True)
+def _lock_order_witness():
+    """The runtime lock-order witness (``nmfx_torch.analysis.witness``)
+    armed for each test of this threaded suite: the port's locks record
+    their acquisition orders and an inversion fails the test;
+    ``NMFX_LOCK_WITNESS=0`` disarms it."""
+    with _witness.guard():
+        yield
+
 
 WRITERS = {"nmfx": (nexport, nmetrics), "nmfx_torch": (pexport, pmetrics)}
 NOW_SKEW = 5.0  # the frames' fixed "now": this many seconds after writing

@@ -19,7 +19,19 @@ from nmfx_torch.datasets import two_group_matrix
 from nmfx_torch.harvest import HarvestPipeline, start_host_fetch
 from nmfx_torch.profiling import Profiler
 from nmfx_torch.sweep import KSweepOutput
+from nmfx_torch.analysis import witness as _witness
 from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
+
+
+@pytest.fixture(autouse=True)
+def _lock_order_witness():
+    """The runtime lock-order witness (``nmfx_torch.analysis.witness``)
+    armed for each test of this threaded suite: the port's locks record
+    their acquisition orders and an inversion fails the test;
+    ``NMFX_LOCK_WITNESS=0`` disarms it."""
+    with _witness.guard():
+        yield
+
 
 KS = (2, 3)
 RESTARTS = 2

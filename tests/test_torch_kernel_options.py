@@ -32,6 +32,7 @@ import torch
 
 import nmfx
 import nmfx_torch
+import nmfx_torch.autotune  # noqa: F401 (nmfx_torch.autotune below)
 from nmfx.config import ExperimentalConfig, SolverConfig
 from nmfx.datasets import two_group_matrix
 from nmfx.ops import pallas_mu as jk
@@ -514,8 +515,13 @@ def test_sched_preconditions_raise_as_the_reference(jobs, case):
 
 
 STILL_REFUSED = {
-    "autotune": (lambda: nmfx_torch.ExperimentalConfig(autotune="on"),
-                 "§1 item 11"),
+    # the autotuner runs since it was ported (None): its config is
+    # taken and resolves, as the reference's does
+    "autotune": (lambda: nmfx_torch.autotune.resolve(
+        nmfx_torch.SolverConfig(backend="pallas", max_iter=40,
+                                experimental=nmfx_torch.ExperimentalConfig(
+                                    autotune="on")),
+        64, 32, 2, 2, device="cpu"), None),
     # bf16 operands run on every route now; on the kernels float64 stays
     # refused under them too
     "bf16-dense-grid": (lambda: nmfx_torch.nmfconsensus(
@@ -549,6 +555,11 @@ def test_unported_settings_still_name_their_roadmap_item(case):
         out = fn()
         if case == "grid-axes-mesh":  # the reference's best k on it
             assert out.best_k == 2
+        elif case == "autotune":  # resolved: explicit, flag off
+            nmfx.ExperimentalConfig(autotune="on")
+            assert out.experimental.autotune == "off"
+            assert out.check_block in (1, 4)
+            assert out.experimental.block_m in (256, 512)
         else:  # built now, not a hit
             assert out[1] is False and callable(out[0].fn)
         return

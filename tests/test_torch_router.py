@@ -47,8 +47,20 @@ import nmfx_torch.sweep as psweep
 from nmfx.config import InitConfig as NInitConfig
 from nmfx.config import SolverConfig as NSolverConfig
 from nmfx_torch.config import InitConfig, SolverConfig
+from nmfx_torch.analysis import witness as _witness
 from test_torch_serve import FakeEngine, _mat
 from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
+
+
+@pytest.fixture(autouse=True)
+def _lock_order_witness():
+    """The runtime lock-order witness (``nmfx_torch.analysis.witness``)
+    armed for each test of this threaded suite: the port's locks record
+    their acquisition orders and an inversion fails the test;
+    ``NMFX_LOCK_WITNESS=0`` disarms it."""
+    with _witness.guard():
+        yield
+
 
 T = 60  # seconds: every future and join is bounded
 TP = 180  # seconds for a subprocess worker's request
@@ -812,7 +824,8 @@ def test_priced_placement_one_class_equal(tmp_path):
 def test_mesh_and_disk_cache_refused_naming_roadmap(tmp_path):
     """Mesh replicas run since the mesh tier was ported, as the
     reference's do (the name is kept): device counts and specs as
-    nmfx's pool gives them; the disk cache stays refused (item 6)."""
+    nmfx's pool gives them; a cache directory is taken as nmfx's pool
+    takes it (it travels to a process worker as --cache-dir)."""
     counts = {}
     for name in ("nmfx_torch", "nmfx"):
         pk = _pkg(name)
@@ -844,21 +857,36 @@ def test_mesh_and_disk_cache_refused_naming_roadmap(tmp_path):
     finally:
         proc_rep.kill()
         proc_rep.process.wait(timeout=T)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6"):
-        _pool(pkg, tmp_path / "c", cache_dir=str(tmp_path / "x"))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6"):
-        preplica.ProcessReplica("r", str(tmp_path / "r"), pool.ledger,
-                                cache_dir=str(tmp_path / "x"))
+    for name in ("nmfx_torch", "nmfx"):
+        cpool = _pool(_pkg(name), tmp_path / f"c-{name}",
+                      cache_dir=str(tmp_path / "x"))
+        try:
+            assert cpool.cache_dir == str(tmp_path / "x")
+        finally:
+            cpool.close()
+    proc_rep = preplica.ProcessReplica("r", str(tmp_path / "rc"),
+                                       pool.ledger,
+                                       cache_dir=str(tmp_path / "x"))
+    try:
+        args = proc_rep.process.args
+        i = args.index("--cache-dir")
+        assert args[i + 1] == str(tmp_path / "x")
+    finally:
+        proc_rep.kill()
+        proc_rep.process.wait(timeout=T)
     # a bad --mesh-spec is refused with the spec's own error, as the
-    # reference's worker refuses it
+    # reference's worker refuses it; --cache-dir is taken (the same
+    # worker fails only at its mesh spec)
     for argv, item in ((["--mesh-spec", "2x0"], "non-positive axis count"),
-                       (["--cache-dir", "x"], "item 6")):
+                       (["--cache-dir", "x", "--mesh-spec", "2x0"],
+                        "non-positive axis count")):
         proc = subprocess.run(
             [sys.executable, "-m", "nmfx_torch.replica", "--dir", "d",
              "--id", "i", "--pool-dir", "p", "--device", "cpu", *argv],
             cwd=str(tmp_path), env=_worker_env(), capture_output=True,
             text=True, timeout=T)
         assert proc.returncode == 2 and item in proc.stderr
+        assert "--cache-dir:" not in proc.stderr
 
 
 # ---------------------------------------------------------------------

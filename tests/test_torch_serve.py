@@ -36,6 +36,18 @@ from nmfx.config import SolverConfig as NSolverConfig
 from nmfx_torch import ExecCache, SolverConfig, nmfconsensus
 from nmfx_torch.config import InitConfig
 from nmfx_torch.datasets import two_group_matrix
+from nmfx_torch.analysis import witness as _witness
+
+
+@pytest.fixture(autouse=True)
+def _lock_order_witness():
+    """The runtime lock-order witness (``nmfx_torch.analysis.witness``)
+    armed for each test of this threaded suite: the port's locks record
+    their acquisition orders and an inversion fails the test;
+    ``NMFX_LOCK_WITNESS=0`` disarms it."""
+    with _witness.guard():
+        yield
+
 
 T = 60  # seconds: every future and join is bounded
 

@@ -31,9 +31,21 @@ import nmfx_torch.obs.metrics as pmetrics
 import nmfx_torch.serve as pserve
 from nmfx.datasets import two_group_matrix
 from nmfx_torch.config import SolverConfig
+from nmfx_torch.analysis import witness as _witness
 from test_torch_router import _BurnStub, _fast_cfg, _pkg, _pool
 from test_torch_serve import _mat
 from test_torch_solvers import _one_torch_thread  # noqa: F401 (autouse)
+
+
+@pytest.fixture(autouse=True)
+def _lock_order_witness():
+    """The runtime lock-order witness (``nmfx_torch.analysis.witness``)
+    armed for each test of this threaded suite: the port's locks record
+    their acquisition orders and an inversion fails the test;
+    ``NMFX_LOCK_WITNESS=0`` disarms it."""
+    with _witness.guard():
+        yield
+
 
 T = 300  # seconds: every future is bounded
 

@@ -217,11 +217,11 @@ def test_configs_round_trip_from_reference_dicts():
 
 
 @pytest.mark.parametrize("knob,item", [
-    # None: ported (the ragged pool, bf16 pool factors, alias_io), so the
-    # knob converts as it is
+    # None: ported (the ragged pool, bf16 pool factors, alias_io, the
+    # autotuner), so the knob converts as it is
     (dict(ragged=True), None),
     (dict(factor_dtype="bfloat16"), None),
-    (dict(autotune="on"), "§1 item 11"),
+    (dict(autotune="on"), None),
     (dict(alias_io=True), None),
 ])
 def test_converter_refuses_unported_experimental_knobs(knob, item):

@@ -109,19 +109,40 @@ def test_solver_config_round_trips_from_reference_dict():
         got = dataclasses.asdict(cfg)
         for f in dataclasses.fields(cfg):
             assert got[f.name] == d[f.name], f.name
-    with pytest.raises(NotImplementedError):
-        solver_config_from_dict(dataclasses.asdict(nmfx.SolverConfig(
-            experimental=nmfx.ExperimentalConfig(autotune="on"))))
+    # the autotuner's knob converts as it is since the autotuner was
+    # ported, as the reference's config takes it
+    d = dataclasses.asdict(nmfx.SolverConfig(
+        experimental=nmfx.ExperimentalConfig(autotune="on")))
+    assert dataclasses.asdict(
+        solver_config_from_dict(d).experimental) == d["experimental"]
     with pytest.raises(ValueError):
         solver_config_from_dict({"no_such_field": 1})
 
 
+@pytest.fixture
+def _timing_table(monkeypatch):
+    """Both packages' autotune searches under one timing table (seconds
+    an iteration by candidate), so their picks are the same."""
+    from nmfx import autotune as jtune
+    from nmfx_torch import autotune as ptune
+
+    def timed(mod):
+        return lambda cfg, cand, *a, **k: (
+            cand["block_m"] / 512 + 1 / cand["check_block"]
+            + (cand["fused_updates"] == "fused"))
+
+    monkeypatch.setattr(jtune, "_time_candidate", timed(jtune))
+    monkeypatch.setattr(ptune, "_time_candidate", timed(ptune))
+
+
 @pytest.mark.parametrize("kw,item", [
-    # each a callable: an unported experimental knob raises when built
+    # each a callable; the autotuner runs since it was ported (None), as
+    # in the reference: the same best k and memberships as nmfx's
+    # autotuned run
     (lambda: dict(solver_cfg=nmfx_torch.SolverConfig(
         backend="pallas",
         experimental=nmfx_torch.ExperimentalConfig(autotune="on"))),
-     "§1 item 11"),
+     None),
     # float64 runs on every plain-product route; the kernels refuse it
     (lambda: dict(solver_cfg=nmfx_torch.SolverConfig(dtype="float64",
                                                      backend="pallas")),
@@ -131,13 +152,20 @@ def test_solver_config_round_trips_from_reference_dict():
     (lambda: dict(mesh=nmfx_torch.grid_mesh(1, 2, devices=["cpu"] * 2)),
      None),
 ])
-def test_unported_routes_name_their_roadmap_item(kw, item):
+def test_unported_routes_name_their_roadmap_item(kw, item, _timing_table):
     a = two_group_matrix(40, 6, seed=0)
     if item is None:
+        kw = kw()
         got = nmfx_torch.nmfconsensus(a, ks=(2,), restarts=2, device="cpu",
-                                      grid_exec="per_k", **kw())
+                                      grid_exec="per_k", **kw)
+        if "mesh" in kw:
+            jkw = dict(mesh=nmfx.sweep.grid_mesh(1, 2))
+        else:
+            jkw = dict(use_mesh=False, solver_cfg=nmfx.SolverConfig(
+                backend="pallas",
+                experimental=nmfx.ExperimentalConfig(autotune="on")))
         want = nmfx.nmfconsensus(a, ks=(2,), restarts=2, grid_exec="per_k",
-                                 mesh=nmfx.sweep.grid_mesh(1, 2))
+                                 **jkw)
         assert got.best_k == want.best_k
         np.testing.assert_array_equal(got.per_k[2].membership,
                                       np.asarray(want.per_k[2].membership))
