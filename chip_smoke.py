@@ -35,13 +35,24 @@ Phases (any failure exits non-zero; nothing is caught):
      ragged class-blocked pool in rows 3-4 (the north star's and one at
      1237x77; iota // k byte-equal to the k-only launch), alias_io in
      rows 3-5 and block_m None / 128 / 256, each byte-equal to the
-     default launch;
+     default launch; then float64 storage (phase_float64_parity): rows
+     1, 2, 3 and 5, and row 3 under bf16 operands, on a float64 pool's
+     float32 values (what a float64 solve hands the kernels) against
+     their plain versions on those values at the float32 tolerance
+     (rows 5 and 3b: against the float64 plain version on the float64
+     pool, within HALS_FACTOR of the float32 plain version's error), and
+     how far each is from the float64 plain version on the float64 pool
+     (the JAX package rounds each float64 product once; printed, not
+     gated);
   3. kernel timing (CUDA events, median of 25 after warm-up) beside the
      plain version, a torch.matmul composite and the card's bound, also
      for the option variants the option paths run (a bf16 variant's
      bound counts A at 2 bytes and the bf16 tensor-core peak; beside the
      float32 composite, the same composite on bf16 tensors) and for the
-     join-the-updates block kernel under bf16 operands (row 4);
+     join-the-updates block kernel under bf16 operands (row 4); and the
+     float64 entries' kernels on a float64 pool's float32 values, with
+     the casts a float64 solve adds (A once a solve, the per-rank
+     check's widening);
   4. the main paths, each with every kernel's launch count set to 0 just
      before it and read just after, on the 5000x500 two-group matrix,
      ks 2..10, 50 restarts:
@@ -124,6 +135,11 @@ Phases (any failure exits non-zero; nothing is caught):
         hashed set; disarmed, the run is byte-equal to the clean one;
      g. the bundled design in float64 on the batched restart route (ks
         2..3 since PR 18): its wall, best k as the JAX package gives it;
+        then on the four float64 kernel routes (backend "pallas": the
+        per-rank pair, the whole grid, the hals grid and the whole grid
+        under bf16 operands), each beside the float32 run of the same
+        call: best k as the JAX package gives it, float64 best_w, the
+        route's rows launched, the k = 2 memberships equal to float32's;
   9. observability and the job grid (phase_obs), each run with the
      launch counts set to 0 just before it and read just after:
      a. the north-star whole grid (backend "pallas") with the tracer on
@@ -495,12 +511,13 @@ def time_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def operands(torch, m, n, r, k, seed, zeros=False):
+def operands(torch, m, n, r, k, seed, zeros=False, dtype=None):
     g = torch.Generator(device="cuda").manual_seed(seed)
     rk = r * k
-    a = torch.rand((m, n), generator=g, device="cuda")
-    wp = torch.rand((m, rk), generator=g, device="cuda")
-    hp = torch.rand((rk, n), generator=g, device="cuda")
+    kw = dict(generator=g, device="cuda", dtype=dtype or torch.float32)
+    a = torch.rand((m, n), **kw)
+    wp = torch.rand((m, rk), **kw)
+    hp = torch.rand((rk, n), **kw)
     if zeros:
         a[::7] = 0.0  # whole rows: zero numerators in the W update
         a[:, 3] = 0.0  # a whole column: zero numerators in the H update
@@ -558,15 +575,17 @@ BLOCK_OUTPUTS = ("wp", "hp", "wdiff", "wmax", "hdiff", "hmax", "h_checks")
 
 
 def block_operands(torch, m, n, slots, k, seed, *, zeros=False, frozen=(),
-                   budgets=None, pad=True, short_k=None):
+                   budgets=None, pad=True, short_k=None, dtype=None):
     """The block kernel's operands as the scheduler builds them: A and Wp
     padded with zero rows to the scheduler's m_pad (``pad``), lane
     freezes and per-lane budgets ({slot: iterations left}; every other
     lane has 10,000). ``short_k`` makes slot 0 a rank-``short_k`` job
-    zero-padded to k."""
+    zero-padded to k. ``dtype`` float64 draws A, Wp and Hp as a float64
+    solve holds them (the freezes and budgets stay float32)."""
     from nmfx_torch.ops.sched_mu import _pallas_block_geometry
 
-    a, wp, hp = operands(torch, m, n, slots, k, seed, zeros=zeros)
+    a, wp, hp = operands(torch, m, n, slots, k, seed, zeros=zeros,
+                         dtype=dtype)
     if short_k is not None:
         wp[:, short_k:k] = 0.0
         hp[short_k:k] = 0.0
@@ -785,6 +804,209 @@ def phase_hals_parity(torch, fm):
             if label == "north-star":
                 ns_err = max(ns_err, *(r[0] for r in res))
     return ns_err
+
+
+#: float64 storage on the kernels: the operands' seeds of the parity and
+#: timing pools (drawn in float64, as a float64 solve holds them)
+F64_SEEDS = dict(pair=21, block=22, hals=23)
+
+
+def f64_block_pool(torch, m, n, slots, k, seed, **opts):
+    """A block pool drawn in float64 and the float32 values a float64
+    solve's scheduler hands the kernels (A cast once a solve, the pools
+    at load): ((a, wp, hp) float64, (a, wp, hp) float32, frozen,
+    budget)."""
+    a64, w64, h64, frz, budget = block_operands(
+        torch, m, n, slots, k, seed, dtype=torch.float64, **opts)
+    return (a64, w64, h64), (a64.float(), w64.float(), h64.float()), \
+        frz, budget
+
+
+def phase_float64_parity(torch, fm):
+    """Float64 storage on the kernels: rows 1, 2, 3, 5 and 3b on a
+    float64 pool's float32 values. Rows 1-3 against their plain versions
+    on the same float32 values (check_close, the float32 tolerance; row 3
+    also frozen lanes and padded rows bit-equal); rows 5 and 3b against
+    the float64 plain version on the float64 pool (check_exact: within
+    HALS_FACTOR of the float32 plain version's own error). Each line also
+    prints how far the kernel is from the float64 plain version on the
+    float64 pool: the JAX package reads the float64 operands and rounds
+    each product once to float32, the card's kernels read float32
+    operands (not gated). Returns the max abs errors against the plain
+    versions, by kernel-line name."""
+    errs = {}
+
+    def far(got, exact):
+        torch.cuda.synchronize()
+        return max((g.double() - x.double()).abs().max().item()
+                   for g, x in zip(got, exact))
+
+    m, n, r, k = NORTH_STAR
+    a64, w64, h64 = operands(torch, m, n, r, k, seed=F64_SEEDS["pair"],
+                             dtype=torch.float64)
+    a, wp, hp = (x.float() for x in (a64, w64, h64))
+    want_h = fm.fused_h_update_ref(a, wp, hp, k=k)
+    got_h = fm.fused_h_update(a, wp, hp, k=k)
+    eh = check_close(torch, "fused_h_update[float64]", got_h, want_h, False)
+    gh = fm.lane_gram_ref(want_h, k=k)
+    want_w = fm.fused_w_update_ref(a, wp, want_h, gh, k=k)
+    got_w = fm.fused_w_update(a, wp, want_h, gh, k=k)
+    ew = check_close(torch, "fused_w_update[float64]", got_w, want_w, False)
+    x_h = fm.fused_h_update_ref(a64, w64, h64, k=k)
+    x_w = fm.fused_w_update_ref(a64, w64, want_h.double(), gh.double(), k=k)
+    far_h, far_w = far([got_h], [x_h]), far([got_w], [x_w])
+    print(f"float64 parity per-rank north-star m={m} n={n} R={r} k={k} "
+          f"(float32 values of a float64 pool): fused_h_update max abs "
+          f"{eh[0]:.3e} rel {eh[1]:.3e}, fused_w_update max abs {ew[0]:.3e} "
+          f"rel {ew[1]:.3e} (rtol={RTOL}, atol={ATOL_REL}*max|ref|); from "
+          f"the float64 plain version on the float64 pool {far_h:.3e} / "
+          f"{far_w:.3e} (not gated)", flush=True)
+    errs["fused_h_update[float64]"] = eh[0]
+    errs["fused_w_update[float64]"] = ew[0]
+
+    kw = dict(iters=CHECK_EVERY, check_block=CHECK_BLOCK)
+    label, bm, bn, slots, bk, opts = BLOCK_CASES[0]
+    p64, (a, wp, hp), frz, budget = f64_block_pool(
+        torch, bm, bn, slots, bk, F64_SEEDS["block"], **opts)
+    want = fm.fused_block_iterations_ref(a, wp, hp, frz, k=bk,
+                                         budget_cols=budget, **kw)
+    got = fm.fused_block_iterations(a, wp, hp, frz, k=bk,
+                                    budget_cols=budget, **kw)
+    e3 = [check_close(torch, f"fused_block_iterations[float64].{o}", g, w,
+                      zeros=True)[0]
+          for o, g, w in zip(BLOCK_OUTPUTS, got, want)]
+    check_padding(torch, "fused_block_iterations[float64]", got, wp, hp,
+                  frz, bm, bk, None)
+    x3 = fm.fused_block_iterations_ref(*p64, frz.double(), k=bk,
+                                       budget_cols=budget.double(), **kw)
+    print(f"float64 parity fused_block_iterations {label} m={a.shape[0]} "
+          f"n={bn} slots={slots} k={bk}: max abs "
+          + ", ".join(f"{o} {e:.3e}" for o, e in zip(BLOCK_OUTPUTS, e3))
+          + f" (rtol={RTOL}, atol={ATOL_REL}*max|ref|); frozen lanes and "
+          f"padded rows bit-equal; from the float64 plain version "
+          f"{far(got[:2], x3[:2]):.3e} (not gated)", flush=True)
+    errs["fused_block_iterations[float64]"] = max(e3)
+
+    ab = p64[0].to(torch.bfloat16)  # the route casts A once, from float64
+    got = fm.fused_block_iterations(ab, wp, hp, frz, k=bk, budget_cols=budget,
+                                    matmul_precision=BF16, **kw)
+    plain = fm.fused_block_iterations_ref(a, wp, hp, frz, k=bk,
+                                          budget_cols=budget,
+                                          matmul_precision=BF16, **kw)
+    exact = fm.fused_block_iterations_ref(*p64, frz.double(), k=bk,
+                                          budget_cols=budget.double(),
+                                          matmul_precision=BF16, **kw)
+    res = [check_exact(torch, f"fused_block_iterations[bf16,float64].{o}",
+                       g, pl, x)
+           for o, g, pl, x in zip(BLOCK_OUTPUTS, got, plain, exact)]
+    print(f"float64 parity fused_block_iterations[bf16] {label}: max abs "
+          "against the float32 plain version / kernel against float64 / "
+          "float32 plain against float64: "
+          + ", ".join(f"{o} {q[0]:.3e} / {q[1]:.3e} / {q[2]:.3e}"
+                      for o, q in zip(BLOCK_OUTPUTS, res))
+          + f" (bound {HALS_FACTOR} x the plain version's error + "
+          f"{ATOL_REL}*max|ref|)", flush=True)
+    errs["fused_block_iterations[bf16,float64]"] = max(q[0] for q in res)
+
+    p64, (a, wp, hp), frz, budget = f64_block_pool(
+        torch, bm, bn, slots, bk, F64_SEEDS["hals"], **opts)
+    hkw = dict(k=bk, slots=slots, iters=CHECK_EVERY)
+    got = fm.hals_block_iterations(a, wp, hp, frz, **hkw)
+    plain = fm.hals_block_iterations_ref(a, wp, hp, frz, **hkw)
+    exact = fm.hals_block_iterations_ref(*p64, frz.double(), **hkw)
+    res = [check_exact(torch, f"hals_block_iterations[float64].{o}", g, pl,
+                       x)
+           for o, g, pl, x in zip(BLOCK_OUTPUTS, got, plain, exact)]
+    check_padding(torch, "hals_block_iterations[float64]", got, wp, hp, frz,
+                  bm, bk, None)
+    print(f"float64 parity hals_block_iterations {label} check_block=1: max "
+          "abs against the float32 plain version / kernel against float64 "
+          "/ float32 plain against float64: "
+          + ", ".join(f"{o} {q[0]:.3e} / {q[1]:.3e} / {q[2]:.3e}"
+                      for o, q in zip(BLOCK_OUTPUTS, res))
+          + f" (bound {HALS_FACTOR} x the plain version's error + "
+          f"{ATOL_REL}*max|ref|); frozen lanes and padded rows bit-equal",
+          flush=True)
+    errs["hals_block_iterations[float64]"] = max(q[0] for q in res)
+    return errs
+
+
+def phase_float64_timing(torch, fm, rates):
+    """The float64 entries' kernels at the north-star shapes on a float64
+    pool's float32 values (kernel, plain version, library composite and
+    bound as for float32: the kernels read the same float32 bytes), and
+    the casts a float64 solve adds: A to float32 once a solve, and the
+    per-rank route's widening of W, W_prev, H and H_prev at each TolX
+    check. Returns {name: (ms, plain, library, bound, by)}."""
+    table = {}
+
+    def row(name, label, kernel, plain, lib, bound):
+        ms, pl, lb = (time_ms(torch, f) for f in (kernel, plain, lib))
+        table[name] = (ms, pl, lb, *bound)
+        print(f"timing {name} {label}: kernel {ms:.4f} ms, plain {pl:.4f} "
+              f"ms, library {lb:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]})", flush=True)
+
+    m, n, r, k = NORTH_STAR
+    a64, w64, h64 = operands(torch, m, n, r, k, seed=F64_SEEDS["pair"],
+                             dtype=torch.float64)
+    a, wp, hp = (x.float() for x in (a64, w64, h64))
+    gh = fm.lane_gram_ref(hp, k=k)
+    bnd = bounds(m, n, r * k, k, rates)
+    label = f"m={m} n={n} R={r} k={k}"
+    row("fused_h_update[float64]", label,
+        lambda: fm.fused_h_update(a, wp, hp, k=k),
+        lambda: fm.fused_h_update_ref(a, wp, hp, k=k),
+        lambda: library_h(torch, a, wp, hp, k), bnd["fused_h_update"])
+    row("fused_w_update[float64]", label,
+        lambda: fm.fused_w_update(a, wp, hp, gh, k=k),
+        lambda: fm.fused_w_update_ref(a, wp, hp, gh, k=k),
+        lambda: library_w(torch, a, wp, hp, gh, k), bnd["fused_w_update"])
+    cast_a = time_ms(torch, lambda: a64.float())
+    widen = time_ms(torch, lambda: [x.double() for x in (wp, wp, hp, hp)])
+    print(f"timing float64 casts {label}: A to float32 {cast_a:.4f} ms once "
+          f"a solve; W, W_prev, H, H_prev widened to float64 {widen:.4f} ms "
+          "once a TolX check (every check_every iterations on the "
+          "per-rank route)", flush=True)
+
+    p64, (a, wp, hp), frz, budget = f64_block_pool(
+        torch, m, n, SLOTS, k, F64_SEEDS["block"])
+    mp, rk = a.shape[0], SLOTS * k
+    kw = dict(k=k, iters=CHECK_EVERY, check_block=CHECK_BLOCK,
+              budget_cols=budget)
+    label = f"m={mp} n={n} slots={SLOTS} k={k}"
+    ops8 = block_ops(mp, n, rk, rk * k, CHECK_EVERY, CHECK_BLOCK)
+    row("fused_block_iterations[float64]", label + " (8 iterations)",
+        lambda: fm.fused_block_iterations(a, wp, hp, frz, **kw),
+        lambda: fm.fused_block_iterations_ref(a, wp, hp, frz, **kw),
+        lambda: library_block(torch, a, wp, hp, k, CHECK_EVERY,
+                              CHECK_BLOCK),
+        bound_of(block_bytes(mp, n, rk, CHECK_BLOCK), ops8, rates))
+    ab = p64[0].to(torch.bfloat16)
+    ar, wr, hr = (fm.round_bf16(x) for x in (a, wp, hp))
+    row("fused_block_iterations[bf16,float64]", label + " (8 iterations)",
+        lambda: fm.fused_block_iterations(ab, wp, hp, frz,
+                                          matmul_precision=BF16, **kw),
+        lambda: fm.fused_block_iterations_ref(a, wp, hp, frz,
+                                              matmul_precision=BF16, **kw),
+        lambda: library_block(torch, ar, wr, hr, k, CHECK_EVERY,
+                              CHECK_BLOCK),
+        bound_of(block_bytes(mp, n, rk, CHECK_BLOCK, a_bytes=2), ops8,
+                 bf16_rates(rates)))
+    cast_a = time_ms(torch, lambda: p64[0].float())
+    print(f"timing float64 casts {label}: A to float32 {cast_a:.4f} ms once "
+          "a solve (the scheduler's TolX stats are the kernel's float32 "
+          "per-column maxima, widened per lane: no factor is cast a trip)",
+          flush=True)
+    p64, (a, wp, hp), frz, budget = f64_block_pool(
+        torch, m, n, SLOTS, k, F64_SEEDS["hals"])
+    hkw = dict(k=k, slots=SLOTS, iters=CHECK_EVERY)
+    row("hals_block_iterations[float64]", label + " (2 iterations)",
+        lambda: fm.hals_block_iterations(a, wp, hp, frz, **hkw),
+        lambda: fm.hals_block_iterations_ref(a, wp, hp, frz, **hkw),
+        lambda: library_hals(torch, a, wp, hp, k, CHECK_EVERY, 1),
+        hals_bound(mp, n, rk, k, CHECK_EVERY, 1, rates))
+    return table
 
 
 def library_h(torch, a, wp, hp, k):
@@ -2615,6 +2837,26 @@ F64_KS = (2, 3)
 POISON_RATE = 0.05
 #: phase 8f: the stale reloads' rate and the pool that makes slots reload
 STALE_RATE, STALE_SLOTS = 0.25, 8
+#: phase 8g: the float64 kernel routes on the bundled design, each with
+#: the rows it must launch: route -> (solver fields, grid_exec, rows)
+F64_KERNEL_ROUTES = {
+    "per-rank pair": (dict(), "per_k",
+                      ("fused_h_update", "lane_gram", "fused_w_update")),
+    "grid": (dict(), "auto", ("fused_block_iterations",)),
+    "hals grid": (dict(algorithm="hals"), "auto",
+                  ("hals_block_iterations",)),
+    "grid bf16": (dict(matmul_precision=BF16), "auto",
+                  ("fused_block_iterations[bf16]",)),
+}
+#: the kernels line's float64 entries: name -> (8g route, launch count)
+F64_LAUNCHES = {
+    "fused_h_update[float64]": ("per-rank pair", "fused_h_update"),
+    "fused_w_update[float64]": ("per-rank pair", "fused_w_update"),
+    "fused_block_iterations[float64]": ("grid", "fused_block_iterations"),
+    "hals_block_iterations[float64]": ("hals grid", "hals_block_iterations"),
+    "fused_block_iterations[bf16,float64]": ("grid bf16",
+                                             "fused_block_iterations[bf16]"),
+}
 #: phase 8g: best k of the bundled 1000x40 design on the batched restart
 #: route in float64 (ks 2..5, 10 restarts, seed 123), as the JAX package
 #: gives it on its CPU backend under jax_enable_x64
@@ -2896,6 +3138,43 @@ def phase_durability(torch, fm, grid, per_rank, hals, *, a=None, ks=KS,
     if res_g.best_k != FLOAT64_BEST_K or launches["g"] \
             or res_g.per_k[2].best_w.dtype != np.float64:
         raise AssertionError("durability g: float64 batched sweep off")
+
+    # g. float64 on the kernel routes, each beside float32's same call
+    for route, (kw, grid_exec, rows) in F64_KERNEL_ROUTES.items():
+        runs = {}
+        for dtype in ("float64", "float32"):
+            runs[dtype] = counted(
+                f"g {route} {dtype}",
+                lambda dtype=dtype: nmfx_torch.nmfconsensus(
+                    bundled, ks=F64_KS, restarts=br, seed=123,
+                    device=device, grid_exec=grid_exec,
+                    solver_cfg=nmfx_torch.SolverConfig(
+                        backend="pallas", dtype=dtype, **kw)))
+        res64, wall64 = runs["float64"][:2]
+        res32, wall32 = runs["float32"][:2]
+        l64 = launches[f"g {route} float64"]
+        check_finite(res64, f"durability g {route}", bundled.shape[1])
+        same2 = np.array_equal(res64.per_k[2].membership,
+                               res32.per_k[2].membership)
+        iters = {dt: {k: round(float(res.per_k[k].iterations.mean()), 1)
+                      for k in F64_KS}
+                 for dt, res in (("float64", res64), ("float32", res32))}
+        print(f"durability g float64 {route} (bundled 1000x40, ks "
+              f"{F64_KS[0]}..{F64_KS[-1]}, {br} restarts): wall "
+              f"{wall64:.3f} s (float32 {wall32:.3f} s), best k "
+              f"{res64.best_k} (float32 {res32.best_k}; the JAX package: "
+              f"{FLOAT64_BEST_K}), best_w dtype {res64.per_k[2].best_w.dtype}"
+              f", launches {l64} (float32 "
+              f"{launches[f'g {route} float32']}), mean iters per k {iters}"
+              f", k = 2 memberships equal to float32's {same2}", flush=True)
+        missing = [name for name in rows if not l64.get(name, 0) > 0]
+        if (res64.best_k != FLOAT64_BEST_K or not same2
+                or res64.per_k[2].best_w.dtype != np.float64
+                or (device is None and missing)):
+            raise AssertionError(
+                f"durability g {route}: float64 kernel route off (best k "
+                f"{res64.best_k}, memberships equal {same2}, rows not "
+                f"launched {missing})")
     return launches
 
 
@@ -5629,6 +5908,8 @@ def main(argv=None) -> int:
     phase_pair_equality(torch, fm)
     ns_err["hals_block_iterations"] = phase_hals_parity(torch, fm)
     done("2 parity")
+    ns_err.update(phase_float64_parity(torch, fm))
+    done("2 float64 parity")
     ns_err.update(phase_option_parity(torch, fm))
     done("2 option parity")
     if args.quick:
@@ -5671,6 +5952,7 @@ def main(argv=None) -> int:
         timing = phase_timing(torch, fm, rates)[NORTH_STAR[3]]
         timing.update(phase_block_timing(torch, fm, rates))
         timing.update(phase_option_timing(torch, fm, rates))
+        timing.update(phase_float64_timing(torch, fm, rates))
         done("3 timing")
         # byte-equal to the unaliased launch (phase_option_parity), so
         # its error against the plain version is the default launch's
@@ -5704,6 +5986,8 @@ def main(argv=None) -> int:
         durable = phase_durability(torch, fm, phased, per_rank_res,
                                    hals_res)
         done("8 durability")
+        for name, (route, row) in F64_LAUNCHES.items():
+            launches[name] = durable[f"g {route} float64"].get(row, 0)
         print(f"durability phase {spent['8 durability']:.3f} s; "
               f"launches by run {durable}", flush=True)
         observed = phase_obs(torch, fm, grid)
@@ -5755,7 +6039,14 @@ def main(argv=None) -> int:
                 ("fused_block_iterations[bfloat16_w]", "block_mu.cu", 539),
                 ("fused_block_iterations[seg_ids]", "block_mu.cu", 539),
                 ("fused_block_iterations[alias_io]", "block_mu.cu", 539),
-                ("hals_block_iterations[bf16]", "hals_block.cu", 984)):
+                ("hals_block_iterations[bf16]", "hals_block.cu", 984),
+                # the float64 kernel routes of phase 8g
+                ("fused_h_update[float64]", "block_mu.cu", 147),
+                ("fused_w_update[float64]", "block_mu.cu", 731),
+                ("fused_block_iterations[float64]", "block_mu.cu", 539),
+                ("hals_block_iterations[float64]", "hals_block.cu", 984),
+                ("fused_block_iterations[bf16,float64]", "block_mu.cu",
+                 539)):
             ms, plain, lib, bound, by = timing[name]
             kernels.append({
                 "name": name, "route": "cuda",

@@ -12,6 +12,10 @@ Rules (the reference's ids; each encodes one failure class):
 NMFX001    config-key coverage: every config field reaches the registry
            fingerprint, the exec-cache bucket key and the autotune key,
            or is declared exempt
+NMFX004    PRNG discipline: a threefry key (nmfx_torch.random) consumed
+           by two draws with no split or fold_in between them; host RNG
+           in the hot path or the key chain's draws
+NMFX005    implicit host syncs in the hot path (ast_scan.HOT_ROOTS)
 NMFX006    silent degradation: a broad except must re-raise, resolve a
            Future, or route through nmfx_torch.faults.warn_once
 NMFX007    checkpoint-manifest coverage (nmfx_torch/checkpoint.py)
@@ -31,8 +35,8 @@ NMFX015    thread lifecycle: every Thread/Timer is daemonized or joined
 
 Not carried over: NMFX002 (environment reads at trace time), NMFX003
 (read after donation) and NMFX101/102 (the jaxpr layer) — the port
-traces nothing, donates nothing and has no jaxpr; NMFX004 and NMFX005
-(ROADMAP §1 item 11).
+traces nothing, donates nothing and has no jaxpr. NMFX004 and NMFX005
+watch the hot path instead of traced code.
 
 Suppress a finding inline with a required reason::
 
@@ -51,6 +55,7 @@ from nmfx_torch.analysis.ast_scan import Project, load_project
 # registering imports: each module populates RULES at import time
 from nmfx_torch.analysis import rules_config  # noqa: F401 (001/007/011)
 from nmfx_torch.analysis import rules_handlers  # noqa: F401 (NMFX006)
+from nmfx_torch.analysis import rules_hotpath  # noqa: F401 (NMFX004/005)
 from nmfx_torch.analysis import rules_obs  # noqa: F401 (NMFX008/010)
 from nmfx_torch.analysis import rules_perf  # noqa: F401 (NMFX009)
 from nmfx_torch.analysis import concurrency  # noqa: F401 (NMFX012-015)

@@ -11,8 +11,13 @@ import from outside the analyzed set resolves to nothing). The
 concurrency rules build their typed call graph on this resolution.
 
 The reference's traced-code set (what ``jax.jit``, ``vmap`` and
-``pallas_call`` reach) is not carried over: no ported rule reads it, and
-the port traces nothing.
+``pallas_call`` reach) becomes the hot path: the port traces nothing,
+and what runs once an iteration or a check is what the host loops reach.
+Its roots are :data:`HOT_ROOTS` (the slot scheduler's trips, the batched
+restart route's check blocks and the tiled pool's passes); each function
+records the names it calls, and :class:`Project` resolves them through
+the imports (the reference's ``_resolve``) and walks the call graph from
+the roots (its ``_compute_traced``). NMFX004 and NMFX005 read it.
 """
 
 from __future__ import annotations
@@ -30,6 +35,18 @@ def _attr_tail(node: ast.AST) -> "str | None":
         return node.attr
     if isinstance(node, ast.Name):
         return node.id
+    return None
+
+
+def _dotted(node: ast.AST) -> "str | None":
+    """``a.b.c`` -> "a.b.c" when every link is a Name/Attribute."""
+    parts = []
+    while isinstance(node, ast.Attribute):
+        parts.append(node.attr)
+        node = node.value
+    if isinstance(node, ast.Name):
+        parts.append(node.id)
+        return ".".join(reversed(parts))
     return None
 
 
@@ -64,6 +81,23 @@ def own_nodes(stmt: ast.stmt) -> "list[ast.AST]":
     return out
 
 
+def stores(stmt: ast.stmt) -> "set[str]":
+    """Names (re)bound at the statement's own level."""
+    return {node.id for node in own_nodes(stmt)
+            if isinstance(node, ast.Name)
+            and isinstance(node.ctx, (ast.Store, ast.Del))}
+
+
+#: the hot path's roots, (module path suffix, function qualname): the
+#: slot scheduler's trip loop (``mu_sched``, its trips and ragged stage
+#: nested in it), the check blocks of the batched restart route and the
+#: tiled pool's pass loop. What they reach runs once an iteration or a
+#: check on every kernel and plain route of a sweep
+HOT_ROOTS = (("nmfx_torch/ops/sched_mu.py", "mu_sched"),
+             ("nmfx_torch/solvers/base.py", "run_loop_batched"),
+             ("nmfx_torch/tiles.py", "run_tiled_pool"))
+
+
 @dataclasses.dataclass
 class FunctionInfo:
     """One (possibly nested) function definition."""
@@ -73,6 +107,11 @@ class FunctionInfo:
     node: ast.AST  # FunctionDef | AsyncFunctionDef | Lambda
     #: names of directly nested function defs
     nested: "set[str]" = dataclasses.field(default_factory=set)
+    #: (base, tail) call/reference edges out of this function's body:
+    #: base None = bare name, "" = attribute on a non-name expression,
+    #: "<ref>" = a bare name passed as an argument (a function value in a
+    #: callback position), else the leading name of a dotted call
+    calls: "set[tuple]" = dataclasses.field(default_factory=set)
 
     @property
     def name(self) -> str:
@@ -149,6 +188,23 @@ class _FunctionCollector(ast.NodeVisitor):
     def visit_Lambda(self, node):
         self._handle_def(node, f"<lambda@{node.lineno}>")
 
+    def visit_Call(self, node):
+        # a nested def's calls are credited to every enclosing function:
+        # running the outer function runs the closures it builds
+        callee = _attr_tail(node.func)
+        if callee:
+            base = None
+            if isinstance(node.func, ast.Attribute):
+                dotted = _dotted(node.func)
+                base = dotted.split(".")[0] if dotted else ""
+            for fn in self.stack:
+                fn.calls.add((base, callee))
+        for arg in list(node.args) + [kw.value for kw in node.keywords]:
+            if isinstance(arg, ast.Name):
+                for fn in self.stack:
+                    fn.calls.add(("<ref>", arg.id))
+        self.generic_visit(node)
+
 
 def parse_module(path: str, text: "str | None" = None) -> ModuleInfo:
     if text is None:
@@ -176,12 +232,19 @@ def _dotted_module(path: str) -> "tuple[str, ...]":
 
 
 class Project:
-    """The analyzed file set and its import resolution."""
+    """The analyzed file set, its import resolution and the hot path."""
 
     def __init__(self, modules: "list[ModuleInfo]"):
         self.modules = modules
+        #: simple name -> functions bearing it, across the project
+        self.by_name: "dict[str, list[FunctionInfo]]" = {}
+        for mod in modules:
+            for fn in mod.functions.values():
+                self.by_name.setdefault(fn.name, []).append(fn)
         #: dotted-segment tuple -> module, for import resolution
         self._by_dotted = {_dotted_module(m.path): m for m in modules}
+        #: id()s of the hot path's functions
+        self.hot_ids = self.reachable(self.roots(HOT_ROOTS))
 
     def _module_for(self, dotted: str) -> "ModuleInfo | None":
         """The analyzed module an absolute import refers to, matched by
@@ -191,6 +254,76 @@ class Project:
             if segs[-len(want):] == want:
                 return mod
         return None
+
+    def roots(self, specs) -> "list[FunctionInfo]":
+        """The functions ``(module path suffix, qualname)`` names in the
+        analyzed set (a root outside it is skipped)."""
+        out = []
+        for suffix, qual in specs:
+            want = _dotted_module(suffix)
+            for mod in self.modules:
+                segs = _dotted_module(mod.path)
+                if segs[-len(want):] == want and qual in mod.functions:
+                    out.append(mod.functions[qual])
+        return out
+
+    def _resolve(self, caller: FunctionInfo, base: "str | None",
+                 tail: str) -> "list[FunctionInfo]":
+        """The functions a call edge may reach (the reference's
+        ``Project._resolve``): a bare name through the caller's module
+        and its imports, a module alias's attribute through the module it
+        names; a method of an ordinary variable falls back to every
+        function of that name (over-approximate, reviewable)."""
+        mod = caller.module
+        if base is None or base == "<ref>":
+            local = [f for f in mod.functions.values() if f.name == tail]
+            if local:
+                return local
+            if tail in mod.from_imports:
+                src, orig = mod.from_imports[tail]
+                target = self._module_for(src)
+                if target is None:
+                    return []  # imported from outside the analyzed set
+                return [f for f in target.functions.values()
+                        if f.name == orig]
+            # a direct call of an unresolved bare name falls back to
+            # every bearer; a mere reference does not (data names collide
+            # with function names too often)
+            return [] if base == "<ref>" else self.by_name.get(tail, [])
+        if base in mod.module_aliases:
+            target = self._module_for(mod.module_aliases[base])
+            if target is None:
+                return []  # torch.where, np.sum, os.environ: not ours
+            return [f for f in target.functions.values()
+                    if f.name == tail]
+        return self.by_name.get(tail, [])
+
+    def reachable(self, roots) -> "set[int]":
+        """id()s of the functions reachable from ``roots`` over nested
+        defs and resolved call edges (the reference's
+        ``_compute_traced``; identity, since qualnames collide across
+        modules)."""
+        work = list(roots)
+        seen = {id(fn) for fn in work}
+        while work:
+            fn = work.pop()
+            edges = [(None, n) for n in fn.nested] + sorted(
+                fn.calls, key=lambda e: (str(e[0]), e[1]))
+            for base, tail in edges:
+                for cand in self._resolve(fn, base, tail):
+                    if id(cand) not in seen:
+                        seen.add(id(cand))
+                        work.append(cand)
+        return seen
+
+    def functions_in(self, ids: "set[int]") -> "list[FunctionInfo]":
+        """The analyzed functions whose id() is in ``ids``, in module
+        and definition order."""
+        return [fn for mod in self.modules for fn in mod.functions.values()
+                if id(fn) in ids]
+
+    def hot_functions(self) -> "list[FunctionInfo]":
+        return self.functions_in(self.hot_ids)
 
 
 def collect_paths(paths: "Iterable[str]") -> "list[str]":

@@ -283,7 +283,10 @@ def _time_candidate(cfg, cand: dict, m: int, n: int, k_max: int,
     warm-up launch, then the fastest of ``_TIME_REPS`` timed ones (CUDA
     events on the card, ``perf_counter`` on the CPU, where the wrappers
     run the plain versions). Raw launches, not a scheduled solve: the
-    candidates differ only inside the kernel."""
+    candidates differ only inside the kernel. The operands are float32
+    for either solve dtype: a float64 solve keys its own entry (``dtype``
+    is a field of the key's config) and its sweep launches these same
+    float32 kernels on float32 pools."""
     from nmfx_torch.ops import fused_mu
 
     bm, cb = cand["block_m"], cand["check_block"]

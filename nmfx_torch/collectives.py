@@ -60,6 +60,12 @@ CALLS: collections.Counter = collections.Counter()
 _calls_lock = threading.Lock()
 
 
+def _host_part(t: torch.Tensor) -> torch.Tensor:
+    """One part of a cross-process exchange, copied to the host: gloo's
+    object all-gather carries host tensors."""
+    return t.detach().cpu()  # nmfx: ignore[NMFX005] -- gloo's host all-gather
+
+
 def reset_calls() -> None:
     """Zero :data:`CALLS`."""
     with _calls_lock:
@@ -137,7 +143,7 @@ class GridGroup:
         if self.remote and pos == self.local[-1]:
             import torch.distributed as dist
 
-            mine = {p: tuple(t.detach().cpu() for t in self._slots[buf][p])
+            mine = {p: tuple(map(_host_part, self._slots[buf][p]))
                     for p in self.local}
             every = [None] * dist.get_world_size(self.pg)
             dist.all_gather_object(every, mine, group=self.pg)

@@ -7,13 +7,12 @@ reference's: a set value routes mu and hals through the out-of-core tile
 pipeline (``nmfx_torch/tiles.py``), which streams A from the host to the
 card block by block.
 
-What the port runs is narrower than what validates: ``check_ported``
-raises ``NotImplementedError`` for a solver setting the port has no
-route for yet (float64 on the hand-written kernels); each message names
-the ROADMAP section and item that brings it. The scheduler's own
-preconditions on the options it runs (ragged, factor_dtype, alias_io,
-block_m) raise ``ValueError`` in ``nmfx_torch.ops.sched_mu.mu_sched``,
-with the reference's words.
+``check_ported`` validates the solve dtype; every valid solver setting
+has a route (float64 under ``backend="pallas"`` runs the float32
+kernels on float32 pools with float64 bookkeeping, as the reference's
+kernels compute it). The scheduler's own preconditions on the options
+it runs (ragged, factor_dtype, alias_io, block_m) raise ``ValueError``
+in ``nmfx_torch.ops.sched_mu.mu_sched``, with the reference's words.
 """
 
 from __future__ import annotations
@@ -38,8 +37,6 @@ TILED_ALGORITHMS = ("mu", "hals")
 SKETCHED_ALGORITHMS = ("mu", "hals")
 
 #: where the ROADMAP brings each refused setting ("Open items")
-ROADMAP_DTYPES = "ROADMAP §1 item 4, config and dtype remnants"
-ROADMAP_SCALE = "ROADMAP §1 item 10, scale engines"
 ROADMAP_WARM = "ROADMAP §1 item 6, warm path remnants"
 
 #: the package version (the reference's; the command line's --version)
@@ -316,16 +313,11 @@ class SolverConfig:
 
 
 def check_ported(cfg: SolverConfig) -> None:
-    """Raise ``NotImplementedError`` for a valid setting the port cannot
-    run yet (ROADMAP "Open items")."""
+    """Raise ``ValueError`` for a solve dtype the port has no storage
+    for (the reference's dtypes: float32 and float64)."""
     if cfg.dtype not in ("float32", "float64"):
         raise ValueError(
             f"dtype must be 'float32' or 'float64', got {cfg.dtype!r}")
-    if cfg.dtype == "float64" and cfg.backend == "pallas":
-        raise NotImplementedError(
-            "dtype='float64' with backend='pallas': the hand-written "
-            f"kernels are float32 ({ROADMAP_DTYPES}); every other backend "
-            "runs float64 on plain products")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -32,10 +32,13 @@ called), so a collector or a signal handler can load them cheaply.
   ``--html``) over the collector and the SLO engine; not imported here,
   it is a command (``python -m nmfx_torch.obs.top``).
 
-Not ported: ``regress`` (the bench-trajectory judge; ROADMAP §1 item 11,
-queued behind the port's own benchmark) and the cost model's XLA
-cross-check (no torch counterpart). The communication half is
-``costmodel.comm_model``.
+* :mod:`nmfx_torch.obs.regress` — the ``nmfx-torch-perf``
+  bench-trajectory judge (the reference's metrics, thresholds, verdict
+  and report over ``BENCH_r*.json`` records); not imported here, it is a
+  command (``python -m nmfx_torch.obs.regress``).
+
+Not ported: the cost model's XLA cross-checks (no torch counterpart).
+The communication half is ``costmodel.comm_model``.
 """
 
 from __future__ import annotations

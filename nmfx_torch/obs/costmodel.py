@@ -36,13 +36,14 @@ The sketched family ("sketched", ``nmfx_torch/solvers/sketched.py``)
 counts one compressed iteration: no m × n term, the r-sized sketches
 and the factor passes.
 
-Left out, with the reason: the XLA cross-check (``xla_iteration_cost`` and its
-``_compile_*`` helpers), which differences XLA's compiled cost analysis
-and has no PyTorch counterpart; and the communication model
-(``comm_model``, ``xla_comm_cost``) and the multi-device weighting of
-attribution (the ``mesh`` and ``devices`` arguments and the
-``device_seconds`` aggregate), which belong to the meshed route
-(ROADMAP §1 item 10): every port dispatch runs on one device.
+The communication model (:func:`comm_model`) prices a meshed
+factorization's collectives, and :func:`attribute_dispatch` scales the
+peak by a mesh's distinct devices of this process.
+
+Left out, with the reason: the XLA cross-checks (``xla_iteration_cost``
+with its ``_compile_*`` helpers, and ``xla_comm_cost``), which difference
+XLA's compiled cost analysis and have no PyTorch counterpart; and the
+``device_seconds`` aggregate of the summary.
 """
 
 from __future__ import annotations

@@ -633,8 +633,9 @@ def segment_tables(seg_ids, device):
     segment) and the widest segment. Every id must be one run of
     consecutive columns, as the ragged class-blocked pool lays its jobs
     out. Computed on the host once per distinct layout."""
-    ids = np.asarray(seg_ids.cpu() if torch.is_tensor(seg_ids) else seg_ids,
-                     dtype=np.int64).reshape(-1)
+    if torch.is_tensor(seg_ids):
+        seg_ids = seg_ids.cpu()  # nmfx: ignore[NMFX005] -- the scheduler passes host ids
+    ids = np.asarray(seg_ids, dtype=np.int64).reshape(-1)
     key = (ids.tobytes(), str(device))
     if key not in _SEG_TABLES:
         change = np.flatnonzero(np.diff(ids)) + 1

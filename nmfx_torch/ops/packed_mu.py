@@ -356,15 +356,19 @@ def _check(state: PackedState, cfg: SolverConfig, r: int,
     # the samples, and a max-change is a ratio of global maxima, both of
     # its ingredients reduced over the factor's axis
     m, n = state.wp.shape[0], state.hp.shape[1]
+    # TolX in the solve dtype: a float64 solve's float32 kernel pools
+    # widen first, so each difference is exact, as the reference takes it
+    # on its float64 factors (which hold the same float32 values)
+    wide = torch.float64 if cfg.dtype == "float64" else torch.float32
     maxima = {}
     if cfg.use_tol_checks:
+        wp, wp_prev, hp, hp_prev = (x.to(wide) for x in (
+            state.wp, state.wp_prev, state.hp, state.hp_prev))
         maxima = {
-            "w": ((state.wp - state.wp_prev).abs().reshape(m, r, k)
-                  .amax(dim=(0, 2)),
-                  state.wp_prev.abs().reshape(m, r, k).amax(dim=(0, 2))),
-            "h": ((state.hp - state.hp_prev).abs().reshape(r, k, n)
-                  .amax(dim=(1, 2)),
-                  state.hp_prev.abs().reshape(r, k, n).amax(dim=(1, 2)))}
+            "w": ((wp - wp_prev).abs().reshape(m, r, k).amax(dim=(0, 2)),
+                  wp_prev.abs().reshape(m, r, k).amax(dim=(0, 2))),
+            "h": ((hp - hp_prev).abs().reshape(r, k, n).amax(dim=(1, 2)),
+                  hp_prev.abs().reshape(r, k, n).amax(dim=(1, 2)))}
     axes = {"w": f_ax, "h": s_ax}
     items = [("max", x, axes[f]) for f in maxima for x in maxima[f]
              if axes[f] is not None]
@@ -383,8 +387,8 @@ def _check(state: PackedState, cfg: SolverConfig, r: int,
             return mism_total
     delta = None
     if cfg.use_tol_checks:
-        sqrteps = torch.sqrt(torch.tensor(torch.finfo(state.wp.dtype).eps,
-                                          dtype=state.wp.dtype,
+        sqrteps = torch.sqrt(torch.tensor(torch.finfo(wide).eps,
+                                          dtype=wide,
                                           device=state.wp.device))
         dw, dh = (diff / (sqrteps + ref)
                   for diff, ref in (maxima["w"], maxima["h"]))
@@ -408,8 +412,15 @@ def mu_packed(a, w0s, h0s, cfg: SolverConfig = SolverConfig(), *,
     convergence tests, same freeze-on-convergence and quarantine. ``a``
     (m, n), ``w0s`` (R, m, k), ``h0s`` (R, k, n) are numpy arrays or
     tensors; they move to ``device`` (None = CUDA, raising if there is
-    none; TF32 is switched off there) in ``cfg.dtype`` (float64 only on
-    the plain products: ``check_ported`` keeps it off the kernels).
+    none; TF32 is switched off there) in ``cfg.dtype``. A float64 solve
+    under ``backend="pallas"`` runs the float32 kernels as the
+    reference's do (products and epilogues in float32, the factors
+    stored in float64): A is cast to float32 once a solve, the pair
+    iterates float32 pools, and the TolX test, the final residuals and
+    the returned factors are float64. The reference takes each product
+    from the float64 operands rounded once to float32; the card's
+    kernels read float32 operands, so the products part from it by
+    about a float32 rounding of the operands.
 
     ``shard``: this call is one shard of a grid group (``a``, ``w0s`` and
     ``h0s`` its blocks); every shard of the group runs it in lockstep on
@@ -435,6 +446,11 @@ def mu_packed(a, w0s, h0s, cfg: SolverConfig = SolverConfig(), *,
     a = a_true = a.contiguous()  # a_true: unpadded, for the residuals
     use_kernels = cfg.backend == "pallas"
     wp, hp = pack(w0s, h0s)
+    if use_kernels and dtype == torch.float64:
+        # float64 storage on the float32 kernels: float32 pools and A,
+        # cast once a solve
+        wp, hp = wp.to(torch.float32), hp.to(torch.float32)
+        a = a.to(torch.float32)
     if use_kernels and padded_rows(m) != m:
         # the reference's tile padding, kept so both routes iterate on
         # the same operands (the CUDA kernels mask ragged edges anyway)
@@ -493,13 +509,15 @@ def mu_packed(a, w0s, h0s, cfg: SolverConfig = SolverConfig(), *,
         running = live()
 
     iterations = torch.where(state.done, state.done_iter, state.iteration)
-    wp_final = state.wp[:m]  # drop the tile-padding rows, if any
+    # drop the tile-padding rows, if any; a float32 pool widens to the
+    # solve dtype
+    wp_final, hp_final = state.wp[:m].to(dtype), state.hp.to(dtype)
     # final residuals the direct way (reference calculateNorm): exact at
     # tight convergence, once per solve
     dnorm = residual_norms(
-        a_true, unpack_w(wp_final, r), state.hp.reshape(r, k, n),
+        a_true, unpack_w(wp_final, r), hp_final.reshape(r, k, n),
         bf16=not use_kernels and bf16_products(cfg, dev), shard=shard)
-    return PackedMUResult(wp=wp_final, hp=state.hp,
+    return PackedMUResult(wp=wp_final, hp=hp_final,
                           iterations=iterations.to(torch.int32),
                           dnorm=dnorm, stop_reason=state.stop_reason,
                           host_syncs=syncs)

@@ -388,10 +388,13 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
             f"algorithm={cfg.algorithm!r}")
     cfg = conv_cfg(cfg)
     dev = resolve_device(device)
-    # the working dtype: float64 on the dense layout (check_ported keeps
-    # float64 off the kernels); the names say f32 for the kernel route
-    f32 = torch.float64 if cfg.dtype == "float64" else torch.float32
-    a, w0, h0 = (to_device(x, f32, dev) for x in (a, w0, h0))
+    # the solve dtype (inputs, results, residuals, the stop tests) and
+    # the pool dtype f32: the dense layout iterates in the solve dtype;
+    # the kernel route's pools are float32 (the kernels' storage), and a
+    # float64 solve widens at the checks, the harvest and the residuals,
+    # as the reference's float64 pools hold the kernels' float32 values
+    dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
+    a, w0, h0 = (to_device(x, dtype, dev) for x in (a, w0, h0))
     j, m, k_max = w0.shape
     n = h0.shape[2]
     if job_ks is not None and len(job_ks) != j:
@@ -400,10 +403,11 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
             "— per-job true ranks must match the job batch exactly")
     s = min(slots, j)
     if cfg.algorithm == "kl":
-        s = _kl_slot_clamp(s, m, n, torch.finfo(f32).bits // 8)
+        s = _kl_slot_clamp(s, m, n, torch.finfo(dtype).bits // 8)
     ce = cfg.check_every
     exp = cfg.experimental
     use_pallas = cfg.backend == "pallas"
+    f32 = torch.float32 if use_pallas else dtype
     hals = cfg.algorithm == "hals"
     ce_ok = cfg.max_iter % ce == 0
     # the reference's preconditions, in its order and words
@@ -473,7 +477,7 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
             f"no meaning for backend={cfg.backend!r}")
     multi = blk_route and ncheck > 1
     evict_batch = exp.evict_batch
-    sqrteps = torch.sqrt(torch.tensor(torch.finfo(f32).eps, device=dev))
+    sqrteps = torch.sqrt(torch.tensor(torch.finfo(dtype).eps, device=dev))
     kern_kw = dict(eps=cfg.div_eps, zero_threshold=cfg.zero_threshold,
                    matmul_precision=cfg.matmul_precision)
     # bf16 operands of the plain products off the kernel route (the
@@ -481,12 +485,13 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
     # float32)
     bf_plain = not use_pallas and bf16_products(cfg, dev)
     # bf16 pool factors: W, and H under "bfloat16" (the reference's
-    # to_pool_w / to_pool_h); the result buffers stay float32
+    # to_pool_w / to_pool_h); the result buffers keep the solve dtype
     w_pool = torch.bfloat16 if exp.factor_dtype else f32
     h_pool = torch.bfloat16 if exp.factor_dtype == "bfloat16" else f32
 
     def ratio(diff, ref):
-        return diff / (sqrteps + ref)
+        # the kernels' float32 stats widen to a float64 solve's test
+        return diff.to(dtype) / (sqrteps + ref.to(dtype))
 
     def lane_max(x):  # (·rk) stats → per-slot max over the slot's k_max
         return x.reshape(-1, k_max).amax(dim=1)
@@ -510,9 +515,10 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
     if use_pallas:
         _, _, m_pad = _pallas_block_geometry(m, exp.block_m)
         a_loop = torch.nn.functional.pad(a, (0, 0, 0, m_pad - m))
-        if cfg.matmul_precision == "bfloat16":
-            # A in the bf16 form every product reads it in, once a solve
-            a_loop = a_loop.to(torch.bfloat16)
+        # A in the form every product reads it in, once a solve: bf16
+        # under bf16 operands, else float32 (a float64 A cast here)
+        a_loop = a_loop.to(torch.bfloat16 if cfg.matmul_precision
+                           == "bfloat16" else torch.float32)
         w0 = torch.nn.functional.pad(w0, (0, 0, 0, m_pad - m))
 
         def fcols(active, slot_iter):
@@ -570,6 +576,8 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
 
         def packed_deltas(wp, hp, wprev, hprev):
             def _d(cur, prev, shape, dims):
+                # widened first: the float64 difference of float32 values
+                cur, prev = cur.to(dtype), prev.to(dtype)
                 return ratio((cur - prev).abs().reshape(shape).amax(dim=dims),
                              prev.abs().reshape(shape).amax(dim=dims))
 
@@ -597,10 +605,10 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
                         dim=2).all(dim=1))
 
             def dense_views(self, wp, hp):
-                # the result buffers stay float32
+                # the result buffers keep the solve dtype
                 return (wp.reshape(m_pad, -1, k_max).permute(1, 0, 2)[:, :m]
-                        .to(f32),
-                        hp.reshape(-1, k_max, n).to(f32))
+                        .to(dtype),
+                        hp.reshape(-1, k_max, n).to(dtype))
 
             def reload(self, pool, slot_ids, first, count):
                 # the stale-reload fault drops some factor writes; the
@@ -675,8 +683,8 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
 
     layout = Layout()
     i32 = dict(dtype=torch.int32, device=dev)
-    out_w = torch.zeros((j, m, k_max), dtype=f32, device=dev)
-    out_h = torch.zeros((j, k_max, n), dtype=f32, device=dev)
+    out_w = torch.zeros((j, m, k_max), dtype=dtype, device=dev)
+    out_h = torch.zeros((j, k_max, n), dtype=dtype, device=dev)
     # row j is the drop target of the per-check outcome scatters
     out_iters = torch.zeros((j + 1,), **i32)
     out_stop = torch.full((j + 1,), int(StopReason.MAX_ITER), **i32)
@@ -764,7 +772,8 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
                 apply_check(pool, wp, hp, delta, layout.labels(hp))
         stats["trips"] += 1
         counts = torch.stack([pool.active.sum(), pool.pending.sum()])
-        pool.n_active, pool.n_pending = (int(c) for c in counts.tolist())
+        counts = counts.tolist()  # nmfx: ignore[NMFX005] -- the trip's one host read
+        pool.n_active, pool.n_pending = (int(c) for c in counts)
         stats["syncs"] += 1
         live = pool.n_active + pool.n_pending
         if pool.n_pending and pool.n_pending >= min(evict_batch, live):
@@ -819,8 +828,8 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
             """Each slot's true columns from its job's initial factors."""
             c, qq = true_cols(slot_ids)
             g = torch.as_tensor(np.repeat(jobs, slot_k[slot_ids]), **i64)
-            wp[:, c] = w0[g, :, qq].T
-            hp[c] = h0[g, qq, :]
+            wp[:, c] = w0[g, :, qq].T.to(f32)
+            hp[c] = h0[g, qq, :].to(f32)
 
         queues = [list(cl.jobs) for cl in layout_r]
         slot_class = np.concatenate([np.full(cl.slots, ci)
@@ -873,7 +882,7 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
                                             int(StopReason.MAX_ITER)),
                 flip_floor=flip_floor, nonfinite=nonfinite)
             finished = active_d & (conv | (it_new >= cfg.max_iter))
-            fin = finished.cpu().numpy()  # the trip's one host read
+            fin = finished.cpu().numpy()  # nmfx: ignore[NMFX005] -- the trip's one read
             stats["syncs"] += 1
             trips += 1
             slot_iter = torch.where(finished, 0, it_new)
@@ -886,8 +895,8 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
             c, qq = true_cols(done)
             g = torch.as_tensor(np.repeat(slot_job[done], slot_k[done]),
                                 **i64)
-            out_w[g, :, qq] = wp[:m, c].T
-            out_h[g, qq, :] = hp[c]
+            out_w[g, :, qq] = wp[:m, c].T.to(dtype)
+            out_h[g, qq, :] = hp[c].to(dtype)
             jobs = torch.as_tensor(slot_job[done], **i64)
             done_d = torch.as_tensor(done, **i64)
             out_iters[jobs] = it_new[done_d]
@@ -927,7 +936,7 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
             hp=hpad[sel.reshape(-1)].contiguous(),
             slot_iter=slot_iter[order_d], classes=classes[order_d],
             stable=stable[order_d],
-            dnorm=torch.full((tw,), torch.inf, dtype=f32, device=dev),
+            dnorm=torch.full((tw,), torch.inf, dtype=dtype, device=dev),
             slot_job=torch.as_tensor(slot_job[order], **i64),
             active=active_d[order_d],
             pending=torch.zeros((tw,), dtype=torch.bool, device=dev),
@@ -949,7 +958,7 @@ def mu_sched(a, w0, h0, cfg: SolverConfig = SolverConfig(), slots: int = 48,
             wp=wp0, hp=hp0, slot_iter=torch.zeros((s,), **i32),
             classes=torch.full((s, n), -1, **i32),
             stable=torch.zeros((s,), **i32),
-            dnorm=torch.full((s,), torch.inf, dtype=f32, device=dev),
+            dnorm=torch.full((s,), torch.inf, dtype=dtype, device=dev),
             slot_job=torch.arange(s, dtype=torch.long, device=dev),
             active=torch.ones((s,), dtype=torch.bool, device=dev),
             pending=torch.zeros((s,), dtype=torch.bool, device=dev),

@@ -1449,9 +1449,11 @@ class NMFXServer:
         ``min_restarts`` is the numeric-quarantine survivor floor
         (``ConsensusConfig.min_restarts``): a rank with fewer surviving
         restarts resolves the future to a typed
-        ``nmfx_torch.faults.InsufficientRestarts``. A setting the port
-        has no route for (``check_ported``: bf16 operands off the kernels, ...)
-        raises ``NotImplementedError`` here, before admission.
+        ``nmfx_torch.faults.InsufficientRestarts``. A solve dtype other
+        than float32 or float64 (``check_ported``) raises ``ValueError``
+        here, before admission. The packing key holds the solver config
+        and the input cache's key, both with the solve dtype, so float64
+        and float32 requests never share a pool.
         """
         from nmfx_torch.api import _as_matrix
 

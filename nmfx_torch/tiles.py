@@ -765,14 +765,20 @@ def _tiled_check(state: TiledState, inner, nrm_a_sq,
 _STATE_FIELDS = TiledState._fields
 
 
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """One tensor of a partial record, copied to the host (at a check the
+    checkpoint asks for, never in a pass)."""
+    return t.detach().cpu().numpy()  # nmfx: ignore[NMFX005] -- a partial record
+
+
 def partial_payload(state: TiledState, carry, step: int
                     ) -> "dict[str, np.ndarray]":
     """Mid-solve progress as host arrays for an npz partial record
     (``nmfx_torch/checkpoint.py``): the pool state, the carried Grams
     the next head reads, and the completed step count."""
-    out = {f: v.detach().cpu().numpy() for f, v in zip(_STATE_FIELDS, state)}
+    out = {f: _to_host(v) for f, v in zip(_STATE_FIELDS, state)}
     for i, c in enumerate(carry):
-        out[f"carry{i}"] = c.detach().cpu().numpy()
+        out[f"carry{i}"] = _to_host(c)
     out["step"] = np.asarray(int(step), np.int64)
     return out
 
@@ -887,7 +893,7 @@ def run_tiled_pool(source, keys, k: int, solver_cfg: SolverConfig,
         state, carry, start = resume_from_payload(resume, dev)
 
     syncs = 1
-    done_host = state.done.cpu().numpy()
+    done_host = state.done.cpu().numpy()  # nmfx: ignore[NMFX005] -- the done read
     for step in range(start + 1, solver_cfg.max_iter + 1):
         if done_host.all():
             break
@@ -903,7 +909,7 @@ def run_tiled_pool(source, keys, k: int, solver_cfg: SolverConfig,
                                         r0, solver_cfg, need_inner)
         if check:
             state = _tiled_check(state, inner, nrm_a_sq, solver_cfg)
-            done_host = state.done.cpu().numpy()
+            done_host = state.done.cpu().numpy()  # nmfx: ignore[NMFX005] -- a check
             syncs += 1
             if on_check is not None:
                 on_check(step, state, carry)

@@ -973,3 +973,60 @@ def test_autotune_cold_search_on_card(card, tmp_path, monkeypatch):
             x = np.asarray(getattr(tuned.per_k[k], f))
             y = np.asarray(getattr(explicit.per_k[k], f))
             assert x.tobytes() == y.tobytes(), (k, f)
+
+
+@pytest.mark.parametrize("route", ["pair", "grid", "hals_grid"])
+def test_float64_kernel_routes_on_card_match_cpu(card, route):
+    """Float64 storage on the kernels: the per-rank pair (mu_packed) and
+    the whole grids (mu_sched, mu and hals) on float64 inputs launch the
+    kernels on the card and give the plain twins' iterations, stop
+    reasons and labels on the CPU, with float64 factors (the kernels read
+    the routes' float32 pools; the stop tests and results are float64).
+    hals is held as its float32 card test holds it."""
+    from nmfx_torch.datasets import two_group_matrix
+    from nmfx_torch.ops.sched_mu import mu_sched
+
+    rng = np.random.default_rng(7)
+    a = two_group_matrix(n_genes=200, n_per_group=12, seed=3).astype(
+        np.float64)
+    algorithm = "hals" if route == "hals_grid" else "mu"
+    cfg = SolverConfig(backend="pallas", dtype="float64", max_iter=200,
+                       algorithm=algorithm)
+    fused_mu.reset_launch_counts()
+    if route == "pair":
+        w0 = rng.uniform(0.0, 1.0, (4, 200, 3))
+        h0 = rng.uniform(0.0, 1.0, (4, 3, 24))
+        got = mu_packed(a, w0, h0, cfg, device=card)
+        want = mu_packed(a, w0, h0, cfg, device="cpu")
+        assert fused_mu.LAUNCHES["fused_h_update"] == int(
+            got.iterations.max())
+        assert fused_mu.LAUNCHES["fused_w_update"] == int(
+            got.iterations.max())
+        pairs = ((got.hp, want.hp), (got.wp, want.wp))
+        labels = (got.hp.reshape(4, 3, 24).argmax(dim=1),
+                  want.hp.reshape(4, 3, 24).argmax(dim=1))
+    else:
+        k_max, ks = 3, (3, 3, 3, 2, 2, 2)
+        w0 = rng.uniform(0.0, 1.0, (len(ks), 200, k_max))
+        h0 = rng.uniform(0.0, 1.0, (len(ks), k_max, 24))
+        for j, k in enumerate(ks):
+            w0[j, :, k:] = 0.0
+            h0[j, k:] = 0.0
+        got = mu_sched(a, w0, h0, cfg, slots=4, job_ks=ks, device=card)
+        want = mu_sched(a, w0, h0, cfg, slots=4, job_ks=ks, device="cpu")
+        name = ("hals_block_iterations" if algorithm == "hals"
+                else "fused_block_iterations")
+        assert fused_mu.LAUNCHES[name] == sum(got.pool_trips) > 0
+        pairs = ((got.h, want.h), (got.w, want.w))
+        labels = (got.h.argmax(dim=1), want.h.argmax(dim=1))
+    torch.cuda.synchronize()
+    assert torch.equal(got.iterations.cpu(), want.iterations)
+    assert torch.equal(got.stop_reason.cpu(), want.stop_reason)
+    assert torch.equal(labels[0].cpu(), labels[1])
+    for g, w in pairs:
+        assert g.dtype == w.dtype == torch.float64
+        if algorithm == "mu":  # hals' factors are ill-conditioned
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-3, atol=1e-5)
+    assert got.dnorm.dtype == torch.float64
+    torch.testing.assert_close(got.dnorm.cpu(), want.dnorm, rtol=1e-3,
+                               atol=1e-7)

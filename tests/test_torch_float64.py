@@ -8,8 +8,13 @@ subprocess for the whole file, since x64 is a process-wide switch):
   packed opt-in) give ``nmfx``'s iterations, stop reasons and
   memberships, with factors within 1e-8; ``nmf`` in float64 from a seed
   likewise;
-* the hand-written kernels (``backend="pallas"``) refuse float64 with
-  ``NotImplementedError``;
+* float64 on the hand-written kernels (``backend="pallas"``: the mu
+  pair per rank, the mu and hals whole grids, the mu grid under bf16
+  operands) gives ``nmfx``'s stop reasons, memberships and best k, with
+  each restart's iterations within one check (``check_every``) of
+  ``nmfx``'s, and float64 factors: the port runs the float32 kernels on
+  float32 pools with float64 stop tests, residuals and results, as
+  ``nmfx``'s kernels store float32 values in float64 factors;
 * ``restart_factors`` equals ``nmfx.restart_factors`` (float32:
   iterations and stop reason equal, factors to the solver tests' band),
   and ``grouped_matrix`` is bit-equal.
@@ -40,6 +45,16 @@ SWEEPS = {
     "mu-grid": dict(algorithm="mu", max_iter=60),
     "kl-packed": dict(algorithm="kl", backend="packed", max_iter=60),
 }
+#: float64 on the kernel routes: (solver fields, grid_exec)
+PALLAS_SWEEPS = {
+    "mu-per_k": (dict(), "per_k"),
+    "mu-grid": (dict(), "auto"),
+    "hals-grid": (dict(algorithm="hals"), "auto"),
+    "mu-grid-bf16": (dict(matmul_precision="bfloat16"), "auto"),
+}
+#: the settings the port refused before it ran float64 on the kernels
+FORMERLY_REFUSED = [dict(backend="pallas"),
+                    dict(algorithm="hals", backend="pallas")]
 KS, RESTARTS, SEED = (2, 3), 4, 3
 DRAWS = [(123, 2, (7, 5), 0.0, 1.0), (5, 9, (3, 40), 0.5, 2.0)]
 
@@ -91,7 +106,35 @@ def reference_x64(tmp_path_factory):
                 for f in ("iterations", "stop_reasons", "membership",
                           "best_w", "best_h", "consensus"):
                     res[f"{{name}}/{{k}}/{{f}}"] = np.asarray(getattr(kr, f))
+        for name, (kw, ge) in json.loads(
+                {json.dumps(json.dumps(PALLAS_SWEEPS))}).items():
+            r = nmfx.nmfconsensus(a, ks={KS}, restarts={RESTARTS},
+                                  seed={SEED}, use_mesh=False, grid_exec=ge,
+                                  solver_cfg=nmfx.SolverConfig(
+                                      dtype="float64", backend="pallas",
+                                      max_iter=300, **kw))
+            res[f"pallas/{{name}}/best_k"] = np.array(r.best_k)
+            for k in {KS}:
+                kr = r.per_k[k]
+                assert np.asarray(kr.best_w).dtype == np.float64
+                for f in ("iterations", "stop_reasons", "membership"):
+                    res[f"pallas/{{name}}/{{k}}/{{f}}"] = np.asarray(
+                        getattr(kr, f))
         from nmfx.datasets import two_group_matrix
+        small = two_group_matrix(40, 6, seed=0)
+        for i, kw in enumerate(json.loads(
+                {json.dumps(json.dumps(FORMERLY_REFUSED))})):
+            r = nmfx.nmfconsensus(small, ks=(2, 3), restarts=2,
+                                  use_mesh=False,
+                                  solver_cfg=nmfx.SolverConfig(
+                                      dtype="float64", **kw))
+            res[f"refused{{i}}/best_k"] = np.array(r.best_k)
+            for k in (2, 3):
+                kr = r.per_k[k]
+                assert np.asarray(kr.best_w).dtype == np.float64
+                for f in ("iterations", "stop_reasons", "membership"):
+                    res[f"refused{{i}}/{{k}}/{{f}}"] = np.asarray(
+                        getattr(kr, f))
         b = nmfx.nmfconsensus(
             two_group_matrix(n_genes=1000, n_per_group=20, seed=123),
             ks=(2, 3, 4, 5), restarts=10, seed=123, use_mesh=False,
@@ -164,16 +207,47 @@ def test_float64_bundled_best_k_is_the_smoke_gate(reference_x64):
     assert int(reference_x64["bundled/best_k"]) == chip_smoke.FLOAT64_BEST_K
 
 
+def _hold_to_reference(got, ref, prefix, ks, check_every=10):
+    """The kernel routes' tier: best k, stop reasons and memberships
+    equal, each restart's iterations within one check of ``nmfx``'s,
+    float64 factors (bytes are not held)."""
+    assert got.best_k == int(ref[f"{prefix}/best_k"])
+    for k in ks:
+        g = got.per_k[k]
+        its = ref[f"{prefix}/{k}/iterations"]
+        assert np.abs(np.asarray(g.iterations) - its).max() <= check_every
+        assert np.array_equal(g.stop_reasons, ref[f"{prefix}/{k}/stop_reasons"])
+        assert np.array_equal(g.membership, ref[f"{prefix}/{k}/membership"])
+        assert np.asarray(g.best_w).dtype == np.float64
+        assert np.asarray(g.best_h).dtype == np.float64
+        assert np.isfinite(np.asarray(g.best_w)).all()
+
+
+@pytest.mark.parametrize("name", sorted(PALLAS_SWEEPS))
+def test_float64_kernel_routes_match_reference(reference_x64, name):
+    kw, grid_exec = PALLAS_SWEEPS[name]
+    got = nmfx_torch.nmfconsensus(
+        _data(), ks=KS, restarts=RESTARTS, seed=SEED, device="cpu",
+        grid_exec=grid_exec,
+        solver_cfg=nmfx_torch.SolverConfig(dtype="float64", backend="pallas",
+                                           max_iter=300, **kw))
+    _hold_to_reference(got, reference_x64, f"pallas/{name}", KS)
+
+
 @pytest.mark.parametrize("kw,words", [
     (dict(backend="pallas"), "float32"),
     (dict(algorithm="hals", backend="pallas"), "§1 item 4"),
 ])
-def test_float32_only_routes_refuse_float64(kw, words):
-    with pytest.raises(NotImplementedError, match=words):
-        nmfx_torch.nmfconsensus(
-            two_group_matrix(40, 6, seed=0), ks=(2, 3), restarts=2,
-            device="cpu",
-            solver_cfg=nmfx_torch.SolverConfig(dtype="float64", **kw))
+def test_float32_only_routes_refuse_float64(reference_x64, kw, words):
+    """The settings the port once refused (its NotImplementedError named
+    ``words``) run as ``nmfx`` runs them: float64 storage on the float32
+    kernels, held to ``nmfx``'s float64 sweep of the same call."""
+    got = nmfx_torch.nmfconsensus(
+        two_group_matrix(40, 6, seed=0), ks=(2, 3), restarts=2,
+        device="cpu",
+        solver_cfg=nmfx_torch.SolverConfig(dtype="float64", **kw))
+    i = FORMERLY_REFUSED.index(kw)
+    _hold_to_reference(got, reference_x64, f"refused{i}", (2, 3))
 
 
 @pytest.mark.parametrize("restart,kw", [(0, dict(max_iter=200)),
@@ -199,3 +273,47 @@ def test_restart_factors_matches_reference(restart, kw):
 def test_grouped_matrix_bit_equal(args):
     got = grouped_matrix(*args, seed=3)
     assert got.tobytes() == ref_grouped(*args, seed=3).tobytes()
+
+
+#: the block-kernel options under float64 storage: name → (solver fields,
+#: byte-equal to the default kernel route)
+F64_OPTIONS = {
+    "alias_io": (dict(experimental=nmfx_torch.ExperimentalConfig(
+        alias_io=True)), True),
+    "fused": (dict(experimental=nmfx_torch.ExperimentalConfig(
+        fused_updates="fused")), True),
+    "block_m": (dict(experimental=nmfx_torch.ExperimentalConfig(
+        block_m=32)), True),
+    "ragged": (dict(check_block=1, experimental=nmfx_torch.ExperimentalConfig(
+        ragged=True)), False),
+    "check_block_1": (dict(check_block=1), False),
+    "bfloat16_w": (dict(experimental=nmfx_torch.ExperimentalConfig(
+        factor_dtype="bfloat16_w")), False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(F64_OPTIONS))
+def test_float64_kernel_options(name):
+    """Each block-kernel option runs under float64 storage: alias_io,
+    fused and block_m byte-equal to the default float64 kernel route (as
+    under float32); the ragged pool and one check a launch with its stops
+    and memberships; bf16 pool W with its memberships (a numerics
+    change), every result float64."""
+    kw, byte_equal = F64_OPTIONS[name]
+
+    def run(**extra):
+        return nmfx_torch.nmfconsensus(
+            _data(), ks=KS, restarts=RESTARTS, seed=SEED, device="cpu",
+            solver_cfg=nmfx_torch.SolverConfig(
+                dtype="float64", backend="pallas", max_iter=300, **extra))
+
+    got, want = run(**kw), run()
+    fields = (("best_w", "best_h", "dnorms", "iterations", "stop_reasons",
+               "membership") if byte_equal
+              else ("membership",) if name == "bfloat16_w"
+              else ("iterations", "stop_reasons", "membership"))
+    for k in KS:
+        assert np.asarray(got.per_k[k].best_w).dtype == np.float64
+        for f in fields:
+            g, w = (np.asarray(getattr(r.per_k[k], f)) for r in (got, want))
+            assert g.tobytes() == w.tobytes(), (k, f)

@@ -522,14 +522,14 @@ STILL_REFUSED = {
                                 experimental=nmfx_torch.ExperimentalConfig(
                                     autotune="on")),
         64, 32, 2, 2, device="cpu"), None),
-    # bf16 operands run on every route now; on the kernels float64 stays
-    # refused under them too
+    # float64 storage runs on the kernels since it was ported (None), bf16
+    # operands too: float64 factors, the two-group answer
     "bf16-dense-grid": (lambda: nmfx_torch.nmfconsensus(
         two_group_matrix(40, 6, seed=0), ks=(2, 3), restarts=2,
         solver_cfg=nmfx_torch.SolverConfig(matmul_precision=BF16,
                                            backend="pallas",
                                            dtype="float64"),
-        device="cpu"), "§1 item 4"),
+        device="cpu"), None),
     # the grid axes and serving meshes run since they were ported, as
     # in the reference (None: the call returns; the case names are kept)
     "grid-axes-mesh": (lambda: nmfx_torch.nmfconsensus(
@@ -539,12 +539,12 @@ STILL_REFUSED = {
         (40, 12), nmfx_torch.ConsensusConfig(ks=(2,), restarts=2),
         nmfx_torch.SolverConfig(), mesh=nmfx_torch.grid_mesh(
             2, devices=["cpu"] * 2)), None),
-    # float64 runs on every plain-product route now; the kernels refuse
+    # float64 runs on every route now, the kernels' included (None)
     "float64-batched": (lambda: nmfx_torch.nmfconsensus(
         two_group_matrix(40, 6, seed=0), ks=(2,), restarts=2,
         solver_cfg=nmfx_torch.SolverConfig(dtype="float64",
                                            backend="pallas"),
-        device="cpu"), "§1 item 4"),
+        device="cpu"), None),
 }
 
 
@@ -555,6 +555,12 @@ def test_unported_settings_still_name_their_roadmap_item(case):
         out = fn()
         if case == "grid-axes-mesh":  # the reference's best k on it
             assert out.best_k == 2
+        elif case in ("bf16-dense-grid", "float64-batched"):
+            # float64 factors; the two groups at k = 2, as on float32
+            assert out.best_k == 2
+            assert np.asarray(out.per_k[2].best_w).dtype == np.float64
+            assert len(set(out.per_k[2].membership[:6])) == 1
+            assert len(set(out.per_k[2].membership[6:])) == 1
         elif case == "autotune":  # resolved: explicit, flag off
             nmfx.ExperimentalConfig(autotune="on")
             assert out.experimental.autotune == "off"

@@ -35,11 +35,10 @@ from nmfx_torch.analysis import rules_config, rules_obs, rules_perf
 from nmfx_torch.obs import costmodel
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORTED = ("NMFX001", "NMFX006", "NMFX007", "NMFX008", "NMFX009",
-          "NMFX010", "NMFX011", "NMFX012", "NMFX013", "NMFX014",
-          "NMFX015")
-NOT_PORTED = ("NMFX002", "NMFX003", "NMFX004", "NMFX005", "NMFX101",
-              "NMFX102")
+PORTED = ("NMFX001", "NMFX004", "NMFX005", "NMFX006", "NMFX007",
+          "NMFX008", "NMFX009", "NMFX010", "NMFX011", "NMFX012",
+          "NMFX013", "NMFX014", "NMFX015")
+NOT_PORTED = ("NMFX002", "NMFX003", "NMFX101", "NMFX102")
 
 
 def _as_nmfx(text: str) -> str:
@@ -778,8 +777,8 @@ def test_rule_registered(rule):
 
 @pytest.mark.parametrize("rule", NOT_PORTED)
 def test_rule_not_ported(rule):
-    """The jaxpr layer, trace-time environment reads, donation, key reuse
-    and host syncs under tracing have no counterpart in the port."""
+    """The jaxpr layer, trace-time environment reads and donation have no
+    counterpart in the port."""
     assert rule not in analysis.RULES
     assert rule in janalysis.RULES
 
@@ -981,3 +980,333 @@ def test_cli_update_baseline_drops_fixed_findings(tmp_path):
     path.write_text("x = 1\n")  # the defect is gone
     assert _update_baseline(path, baseline).returncode == 0
     assert json.loads(baseline.read_text()) == []
+
+
+# ------------------------------------------------------- NMFX004 / NMFX005
+# nmfx's cases of tests/test_lint_rules.py in the port's idiom: the key
+# chain of nmfx_torch.random, torch's generators and host reads, and the
+# hot path (ast_scan.HOT_ROOTS) in place of traced code. A fixture that
+# should be on the hot path is written where a root lives
+# (nmfx_torch/tiles.py::run_tiled_pool).
+
+_HOT = "nmfx_torch/tiles.py"
+
+
+def _lint_at(tmp_path, source, rules, name="fixture.py"):
+    path = tmp_path / name
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(textwrap.dedent(source))
+    return run([str(tmp_path)], rule_ids=rules)
+
+
+def _as_jax(source: str) -> str:
+    """The reference's spelling of a key-chain fixture."""
+    return source.replace("from nmfx_torch import random as jr",
+                          "from jax import random as jr")
+
+
+_KEY_REUSE_BAD = """
+    from nmfx_torch import random as jr
+
+    def init_factors(key, m, n, k):
+        w0 = jr.uniform(key, (m, k))
+        h0 = jr.uniform(key, (k, n))  # same key: the same bits
+        return w0, h0
+"""
+
+_KEY_REUSE_CLEAN = """
+    from nmfx_torch import random as jr
+
+    def init_factors(key, m, n, k):
+        kw, kh = jr.split(key)
+        w0 = jr.uniform(kw, (m, k))
+        h0 = jr.uniform(kh, (k, n))
+        return w0, h0
+"""
+
+_KEY_CASES = {
+    "reuse": (1, _KEY_REUSE_BAD),
+    "split": (0, _KEY_REUSE_CLEAN),
+    # the threading idiom rebinds the name between the draws
+    "fold_in": (0, """
+        from nmfx_torch import random as jr
+
+        def chain(key, m):
+            x = jr.uniform(key, (m,))
+            key = jr.fold_in(key, 1)
+            y = jr.normal(key, (m,))
+            return x + y
+    """),
+    "loop_carried": (1, """
+        from nmfx_torch import random as jr
+
+        def restarts(key, m, k, r):
+            out = []
+            for i in range(r):
+                out.append(jr.uniform(key, (m, k)))
+            return out
+    """),
+    "loop_fold_in": (0, """
+        from nmfx_torch import random as jr
+
+        def restarts(key, m, k, r):
+            out = []
+            for i in range(r):
+                ki = jr.fold_in(key, i)
+                out.append(jr.uniform(ki, (m, k)))
+            return out
+    """),
+    # one defect, one finding: the inner loop's pass owns it
+    "nested_loop": (1, """
+        from nmfx_torch import random as jr
+
+        def grid(key, r):
+            for i in range(r):
+                for j in range(2):
+                    x = jr.uniform(key, (3,))
+            return x
+    """),
+    # sibling branches each draw once: no path draws twice
+    "branches": (0, """
+        from nmfx_torch import random as jr
+
+        def pick(key, m, flip):
+            if flip:
+                return jr.uniform(key, (m,))
+            else:
+                return jr.normal(key, (m,))
+    """),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_KEY_CASES))
+def test_nmfx004_key_chain_equals_nmfx(case, tmp_path):
+    """The same key-chain fixture through both linters: the port on
+    nmfx_torch.random, the reference on jax.random; the same findings
+    (rule id, line), and the port's count as stated."""
+    n, source = _KEY_CASES[case]
+    got = active(_lint_at(tmp_path / "port", source, ["NMFX004"]))
+    ref_dir = tmp_path / "ref"
+    ref_dir.mkdir()
+    want = active(janalysis.run([_write(ref_dir, _as_jax(source))],
+                                jaxpr=False, rule_ids=["NMFX004"]))
+    assert len(got) == n
+    assert _key(got) == _key(want)
+    if case == "loop_carried":
+        assert "loop" in got[0].message
+    elif n:
+        assert "'key'" in got[0].message and "consumed" in got[0].message
+
+
+@pytest.mark.parametrize("spelling", [
+    "from nmfx_torch.random import uniform as draw",
+    "import nmfx_torch.random as draw_mod",
+    "from nmfx_torch import random",
+])
+def test_nmfx004_key_reuse_spellings(tmp_path, spelling):
+    """The key chain resolves through the module's imports, however it is
+    spelled; both draws of one key fire."""
+    call = {"from nmfx_torch.random import uniform as draw": "draw",
+            "import nmfx_torch.random as draw_mod": "draw_mod.uniform",
+            "from nmfx_torch import random": "random.uniform"}[spelling]
+    src = f"""
+        {spelling}
+
+        def init(key, m, k):
+            w = {call}(key, (m, k))
+            h = {call}(key, (k, m))
+            return w, h
+    """
+    findings = active(_lint_at(tmp_path, src, ["NMFX004"]))
+    assert _ids(findings) == ["NMFX004"]
+    assert findings[0].line == 6
+
+
+def test_nmfx004_device_draws_are_consumers(tmp_path):
+    src = """
+        from nmfx_torch import random as jr
+
+        def operators(keys, shape, device):
+            left = jr.normal_device(keys, shape, device)
+            right = jr.normal_device(keys, shape, device)  # the same bits
+            return left, right
+    """
+    findings = active(_lint_at(tmp_path, src, ["NMFX004"]))
+    assert [(f.rule_id, f.line) for f in findings] == [("NMFX004", 6)]
+
+
+def test_nmfx004_stdlib_random_not_a_key(tmp_path):
+    """stdlib ``random.shuffle(data)`` twice on one list is not key
+    reuse, and outside the hot path it is no host-RNG finding either."""
+    src = """
+        import random
+
+        def shuffle_twice(data):
+            random.shuffle(data)
+            picked = random.sample(data, 3)
+            return picked
+    """
+    assert _ids(_lint_at(tmp_path, src, ["NMFX004"])) == []
+
+
+_HOST_RNG = """
+    import numpy as np
+    import torch
+
+    def run_tiled_pool(x):
+        return x + {draw}
+"""
+
+
+@pytest.mark.parametrize("imports,draw,fires", [
+    ("", "np.random.normal()", True),
+    ("import numpy as onp\n", "onp.random.normal()", True),
+    ("from numpy import random as nprand\n", "nprand.normal()", True),
+    ("import random\n", "random.random()", True),
+    ("", "torch.rand(3)", True),
+    ("", "torch.randn(3)", True),
+    ("", "torch.randint(0, 5, (3,))", True),
+    ("", "torch.empty(3).uniform_()", True),
+    ("", "torch.rand(3, generator=torch.Generator())", False),
+    ("", "torch.empty(3).normal_(generator=torch.Generator())", False),
+    ("from nmfx_torch import random as jr\n",
+     "jr.uniform(jr.key(0), (3,))", False),
+])
+def test_nmfx004_host_rng_on_the_hot_path(tmp_path, imports, draw, fires):
+    src = textwrap.dedent(_HOST_RNG).replace("{draw}", draw)
+    src = imports + src
+    findings = active(_lint_at(tmp_path, src, ["NMFX004"], name=_HOT))
+    assert _ids(findings) == (["NMFX004"] if fires else [])
+    if fires:
+        assert "host RNG" in findings[0].message
+    # the same draw off the hot path is not this rule's concern
+    off = active(_lint_at(tmp_path / "off", src, ["NMFX004"]))
+    assert off == []
+
+
+def test_nmfx004_host_rng_in_the_draws(tmp_path):
+    """What init.restart_inits reaches feeds the key chain: a host draw
+    there fires, reached through a call."""
+    src = """
+        import numpy as np
+
+        def jitter(m):
+            return np.random.rand(m)
+
+        def restart_inits(a, keys, k, cfg):
+            return jitter(a.shape[0])
+    """
+    findings = active(_lint_at(tmp_path, src, ["NMFX004"],
+                               name="nmfx_torch/init.py"))
+    assert [(f.rule_id, f.line) for f in findings] == [("NMFX004", 5)]
+    assert "'jitter'" in findings[0].message
+
+
+_SYNC = """
+    import torch
+
+    def run_tiled_pool(a, w, h, cfg):
+        r = torch.linalg.norm(a - w @ h)
+        return {sync}
+"""
+
+
+@pytest.mark.parametrize("sync,what", [
+    ("float(r)", "float()"),
+    ("int(r)", "int()"),
+    ("bool(r > 0)", "bool()"),
+    ("r.item()", ".item()"),
+    ("r.tolist()", ".tolist()"),
+    ("torch.sum(a).item()", ".item()"),
+    ("w.cpu()", ".cpu()"),
+    ("h.numpy()", ".numpy()"),
+    ("torch.cuda.synchronize()", "torch.cuda.synchronize()"),
+])
+def test_nmfx005_host_sync_on_the_hot_path(tmp_path, sync, what):
+    src = _SYNC.replace("{sync}", sync)
+    findings = active(_lint_at(tmp_path, src, ["NMFX005"], name=_HOT))
+    assert _ids(findings) == ["NMFX005"]
+    assert what in findings[0].message and findings[0].line == 6
+    # the same read off the hot path is quiet
+    assert active(_lint_at(tmp_path / "off", src, ["NMFX005"])) == []
+
+
+@pytest.mark.parametrize("expr", [
+    "float(a.shape[0] * a.shape[1])",  # static shape math
+    "int(cfg.check_every)",  # static config
+    "bool(cfg.use_tol_checks)",
+    "int(len(a))",
+    "float(r.numel())",
+    "w.tolist()",  # an unannotated parameter: not known to be a tensor
+])
+def test_nmfx005_dataflow_gate_quiet(tmp_path, expr):
+    src = _SYNC.replace("{sync}", expr)
+    assert _ids(_lint_at(tmp_path, src, ["NMFX005"], name=_HOT)) == []
+
+
+def test_nmfx005_reached_through_calls_and_annotations(tmp_path):
+    """A helper the root calls is on the hot path; a parameter annotated
+    as a tensor is tainted; a helper nobody on the path calls is not."""
+    src = """
+        import torch
+
+        def count(mask: torch.Tensor) -> int:
+            return int(mask.sum())
+
+        def unused(mask: torch.Tensor) -> int:
+            return int(mask.sum())
+
+        def run_tiled_pool(a, cfg):
+            done = a > 0
+            return count(done)
+    """
+    findings = active(_lint_at(tmp_path, src, ["NMFX005"], name=_HOT))
+    assert [(f.rule_id, f.line) for f in findings] == [("NMFX005", 5)]
+    assert "'count'" in findings[0].message
+
+
+def test_nmfx005_taint_follows_assignments(tmp_path):
+    src = """
+        import torch
+
+        def run_tiled_pool(a):
+            done = torch.isfinite(a)
+            left = ~done
+            n = int(left.sum())
+            return n
+    """
+    findings = active(_lint_at(tmp_path, src, ["NMFX005"], name=_HOT))
+    assert [(f.rule_id, f.line) for f in findings] == [("NMFX005", 7)]
+
+
+@pytest.mark.parametrize("comment,suppressed", [
+    ("  # nmfx: ignore[NMFX005] -- the loop's one read a check", True),
+    ("  # nmfx: ignore[NMFX005]", False),
+])
+def test_nmfx005_suppression_needs_a_reason(tmp_path, comment, suppressed):
+    src = _SYNC.replace("{sync}", "r.item()" + comment)
+    findings = _lint_at(tmp_path, src, ["NMFX005"], name=_HOT)
+    sync = [f for f in findings if f.rule_id == "NMFX005"]
+    assert len(sync) == 1 and sync[0].suppressed is suppressed
+    if suppressed:
+        assert active(findings) == []
+    else:
+        assert sorted(_ids(findings)) == ["NMFX000", "NMFX005"]
+
+
+def test_hot_path_reaches_the_live_roots():
+    """The live tree's hot path holds the three loops' roots and what
+    they run once a trip or a check: the block kernels' wrappers, the
+    scheduler's trip and its convergence check, the counted reads."""
+    project = analysis.load_project([os.path.join(REPO, "nmfx_torch")])
+    hot = {(os.path.basename(f.module.path), f.qualname)
+           for f in project.hot_functions()}
+    for want in [("sched_mu.py", "mu_sched"), ("sched_mu.py", "mu_sched.trip"),
+                 ("sched_mu.py", "mu_sched.ragged_stage"),
+                 ("base.py", "run_loop_batched"), ("base.py", "sum"),
+                 ("tiles.py", "run_tiled_pool"), ("tiles.py", "_to_host"),
+                 ("fused_mu.py", "fused_block_iterations"),
+                 ("fused_mu.py", "hals_block_iterations"),
+                 ("packed_mu.py", "batch_convergence")]:
+        assert want in hot, want
+    assert ("api.py", "nmfconsensus") not in hot

@@ -674,15 +674,22 @@ def test_quality_elastic_is_taken():
 
 
 def test_unported_backend_refused_at_submit():
-    # bf16 operands run on every route now; float64 on the kernels is the
-    # setting left unported
-    srv = pserve.NMFXServer(engine=FakeEngine(psweep.KSweepOutput),
+    """float64 on the kernels, once refused at submit, is admitted like
+    any setting; the production engine's packing key keeps float64 and
+    float32 requests on the kernels apart (the solver config and the
+    input cache's key both carry the dtype)."""
+    srv = pserve.NMFXServer(engine=pserve.ExecCacheEngine(device="cpu"),
                             start=False)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
+        for dtype in ("float64", "float32", "float64"):
             srv.submit(_mat(), ks=(2,), restarts=2,
-                       solver_cfg=SolverConfig(dtype="float64",
+                       solver_cfg=SolverConfig(dtype=dtype,
                                                backend="pallas"))
+        reqs = sorted((r for _, r in srv._queue), key=lambda r: r.seq)
+        assert [r.scfg.dtype for r in reqs] == ["float64", "float32",
+                                               "float64"]
+        assert None not in [r.compat for r in reqs]
+        assert reqs[0].compat == reqs[2].compat != reqs[1].compat
     finally:
         srv.close()
 

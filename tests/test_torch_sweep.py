@@ -143,10 +143,13 @@ def _timing_table(monkeypatch):
         backend="pallas",
         experimental=nmfx_torch.ExperimentalConfig(autotune="on"))),
      None),
-    # float64 runs on every plain-product route; the kernels refuse it
+    # float64 runs on the kernels since it was ported (None): the same
+    # best k and memberships as nmfx's pallas run (float32 in a process
+    # without jax_enable_x64; the float64 sweeps are held in
+    # test_torch_float64.py)
     (lambda: dict(solver_cfg=nmfx_torch.SolverConfig(dtype="float64",
                                                      backend="pallas")),
-     "§1 item 4"),
+     None),
     # a feature axis runs since it was ported (None), as in the
     # reference: the same best k and memberships as nmfx on it
     (lambda: dict(mesh=nmfx_torch.grid_mesh(1, 2, devices=["cpu"] * 2)),
@@ -160,6 +163,10 @@ def test_unported_routes_name_their_roadmap_item(kw, item, _timing_table):
                                       grid_exec="per_k", **kw)
         if "mesh" in kw:
             jkw = dict(mesh=nmfx.sweep.grid_mesh(1, 2))
+        elif kw["solver_cfg"].dtype == "float64":
+            assert np.asarray(got.per_k[2].best_w).dtype == np.float64
+            jkw = dict(use_mesh=False,
+                       solver_cfg=nmfx.SolverConfig(backend="pallas"))
         else:
             jkw = dict(use_mesh=False, solver_cfg=nmfx.SolverConfig(
                 backend="pallas",
